@@ -1,0 +1,576 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `libgrape_lite_tpu_torch/csrc/*.cu`,
+holds each against its plain PyTorch version on the card at the shapes
+of the main path (an RMAT-20 graph, the generator and seeds of bench.py:
+2^20 vertices, edge factor 16, undirected, seed 7; uniform(0.1, 10)
+float32 weights from seed 11), then drives the main path through the
+port's own entry points:
+
+  1. kernel phases: gather_reduce (sum, min with weights, max) and
+     strict_tile, each against its plain version -- min/max bit-equal,
+     sum within 1e-5 of each row's sum of |terms| -- with kernel, plain,
+     library and bound times;
+  2. PageRank, 10 rounds, `Worker.query`, SpMV mode auto and strict:
+     launch counts, finite ranks summing to 1, agreement with a run on
+     the plain versions, bitwise-identical rerun, MTEPS;
+  3. SSSP from vertex 0: bit-equal to the plain-version run, one
+     gather_reduce launch per round, MTEPS;
+  4. p2p-31 PageRank and SSSP through `run_app` at fnum 1 and 4 against
+     the golden files.
+
+Prints the card's name and power limit, one `{"kernels": [...]}` line,
+and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
+printing no result, when CUDA is unavailable or any phase fails.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from unittest import mock
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SCALE, EDGE_FACTOR = 20, 16
+PR_ROUNDS = 10
+# sums: |kernel - plain| <= SUM_TOL * sum|terms| per row, with the plain
+# version evaluated in float64 on the same float32 inputs.  (The float32
+# plain version adds in atomic order on the card; at RMAT-20's hub rows
+# its own rounding reached 1.48e-5 of sum|terms| on an H100.)
+SUM_TOL = 1e-5
+# GPU clock cycles of the busy-wait queued before each timed batch (about
+# half a millisecond on an H100): longer than the host takes to dispatch
+# one wrapper call, so the first call of a batch is queued before the
+# start event fires.
+BUSY_WAIT_CYCLES = 1_000_000
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def rmat_edges(scale: int, edge_factor: int, seed: int = 7):
+    """bench.py's vectorised RMAT (a=0.57, b=0.19, c=0.19, d=0.05)."""
+    n = 1 << scale
+    e = n * edge_factor
+    rng = np.random.default_rng(seed)
+    src = np.zeros(e, dtype=np.int64)
+    dst = np.zeros(e, dtype=np.int64)
+    a, b, c = 0.57, 0.19, 0.19
+    for _ in range(scale):
+        r = rng.random(e)
+        src_bit = r >= a + b
+        dst_bit = ((r >= a) & (r < a + b)) | (r >= a + b + c)
+        src = (src << 1) | src_bit
+        dst = (dst << 1) | dst_bit
+    return n, src, dst
+
+
+def rmat_fragment(scale: int, device):
+    """The weighted RMAT fragment (fnum 1) through the port's builder,
+    with bench.py's vertex map: segmented partitioner, hashmap idxer."""
+    from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.utils.id_parser import IdParser
+    from libgrape_lite_tpu_torch.vertex_map.idxer import HashMapIdxer
+    from libgrape_lite_tpu_torch.vertex_map.partitioner import (
+        SegmentedPartitioner,
+    )
+    from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
+    oids = np.arange(n, dtype=np.int64)
+    vm = VertexMap(SegmentedPartitioner(1, oids), [HashMapIdxer(oids)],
+                   IdParser(1, n))
+    w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
+        np.float32)
+    frag = ShardedEdgecutFragment.build(
+        CommSpec(fnum=1, device=device), vm, src, dst, w, directed=False)
+    return frag, 2 * len(src)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, device, reps: int, warmup: int = 2, batch: int = 10) -> float:
+    """Milliseconds per call: the median over `reps` samples, each a batch
+    of `batch` back-to-back calls divided by `batch`.  On the card a
+    sample lies between one pair of CUDA events queued behind a GPU
+    busy-wait, so the host's dispatch of the batch's first call is not
+    counted and that of the others overlaps the calls before them; the
+    host clock times a sample elsewhere."""
+    for _ in range(warmup):
+        fn()
+    sync(device)
+    samples = []
+    for _ in range(reps):
+        if torch.device(device).type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(BUSY_WAIT_CYCLES)
+            start.record()
+            for _ in range(batch):
+                fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / batch)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                fn()
+            samples.append((time.perf_counter() - t0) * 1e3 / batch)
+    return statistics.median(samples)
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+# ---- phase 1: each kernel against its plain version ---------------------
+
+def check_sum(got, want64, sabs64, what: str) -> float:
+    """|got - want| <= SUM_TOL * sum|terms| per row; returns max |err|."""
+    err = (got.double() - want64).abs()
+    worst = float((err / sabs64.clamp(min=1e-300)).max())
+    check(bool((err <= SUM_TOL * sabs64).all()),
+          f"{what} off by {worst:.3e} of sum|terms|")
+    return float(err.max())
+
+
+def kernel_phases(frag, device, reps: int) -> dict:
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    ie = frag.dev.ie
+    indptr, nbr = ie.indptr, ie.edge_nbr
+    fnum, vp = frag.fnum, frag.vp
+    n = fnum * vp
+    e_real = int(indptr[:, -1].sum())
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.rand(n, generator=gen).to(device)
+    dist = torch.where(torch.rand(n, generator=gen) < 0.3,
+                       torch.tensor(float("inf")),
+                       torch.rand(n, generator=gen) * 50).to(device)
+    w = torch.where(ie.edge_mask, ie.edge_w,
+                    torch.tensor(float("inf"), device=device))
+    rows_bytes = 4 * fnum * (vp + 1) + 4 * n + 4 * n  # indptr, x, y
+    out = {}
+
+    # library yardsticks, built once outside the timed calls
+    check(fnum == 1, "the kernel phases run on a single fragment")
+    deg = (indptr[0, 1:] - indptr[0, :-1]).to(torch.int64)
+    flat_nbr = nbr[0, :e_real]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta state"
+        csr = torch.sparse_csr_tensor(
+            indptr[0].to(torch.int64), flat_nbr.to(torch.int64),
+            torch.ones(e_real, device=device), size=(vp, n),
+            check_invariants=False)
+
+    def library(kind, xin, win):
+        """One PyTorch call computing the same function: a sparse CSR
+        product for sum, segment_reduce over the gathered candidates
+        (gathered outside the timed call) for min / max."""
+        if kind == "sum":
+            return lambda: csr @ xin
+        cand = xin[flat_nbr] + (win[0, :e_real] if win is not None else 0)
+        init = float("inf") if kind == "min" else float("-inf")
+        return lambda: torch.segment_reduce(cand, kind, lengths=deg,
+                                            unsafe=True, initial=init)
+
+    cases = [("sum", x, None), ("min", dist, w), ("max", x, None)]
+    for kind, xin, win in cases:
+        got = spmv.gather_reduce(indptr, nbr, win, xin, kind)
+        sync(device)
+        if kind == "sum":
+            max_err = check_sum(
+                got,
+                spmv.gather_reduce_plain(indptr, nbr, None, xin.double(),
+                                         "sum"),
+                spmv.gather_reduce_plain(indptr, nbr, None,
+                                         xin.double().abs(), "sum"),
+                "gather_reduce sum")
+        else:
+            want = spmv.gather_reduce_plain(indptr, nbr, win, xin, kind)
+            check(torch.equal(got, want), f"gather_reduce {kind} not "
+                  "bit-equal to its plain version")
+            max_err = 0.0
+        ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, win, xin, kind),
+                     device, reps)
+        plain_ms = time_ms(
+            lambda: spmv.gather_reduce_plain(indptr, nbr, win, xin, kind),
+            device, max(3, reps // 4), warmup=1)
+        lib_ms = time_ms(library(kind, xin, win), device, reps)
+        nbytes = 4 * e_real * (2 if win is not None else 1) + rows_bytes
+        ops = e_real * (2 if win is not None else 1)
+        b_ms, b_by = bound(nbytes, ops)
+        out[f"gather_reduce[{kind}]"] = dict(
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, edges=e_real)
+        print(f"[kernel] gather_reduce {kind}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) edges={e_real} "
+              f"max_abs_err={max_err:.3e}", flush=True)
+
+    # strict_tile at the main path's strict plan (PageRank, mode strict)
+    plan = spmv.plan_for_app(frag, vp, torch.float32, mode="strict")
+    check(plan is not None, "no strict plan for the RMAT fragment")
+    row_lo = torch.from_numpy(plan[0]).to(device)
+    tile, rmax = plan[1], plan[2]
+    values = torch.where(ie.edge_mask, x[nbr], torch.zeros((), device=device))
+    got = spmv.spmv_strict(values, ie.edge_src, row_lo, vp, tile, rmax)
+    strict_err = check_sum(
+        got,
+        spmv.spmv_strict_plain(values.double(), ie.edge_src, row_lo, vp,
+                               tile, rmax),
+        spmv.spmv_strict_plain(values.double().abs(), ie.edge_src, row_lo,
+                               vp, tile, rmax),
+        "strict_tile")
+    ep = values.shape[1]
+    src_long = ie.edge_src.reshape(-1).to(torch.int64)
+    acc = torch.zeros(fnum * (vp + 1), device=device)
+
+    def lib_strict():
+        return acc.zero_().index_add_(0, src_long, values.reshape(-1))
+
+    ms = time_ms(lambda: spmv.spmv_strict(values, ie.edge_src, row_lo, vp,
+                                          tile, rmax), device, reps)
+    plain_ms = time_ms(lambda: spmv.spmv_strict_plain(
+        values, ie.edge_src, row_lo, vp, tile, rmax), device,
+        max(3, reps // 4), warmup=1)
+    lib_ms = time_ms(lib_strict, device, reps)
+    nbytes = 8 * fnum * ep + 4 * row_lo.numel() + 4 * n  # values, src, y
+    b_ms, b_by = bound(nbytes, fnum * ep)
+    out["strict_tile"] = dict(
+        max_abs_err=strict_err, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, edges=fnum * ep,
+        tiles=row_lo.shape[1], rmax=rmax,
+        worthwhile=spmv.strict_worthwhile(rmax, tile))
+    print(f"[kernel] strict_tile: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) tiles={row_lo.shape[1]} tile={tile} "
+          f"rmax={rmax} worthwhile={spmv.strict_worthwhile(rmax, tile)} "
+          f"max_abs_err={strict_err:.3e}", flush=True)
+    return out
+
+
+def stacked_phase(device) -> None:
+    """Both kernels on a stack of 4 fragments (p2p-31, fnum 4): one
+    launch covers every fragment through per-fragment offsets."""
+    from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+
+    data = os.path.join(HERE, "dataset")
+    frag = LoadGraph(os.path.join(data, "p2p-31.e"),
+                     os.path.join(data, "p2p-31.v"),
+                     CommSpec(fnum=4, device=device),
+                     LoadGraphSpec(directed=True, weighted=True))
+    ie = frag.dev.ie
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.rand(frag.fnum * frag.vp, generator=gen).to(device)
+    for kind, w in (("sum", None), ("min", ie.edge_w), ("max", ie.edge_w)):
+        got = spmv.gather_reduce(ie.indptr, ie.edge_nbr, w, x, kind)
+        if kind == "sum":
+            check_sum(got,
+                      spmv.gather_reduce_plain(ie.indptr, ie.edge_nbr, None,
+                                               x.double(), "sum"),
+                      spmv.gather_reduce_plain(ie.indptr, ie.edge_nbr, None,
+                                               x.double().abs(), "sum"),
+                      "gather_reduce sum (fnum 4)")
+        else:
+            want = spmv.gather_reduce_plain(ie.indptr, ie.edge_nbr, w, x, kind)
+            check(torch.equal(got, want),
+                  f"gather_reduce {kind} (fnum 4) not bit-equal")
+    row_lo, tile, rmax = spmv.plan_for_app(frag, frag.vp, torch.float32,
+                                           mode="strict")
+    row_lo = torch.from_numpy(row_lo).to(device)
+    values = torch.where(ie.edge_mask, x[ie.edge_nbr],
+                         torch.zeros((), device=device))
+    got = spmv.spmv_strict(values, ie.edge_src, row_lo, frag.vp, tile, rmax)
+    check_sum(got,
+              spmv.spmv_strict_plain(values.double(), ie.edge_src, row_lo,
+                                     frag.vp, tile, rmax),
+              spmv.spmv_strict_plain(values.double().abs(), ie.edge_src,
+                                     row_lo, frag.vp, tile, rmax),
+              "strict_tile (fnum 4)")
+    sync(device)
+    print(f"[stacked] p2p-31 directed fnum=4 vp={frag.vp} "
+          f"ep={ie.edge_nbr.shape[1]} tiles={row_lo.shape[1]} rmax={rmax}: "
+          "gather_reduce sum/min/max and strict_tile ok", flush=True)
+
+
+# ---- phases 2-3: the main path through Worker.query ---------------------
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route the apps' SpMV calls to the plain versions (comparison runs
+    only; the wrappers themselves never fall back), and prove afterwards
+    that no kernel was launched meanwhile."""
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    spmv.reset_launch_counts()
+    with mock.patch.multiple(spmv, gather_reduce=spmv.gather_reduce_plain,
+                             spmv_strict=spmv.spmv_strict_plain):
+        yield
+    check(spmv.gather_reduce.launches == 0 and spmv.spmv_strict.launches == 0,
+          "a kernel was launched during the plain-version run")
+
+
+def run_query(frag, app, device, **kw):
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    wk = Worker(app, frag)
+    sync(device)
+    t0 = time.perf_counter()
+    wk.query(**kw)
+    sync(device)
+    return wk, time.perf_counter() - t0
+
+
+def counted(frag, app_factory, device, kw):
+    """Drive one main-path query with the launch counts zeroed just
+    before and read just after; then time two more runs (best of 3)."""
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    run_query(frag, app_factory(), device, **kw)  # warm-up
+    spmv.reset_launch_counts()
+    wk, secs = run_query(frag, app_factory(), device, **kw)
+    counts = {"gather_reduce": spmv.gather_reduce.launches,
+              "strict_tile": spmv.spmv_strict.launches}
+    best = min([secs] + [run_query(frag, app_factory(), device, **kw)[1]
+                         for _ in range(2)])
+    return wk, counts, best
+
+
+def pagerank_phase(frag, e_sym, device, mode) -> dict:
+    from libgrape_lite_tpu_torch.models import PageRank
+
+    kw = {"delta": 0.85, "max_round": PR_ROUNDS}
+    wk, counts, best = counted(
+        frag, lambda: PageRank(spmv_mode=mode), device, kw)
+    ranks = wk.result_values()
+    used = "strict_tile" if wk.app._spmv_tile else "gather_reduce"
+    if mode == "strict":
+        check(used == "strict_tile", "mode strict did not take the strict plan")
+    check(counts[used] >= PR_ROUNDS, f"PageRank {mode}: {used} launched "
+          f"{counts[used]} times in {PR_ROUNDS} rounds")
+    check(wk.rounds == PR_ROUNDS, f"PageRank ran {wk.rounds} rounds")
+    check(bool(np.isfinite(ranks).all() and (ranks >= 0).all()),
+          "PageRank ranks not finite and >= 0")
+    mass = float(ranks.astype(np.float64).sum())
+    check(abs(mass - 1.0) <= 1e-3, f"PageRank mass {mass} != 1 within 1e-3")
+    rerun = run_query(frag, PageRank(spmv_mode=mode), device, **kw)[0]
+    check(np.array_equal(rerun.result_values(), ranks),
+          f"PageRank {mode} rerun not bitwise identical")
+    with plain_versions():
+        plain = run_query(frag, PageRank(spmv_mode=mode), device, **kw)[0]
+    ref = plain.result_values()
+    rel = float(np.max(np.abs(ranks - ref) / np.maximum(np.abs(ref), 1e-30)))
+    check(rel <= 1e-4, f"PageRank {mode} vs plain versions: rel err {rel:.3e}")
+    mteps = e_sym * wk.rounds / best / 1e6
+    print(f"[pagerank] mode={mode} kernel={used} rounds={wk.rounds} "
+          f"seconds={best:.4f} mteps={mteps:.1f} mass={mass:.6f} "
+          f"rel_err_vs_plain={rel:.3e} launches={counts}", flush=True)
+    return dict(counts=counts, seconds=best, mteps=mteps, kernel=used)
+
+
+def sssp_phase(frag, e_sym, device) -> dict:
+    from libgrape_lite_tpu_torch.models import SSSP
+
+    wk, counts, best = counted(frag, SSSP, device, {"source": 0})
+    dist = wk.result_values()
+    check(counts["gather_reduce"] == wk.rounds,
+          f"SSSP: {counts['gather_reduce']} gather_reduce launches in "
+          f"{wk.rounds} rounds")
+    with plain_versions():
+        plain = run_query(frag, SSSP(), device, source=0)[0]
+    check(plain.rounds == wk.rounds, "SSSP rounds differ from the plain run")
+    check(np.array_equal(plain.result_values(), dist),
+          "SSSP not bit-equal to the plain-version run")
+    reached = int(np.isfinite(dist).sum())
+    mteps = e_sym / best / 1e6
+    print(f"[sssp] rounds={wk.rounds} seconds={best:.4f} mteps={mteps:.1f} "
+          f"reached={reached} launches={counts}", flush=True)
+    return dict(counts=counts, seconds=best, mteps=mteps, rounds=wk.rounds)
+
+
+def profile_phase(frag, device) -> dict:
+    """Where the time goes in a PageRank query (auto mode): device time
+    by kernel from torch.profiler, against the query's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libgrape_lite_tpu_torch.models import PageRank
+
+    kw = {"delta": 0.85, "max_round": PR_ROUNDS}
+    run_query(frag, PageRank(), device, **kw)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, secs = run_query(frag, PageRank(), device, **kw)
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t, c = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    wall_ms = secs * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"[profile] pagerank auto query: wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} idle_share="
+          f"{1 - busy_ms / wall_ms:.3f} kernels={len(by_name)}", flush=True)
+    for name, (t, c) in top:
+        print(f"[profile]   {t / 1e3:9.3f} ms  x{c:<4d} {name[:90]}",
+              flush=True)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                top=[(n[:90], t / 1e3, c) for n, (t, c) in top])
+
+
+# ---- phase 4: goldens through run_app ----------------------------------
+
+def golden_phase(device) -> None:
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+    from libgrape_lite_tpu_torch.worker.worker import format_result_lines
+
+    data = os.path.join(HERE, "dataset")
+
+    def load(text):
+        return dict(line.split() for line in text.strip().splitlines())
+
+    for app, golden, extra in (("pagerank", "p2p-31-PR", {}),
+                               ("sssp", "p2p-31-SSSP", {"sssp_source": 6})):
+        with open(os.path.join(data, golden)) as fh:
+            want = load(fh.read())
+        for fnum in (1, 4):
+            wk = run_app(QueryArgs(
+                application=app, efile=os.path.join(data, "p2p-31.e"),
+                vfile=os.path.join(data, "p2p-31.v"), fnum=fnum,
+                device=device, **extra))
+            vals = wk.result_values()
+            frag = wk.fragment
+            got = load("".join(
+                format_result_lines(frag.inner_oids(f),
+                                    vals[f, :frag.inner_vertices_num(f)],
+                                    wk.app.result_format)
+                for f in range(frag.fnum)))
+            check(got.keys() == want.keys(), f"{app} fnum {fnum}: vertex sets")
+            g = np.array([float(want[k]) for k in want])
+            r = np.array([float(got[k]) for k in want])
+            if app == "pagerank":  # eps_check.cc: 1e-4 relative
+                ok = np.abs(r - g) <= 1e-4 * np.abs(g)
+            else:  # exact
+                ok = (r == g) | (np.isinf(r) & np.isinf(g))
+            check(bool(ok.all()), f"{app} fnum {fnum}: "
+                  f"{int((~ok).sum())} vertices off the golden file")
+            print(f"[golden] {app} fnum={fnum} rounds={wk.rounds} ok",
+                  flush=True)
+
+
+def main() -> int:
+    # the smoke drives one card: expose only the first visible one
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from libgrape_lite_tpu_torch.ops import _build
+
+    device = "cuda"
+    check(torch.cuda.device_count() == 1, "more than one card visible")
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    card = card_line()
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    secs = _build.build_all()
+    for name, s in secs.items():
+        print(f"[build] {name}.cu -> {_build.lib_path(name).name} "
+              f"sm_90a: {s:.2f} s", flush=True)
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "ptxas info" in line and "Used" in line:
+                print(f"[build]   {line.strip()}", flush=True)
+    print(f"[build] total {time.perf_counter() - t0:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    frag, e_sym = rmat_fragment(SCALE, device)
+    deg = frag.host_ie[0].degree
+    print(f"[graph] rmat{SCALE}: vertices={frag.dev.total_vnum} "
+          f"in_edge_slots={e_sym} ep={frag.dev.ie.edge_nbr.shape[1]} "
+          f"max_in_degree={int(deg.max())} isolated={int((deg == 0).sum())} "
+          f"host_prep_s={time.perf_counter() - t0:.2f}", flush=True)
+
+    kern = kernel_phases(frag, device, reps=30)
+    stacked_phase(device)
+    pr_auto = pagerank_phase(frag, e_sym, device, "auto")
+    pr_strict = pagerank_phase(frag, e_sym, device, "strict")
+    ss = sssp_phase(frag, e_sym, device)
+    profile_phase(frag, device)
+    golden_phase(device)
+
+    launches = {
+        k: pr_auto["counts"][k] + pr_strict["counts"][k] + ss["counts"][k]
+        for k in ("gather_reduce", "strict_tile")
+    }
+    for k, v in launches.items():
+        check(v > 0, f"{k} was never launched on the main path")
+    gr = kern["gather_reduce[sum]"]
+    st = kern["strict_tile"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = [
+        dict(name="gather_reduce", route="cuda",
+             source="libgrape_lite_tpu_torch/csrc/spmv.cu",
+             replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
+             launches=launches["gather_reduce"],
+             **{k: gr[k] for k in keys},
+             max_abs_err_all_kinds=max(
+                 kern[f"gather_reduce[{k}]"]["max_abs_err"]
+                 for k in ("sum", "min", "max")),
+             ms_min=kern["gather_reduce[min]"]["ms"],
+             ms_max=kern["gather_reduce[max]"]["ms"]),
+        dict(name="strict_tile", route="cuda",
+             source="libgrape_lite_tpu_torch/csrc/spmv.cu",
+             replaces="libgrape_lite_tpu/ops/spmv.py:128",
+             launches=launches["strict_tile"], **{k: st[k] for k in keys}),
+    ]
+    print(json.dumps({
+        "card": card,
+        "pagerank_mteps": {"auto": pr_auto["mteps"],
+                           "strict": pr_strict["mteps"]},
+        "sssp_mteps": ss["mteps"], "sssp_rounds": ss["rounds"],
+    }), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

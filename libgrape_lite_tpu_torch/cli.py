@@ -1,0 +1,45 @@
+"""Command-line entry point (counterpart of `libgrape_lite_tpu/cli.py`,
+reference `run_app` flags):
+
+    python -m libgrape_lite_tpu_torch.cli --application sssp \\
+        --efile dataset/p2p-31.e --vfile dataset/p2p-31.v \\
+        --sssp_source 6 --out_prefix out/ [--fnum 4] [--device cpu]
+
+`--device` defaults to `cuda` and the run fails when CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="libgrape_lite_tpu_torch",
+        description="libgrape-lite analytical apps on PyTorch/CUDA",
+    )
+    p.add_argument("--application", required=True)
+    p.add_argument("--efile", required=True)
+    p.add_argument("--vfile", default="")
+    p.add_argument("--out_prefix", default="")
+    p.add_argument("--directed", action="store_true")
+    p.add_argument("--sssp_source", default="0")
+    p.add_argument("--pr_d", type=float, default=0.85)
+    p.add_argument("--pr_mr", type=int, default=10)
+    p.add_argument("--fnum", type=int, default=None,
+                   help="fragment count, stacked on the one device")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+def main(argv=None) -> int:
+    ns = make_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    run_app(QueryArgs(**vars(ns)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

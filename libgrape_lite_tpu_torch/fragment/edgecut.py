@@ -1,0 +1,322 @@
+"""Edge-cut fragments, stacked on one device.
+
+Counterpart of `libgrape_lite_tpu/fragment/edgecut.py` (reference
+`grape/fragment/immutable_edgecut_fragment.h:113-917`).  One Python
+object describes all `fnum` fragments; device tensors are stacked
+`[fnum, ...]` on a single device.  The per-fragment vertex capacity `vp`
+is a power of two and the padded global id is `pid = fid * vp + lid`,
+so the state of every fragment flattens to one pid-indexed vector.
+
+Undirected graphs store one symmetrised CSR and alias it as both the
+in- and the out-CSR, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.graph.csr import CSR, build_csr
+from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec, resolve_device
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy
+from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(np.ceil(np.log2(max(x, 1)))))
+
+
+@dataclass
+class DeviceCSR:
+    """Stacked [fnum, ...] padded CSR on the device."""
+
+    indptr: torch.Tensor  # [fnum, vp+1] int32
+    edge_src: torch.Tensor  # [fnum, Ep] int32 (pad rows = vp)
+    edge_nbr: torch.Tensor  # [fnum, Ep] int32 pid
+    edge_w: Optional[torch.Tensor]  # [fnum, Ep] float or None
+    edge_mask: torch.Tensor  # [fnum, Ep] bool
+
+
+@dataclass
+class DeviceFragment:
+    """The device view of all fragments (JAX `DeviceFragment`)."""
+
+    ivnum: torch.Tensor  # [fnum] int32 real inner vertex count
+    inner_mask: torch.Tensor  # [fnum, vp] bool
+    oids: torch.Tensor  # [fnum, vp] int64 original ids (pad = -1)
+    oe: DeviceCSR
+    ie: DeviceCSR
+    out_degree: torch.Tensor  # [fnum, vp] int32
+    in_degree: torch.Tensor  # [fnum, vp] int32
+    fnum: int
+    vp: int
+    directed: bool
+    total_vnum: int
+    total_enum: int
+
+    @property
+    def n_pad(self) -> int:
+        return self.fnum * self.vp
+
+
+_CSR_FIELDS = ("indptr", "edge_src", "edge_nbr", "edge_w", "edge_mask")
+
+
+def _stack_csrs(csrs: list[CSR]) -> dict:
+    return {
+        "indptr": np.stack([c.indptr for c in csrs]),
+        "edge_src": np.stack([c.edge_src for c in csrs]),
+        "edge_nbr": np.stack([c.edge_nbr for c in csrs]),
+        "edge_w": (None if csrs[0].edge_w is None
+                   else np.stack([c.edge_w for c in csrs])),
+        "edge_mask": np.stack([c.edge_mask for c in csrs]),
+    }
+
+
+def _unstack_csrs(stacked: dict, vp: int) -> list[CSR]:
+    fnum = stacked["indptr"].shape[0]
+    return [
+        CSR(
+            stacked["indptr"][f], stacked["edge_src"][f],
+            stacked["edge_nbr"][f],
+            None if stacked["edge_w"] is None else stacked["edge_w"][f],
+            stacked["edge_mask"][f], vp, int(stacked["indptr"][f, -1]),
+        )
+        for f in range(fnum)
+    ]
+
+
+class ShardedEdgecutFragment:
+    """Host-side descriptor of the full graph (all fragments) plus its
+    stacked device tensors in `dev`."""
+
+    def __init__(
+        self,
+        comm_spec: CommSpec,
+        host_oe: list[CSR],
+        host_ie: list[CSR],
+        oids: np.ndarray,
+        ivnum: np.ndarray,
+        directed: bool,
+        total_vnum: int,
+        total_enum: int,
+    ):
+        self.comm_spec = comm_spec
+        self.device = comm_spec.device
+        self.host_oe = host_oe
+        self.host_ie = host_ie
+        self.host_oids = np.asarray(oids, dtype=np.int64)  # [fnum, vp]
+        self.host_ivnum = np.asarray(ivnum, dtype=np.int32)  # [fnum]
+        self.directed = directed
+        self.weighted = host_ie[0].edge_w is not None
+        self.fnum = comm_spec.fnum
+        self.vp = self.host_oids.shape[1]
+        self._oid_index = None
+        self.dev = self._to_device(total_vnum, total_enum)
+
+    # ---- FragmentBase API (fragment_base.h:50-133) ----
+
+    @property
+    def total_vertices_num(self) -> int:
+        return self.dev.total_vnum
+
+    @property
+    def total_edges_num(self) -> int:
+        return self.dev.total_enum
+
+    def inner_vertices_num(self, fid: int) -> int:
+        return int(self.host_ivnum[fid])
+
+    def host_inner_mask(self) -> np.ndarray:
+        """[fnum, vp] bool: True for real (non-padding) vertex rows."""
+        return np.arange(self.vp)[None, :] < self.host_ivnum[:, None]
+
+    def inner_oids(self, fid: int) -> np.ndarray:
+        return self.host_oids[fid, : self.inner_vertices_num(fid)]
+
+    def oid_to_pid(self, oids: np.ndarray) -> np.ndarray:
+        """oid -> padded global id; -1 for unknown oids."""
+        if self._oid_index is None:
+            inner = self.host_inner_mask().reshape(-1)
+            pids = np.nonzero(inner)[0].astype(np.int64)
+            vals = self.host_oids.reshape(-1)[pids]
+            order = np.argsort(vals, kind="stable")
+            self._oid_index = (vals[order], pids[order])
+        sorted_oids, pids = self._oid_index
+        q = np.asarray(oids, dtype=np.int64)
+        if len(sorted_oids) == 0:
+            return np.full(len(q), -1, dtype=np.int64)
+        pos = np.clip(np.searchsorted(sorted_oids, q), 0, len(sorted_oids) - 1)
+        return np.where(sorted_oids[pos] == q, pids[pos], -1)
+
+    def pid_to_oid(self, pids: np.ndarray) -> np.ndarray:
+        return self.host_oids.reshape(-1)[np.asarray(pids)]
+
+    # ---- construction ----
+
+    @classmethod
+    def build(
+        cls,
+        comm_spec: CommSpec,
+        vertex_map: VertexMap,
+        src_oid: np.ndarray,
+        dst_oid: np.ndarray,
+        weights: np.ndarray | None,
+        directed: bool,
+        load_strategy: LoadStrategy = LoadStrategy.kBothOutIn,
+        edata_dtype=np.float32,
+    ) -> "ShardedEdgecutFragment":
+        """Group edges by owner fragment and build padded CSRs
+        (`ShardedEdgecutFragment.build` of the JAX package)."""
+        fnum = comm_spec.fnum
+        total_vnum = vertex_map.total_vertex_num()
+        max_ivnum = max(vertex_map.inner_vertex_num(f) for f in range(fnum))
+        vp = _next_pow2(max(max_ivnum, 8))
+        parser = vertex_map.id_parser
+
+        def to_pid(oids):
+            g = vertex_map.get_gid(oids)
+            if (g < 0).any():
+                bad = np.asarray(oids)[g < 0][:5]
+                raise ValueError(
+                    f"edge endpoint(s) not in vertex map, e.g. {bad}")
+            f = parser.get_fid(g)
+            lid = parser.get_lid(g)
+            return f * vp + lid, f, lid
+
+        src_pid, src_fid, src_lid = to_pid(src_oid)
+        dst_pid, dst_fid, dst_lid = to_pid(dst_oid)
+        real_enum = len(src_pid)
+        if not directed:
+            # symmetrise with multiplicity (csr_edgecut_fragment_base.h)
+            src_pid, dst_pid = (np.concatenate([src_pid, dst_pid]),
+                                np.concatenate([dst_pid, src_pid]))
+            src_fid, dst_fid = (np.concatenate([src_fid, dst_fid]),
+                                np.concatenate([dst_fid, src_fid]))
+            src_lid, dst_lid = (np.concatenate([src_lid, dst_lid]),
+                                np.concatenate([dst_lid, src_lid]))
+            if weights is not None:
+                weights = np.concatenate([weights, weights])
+
+        need_oe = load_strategy in (
+            LoadStrategy.kOnlyOut, LoadStrategy.kBothOutIn
+        ) or (not directed and load_strategy == LoadStrategy.kOnlyIn)
+        need_ie = directed and load_strategy in (
+            LoadStrategy.kOnlyIn, LoadStrategy.kBothOutIn
+        )
+        oe_counts = np.bincount(src_fid, minlength=fnum)
+        ie_counts = np.bincount(dst_fid, minlength=fnum)
+        ep_oe = _round_up(max(int(oe_counts.max()), 1), 128) if need_oe else 128
+        ep_ie = _round_up(max(int(ie_counts.max()), 1), 128) if need_ie else 128
+
+        w_np = None if weights is None else np.asarray(weights, edata_dtype)
+        host_oe, host_ie = [], []
+        for f in range(fnum):
+            if need_oe:
+                m = src_fid == f if fnum > 1 else slice(None)
+                host_oe.append(build_csr(
+                    src_lid[m], dst_pid[m], None if w_np is None else w_np[m],
+                    vp, ep_oe,
+                ))
+            if need_ie:
+                m = dst_fid == f if fnum > 1 else slice(None)
+                host_ie.append(build_csr(
+                    dst_lid[m], src_pid[m], None if w_np is None else w_np[m],
+                    vp, ep_ie,
+                ))
+        if not need_oe:
+            host_oe = host_ie
+        if not need_ie:
+            host_ie = host_oe
+
+        ivnum = np.array(
+            [vertex_map.inner_vertex_num(f) for f in range(fnum)], np.int32)
+        oids = np.full((fnum, vp), -1, dtype=np.int64)
+        for f in range(fnum):
+            o = vertex_map.inner_oids(f)
+            oids[f, : len(o)] = o
+        return cls(comm_spec, host_oe, host_ie, oids, ivnum, directed,
+                   total_vnum, real_enum)
+
+    def _to_device(self, total_vnum: int, total_enum: int) -> DeviceFragment:
+        dev = self.device
+
+        def put(x):
+            if x is None:
+                return None
+            x = np.ascontiguousarray(x)
+            if not x.flags.writeable:  # e.g. a view of another framework's
+                x = x.copy()           # buffer: torch wants writable memory
+            return torch.from_numpy(x).to(dev)
+
+        def put_csr(csrs):
+            st = _stack_csrs(csrs)
+            return DeviceCSR(*(put(st[k]) for k in _CSR_FIELDS))
+
+        aliased = self.host_ie is self.host_oe
+        oe = put_csr(self.host_oe)
+        ie = oe if aliased else put_csr(self.host_ie)
+        out_degree = put(np.stack([c.degree for c in self.host_oe])
+                         .astype(np.int32))
+        in_degree = out_degree if aliased else put(
+            np.stack([c.degree for c in self.host_ie]).astype(np.int32))
+        return DeviceFragment(
+            ivnum=put(self.host_ivnum),
+            inner_mask=put(self.host_inner_mask()),
+            oids=put(self.host_oids),
+            oe=oe,
+            ie=ie,
+            out_degree=out_degree,
+            in_degree=in_degree,
+            fnum=self.fnum,
+            vp=self.vp,
+            directed=self.directed,
+            total_vnum=int(total_vnum),
+            total_enum=int(total_enum),
+        )
+
+
+def fragment_from_numpy(arrays: dict, meta: dict,
+                        device="cuda") -> ShardedEdgecutFragment:
+    """Build the port's fragment from another fragment's leaves.
+
+    `arrays` holds numpy arrays keyed by DeviceFragment field
+    (`ivnum`, `inner_mask`, `oids`, `out_degree`, `in_degree`) and by
+    DeviceCSR field under an `oe.` / `ie.` prefix (`oe.indptr`,
+    `oe.edge_src`, `oe.edge_nbr`, `oe.edge_w`, `oe.edge_mask`); the `ie.`
+    group may be left out, and the in-CSR then aliases the out-CSR, as
+    on undirected graphs.  `meta` holds `fnum`, `vp`, `directed`,
+    `total_vnum` and `total_enum`.  This carries a graph built by the
+    JAX package (`np.asarray` of each leaf of its `DeviceFragment`)
+    across unchanged, so both packages can run on identical bytes."""
+    fnum, vp = int(meta["fnum"]), int(meta["vp"])
+    comm_spec = CommSpec(fnum=fnum, device=resolve_device(device))
+
+    def side(prefix):
+        st = {k: arrays.get(f"{prefix}.{k}") for k in _CSR_FIELDS}
+        st = {k: (None if v is None else np.asarray(v)) for k, v in st.items()}
+        if st["indptr"].shape != (fnum, vp + 1):
+            raise ValueError(
+                f"{prefix}.indptr shape {st['indptr'].shape} != "
+                f"({fnum}, {vp + 1})")
+        return _unstack_csrs(st, vp)
+
+    host_oe = side("oe")
+    host_ie = side("ie") if "ie.indptr" in arrays else host_oe
+    ivnum = np.asarray(arrays["ivnum"], dtype=np.int32)
+    oids = np.asarray(arrays["oids"], dtype=np.int64)
+    frag = ShardedEdgecutFragment(
+        comm_spec, host_oe, host_ie, oids, ivnum, bool(meta["directed"]),
+        int(meta["total_vnum"]), int(meta["total_enum"]),
+    )
+    if not np.array_equal(np.asarray(arrays["inner_mask"]),
+                          frag.host_inner_mask()):
+        raise ValueError("inner_mask disagrees with ivnum")
+    return frag

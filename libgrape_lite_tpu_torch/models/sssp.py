@@ -1,0 +1,75 @@
+"""SSSP -- single-source shortest paths, dense pull.
+
+Counterpart of `libgrape_lite_tpu/models/sssp.py` (reference
+`examples/analytical_apps/sssp/sssp.h:36-170`): pull-mode Bellman-Ford.
+Each round relaxes every in-edge at once,
+
+    relaxed[v] = min_{e in in(v)} dist[nbr_e] + w_e,
+
+through the gather-reduce kernel (kind `min`), and votes the number of
+improved inner vertices.  The weight stream is pre-masked once at init
+(`wf_eff`, +inf on pad edges), as in the JAX package.  `min` is exact in
+any order, so the result is bit-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import (
+    ParallelAppBase,
+    StepContext,
+    resolve_source,
+)
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+
+class SSSP(ParallelAppBase):
+    load_strategy = LoadStrategy.kBothOutIn
+    message_strategy = MessageStrategy.kSyncOnOuterVertex
+    result_format = "sssp_infinity"
+    needs_edata = True  # double edata (run_app.cc:48-52)
+    ephemeral_keys = frozenset({"wf_eff"})
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        self.dtype = dtype
+
+    def init_state(self, frag, source=0):
+        if not frag.weighted:
+            raise ValueError(
+                "SSSP requires edge weights; load the graph with "
+                "weighted=True"
+            )
+        dev, dt = frag.device, self.dtype
+        dist = torch.full((frag.fnum, frag.vp), float("inf"), dtype=dt,
+                          device=dev)
+        pid = resolve_source(frag, source, "SSSP")
+        if pid >= 0:
+            dist[pid // frag.vp, pid % frag.vp] = 0
+        ie = frag.dev.ie
+        wf_eff = torch.where(
+            ie.edge_mask, ie.edge_w.to(dt),
+            torch.tensor(float("inf"), dtype=dt, device=dev),
+        )
+        return {"dist": dist, "wf_eff": wf_eff}
+
+    def peval(self, ctx: StepContext, dev, state):
+        # the first pull round subsumes the reference PEval's source
+        # relaxation (sssp.h:68-83); ForceContinue (sssp.h:90)
+        return state, 1
+
+    def inceval(self, ctx: StepContext, dev, state):
+        dist = state["dist"]
+        ie = dev.ie
+        full = ctx.gather_state(dist)
+        relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, state["wf_eff"],
+                                     full, "min")
+        new = torch.minimum(dist, relaxed)
+        changed = (new < dist) & dev.inner_mask
+        active = ctx.sum(changed.sum(dim=-1))
+        return dict(state, dist=new), active
+
+    def finalize(self, frag, state):
+        return np.asarray(state["dist"].cpu().numpy())

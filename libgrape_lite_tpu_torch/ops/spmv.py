@@ -1,0 +1,296 @@
+"""SpMV over the stacked in-edge CSR: the two CUDA kernels and their
+plain PyTorch versions.
+
+One operation carries PageRank and SSSP, the per-row gather-reduce
+
+    y[r] = (+)_{e in in(r)} x[nbr_e] (*) w_e
+
+with sum and multiply (PageRank) or min and add (SSSP).  Two kernels
+compute it (sources and design notes in `csrc/spmv.cu`):
+
+* `gather_reduce` -- the counterpart of the JAX package's pack-gather
+  pipeline (`libgrape_lite_tpu/ops/spmv_pack.py::segment_reduce_pack`):
+  it reads `indptr`/`nbr`/`w` directly, one warp per row.
+* `spmv_strict` -- the counterpart of the strict-tile kernel
+  (`libgrape_lite_tpu/ops/spmv.py::spmv_strict`): a segment sum of
+  per-edge values over equal tiles of `tile` edges, then a deterministic
+  fold of the tile partials.
+
+Each wrapper takes its plain version (`gather_reduce_plain`,
+`spmv_strict_plain`) only for tensors on the CPU; for CUDA tensors it
+launches its kernel or raises.  `wrapper.launches` counts kernel
+launches.  `plan_tiles`, `strict_worthwhile` and `plan_for_app` are the
+JAX package's host-side planning rules, unchanged.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.ops.segment import segment_reduce
+
+KINDS = {"sum": 0, "min": 1, "max": 2}
+LANE = 128  # the strict plan's row-window alignment (JAX package's rule)
+INT32_LIMIT = 1 << 31
+STRICT_TILE = 2048  # edges per strict tile (the JAX package's tile)
+
+
+# ---- host-side strict planning (libgrape_lite_tpu/ops/spmv.py) ----------
+
+def _align_rmax(span: int) -> int:
+    return max(LANE, -(-span // LANE) * LANE)
+
+
+def plan_tiles(edge_src_sorted: np.ndarray, tile: int, vp: int):
+    """Strict tiling of a row-sorted edge array (pad rows `vp` included).
+    Returns (row_lo [num_tiles] int32, rmax, num_tiles).  Pad edges clamp
+    to the last real row for planning, so they never widen a window."""
+    e = len(edge_src_sorted)
+    if e == 0:
+        return np.zeros(1, dtype=np.int32), _align_rmax(1), 1
+    real = edge_src_sorted[edge_src_sorted < vp]
+    last_real = int(real[-1]) if len(real) else 0
+    src_plan = np.minimum(edge_src_sorted, last_real)
+    num_tiles = -(-e // tile)
+    starts = np.arange(num_tiles, dtype=np.int64) * tile
+    ends = np.minimum(starts + tile, e) - 1
+    row_lo = src_plan[starts].astype(np.int32)
+    row_hi = src_plan[ends].astype(np.int32)
+    rmax = _align_rmax(int((row_hi - row_lo).max()) + 1)
+    return row_lo, rmax, num_tiles
+
+
+def strict_worthwhile(rmax: int, tile: int) -> bool:
+    """Adoption rule of the JAX package: accept a plan whose row window
+    is at most 1/16 of the tile (hub-heavy tiles), reject degree-1 tails."""
+    return rmax * 16 <= tile
+
+
+_PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def plan_for_app(frag, vp: int, dtype: torch.dtype, mode: str = "auto"):
+    """(row_lo [fnum, num_tiles] int32, tile, rmax) when the strict kernel
+    should serve the in-edge segment sums, else None (gather_reduce).
+
+    `strict` always plans; `auto` plans only float32 states (the kernel's
+    type) and only when `strict_worthwhile` accepts the worst tile span.
+    Plans come from the host CSRs and are cached per fragment."""
+    if mode not in ("auto", "strict"):
+        raise ValueError(f"unknown spmv mode {mode!r} (auto | strict)")
+    if mode == "auto" and dtype != torch.float32:
+        return None
+    cached = _PLAN_CACHE.setdefault(frag, {}).get(vp)
+    if cached is None:
+        edge_src = [c.edge_src for c in frag.host_ie]
+        if not any((s < vp).any() for s in edge_src):
+            cached = False  # no real edge anywhere: nothing to tile
+        else:
+            plans = [plan_tiles(s, STRICT_TILE, vp) for s in edge_src]
+            rmax = max(p[1] for p in plans)
+            row_lo = np.stack([p[0] for p in plans]).astype(np.int32)
+            cached = (row_lo, STRICT_TILE, rmax)
+        _PLAN_CACHE[frag][vp] = cached
+    if cached is False:
+        return None
+    row_lo, tile, rmax = cached
+    if mode == "auto" and not strict_worthwhile(rmax, tile):
+        return None
+    return row_lo, tile, rmax
+
+
+# ---- kernel library ------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from libgrape_lite_tpu_torch.ops import _build
+
+        lib = _build.load("spmv")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.grape_gather_reduce.argtypes = [p, p, p, p, p, i, i, ll, i, p]
+        lib.grape_gather_reduce.restype = i
+        lib.grape_strict_tile.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
+        lib.grape_strict_tile.restype = i
+        lib.grape_cuda_error_string.argtypes = [i]
+        lib.grape_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().grape_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda_args(name: str, device: torch.device, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        _require(t.device == device,
+                 f"{name}: {arg} on {t.device}, expected {device}")
+        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+
+
+# ---- gather_reduce: counterpart of the pack-gather pipeline (K1) ---------
+
+def gather_reduce_plain(indptr: torch.Tensor, nbr: torch.Tensor,
+                        w: torch.Tensor | None, x: torch.Tensor,
+                        kind: str = "sum") -> torch.Tensor:
+    """Plain PyTorch gather-reduce over the stacked CSR: [fnum, vp].
+    Only edges inside `indptr` are read, so pads never contribute."""
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    ep = nbr.shape[1]
+    ind = indptr.long()
+    real = torch.arange(ep, device=x.device).unsqueeze(0) < ind[:, -1:]
+    vals = x[nbr[real].long()]
+    if w is not None:
+        vals = vals * w[real] if kind == "sum" else vals + w[real]
+    deg = (ind[:, 1:] - ind[:, :-1]).reshape(-1)
+    rows = torch.repeat_interleave(
+        torch.arange(fnum * vp, device=x.device), deg)
+    return segment_reduce(vals, rows, fnum * vp, kind).view(fnum, vp)
+
+
+def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
+                  w: torch.Tensor | None, x: torch.Tensor,
+                  kind: str = "sum") -> torch.Tensor:
+    """y[f, r] = (+)_{e in indptr[f, r]..indptr[f, r+1]} x[nbr[f, e]] (*) w[f, e].
+
+    indptr [fnum, vp+1] int32, nbr [fnum, Ep] int32 (pids into x),
+    w [fnum, Ep] float32 or None, x [N] float32 -> y [fnum, vp] float32.
+    kind: sum (w multiplies), min / max (w adds).  Rows without edges
+    hold the identity (0, +inf, -inf)."""
+    _require(kind in KINDS, f"gather_reduce: unknown kind {kind!r}")
+    if x.device.type == "cpu":
+        return gather_reduce_plain(indptr, nbr, w, x, kind)
+    name = "gather_reduce"
+    _require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+    _check_cuda_args(name, x.device, indptr=indptr, nbr=nbr, w=w, x=x)
+    _require(indptr.dim() == 2 and nbr.dim() == 2 and x.dim() == 1,
+             f"{name}: indptr/nbr must be [fnum, *], x [N]")
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    ep = nbr.shape[1]
+    _require(nbr.shape[0] == fnum, f"{name}: nbr has {nbr.shape[0]} "
+             f"fragments, indptr {fnum}")
+    _require(indptr.dtype == torch.int32 and nbr.dtype == torch.int32,
+             f"{name}: indptr and nbr must be int32")
+    _require(x.dtype == torch.float32, f"{name}: x must be float32")
+    _require(w is None or (w.dtype == torch.float32 and w.shape == nbr.shape),
+             f"{name}: w must be float32 shaped like nbr")
+    _require(ep < INT32_LIMIT and fnum * vp < INT32_LIMIT
+             and x.numel() < INT32_LIMIT,
+             f"{name}: sizes must stay below 2^31 (int32 indices)")
+    y = torch.empty((fnum, vp), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().grape_gather_reduce(
+            indptr.data_ptr(), nbr.data_ptr(),
+            None if w is None else w.data_ptr(), x.data_ptr(), y.data_ptr(),
+            fnum, vp, ep, KINDS[kind], stream,
+        )
+    _check_rc(rc, name)
+    gather_reduce.launches += 1
+    return y
+
+
+gather_reduce.launches = 0
+
+
+# ---- spmv_strict: counterpart of the strict-tile kernel (K2) -------------
+
+def spmv_strict_plain(values: torch.Tensor, edge_src: torch.Tensor,
+                      row_lo: torch.Tensor, vp: int, tile: int,
+                      rmax: int) -> torch.Tensor:
+    """Plain PyTorch strict-tile segment sum: tile partials over each
+    window [row_lo[t], row_lo[t] + rmax), then the clamped fold into
+    [fnum, vp] (`spmv_strict` of the JAX package, stacked)."""
+    fnum, ep = values.shape
+    num_tiles = row_lo.shape[1]
+    e_pad = num_tiles * tile
+    if e_pad > ep:
+        values = torch.cat([values, values.new_zeros(fnum, e_pad - ep)], 1)
+        edge_src = torch.cat(
+            [edge_src, edge_src.new_full((fnum, e_pad - ep), vp)], 1)
+    local = (edge_src[:, :e_pad].reshape(fnum, num_tiles, tile).long()
+             - row_lo.long().unsqueeze(-1))
+    inwin = (local >= 0) & (local < rmax)
+    vals = torch.where(inwin, values[:, :e_pad].reshape(local.shape),
+                       values.new_zeros(()))
+    partials = values.new_zeros(fnum, num_tiles, rmax)
+    partials.scatter_add_(2, local.clamp(0, rmax - 1), vals)
+    idx = row_lo.long().unsqueeze(-1) + torch.arange(rmax, device=values.device)
+    idx = idx.clamp(max=vp)  # the overflow row, sliced off below
+    return segment_reduce(partials.reshape(fnum, -1), idx.reshape(fnum, -1),
+                          vp, "sum")
+
+
+def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
+                row_lo: torch.Tensor, vp: int, tile: int,
+                rmax: int) -> torch.Tensor:
+    """Strict-tile segment sum of `values` [fnum, Ep] float32 by sorted
+    `edge_src` [fnum, Ep] int32 (pads == vp) into [fnum, vp], with the
+    plan `row_lo` [fnum, num_tiles] int32 from `plan_tiles`."""
+    if values.device.type == "cpu":
+        return spmv_strict_plain(values, edge_src, row_lo, vp, tile, rmax)
+    name = "spmv_strict"
+    _require(values.device.type == "cuda",
+             f"{name}: unsupported device {values.device}")
+    _check_cuda_args(name, values.device, values=values, edge_src=edge_src,
+                     row_lo=row_lo)
+    _require(values.dim() == 2 and values.shape == edge_src.shape,
+             f"{name}: values and edge_src must be [fnum, Ep] alike")
+    fnum, ep = values.shape
+    _require(row_lo.dim() == 2 and row_lo.shape[0] == fnum,
+             f"{name}: row_lo must be [fnum, num_tiles]")
+    num_tiles = row_lo.shape[1]
+    _require(values.dtype == torch.float32, f"{name}: values must be float32")
+    _require(edge_src.dtype == torch.int32 and row_lo.dtype == torch.int32,
+             f"{name}: edge_src and row_lo must be int32")
+    _require(num_tiles * tile >= ep, f"{name}: {num_tiles} tiles of {tile} "
+             f"cannot cover {ep} edges")
+    _require(0 < tile and tile * 8 <= 48 * 1024,
+             f"{name}: tile {tile} exceeds the 48 KB shared-memory stage")
+    _require(0 < rmax and ep < INT32_LIMIT and fnum * vp < INT32_LIMIT,
+             f"{name}: sizes out of range")
+    partials = torch.empty((fnum, num_tiles, rmax), dtype=torch.float32,
+                           device=values.device)
+    y = torch.empty((fnum, vp), dtype=torch.float32, device=values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().grape_strict_tile(
+            values.data_ptr(), edge_src.data_ptr(), row_lo.data_ptr(),
+            partials.data_ptr(), y.data_ptr(), fnum, ep, num_tiles, tile,
+            rmax, vp, stream,
+        )
+    _check_rc(rc, name)
+    spmv_strict.launches += 1
+    return y
+
+
+spmv_strict.launches = 0
+
+
+def reset_launch_counts() -> None:
+    gather_reduce.launches = 0
+    spmv_strict.launches = 0
+
+
+__all__ = [
+    "gather_reduce", "gather_reduce_plain", "plan_for_app",
+    "plan_tiles", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
+    "strict_worthwhile",
+]

@@ -1,0 +1,71 @@
+"""run_app: dispatch by app name, load, query, output.
+
+Counterpart of `libgrape_lite_tpu/runner.py::run_app` (reference
+`examples/analytical_apps/run_app.{cc,h}`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
+from libgrape_lite_tpu_torch.models import APP_REGISTRY
+from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+from libgrape_lite_tpu_torch.worker.worker import Worker
+
+
+@dataclass
+class QueryArgs:
+    """Flag bag (reference `examples/analytical_apps/flags.cc:23-69`)."""
+
+    application: str = "sssp"
+    efile: str = ""
+    vfile: str = ""
+    out_prefix: str = ""
+    directed: bool = False
+    sssp_source: int | str = 0
+    pr_d: float = 0.85
+    pr_mr: int = 10
+    fnum: int | None = None
+    device: str = "cuda"
+
+
+def _coerce_source(v):
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return v
+
+
+def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
+    if app_name == "sssp":
+        return {"source": _coerce_source(args.sssp_source)}
+    if app_name == "pagerank":
+        return {"delta": args.pr_d, "max_round": args.pr_mr}
+    return {}
+
+
+def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
+    name = args.application
+    if name not in APP_REGISTRY:
+        raise ValueError(
+            f"unknown application {name!r}; known: {sorted(APP_REGISTRY)}"
+        )
+    app_cls = APP_REGISTRY[name]
+    app = app_cls()
+    if comm_spec is None:
+        comm_spec = CommSpec(fnum=args.fnum, device=args.device)
+    spec = LoadGraphSpec(
+        directed=args.directed,
+        weighted=getattr(app_cls, "needs_edata", False),
+        load_strategy=app_cls.load_strategy,
+        edata_dtype=np.float64,
+    )
+    frag = LoadGraph(args.efile, args.vfile or None, comm_spec, spec)
+    worker = Worker(app, frag)
+    worker.query(**build_query_kwargs(name, args))
+    if args.out_prefix:
+        worker.output(args.out_prefix)
+    return worker
