@@ -8,9 +8,11 @@ on tensors, an explicit `device` on every entry point, and the stacked
 
 Entry points (`LoadGraph`, `Worker`, `run_app`, the CLI) default to
 `device="cuda"` and raise when CUDA is absent; the tests pass
-`device="cpu"`.  The hot operation, the per-row gather-reduce over the
-in-edge CSR, runs in hand-written CUDA kernels (`csrc/spmv.cu`) built
-with `nvcc` at first use.  Nothing here imports JAX or the JAX package.
+`device="cpu"`.  The hot operations run in hand-written CUDA kernels
+built with `nvcc` at first use: the per-row gather-reduce over a CSR
+(`csrc/spmv.cu`; PageRank, SSSP, BFS, WCC) and the row AND-popcount of
+packed bitmaps (`csrc/intersect.cu`; the bitmap LCCs).  Nothing here
+imports JAX or the JAX package.
 """
 
 from libgrape_lite_tpu_torch.fragment.edgecut import (
@@ -18,20 +20,36 @@ from libgrape_lite_tpu_torch.fragment.edgecut import (
     fragment_from_numpy,
 )
 from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
-from libgrape_lite_tpu_torch.models import APP_REGISTRY, PageRank, SSSP
+from libgrape_lite_tpu_torch.models import (
+    APP_REGISTRY,
+    BFS,
+    CDLP,
+    LCC,
+    WCC,
+    LCCBeta,
+    LCCDirected,
+    PageRank,
+    SSSP,
+)
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
 from libgrape_lite_tpu_torch.worker.worker import Worker
 
 __all__ = [
     "APP_REGISTRY",
+    "BFS",
+    "CDLP",
     "CommSpec",
+    "LCC",
+    "LCCBeta",
+    "LCCDirected",
     "LoadGraph",
     "LoadGraphSpec",
     "PageRank",
     "QueryArgs",
     "SSSP",
     "ShardedEdgecutFragment",
+    "WCC",
     "Worker",
     "fragment_from_numpy",
     "run_app",

@@ -5,6 +5,11 @@ reference `run_app` flags):
         --efile dataset/p2p-31.e --vfile dataset/p2p-31.v \\
         --sssp_source 6 --out_prefix out/ [--fnum 4] [--device cpu]
 
+Applications: pagerank (--pr_d, --pr_mr), sssp (--sssp_source), bfs
+(--bfs_source), wcc, cdlp and cdlp_auto (--cdlp_mr), lcc, lcc_auto,
+lcc_beta, lcc_opt, lcc_bitmap and lcc_directed (--degree_threshold);
+--directed loads the graph directed.
+
 `--device` defaults to `cuda` and the run fails when CUDA is absent.
 """
 
@@ -27,8 +32,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_prefix", default="")
     p.add_argument("--directed", action="store_true")
     p.add_argument("--sssp_source", default="0")
+    p.add_argument("--bfs_source", default="0")
     p.add_argument("--pr_d", type=float, default=0.85)
     p.add_argument("--pr_mr", type=int, default=10)
+    p.add_argument("--cdlp_mr", type=int, default=10)
+    p.add_argument("--degree_threshold", type=int, default=0,
+                   help="LCC hub cap: skip neighbour lists of vertices "
+                        "above this degree (0 disables)")
     p.add_argument("--fnum", type=int, default=None,
                    help="fragment count, stacked on the one device")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")

@@ -22,6 +22,10 @@
 //   reruns are bit-identical, and min/max equal any-order results.
 //   Known weakness: degree skew.  A hub row of 10^5 edges keeps one warp
 //   busy for ~3000 iterations while neighbours finish.
+//   Value types: float (sum, min, max; optional weights) and int32 (min,
+//   max; no weights) -- BFS depths and WCC labels, whose INT32_MAX
+//   sentinels and pid range a float32 cannot carry exactly past 2^24.
+//   Integer min/max is exact in any order, like the float min/max.
 //
 // strict_tile replaces the strict-tile Pallas kernel
 // (libgrape_lite_tpu/ops/spmv.py::_spmv_partials, body _spmv_tile_kernel)
@@ -40,6 +44,7 @@
 //   the XLA scatter-add.  Pad edges (src == vp, or past ep) fall outside
 //   every real row and are never read back.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -47,9 +52,16 @@ namespace {
 
 enum Kind { kSum = 0, kMin = 1, kMax = 2 };
 
+// identity and combine, overloaded on the value type (the argument only
+// selects the overload)
 template <int KIND>
-__device__ __forceinline__ float identity() {
+__device__ __forceinline__ float identity(float) {
   return KIND == kSum ? 0.0f : (KIND == kMin ? CUDART_INF_F : -CUDART_INF_F);
+}
+
+template <int KIND>
+__device__ __forceinline__ int identity(int) {
+  return KIND == kSum ? 0 : (KIND == kMin ? INT_MAX : INT_MIN);
 }
 
 template <int KIND>
@@ -58,16 +70,21 @@ __device__ __forceinline__ float combine(float a, float b) {
 }
 
 template <int KIND>
+__device__ __forceinline__ int combine(int a, int b) {
+  return KIND == kSum ? a + b : (KIND == kMin ? min(a, b) : max(a, b));
+}
+
+template <int KIND>
 __device__ __forceinline__ float apply_weight(float v, float w) {
   return KIND == kSum ? v * w : v + w;
 }
 
-template <int KIND, bool HAS_W>
+template <typename T, int KIND, bool HAS_W>
 __global__ void gather_reduce_kernel(const int* __restrict__ indptr,
                                      const int* __restrict__ nbr,
                                      const float* __restrict__ w,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ y, int vp,
+                                     const T* __restrict__ x,
+                                     T* __restrict__ y, int vp,
                                      long long ep, long long rows) {
   const long long row =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -80,10 +97,10 @@ __global__ void gather_reduce_kernel(const int* __restrict__ indptr,
   const int end = ip[r + 1];
   const int* nb = nbr + f * ep;
   const float* wf = HAS_W ? w + f * ep : nullptr;
-  float acc = identity<KIND>();
+  T acc = identity<KIND>(T());
   for (int i = begin + lane; i < end; i += 32) {
-    float v = __ldg(x + nb[i]);
-    if (HAS_W) v = apply_weight<KIND>(v, wf[i]);
+    T v = __ldg(x + nb[i]);
+    if constexpr (HAS_W) v = apply_weight<KIND>(v, wf[i]);
     acc = combine<KIND>(acc, v);
   }
 #pragma unroll
@@ -162,11 +179,22 @@ void launch_gather(const int* indptr, const int* nbr, const float* w,
   const unsigned blocks =
       static_cast<unsigned>((rows * 32 + threads - 1) / threads);
   if (w)
-    gather_reduce_kernel<KIND, true><<<blocks, threads, 0, stream>>>(
+    gather_reduce_kernel<float, KIND, true><<<blocks, threads, 0, stream>>>(
         indptr, nbr, w, x, y, vp, ep, rows);
   else
-    gather_reduce_kernel<KIND, false><<<blocks, threads, 0, stream>>>(
+    gather_reduce_kernel<float, KIND, false><<<blocks, threads, 0, stream>>>(
         indptr, nbr, w, x, y, vp, ep, rows);
+}
+
+template <int KIND>
+void launch_gather_i32(const int* indptr, const int* nbr, const int* x,
+                       int* y, int vp, long long ep, long long rows,
+                       cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks =
+      static_cast<unsigned>((rows * 32 + threads - 1) / threads);
+  gather_reduce_kernel<int, KIND, false><<<blocks, threads, 0, stream>>>(
+      indptr, nbr, nullptr, x, y, vp, ep, rows);
 }
 
 }  // namespace
@@ -189,6 +217,23 @@ int grape_gather_reduce(const int* indptr, const int* nbr, const float* w,
       case kSum: launch_gather<kSum>(indptr, nbr, w, x, y, vp, ep, rows, s); break;
       case kMin: launch_gather<kMin>(indptr, nbr, w, x, y, vp, ep, rows, s); break;
       case kMax: launch_gather<kMax>(indptr, nbr, w, x, y, vp, ep, rows, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// int32 min / max of x over the stacked CSR, no weights (rows without
+// edges hold INT32_MAX / INT32_MIN).  Sum is refused.
+int grape_gather_reduce_i32(const int* indptr, const int* nbr, const int* x,
+                            int* y, int fnum, int vp, long long ep, int kind,
+                            void* stream) {
+  const long long rows = static_cast<long long>(fnum) * vp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows > 0) {
+    switch (kind) {
+      case kMin: launch_gather_i32<kMin>(indptr, nbr, x, y, vp, ep, rows, s); break;
+      case kMax: launch_gather_i32<kMax>(indptr, nbr, x, y, vp, ep, rows, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

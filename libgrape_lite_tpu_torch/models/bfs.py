@@ -1,0 +1,63 @@
+"""BFS -- breadth-first search levels, dense pull.
+
+Counterpart of `libgrape_lite_tpu/models/bfs.py` (reference
+`examples/analytical_apps/bfs/bfs.h:30-150`): pull-mode unit-weight
+Bellman-Ford over int32 depths.  Each round takes
+
+    relaxed[v] = min_{e in in(v)} depth[nbr_e] + 1
+
+through the gather-reduce kernel (int32 kind `min`, no weights): the
+minimum of the neighbours' depths, plus one where it is not the
+INT32_MAX sentinel (min(d) + 1 == min(d + 1), and a reached depth never
+reaches the sentinel).  Rows without in-edges come back as the sentinel.
+Unreached vertices print as the reference's int64 maximum
+(`bfs_context.h:44`, golden `p2p-31-BFS`).  Integer min is exact in any
+order, so depths and round counts equal the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import (
+    ParallelAppBase,
+    StepContext,
+    resolve_source,
+)
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+_SENTINEL = np.iinfo(np.int32).max
+_OUT_SENTINEL = np.iinfo(np.int64).max  # printed for unreachable
+
+
+class BFS(ParallelAppBase):
+    load_strategy = LoadStrategy.kBothOutIn
+    message_strategy = MessageStrategy.kSyncOnOuterVertex
+    result_format = "int"
+
+    def init_state(self, frag, source=0):
+        depth = torch.full((frag.fnum, frag.vp), _SENTINEL,
+                           dtype=torch.int32, device=frag.device)
+        pid = resolve_source(frag, source, "BFS")
+        if pid >= 0:
+            depth[pid // frag.vp, pid % frag.vp] = 0
+        return {"depth": depth}
+
+    def peval(self, ctx: StepContext, dev, state):
+        return state, 1
+
+    def inceval(self, ctx: StepContext, dev, state):
+        depth = state["depth"]
+        ie = dev.ie
+        near = spmv.gather_reduce(ie.indptr, ie.edge_nbr, None,
+                                  ctx.gather_state(depth), "min")
+        relaxed = torch.where(near != _SENTINEL, near + 1, near)
+        new = torch.minimum(depth, relaxed)
+        changed = (new < depth) & dev.inner_mask
+        return {"depth": new}, ctx.sum(changed.sum(dim=-1))
+
+    def finalize(self, frag, state):
+        d = state["depth"].numpy().astype(np.int64)
+        return np.where(d == _SENTINEL, _OUT_SENTINEL, d)

@@ -1,0 +1,115 @@
+"""CDLP -- community detection by synchronous label propagation.
+
+Counterpart of `libgrape_lite_tpu/models/cdlp.py` (reference
+`examples/analytical_apps/cdlp/cdlp.h` + `cdlp_utils.h`): labels start as
+vertex ids; each of `max_round` rounds every vertex with out-edges adopts
+the most frequent label among its out-neighbours (previous-round values),
+ties broken toward the smallest label.  Multi-edges count with their
+multiplicity.
+
+The mode fold (`_mode_fold`) is the JAX package's sort / run-length
+pipeline on one int64 key per edge,
+
+    key = (row << rank_bits) | rank(label),
+
+where `row` is the edge's global row (fid * vp + src, or fnum * vp for a
+pad edge) and `rank` the label's position in the static sorted label
+universe `lut` (labels only ever move between existing ids).  One
+`torch.sort` of the keys orders the edges by (row, label) -- the total
+order all three branches of the JAX fold sort by (its packed 32-bit key,
+its variadic wide sort and its per-round dynamic universe exist only
+because its keys are 32 bits wide) -- so equal (row, label) pairs form
+runs.  The longest run per row wins, ties to the smallest label.  No
+Pallas kernel is involved: the JAX package runs this in XLA.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
+from libgrape_lite_tpu_torch.ops.segment import segment_reduce
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+_BIG = np.iinfo(np.int64).max
+
+
+class CDLP(ParallelAppBase):
+    load_strategy = LoadStrategy.kOnlyOut
+    message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
+    result_format = "int"
+    ephemeral_keys = frozenset({"lut"})
+
+    def __init__(self, max_round: int = 10):
+        self.max_round = max_round
+
+    def init_state(self, frag, max_round: int | None = None):
+        if max_round is not None:
+            self.max_round = max_round
+        oids = frag.dev.oids
+        big = torch.tensor(_BIG, dtype=torch.int64, device=frag.device)
+        labels = torch.where(oids >= 0, oids, big)
+        # the static sorted label universe, +1 sentinel slot
+        lut = torch.sort(torch.cat([labels.reshape(-1), big.view(1)]))[0]
+        return {"labels": labels,
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=frag.device),
+                "lut": lut}
+
+    @staticmethod
+    def _mode_fold(row, lab, lut, n_rows):
+        """Per-row mode label of the (row, label) edge multiset: rows
+        [0, n_rows), pad edges on row n_rows.  Rows without edges get
+        the int64 maximum."""
+        rank_bits = max(1, int(np.ceil(np.log2(lut.numel() + 1))))
+        row_bits = max(1, int(np.ceil(np.log2(n_rows + 2))))
+        if rank_bits + row_bits > 63:
+            raise ValueError(f"CDLP: {n_rows} rows x {lut.numel()} labels "
+                             "do not fit one int64 sort key")
+        rank = torch.searchsorted(lut, lab)
+        key = torch.sort((row.long() << rank_bits) | rank)[0]
+        rows = key >> rank_bits
+        sorted_lab = lut[key & ((1 << rank_bits) - 1)]
+        valid = rows != n_rows
+        # run-length encode equal keys
+        first = torch.ones_like(valid)
+        first[1:] = key[1:] != key[:-1]
+        run_id = torch.cumsum(first.long(), 0) - 1
+        run_len = segment_reduce(valid.long(), run_id, key.numel(), "sum")
+        count = run_len[run_id]
+        cmax = segment_reduce(count, rows, n_rows, "max")
+        best = valid & (count == cmax[rows.clamp(max=n_rows - 1)])
+        big = torch.tensor(_BIG, dtype=lut.dtype, device=lut.device)
+        return segment_reduce(torch.where(best, sorted_lab, big), rows,
+                              n_rows, "min")
+
+    def _propagate(self, ctx, dev, labels, lut):
+        oe = dev.oe
+        fnum, vp = dev.fnum, dev.vp
+        big = torch.tensor(_BIG, dtype=labels.dtype, device=labels.device)
+        full = ctx.gather_state(labels)
+        lab = torch.where(oe.edge_mask, full[oe.edge_nbr], big)
+        base = torch.arange(fnum, device=labels.device).unsqueeze(1) * vp
+        row = torch.where(oe.edge_mask, oe.edge_src.long() + base,
+                          fnum * vp)
+        new = self._mode_fold(row.reshape(-1), lab.reshape(-1), lut,
+                              fnum * vp).view(fnum, vp)
+        keep = ~dev.inner_mask | (dev.out_degree == 0) | (new == big)
+        return torch.where(keep, labels, new)
+
+    def peval(self, ctx: StepContext, dev, state):
+        # reference PEval: step 1, one propagation
+        labels = self._propagate(ctx, dev, state["labels"], state["lut"])
+        step = torch.ones((), dtype=torch.int32, device=labels.device)
+        return (dict(state, labels=labels, step=step),
+                1 if self.max_round > 1 else 0)
+
+    def inceval(self, ctx: StepContext, dev, state):
+        step = state["step"] + 1
+        labels = self._propagate(ctx, dev, state["labels"], state["lut"])
+        active = (step < self.max_round).to(torch.int32)
+        return dict(state, labels=labels, step=step), active
+
+    def finalize(self, frag, state):
+        return state["labels"].numpy()

@@ -1,0 +1,140 @@
+"""LCCBeta -- LCC by merge intersection of sorted neighbour lists.
+
+Counterpart of `libgrape_lite_tpu/models/lcc_beta.py` (reference
+`examples/analytical_apps/lcc/lcc_beta.h`), the app the registry name
+`lcc` runs.  The deduplicated graph is oriented into a DAG by (degree,
+pid) -- "lo" (edges point to the higher endpoint, so a row's width is
+bounded by the graph's degeneracy) unless a degree threshold is set,
+which switches to the reference's "hi" convention -- and the oriented
+out-lists become a padded ELL block `[fnum * vp, D]` int32, each row
+ascending, padded with the sentinel fnum * vp.  The JAX package builds
+it on the host in `init_state`; here it is scattered on the device from
+the kept pairs at the start of the pass (at RMAT-20 the host build cost
+more than the pass; PERF.md).
+
+For every oriented edge (v, u) a batched `torch.searchsorted` of N+(v)
+into N+(u) finds the common members w; one pass credits v and u by the
+count and every w by one.  Rows are read by pid, where the JAX package
+rings ELL blocks between shards.  Edges run in groups by row width (see
+`triangles`), each in chunks of about 2^22 lanes.  Triangle counts are
+int32 sums, exact in any order; lcc values equal the JAX package's bit
+for bit.  There is no Pallas kernel here: the JAX package runs this
+pass in XLA.  Its host-built tiered edge schedule (`_build_tier_perm`)
+is not ported; the width groups are this port's simpler counterpart.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
+from libgrape_lite_tpu_torch.models.lcc import LCC, dedup_mask, row_pids
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+
+class LCCBeta(ParallelAppBase):
+    load_strategy = LoadStrategy.kOnlyOut
+    message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
+    result_format = "float"
+
+    def __init__(self):
+        self.degree_threshold = 0
+
+    @property
+    def orientation(self) -> str:
+        # the reference's filter semantics (`lcc.h:234-243`) are defined
+        # on lower-degree neighbour lists, so a threshold selects "hi"
+        return "hi" if self.degree_threshold > 0 else "lo"
+
+    def init_state(self, frag, degree_threshold: int = 0, **_):
+        # degree_threshold > 0 drops hub vertices' lists (the reference's
+        # LCC cost cap, `lcc.h:234-243`); 0 disables it
+        self.degree_threshold = int(degree_threshold)
+        return {"lcc": torch.zeros((frag.fnum, frag.vp), dtype=torch.float64,
+                                   device=frag.device)}
+
+    @staticmethod
+    def _ell(v, u, n_pad):
+        """([n_pad, D] int32 ELL rows, [n_pad] row lengths) from the kept
+        pairs, sorted by (v, u): row v lists N+(v) ascending, padded with
+        the sentinel n_pad."""
+        vl = v.long()
+        cnt = torch.bincount(vl, minlength=n_pad)
+        d = max(1, int(cnt.max()))
+        ell = torch.full((n_pad, d), n_pad, dtype=torch.int32,
+                         device=v.device)
+        col = torch.arange(v.numel(), device=v.device) - (
+            torch.cumsum(cnt, 0) - cnt)[vl]
+        ell[vl, col] = u
+        return ell, cnt
+
+    def _oriented_edges(self, dev):
+        """(v, u) int32 pids of the kept oriented edges of frag.oe, sorted
+        by (v, u) as the CSR is."""
+        oe = dev.oe
+        deg = dev.out_degree.reshape(-1)
+        row, nbr = row_pids(dev, oe), oe.edge_nbr
+        d_row, d_nbr = deg[row.long()], deg[nbr.long()]
+        if self.orientation == "lo":
+            keep = (d_nbr > d_row) | ((d_nbr == d_row) & (nbr > row))
+        else:
+            keep = (d_nbr < d_row) | ((d_nbr == d_row) & (nbr < row))
+        keep &= dedup_mask(oe) & (nbr != row)
+        if self.degree_threshold > 0:
+            keep &= d_row <= self.degree_threshold
+        return row[keep], nbr[keep]
+
+    def peval(self, ctx: StepContext, dev, state):
+        return LCC._emit(dev, state, self.triangles(dev, state)), 0
+
+    def triangles(self, dev, state) -> torch.Tensor:
+        """[fnum, vp] int32 triangle credits per vertex: the merge pass.
+
+        Edges are grouped by the wider of their two ELL rows, rounded up
+        to a power of two, and each group runs at that width W in chunks
+        of about 2^22 lanes: the lanes cut off are padding in both rows
+        (a query lane past cnt[v] never hits; N+(u) lies whole in its
+        first W entries), so the credits are those of the full width D,
+        at a cost that follows the rows' real lengths."""
+        n_pad = dev.fnum * dev.vp
+        v, u = self._oriented_edges(dev)
+        ell, cnt = self._ell(v, u, n_pad)
+        d = ell.shape[1]
+        width = torch.maximum(cnt[v.long()], cnt[u.long()]).clamp(min=1)
+        n_groups = max(1, (d - 1).bit_length() + 1)
+        pow2 = 2 ** torch.arange(n_groups, device=ell.device)
+        group = torch.searchsorted(pow2, width)  # 2^group >= width
+        order = torch.argsort(group, stable=True)
+        v, u = v[order], u[order]
+        sizes = torch.bincount(group, minlength=n_groups).tolist()
+        cred = torch.zeros(n_pad, dtype=torch.int32, device=ell.device)
+        start = 0
+        for g, size in enumerate(sizes):
+            w = min(1 << g, d)
+            ell_w = ell[:, :w]
+            lanes = torch.arange(w, device=ell.device)
+            chunk = max(1, (1 << 22) // w)
+            for s in range(start, start + size, chunk):
+                e = min(s + chunk, start + size)
+                vv, uu = v[s:e].long(), u[s:e].long()
+                q = ell_w[vv]  # [C, W] queries: N+(v)
+                tgt = ell_w[uu]  # [C, W] sorted targets: N+(u)
+                pos = torch.searchsorted(tgt, q)
+                hit = ((tgt.gather(1, pos.clamp(max=w - 1)) == q)
+                       & (pos < cnt[uu].unsqueeze(1))
+                       & (lanes < cnt[vv].unsqueeze(1)))
+                c1 = hit.sum(1, dtype=torch.int32)
+                cred.index_add_(0, vv, c1)  # apex
+                cred.index_add_(0, uu, c1)  # middle
+                far = q[hit].long()
+                cred.index_add_(0, far,
+                                torch.ones_like(far, dtype=torch.int32))
+            start += size
+        return cred.view(dev.fnum, dev.vp)
+
+    def inceval(self, ctx, dev, state):
+        return state, 0
+
+    def finalize(self, frag, state):
+        return np.asarray(state["lcc"].numpy())

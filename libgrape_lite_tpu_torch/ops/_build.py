@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and call the port's CUDA kernels.
 
 Each `csrc/<name>.cu` compiles with `nvcc` into a shared library with a
 plain C interface (`build/torch_kernels/lib<name>-<digest>.so`, the
 digest covering the source and the flags), loaded with `ctypes`.  The
 build runs at first use, never at import, so the package imports on a
 machine without `nvcc`.  `build_all` starts one `nvcc` per source, all
-at once.
+at once.  Every library exports `grape_cuda_error_string`; the wrappers
+check their arguments with `require` / `check_cuda_args` and each
+launch's return code with `check_rc`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -91,5 +95,29 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(lib_path(name)))
+        lib.grape_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.grape_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_cuda_args(name: str, device: torch.device, **tensors) -> None:
+    """Every given tensor lies on `device` and is contiguous (None skips)."""
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        require(t.device == device,
+                f"{name}: {arg} on {t.device}, expected {device}")
+        require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+
+
+def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        msg = lib.grape_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,11 +1,13 @@
 """SpMV over the stacked in-edge CSR: the two CUDA kernels and their
 plain PyTorch versions.
 
-One operation carries PageRank and SSSP, the per-row gather-reduce
+One operation carries PageRank, SSSP, BFS and WCC, the per-row
+gather-reduce
 
     y[r] = (+)_{e in in(r)} x[nbr_e] (*) w_e
 
-with sum and multiply (PageRank) or min and add (SSSP).  Two kernels
+with sum and multiply (PageRank), min and add (SSSP), or an unweighted
+int32 min (BFS depths, WCC labels).  Two kernels
 compute it (sources and design notes in `csrc/spmv.cu`):
 
 * `gather_reduce` -- the counterpart of the JAX package's pack-gather
@@ -31,6 +33,12 @@ import weakref
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.ops import _build
+from libgrape_lite_tpu_torch.ops._build import (
+    check_cuda_args,
+    check_rc,
+    require,
+)
 from libgrape_lite_tpu_torch.ops.segment import segment_reduce
 
 KINDS = {"sum": 0, "min": 1, "max": 2}
@@ -111,38 +119,16 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        from libgrape_lite_tpu_torch.ops import _build
-
         lib = _build.load("spmv")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.grape_gather_reduce.argtypes = [p, p, p, p, p, i, i, ll, i, p]
         lib.grape_gather_reduce.restype = i
+        lib.grape_gather_reduce_i32.argtypes = [p, p, p, p, i, i, ll, i, p]
+        lib.grape_gather_reduce_i32.restype = i
         lib.grape_strict_tile.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
         lib.grape_strict_tile.restype = i
-        lib.grape_cuda_error_string.argtypes = [i]
-        lib.grape_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def _check_rc(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().grape_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def _check_cuda_args(name: str, device: torch.device, **tensors) -> None:
-    for arg, t in tensors.items():
-        if t is None:
-            continue
-        _require(t.device == device,
-                 f"{name}: {arg} on {t.device}, expected {device}")
-        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
 
 
 # ---- gather_reduce: counterpart of the pack-gather pipeline (K1) ---------
@@ -173,36 +159,49 @@ def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
     indptr [fnum, vp+1] int32, nbr [fnum, Ep] int32 (pids into x),
     w [fnum, Ep] float32 or None, x [N] float32 -> y [fnum, vp] float32.
     kind: sum (w multiplies), min / max (w adds).  Rows without edges
-    hold the identity (0, +inf, -inf)."""
-    _require(kind in KINDS, f"gather_reduce: unknown kind {kind!r}")
+    hold the identity (0, +inf, -inf).
+
+    int32 x (BFS depths, WCC labels) takes min / max without weights;
+    rows without edges then hold INT32_MAX / INT32_MIN."""
+    name = "gather_reduce"
+    require(kind in KINDS, f"{name}: unknown kind {kind!r}")
+    is_int = x.dtype == torch.int32
+    require(not is_int or (kind != "sum" and w is None),
+            f"{name}: int32 x takes min or max without weights")
     if x.device.type == "cpu":
         return gather_reduce_plain(indptr, nbr, w, x, kind)
-    name = "gather_reduce"
-    _require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
-    _check_cuda_args(name, x.device, indptr=indptr, nbr=nbr, w=w, x=x)
-    _require(indptr.dim() == 2 and nbr.dim() == 2 and x.dim() == 1,
-             f"{name}: indptr/nbr must be [fnum, *], x [N]")
+    require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+    check_cuda_args(name, x.device, indptr=indptr, nbr=nbr, w=w, x=x)
+    require(indptr.dim() == 2 and nbr.dim() == 2 and x.dim() == 1,
+            f"{name}: indptr/nbr must be [fnum, *], x [N]")
     fnum, vp = indptr.shape[0], indptr.shape[1] - 1
     ep = nbr.shape[1]
-    _require(nbr.shape[0] == fnum, f"{name}: nbr has {nbr.shape[0]} "
-             f"fragments, indptr {fnum}")
-    _require(indptr.dtype == torch.int32 and nbr.dtype == torch.int32,
-             f"{name}: indptr and nbr must be int32")
-    _require(x.dtype == torch.float32, f"{name}: x must be float32")
-    _require(w is None or (w.dtype == torch.float32 and w.shape == nbr.shape),
-             f"{name}: w must be float32 shaped like nbr")
-    _require(ep < INT32_LIMIT and fnum * vp < INT32_LIMIT
-             and x.numel() < INT32_LIMIT,
-             f"{name}: sizes must stay below 2^31 (int32 indices)")
-    y = torch.empty((fnum, vp), dtype=torch.float32, device=x.device)
+    require(nbr.shape[0] == fnum, f"{name}: nbr has {nbr.shape[0]} "
+            f"fragments, indptr {fnum}")
+    require(indptr.dtype == torch.int32 and nbr.dtype == torch.int32,
+            f"{name}: indptr and nbr must be int32")
+    require(x.dtype in (torch.float32, torch.int32),
+            f"{name}: x must be float32 or int32")
+    require(w is None or (w.dtype == torch.float32 and w.shape == nbr.shape),
+            f"{name}: w must be float32 shaped like nbr")
+    require(ep < INT32_LIMIT and fnum * vp < INT32_LIMIT
+            and x.numel() < INT32_LIMIT,
+            f"{name}: sizes must stay below 2^31 (int32 indices)")
+    y = torch.empty((fnum, vp), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().grape_gather_reduce(
-            indptr.data_ptr(), nbr.data_ptr(),
-            None if w is None else w.data_ptr(), x.data_ptr(), y.data_ptr(),
-            fnum, vp, ep, KINDS[kind], stream,
-        )
-    _check_rc(rc, name)
+        if is_int:
+            rc = _lib().grape_gather_reduce_i32(
+                indptr.data_ptr(), nbr.data_ptr(), x.data_ptr(),
+                y.data_ptr(), fnum, vp, ep, KINDS[kind], stream,
+            )
+        else:
+            rc = _lib().grape_gather_reduce(
+                indptr.data_ptr(), nbr.data_ptr(),
+                None if w is None else w.data_ptr(), x.data_ptr(),
+                y.data_ptr(), fnum, vp, ep, KINDS[kind], stream,
+            )
+    check_rc(_lib(), rc, name)
     gather_reduce.launches += 1
     return y
 
@@ -247,25 +246,25 @@ def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
     if values.device.type == "cpu":
         return spmv_strict_plain(values, edge_src, row_lo, vp, tile, rmax)
     name = "spmv_strict"
-    _require(values.device.type == "cuda",
-             f"{name}: unsupported device {values.device}")
-    _check_cuda_args(name, values.device, values=values, edge_src=edge_src,
-                     row_lo=row_lo)
-    _require(values.dim() == 2 and values.shape == edge_src.shape,
-             f"{name}: values and edge_src must be [fnum, Ep] alike")
+    require(values.device.type == "cuda",
+            f"{name}: unsupported device {values.device}")
+    check_cuda_args(name, values.device, values=values, edge_src=edge_src,
+                    row_lo=row_lo)
+    require(values.dim() == 2 and values.shape == edge_src.shape,
+            f"{name}: values and edge_src must be [fnum, Ep] alike")
     fnum, ep = values.shape
-    _require(row_lo.dim() == 2 and row_lo.shape[0] == fnum,
-             f"{name}: row_lo must be [fnum, num_tiles]")
+    require(row_lo.dim() == 2 and row_lo.shape[0] == fnum,
+            f"{name}: row_lo must be [fnum, num_tiles]")
     num_tiles = row_lo.shape[1]
-    _require(values.dtype == torch.float32, f"{name}: values must be float32")
-    _require(edge_src.dtype == torch.int32 and row_lo.dtype == torch.int32,
-             f"{name}: edge_src and row_lo must be int32")
-    _require(num_tiles * tile >= ep, f"{name}: {num_tiles} tiles of {tile} "
-             f"cannot cover {ep} edges")
-    _require(0 < tile and tile * 8 <= 48 * 1024,
-             f"{name}: tile {tile} exceeds the 48 KB shared-memory stage")
-    _require(0 < rmax and ep < INT32_LIMIT and fnum * vp < INT32_LIMIT,
-             f"{name}: sizes out of range")
+    require(values.dtype == torch.float32, f"{name}: values must be float32")
+    require(edge_src.dtype == torch.int32 and row_lo.dtype == torch.int32,
+            f"{name}: edge_src and row_lo must be int32")
+    require(num_tiles * tile >= ep, f"{name}: {num_tiles} tiles of {tile} "
+            f"cannot cover {ep} edges")
+    require(0 < tile and tile * 8 <= 48 * 1024,
+            f"{name}: tile {tile} exceeds the 48 KB shared-memory stage")
+    require(0 < rmax and ep < INT32_LIMIT and fnum * vp < INT32_LIMIT,
+            f"{name}: sizes out of range")
     partials = torch.empty((fnum, num_tiles, rmax), dtype=torch.float32,
                            device=values.device)
     y = torch.empty((fnum, vp), dtype=torch.float32, device=values.device)
@@ -276,7 +275,7 @@ def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
             partials.data_ptr(), y.data_ptr(), fnum, ep, num_tiles, tile,
             rmax, vp, stream,
         )
-    _check_rc(rc, name)
+    check_rc(_lib(), rc, name)
     spmv_strict.launches += 1
     return y
 

@@ -26,8 +26,11 @@ class QueryArgs:
     out_prefix: str = ""
     directed: bool = False
     sssp_source: int | str = 0
+    bfs_source: int | str = 0
     pr_d: float = 0.85
     pr_mr: int = 10
+    cdlp_mr: int = 10
+    degree_threshold: int = 0
     fnum: int | None = None
     device: str = "cuda"
 
@@ -40,10 +43,20 @@ def _coerce_source(v):
 
 
 def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
-    if app_name == "sssp":
+    """Per-query arguments by app-name prefix (the JAX package's
+    `build_query_kwargs`)."""
+    if app_name.startswith("sssp"):
         return {"source": _coerce_source(args.sssp_source)}
-    if app_name == "pagerank":
+    if app_name.startswith("bfs"):
+        return {"source": _coerce_source(args.bfs_source)}
+    if app_name.startswith("pagerank"):
         return {"delta": args.pr_d, "max_round": args.pr_mr}
+    if app_name.startswith("lcc"):
+        # hub cost cap (reference FLAGS_degree_threshold, lcc.h:234-243);
+        # 0 disables it
+        return {"degree_threshold": args.degree_threshold}
+    if app_name.startswith("cdlp"):
+        return {"max_round": args.cdlp_mr}
     return {}
 
 
