@@ -29,7 +29,23 @@ the port's own entry points:
   5. torch.profiler over one query each of PageRank (auto), BFS, CDLP,
      lcc_bitmap and lcc: device busy time, idle share, top kernels;
   6. p2p-31 PageRank, SSSP, BFS, WCC, CDLP, lcc and lcc_bitmap through
-     `run_app` at fnum 1 and 4 against the golden files.
+     `run_app` at fnum 1 and 4 against the golden files;
+  7. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
+     the JAX package's scripts/pallas_probe.py) through its own entry point
+     at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
+     L2), launch counts zeroed before and read after; then each of its four
+     kernels (stream, lane_gather_t128, sublane_gather at S = 8, 64, 512,
+     8192, cumsum_lanes) against its plain version on the same inputs --
+     bit-equal, cumsum within 1e-5 of the prefix sum of |a| -- with plain,
+     library (torch.add, torch.gather, torch.cumsum) and bound times beside
+     the entry point's kernel times.  Where a case's bytes fit the 50 MB
+     L2 (every case at e_log 22) it has no bound: the HBM rate is no
+     floor for bytes served from L2.
+
+Before the build, a `[caps]` line per capability says whether this nvcc
+builds the four primitives of the JAX package's lowering probe
+(`ops/caps.py`; compiled only); a missing one is named in any build
+failure and fails the run after the build.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
@@ -41,7 +57,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -65,11 +80,16 @@ INT32_MAX = 2**31 - 1
 # plain version adds in atomic order on the card; at RMAT-20's hub rows
 # its own rounding reached 1.48e-5 of sum|terms| on an H100.)
 SUM_TOL = 1e-5
-# GPU clock cycles of the busy-wait queued before each timed batch (about
-# half a millisecond on an H100): longer than the host takes to dispatch
-# one wrapper call, so the first call of a batch is queued before the
-# start event fires.
-BUSY_WAIT_CYCLES = 1_000_000
+PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
+# the rate probe's kernels: wrapper, its cases (the headline first), the
+# line of the Pallas call it replaces in scripts/pallas_probe.py
+PROBE_KERNELS = (
+    ("stream", ("vpu_stream",), 70),
+    ("lane_gather_t128", ("lane_gather_t128",), 93),
+    ("sublane_gather", ("sublane_gather_S8192", "sublane_gather_S512",
+                        "sublane_gather_S64", "sublane_gather_S8"), 126),
+    ("cumsum_lanes", ("cumsum_lanes",), 152),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -122,36 +142,6 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def time_ms(fn, device, reps: int, warmup: int = 2, batch: int = 10) -> float:
-    """Milliseconds per call: the median over `reps` samples, each a batch
-    of `batch` back-to-back calls divided by `batch`.  On the card a
-    sample lies between one pair of CUDA events queued behind a GPU
-    busy-wait, so the host's dispatch of the batch's first call is not
-    counted and that of the others overlaps the calls before them; the
-    host clock times a sample elsewhere."""
-    for _ in range(warmup):
-        fn()
-    sync(device)
-    samples = []
-    for _ in range(reps):
-        if torch.device(device).type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(BUSY_WAIT_CYCLES)
-            start.record()
-            for _ in range(batch):
-                fn()
-            end.record()
-            end.synchronize()
-            samples.append(start.elapsed_time(end) / batch)
-        else:
-            t0 = time.perf_counter()
-            for _ in range(batch):
-                fn()
-            samples.append((time.perf_counter() - t0) * 1e3 / batch)
-    return statistics.median(samples)
-
-
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -180,6 +170,7 @@ def check_sum(got, want64, sabs64, what: str) -> float:
 
 def kernel_phases(frag, device, reps: int) -> dict:
     from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
 
     ie = frag.dev.ie
     indptr, nbr = ie.indptr, ie.edge_nbr
@@ -298,6 +289,7 @@ def int_gather_phase(frag, device, reps: int) -> dict:
     path's shapes: labels with a 30% INT32_MAX sentinel share, bit-equal
     to the plain version."""
     from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
 
     ie = frag.dev.ie
     indptr, nbr = ie.indptr, ie.edge_nbr
@@ -352,6 +344,7 @@ def intersect_phase(frag, device, reps: int) -> dict:
     32-bit integer rate is published beside it)."""
     from libgrape_lite_tpu_torch.models import LCC
     from libgrape_lite_tpu_torch.ops import intersect
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
 
     bplus, bminus, (v, u), (w, t) = LCC().pair_operands(frag.dev)
     words = bplus.shape[1]
@@ -737,6 +730,141 @@ def golden_phase(device) -> None:
                   flush=True)
 
 
+# ---- phase 7: the rate probe (and the capability probe, run first) ----
+
+def caps_phase():
+    """Which primitives this nvcc builds for sm_90a (compiled, never
+    launched); any that fails prints the compiler's message.  `main`
+    hands the missing ones to the build, whose failure names them, and
+    then fails the run."""
+    from libgrape_lite_tpu_torch.ops import caps as caps_mod
+
+    caps = caps_mod.cuda_build_caps()
+    for name in caps_mod.CAPABILITIES:
+        print(f"[caps] {name}: {'ok' if caps[name] else 'fail'}", flush=True)
+        if not caps[name]:
+            for line in caps.log[name].splitlines():
+                print(f"[caps]   {line}", flush=True)
+    print(f"[caps] {len(caps)} probes (nvcc sm_90a, compiled only): "
+          f"{caps.seconds:.2f} s", flush=True)
+    return caps
+
+
+def probe_phase(device, e_log: int) -> dict:
+    """The rate probe at 2^e_log elements: its entry point run once with
+    the launch counts zeroed just before and read just after (the kernel
+    times are that run's), then each kernel against its plain version on
+    the same inputs, with plain, library and bound times."""
+    from libgrape_lite_tpu_torch.ops import probe
+    from libgrape_lite_tpu_torch.scripts import cuda_probe
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    probe.reset_launch_counts()
+    recs = {r["case"]: r for r in cuda_probe.main(
+        ["--e_log", str(e_log), "--device", str(device)])}
+    counts = probe.launch_counts()
+    check(tuple(recs) == cuda_probe.CASES, f"probe cases {list(recs)}")
+    for name, n in counts.items():
+        check(n > 0, f"probe e_log {e_log}: {name} was never launched")
+
+    inp = cuda_probe.make_inputs(e_log, device)
+    a, idx, tab128 = inp["a"], inp["idx"], inp["tab128"]
+    idx64 = idx.long()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    one = torch.ones((), device=device)  # 1 + 2a in one elementwise call
+    # case -> (kernel, plain, library); bit-equal unless cumsum
+    calls = {
+        "vpu_stream": (lambda: probe.stream(a),
+                       lambda: probe.stream_plain(a),
+                       lambda: torch.add(one, a, alpha=2.0)),
+        "lane_gather_t128": (
+            lambda: probe.lane_gather_t128(tab128, idx),
+            lambda: probe.lane_gather_t128_plain(tab128, idx),
+            lambda: torch.gather(tab128.expand(idx.shape), 1, idx64)),
+        "cumsum_lanes": (lambda: probe.cumsum_lanes(a),
+                         lambda: probe.cumsum_lanes_plain(a),
+                         lambda: torch.cumsum(a, 1)),
+    }
+    for s, (tab, ix) in inp["sublane"].items():
+        ix64 = ix.long()
+        calls[f"sublane_gather_S{s}"] = (
+            lambda tab=tab, ix=ix: probe.sublane_gather(tab, ix)[0],
+            lambda tab=tab, ix=ix: probe.sublane_gather_plain(tab, ix),
+            lambda tab=tab, ix64=ix64: torch.gather(tab, 0, ix64))
+    out = {}
+    for case, (kernel, plain, library) in calls.items():
+        rec = recs[case]
+        got, want = kernel(), plain()
+        sync(device)
+        if case == "cumsum_lanes":
+            prefix_abs = torch.cumsum(a.double().abs(), 1)
+            for ref, what in ((want, "plain version"),
+                              (library(), "torch.cumsum")):
+                err = (got.double() - ref.double()).abs()
+                check(bool((err <= probe.CUMSUM_TOL * prefix_abs).all()),
+                      f"probe cumsum_lanes vs {what}: off by "
+                      f"{float((err / prefix_abs.clamp(min=1e-30)).max()):.3e}"
+                      " of the prefix sum of |a|")
+            max_err, rule = float((got - want).abs().max()), "1e-5 prefix|a|"
+        else:
+            check(torch.equal(got, want), f"probe {case} (e_log {e_log}) not "
+                  "bit-equal to its plain version")
+            check(torch.equal(got, library()),
+                  f"probe {case} differs from the library call")
+            max_err, rule = 0.0, "bit-equal"
+        if case.startswith("sublane_gather"):
+            s = int(case.rsplit("S", 1)[1])
+            want_at = "shared" if s * 512 <= optin else "l2"
+            check(rec["placement"] == want_at, f"probe {case}: table read "
+                  f"from {rec['placement']}, expected {want_at}")
+        plain_ms = time_ms(plain, device, 5)
+        lib_ms = time_ms(library, device, 5)
+        ops = 2 * rec["elements"] if case == "vpu_stream" else rec["elements"]
+        if rec["fits_l2"]:
+            b_ms, b_by = None, "l2-resident: no HBM floor"
+        else:
+            b_ms, b_by = bound(rec["bytes"], ops)
+        out[case] = dict(max_abs_err=max_err, ms=rec["ms"], plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         gb_s=rec["gb_s"], fits_l2=rec["fits_l2"],
+                         placement=rec.get("placement"))
+        b_txt = "none" if b_ms is None else f"{b_ms:.4f}"
+        print(f"[probe] e_log={e_log} {case}: kernel_ms={rec['ms']:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_txt} ({b_by}) gb_s={rec['gb_s']:.1f} "
+              f"fits_l2={rec['fits_l2']}"
+              + (f" placement={rec['placement']}" if "placement" in rec
+                 else "")
+              + f" {rule} max_abs_err={max_err:.3e}", flush=True)
+    mv = recs["dense_matvec_8192_f32"]
+    b_ms, b_by = bound(mv["bytes"], 2 * mv["elements"])
+    print(f"[probe] e_log={e_log} dense_matvec_8192_f32 (torch.mv, full "
+          f"f32): ms={mv['ms']:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"gb_s={mv['gb_s']:.1f}", flush=True)
+    print(f"[probe] e_log={e_log} launches={counts}", flush=True)
+    return dict(cases=out, counts=counts)
+
+
+def probe_entries(probes: dict) -> list:
+    """One `kernels` entry per probe kernel: the headline numbers are the
+    first case at the largest e_log, every case at every size beside."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    top = max(probes)
+    entries = []
+    for wrapper, cases, line in PROBE_KERNELS:
+        head = probes[top]["cases"][cases[0]]
+        entries.append(dict(
+            name=f"probe_{wrapper}", route="cuda",
+            source="libgrape_lite_tpu_torch/csrc/probe.cu",
+            replaces=f"scripts/pallas_probe.py:{line}",
+            launches=sum(p["counts"][wrapper] for p in probes.values()),
+            **{k: head[k] for k in keys}, headline=f"e_log {top} {cases[0]}",
+            cases={f"e_log {e} {c}": p["cases"][c]
+                   for e, p in probes.items() for c in cases}))
+    return entries
+
+
 def main() -> int:
     # the smoke drives one card: expose only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -754,8 +882,10 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
+    caps = caps_phase()
+
     t0 = time.perf_counter()
-    secs = _build.build_all()
+    secs = _build.build_all(missing_caps=caps.missing())
     for name, s in secs.items():
         print(f"[build] {name}.cu -> {_build.lib_path(name).name} "
               f"sm_90a: {s:.2f} s", flush=True)
@@ -763,6 +893,7 @@ def main() -> int:
             if "ptxas info" in line and "Used" in line:
                 print(f"[build]   {line.strip()}", flush=True)
     print(f"[build] total {time.perf_counter() - t0:.2f} s", flush=True)
+    check(not caps.missing(), f"nvcc does not build {caps.missing()}")
 
     t0 = time.perf_counter()
     frag, e_sym = rmat_fragment(SCALE, device)
@@ -790,6 +921,7 @@ def main() -> int:
     ldbc = ldbc_phases(frag, e_sym, frag18, frag16, device)
     profile_phases(frag, frag18, device)
     golden_phase(device)
+    probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     runs = [pr_auto, pr_strict, ss] + list(ldbc.values())
     launches = {k: sum(r["counts"][k] for r in runs)
@@ -832,6 +964,14 @@ def main() -> int:
              **{f"{k}_{name}": k3[name][k] for name in ("ie", "dense")
                 for k in ("ms", "plain_ms", "bound_ms")}),
     ]
+    kernels += probe_entries(probes)
+    kernels.append(dict(
+        name="caps", route="cuda",
+        source="libgrape_lite_tpu_torch/csrc/caps",
+        replaces="libgrape_lite_tpu/ops/pallas_kernels.py:128",
+        launches=0, compile_only=True, max_abs_err=None, ms=None,
+        plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
+        built=dict(caps), seconds=caps.seconds))
     print(json.dumps({
         "card": card,
         "pagerank_mteps": {"auto": pr_auto["mteps"],

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections.abc import Sequence
 from pathlib import Path
 
 import torch
@@ -58,10 +59,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all(names: list[str] | None = None) -> dict[str, float]:
+def build_all(names: list[str] | None = None,
+              missing_caps: Sequence[str] = ()) -> dict[str, float]:
     """Compile every missing library concurrently; returns the seconds
     each build took (0.0 when it was already built).  Raises with the
-    compiler's output when any build fails."""
+    compiler's output when any build fails, naming `missing_caps`: the
+    capabilities the caller found this nvcc does not build
+    (`caps.cuda_build_caps().missing()`)."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
@@ -85,6 +89,9 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
+        if missing_caps:
+            failed.append("this nvcc does not build the capabilities "
+                          f"{', '.join(missing_caps)} (ops/caps.py)")
         raise RuntimeError("\n".join(failed))
     return secs
 
