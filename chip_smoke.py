@@ -15,7 +15,15 @@ the port's own entry points:
      plain version -- min/max bit-equal, sum within 1e-5 of each row's
      sum of |terms| -- and the row AND-popcount (`intersect`) at the
      RMAT-18 bitmap LCC's shapes, indexed and dense forms, integer-equal;
-     with kernel, plain, library and bound times;
+     with kernel, plain, library and bound times, each device pass of a
+     call (torch.profiler) and gather_reduce's launch facts (items per
+     block and thread, shared memory, registers, carve-out); then the
+     adversarial shapes: gather_reduce on a star (one row of 2^22 edges),
+     a stack with an edgeless fragment, a degree-1 chain and RMAT-20
+     stacked at fnum 4 with unaligned pad gaps (every kind, each sum
+     rerun bit-identical), and the AND-popcount on the oe pairs
+     shuffled, one hub row in 10^5 pairs, rows of 37 and 3 words and an
+     empty pair list;
   2. PageRank, 10 rounds, `Worker.query`, SpMV mode auto and strict:
      launch counts, finite ranks summing to 1, agreement with a run on
      the plain versions, bitwise-identical rerun, MTEPS;
@@ -57,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +166,34 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def device_passes(fn, device, calls: int = 5) -> dict:
+    """Device milliseconds per call of each kernel that `fn` launches,
+    from torch.profiler over `calls` calls after a warm-up (a wrapper
+    whose call runs several passes shows each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(device).type != "cuda":
+        return {}  # a CPU rehearsal: no device passes
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(device)
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return {k: v / calls for k, v in sorted(out.items())}
+
+
+def passes_text(passes: dict) -> str:
+    return " ".join(f"{k}={v:.4f}" for k, v in passes.items())
+
+
 # ---- phase 1: each kernel against its plain version ---------------------
 
 def check_sum(got, want64, sabs64, what: str) -> float:
@@ -235,13 +272,24 @@ def kernel_phases(frag, device, reps: int) -> dict:
         nbytes = 4 * e_real * (2 if win is not None else 1) + rows_bytes
         ops = e_real * (2 if win is not None else 1)
         b_ms, b_by = bound(nbytes, ops)
+        cfg = spmv.gather_config(kind, weighted=win is not None)
+        passes = device_passes(
+            lambda: spmv.gather_reduce(indptr, nbr, win, xin, kind), device)
         out[f"gather_reduce[{kind}]"] = dict(
             max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, edges=e_real)
+            bound_ms=b_ms, bound_by=b_by, edges=e_real, config=cfg,
+            passes_ms=passes)
         print(f"[kernel] gather_reduce {kind}: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) edges={e_real} "
               f"max_abs_err={max_err:.3e}", flush=True)
+        print(f"[kernel]   merge path: items_per_block="
+              f"{cfg['items_per_block']} items_per_thread="
+              f"{cfg['items_per_thread']} threads={cfg['threads']} "
+              f"smem_per_block={cfg['smem_bytes']} B registers="
+              f"{cfg['registers']} blocks_per_sm={cfg['blocks_per_sm']} "
+              f"carveout={cfg['carveout_pct']}%; device ms a call: "
+              f"{passes_text(passes)}", flush=True)
 
     # strict_tile at the main path's strict plan (PageRank, mode strict)
     plan = spmv.plan_for_app(frag, vp, torch.float32, mode="strict")
@@ -322,12 +370,16 @@ def int_gather_phase(frag, device, reps: int) -> dict:
             0, rows, cand, op), device, reps)
         nbytes = 4 * e_real + 4 * (vp + 1) + 4 * n + 4 * vp  # nbr, indptr, x, y
         b_ms, b_by = bound(nbytes, e_real)
+        cfg = spmv.gather_config(kind, int32=True)
         out[kind] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         config=cfg)
         print(f"[kernel] gather_reduce {kind} int32: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) edges={e_real} bit-equal",
-              flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by}) edges={e_real} bit-equal "
+              f"registers={cfg['registers']} "
+              f"blocks_per_sm={cfg['blocks_per_sm']} "
+              f"carveout={cfg['carveout_pct']}%", flush=True)
     return out
 
 
@@ -379,16 +431,21 @@ def intersect_phase(frag, device, reps: int) -> dict:
         idx_bytes = 0 if ia is None else 8 * pairs
         nbytes = distinct * row_bytes + idx_bytes + 4 * pairs
         b_ms, b_by = bound(nbytes, 3 * pairs * words)
+        passes = device_passes(
+            lambda: intersect.row_and_popcount_indexed(a, ia, b, ib), device,
+            calls=2)
         out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
                          pairs=pairs, words=words, distinct_rows=distinct,
                          gathered_gb=2 * pairs * row_bytes / 1e9,
-                         total=int(got.sum()))
+                         total=int(got.sum()), passes_ms=passes)
         print(f"[kernel] intersect {name}: kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={b_ms:.4f} "
               f"({b_by}) pairs={pairs} words={words} distinct_rows={distinct} "
               f"gathered_gb={2 * pairs * row_bytes / 1e9:.1f} "
               f"popcount_total={int(got.sum())} integer-equal", flush=True)
+        print(f"[kernel]   device ms a call: {passes_text(passes)}",
+              flush=True)
     check(torch.equal(counts["dense"], counts["oe"][:chunk]),
           "intersect dense form differs from the indexed form")
     return out
@@ -438,6 +495,182 @@ def stacked_phase(device) -> None:
     print(f"[stacked] p2p-31 directed fnum=4 vp={frag.vp} "
           f"ep={ie.edge_nbr.shape[1]} tiles={row_lo.shape[1]} rmax={rmax}: "
           "gather_reduce sum/min/max and strict_tile ok", flush=True)
+
+
+# ---- adversarial shapes: K1 schedule and K3 skipping edge cases ---------
+
+def stack_csr(indptr, nbr, w, fnum: int, pad: int):
+    """Cut a flat CSR over N rows (device tensors) into `fnum` fragments
+    of vp = ceil(N / fnum) rows, each padded to a common ep = max real
+    edges + `pad`: pads (nbr 0, w 0) sit in a gap after every fragment."""
+    n = indptr.numel() - 1
+    vp = -(-n // fnum)
+    ind = torch.cat([indptr.long(), indptr[-1:].long().expand(fnum * vp - n)])
+    cuts = ind[::vp].tolist()  # fnum + 1 fragment bounds
+    ep = max(b - a for a, b in zip(cuts, cuts[1:])) + pad
+    ip = torch.stack([ind[f * vp:(f + 1) * vp + 1] - cuts[f]
+                      for f in range(fnum)]).to(torch.int32)
+    nb = nbr.new_zeros(fnum, ep)
+    ww = None if w is None else w.new_zeros(fnum, ep)
+    for f in range(fnum):
+        a, b = cuts[f], cuts[f + 1]
+        nb[f, :b - a] = nbr[a:b]
+        if ww is not None:
+            ww[f, :b - a] = w[a:b]
+    return ip.contiguous(), nb, ww
+
+
+def k1_shape_checks(name, indptr, nbr, w, device, reps: int) -> dict:
+    """Every kind of gather_reduce on one CSR against its plain version
+    (sum within SUM_TOL of each row's sum|terms|, with and without
+    weights; min, max and int32 min / max bit-equal), each sum rerun
+    bit-identical; kernel and plain times of the unweighted sum."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    n = indptr.shape[0] * (indptr.shape[1] - 1)
+    edges = int(indptr[:, -1].sum())
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x = (torch.rand(n, generator=gen) * 2 - 1).to(device)
+    labels = torch.randint(-INT32_MAX - 1, INT32_MAX, (n,), generator=gen,
+                           dtype=torch.int32).to(device)
+    for win in (None, w):
+        got = spmv.gather_reduce(indptr, nbr, win, x, "sum")
+        wd = None if win is None else win.double()
+        check_sum(got,
+                  spmv.gather_reduce_plain(indptr, nbr, wd, x.double(), "sum"),
+                  spmv.gather_reduce_plain(
+                      indptr, nbr, None if wd is None else wd.abs(),
+                      x.double().abs(), "sum"),
+                  f"{name}: gather_reduce sum (w={win is not None})")
+        check(torch.equal(got, spmv.gather_reduce(indptr, nbr, win, x,
+                                                  "sum")),
+              f"{name}: gather_reduce sum rerun not bit-identical")
+    for kind, xin, win in (("min", x, w), ("max", x, None),
+                           ("min", labels, None), ("max", labels, None)):
+        got = spmv.gather_reduce(indptr, nbr, win, xin, kind)
+        check(torch.equal(got, spmv.gather_reduce_plain(indptr, nbr, win,
+                                                        xin, kind)),
+              f"{name}: gather_reduce {kind} {xin.dtype} not bit-equal")
+    ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, None, x, "sum"),
+                 device, reps)
+    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(indptr, nbr, None, x,
+                                                        "sum"),
+                       device, 3, warmup=1)
+    print(f"[shape] k1 {name}: fnum={indptr.shape[0]} "
+          f"vp={indptr.shape[1] - 1} ep={nbr.shape[1]} edges={edges} "
+          f"sum kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; sum, sum+w "
+          "within 1e-5 sum|terms| and rerun bit-identical; min+w, max, "
+          "int32 min/max bit-equal", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, edges=edges)
+
+
+def k1_shapes_phase(frag, device, reps: int = 10) -> dict:
+    """gather_reduce on the shapes that break a row-per-warp or a
+    merge-path schedule: a star (one row of 2^22 edges, 2^22 rows of one
+    edge), a stack whose second fragment has no edges, a degree-1 chain,
+    and RMAT-20 stacked at fnum 4 with an unaligned pad gap after each
+    fragment."""
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    out = {}
+    leaves = 1 << 22
+    ind = torch.arange(-1, leaves + 1, dtype=torch.int32)
+    ind[0] = 0
+    ind[1:] += leaves  # row 0: edges [0, 2^22); row i: one edge
+    nbr = torch.cat([torch.arange(1, leaves + 1, dtype=torch.int32),
+                     torch.zeros(leaves, dtype=torch.int32)])
+    w = torch.rand(2 * leaves, generator=gen) + 0.5
+    out["star"] = k1_shape_checks(
+        "star", *stack_csr(ind.to(device), nbr.to(device), w.to(device), 1,
+                           0), device, reps)
+
+    vp = 1 << 16
+    deg = torch.randint(0, 8, (vp,), generator=gen)
+    ind = torch.cat([torch.zeros(1, dtype=torch.int64), deg.cumsum(0)])
+    nbr = torch.randint(0, 2 * vp, (int(ind[-1]),), generator=gen,
+                        dtype=torch.int32)
+    ip, nb, ww = stack_csr(
+        ind.to(torch.int32).to(device), nbr.to(device),
+        (torch.rand(nbr.numel(), generator=gen) + 0.5).to(device), 1, 5)
+    ip = torch.cat([ip, torch.zeros_like(ip)])  # fragment 1: no edges
+    out["empty_fragment"] = k1_shape_checks(
+        "empty_fragment", ip, torch.cat([nb, torch.zeros_like(nb)]),
+        torch.cat([ww, torch.zeros_like(ww)]), device, reps)
+
+    n = 1 << 20
+    ind = torch.cat([torch.zeros(1, dtype=torch.int32),
+                     torch.arange(n, dtype=torch.int32)])  # row 0 empty
+    nbr = torch.arange(n - 1, dtype=torch.int32)  # row r <- r - 1
+    out["chain"] = k1_shape_checks(
+        "chain", *stack_csr(ind.to(device), nbr.to(device),
+                            (torch.rand(n - 1, generator=gen) + 0.5)
+                            .to(device), 1, 0), device, reps)
+
+    ie = frag.dev.ie
+    e_real = int(ie.indptr[0, -1])
+    out["rmat_fnum4"] = k1_shape_checks(
+        f"rmat{SCALE}_fnum4", *stack_csr(ie.indptr[0], ie.edge_nbr[0, :e_real],
+                                         ie.edge_w[0, :e_real], 4, 1037),
+        device, reps)
+    return out
+
+
+def k3_shapes_phase(frag, device, reps: int = 3) -> dict:
+    """The row AND-popcount on pair lists that break an ordered-pairs
+    schedule: the oe pairs of the RMAT-18 bitmap LCC shuffled, one hub
+    row in 10^5 pairs, rows of 37 and 3 words (words % 4 != 0) and an
+    empty pair list; integer-equal to the plain version."""
+    from libgrape_lite_tpu_torch.models import LCC
+    from libgrape_lite_tpu_torch.ops import intersect
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    bplus, _, (v, u), _ = LCC().pair_operands(frag.dev)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    perm = torch.randperm(u.numel(), generator=gen).to(device)
+    hub = int(torch.bincount(v.long()).argmax())  # most kept edges
+    m = 100_000
+    hub_ia = torch.full((m,), hub, dtype=torch.int32, device=device)
+    hub_ib = torch.randint(0, bplus.shape[0], (m,), generator=gen,
+                           dtype=torch.int32).to(device)
+    cases = {
+        "oe_shuffled": (bplus, u[perm].contiguous(), bplus,
+                        v[perm].contiguous()),
+        "hub_1e5": (bplus, hub_ib, bplus, hub_ia),
+    }
+    for words in (37, 3):
+        rows = 4096
+        bits = torch.rand(rows, words * 32, generator=gen) < 0.02
+        weights = (1 << torch.arange(32, dtype=torch.int64))
+        packed = (bits.view(rows, words, 32).long() * weights).sum(-1)
+        bm = torch.where(packed >= 1 << 31, packed - (1 << 32),
+                         packed).to(torch.int32).to(device)
+        ia = torch.randint(0, rows, (50_000,), generator=gen,
+                           dtype=torch.int32).to(device)
+        ib = torch.randint(0, rows, (50_000,), generator=gen,
+                           dtype=torch.int32).to(device)
+        cases[f"words{words}"] = (bm, ia, bm[1:].contiguous(),
+                                  (ib % (rows - 1)).contiguous())
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    cases["n0"] = (bplus, empty, bplus, empty)
+    out = {}
+    for name, (a, ia, b, ib) in cases.items():
+        got = intersect.row_and_popcount_indexed(a, ia, b, ib)
+        want = intersect.row_and_popcount_plain(a, ia, b, ib)
+        sync(device)
+        check(got.dtype == torch.int32 and got.shape == want.shape
+              and torch.equal(got, want),
+              f"intersect {name} not integer-equal to its plain version")
+        ms = time_ms(lambda: intersect.row_and_popcount_indexed(a, ia, b, ib),
+                     device, reps, warmup=1, batch=2)
+        out[name] = dict(ms=ms, pairs=got.numel())
+        print(f"[shape] k3 {name}: pairs={got.numel()} words={a.shape[1]} "
+              f"kernel_ms={ms:.4f} total={int(got.sum())} integer-equal",
+              flush=True)
+    check(torch.equal(
+        intersect.row_and_popcount_indexed(bplus, u, bplus, v)[perm],
+        intersect.row_and_popcount_indexed(*cases["oe_shuffled"])),
+        "intersect oe_shuffled is not the oe counts permuted")
+    return out
 
 
 # ---- phases 2-3: the main path through Worker.query ---------------------
@@ -865,6 +1098,23 @@ def probe_entries(probes: dict) -> list:
     return entries
 
 
+def ptxas_lines(log: str) -> list:
+    """nvcc -Xptxas -v per kernel: '<kernel><template args>: registers,
+    shared memory; stack, spill stores and loads' (mangled template
+    arguments, e.g. IfLi0ELb0EE = <float, 0, false>)."""
+    out, kernel, spills = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"entry function '\w*?\d+([a-z][a-z_]*_kernel)"
+                          r"(I\w*?EE)?", line)
+        if entry:
+            kernel, spills = entry.group(1) + (entry.group(2) or ""), ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "ptxas info" in line and "Used" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
+
+
 def main() -> int:
     # the smoke drives one card: expose only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
@@ -889,9 +1139,8 @@ def main() -> int:
     for name, s in secs.items():
         print(f"[build] {name}.cu -> {_build.lib_path(name).name} "
               f"sm_90a: {s:.2f} s", flush=True)
-        for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if "ptxas info" in line and "Used" in line:
-                print(f"[build]   {line.strip()}", flush=True)
+        for line in ptxas_lines(_build.BUILD_LOG.get(name, "")):
+            print(f"[build]   {line}", flush=True)
     print(f"[build] total {time.perf_counter() - t0:.2f} s", flush=True)
     check(not caps.missing(), f"nvcc does not build {caps.missing()}")
 
@@ -906,6 +1155,7 @@ def main() -> int:
     kern = kernel_phases(frag, device, reps=30)
     kern_i32 = int_gather_phase(frag, device, reps=30)
     stacked_phase(device)
+    k1_shapes_phase(frag, device)
 
     t0 = time.perf_counter()
     frag18, _ = rmat_fragment(BITMAP_SCALE, device)
@@ -914,6 +1164,7 @@ def main() -> int:
           f"directed ({e16} edges): host_prep_s="
           f"{time.perf_counter() - t0:.2f}", flush=True)
     k3 = intersect_phase(frag18, device, reps=5)
+    k3_shapes_phase(frag18, device)
 
     pr_auto = pagerank_phase(frag, e_sym, device, "auto")
     pr_strict = pagerank_phase(frag, e_sym, device, "strict")
@@ -949,6 +1200,7 @@ def main() -> int:
                  for k in ("sum", "min", "max")),
              ms_min=kern["gather_reduce[min]"]["ms"],
              ms_max=kern["gather_reduce[max]"]["ms"],
+             config=gr["config"], passes_ms=gr["passes_ms"],
              **{f"{k}_int32_{kind}": kern_i32[kind][k]
                 for kind in ("min", "max")
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
@@ -962,7 +1214,8 @@ def main() -> int:
              launches=launches["intersect"],
              **{k: k3["oe"][k] for k in keys},
              **{f"{k}_{name}": k3[name][k] for name in ("ie", "dense")
-                for k in ("ms", "plain_ms", "bound_ms")}),
+                for k in ("ms", "plain_ms", "bound_ms")},
+             passes_ms={name: k3[name]["passes_ms"] for name in k3}),
     ]
     kernels += probe_entries(probes)
     kernels.append(dict(

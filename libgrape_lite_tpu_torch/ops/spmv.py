@@ -12,7 +12,10 @@ compute it (sources and design notes in `csrc/spmv.cu`):
 
 * `gather_reduce` -- the counterpart of the JAX package's pack-gather
   pipeline (`libgrape_lite_tpu/ops/spmv_pack.py::segment_reduce_pack`):
-  it reads `indptr`/`nbr`/`w` directly, one warp per row.
+  it reads `indptr`/`nbr`/`w` directly on an edge-balanced merge path
+  (block partition, block gather-reduce with carries, carry fold: three
+  device passes per call).  `merge_partition_plain` and
+  `gather_reduce_merge_plain` are that schedule's plain twins.
 * `spmv_strict` -- the counterpart of the strict-tile kernel
   (`libgrape_lite_tpu/ops/spmv.py::spmv_strict`): a segment sum of
   per-edge values over equal tiles of `tile` edges, then a deterministic
@@ -39,7 +42,7 @@ from libgrape_lite_tpu_torch.ops._build import (
     check_rc,
     require,
 )
-from libgrape_lite_tpu_torch.ops.segment import segment_reduce
+from libgrape_lite_tpu_torch.ops.segment import identity, segment_reduce
 
 KINDS = {"sum": 0, "min": 1, "max": 2}
 LANE = 128  # the strict plan's row-window alignment (JAX package's rule)
@@ -121,10 +124,14 @@ def _lib():
     if _LIB is None:
         lib = _build.load("spmv")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.grape_gather_reduce.argtypes = [p, p, p, p, p, i, i, ll, i, p]
+        lib.grape_gather_reduce.argtypes = [p, p, p, p, p, p, i, i, ll, i, p]
         lib.grape_gather_reduce.restype = i
-        lib.grape_gather_reduce_i32.argtypes = [p, p, p, p, i, i, ll, i, p]
+        lib.grape_gather_reduce_i32.argtypes = [p, p, p, p, p, i, i, ll, i, p]
         lib.grape_gather_reduce_i32.restype = i
+        lib.grape_gather_scratch_ints.argtypes = [i, i, ll]
+        lib.grape_gather_scratch_ints.restype = ll
+        lib.grape_gather_config.argtypes = [i, i, i, p]
+        lib.grape_gather_config.restype = i
         lib.grape_strict_tile.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
         lib.grape_strict_tile.restype = i
         _LIB = lib
@@ -149,6 +156,67 @@ def gather_reduce_plain(indptr: torch.Tensor, nbr: torch.Tensor,
     rows = torch.repeat_interleave(
         torch.arange(fnum * vp, device=x.device), deg)
     return segment_reduce(vals, rows, fnum * vp, kind).view(fnum, vp)
+
+
+def merge_partition_plain(indptr: torch.Tensor, ep: int,
+                          items_per_block: int) -> torch.Tensor:
+    """Pass 1 of the kernel's schedule: [fnum, bpf + 1] int64, the row
+    coordinate of every block boundary d = b * items_per_block (clamped to
+    the fragment's vp + nnz merge items), bpf = ceil((vp + ep) / items).
+    Row end i sits at merge position indptr[i + 1] + i, so the coordinate
+    is the number of row ends placed before d."""
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    ind = indptr.long()
+    bpf = -(-(vp + ep) // items_per_block)
+    d = torch.arange(bpf + 1, device=ind.device) * items_per_block
+    d = torch.minimum(d.unsqueeze(0), vp + ind[:, -1:]).contiguous()
+    pos = (ind[:, 1:] + torch.arange(vp, device=ind.device)).contiguous()
+    return torch.searchsorted(pos, d)
+
+
+def gather_reduce_merge_plain(indptr: torch.Tensor, nbr: torch.Tensor,
+                              w: torch.Tensor | None, x: torch.Tensor,
+                              kind: str, items_per_block: int
+                              ) -> torch.Tensor:
+    """The kernel's merge-path schedule in plain PyTorch, the same function
+    as `gather_reduce_plain`: each block reduces the rows that end inside
+    it from its own edges on, leaves a carry (row, partial) for the row
+    that runs past it, and the carries fold into their rows in block
+    order.  Loops over blocks and rows: for small inputs (tests)."""
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    ep = nbr.shape[1]
+    part = merge_partition_plain(indptr, ep, items_per_block).tolist()
+    ind = indptr.long().tolist()
+    fold = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}[kind]
+    ident = identity(kind, x.dtype)
+    y = torch.full((fnum, vp), ident, dtype=x.dtype, device=x.device)
+
+    def reduce(vals):
+        return fold(vals) if vals.numel() else ident
+
+    carries = []  # (f, row, partial), in block order
+    for f in range(fnum):
+        terms = x[nbr[f].long()]
+        if w is not None:
+            terms = terms * w[f] if kind == "sum" else terms + w[f]
+        total = vp + ind[f][vp]
+        for b in range(len(part[f]) - 1):
+            d0 = b * items_per_block
+            if d0 >= total:
+                break
+            d1 = min(d0 + items_per_block, total)
+            r0, r1 = part[f][b], part[f][b + 1]
+            e0, e1 = d0 - r0, d1 - r1
+            for r in range(r0, r1):
+                y[f, r] = reduce(terms[max(e0, ind[f][r]):ind[f][r + 1]])
+            if r1 < vp and e1 > max(e0, ind[f][r1]):
+                carries.append((f, r1, reduce(terms[max(e0, ind[f][r1]):e1])))
+    run = {}
+    for f, r, v in carries:  # fold each row's run in block order
+        run[f, r] = reduce(torch.stack([run[f, r], v])) if (f, r) in run else v
+    for (f, r), v in run.items():
+        y[f, r] = reduce(torch.stack([v.to(y.dtype), y[f, r]]))
+    return y
 
 
 def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
@@ -188,25 +256,47 @@ def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
             and x.numel() < INT32_LIMIT,
             f"{name}: sizes must stay below 2^31 (int32 indices)")
     y = torch.empty((fnum, vp), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    # block boundaries and carries of the merge path (csrc/spmv.cu)
+    scratch = torch.empty(lib.grape_gather_scratch_ints(fnum, vp, ep),
+                          dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if is_int:
-            rc = _lib().grape_gather_reduce_i32(
+            rc = lib.grape_gather_reduce_i32(
                 indptr.data_ptr(), nbr.data_ptr(), x.data_ptr(),
-                y.data_ptr(), fnum, vp, ep, KINDS[kind], stream,
+                y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
+                stream,
             )
         else:
-            rc = _lib().grape_gather_reduce(
+            rc = lib.grape_gather_reduce(
                 indptr.data_ptr(), nbr.data_ptr(),
                 None if w is None else w.data_ptr(), x.data_ptr(),
-                y.data_ptr(), fnum, vp, ep, KINDS[kind], stream,
+                y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
+                stream,
             )
-    check_rc(_lib(), rc, name)
+    check_rc(lib, rc, name)
     gather_reduce.launches += 1
     return y
 
 
 gather_reduce.launches = 0
+
+
+def gather_config(kind: str = "sum", weighted: bool = False,
+                  int32: bool = False) -> dict:
+    """Launch facts of the merge-path gather kernel for one kind, as the
+    card reports them (a CUDA device must be current): threads, items
+    per thread and per block, static shared memory and registers per
+    thread, resident blocks per SM and the shared-memory carve-out (%)."""
+    out = (ctypes.c_int * 6)()
+    check_rc(_lib(), _lib().grape_gather_config(
+        KINDS[kind], int(weighted), int(int32), out), "gather_config")
+    keys = ("threads", "items_per_thread", "smem_bytes", "registers",
+            "blocks_per_sm", "carveout_pct")
+    cfg = dict(zip(keys, out))
+    cfg["items_per_block"] = cfg["threads"] * cfg["items_per_thread"]
+    return cfg
 
 
 # ---- spmv_strict: counterpart of the strict-tile kernel (K2) -------------
@@ -289,7 +379,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "gather_reduce", "gather_reduce_plain", "plan_for_app",
+    "gather_config", "gather_reduce", "gather_reduce_merge_plain",
+    "gather_reduce_plain", "merge_partition_plain", "plan_for_app",
     "plan_tiles", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
     "strict_worthwhile",
 ]
