@@ -13,17 +13,19 @@ the port's own entry points:
   1. kernel phases: gather_reduce (float sum, min with weights, max;
      int32 min and max) and strict_tile at RMAT-20, each against its
      plain version -- min/max bit-equal, sum within 1e-5 of each row's
-     sum of |terms| -- and the row AND-popcount (`intersect`) at the
-     RMAT-18 bitmap LCC's shapes, indexed and dense forms, integer-equal;
-     with kernel, plain, library and bound times, each device pass of a
-     call (torch.profiler) and gather_reduce's launch facts (items per
-     block and thread, shared memory, registers, carve-out); then the
-     adversarial shapes: gather_reduce on a star (one row of 2^22 edges),
-     a stack with an edgeless fragment, a degree-1 chain and RMAT-20
-     stacked at fnum 4 with unaligned pad gaps (every kind, each sum
-     rerun bit-identical), and the AND-popcount on the oe pairs
-     shuffled, one hub row in 10^5 pairs, rows of 37 and 3 words and an
-     empty pair list;
+     sum of |terms|, strict_tile rerun bit-identical -- and the row
+     AND-popcount (`intersect`) at the RMAT-18 bitmap LCC's shapes,
+     indexed and dense forms, integer-equal; with kernel, plain, library
+     (strict_tile: the faster of index_add_ and segment_reduce, both
+     printed) and bound times, each device pass of a call (torch.profiler)
+     and gather_reduce's launch facts (items per block and thread, shared
+     memory, registers, carve-out); then the adversarial shapes:
+     gather_reduce and strict_tile each on a star (one row of 2^22
+     edges), a stack with an edgeless fragment, a degree-1 chain and
+     RMAT-20 stacked at fnum 4 with unaligned pad gaps (gather_reduce:
+     every kind; each sum rerun bit-identical), and the AND-popcount on
+     the oe pairs shuffled, one hub row in 10^5 pairs, rows of 37 and 3
+     words and an empty pair list;
   2. PageRank, 10 rounds, `Worker.query`, SpMV mode auto and strict:
      launch counts, finite ranks summing to 1, agreement with a run on
      the plain versions, bitwise-identical rerun, MTEPS;
@@ -34,8 +36,9 @@ the port's own entry points:
      RMAT-16, each through `Worker.query`: launch counts, bit-equal to a
      run on the plain versions, rounds, query seconds (best of 3 after a
      warm-up), MTEPS for BFS, WCC (2|E| / s) and CDLP (2|E| x rounds / s);
-  5. torch.profiler over one query each of PageRank (auto), BFS, CDLP,
-     lcc_bitmap and lcc: device busy time, idle share, top kernels;
+  5. torch.profiler over one query each of PageRank (auto and strict),
+     BFS, CDLP, lcc_bitmap and lcc: device busy time, idle share, top
+     kernels;
   6. p2p-31 PageRank, SSSP, BFS, WCC, CDLP, lcc and lcc_bitmap through
      `run_app` at fnum 1 and 4 against the golden files;
   7. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
@@ -46,7 +49,9 @@ the port's own entry points:
      8192, cumsum_lanes) against its plain version on the same inputs --
      bit-equal, cumsum within 1e-5 of the prefix sum of |a| -- with plain,
      library (torch.add, torch.gather, torch.cumsum) and bound times beside
-     the entry point's kernel times.  Where a case's bytes fit the 50 MB
+     the entry point's kernel times, and the sublane table's placement
+     (shared where it fits a block's shared memory, column slices past
+     that).  Where a case's bytes fit the 50 MB
      L2 (every case at e_log 22) it has no bound: the HBM rate is no
      floor for bytes served from L2.
 
@@ -55,7 +60,8 @@ builds the four primitives of the JAX package's lowering probe
 (`ops/caps.py`; compiled only); a missing one is named in any build
 failure and fails the run after the build.
 
-Prints the card's name and power limit, one `{"kernels": [...]}` line,
+Prints the card's name and power limit, a `[time]` line with the
+seconds from `main`'s start to its result, one `{"kernels": [...]}` line,
 and as its last line `{"ok": true, "device": {...}}`.  Exits non-zero,
 printing no result, when CUDA is unavailable or any phase fails.
 """
@@ -298,37 +304,55 @@ def kernel_phases(frag, device, reps: int) -> dict:
     tile, rmax = plan[1], plan[2]
     values = torch.where(ie.edge_mask, x[nbr], torch.zeros((), device=device))
     got = spmv.spmv_strict(values, ie.edge_src, row_lo, vp, tile, rmax)
-    strict_err = check_sum(
-        got,
-        spmv.spmv_strict_plain(values.double(), ie.edge_src, row_lo, vp,
-                               tile, rmax),
-        spmv.spmv_strict_plain(values.double().abs(), ie.edge_src, row_lo,
-                               vp, tile, rmax),
-        "strict_tile")
+    want = spmv.spmv_strict_plain(values.double(), ie.edge_src, row_lo, vp,
+                                  tile, rmax)
+    sabs = spmv.spmv_strict_plain(values.double().abs(), ie.edge_src, row_lo,
+                                  vp, tile, rmax)
+    strict_err = check_sum(got, want, sabs, "strict_tile")
+    check(torch.equal(got, spmv.spmv_strict(values, ie.edge_src, row_lo, vp,
+                                            tile, rmax)),
+          "strict_tile rerun not bit-identical")
     ep = values.shape[1]
     src_long = ie.edge_src.reshape(-1).to(torch.int64)
     acc = torch.zeros(fnum * (vp + 1), device=device)
+    flat_values = values.reshape(-1)
+    # segment_reduce over the sorted edges: one segment a row, pads last
+    offsets = torch.cat([src_long.new_zeros(1), torch.bincount(
+        src_long, minlength=vp + 1).cumsum(0)])
 
-    def lib_strict():
-        return acc.zero_().index_add_(0, src_long, values.reshape(-1))
-
+    libraries = {
+        "index_add_": lambda: acc.zero_().index_add_(0, src_long,
+                                                     flat_values),
+        "segment_reduce": lambda: torch.segment_reduce(
+            flat_values, "sum", offsets=offsets, unsafe=True),
+    }
     ms = time_ms(lambda: spmv.spmv_strict(values, ie.edge_src, row_lo, vp,
                                           tile, rmax), device, reps)
     plain_ms = time_ms(lambda: spmv.spmv_strict_plain(
         values, ie.edge_src, row_lo, vp, tile, rmax), device,
         max(3, reps // 4), warmup=1)
-    lib_ms = time_ms(lib_strict, device, reps)
+    lib_all = {k: time_ms(call, device, reps) for k, call in libraries.items()}
+    lib_name = min(lib_all, key=lib_all.get)
+    lib_ms = lib_all[lib_name]
     nbytes = 8 * fnum * ep + 4 * row_lo.numel() + 4 * n  # values, src, y
     b_ms, b_by = bound(nbytes, fnum * ep)
+    passes = device_passes(lambda: spmv.spmv_strict(
+        values, ie.edge_src, row_lo, vp, tile, rmax), device)
     out["strict_tile"] = dict(
         max_abs_err=strict_err, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, edges=fnum * ep,
+        library_ms=lib_ms, library=lib_name, library_all_ms=lib_all,
+        bound_ms=b_ms, bound_by=b_by, edges=fnum * ep,
         tiles=row_lo.shape[1], rmax=rmax,
-        worthwhile=spmv.strict_worthwhile(rmax, tile))
+        worthwhile=spmv.strict_worthwhile(rmax, tile), passes_ms=passes)
     print(f"[kernel] strict_tile: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) tiles={row_lo.shape[1]} tile={tile} "
-          f"rmax={rmax} worthwhile={spmv.strict_worthwhile(rmax, tile)} "
-          f"max_abs_err={strict_err:.3e}", flush=True)
+          f"library_ms={lib_ms:.4f} ({lib_name}; "
+          + " ".join(f"{k}={v:.4f}" for k, v in lib_all.items())
+          + f") bound_ms={b_ms:.4f} ({b_by}) tiles={row_lo.shape[1]} "
+          f"tile={tile} rmax={rmax} "
+          f"worthwhile={spmv.strict_worthwhile(rmax, tile)} "
+          f"max_abs_err={strict_err:.3e} rerun bit-identical", flush=True)
+    print(f"[kernel]   strict tiles: {len(passes)} device passes a call, "
+          f"ms each: {passes_text(passes)}", flush=True)
     return out
 
 
@@ -612,6 +636,88 @@ def k1_shapes_phase(frag, device, reps: int = 10) -> dict:
         f"rmat{SCALE}_fnum4", *stack_csr(ie.indptr[0], ie.edge_nbr[0, :e_real],
                                          ie.edge_w[0, :e_real], 4, 1037),
         device, reps)
+    return out
+
+
+def stack_strict(src, vals, n: int, fnum: int, pad: int, device):
+    """Cut row-sorted edges (src in [0, n), numpy) into `fnum` fragments
+    of vp = ceil(n / fnum) rows, each padded to a common ep = max real
+    edges + `pad` with pads (src = vp, value 7.7: pads credit nothing),
+    and plan them as `plan_for_app` does (per-fragment `plan_tiles`, the
+    widest rmax).  Returns (values, edge_src, row_lo, vp, rmax)."""
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    vp = -(-n // fnum)
+    cuts = np.searchsorted(src, np.arange(fnum + 1) * vp)
+    ep = int(np.diff(cuts).max()) + pad
+    values = np.full((fnum, ep), 7.7, np.float32)
+    edge_src = np.full((fnum, ep), vp, np.int32)
+    for f in range(fnum):
+        a, b = cuts[f], cuts[f + 1]
+        values[f, :b - a] = vals[a:b]
+        edge_src[f, :b - a] = src[a:b] - f * vp
+    plans = [spmv.plan_tiles(s_f, spmv.STRICT_TILE, vp) for s_f in edge_src]
+    row_lo = np.stack([p[0] for p in plans])
+    return (torch.from_numpy(values).to(device),
+            torch.from_numpy(edge_src).to(device),
+            torch.from_numpy(row_lo).to(device), vp,
+            max(p[1] for p in plans))
+
+
+def k2_shapes_phase(frag, device, reps: int = 10) -> dict:
+    """strict_tile on the shapes that break a tile schedule: a star (one
+    row of 2^22 edges over 2,048 tiles, then 2^22 rows of one edge), a
+    stack whose second fragment has no edges, a degree-1 chain (every
+    edge its own row) and RMAT-20 stacked at fnum 4 with a pad gap after
+    each fragment; ep is a multiple of the tile only for the star.  Each
+    within SUM_TOL of each row's sum|terms| against spmv_strict_plain in
+    float64, rerun bit-identical; kernel, plain and per-pass times."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    rng = np.random.default_rng(10)
+    shapes = {}
+    leaves = 1 << 22
+    src = np.concatenate([np.zeros(leaves, np.int64),
+                          np.arange(1, leaves + 1)])
+    shapes["star"] = (src, leaves + 1, 1, 0)
+    n = 1 << 16
+    src = np.repeat(np.arange(n), rng.integers(0, 8, n))
+    shapes["empty_fragment"] = (src, 2 * n, 2, 5)  # rows n.. have none
+    n = 1 << 20
+    shapes["chain"] = (np.arange(1, n), n, 1, 0)  # row 0 empty
+    ie = frag.dev.ie
+    e_real = int(ie.indptr[0, -1])
+    shapes[f"rmat{SCALE}_fnum4"] = (
+        ie.edge_src[0, :e_real].cpu().numpy().astype(np.int64), frag.vp, 4,
+        1037)
+    out = {}
+    for name, (src, rows, fnum, pad) in shapes.items():
+        vals = (rng.random(len(src)) * 2 - 1).astype(np.float32)
+        values, edge_src, row_lo, vp, rmax = stack_strict(
+            src, vals, rows, fnum, pad, device)
+        tile = spmv.STRICT_TILE
+        args = (values, edge_src, row_lo, vp, tile, rmax)
+        got = spmv.spmv_strict(*args)
+        check_sum(got,
+                  spmv.spmv_strict_plain(values.double(), *args[1:]),
+                  spmv.spmv_strict_plain(values.double().abs(), *args[1:]),
+                  f"{name}: strict_tile")
+        check(torch.equal(got, spmv.spmv_strict(*args)),
+              f"{name}: strict_tile rerun not bit-identical")
+        ms = time_ms(lambda: spmv.spmv_strict(*args), device, reps)
+        plain_ms = time_ms(lambda: spmv.spmv_strict_plain(*args), device, 3,
+                           warmup=1)
+        passes = device_passes(lambda: spmv.spmv_strict(*args), device,
+                               calls=3)
+        ep = values.shape[1]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, edges=len(src),
+                         passes_ms=passes)
+        print(f"[shape] k2 {name}: fnum={fnum} vp={vp} ep={ep} "
+              f"ep%tile={ep % tile} tiles={row_lo.shape[1]} rmax={rmax} "
+              f"edges={len(src)} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; "
+              f"within 1e-5 sum|terms|, rerun bit-identical; device ms a "
+              f"call: {passes_text(passes)}", flush=True)
     return out
 
 
@@ -901,6 +1007,9 @@ def profile_phases(frag, frag18, device) -> None:
 
     profile_phase("pagerank auto", frag, PageRank, device,
                   {"delta": 0.85, "max_round": PR_ROUNDS})
+    profile_phase("pagerank strict", frag,
+                  lambda: PageRank(spmv_mode="strict"), device,
+                  {"delta": 0.85, "max_round": PR_ROUNDS})
     profile_phase("bfs", frag, BFS, device, {"source": 0})
     profile_phase("cdlp", frag, CDLP, device, {"max_round": CDLP_ROUNDS})
     profile_phase(f"lcc_bitmap rmat{BITMAP_SCALE}", frag18, LCC, device, {})
@@ -1047,7 +1156,8 @@ def probe_phase(device, e_log: int) -> dict:
             max_err, rule = 0.0, "bit-equal"
         if case.startswith("sublane_gather"):
             s = int(case.rsplit("S", 1)[1])
-            want_at = "shared" if s * 512 <= optin else "l2"
+            # whole table in shared memory; else column slices
+            want_at = "shared" if s * 512 <= optin else "sliced"
             check(rec["placement"] == want_at, f"probe {case}: table read "
                   f"from {rec['placement']}, expected {want_at}")
         plain_ms = time_ms(plain, device, 5)
@@ -1116,6 +1226,7 @@ def ptxas_lines(log: str) -> list:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     # the smoke drives one card: expose only the first visible one
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     os.environ["CUDA_VISIBLE_DEVICES"] = visible
@@ -1156,6 +1267,7 @@ def main() -> int:
     kern_i32 = int_gather_phase(frag, device, reps=30)
     stacked_phase(device)
     k1_shapes_phase(frag, device)
+    k2_shapes = k2_shapes_phase(frag, device)
 
     t0 = time.perf_counter()
     frag18, _ = rmat_fragment(BITMAP_SCALE, device)
@@ -1201,13 +1313,17 @@ def main() -> int:
              ms_min=kern["gather_reduce[min]"]["ms"],
              ms_max=kern["gather_reduce[max]"]["ms"],
              config=gr["config"], passes_ms=gr["passes_ms"],
+             device_passes_per_call=len(gr["passes_ms"]),
              **{f"{k}_int32_{kind}": kern_i32[kind][k]
                 for kind in ("min", "max")
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",
-             launches=launches["strict_tile"], **{k: st[k] for k in keys}),
+             launches=launches["strict_tile"], **{k: st[k] for k in keys},
+             device_passes_per_call=len(st["passes_ms"]),
+             library=st["library"], library_all_ms=st["library_all_ms"],
+             passes_ms=st["passes_ms"], shapes=k2_shapes),
         dict(name="intersect", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/intersect.cu",
              replaces="libgrape_lite_tpu/ops/pallas_kernels.py:48",
@@ -1225,6 +1341,8 @@ def main() -> int:
         launches=0, compile_only=True, max_abs_err=None, ms=None,
         plain_ms=None, bound_ms=None, bound_by=None, library_ms=None,
         built=dict(caps), seconds=caps.seconds))
+    print(f"[time] chip_smoke main: {time.perf_counter() - t_main:.1f} s "
+          "(build, every phase and check)", flush=True)
     print(json.dumps({
         "card": card,
         "pagerank_mteps": {"auto": pr_auto["mteps"],

@@ -48,19 +48,38 @@
 // strict_tile replaces the strict-tile Pallas kernel
 // (libgrape_lite_tpu/ops/spmv.py::_spmv_partials, body _spmv_tile_kernel)
 // together with the XLA scatter-add that folds its tile partials
-// (spmv_strict).  Edges are cut into equal tiles of `tile` edges (exact
-// edge balance); tile t owns the row window [row_lo[t], row_lo[t]+rmax).
-//   Bound: device-memory bytes: per edge 4 B value + 4 B src, plus the
-//   num_tiles * rmax partials written and read back once.
-//   Design: pass 1 is one block per tile.  It stages the tile's values and
-//   local row ids in shared memory; thread j binary-searches the run of
-//   edges of window row j (edges are row-sorted) and sums it in edge
-//   order.  That replaces the TPU's one-hot MXU product, which costs
-//   tile * rmax multiply-adds, with tile adds.  Pass 2 is one thread per
-//   output row: it finds the tiles whose window covers the row (row_lo is
-//   non-decreasing) and adds their partials in tile order, the order of
-//   the XLA scatter-add.  Pad edges (src == vp, or past ep) fall outside
-//   every real row and are never read back.
+// (spmv_strict): the segment sum of f32 values by their sorted int32
+// row (src), over equal tiles of `tile` edges (exact edge balance).  The
+// TPU builds a one-hot [tile, rmax] product per tile and folds
+// [num_tiles, rmax] partials; rmax is the widest tile's row window
+// (11,264 at RMAT-20, where degree-0/1 rows cluster), so that work and
+// those partials follow tiles x rmax, not the edges.
+//   Bound: device-memory bytes, read once: 4 B value + 4 B src per edge,
+//   plus y (4 B a row) written once.
+//   Design: work and traffic in proportion to the edges, no partials.
+//     pass 1 (cudaMemsetAsync): y = 0, so rows without an edge hold 0.
+//       4 B a row (4 MiB at RMAT-20, 1.5% of the edge bytes); zeroing
+//       the gaps inside the tiles instead would leave a long run of
+//       empty rows (an edgeless fragment: all vp of them) to one thread;
+//     pass 2 (strict_segments_kernel): one block per tile stages its
+//       src and value spans in shared memory with cp.async.bulk on an
+//       mbarrier (16-B aligned interiors, ragged ends by plain loads, as
+//       K1 does).  Thread j walks a run of ipt consecutive edges (ipt
+//       odd, so a warp's 32 reads hit 32 banks), summing in edge order:
+//       rows that start and end in its run are final; its first row and
+//       its tail meet the other threads' in K1's fixed-order segmented
+//       scan.  The thread holding a row's last edge in the tile writes
+//       y[row], unless the row crosses a tile boundary: src[e0 - 1] or
+//       src[e0 + tile] (one load each) says so.  Then the row leaves a
+//       carry (row, partial) in the tile's left or right slot; a tile
+//       inside one row puts its sum left and 0 right, so a hub's slots
+//       form one unbroken run in tile order;
+//     pass 3 (K1's carry_fold_kernel): a warp folds each run of carries,
+//       256 a step, into y[row] (a star of 2^22 edges: 4,096 slots).
+//   No atomics: reruns are bit-identical.  Pads (src == vp, or past ep)
+//   credit no row.  row_lo and rmax are the plan's, checked by the
+//   wrapper; the kernel reads each row from src.  Offsets f * ep are
+//   64-bit.
 
 #include <algorithm>
 #include <climits>
@@ -148,6 +167,73 @@ __device__ __forceinline__ void bulk_copy(int* s, const int* g,
       : "memory");
 }
 
+// Thread 0: make bar expect `bytes` of bulk copies (issued next).
+__device__ __forceinline__ void bulk_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Every thread, after a __syncthreads that follows bulk_expect: wait for
+// the copies on bar to land.
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+  } while (!done);
+}
+
+// Inclusive segmented scan of (key, val) over the kGatherThreads threads
+// of a block, whose keys do not fall with tid, in a fixed order: reruns
+// are bit-identical.  Returns the thread's scanned value; prev_key and
+// prev receive thread tid - 1's scanned pair (-1 and the identity for
+// thread 0).
+template <typename T, int KIND>
+__device__ __forceinline__ T block_segmented_scan(int key, T val,
+                                                  int& prev_key, T& prev,
+                                                  int* s_wkey, T* s_wval) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const T ident = identity<KIND>(T());
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int k2 = __shfl_up_sync(0xffffffffu, key, off);
+    const T v2 = __shfl_up_sync(0xffffffffu, val, off);
+    if (lane >= off && k2 == key) val = combine<KIND>(v2, val);
+  }
+  if (lane == 31) { s_wkey[warp] = key; s_wval[warp] = val; }
+  __syncthreads();
+  if (warp == 0) {
+    int wk = lane < kGatherWarps ? s_wkey[lane] : -1;
+    T wv = lane < kGatherWarps ? s_wval[lane] : ident;
+#pragma unroll
+    for (int off = 1; off < kGatherWarps; off <<= 1) {
+      const int k2 = __shfl_up_sync(0xffffffffu, wk, off);
+      const T v2 = __shfl_up_sync(0xffffffffu, wv, off);
+      if (lane >= off && k2 == wk) wv = combine<KIND>(v2, wv);
+    }
+    if (lane < kGatherWarps) s_wval[lane] = wv;  // keys unchanged
+  }
+  __syncthreads();
+  const int lane0_key = __shfl_sync(0xffffffffu, key, 0);
+  if (warp > 0 && key == lane0_key && s_wkey[warp - 1] == key)
+    val = combine<KIND>(s_wval[warp - 1], val);
+  prev = __shfl_up_sync(0xffffffffu, val, 1);
+  prev_key = __shfl_up_sync(0xffffffffu, key, 1);
+  if (lane == 0) {
+    prev = warp > 0 ? s_wval[warp - 1] : ident;
+    prev_key = warp > 0 ? s_wkey[warp - 1] : -1;
+  }
+  return val;
+}
+
 // Diagonal d of the merge of a fragment's row ends (ends[0..rows)) with
 // its edge indices (0..nnz): the number of row ends consumed.  A row end
 // goes before edge e when it is <= e.
@@ -195,8 +281,6 @@ merge_gather_kernel(const int* __restrict__ indptr,
   __shared__ T s_wval[kGatherWarps];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const long long blk = blockIdx.x;
   const long long f = blk / bpf;
   const int lb = static_cast<int>(blk - f * bpf);
@@ -229,11 +313,7 @@ merge_gather_kernel(const int* __restrict__ indptr,
   if constexpr (HAS_W)
     wb = bulk_span(reinterpret_cast<const int*>(g_w), nedges, wa0, wa1);
   if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 :: "r"(smem_addr(&s_bar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_addr(&s_bar)), "r"(rb + eb + wb) : "memory");
+    bulk_expect(&s_bar, rb + eb + wb);
     bulk_copy(s_stage + s_r + ra0, g_end + ra0, rb, &s_bar);
     bulk_copy(s_stage + s_e + ea0, g_nbr + ea0, eb, &s_bar);
     if constexpr (HAS_W)
@@ -246,14 +326,7 @@ merge_gather_kernel(const int* __restrict__ indptr,
     stage_ragged(reinterpret_cast<int*>(s_w) + s_wo,
                  reinterpret_cast<const int*>(g_w), nedges, wa0, wa1, tid);
   __syncthreads();  // the barrier's init before anyone waits on it
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(&s_bar)) : "memory");
-  } while (!done);
+  bulk_wait(&s_bar);
 
   // gather: every edge's x (and w) at once, in place over its nbr
   const int* s_end = s_stage + s_r;
@@ -306,36 +379,13 @@ merge_gather_kernel(const int* __restrict__ indptr,
   }
 
   // segmented inclusive scan of the thread tails keyed by their row
-  // (keys rise with tid), in a fixed order: reruns are bit-identical
-  int key = xr;
-  T val = acc;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int k2 = __shfl_up_sync(0xffffffffu, key, off);
-    const T v2 = __shfl_up_sync(0xffffffffu, val, off);
-    if (lane >= off && k2 == key) val = combine<KIND>(v2, val);
-  }
-  if (lane == 31) { s_wkey[warp] = key; s_wval[warp] = val; }
-  __syncthreads();
-  if (warp == 0) {
-    int wk = lane < kGatherWarps ? s_wkey[lane] : -1;
-    T wv = lane < kGatherWarps ? s_wval[lane] : ident;
-#pragma unroll
-    for (int off = 1; off < kGatherWarps; off <<= 1) {
-      const int k2 = __shfl_up_sync(0xffffffffu, wk, off);
-      const T v2 = __shfl_up_sync(0xffffffffu, wv, off);
-      if (lane >= off && k2 == wk) wv = combine<KIND>(v2, wv);
-    }
-    if (lane < kGatherWarps) s_wval[lane] = wv;  // keys unchanged
-  }
-  __syncthreads();
-  const int lane0_key = __shfl_sync(0xffffffffu, key, 0);
-  if (warp > 0 && key == lane0_key && s_wkey[warp - 1] == key)
-    val = combine<KIND>(s_wval[warp - 1], val);
-  // the scanned tail of the thread before (its key is x0): the part of
-  // this thread's head row that earlier threads of the block hold
-  T prev = __shfl_up_sync(0xffffffffu, val, 1);
-  if (lane == 0) prev = warp > 0 ? s_wval[warp - 1] : ident;
+  // (keys rise with tid); prev is the scanned tail of the thread before
+  // (its key is x0): the part of this thread's head row that earlier
+  // threads of the block hold
+  int prev_key;
+  T prev;
+  const T val = block_segmented_scan<T, KIND>(xr, acc, prev_key, prev,
+                                              s_wkey, s_wval);
   if (has_head) yf[x0] = tid > 0 ? combine<KIND>(prev, head) : head;
   if (tid == kGatherThreads - 1) {
     // key == nrows: row r1 continues past the block; carry it when the
@@ -382,66 +432,110 @@ __global__ void carry_fold_kernel(const int* __restrict__ carry_row,
   if (lane == 0) y[key] = combine<KIND>(acc, y[key]);
 }
 
-// first index i in [0, n) with a[i] >= key (n when none)
-__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// ---- strict-tile segment sum (K2) ---------------------------------------
+
+// Ints of each of the two staged spans of a strict tile (src, then
+// values), each placed at its global address mod 16 B.
+__host__ __device__ constexpr int strict_region_ints(int tile) {
+  return (tile + 6) & ~3;
 }
 
-__global__ void strict_partials_kernel(const float* __restrict__ values,
-                                       const int* __restrict__ src,
-                                       const int* __restrict__ row_lo,
-                                       float* __restrict__ partials,
-                                       long long ep, int num_tiles, int tile,
-                                       int rmax, int vp) {
-  extern __shared__ int s_local[];  // [tile] local rows, then [tile] values
-  float* s_val = reinterpret_cast<float*>(s_local + tile);
+__device__ __forceinline__ bool in_rows(int row, int vp) {
+  return static_cast<unsigned>(row) < static_cast<unsigned>(vp);
+}
+
+// Pass 2: one block per tile t of fragment f; slots 2 (f num_tiles + t)
+// and + 1 receive the tile's left and right carries (row -1: none).
+__global__ void __launch_bounds__(kGatherThreads)
+strict_segments_kernel(const float* __restrict__ values,
+                       const int* __restrict__ src, float* __restrict__ y,
+                       int* __restrict__ carry_row,
+                       float* __restrict__ carry_val, long long ep,
+                       int num_tiles, int tile, int vp) {
+  extern __shared__ __align__(16) int s_dyn[];
+  __shared__ alignas(8) unsigned long long s_bar;
+  __shared__ int s_wkey[kGatherWarps];
+  __shared__ float s_wval[kGatherWarps];
+  __shared__ int s_nb[2];  // src of the edges just before and after
+
+  const int tid = threadIdx.x;
   const int t = blockIdx.x;
   const long long f = blockIdx.y;
-  const long long tile_id = f * num_tiles + t;
-  const int lo = row_lo[tile_id];
+  const long long slot = 2 * (f * num_tiles + t);
   const long long e0 = static_cast<long long>(t) * tile;
-  const float* vf = values + f * ep;
-  const int* sf = src + f * ep;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const long long e = e0 + i;
-    const bool in = e < ep;
-    s_local[i] = (in ? sf[e] : vp) - lo;  // past ep: a pad row
-    s_val[i] = in ? vf[e] : 0.0f;
-  }
-  __syncthreads();
-  float* out = partials + tile_id * rmax;
-  for (int j = threadIdx.x; j < rmax; j += blockDim.x) {
-    const int a = lower_bound(s_local, tile, j);
-    const int b = lower_bound(s_local, tile, j + 1);
-    float acc = 0.0f;
-    for (int i = a; i < b; ++i) acc += s_val[i];
-    out[j] = acc;
-  }
-}
+  const int n = static_cast<int>(
+      max(0LL, min(static_cast<long long>(tile), ep - e0)));
+  if (tid == 0) carry_row[slot] = carry_row[slot + 1] = -1;
+  if (n == 0) return;  // a tile past ep
 
-__global__ void strict_fold_kernel(const float* __restrict__ partials,
-                                   const int* __restrict__ row_lo,
-                                   float* __restrict__ y, int num_tiles,
-                                   int rmax, int vp, long long rows) {
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (g >= rows) return;
-  const long long f = g / vp;
-  const int r = static_cast<int>(g - f * vp);
-  const int* lo_f = row_lo + f * num_tiles;
-  // tiles whose window [lo, lo + rmax) holds r: lo in (r - rmax, r]
-  const int t_begin = lower_bound(lo_f, num_tiles, r - rmax + 1);
-  const int t_end = lower_bound(lo_f, num_tiles, r + 1);
-  const float* pf = partials + f * num_tiles * static_cast<long long>(rmax);
-  float acc = 0.0f;
-  for (int t = t_begin; t < t_end; ++t)
-    acc += pf[static_cast<long long>(t) * rmax + (r - lo_f[t])];
-  y[g] = acc;
+  const int* g_src = src + f * ep + e0;
+  const int* g_val = reinterpret_cast<const int*>(values + f * ep + e0);
+  int* s_src = s_dyn + quad_offset(g_src);
+  int* s_vbits = s_dyn + strict_region_ints(tile) + quad_offset(g_val);
+  int sa0, sa1, va0, va1;
+  const unsigned sb = bulk_span(g_src, n, sa0, sa1);
+  const unsigned vb = bulk_span(g_val, n, va0, va1);
+  if (tid == 0) {
+    bulk_expect(&s_bar, sb + vb);
+    bulk_copy(s_src + sa0, g_src + sa0, sb, &s_bar);
+    bulk_copy(s_vbits + va0, g_val + va0, vb, &s_bar);
+    s_nb[0] = e0 > 0 ? g_src[-1] : -1;
+    s_nb[1] = e0 + n < ep ? g_src[n] : -1;
+  }
+  stage_ragged(s_src, g_src, n, sa0, sa1, tid);
+  stage_ragged(s_vbits, g_val, n, va0, va1, tid);
+  __syncthreads();  // the barrier's init before anyone waits on it
+  bulk_wait(&s_bar);
+  const float* s_val = reinterpret_cast<const float*>(s_vbits);
+
+  // rows crossing the tile's edges: its first row, continued from the
+  // tile before, and its last row, continued by the tile after
+  const int key0 = s_src[0], keyl = s_src[n - 1];
+  const bool left = s_nb[0] == key0 && in_rows(key0, vp);
+  const bool right = s_nb[1] == keyl && in_rows(keyl, vp);
+  float* yf = y + f * vp;
+  // the tile's sum of a row, from the thread holding its last edge here
+  auto emit = [&](int row, float v) {
+    if (!in_rows(row, vp)) return;  // a pad row
+    const bool l = left && row == key0, r = right && row == keyl;
+    if (!l && !r) {
+      yf[row] = v;
+      return;
+    }
+    const int pid = static_cast<int>(f * vp + row);
+    if (l) { carry_row[slot] = pid; carry_val[slot] = v; }
+    if (r) { carry_row[slot + 1] = pid; carry_val[slot + 1] = l ? 0.0f : v; }
+  };
+
+  // thread tid walks edges [a, b) in order; ipt is odd, so a warp's
+  // reads at a + k fall in 32 different banks
+  const int ipt = (tile + kGatherThreads - 1) / kGatherThreads | 1;
+  const int a = min(tid * ipt, n), b = min(a + ipt, n);
+  int key = a < b ? s_src[a] : INT_MAX;  // an empty run sorts last
+  int head_key = -1;
+  float acc = 0.0f, head = 0.0f;
+  bool has_head = false;
+  for (int e = a; e < b; ++e) {
+    const int k = s_src[e];
+    if (k != key) {  // row `key` ends at e - 1
+      if (has_head) {
+        emit(key, acc);
+      } else {  // the run's first row: earlier threads may hold more
+        head = acc;
+        head_key = key;
+        has_head = true;
+      }
+      key = k;
+      acc = 0.0f;
+    }
+    acc += s_val[e];
+  }
+  int prev_key;
+  float prev;
+  const float tail = block_segmented_scan<float, kSum>(key, acc, prev_key,
+                                                       prev, s_wkey, s_wval);
+  if (has_head) emit(head_key, prev_key == head_key ? prev + head : head);
+  if (a < b && (b == n || s_src[b] != key)) emit(key, tail);
 }
 
 long long blocks_per_fragment(int vp, long long ep) {
@@ -583,26 +677,38 @@ int grape_gather_reduce_i32(const int* indptr, const int* nbr, const int* x,
   }
 }
 
-// y[fnum * vp] = strict-tile segment sum of values by sorted src; the
-// caller allocates partials[fnum * num_tiles * rmax].
-int grape_strict_tile(const float* values, const int* src,
-                      const int* row_lo, float* partials, float* y, int fnum,
-                      long long ep, int num_tiles, int tile, int rmax, int vp,
-                      void* stream) {
+// int32 words of scratch that grape_strict_tile needs: two carry slots
+// (row, then value) a tile.
+long long grape_strict_scratch_ints(int fnum, int num_tiles) {
+  return 4LL * fnum * num_tiles;
+}
+
+// y[fnum * vp] = strict-tile segment sum of values [fnum, ep] by their
+// sorted src (pads: src == vp), tiles of `tile` edges.  Three passes on
+// one stream: memset y, the tile kernel, the carry fold.  Returns the
+// first launch error, cudaSuccess when all three launched.
+int grape_strict_tile(const float* values, const int* src, float* y,
+                      int* scratch, int fnum, long long ep, int num_tiles,
+                      int tile, int vp, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(tile) * (sizeof(int) + sizeof(float));
-  dim3 grid(num_tiles, fnum);
-  strict_partials_kernel<<<grid, 256, smem, s>>>(values, src, row_lo,
-                                                 partials, ep, num_tiles,
-                                                 tile, rmax, vp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(fnum) * vp;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((rows + threads - 1) / threads);
-  if (rows > 0)
-    strict_fold_kernel<<<blocks, threads, 0, s>>>(partials, row_lo, y,
-                                                  num_tiles, rmax, vp, rows);
+  if (rows == 0) return cudaSuccess;
+  cudaError_t err = cudaMemsetAsync(y, 0, rows * sizeof(float), s);
+  const long long slots = 2LL * fnum * num_tiles;
+  if (err != cudaSuccess || slots == 0) return static_cast<int>(err);
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      strict_segments_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);  // the tiles stream; no reuse in L1
+  if (carve != cudaSuccess) return static_cast<int>(carve);
+  int* carry_row = scratch;
+  float* carry_val = reinterpret_cast<float*>(scratch + slots);
+  const size_t smem = 2 * sizeof(int) * strict_region_ints(tile);
+  strict_segments_kernel<<<dim3(num_tiles, fnum), kGatherThreads, smem, s>>>(
+      values, src, y, carry_row, carry_val, ep, num_tiles, tile, vp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  carry_fold_kernel<float, kSum><<<static_cast<unsigned>(
+      (slots * 32 + kFoldThreads - 1) / kFoldThreads), kFoldThreads, 0, s>>>(
+      carry_row, carry_val, y, slots);
   return static_cast<int>(cudaGetLastError());
 }
 

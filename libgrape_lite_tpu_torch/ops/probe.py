@@ -48,8 +48,7 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.grape_probe_stream.argtypes = [p, p, ll, p]
         lib.grape_probe_lane_gather_t128.argtypes = [p, p, p, ll, p]
-        lib.grape_probe_sublane_gather.argtypes = [
-            p, p, p, ll, i, ctypes.POINTER(ctypes.c_int), p]
+        lib.grape_probe_sublane_gather.argtypes = [p, p, p, ll, i, i, p]
         lib.grape_probe_cumsum_lanes.argtypes = [p, p, ll, p]
         for fn in (lib.grape_probe_stream, lib.grape_probe_lane_gather_t128,
                    lib.grape_probe_sublane_gather,
@@ -143,12 +142,31 @@ def lane_gather_t128(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sublane_plan(s: int, optin: int) -> tuple[str, int]:
+    """Where the sublane gather reads an [s, 128] float32 table from,
+    given the card's per-block shared-memory opt-in (bytes), and the
+    columns a block stages: ("shared", 128) when the whole table fits;
+    else ("sliced", c) for the widest column slice (128 % c == 0, c >= 4,
+    one float4 of a row) whose s * c * 4 bytes fit.  Raises ValueError
+    for a table too large for a 4-column slice."""
+    c = LANES
+    while c >= 4:
+        if s * c * 4 <= optin:
+            return ("shared" if c == LANES else "sliced"), c
+        c //= 2
+    raise ValueError(f"sublane_gather: a 4-column slice of {s} table rows "
+                     f"({s * 16} bytes) exceeds the {optin}-byte "
+                     "shared-memory opt-in")
+
+
 def sublane_gather(tab: torch.Tensor, idx: torch.Tensor
                    ) -> tuple[torch.Tensor, str]:
     """out[i, j] = tab[idx[i, j], j] for tab [S, 128] float32, idx
     [rows, 128] int32 in [0, S).  Returns the output and where the table
-    was read from: "shared" (staged in each block's shared memory), "l2"
-    (read through L2), or "plain" on the CPU."""
+    was read from (`sublane_plan`): "shared" (staged whole in each
+    block's shared memory), "sliced" (staged a column slice a block), or
+    "plain" on the CPU.  On the card a table too large for a 4-column
+    slice is refused."""
     if idx.device.type == "cpu":
         return sublane_gather_plain(tab, idx), "plain"
     name = "probe_sublane_gather"
@@ -158,14 +176,17 @@ def sublane_gather(tab: torch.Tensor, idx: torch.Tensor
     _check_plane(name, idx, torch.int32)
     check_cuda_args(name, idx.device, tab=tab, idx=idx)
     s = tab.shape[0]
-    require(0 < s < 2**24, f"{name}: {s} table rows outside (0, 2^24)")
+    require(s > 0, f"{name}: the table has no rows")
+    require(tab.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0,
+            f"{name}: tab and idx must be 16-byte aligned")
+    placement, cols = sublane_plan(s, torch.cuda.get_device_properties(
+        idx.device).shared_memory_per_block_optin)
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    placement = ctypes.c_int(-1)
     _launch(name, idx.device, _lib().grape_probe_sublane_gather,
             tab.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), s,
-            ctypes.byref(placement))
+            cols)
     sublane_gather.launches += 1
-    return out, ("shared" if placement.value == 1 else "l2")
+    return out, placement
 
 
 def cumsum_lanes(a: torch.Tensor) -> torch.Tensor:
@@ -202,5 +223,5 @@ __all__ = [
     "CUMSUM_TOL", "LANES", "WRAPPERS", "cumsum_lanes", "cumsum_lanes_plain",
     "lane_gather_t128", "lane_gather_t128_plain", "launch_counts",
     "reset_launch_counts", "stream", "stream_plain", "sublane_gather",
-    "sublane_gather_plain",
+    "sublane_gather_plain", "sublane_plan",
 ]

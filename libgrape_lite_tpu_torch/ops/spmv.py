@@ -18,14 +18,20 @@ compute it (sources and design notes in `csrc/spmv.cu`):
   `gather_reduce_merge_plain` are that schedule's plain twins.
 * `spmv_strict` -- the counterpart of the strict-tile kernel
   (`libgrape_lite_tpu/ops/spmv.py::spmv_strict`): a segment sum of
-  per-edge values over equal tiles of `tile` edges, then a deterministic
-  fold of the tile partials.
+  per-edge values over equal tiles of `tile` edges, each tile summing
+  its rows in edge order and leaving a carry for a row that crosses
+  one of its edges, then a fold of the carries in tile order (three
+  device passes per call: zero fill, tiles, carry fold).
+  `strict_tile_carries_plain` and `spmv_strict_segments_plain` are that
+  schedule's plain twins; `spmv_strict_plain` keeps the JAX package's
+  order (window partials, then their fold).
 
 Each wrapper takes its plain version (`gather_reduce_plain`,
 `spmv_strict_plain`) only for tensors on the CPU; for CUDA tensors it
-launches its kernel or raises.  `wrapper.launches` counts kernel
-launches.  `plan_tiles`, `strict_worthwhile` and `plan_for_app` are the
-JAX package's host-side planning rules, unchanged.
+launches its kernel or raises.  `wrapper.launches` counts wrapper calls
+that launched their kernels (three device passes each).  `plan_tiles`,
+`strict_worthwhile` and `plan_for_app` are the JAX package's host-side
+planning rules, unchanged.
 """
 
 from __future__ import annotations
@@ -132,8 +138,10 @@ def _lib():
         lib.grape_gather_scratch_ints.restype = ll
         lib.grape_gather_config.argtypes = [i, i, i, p]
         lib.grape_gather_config.restype = i
-        lib.grape_strict_tile.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, p]
+        lib.grape_strict_tile.argtypes = [p, p, p, p, i, ll, i, i, i, p]
         lib.grape_strict_tile.restype = i
+        lib.grape_strict_scratch_ints.argtypes = [i, i]
+        lib.grape_strict_scratch_ints.restype = ll
         _LIB = lib
     return _LIB
 
@@ -327,6 +335,72 @@ def spmv_strict_plain(values: torch.Tensor, edge_src: torch.Tensor,
                           vp, "sum")
 
 
+def strict_tile_carries_plain(values: torch.Tensor, edge_src: torch.Tensor,
+                              vp: int, tile: int):
+    """The kernel's tile pass in plain PyTorch.  Each tile of `tile`
+    edges sums its rows in edge order; a row whose edges all lie in the
+    tile goes to y, a row that crosses the tile's first or last edge
+    boundary to the tile's left or right carry slot (a tile inside one
+    row: its sum left, 0 right).  Returns (y [fnum, vp] with crossing and
+    edgeless rows 0, carry_row [fnum, num_tiles, 2] int64 pids with -1
+    for none, carry_val [fnum, num_tiles, 2]).  Pads (src == vp, edges
+    past ep) credit nothing."""
+    fnum, ep = values.shape
+    num_tiles = -(-ep // tile)
+    dev = values.device
+    y = values.new_zeros(fnum, vp)
+    carry_row = torch.full((fnum, num_tiles, 2), -1, dtype=torch.int64,
+                           device=dev)
+    carry_val = values.new_zeros(fnum, num_tiles, 2)
+    if ep == 0:
+        return y, carry_row, carry_val
+    src = edge_src.long()
+    # segments: runs of one row inside one tile, numbered in edge order
+    tile_start = torch.arange(ep, device=dev) % tile == 0
+    starts = torch.ones(fnum, ep, dtype=torch.bool, device=dev)
+    starts[:, 1:] = (src[:, 1:] != src[:, :-1]) | tile_start[1:]
+    flat = src.reshape(-1)
+    seg = torch.cumsum(starts.reshape(-1), 0) - 1
+    sums = values.new_zeros(int(seg[-1]) + 1).index_add_(
+        0, seg, values.reshape(-1))
+    first = starts.reshape(-1).nonzero().squeeze(1)
+    last = torch.cat([first[1:], first.new_full((1,), fnum * ep)]) - 1
+    f_of, e_first, e_last = first // ep, first % ep, last % ep
+    row = flat[first]
+    real = row < vp
+    # the row ids just before and after each segment, in its fragment
+    prev = torch.where(e_first > 0, flat[(first - 1).clamp(min=0)], -1)
+    nxt = torch.where(e_last + 1 < ep,
+                      flat[(last + 1).clamp(max=fnum * ep - 1)], -1)
+    left = real & (e_first % tile == 0) & (prev == row)
+    right = real & ((e_last + 1) % tile == 0) & (nxt == row)
+    inner = real & ~left & ~right
+    y.view(-1).index_put_((f_of[inner] * vp + row[inner],), sums[inner])
+    pid = f_of * vp + row
+    t = e_first // tile
+    carry_row[f_of[left], t[left], 0] = pid[left]
+    carry_val[f_of[left], t[left], 0] = sums[left]
+    carry_row[f_of[right], t[right], 1] = pid[right]
+    carry_val[f_of[right], t[right], 1] = torch.where(
+        left[right], sums.new_zeros(()), sums[right])
+    return y, carry_row, carry_val
+
+
+def spmv_strict_segments_plain(values: torch.Tensor, edge_src: torch.Tensor,
+                               row_lo: torch.Tensor, vp: int, tile: int,
+                               rmax: int) -> torch.Tensor:
+    """The kernel's order in plain PyTorch, the same function as
+    `spmv_strict_plain`: the tile pass (`strict_tile_carries_plain`), then
+    each row's carries added in tile order into its 0.  `row_lo` and
+    `rmax` are the plan's, unused: each row comes from `edge_src`."""
+    y, carry_row, carry_val = strict_tile_carries_plain(values, edge_src, vp,
+                                                        tile)
+    keep = carry_row.reshape(-1) >= 0
+    y.view(-1).index_add_(0, carry_row.reshape(-1)[keep],
+                          carry_val.reshape(-1)[keep])
+    return y
+
+
 def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
                 row_lo: torch.Tensor, vp: int, tile: int,
                 rmax: int) -> torch.Tensor:
@@ -351,21 +425,24 @@ def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
             f"{name}: edge_src and row_lo must be int32")
     require(num_tiles * tile >= ep, f"{name}: {num_tiles} tiles of {tile} "
             f"cannot cover {ep} edges")
-    require(0 < tile and tile * 8 <= 48 * 1024,
-            f"{name}: tile {tile} exceeds the 48 KB shared-memory stage")
+    # a tile's stage (two spans of tile + 6 ints, csrc/spmv.cu) stays far
+    # inside the 48 KB a block gets without opt-in
+    require(0 < tile <= STRICT_TILE and tile & (tile - 1) == 0,
+            f"{name}: tile {tile} is not a power of two up to {STRICT_TILE}")
     require(0 < rmax and ep < INT32_LIMIT and fnum * vp < INT32_LIMIT,
             f"{name}: sizes out of range")
-    partials = torch.empty((fnum, num_tiles, rmax), dtype=torch.float32,
-                           device=values.device)
+    lib = _lib()
     y = torch.empty((fnum, vp), dtype=torch.float32, device=values.device)
+    # the tiles' carry slots (csrc/spmv.cu); no [fnum, tiles, rmax] partials
+    scratch = torch.empty(lib.grape_strict_scratch_ints(fnum, num_tiles),
+                          dtype=torch.int32, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().grape_strict_tile(
-            values.data_ptr(), edge_src.data_ptr(), row_lo.data_ptr(),
-            partials.data_ptr(), y.data_ptr(), fnum, ep, num_tiles, tile,
-            rmax, vp, stream,
+        rc = lib.grape_strict_tile(
+            values.data_ptr(), edge_src.data_ptr(), y.data_ptr(),
+            scratch.data_ptr(), fnum, ep, num_tiles, tile, vp, stream,
         )
-    check_rc(_lib(), rc, name)
+    check_rc(lib, rc, name)
     spmv_strict.launches += 1
     return y
 
@@ -382,5 +459,6 @@ __all__ = [
     "gather_config", "gather_reduce", "gather_reduce_merge_plain",
     "gather_reduce_plain", "merge_partition_plain", "plan_for_app",
     "plan_tiles", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
+    "spmv_strict_segments_plain", "strict_tile_carries_plain",
     "strict_worthwhile",
 ]

@@ -22,9 +22,10 @@ script prints them, plus `device` (the card's name, or "cpu"), `gb_s`
 time), `working_set_mb` and `fits_l2` (those bytes fit the card's 50 MB
 L2, so back-to-back calls are served from L2, not device memory: at the
 default e_log 22 every plane is 16 MiB), and `placement` for the sublane
-gathers (`shared`: the table is staged in shared memory; `l2`: read
-through L2).  `--block` is the JAX script's sublane rows per program: it
-gates the input shape as there (E / 128 rows must be a multiple of it);
+gathers (`shared`: the table is staged whole in shared memory; `sliced`:
+a column slice of it a block).  `--block` is the
+JAX script's sublane rows per program: it gates the input shape as there
+(E / 128 rows must be a multiple of it);
 the CUDA kernels size their own grid from the SM count.
 
 A time is the median of `--iters` samples of the port's timer
