@@ -36,12 +36,28 @@ the port's own entry points:
      RMAT-16, each through `Worker.query`: launch counts, bit-equal to a
      run on the plain versions, rounds, query seconds (best of 3 after a
      warm-up), MTEPS for BFS, WCC (2|E| / s) and CDLP (2|E| x rounds / s);
-  5. torch.profiler over one query each of PageRank (auto and strict),
-     BFS, CDLP, lcc_bitmap and lcc: device busy time, idle share, top
-     kernels;
-  6. p2p-31 PageRank, SSSP, BFS, WCC, CDLP, lcc and lcc_bitmap through
-     `run_app` at fnum 1 and 4 against the golden files;
-  7. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
+  5. the app variants on RMAT-20 through `Worker.query`: sssp_msg,
+     sssp_delta and sssp_auto, bfs_msg, bfs_opt and bfs_auto from vertex
+     0, wcc_opt, wcc_auto, pagerank_auto (10 rounds) and cdlp_opt (10
+     rounds), each with step 4's checks (and equal loop counters:
+     overflow retries, settled capacity, bucket advances, push / pull
+     rounds), the gather-reduce kernel launched and no other kernel, and
+     its values against its base app's (bit-equal; pagerank_auto within
+     1e-4 relative); bfs_opt must both push and pull.  Then
+     `sssp_select`'s probe on RMAT-20 (picks sssp) and on a seeded 512 x
+     512 grid (262,144 vertices, the seed-11 weights; picks sssp_delta,
+     bit-equal to the dense sssp there): pick, reason, probe and query
+     seconds;
+  6. torch.profiler over one query each of PageRank (auto and strict),
+     BFS, CDLP, lcc_bitmap, lcc, sssp_delta and bfs_opt: device busy
+     time, idle share, top kernels; for sssp_delta and bfs_opt also the
+     host loop's iterations and the query's host synchronisations
+     (CUDA's sync-debug mode);
+  7. p2p-31 PageRank, SSSP, BFS, WCC, CDLP, lcc, lcc_bitmap and every
+     variant name with a golden through `run_app` at fnum 1 and 4
+     against the golden files (pagerank_directed and pagerank_auto also
+     directed, against p2p-31-PR-directed);
+  8. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
      L2), launch counts zeroed before and read after; then each of its four
@@ -95,6 +111,22 @@ INT32_MAX = 2**31 - 1
 # plain version adds in atomic order on the card; at RMAT-20's hub rows
 # its own rounding reached 1.48e-5 of sum|terms| on an H100.)
 SUM_TOL = 1e-5
+GRID_SIDE = 512  # sssp_select's high-diameter graph: 262,144 vertices
+# the app variants on RMAT-20, and the base app each is held against
+VARIANTS = ("sssp_msg", "sssp_delta", "sssp_auto", "bfs_msg", "bfs_opt",
+            "bfs_auto", "wcc_opt", "wcc_auto", "pagerank_auto", "cdlp_opt")
+BASE_QUERIES = {"sssp": {"source": 0}, "bfs": {"source": 0}, "wcc": {},
+                "pagerank": {"delta": 0.85, "max_round": PR_ROUNDS},
+                "cdlp": {"max_round": CDLP_ROUNDS}}
+# every variant name with a p2p-31 golden, run through run_app
+GOLDEN_VARIANTS = (
+    "sssp_select", "sssp_auto", "sssp_opt", "sssp_delta", "sssp_msg",
+    "bfs_auto", "bfs_opt", "bfs_msg", "wcc_auto", "wcc_opt",
+    "pagerank_auto", "pagerank_parallel", "pagerank_opt", "pagerank_push",
+    "pagerank_push_opt", "pagerank_directed", "cdlp_opt", "cdlp_opt_ud",
+    "cdlp_opt_ud_dense")
+APP_COUNTERS = ("retries", "final_capacity", "buckets", "push_rounds",
+                "pull_rounds")
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -130,8 +162,24 @@ def rmat_edges(scale: int, edge_factor: int, seed: int = 7):
 
 
 def rmat_fragment(scale: int, device, directed: bool = False):
-    """The weighted RMAT fragment (fnum 1) through the port's builder,
-    with bench.py's vertex map: segmented partitioner, hashmap idxer."""
+    """The weighted RMAT fragment (fnum 1) through the port's builder."""
+    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
+    return edge_fragment(n, src, dst, device, directed)
+
+
+def grid_fragment(side: int, device):
+    """A side x side grid (4-neighbour, undirected; vertex r * side + c),
+    weighted as the RMAT graphs are: a high-diameter graph."""
+    ids = np.arange(side * side, dtype=np.int64).reshape(side, side)
+    src = np.concatenate([ids[:, :-1].ravel(), ids[:-1, :].ravel()])
+    dst = np.concatenate([ids[:, 1:].ravel(), ids[1:, :].ravel()])
+    return edge_fragment(side * side, src, dst, device, False)
+
+
+def edge_fragment(n: int, src, dst, device, directed: bool):
+    """Vertices 0..n-1 and the edges src -> dst with uniform(0.1, 10)
+    float32 weights from seed 11, through the port's builder with
+    bench.py's vertex map: segmented partitioner, hashmap idxer."""
     from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.utils.id_parser import IdParser
@@ -141,7 +189,6 @@ def rmat_fragment(scale: int, device, directed: bool = False):
     )
     from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
 
-    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
     oids = np.arange(n, dtype=np.int64)
     vm = VertexMap(SegmentedPartitioner(1, oids), [HashMapIdxer(oids)],
                    IdParser(1, n))
@@ -888,26 +935,46 @@ def sssp_phase(frag, e_sym, device) -> dict:
     return dict(counts=counts, seconds=best, mteps=mteps, rounds=wk.rounds)
 
 
+def app_counters(app) -> dict:
+    """The host loop's counters of an exchange app (overflow retries,
+    settled capacity, bucket advances, push / pull rounds)."""
+    return {k: getattr(app, k) for k in APP_COUNTERS if hasattr(app, k)}
+
+
 def app_phase(name, frag, app_factory, device, kw, edges=None,
-              passes=1) -> dict:
-    """One LDBC app through `Worker.query`: launch counts of a counted
-    run, query seconds (best of 3 after a warm-up), bit-equal values and
-    equal rounds against a run on the plain versions, and MTEPS =
-    edges * passes / seconds when `edges` is given."""
+              passes=1, rtol=0.0) -> dict:
+    """One app through `Worker.query`: launch counts of a counted run,
+    query seconds (best of 3 after a warm-up), values and equal rounds
+    (and loop counters) against a run on the plain versions -- bit-equal,
+    or within `rtol` relative for float sums -- and MTEPS = edges *
+    passes / seconds when `edges` is given."""
     wk, counts, best = counted(frag, app_factory, device, kw)
     values = wk.result_values()
     with plain_versions():
         plain = run_query(frag, app_factory(), device, **kw)[0]
     check(plain.rounds == wk.rounds,
           f"{name}: {wk.rounds} rounds, {plain.rounds} on the plain versions")
-    check(np.array_equal(plain.result_values(), values),
-          f"{name} not bit-equal to the plain-version run")
+    counters = app_counters(wk.app)
+    check(app_counters(plain.app) == counters,
+          f"{name}: counters {counters}, {app_counters(plain.app)} on the "
+          "plain versions")
+    ref = plain.result_values()
+    if rtol:
+        rel = float(np.max(np.abs(values - ref)
+                           / np.maximum(np.abs(ref), 1e-30)))
+        check(rel <= rtol, f"{name} vs plain versions: rel err {rel:.3e}")
+        agree = f"within {rtol:g} of plain (rel err {rel:.3e})"
+    else:
+        check(np.array_equal(ref, values),
+              f"{name} not bit-equal to the plain-version run")
+        agree = "bit-equal to plain"
     mteps = None if edges is None else edges * passes / best / 1e6
     print(f"[app] {name} rounds={wk.rounds} seconds={best:.4f} mteps="
           f"{'n/a' if mteps is None else f'{mteps:.1f}'} "
-          f"launches={counts} bit-equal to plain", flush=True)
+          + "".join(f"{k}={v} " for k, v in counters.items())
+          + f"launches={counts} {agree}", flush=True)
     return dict(values=values, counts=counts, seconds=best,
-                rounds=wk.rounds, mteps=mteps)
+                rounds=wk.rounds, mteps=mteps, **counters)
 
 
 def ldbc_phases(frag, e_sym, frag18, frag16, device) -> dict:
@@ -972,6 +1039,104 @@ def ldbc_phases(frag, e_sym, frag18, frag16, device) -> dict:
     return out
 
 
+def variants_phase(frag, e_sym, device) -> dict:
+    """The app variants on RMAT-20 through `Worker.query`, each with
+    `app_phase`'s checks (launch counts, bit-equal to a run on the plain
+    versions with equal rounds and loop counters, best-of-3 seconds,
+    MTEPS as for its base app), the gather-reduce kernel launched and no
+    other kernel, and its values against its base app's on the same
+    graph: bit-equal for the SSSP, BFS and WCC forms and `cdlp_opt`,
+    1e-4 relative for `pagerank_auto` (also against its plain-version
+    run, as `pagerank_phase` holds PageRank)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    base = {}
+    for b, kw in BASE_QUERIES.items():
+        base[b] = run_query(frag, APP_REGISTRY[b](), device,
+                            **kw)[0].result_values()
+    out = {}
+    for name in VARIANTS:
+        b = name.split("_")[0]
+        passes = {"pagerank": PR_ROUNDS, "cdlp": CDLP_ROUNDS}.get(b, 1)
+        r = out[name] = app_phase(name, frag, APP_REGISTRY[name], device,
+                                  BASE_QUERIES[b], e_sym, passes,
+                                  rtol=1e-4 if b == "pagerank" else 0.0)
+        counts = r["counts"]
+        check(counts["gather_reduce"] > 0
+              and counts["strict_tile"] == counts["intersect"] == 0,
+              f"{name}: launches {counts}; the gather-reduce kernel only")
+        got, want = r.pop("values"), base[b]
+        if b == "pagerank":
+            rel = float(np.max(np.abs(got - want)
+                               / np.maximum(np.abs(want), 1e-30)))
+            check(rel <= 1e-4, f"{name} vs pagerank: rel err {rel:.3e}")
+        else:
+            check(np.array_equal(got, want), f"{name} differs from {b} in "
+                  f"{int((got != want).sum())} vertices")
+        if name == "bfs_opt":
+            check(r["push_rounds"] > 0 and r["pull_rounds"] > 0,
+                  "bfs_opt did not both push and pull")
+    return out
+
+
+def select_phase(frag, grid, device) -> dict:
+    """`sssp_select`'s probe and pick, then the picked app through
+    `Worker.query` from vertex 0: RMAT-20 converges inside the cap (64
+    levels) and takes the dense pull; the grid, whose frontier outlives
+    the cap, takes the near/far buckets, bit-equal to the dense pull
+    there (timed beside it)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, SSSP
+    from libgrape_lite_tpu_torch.models.sssp_select import (
+        select_sssp_variant,
+    )
+
+    out = {}
+    for label, g, want in ((f"rmat{SCALE}", frag, "sssp"),
+                           (f"grid{GRID_SIDE}", grid, "sssp_delta")):
+        t0 = time.perf_counter()
+        picked, reason = select_sssp_variant(g, 0)
+        probe_s = time.perf_counter() - t0
+        check(picked == want, f"sssp_select on {label} picked {picked} "
+              f"({reason}), expected {want}")
+        wk, counts, best = counted(g, APP_REGISTRY[picked], device,
+                                   {"source": 0})
+        check(counts["gather_reduce"] > 0,
+              f"sssp_select on {label}: no gather_reduce launch")
+        dense, _, dense_s = counted(g, SSSP, device, {"source": 0})
+        check(np.array_equal(wk.result_values(), dense.result_values()),
+              f"sssp_select on {label}: {picked} differs from sssp")
+        out[label] = dict(picked=picked, probe_seconds=probe_s,
+                          seconds=best, rounds=wk.rounds,
+                          dense_seconds=dense_s, dense_rounds=dense.rounds,
+                          **app_counters(wk.app))
+        print(f"[select] {label}: picked={picked} reason={reason!r} "
+              f"probe_seconds={probe_s:.4f} query_seconds={best:.4f} "
+              f"rounds={wk.rounds} "
+              + "".join(f"{k}={v} " for k, v in app_counters(wk.app).items())
+              + f"launches={counts}; dense sssp seconds={dense_s:.4f} "
+              f"rounds={dense.rounds}, bit-equal", flush=True)
+    return out
+
+
+def host_syncs(frag, app_factory, device, kw) -> int:
+    """Host synchronisations inside one `Worker.query`, as CUDA's
+    sync-debug mode reports them (one warning per synchronising call)."""
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    if torch.device(device).type != "cuda":
+        return 0
+    wk = Worker(app_factory(), frag)
+    sync(device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            wk.query(**kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def profile_phase(label, frag, app_factory, device, kw) -> dict:
     """Where the time goes in one query: device time by kernel from
     torch.profiler, against the query's wall clock.  Every profiled app
@@ -1002,7 +1167,7 @@ def profile_phase(label, frag, app_factory, device, kw) -> dict:
 
 def profile_phases(frag, frag18, device) -> None:
     from libgrape_lite_tpu_torch.models import (
-        BFS, CDLP, LCC, LCCBeta, PageRank,
+        APP_REGISTRY, BFS, CDLP, LCC, LCCBeta, PageRank,
     )
 
     profile_phase("pagerank auto", frag, PageRank, device,
@@ -1014,9 +1179,22 @@ def profile_phases(frag, frag18, device) -> None:
     profile_phase("cdlp", frag, CDLP, device, {"max_round": CDLP_ROUNDS})
     profile_phase(f"lcc_bitmap rmat{BITMAP_SCALE}", frag18, LCC, device, {})
     profile_phase("lcc", frag, LCCBeta, device, {})
+    for name in ("sssp_delta", "bfs_opt"):
+        app = APP_REGISTRY[name]
+        r = profile_phase(name, frag, app, device, {"source": 0})
+        wk = run_query(frag, app(), device, source=0)[0]
+        counters = app_counters(wk.app)
+        # an overflow doubles the capacity inside its round: no iteration
+        loops = wk.rounds + counters.get("buckets", 0)
+        syncs = host_syncs(frag, app, device, {"source": 0})
+        print(f"[profile]   {name}: rounds={wk.rounds} "
+              + "".join(f"{k}={v} " for k, v in counters.items())
+              + f"loop_iterations={loops} host_syncs={syncs} "
+              f"({syncs / max(loops, 1):.2f} per iteration) idle_share="
+              f"{1 - r['device_busy_ms'] / r['wall_ms']:.3f}", flush=True)
 
 
-# ---- phase 4: goldens through run_app ----------------------------------
+# ---- phase 7: goldens through run_app ----------------------------------
 
 def golden_phase(device) -> None:
     from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
@@ -1033,14 +1211,17 @@ def golden_phase(device) -> None:
         return (len(pairs) == len({w for w, _ in pairs})
                 == len({g for _, g in pairs}))
 
-    for app, golden, extra in (
-            ("pagerank", "p2p-31-PR", {}),
-            ("sssp", "p2p-31-SSSP", {"sssp_source": 6}),
-            ("bfs", "p2p-31-BFS", {"bfs_source": 6}),
-            ("wcc", "p2p-31-WCC", {}),
-            ("cdlp", "p2p-31-CDLP", {"cdlp_mr": CDLP_ROUNDS}),
-            ("lcc", "p2p-31-LCC", {}),
-            ("lcc_bitmap", "p2p-31-LCC", {})):
+    goldens = {"sssp": ("p2p-31-SSSP", {"sssp_source": 6}),
+               "bfs": ("p2p-31-BFS", {"bfs_source": 6}),
+               "wcc": ("p2p-31-WCC", {}), "pagerank": ("p2p-31-PR", {}),
+               "cdlp": ("p2p-31-CDLP", {"cdlp_mr": CDLP_ROUNDS}),
+               "lcc": ("p2p-31-LCC", {})}
+    apps = [(app, *goldens[app.split("_")[0]])
+            for app in ("pagerank", "sssp", "bfs", "wcc", "cdlp", "lcc",
+                        "lcc_bitmap") + GOLDEN_VARIANTS]
+    apps += [(app, "p2p-31-PR-directed", {"directed": True})
+             for app in ("pagerank_directed", "pagerank_auto")]
+    for app, golden, extra in apps:
         with open(os.path.join(data, golden)) as fh:
             want = load(fh.read())
         for fnum in (1, 4):
@@ -1058,9 +1239,9 @@ def golden_phase(device) -> None:
             check(got.keys() == want.keys(), f"{app} fnum {fnum}: vertex sets")
             g = np.array([float(want[k]) for k in want])
             r = np.array([float(got[k]) for k in want])
-            if app == "wcc":
+            if app.startswith("wcc"):
                 ok = np.array([isomorphic(got, want)])
-            elif app in ("pagerank", "lcc", "lcc_bitmap"):
+            elif app.startswith(("pagerank", "lcc")):
                 # eps_check.cc: 1e-4 relative; a zero must stay zero
                 ok = np.where(g == 0, np.abs(r) < 1e-12,
                               np.abs(r - g) <= 1e-4 * np.abs(g))
@@ -1068,11 +1249,11 @@ def golden_phase(device) -> None:
                 ok = (r == g) | (np.isinf(r) & np.isinf(g))
             check(bool(ok.all()), f"{app} fnum {fnum}: "
                   f"{int((~ok).sum())} vertices off the golden file")
-            print(f"[golden] {app} fnum={fnum} rounds={wk.rounds} ok",
-                  flush=True)
+            print(f"[golden] {app}{' directed' if extra.get('directed') else ''}"
+                  f" fnum={fnum} rounds={wk.rounds} ok", flush=True)
 
 
-# ---- phase 7: the rate probe (and the capability probe, run first) ----
+# ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
     """Which primitives this nvcc builds for sm_90a (compiled, never
@@ -1282,11 +1463,20 @@ def main() -> int:
     pr_strict = pagerank_phase(frag, e_sym, device, "strict")
     ss = sssp_phase(frag, e_sym, device)
     ldbc = ldbc_phases(frag, e_sym, frag18, frag16, device)
+    variants = variants_phase(frag, e_sym, device)
+    t0 = time.perf_counter()
+    grid, grid_edges = grid_fragment(GRID_SIDE, device)
+    print(f"[graph] grid{GRID_SIDE}: vertices={grid.dev.total_vnum} "
+          f"in_edge_slots={grid_edges} host_prep_s="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    select = select_phase(frag, grid, device)
     profile_phases(frag, frag18, device)
     golden_phase(device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
-    runs = [pr_auto, pr_strict, ss] + list(ldbc.values())
+    by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
+              "sssp": ss, **ldbc, **variants}
+    runs = list(by_app.values())
     launches = {k: sum(r["counts"][k] for r in runs)
                 for k in ("gather_reduce", "strict_tile", "intersect")}
     for k, v in launches.items():
@@ -1307,6 +1497,8 @@ def main() -> int:
              replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
              launches=launches["gather_reduce"],
              **{k: gr[k] for k in keys},
+             launches_by_app={app: r["counts"]["gather_reduce"]
+                              for app, r in by_app.items()},
              max_abs_err_all_kinds=max(
                  kern[f"gather_reduce[{k}]"]["max_abs_err"]
                  for k in ("sum", "min", "max")),
@@ -1350,6 +1542,9 @@ def main() -> int:
         "sssp_mteps": ss["mteps"], "sssp_rounds": ss["rounds"],
         "ldbc": {app: {k: r[k] for k in ("rounds", "seconds", "mteps")}
                  for app, r in ldbc.items()},
+        "variants": {app: {k: v for k, v in r.items() if k != "counts"}
+                     for app, r in variants.items()},
+        "sssp_select": select,
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

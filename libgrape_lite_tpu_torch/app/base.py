@@ -23,6 +23,9 @@ from typing import Dict, FrozenSet
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.parallel.message_manager import (
+    AutoParallelMessageManager,
+)
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 _LOG = logging.getLogger(__name__)
@@ -105,3 +108,40 @@ class BatchShuffleAppBase(AppBase):
     """Whole-array mirror-sync app (PageRank-style)."""
 
     message_strategy = MessageStrategy.kSyncOnOuterVertex
+
+
+class AutoAppBase(AppBase):
+    """Auto-messaging app (reference `auto_app_base.h:38-84` +
+    `auto_parallel_message_manager.h:47-365`; JAX `app/base.py:377-418`):
+    the app registers SyncBuffers (state key -> aggregate op) and writes
+    only the local compute; messaging is implicit.
+
+    `propose(ctx, dev, state)` returns, per synced key, each fragment's
+    pid-indexed proposals `[fnum, fnum * vp]` (the neutral element where
+    a fragment has nothing to say: the push of generateAutoMessages);
+    `AutoParallelMessageManager.sync` folds them with the buffer's op
+    (aggregateAutoMessages) and hands each fragment its slice to
+    `update` (by default: adopt it, vote the changed inner vertices)."""
+
+    sync_buffers: Dict[str, str] = {}
+
+    def propose(self, ctx: StepContext, dev, state: Dict) -> Dict:
+        raise NotImplementedError
+
+    def update(self, ctx: StepContext, dev, state: Dict, combined: Dict):
+        changed_any = 0
+        new_state = dict(state)
+        for k in self.sync_buffers:
+            new = combined[k]
+            changed = (new != state[k]) & dev.inner_mask
+            changed_any = changed_any + changed.sum()
+            new_state[k] = new
+        return new_state, changed_any
+
+    def peval(self, ctx: StepContext, dev, state: Dict):
+        return state, 1
+
+    def inceval(self, ctx: StepContext, dev, state: Dict):
+        combined = AutoParallelMessageManager.sync(
+            dev, self.propose(ctx, dev, state), self.sync_buffers)
+        return self.update(ctx, dev, state, combined)

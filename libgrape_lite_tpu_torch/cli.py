@@ -5,9 +5,16 @@ reference `run_app` flags):
         --efile dataset/p2p-31.e --vfile dataset/p2p-31.v \\
         --sssp_source 6 --out_prefix out/ [--fnum 4] [--device cpu]
 
-Applications: pagerank (--pr_d, --pr_mr), sssp (--sssp_source), bfs
-(--bfs_source), wcc, cdlp and cdlp_auto (--cdlp_mr), lcc, lcc_auto,
-lcc_beta, lcc_opt, lcc_bitmap and lcc_directed (--degree_threshold);
+Applications, with their query flags:
+  pagerank, pagerank_auto, pagerank_parallel, pagerank_opt, pagerank_push,
+    pagerank_push_opt, pagerank_directed (--pr_d, --pr_mr);
+  sssp, sssp_select, sssp_auto, sssp_opt, sssp_delta, sssp_msg
+    (--sssp_source);
+  bfs, bfs_auto, bfs_opt, bfs_msg (--bfs_source);
+  wcc, wcc_auto, wcc_opt;
+  cdlp, cdlp_auto, cdlp_opt, cdlp_opt_ud, cdlp_opt_ud_dense (--cdlp_mr);
+  lcc, lcc_auto, lcc_beta, lcc_opt, lcc_bitmap, lcc_directed
+    (--degree_threshold).
 --directed loads the graph directed.
 
 `--device` defaults to `cuda` and the run fails when CUDA is absent.
@@ -18,6 +25,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from libgrape_lite_tpu_torch.models import APP_REGISTRY
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
 
 
@@ -26,7 +34,8 @@ def make_parser() -> argparse.ArgumentParser:
         prog="libgrape_lite_tpu_torch",
         description="libgrape-lite analytical apps on PyTorch/CUDA",
     )
-    p.add_argument("--application", required=True)
+    p.add_argument("--application", required=True,
+                   help="app name: " + ", ".join(sorted(APP_REGISTRY)))
     p.add_argument("--efile", required=True)
     p.add_argument("--vfile", default="")
     p.add_argument("--out_prefix", default="")

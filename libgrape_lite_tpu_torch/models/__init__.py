@@ -1,30 +1,66 @@
 """The analytical-app library (reference `examples/analytical_apps`).
 
-The registry uses the JAX package's names for the six LDBC Graphalytics
-apps (`libgrape_lite_tpu/models/__init__.py`): PageRank (LDBC global
-variant), SSSP and BFS (dense pulls), WCC, CDLP, and LCC in three forms
--- `lcc` is the merge-intersection LCCBeta, `lcc_opt` / `lcc_bitmap` the
-bitmap LCC on the row AND-popcount kernel, `lcc_directed` the directed
-coefficient.  `cdlp_auto` and `lcc_auto` alias their base apps, as in
-the JAX registry.
+The registry uses the JAX package's names
+(`libgrape_lite_tpu/models/__init__.py`) for the six LDBC Graphalytics
+apps and their variants.  Base apps: PageRank (LDBC global variant),
+SSSP and BFS (dense pulls), WCC, CDLP, and LCC in three forms -- `lcc` is
+the merge-intersection LCCBeta, `lcc_opt` / `lcc_bitmap` the bitmap LCC
+on the row AND-popcount kernel, `lcc_directed` the directed coefficient.
+Variants with their own round or message structure have their own
+classes: the message-path apps `sssp_msg` / `bfs_msg`, the bucketed
+`sssp_opt` / `sssp_delta`, the direction-optimizing `bfs_opt`, the
+SyncBuffer push apps `*_auto` (with `pagerank_push`,
+`pagerank_push_opt`), the pointer-jumping `wcc_opt` and `cdlp_opt*`'s
+first-round shortcut.  `sssp_select` names SSSP here; `run_app` probes
+the graph and runs `sssp` or `sssp_delta` (models/sssp_select.py).  The
+other names alias their base apps, as in the JAX registry.
 """
 
+from libgrape_lite_tpu_torch.models.auto_apps import (
+    BFSAuto,
+    PageRankAuto,
+    SSSPAuto,
+    WCCAuto,
+)
 from libgrape_lite_tpu_torch.models.bfs import BFS
-from libgrape_lite_tpu_torch.models.cdlp import CDLP
+from libgrape_lite_tpu_torch.models.bfs_opt import BFSOpt
+from libgrape_lite_tpu_torch.models.cdlp import CDLP, CDLPOpt
 from libgrape_lite_tpu_torch.models.lcc import LCC
 from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
 from libgrape_lite_tpu_torch.models.lcc_directed import LCCDirected
 from libgrape_lite_tpu_torch.models.pagerank import PageRank
 from libgrape_lite_tpu_torch.models.sssp import SSSP
+from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
+from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
 from libgrape_lite_tpu_torch.models.wcc import WCC
+from libgrape_lite_tpu_torch.models.wcc_opt import WCCOpt
 
 APP_REGISTRY = {
-    "pagerank": PageRank,
     "sssp": SSSP,
+    "sssp_select": SSSP,
+    "sssp_auto": SSSPAuto,
+    "sssp_opt": SSSPDelta,
+    "sssp_delta": SSSPDelta,
+    "sssp_msg": SSSPMsg,
     "bfs": BFS,
+    "bfs_auto": BFSAuto,
+    "bfs_opt": BFSOpt,
+    "bfs_msg": BFSMsg,
     "wcc": WCC,
+    "wcc_auto": WCCAuto,
+    "wcc_opt": WCCOpt,
+    "pagerank": PageRank,
+    "pagerank_auto": PageRankAuto,
+    "pagerank_parallel": PageRank,
+    "pagerank_opt": PageRank,
+    "pagerank_push": PageRankAuto,
+    "pagerank_push_opt": PageRankAuto,
+    "pagerank_directed": PageRank,
     "cdlp": CDLP,
     "cdlp_auto": CDLP,
+    "cdlp_opt": CDLPOpt,
+    "cdlp_opt_ud": CDLPOpt,
+    "cdlp_opt_ud_dense": CDLPOpt,
     "lcc": LCCBeta,
     "lcc_auto": LCCBeta,
     "lcc_beta": LCCBeta,
@@ -33,5 +69,7 @@ APP_REGISTRY = {
     "lcc_directed": LCCDirected,
 }
 
-__all__ = ["APP_REGISTRY", "BFS", "CDLP", "LCC", "LCCBeta", "LCCDirected",
-           "PageRank", "SSSP", "WCC"]
+__all__ = ["APP_REGISTRY", "BFS", "BFSAuto", "BFSMsg", "BFSOpt", "CDLP",
+           "CDLPOpt", "LCC", "LCCBeta", "LCCDirected", "PageRank",
+           "PageRankAuto", "SSSP", "SSSPAuto", "SSSPDelta", "SSSPMsg", "WCC",
+           "WCCAuto", "WCCOpt"]

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
+from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.ops.segment import segment_reduce
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -113,3 +114,33 @@ class CDLP(ParallelAppBase):
 
     def finalize(self, frag, state):
         return state["labels"].numpy()
+
+
+class CDLPOpt(CDLP):
+    """CDLP with the reference's first-round shortcut (`cdlp_opt`,
+    `cdlp_opt_ud`, `cdlp_opt_ud_dense`; reference `cdlp_opt.h:139-162`,
+    `cdlp_opt_ud.h:148-162`; JAX `models/cdlp.py:334-372`): the initial
+    labels are all distinct, so "most frequent, ties to the smallest"
+    is the plain neighbour minimum, one O(E) pull instead of the sort
+    for round 1.  Like the reference's, the shortcut assumes a simple
+    graph: a parallel edge (or an undirected self-loop, stored twice)
+    gives its label multiplicity 2 in round 1, and the mode can then
+    differ from the minimum.
+
+    The pull runs on the gather-reduce kernel, which takes int32: it
+    takes the minimum of each neighbour label's int32 rank in the static
+    sorted universe `lut` and maps it back through `lut`.  Ranks keep the
+    labels' order, so the result is exact.  Later rounds are CDLP's."""
+
+    def peval(self, ctx: StepContext, dev, state):
+        labels, lut = state["labels"], state["lut"]
+        rank = torch.searchsorted(lut, labels).to(torch.int32)
+        mn = spmv.gather_reduce(dev.oe.indptr, dev.oe.edge_nbr, None,
+                                ctx.gather_state(rank), "min")
+        none = mn == np.iinfo(np.int32).max  # rows without out-edges
+        keep = ~dev.inner_mask | (dev.out_degree == 0) | none
+        new = torch.where(keep, labels,
+                          lut[torch.where(none, 0, mn).long()])
+        step = torch.ones((), dtype=torch.int32, device=labels.device)
+        return (dict(state, labels=new, step=step),
+                1 if self.max_round > 1 else 0)

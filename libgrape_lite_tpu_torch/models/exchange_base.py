@@ -1,0 +1,142 @@
+"""Shared machinery of the message-exchange apps (sssp_msg, bfs_msg,
+sssp_delta, bfs_opt).
+
+Counterpart of `libgrape_lite_tpu/models/exchange_base.py`: the push
+relaxation step `exchange_relax`, and `ExchangeAppBase` with the
+capacity protocol -- grow on overflow, remember the settled capacity
+per fragment so that repeat queries skip the retry ladder (the
+reference's `EstimateMessageSize` priming,
+`parallel_message_manager_opt.h`).  The host loops stay in each app.
+
+On one device the push is a pull.  The JAX route sends a candidate
+`x[u] (+ w)` along each out-edge `u -> v` of a sending `u` to owner(v)
+and min-reduces it there.  The in-edge CSR is the transpose of the
+out-edge CSR (`kBothOutIn` loading; on undirected graphs the two are one
+aliased CSR), so the same minimum is
+
+    gather_reduce(ie.indptr, ie.edge_nbr, w_ie, where(valid, x, neutral), "min")
+
+through the gather-reduce kernel (K1).  The capacity accounting stays
+exact: the messages fragment s sends to fragment t in a round are the
+out-edges into t of s's sending vertices, a masked sum of each vertex's
+out-degree into t (`dest_degree`); the JAX exchange overflows when any
+such count exceeds the capacity.  There an overflowed round lost
+messages and is rerun with the capacity doubled; here the pull is exact
+at any capacity, so the round is kept and the capacity doubled until it
+holds the largest count (`ExchangeAppBase._fit_cap`), one retry a
+doubling.  So rounds, retries and the settled capacity equal the JAX
+app's, with no round thrown away.  `exchange_relax_plain` is the literal
+route: the per-edge messages through `exchange`, then a scatter-min.
+
+Left out until the port has `guard/` and `ft/` (ROADMAP Queue A item
+6): the JAX base's `invariants`, `_round_hooks` and `_HostRoundHooks`.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import torch
+
+from libgrape_lite_tpu_torch.app.base import AppBase
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.ops.segment import identity, segment_reduce
+from libgrape_lite_tpu_torch.parallel.message_manager import (
+    AllToAllMessageManager,
+    plan_initial_capacity,
+)
+
+_DEST_DEGREE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def dest_degree(frag) -> torch.Tensor:
+    """[fnum, vp, fnum] int32: out-edges of each vertex into each
+    fragment, from the out-edge CSR on the device; cached per fragment."""
+    if frag not in _DEST_DEGREE:
+        oe, fnum, vp = frag.dev.oe, frag.fnum, frag.vp
+        # pads (src vp, nbr 0) land in the overflow bin vp * fnum
+        key = oe.edge_src.long() * fnum + oe.edge_nbr.long() // vp
+        deg = torch.stack([torch.bincount(k, minlength=vp * fnum + 1)
+                           for k in key])
+        _DEST_DEGREE[frag] = (deg[:, :vp * fnum].view(fnum, vp, fnum)
+                              .to(torch.int32))
+    return _DEST_DEGREE[frag]
+
+
+def _max_sent(valid, dest_deg) -> torch.Tensor:
+    """The most messages one fragment sends to one fragment, 0-d int64."""
+    sent = torch.where(valid.unsqueeze(-1), dest_deg, 0).sum(dim=1)
+    return sent.max().to(torch.int64)
+
+
+def exchange_relax(dev, x, valid, dest_deg, w=None):
+    """The push-relax step of the exchange apps as a masked pull (K1).
+
+    x [fnum, vp] per-vertex candidates (float32 / float64 distances or
+    int32 levels), valid [fnum, vp] the sending vertices, w the in-edge
+    weights in x's type or None.  Returns (relaxed [fnum, vp]: the
+    minimum of x[u] (+ w) over the valid in-neighbours u, the neutral
+    element (+inf, INT32_MAX) where none; the largest per-(source,
+    destination) message count, 0-d int64, which overflows a capacity
+    below it)."""
+    ie = dev.ie
+    xm = torch.where(valid, x, identity("min", x.dtype)).reshape(-1)
+    relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, w, xm, "min")
+    return relaxed, _max_sent(valid, dest_deg)
+
+
+def exchange_relax_plain(dev, x, valid, cap: int, w_oe=None):
+    """The literal route of `exchange_relax`, after the JAX package: per
+    out-edge messages x[u] (+ w) of the valid senders through
+    `AllToAllMessageManager.exchange`, then a scatter-min of the received
+    slots into their rows, and the overflow vote.  Equal to
+    `exchange_relax` where the vote is 0; on overflow it drops messages,
+    as the JAX route does."""
+    oe, fnum, vp = dev.oe, dev.fnum, dev.vp
+    neutral = identity("min", x.dtype)
+    src = oe.edge_src.clamp(max=vp - 1).long()
+    sending = oe.edge_mask & torch.gather(valid, 1, src)
+    cand = torch.gather(x, 1, src)
+    if w_oe is not None:
+        cand = cand + w_oe
+    rl, rp, rv, ovf = AllToAllMessageManager.exchange(
+        oe.edge_nbr // vp, oe.edge_nbr % vp, cand, sending, cap, fnum)
+    relaxed = segment_reduce(torch.where(rv, rp, neutral),
+                             torch.where(rv, rl, vp), vp, "min")
+    return relaxed, ovf
+
+
+class ExchangeAppBase(AppBase):
+    """Host-driven exchange app: the worker calls `host_compute`, which
+    runs the app's own round loop and sets `rounds`."""
+
+    host_only = True
+
+    def __init__(self, initial_capacity: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        # None: derive from the graph at query time (plan_initial_capacity)
+        self.initial_capacity = initial_capacity
+        # the distance type: float32 on the card (K1's type), float64
+        # where the caller asks for the JAX package's x64 distances
+        self.dtype = dtype
+        self.rounds = 0
+        self.retries = 0  # overflow-driven capacity regrows
+        self.final_capacity = initial_capacity or 1024
+        self._learned_cap = weakref.WeakKeyDictionary()
+
+    def _fit_cap(self, cap: int, max_sent: int) -> int:
+        """The capacity the JAX app settles at in a round whose largest
+        message count is `max_sent`: it doubles and reruns the round
+        until nothing overflows.  Counts each doubling as a retry."""
+        while max_sent > cap:
+            cap *= 2
+            self.retries += 1
+        return cap
+
+    def _initial_cap(self, frag) -> int:
+        return plan_initial_capacity(frag, self.initial_capacity,
+                                     self._learned_cap)
+
+    def _save_cap(self, frag, cap: int) -> None:
+        self.final_capacity = cap
+        self._learned_cap[frag] = cap

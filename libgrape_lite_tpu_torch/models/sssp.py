@@ -36,18 +36,23 @@ class SSSP(ParallelAppBase):
     def __init__(self, dtype: torch.dtype = torch.float32):
         self.dtype = dtype
 
-    def init_state(self, frag, source=0):
+    def initial_dist(self, frag, source) -> torch.Tensor:
+        """[fnum, vp] distances: 0 at the source, +inf elsewhere."""
         if not frag.weighted:
             raise ValueError(
                 "SSSP requires edge weights; load the graph with "
                 "weighted=True"
             )
-        dev, dt = frag.device, self.dtype
-        dist = torch.full((frag.fnum, frag.vp), float("inf"), dtype=dt,
-                          device=dev)
-        pid = resolve_source(frag, source, "SSSP")
+        dist = torch.full((frag.fnum, frag.vp), float("inf"),
+                          dtype=self.dtype, device=frag.device)
+        pid = resolve_source(frag, source, type(self).__name__)
         if pid >= 0:
             dist[pid // frag.vp, pid % frag.vp] = 0
+        return dist
+
+    def init_state(self, frag, source=0):
+        dev, dt = frag.device, self.dtype
+        dist = self.initial_dist(frag, source)
         ie = frag.dev.ie
         wf_eff = torch.where(
             ie.edge_mask, ie.edge_w.to(dt),

@@ -47,11 +47,17 @@ class WCC(ParallelAppBase):
         return spmv.gather_reduce(csr.indptr, csr.edge_nbr, None,
                                   ctx.gather_state(comp), "min")
 
+    def _post_pull(self, ctx: StepContext, dev, new):
+        """Hook between the neighbour pulls and the change count; WCCOpt
+        puts pointer jumping here."""
+        return new
+
     def inceval(self, ctx: StepContext, dev, state):
         comp = state["comp"]
         new = torch.minimum(comp, self._pull(ctx, comp, dev.ie))
         if dev.directed:
             new = torch.minimum(new, self._pull(ctx, new, dev.oe))
+        new = self._post_pull(ctx, dev, new)
         changed = (new < comp) & dev.inner_mask
         return {"comp": new}, ctx.sum(changed.sum(dim=-1))
 

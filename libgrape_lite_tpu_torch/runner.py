@@ -6,6 +6,7 @@ Counterpart of `libgrape_lite_tpu/runner.py::run_app` (reference
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -14,6 +15,8 @@ from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.models import APP_REGISTRY
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.worker.worker import Worker
+
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass
@@ -77,6 +80,17 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         edata_dtype=np.float64,
     )
     frag = LoadGraph(args.efile, args.vfile or None, comm_spec, spec)
+    if name == "sssp_select":
+        # the dense-vs-delta pick for this (graph, source), from a host
+        # BFS probe over the CSRs the load just built
+        from libgrape_lite_tpu_torch.models.sssp_select import (
+            select_sssp_variant,
+        )
+
+        picked, reason = select_sssp_variant(
+            frag, _coerce_source(args.sssp_source))
+        _LOG.info("sssp_select -> %s: %s", picked, reason)
+        app = APP_REGISTRY[picked]()
     worker = Worker(app, frag)
     worker.query(**build_query_kwargs(name, args))
     if args.out_prefix:

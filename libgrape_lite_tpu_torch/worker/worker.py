@@ -5,7 +5,8 @@ Counterpart of `libgrape_lite_tpu/worker/worker.py` (reference
 the active vote is positive and fewer than the round limit have run --
 the semantics of the JAX package's fused `while_loop` runner, with
 `rounds` counting IncEval calls.  Here the loop runs on the host and
-reads the vote back each round.
+reads the vote back each round.  Apps with `host_only` set run their
+own round loop (`host_compute`) instead.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ class Worker:
         one that `init_state` produced."""
         app, frag = self.app, self.fragment
         mr = app.max_rounds if max_rounds is None else max_rounds
+        if getattr(app, "host_only", False):
+            return self._query_host(mr, initial_state, query_args)
         state = app.init_state(frag, **query_args)
         for k, v in (initial_state or {}).items():
             if k not in state:
@@ -67,7 +70,23 @@ class Worker:
             active = int(active)  # the termination vote, read back
             rounds += 1
         self.rounds = rounds
-        eph = app.ephemeral_keys
+        return self._keep(state)
+
+    def _query_host(self, mr: int, initial_state, query_args):
+        """Host-driven apps (the exchange apps: capacity retries, bucket
+        advances and push/pull switches decide each round on the host)
+        run their own loop, under the same round limit (JAX
+        `worker.py:1208-1230`)."""
+        app = self.app
+        if initial_state:
+            raise ValueError(f"{type(app).__name__} runs its own host loop "
+                             "and takes no initial_state")
+        state = app.host_compute(self.fragment, max_rounds=mr, **query_args)
+        self.rounds = app.rounds
+        return self._keep(state)
+
+    def _keep(self, state: Dict) -> Dict:
+        eph = self.app.ephemeral_keys
         self._result_state = {
             k: v for k, v in state.items() if k not in eph
         }

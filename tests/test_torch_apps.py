@@ -78,7 +78,7 @@ def result_dict(frag, values, fmt):
 
 
 @pytest.mark.parametrize("how", ["carried", "loaded"])
-@pytest.mark.parametrize("fnum", [1, 2, 4])
+@pytest.mark.parametrize("fnum", [1, 2, 4, 8])
 @pytest.mark.parametrize("app", ["pagerank", "sssp"])
 def test_app_matches_golden_and_jax(graph_cache, app, fnum, how):
     jfrag, want, jrounds = jax_run(graph_cache, app, fnum)

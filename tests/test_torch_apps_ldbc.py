@@ -11,8 +11,8 @@ the JAX Worker on the same fragment and against the goldens.
 * per-vertex triangle counts integer-identical to the JAX package's.
 
 Fragments reach the port carried across from the JAX fragment
-(`fragment_from_numpy`) and through the port's own loader, at fnum 1, 2
-and 4.  One JAX run per (app, fnum) is shared through a module cache.
+(`fragment_from_numpy`) and through the port's own loader, at fnum 1, 2,
+4 and 8.  One JAX run per (app, fnum) is shared through a module cache.
 """
 
 import os
@@ -101,7 +101,7 @@ def port_fragment(jfrag, how, fnum, directed):
 
 
 @pytest.mark.parametrize("how", ["carried", "loaded"])
-@pytest.mark.parametrize("fnum", [1, 2, 4])
+@pytest.mark.parametrize("fnum", [1, 2, 4, 8])
 @pytest.mark.parametrize("name", list(QUERIES))
 def test_app_matches_jax_and_golden(graph_cache, name, fnum, how):
     jfrag, want, jrounds = jax_run(graph_cache, name, fnum)
