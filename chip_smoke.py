@@ -11,7 +11,7 @@ same generator for the bitmap LCCs), then drives the main path through
 the port's own entry points:
 
   1. kernel phases: gather_reduce (float sum, min with weights, max;
-     int32 min and max) and strict_tile at RMAT-20, each against its
+     int32 sum, min and max) and strict_tile at RMAT-20, each against its
      plain version -- min/max bit-equal, sum within 1e-5 of each row's
      sum of |terms|, strict_tile rerun bit-identical -- and the row
      AND-popcount (`intersect`) at the RMAT-18 bitmap LCC's shapes,
@@ -48,15 +48,32 @@ the port's own entry points:
      512 grid (262,144 vertices, the seed-11 weights; picks sssp_delta,
      bit-equal to the dense sssp there): pick, reason, probe and query
      seconds;
+  5b. the apps beyond the LDBC six through `Worker.query`: on RMAT-20
+     kcore (k 16), core_decomposition, pagerank_local (10 rounds), bc,
+     khop (k 2 and 3) and common_neighbors from vertex 0 and kclique
+     (k 3), each with step 4's checks against its plain-version run
+     (integers bit-equal, bc and pagerank_local within 1e-4 relative)
+     and cross-checks with no plain code in them: kcore = core numbers
+     >= 16, khop = BFS depths masked, the Brandes identity for bc (and
+     finite path counts), the vertex count as pagerank_local's mass, the
+     triangle identity for common_neighbors, kclique k 3 = a third of
+     LCCBeta's credits; on RMAT-18 triangle_count (two AND-popcount
+     launches, counts = LCCBeta's credits); kclique k 4 on the device and
+     KCliqueDevice(5) on the undirected RMAT-16 (RMAT-18's oriented
+     degree is past hub_cap); the device clique apps at k 4 and 5
+     against the host recursion on RMAT-11;
   6. torch.profiler over one query each of PageRank (auto and strict),
-     BFS, CDLP, lcc_bitmap, lcc, sssp_delta and bfs_opt: device busy
-     time, idle share, top kernels; for sssp_delta and bfs_opt also the
-     host loop's iterations and the query's host synchronisations
-     (CUDA's sync-debug mode);
+     BFS, CDLP, lcc_bitmap, lcc, core_decomposition, sssp_delta and
+     bfs_opt: device busy time, idle share, top kernels; for
+     core_decomposition, sssp_delta and bfs_opt also the host loop's
+     iterations and the query's host synchronisations (CUDA's
+     sync-debug mode);
   7. p2p-31 PageRank, SSSP, BFS, WCC, CDLP, lcc, lcc_bitmap and every
      variant name with a golden through `run_app` at fnum 1 and 4
      against the golden files (pagerank_directed and pagerank_auto also
-     directed, against p2p-31-PR-directed);
+     directed, against p2p-31-PR-directed); then the eleven names beyond
+     them: triangle_count against the LCC golden, the others against
+     the cross-checks of 5b;
   8. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -126,7 +143,15 @@ GOLDEN_VARIANTS = (
     "pagerank_push_opt", "pagerank_directed", "cdlp_opt", "cdlp_opt_ud",
     "cdlp_opt_ud_dense")
 APP_COUNTERS = ("retries", "final_capacity", "buckets", "push_rounds",
-                "pull_rounds")
+                "pull_rounds", "levels", "total_cliques", "used_device_kernel")
+KCORE_K = 16  # kcore's k on RMAT-20
+KHOP_KS = (2, 3)
+# kclique k = 4 on the device needs the oriented D within hub_cap (320):
+# at edge factor 16 RMAT-16's D is 261, RMAT-18's 416 (the host recursion)
+KCLIQUE4_SCALE = 16
+KCLIQUE5_SCALE = 16  # KCliqueDevice(5), called directly (D past its cap)
+KCLIQUE_CHECK_SCALE = 11  # device k = 4, 5 against the host recursion
+CN_SOURCE = 10316  # p2p-31's vertex in the most triangles (17)
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -404,9 +429,12 @@ def kernel_phases(frag, device, reps: int) -> dict:
 
 
 def int_gather_phase(frag, device, reps: int) -> dict:
-    """int32 gather_reduce min / max (BFS depths, WCC labels) at the main
-    path's shapes: labels with a 30% INT32_MAX sentinel share, bit-equal
-    to the plain version."""
+    """int32 gather_reduce at the main path's shapes, each bit-equal to the
+    plain version: sum over an alive bitmap (70% ones; kcore's and
+    core_decomposition's neighbour counts), min / max over labels with a
+    30% INT32_MAX sentinel share (BFS depths, WCC labels).  Library: one
+    scatter_reduce_ over pre-gathered candidates (for sum also index_add_,
+    the faster of the two counts)."""
     from libgrape_lite_tpu_torch.ops import spmv
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
@@ -420,35 +448,47 @@ def int_gather_phase(frag, device, reps: int) -> dict:
     labels = torch.where(torch.rand(n, generator=gen) < 0.3,
                          torch.tensor(INT32_MAX, dtype=torch.int32),
                          labels).to(device)
+    alive = (torch.rand(n, generator=gen) < 0.7).to(torch.int32).to(device)
     # library yardstick: one scatter_reduce_ over pre-gathered candidates
     deg = (indptr[0, 1:] - indptr[0, :-1]).to(torch.int64)
     rows = torch.repeat_interleave(torch.arange(vp, device=device), deg)
-    cand = labels[nbr[0, :e_real].to(torch.int64)]
+    idx = nbr[0, :e_real].to(torch.int64)
     acc = torch.empty(vp, dtype=torch.int32, device=device)
     out = {}
-    for kind, ident in (("min", INT32_MAX), ("max", -INT32_MAX - 1)):
-        got = spmv.gather_reduce(indptr, nbr, None, labels, kind)
-        want = spmv.gather_reduce_plain(indptr, nbr, None, labels, kind)
+    for kind, x, ident in (("sum", alive, 0), ("min", labels, INT32_MAX),
+                           ("max", labels, -INT32_MAX - 1)):
+        got = spmv.gather_reduce(indptr, nbr, None, x, kind)
+        want = spmv.gather_reduce_plain(indptr, nbr, None, x, kind)
         check(got.dtype == torch.int32 and torch.equal(got, want),
               f"int32 gather_reduce {kind} not bit-equal to its plain version")
-        ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, None, labels,
-                                                kind), device, reps)
+        check(torch.equal(got, spmv.gather_reduce(indptr, nbr, None, x, kind)),
+              f"int32 gather_reduce {kind} rerun not bit-identical")
+        ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, None, x, kind),
+                     device, reps)
         plain_ms = time_ms(lambda: spmv.gather_reduce_plain(
-            indptr, nbr, None, labels, kind), device, max(3, reps // 4),
-            warmup=1)
-        op = "amin" if kind == "min" else "amax"
-        lib_ms = time_ms(lambda: acc.fill_(ident).scatter_reduce_(
-            0, rows, cand, op), device, reps)
+            indptr, nbr, None, x, kind), device, max(3, reps // 4), warmup=1)
+        cand = x[idx]
+        op = {"sum": "sum", "min": "amin", "max": "amax"}[kind]
+        libraries = {"scatter_reduce_": lambda: acc.fill_(ident)
+                     .scatter_reduce_(0, rows, cand, op)}
+        if kind == "sum":
+            libraries["index_add_"] = lambda: acc.zero_().index_add_(
+                0, rows, cand)
+        lib_all = {k: time_ms(c, device, reps) for k, c in libraries.items()}
+        lib_name = min(lib_all, key=lib_all.get)
         nbytes = 4 * e_real + 4 * (vp + 1) + 4 * n + 4 * vp  # nbr, indptr, x, y
         b_ms, b_by = bound(nbytes, e_real)
         cfg = spmv.gather_config(kind, int32=True)
         out[kind] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_all[lib_name], library=lib_name,
+                         library_all_ms=lib_all, bound_ms=b_ms, bound_by=b_by,
                          config=cfg)
         print(f"[kernel] gather_reduce {kind} int32: kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) edges={e_real} bit-equal "
-              f"registers={cfg['registers']} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_all[lib_name]:.4f} "
+              f"({lib_name}; "
+              + " ".join(f"{k}={v:.4f}" for k, v in lib_all.items())
+              + f") bound_ms={b_ms:.4f} ({b_by}) edges={e_real} bit-equal, "
+              f"rerun bit-identical registers={cfg['registers']} "
               f"blocks_per_sm={cfg['blocks_per_sm']} "
               f"carveout={cfg['carveout_pct']}%", flush=True)
     return out
@@ -594,8 +634,9 @@ def stack_csr(indptr, nbr, w, fnum: int, pad: int):
 def k1_shape_checks(name, indptr, nbr, w, device, reps: int) -> dict:
     """Every kind of gather_reduce on one CSR against its plain version
     (sum within SUM_TOL of each row's sum|terms|, with and without
-    weights; min, max and int32 min / max bit-equal), each sum rerun
-    bit-identical; kernel and plain times of the unweighted sum."""
+    weights; min, max and int32 sum / min / max bit-equal), each float
+    sum rerun bit-identical; kernel and plain times of the unweighted
+    sum."""
     from libgrape_lite_tpu_torch.ops import spmv
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
@@ -618,7 +659,8 @@ def k1_shape_checks(name, indptr, nbr, w, device, reps: int) -> dict:
                                                   "sum")),
               f"{name}: gather_reduce sum rerun not bit-identical")
     for kind, xin, win in (("min", x, w), ("max", x, None),
-                           ("min", labels, None), ("max", labels, None)):
+                           ("sum", labels & 1, None), ("min", labels, None),
+                           ("max", labels, None)):
         got = spmv.gather_reduce(indptr, nbr, win, xin, kind)
         check(torch.equal(got, spmv.gather_reduce_plain(indptr, nbr, win,
                                                         xin, kind)),
@@ -632,7 +674,7 @@ def k1_shape_checks(name, indptr, nbr, w, device, reps: int) -> dict:
           f"vp={indptr.shape[1] - 1} ep={nbr.shape[1]} edges={edges} "
           f"sum kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; sum, sum+w "
           "within 1e-5 sum|terms| and rerun bit-identical; min+w, max, "
-          "int32 min/max bit-equal", flush=True)
+          "int32 sum/min/max bit-equal", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, edges=edges)
 
 
@@ -947,7 +989,8 @@ def app_phase(name, frag, app_factory, device, kw, edges=None,
     query seconds (best of 3 after a warm-up), values and equal rounds
     (and loop counters) against a run on the plain versions -- bit-equal,
     or within `rtol` relative for float sums -- and MTEPS = edges *
-    passes / seconds when `edges` is given."""
+    passes / seconds when `edges` is given (passes "rounds": one full
+    pull a round)."""
     wk, counts, best = counted(frag, app_factory, device, kw)
     values = wk.result_values()
     with plain_versions():
@@ -968,6 +1011,8 @@ def app_phase(name, frag, app_factory, device, kw, edges=None,
         check(np.array_equal(ref, values),
               f"{name} not bit-equal to the plain-version run")
         agree = "bit-equal to plain"
+    if passes == "rounds":
+        passes = wk.rounds
     mteps = None if edges is None else edges * passes / best / 1e6
     print(f"[app] {name} rounds={wk.rounds} seconds={best:.4f} mteps="
           f"{'n/a' if mteps is None else f'{mteps:.1f}'} "
@@ -1118,6 +1163,321 @@ def select_phase(frag, grid, device) -> dict:
     return out
 
 
+# ---- the apps beyond the LDBC six ---------------------------------------
+
+def loops_and_neighbours(frag):
+    """(pids with a self loop, {pid: set of neighbour pids}) from the host
+    CSRs; neighbours only for the rows asked for via the returned getter."""
+    loops = []
+    for f, c in enumerate(frag.host_oe):
+        e = c.num_edges
+        src = f * frag.vp + c.edge_src[:e].astype(np.int64)
+        loops.append(src[src == c.edge_nbr[:e]])
+    loops = set(np.concatenate(loops).tolist())
+
+    def neighbours(pid):
+        c = frag.host_oe[pid // frag.vp]
+        lo, hi = c.indptr[pid % frag.vp], c.indptr[pid % frag.vp + 1]
+        return set(c.edge_nbr[lo:hi].tolist())
+    return loops, neighbours
+
+
+def cn_identity_ok(frag, source_pid: int, cn, tri_source: int) -> bool:
+    """A common_neighbors result against the source's triangle count u:
+    the sum of cn(v) over the neighbours v != u of u is 2 T(u), plus
+    |N(u) - {u}| when u has a self loop, plus one for each such neighbour
+    with a self loop (cn(v) = |N(u) & N(v)| counts u and v themselves
+    there)."""
+    loops, neighbours = loops_and_neighbours(frag)
+    near = neighbours(source_pid) - {source_pid}
+    flat = np.asarray(cn).reshape(-1)
+    got = int(flat[sorted(near)].sum())
+    want = (2 * tri_source + (source_pid in loops) * len(near)
+            + len(near & loops))
+    return got == want
+
+
+def brandes_identity(delta, depth, source_pid: int):
+    """(sum of delta(v) over v != s, sum of depth(t) - 1 over the reached
+    t != s): equal for single-source dependencies, since each shortest
+    s-t path has depth(t) - 1 interior vertices."""
+    d = np.asarray(delta, dtype=np.float64).reshape(-1).copy()
+    d[source_pid] = 0.0
+    dep = np.asarray(depth).reshape(-1)
+    reached = (dep >= 1) & (dep < np.iinfo(np.int64).max)
+    return float(d.sum()), float((dep[reached] - 1).sum())
+
+
+def more_apps_phase(frag, e_sym, device) -> dict:
+    """The apps beyond the LDBC six on RMAT-20 through `Worker.query`,
+    each with `app_phase`'s checks (launch counts; against its run on the
+    plain versions: integers bit-equal, `bc` and `pagerank_local` within
+    1e-4 relative, PageRank's rule; equal rounds and counters) and the
+    cross-checks with no plain code in them: kcore(16) is
+    core_decomposition's core >= 16; khop(k) is BFS's depth masked to
+    <= k; bc's dependencies satisfy the Brandes identity against BFS's
+    depths and its path counts stay finite; pagerank_local's ranks sum to
+    the vertex count (an undirected graph keeps the mass); the
+    common-neighbour counts satisfy the triangle identity against
+    LCCBeta's credit at the source; kclique k = 3's total is a third of
+    LCCBeta's credits."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, BFS, LCCBeta
+
+    inner = frag.host_inner_mask()
+    out = {}
+    r = out["kcore"] = app_phase("kcore", frag, APP_REGISTRY["kcore"], device,
+                                 {"k": KCORE_K}, e_sym, "rounds")
+    r = out["core_decomposition"] = app_phase(
+        "core_decomposition", frag, APP_REGISTRY["core_decomposition"],
+        device, {}, e_sym, "rounds")
+    core = r["values"]
+    check(np.array_equal(out["kcore"]["values"],
+                         (core >= KCORE_K).astype(np.int64)),
+          f"kcore({KCORE_K}) differs from core_decomposition's core >= "
+          f"{KCORE_K}")
+    r["max_core"] = int(core.max())
+    print(f"[app]   kcore({KCORE_K}) = core_decomposition core >= {KCORE_K}: "
+          f"{int(out['kcore']['values'].sum())} members, max core "
+          f"{r['max_core']}", flush=True)
+
+    r = out["pagerank_local"] = app_phase(
+        "pagerank_local", frag, APP_REGISTRY["pagerank_local"], device,
+        {"delta": 0.85, "max_round": PR_ROUNDS}, e_sym, "rounds", rtol=1e-4)
+    mass = float(r["values"].astype(np.float64)[inner].sum())
+    n_inner = int(inner.sum())
+    check(abs(mass - n_inner) <= 1e-4 * n_inner,
+          f"pagerank_local mass {mass} != {n_inner} vertices")
+    print(f"[app]   pagerank_local mass={mass:.3f} vertices={n_inner}",
+          flush=True)
+
+    depth = run_query(frag, BFS(), device, source=0)[0].result_values()
+    src = int(frag.oid_to_pid(np.array([0]))[0])
+    r = out["bc"] = app_phase("bc", frag, APP_REGISTRY["bc"], device,
+                              {"source": 0}, e_sym, rtol=1e-4)
+    wk = run_query(frag, APP_REGISTRY["bc"](), device, source=0)[0]
+    pn = wk._result_state["pn"]
+    r["pn_max"] = float(pn.max())
+    r["pn_finite"] = bool(torch.isfinite(pn).all())
+    got, want = brandes_identity(r["values"], depth, src)
+    check(abs(got - want) <= 1e-4 * want,
+          f"bc: sum of dependencies {got} != {want}")
+    print(f"[app]   bc levels={wk.app.levels} pn_max={r['pn_max']:.6e} "
+          f"pn_finite={r['pn_finite']} (float32; exact below 2^24) "
+          f"sum_delta={got:.6e} brandes={want:.6e}", flush=True)
+    check(r["pn_finite"], "bc: a float32 path count overflowed")
+
+    for k in KHOP_KS:
+        r = out[f"khop_{k}"] = app_phase(
+            f"khop k={k}", frag, lambda k=k: APP_REGISTRY["khop"](k=k),
+            device, {"source": 0}, e_sym)
+        check(np.array_equal(r["values"], np.where(depth <= k, depth, -1)),
+              f"khop({k}) differs from BFS's depths masked to <= {k}")
+    print(f"[app]   khop k={KHOP_KS} = bfs depths masked to <= k", flush=True)
+
+    credits = LCCBeta().triangles(frag.dev, None).cpu().numpy()
+    r = out["common_neighbors"] = app_phase(
+        "common_neighbors", frag, APP_REGISTRY["common_neighbors"], device,
+        {"source": 0}, e_sym)
+    check(cn_identity_ok(frag, src, r["values"], int(credits.reshape(-1)[src])),
+          "common_neighbors: the triangle identity at the source fails")
+
+    r = out["kclique_3"] = app_phase("kclique k=3", frag,
+                                     APP_REGISTRY["kclique"], device,
+                                     {"k": 3})
+    check(r["used_device_kernel"] and 3 * r["total_cliques"]
+          == int(credits.astype(np.int64).sum()),
+          f"kclique k=3: {r['total_cliques']} triangles, LCCBeta credits "
+          f"{int(credits.astype(np.int64).sum())} (3 per triangle)")
+    print(f"[app]   common_neighbors: triangle identity at the source ok; "
+          f"kclique k=3 total={r['total_cliques']} = LCCBeta credits / 3",
+          flush=True)
+    for name, res in out.items():
+        if not name.startswith("kclique"):
+            check(res["counts"]["gather_reduce"] > 0,
+                  f"{name} did not launch gather_reduce")
+        del res["values"]
+    return out
+
+
+def clique_phases(frag18, device) -> dict:
+    """triangle_count on RMAT-18 (lcc_bitmap's cut: a bitmap at RMAT-20 is
+    128 GiB) with its two AND-popcount launches and per-vertex counts
+    equal to LCCBeta's credits; kclique k = 4 on the device on the
+    undirected RMAT-16 (KClique4Device: its oriented D fits hub_cap,
+    RMAT-18's does not); KCliqueDevice(5) on the same graph, called
+    directly (D past general_cap(5)); and on RMAT-11 the device apps at
+    k = 4 and 5 against the host recursion, per apex."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, KClique, LCCBeta
+    from libgrape_lite_tpu_torch.models.kclique_device import KCliqueDevice
+
+    out = {}
+    r = out["triangle_count"] = app_phase(
+        f"triangle_count rmat{BITMAP_SCALE}", frag18,
+        APP_REGISTRY["triangle_count"], device, {})
+    check(r["counts"]["intersect"] == 2, "triangle_count: two intersect "
+          "launches per query")
+    credits = LCCBeta().triangles(frag18.dev, None).cpu().numpy()
+    inner = frag18.host_inner_mask()
+    check(np.array_equal(r["values"], np.where(inner, credits, 0)),
+          "triangle_count differs from LCCBeta's credits")
+    print(f"[app]   triangle_count = LCCBeta credits: "
+          f"{int(r['values'].sum()) // 3} triangles", flush=True)
+
+    t0 = time.perf_counter()
+    frag16, _ = rmat_fragment(KCLIQUE4_SCALE, device)
+    dmax = {KCLIQUE4_SCALE: KClique._oriented_dmax(frag16),
+            BITMAP_SCALE: KClique._oriented_dmax(frag18)}
+    print(f"[app] kclique oriented D: "
+          + " ".join(f"rmat{k}={v}" for k, v in dmax.items())
+          + f" (hub_cap {KClique.hub_cap}, general_cap(5) "
+          f"{KClique().general_cap(5)}); host_s="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    r = out["kclique_4"] = app_phase(
+        f"kclique k=4 rmat{KCLIQUE4_SCALE}", frag16, APP_REGISTRY["kclique"],
+        device, {"k": 4})
+    check(r["used_device_kernel"], "kclique k=4 did not take the device app")
+    # no kernel and no plain version behind it: two runs, the second
+    # timed and bit-equal to the first
+    reset_launch_counts()
+    first = run_query(frag16, KCliqueDevice(5), device)[0].result_values()
+    wk, secs = run_query(frag16, KCliqueDevice(5), device)
+    check(np.array_equal(wk.result_values(), first),
+          "KCliqueDevice(5) rerun differs")
+    out["kclique_5"] = dict(values=first, seconds=secs, rounds=wk.rounds,
+                            counts=launch_counts(),
+                            total_cliques=int(first.sum()))
+    print(f"[app] KCliqueDevice(5) rmat{KCLIQUE5_SCALE} seconds={secs:.4f} "
+          f"total_cliques={int(first.sum())} rerun bit-equal", flush=True)
+
+    small, _ = rmat_fragment(KCLIQUE_CHECK_SCALE, device)
+    for k in (4, 5):
+        dev_app, host_app = KClique(), KClique()
+        host_app.hub_cap = host_app._GENERAL_WORK_BUDGET = 0
+        t0 = time.perf_counter()
+        dev_w = run_query(small, dev_app, device, k=k)[0]
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_w = run_query(small, host_app, device, k=k)[0]
+        host_s = time.perf_counter() - t0
+        check(dev_app.used_device_kernel and not host_app.used_device_kernel
+              and np.array_equal(dev_w.result_values(),
+                                 host_w.result_values()),
+              f"kclique k={k} rmat{KCLIQUE_CHECK_SCALE}: device and host "
+              "recursion differ")
+        print(f"[app]   kclique k={k} rmat{KCLIQUE_CHECK_SCALE}: device "
+              f"= host recursion per apex, total={dev_app.total_cliques} "
+              f"device_s={dev_s:.3f} host_s={host_s:.3f}", flush=True)
+    for res in out.values():
+        del res["values"]
+    return out
+
+
+def more_golden_phase(device) -> None:
+    """The eleven names on p2p-31 through `run_app` at fnum 1 and 4.
+    triangle_count against the LCC golden (lcc d(d - 1) / 2 rounds to
+    the count, d the degree with multiplicity); the others against their
+    cross-checks: kcore (k 4) = core_decomposition's core >= 4; khop (k 2,
+    source 6) = the BFS golden masked to <= 2; kclique (k 3) total =
+    triangle_count's global count; bc (source 6) and staged_bc,
+    staged_bc_bfs (source 0) by the Brandes identity against the BFS
+    golden and a bfs run from 0 (p2p-31 has no vertex 0: nothing is
+    reached, every dependency 0); pagerank_local and its alias sum to
+    the vertex count; common_neighbors (source CN_SOURCE) by the
+    triangle identity against triangle_count there."""
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+    data = os.path.join(HERE, "dataset")
+
+    def load(name):
+        with open(os.path.join(data, name)) as fh:
+            return {int(a): float(b) for a, b in
+                    (line.split() for line in fh.read().strip().splitlines())}
+
+    lcc_gold, bfs_gold = load("p2p-31-LCC"), load("p2p-31-BFS")
+    for fnum in (1, 4):
+        def run(app, **flags):
+            wk = run_app(QueryArgs(
+                application=app, efile=os.path.join(data, "p2p-31.e"),
+                vfile=os.path.join(data, "p2p-31.v"), fnum=fnum,
+                device=device, **flags))
+            frag = wk.fragment
+            inner = frag.host_inner_mask()
+            vals = wk.result_values()
+            by_oid = dict(zip(frag.host_oids[inner].tolist(),
+                              vals[inner].tolist()))
+            return wk, vals, by_oid
+
+        def ok(app, what):
+            print(f"[golden] {app} fnum={fnum} rounds={runs[app][0].rounds}"
+                  f" {what} ok", flush=True)
+
+        runs = {}
+        runs["triangle_count"] = run("triangle_count")
+        wk, vals, tri = runs["triangle_count"]
+        deg = wk.fragment.dev.out_degree.cpu().numpy()
+        inner = wk.fragment.host_inner_mask()
+        d = dict(zip(wk.fragment.host_oids[inner].tolist(),
+                     deg[inner].astype(np.int64).tolist()))
+        bad = [o for o, t in tri.items()
+               if t != np.rint(lcc_gold[o] * d[o] * (d[o] - 1) / 2)]
+        check(not bad, f"triangle_count fnum {fnum}: {len(bad)} vertices "
+              "off the LCC golden")
+        ok("triangle_count", f"lcc golden ({wk.app.global_triangles} "
+           "triangles)")
+        runs["kclique"] = run("kclique")
+        check(runs["kclique"][0].app.total_cliques
+              == wk.app.global_triangles, f"kclique fnum {fnum}: total "
+              "differs from triangle_count's")
+        ok("kclique", "total = triangle_count")
+
+        runs["core_decomposition"] = run("core_decomposition")
+        runs["kcore"] = run("kcore", kcore_k=4)
+        core = runs["core_decomposition"][2]
+        check(all(v == (core[o] >= 4) for o, v in runs["kcore"][2].items()),
+              f"kcore fnum {fnum}: differs from core_decomposition >= 4")
+        ok("core_decomposition", "(cross-check of kcore)")
+        ok("kcore", "= core_decomposition >= 4")
+
+        runs["khop"] = run("khop", khop_k=2, bfs_source=6)
+        check(all(v == (bfs_gold[o] if bfs_gold[o] <= 2 else -1)
+                  for o, v in runs["khop"][2].items()),
+              f"khop fnum {fnum}: differs from the BFS golden masked")
+        ok("khop", "= BFS golden masked to <= 2")
+
+        bfs0 = run("bfs", bfs_source=0)
+        for app, flags, depth in (("bc", {"bc_source": 6}, bfs_gold),
+                                  ("staged_bc", {}, bfs0[2]),
+                                  ("staged_bc_bfs", {}, bfs0[2])):
+            runs[app] = wk, vals, by_oid = run(app, **flags)
+            source = flags.get("bc_source", 0)
+            oids = [o for o in by_oid if o != source]
+            got = float(sum(by_oid[o] for o in oids))
+            reach = [depth[o] for o in oids if 1 <= depth[o] < 2**62]
+            want = float(sum(x - 1 for x in reach))
+            check(abs(got - want) <= 1e-4 * max(want, 1.0),
+                  f"{app} fnum {fnum}: sum of dependencies {got} != {want}")
+            ok(app, f"Brandes identity ({got:.6e} = {want:.6e})")
+
+        for app in ("pagerank_local", "pagerank_local_parallel"):
+            runs[app] = run(app)
+            mass = float(sum(runs[app][2].values()))
+            n = len(runs[app][2])
+            check(abs(mass - n) <= 1e-4 * n,
+                  f"{app} fnum {fnum}: mass {mass} != {n}")
+            ok(app, f"mass {mass:.4f} = {n} vertices")
+
+        wk, vals, _ = runs["common_neighbors"] = run("common_neighbors",
+                                                     cn_source=CN_SOURCE)
+        frag = wk.fragment
+        src = int(frag.oid_to_pid(np.array([CN_SOURCE]))[0])
+        tri_src = int(runs["triangle_count"][1].reshape(-1)[src])
+        check(tri_src > 0 and cn_identity_ok(frag, src, vals, tri_src),
+              f"common_neighbors fnum {fnum}: the triangle identity fails")
+        ok("common_neighbors",
+           f"triangle identity (T({CN_SOURCE}) = {tri_src})")
+        check(len(runs) == 11, f"{len(runs)} of the 11 names ran")
+
+
 def host_syncs(frag, app_factory, device, kw) -> int:
     """Host synchronisations inside one `Worker.query`, as CUDA's
     sync-debug mode reports them (one warning per synchronising call)."""
@@ -1179,6 +1539,15 @@ def profile_phases(frag, frag18, device) -> None:
     profile_phase("cdlp", frag, CDLP, device, {"max_round": CDLP_ROUNDS})
     profile_phase(f"lcc_bitmap rmat{BITMAP_SCALE}", frag18, LCC, device, {})
     profile_phase("lcc", frag, LCCBeta, device, {})
+    r = profile_phase("core_decomposition", frag,
+                      APP_REGISTRY["core_decomposition"], device, {})
+    rounds = run_query(frag, APP_REGISTRY["core_decomposition"](),
+                       device)[0].rounds
+    syncs = host_syncs(frag, APP_REGISTRY["core_decomposition"], device, {})
+    print(f"[profile]   core_decomposition: rounds={rounds} "
+          f"host_syncs={syncs} ({syncs / max(rounds, 1):.2f} per round) "
+          f"idle_share={1 - r['device_busy_ms'] / r['wall_ms']:.3f}",
+          flush=True)
     for name in ("sssp_delta", "bfs_opt"):
         app = APP_REGISTRY[name]
         r = profile_phase(name, frag, app, device, {"source": 0})
@@ -1464,6 +1833,8 @@ def main() -> int:
     ss = sssp_phase(frag, e_sym, device)
     ldbc = ldbc_phases(frag, e_sym, frag18, frag16, device)
     variants = variants_phase(frag, e_sym, device)
+    more = more_apps_phase(frag, e_sym, device)
+    cliques = clique_phases(frag18, device)
     t0 = time.perf_counter()
     grid, grid_edges = grid_fragment(GRID_SIDE, device)
     print(f"[graph] grid{GRID_SIDE}: vertices={grid.dev.total_vnum} "
@@ -1472,10 +1843,11 @@ def main() -> int:
     select = select_phase(frag, grid, device)
     profile_phases(frag, frag18, device)
     golden_phase(device)
+    more_golden_phase(device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
-              "sssp": ss, **ldbc, **variants}
+              "sssp": ss, **ldbc, **variants, **more, **cliques}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"][k] for r in runs)
                 for k in ("gather_reduce", "strict_tile", "intersect")}
@@ -1487,6 +1859,8 @@ def main() -> int:
     for app in ("lcc_bitmap", "lcc_directed"):
         check(ldbc[app]["counts"]["intersect"] > 0,
               f"{app} did not launch intersect")
+    check(cliques["triangle_count"]["counts"]["intersect"] > 0,
+          "triangle_count did not launch intersect")
     gr = kern["gather_reduce[sum]"]
     st = kern["strict_tile"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1507,8 +1881,10 @@ def main() -> int:
              config=gr["config"], passes_ms=gr["passes_ms"],
              device_passes_per_call=len(gr["passes_ms"]),
              **{f"{k}_int32_{kind}": kern_i32[kind][k]
-                for kind in ("min", "max")
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
+                for kind in ("sum", "min", "max")
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             library_int32_sum=kern_i32["sum"]["library"],
+             library_all_ms_int32_sum=kern_i32["sum"]["library_all_ms"]),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",
@@ -1544,6 +1920,8 @@ def main() -> int:
                  for app, r in ldbc.items()},
         "variants": {app: {k: v for k, v in r.items() if k != "counts"}
                      for app, r in variants.items()},
+        "more_apps": {app: {k: v for k, v in r.items() if k != "counts"}
+                      for app, r in {**more, **cliques}.items()},
         "sssp_select": select,
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

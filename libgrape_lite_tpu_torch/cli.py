@@ -13,8 +13,13 @@ Applications, with their query flags:
   bfs, bfs_auto, bfs_opt, bfs_msg (--bfs_source);
   wcc, wcc_auto, wcc_opt;
   cdlp, cdlp_auto, cdlp_opt, cdlp_opt_ud, cdlp_opt_ud_dense (--cdlp_mr);
-  lcc, lcc_auto, lcc_beta, lcc_opt, lcc_bitmap, lcc_directed
-    (--degree_threshold).
+  lcc, lcc_auto, lcc_beta, lcc_opt, lcc_bitmap, lcc_directed,
+    triangle_count (--degree_threshold);
+  bc (--bc_source), staged_bc, staged_bc_bfs;
+  kcore (--kcore_k), core_decomposition;
+  pagerank_local, pagerank_local_parallel (--pr_d, --pr_mr);
+  khop (--khop_k, --bfs_source), common_neighbors (--cn_source);
+  kclique (--kclique_k).
 --directed loads the graph directed.
 
 `--device` defaults to `cuda` and the run fails when CUDA is absent.
@@ -42,6 +47,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--directed", action="store_true")
     p.add_argument("--sssp_source", default="0")
     p.add_argument("--bfs_source", default="0")
+    p.add_argument("--bc_source", default="0")
+    p.add_argument("--kcore_k", type=int, default=0)
+    p.add_argument("--kclique_k", type=int, default=3)
+    p.add_argument("--khop_k", type=int, default=2,
+                   help="k-hop neighbourhood hop bound (the source comes "
+                        "from --bfs_source)")
+    p.add_argument("--cn_source", default="0",
+                   help="common_neighbors 2-hop query source vertex")
     p.add_argument("--pr_d", type=float, default=0.85)
     p.add_argument("--pr_mr", type=int, default=10)
     p.add_argument("--cdlp_mr", type=int, default=10)

@@ -41,9 +41,14 @@
 //   lie past its merge path; offsets f * ep are 64-bit.  The carve-out
 //   gives shared memory only what the resident blocks need, leaving L1
 //   for RMAT's hot x columns.
-//   Value types: float (sum, min, max; optional weights) and int32 (min,
-//   max; no weights) -- BFS depths and WCC labels, whose INT32_MAX
-//   sentinels and pid range a float32 cannot carry exactly past 2^24.
+//   Value types: float (sum, min, max; optional weights) and int32 (sum,
+//   min, max; no weights) -- BFS depths and WCC labels, whose INT32_MAX
+//   sentinels and pid range a float32 cannot carry exactly past 2^24, and
+//   the peeling apps' neighbour counts (kcore, core_decomposition,
+//   common_neighbors).  An int32 sum is exact in any order (integer
+//   addition is associative), so it is bit-equal to the plain version;
+//   a row's sum must stay below 2^31 (the apps' counts are bounded by the
+//   in-degree).
 //
 // strict_tile replaces the strict-tile Pallas kernel
 // (libgrape_lite_tpu/ops/spmv.py::_spmv_partials, body _spmv_tile_kernel)
@@ -639,7 +644,8 @@ long long grape_gather_scratch_ints(int fnum, int vp, long long ep) {
 // The gather kernel's launch facts for one kind (see gather_config).
 int grape_gather_config(int kind, int has_w, int is_int, int* out) {
   cudaError_t err = cudaErrorInvalidValue;
-  if (is_int && !has_w && kind == kMin) err = gather_config<int, kMin, false>(out);
+  if (is_int && !has_w && kind == kSum) err = gather_config<int, kSum, false>(out);
+  else if (is_int && !has_w && kind == kMin) err = gather_config<int, kMin, false>(out);
   else if (is_int && !has_w && kind == kMax) err = gather_config<int, kMax, false>(out);
   else if (!is_int && kind == kSum) err = has_w ? gather_config<float, kSum, true>(out) : gather_config<float, kSum, false>(out);
   else if (!is_int && kind == kMin) err = has_w ? gather_config<float, kMin, true>(out) : gather_config<float, kMin, false>(out);
@@ -663,14 +669,16 @@ int grape_gather_reduce(const int* indptr, const int* nbr, const float* w,
   }
 }
 
-// int32 min / max of x over the stacked CSR, no weights (rows without
-// edges hold INT32_MAX / INT32_MIN).  Sum is refused.
+// int32 sum / min / max of x over the stacked CSR, no weights (rows
+// without edges hold 0 / INT32_MAX / INT32_MIN).  A sum wraps past 2^31:
+// the caller keeps each row's sum below it.
 int grape_gather_reduce_i32(const int* indptr, const int* nbr, const int* x,
                             int* y, int* scratch, int fnum, int vp,
                             long long ep, int kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_cast<long long>(fnum) * vp == 0) return cudaSuccess;
   switch (kind) {
+    case kSum: return run_gather<int, kSum, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
     case kMin: return run_gather<int, kMin, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
     case kMax: return run_gather<int, kMax, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

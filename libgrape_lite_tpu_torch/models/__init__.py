@@ -14,6 +14,15 @@ SyncBuffer push apps `*_auto` (with `pagerank_push`,
 first-round shortcut.  `sssp_select` names SSSP here; `run_app` probes
 the graph and runs `sssp` or `sssp_delta` (models/sssp_select.py).  The
 other names alias their base apps, as in the JAX registry.
+
+Beyond the LDBC six: the peeling apps `kcore` and `core_decomposition`,
+single-source betweenness `bc` (`staged_bc` and `staged_bc_bfs` name the
+same app, as in the JAX registry), the unnormalised `pagerank_local`
+(with `pagerank_local_parallel`), the hop-bounded BFS `khop`, the 2-hop
+`common_neighbors` query, `triangle_count` (the bitmap LCC's credits)
+and `kclique` (dispatching to the device clique apps or a host
+recursion).  The JAX registry's vertex-cut names (`pagerank_vc*`,
+`sssp_vc`, `bfs_vc`, `wcc_vc`) are not ported.
 """
 
 from libgrape_lite_tpu_torch.models.auto_apps import (
@@ -22,16 +31,28 @@ from libgrape_lite_tpu_torch.models.auto_apps import (
     SSSPAuto,
     WCCAuto,
 )
+from libgrape_lite_tpu_torch.models.bc import BC
 from libgrape_lite_tpu_torch.models.bfs import BFS
 from libgrape_lite_tpu_torch.models.bfs_opt import BFSOpt
 from libgrape_lite_tpu_torch.models.cdlp import CDLP, CDLPOpt
+from libgrape_lite_tpu_torch.models.core_decomposition import (
+    CoreDecomposition,
+)
+from libgrape_lite_tpu_torch.models.kclique import KClique
+from libgrape_lite_tpu_torch.models.kcore import KCore
+from libgrape_lite_tpu_torch.models.khop import KHopNeighborhood
 from libgrape_lite_tpu_torch.models.lcc import LCC
 from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
 from libgrape_lite_tpu_torch.models.lcc_directed import LCCDirected
 from libgrape_lite_tpu_torch.models.pagerank import PageRank
+from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
 from libgrape_lite_tpu_torch.models.sssp import SSSP
 from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
 from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
+from libgrape_lite_tpu_torch.models.triangle_count import (
+    CommonNeighbors,
+    TriangleCount,
+)
 from libgrape_lite_tpu_torch.models.wcc import WCC
 from libgrape_lite_tpu_torch.models.wcc_opt import WCCOpt
 
@@ -67,9 +88,22 @@ APP_REGISTRY = {
     "lcc_opt": LCC,
     "lcc_bitmap": LCC,
     "lcc_directed": LCCDirected,
+    "bc": BC,
+    "staged_bc": BC,
+    "staged_bc_bfs": BC,
+    "kcore": KCore,
+    "kclique": KClique,
+    "core_decomposition": CoreDecomposition,
+    "pagerank_local": PageRankLocal,
+    "pagerank_local_parallel": PageRankLocal,
+    "triangle_count": TriangleCount,
+    "common_neighbors": CommonNeighbors,
+    "khop": KHopNeighborhood,
 }
 
-__all__ = ["APP_REGISTRY", "BFS", "BFSAuto", "BFSMsg", "BFSOpt", "CDLP",
-           "CDLPOpt", "LCC", "LCCBeta", "LCCDirected", "PageRank",
-           "PageRankAuto", "SSSP", "SSSPAuto", "SSSPDelta", "SSSPMsg", "WCC",
-           "WCCAuto", "WCCOpt"]
+__all__ = ["APP_REGISTRY", "BC", "BFS", "BFSAuto", "BFSMsg", "BFSOpt",
+           "CDLP", "CDLPOpt", "CommonNeighbors", "CoreDecomposition",
+           "KClique", "KCore", "KHopNeighborhood", "LCC", "LCCBeta",
+           "LCCDirected", "PageRank", "PageRankAuto", "PageRankLocal",
+           "SSSP", "SSSPAuto", "SSSPDelta", "SSSPMsg", "TriangleCount",
+           "WCC", "WCCAuto", "WCCOpt"]

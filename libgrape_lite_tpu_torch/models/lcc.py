@@ -58,6 +58,12 @@ def dedup_mask(csr) -> torch.Tensor:
     return csr.edge_mask & ~dup
 
 
+def emit_counts(self, dev, state, tri):
+    """An `_emit` that keeps the [fnum, vp] int32 triangle counts of the
+    inner vertices as state["tri"] (the counting apps' result)."""
+    return dict(state, tri=torch.where(dev.inner_mask, tri, 0))
+
+
 class LCC(ParallelAppBase):
     load_strategy = LoadStrategy.kOnlyOut
     message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
@@ -79,8 +85,9 @@ class LCC(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         return state, 0
 
-    @staticmethod
-    def _emit(dev, state, tri):
+    def _emit(self, dev, state, tri):
+        """The result state from the [fnum, vp] int32 triangle credits:
+        here the clustering coefficient (TriangleCount keeps the counts)."""
         deg = dev.out_degree
         d = deg.to(torch.float64)
         denom = d * (d - 1)

@@ -14,9 +14,13 @@ more than the pass; PERF.md).
 
 For every oriented edge (v, u) a batched `torch.searchsorted` of N+(v)
 into N+(u) finds the common members w; one pass credits v and u by the
-count and every w by one.  Rows are read by pid, where the JAX package
-rings ELL blocks between shards.  Edges run in groups by row width (see
-`triangles`), each in chunks of about 2^22 lanes.  Triangle counts are
+count and every w by one.  In apex mode (`credit_mode = "apex"`,
+`ApexTriangleCount` and the clique apps) only v is credited: each
+triangle counts once, at its (degree, pid)-minimal corner, and the
+orientation stays "lo" whatever the threshold.  Rows are read by pid,
+where the JAX package rings ELL blocks between shards.  Edges run in
+groups by row width (see `triangles`), each in chunks of about 2^22
+lanes.  Triangle counts are
 int32 sums, exact in any order; lcc values equal the JAX package's bit
 for bit.  There is no Pallas kernel here: the JAX package runs this
 pass in XLA.  Its host-built tiered edge schedule (`_build_tier_perm`)
@@ -29,7 +33,12 @@ import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
-from libgrape_lite_tpu_torch.models.lcc import LCC, dedup_mask, row_pids
+from libgrape_lite_tpu_torch.models.lcc import (
+    LCC,
+    dedup_mask,
+    emit_counts,
+    row_pids,
+)
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
@@ -37,6 +46,9 @@ class LCCBeta(ParallelAppBase):
     load_strategy = LoadStrategy.kOnlyOut
     message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
     result_format = "float"
+    # "lcc": apex, middle and far credits and the coefficient; "apex":
+    # apex credits only, int32 counts (k = 3 clique counting)
+    credit_mode = "lcc"
 
     def __init__(self):
         self.degree_threshold = 0
@@ -44,8 +56,12 @@ class LCCBeta(ParallelAppBase):
     @property
     def orientation(self) -> str:
         # the reference's filter semantics (`lcc.h:234-243`) are defined
-        # on lower-degree neighbour lists, so a threshold selects "hi"
-        return "hi" if self.degree_threshold > 0 else "lo"
+        # on lower-degree neighbour lists, so a threshold selects "hi";
+        # apex mode pins "lo", on which per-apex attribution and the
+        # clique apps' hub cap are defined
+        if self.credit_mode == "lcc" and self.degree_threshold > 0:
+            return "hi"
+        return "lo"
 
     def init_state(self, frag, degree_threshold: int = 0, **_):
         # degree_threshold > 0 drops hub vertices' lists (the reference's
@@ -85,8 +101,10 @@ class LCCBeta(ParallelAppBase):
             keep &= d_row <= self.degree_threshold
         return row[keep], nbr[keep]
 
+    _emit = LCC._emit
+
     def peval(self, ctx: StepContext, dev, state):
-        return LCC._emit(dev, state, self.triangles(dev, state)), 0
+        return self._emit(dev, state, self.triangles(dev, state)), 0
 
     def triangles(self, dev, state) -> torch.Tensor:
         """[fnum, vp] int32 triangle credits per vertex: the merge pass.
@@ -126,6 +144,8 @@ class LCCBeta(ParallelAppBase):
                        & (lanes < cnt[vv].unsqueeze(1)))
                 c1 = hit.sum(1, dtype=torch.int32)
                 cred.index_add_(0, vv, c1)  # apex
+                if self.credit_mode == "apex":
+                    continue
                 cred.index_add_(0, uu, c1)  # middle
                 far = q[hit].long()
                 cred.index_add_(0, far,
@@ -138,3 +158,23 @@ class LCCBeta(ParallelAppBase):
 
     def finalize(self, frag, state):
         return np.asarray(state["lcc"].numpy())
+
+
+class ApexTriangleCount(LCCBeta):
+    """k = 3 clique counting (used by models/kclique.py): the merge pass in
+    apex mode, int32 counts per apex, each triangle counted once at its
+    (degree, pid)-minimal corner, as every k of the clique apps counts."""
+
+    credit_mode = "apex"
+    result_format = "int"
+
+    def init_state(self, frag, **kw):
+        state = super().init_state(frag, **kw)
+        state["tri"] = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
+                                   device=frag.device)
+        return state
+
+    _emit = emit_counts
+
+    def finalize(self, frag, state):
+        return state["tri"].numpy().astype(np.int64)

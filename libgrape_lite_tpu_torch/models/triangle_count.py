@@ -1,0 +1,127 @@
+"""Triangle counts and the 2-hop common-neighbour query.
+
+Counterpart of `libgrape_lite_tpu/models/triangle_count.py`:
+
+  * `TriangleCount` -- per-vertex triangle counts T(v) and the global
+    count T = sum T(v) / 3.  It is the bitmap LCC's credit pass (two
+    `row_and_popcount_indexed` calls of the AND-popcount kernel) with
+    another emit tail: the counts instead of the coefficient, so they
+    are integer-identical to the LCC credits by construction.  The JAX
+    package's `GRAPE_LCC_BACKEND=spgemm` branch is not ported (ROADMAP
+    Queue A); its default `intersect` backend is this one.
+  * `CommonNeighbors` -- cn(v) = |N(u) & N(v)| for a source u: two pulls
+    of the one-hot source vector over the deduplicated out-adjacency
+    (cn = A (A e_u)), each a gather-reduce (int32 kind `sum`); the final
+    hop zeroes the source's own row (cn(u, u) is a degree).  The JAX
+    package masks duplicate edges per edge; the kernel takes no per-edge
+    mask for int32, so the deduplicated out-CSR is built once per
+    fragment on the device and cached (`dedup_csr`), as the push CSR of
+    models/auto_apps.py is.  Single source only: the batched source
+    lanes are ROADMAP Queue A item 5.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import (
+    ParallelAppBase,
+    StepContext,
+    resolve_source,
+)
+from libgrape_lite_tpu_torch.models.lcc import LCC, dedup_mask, emit_counts
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+
+class TriangleCount(LCC):
+    """Per-vertex triangle counts; `global_triangles` after finalize (each
+    triangle credits its three corners once)."""
+
+    result_format = "int"
+
+    def init_state(self, frag, degree_threshold: int = 0, **_):
+        state = super().init_state(frag, degree_threshold=degree_threshold)
+        state.pop("lcc")
+        state["tri"] = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
+                                   device=frag.device)
+        return state
+
+    _emit = emit_counts
+
+    def finalize(self, frag, state):
+        vals = state["tri"].numpy().astype(np.int64)
+        self.global_triangles = int(vals[frag.host_inner_mask()].sum() // 3)
+        return vals
+
+
+_DEDUP: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def dedup_csr(frag):
+    """(indptr [fnum, vp + 1] int32, nbr [fnum, E'] int32) of frag.dev.oe
+    without repeated (src, nbr) pairs, edges in CSR order.  Built once per
+    fragment on the device and cached."""
+    if frag not in _DEDUP:
+        oe = frag.dev.oe
+        fnum, vp = frag.fnum, frag.vp
+        keep = dedup_mask(oe)
+        rows = torch.where(keep, oe.edge_src, vp).long()
+        deg = torch.zeros((fnum, vp + 1), dtype=torch.int64,
+                          device=keep.device)
+        deg.scatter_add_(1, rows, torch.ones_like(rows))
+        indptr = torch.zeros((fnum, vp + 1), dtype=torch.int32,
+                             device=keep.device)
+        indptr[:, 1:] = torch.cumsum(deg[:, :vp], dim=1)
+        f, e = keep.nonzero(as_tuple=True)
+        slot = torch.cumsum(keep, dim=1)[f, e] - 1
+        nbr = torch.zeros((fnum, max(1, int(deg[:, :vp].sum(1).max()))),
+                          dtype=torch.int32, device=keep.device)
+        nbr[f, slot] = oe.edge_nbr[f, e]
+        _DEDUP[frag] = (indptr, nbr)
+    return _DEDUP[frag]
+
+
+class CommonNeighbors(ParallelAppBase):
+    """cn(v) = |N(u) & N(v)| for a query source u (neighbours, not
+    parallel edges, as the LCC family counts)."""
+
+    load_strategy = LoadStrategy.kOnlyOut
+    message_strategy = MessageStrategy.kSyncOnOuterVertex
+    result_format = "int"
+    max_rounds = 8  # 2 pull rounds; the vote ends the query after hop 2
+
+    def init_state(self, frag, source=-1, **_):
+        if isinstance(source, (list, tuple, np.ndarray)):
+            raise ValueError(
+                "common_neighbors takes one source; batched source lanes "
+                "are not ported (ROADMAP Queue A item 5)")
+        self._csr = dedup_csr(frag)
+        seed = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
+                           device=frag.device)
+        pid = resolve_source(frag, source, "CommonNeighbors")
+        if pid >= 0:
+            seed[pid // frag.vp, pid % frag.vp] = 1
+        return {"cn": seed.clone(), "seed": seed,
+                "hop": torch.zeros((), dtype=torch.int32,
+                                   device=frag.device)}
+
+    def peval(self, ctx: StepContext, dev, state):
+        return state, 1
+
+    def inceval(self, ctx: StepContext, dev, state):
+        indptr, nbr = self._csr
+        pulled = spmv.gather_reduce(indptr, nbr, None,
+                                    ctx.gather_state(state["cn"]), "sum")
+        hop = state["hop"] + 1
+        done = hop >= 2
+        # the final hop zeroes the source row and masks padding
+        last = torch.where(dev.inner_mask & (state["seed"] == 0), pulled, 0)
+        return (dict(state, cn=torch.where(done, last, pulled), hop=hop),
+                torch.where(done, 0, 1))
+
+    def finalize(self, frag, state):
+        return state["cn"].numpy().astype(np.int64)

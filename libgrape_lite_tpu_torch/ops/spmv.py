@@ -6,8 +6,9 @@ gather-reduce
 
     y[r] = (+)_{e in in(r)} x[nbr_e] (*) w_e
 
-with sum and multiply (PageRank), min and add (SSSP), or an unweighted
-int32 min (BFS depths, WCC labels).  Two kernels
+with sum and multiply (PageRank), min and add (SSSP), an unweighted
+int32 min (BFS depths, WCC labels) or an unweighted int32 sum (the
+peeling apps' neighbour counts).  Two kernels
 compute it (sources and design notes in `csrc/spmv.cu`):
 
 * `gather_reduce` -- the counterpart of the JAX package's pack-gather
@@ -195,7 +196,9 @@ def gather_reduce_merge_plain(indptr: torch.Tensor, nbr: torch.Tensor,
     ep = nbr.shape[1]
     part = merge_partition_plain(indptr, ep, items_per_block).tolist()
     ind = indptr.long().tolist()
-    fold = {"sum": torch.sum, "min": torch.amin, "max": torch.amax}[kind]
+    # sums accumulate in x's type (int32 stays int32)
+    fold = {"sum": lambda t: t.sum(dtype=t.dtype), "min": torch.amin,
+            "max": torch.amax}[kind]
     ident = identity(kind, x.dtype)
     y = torch.full((fnum, vp), ident, dtype=x.dtype, device=x.device)
 
@@ -237,13 +240,14 @@ def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
     kind: sum (w multiplies), min / max (w adds).  Rows without edges
     hold the identity (0, +inf, -inf).
 
-    int32 x (BFS depths, WCC labels) takes min / max without weights;
-    rows without edges then hold INT32_MAX / INT32_MIN."""
+    int32 x (BFS depths, WCC labels, neighbour counts) takes sum, min or
+    max without weights; rows without edges then hold 0, INT32_MAX or
+    INT32_MIN.  An int32 sum is exact in any order; each row's sum must
+    stay below 2^31 (it wraps, as int32 addition does)."""
     name = "gather_reduce"
     require(kind in KINDS, f"{name}: unknown kind {kind!r}")
     is_int = x.dtype == torch.int32
-    require(not is_int or (kind != "sum" and w is None),
-            f"{name}: int32 x takes min or max without weights")
+    require(not is_int or w is None, f"{name}: int32 x takes no weights")
     if x.device.type == "cpu":
         return gather_reduce_plain(indptr, nbr, w, x, kind)
     require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")

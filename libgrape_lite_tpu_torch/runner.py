@@ -30,6 +30,11 @@ class QueryArgs:
     directed: bool = False
     sssp_source: int | str = 0
     bfs_source: int | str = 0
+    bc_source: int | str = 0
+    kcore_k: int = 0
+    kclique_k: int = 3
+    khop_k: int = 2  # khop's hop bound (its source is bfs_source)
+    cn_source: int | str = 0  # common_neighbors' query source
     pr_d: float = 0.85
     pr_mr: int = 10
     cdlp_mr: int = 10
@@ -52,12 +57,24 @@ def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
         return {"source": _coerce_source(args.sssp_source)}
     if app_name.startswith("bfs"):
         return {"source": _coerce_source(args.bfs_source)}
+    if app_name == "bc":  # staged_bc and staged_bc_bfs take none
+        return {"source": _coerce_source(args.bc_source)}
+    if app_name == "kcore":
+        return {"k": args.kcore_k}
+    if app_name == "kclique":
+        return {"k": args.kclique_k}
     if app_name.startswith("pagerank"):
         return {"delta": args.pr_d, "max_round": args.pr_mr}
-    if app_name.startswith("lcc"):
+    if app_name.startswith("lcc") or app_name == "triangle_count":
         # hub cost cap (reference FLAGS_degree_threshold, lcc.h:234-243);
         # 0 disables it
         return {"degree_threshold": args.degree_threshold}
+    if app_name == "common_neighbors":
+        return {"source": _coerce_source(args.cn_source)}
+    if app_name == "khop":
+        # the hop bound is a constructor argument (run_app); the query
+        # takes the source alone
+        return {"source": _coerce_source(args.bfs_source)}
     if app_name.startswith("cdlp"):
         return {"max_round": args.cdlp_mr}
     return {}
@@ -70,7 +87,7 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
             f"unknown application {name!r}; known: {sorted(APP_REGISTRY)}"
         )
     app_cls = APP_REGISTRY[name]
-    app = app_cls()
+    app = app_cls(k=args.khop_k) if name == "khop" else app_cls()
     if comm_spec is None:
         comm_spec = CommSpec(fnum=args.fnum, device=args.device)
     spec = LoadGraphSpec(

@@ -154,10 +154,15 @@ def test_int32_gather_reduce_plain_matches_jax(graph_cache, kind):
 
 
 def test_int32_gather_reduce_refuses_sum_and_weights():
+    """int32 x takes no weights, for any kind; an unweighted int32 sum
+    is a kind of its own since the peeling apps (rows without edges
+    hold 0)."""
     indptr = torch.zeros((1, 2), dtype=torch.int32)
     nbr = torch.zeros((1, 4), dtype=torch.int32)
     x = torch.zeros(1, dtype=torch.int32)
+    got = spmv.gather_reduce(indptr, nbr, None, x, "sum")
+    assert got.dtype == torch.int32 and torch.equal(got, torch.zeros_like(got))
     with pytest.raises(ValueError, match="int32"):
-        spmv.gather_reduce(indptr, nbr, None, x, "sum")
+        spmv.gather_reduce(indptr, nbr, torch.zeros((1, 4)), x, "sum")
     with pytest.raises(ValueError, match="int32"):
         spmv.gather_reduce(indptr, nbr, torch.zeros((1, 4)), x, "min")

@@ -8,6 +8,9 @@ plain twins of the K1 and K3 kernels' passes, on the CPU.
   and a degree-1 chain, at fnum 1, 2 and 4 with a pad gap after every
   fragment: min / max (float and int32) bit-equal, sums within 1e-5 of
   each row's sum of |terms| (float32 sums in another order).
+* the int32 sum (kcore's and core_decomposition's alive-neighbour
+  counts, common_neighbors' pulls) of both, bit-equal to it on every
+  shape and fnum.
 * `merge_partition_plain` against a step-by-step walk of the merge path.
 * `row_and_popcount_plain` against the Pallas `intersect_count` in
   interpret mode (operands gathered and padded to its 512-row block) on
@@ -157,6 +160,32 @@ def test_merge_path_schedule_matches_jax_on_shapes(shape, fnum, items):
     check_all_kinds(
         lambda *args: spmv.gather_reduce_merge_plain(*args, items),
         shape, fnum)
+
+
+@pytest.mark.parametrize("form", ["plain", "merge1", "merge3", "merge16"])
+@pytest.mark.parametrize("fnum", [1, 2, 4])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_int32_sum_matches_jax_on_shapes(shape, fnum, form):
+    """K1's int32 sum (the peeling apps' neighbour counts): the plain
+    version and the merge-path schedule (1, 3 and 16 items a block) are
+    bit-equal to the JAX segment_reduce and stay int32; rows without
+    edges hold 0."""
+    n = 96
+    rows, cols = SHAPES[shape](n, fnum)
+    indptr, nbr, _, src = stacked(rows, cols, n, fnum)
+    vp = n // fnum
+    x = np.random.default_rng(fnum).integers(-1000, 1000, n).astype(np.int32)
+    want = jax_reduce(x, nbr, None, src, vp, "sum")
+    args = (torch.from_numpy(indptr), torch.from_numpy(nbr), None,
+            torch.from_numpy(x), "sum")
+    if form == "plain":
+        got = spmv.gather_reduce_plain(*args)
+    else:
+        got = spmv.gather_reduce_merge_plain(*args, int(form[5:]))
+    assert got.dtype == torch.int32 and got.shape == (fnum, vp)
+    np.testing.assert_array_equal(got.numpy(), want)
+    deg = np.diff(indptr, axis=1)
+    assert (got.numpy()[deg == 0] == 0).all()
 
 
 @pytest.mark.parametrize("items", [1, 2, 5, 8])

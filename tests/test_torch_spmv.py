@@ -7,6 +7,9 @@ functions, run in interpret mode on the CPU.
   min/max are bit-equal; sum agrees to 1e-5 relative in float32 (the
   pipeline regroups float sums) and to 1e-12 in float64 against an
   `np.add.at` reference.
+* the int32 sum (no weights; weights raise) of `gather_reduce_plain` and
+  `gather_reduce_merge_plain` on four stacked fragments, one without
+  edges, bit-equal to the JAX package's XLA `segment_reduce`.
 * `spmv_strict_plain` vs `spmv_strict(..., interpret=True)` on the hub,
   uniform and mixed shapes of tests/test_spmv_strict.py and with pad
   edges; 1e-5 relative (the MXU product regroups the tile sums).
@@ -21,6 +24,7 @@ import torch
 
 import jax.numpy as jnp
 
+from libgrape_lite_tpu.ops.segment import segment_reduce as jsegment_reduce
 from libgrape_lite_tpu.ops.spmv import plan_tiles as jplan_tiles
 from libgrape_lite_tpu.ops.spmv import spmv_strict as jspmv_strict
 from libgrape_lite_tpu.ops.spmv_pack import (
@@ -114,6 +118,47 @@ def test_gather_reduce_plain_stacked_fragments():
         want = np.full(VP, -np.inf)
         np.maximum.at(want, rows, x[cols + VP * f])
         np.testing.assert_array_equal(got[f], want)
+
+
+@pytest.mark.parametrize("form", ["plain", "merge"])
+def test_gather_reduce_int32_sum_stacked_fragments(form):
+    """int32 sum over four stacked fragments (the peeling apps' counts):
+    each fragment's rows equal the JAX segment_reduce of its edges, in
+    int32; the fragment without edges holds 0."""
+    parts = [_graph(seed=s, e=600 + 100 * s) for s in range(3)] + [None]
+    ep = 1000
+    ind, nbrs, srcs = [], [], []
+    for f, part in enumerate(parts):
+        rows, cols = ((part[0], part[1] + VP * f) if part is not None
+                      else (np.zeros(0, np.int64), np.zeros(0, np.int64)))
+        i, n, _ = _csr(rows, cols, np.ones(len(rows), np.float32),
+                       pad=ep - len(rows))
+        ind.append(i)
+        nbrs.append(n)
+        srcs.append(np.concatenate([rows, np.full(ep - len(rows), VP)]))
+    x = np.random.default_rng(2).integers(0, 2, 4 * VP).astype(np.int32)
+    args = (torch.cat(ind), torch.cat(nbrs), None, torch.from_numpy(x), "sum")
+    got = (spmv.gather_reduce_plain(*args) if form == "plain"
+           else spmv.gather_reduce_merge_plain(*args, 64))
+    assert got.dtype == torch.int32
+    for f in range(4):
+        nbr = torch.cat(nbrs)[f].numpy()
+        want = np.asarray(jsegment_reduce(jnp.asarray(x[nbr]),
+                                          jnp.asarray(srcs[f]), VP, "sum"))
+        np.testing.assert_array_equal(got[f].numpy(), want)
+    assert (got[3] == 0).all()
+
+
+def test_int32_sum_takes_no_weights():
+    rows, cols, w, _ = _graph(seed=5)
+    indptr, nbr, wt = _csr(rows, cols, w)
+    x = torch.ones(VP, dtype=torch.int32)
+    assert spmv.gather_reduce(indptr, nbr, None, x, "sum").dtype == torch.int32
+    with pytest.raises(ValueError, match="int32 x takes no weights"):
+        spmv.gather_reduce(indptr, nbr, wt, x, "sum")
+    meta = [t.to("meta") for t in (indptr, nbr, wt, x)]
+    with pytest.raises(ValueError, match="int32 x takes no weights"):
+        spmv.gather_reduce(*meta, "sum")
 
 
 def _strict_case(n_rows, degrees, seed=0):
