@@ -74,7 +74,30 @@ the port's own entry points:
      directed, against p2p-31-PR-directed); then the eleven names beyond
      them: triangle_count against the LCC golden, the others against
      the cross-checks of 5b;
-  8. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
+  8. the load options (`[load]`): RMAT-20 written once as a TSV file
+     (`src dst w` lines, the seed-11 weights to 4 decimals) and loaded
+     through `LoadGraph` on the native parser, each stage's host seconds
+     (parse, vertex map, CSR build, placement, serialize, deserialize)
+     and the garc file's size; PageRank (10 rounds) and SSSP from 0 on
+     the deserialized fragment bit-equal to the fresh load; `--rebalance`
+     at fnum 4 with PARTITION_STATS' skew before and after and SSSP by
+     oid equal to the load without it; p2p-31 with `--string_id` through
+     `run_app` (SSSP, WCC, CDLP files identical to the integer load's) and
+     every partitioner x idxer at fnum 4 against the SSSP golden;
+  9. the spgemm LCC backend (`[spgemm]`) on RMAT-18: the host plan's
+     seconds and geometry (items, items per edge, bitmap bytes), the
+     credit pass's device time beside K3's, `triangle_count` and
+     `lcc_bitmap` under GRAPE_LCC_BACKEND=spgemm bit-equal to the
+     intersect backend (K3) with both backends' query seconds, and
+     `auto`'s decision with its modeled seconds;
+  10. the GNN sampler (`[sampler]`): an AppendOnlyEdgecutFragment over
+     RMAT-20's edges in both directions, 65,536 seeds at fanouts 4-5 for
+     random, edge_weight and top_k (seeds per second), checked on the
+     device (every pick a neighbour of its parent, a weighted pick never
+     repeating a CSR slot, -1 for rows without neighbours, a rerun with
+     the seed bit-equal) and top_k against a CPU run; then 1% more edges,
+     the rebuild's seconds and the same samples again;
+  11. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
      L2), launch counts zeroed before and read after; then each of its four
@@ -1622,6 +1645,411 @@ def golden_phase(device) -> None:
                   f" fnum={fnum} rounds={wk.rounds} ok", flush=True)
 
 
+# ---- phases 9-11: the load options, the spgemm backend, the sampler -------
+
+def int_text(a: np.ndarray):
+    """Right-aligned ASCII digits [n, width] of a non-negative int64 array,
+    the unused leading positions 0 (dropped when a line is packed)."""
+    a = np.asarray(a, dtype=np.int64)
+    width = len(str(int(a.max()))) if len(a) else 1
+    out = np.zeros((len(a), width), dtype=np.uint8)
+    x = a.copy()
+    lens = np.ones(len(a), dtype=np.int64)
+    for p in range(1, width):
+        lens += a >= 10 ** p
+    for j in range(width - 1, -1, -1):
+        out[:, j] = 48 + x % 10
+        x //= 10
+    out[np.arange(width)[None, :] < (width - lens)[:, None]] = 0
+    return out
+
+
+def write_tsv(path: str, fields: list) -> int:
+    """Lines of space-separated fields (each an [n, w] uint8 byte matrix,
+    0 = no byte), written in one go; returns the file's bytes."""
+    n = len(fields[0])
+    sep = np.full((n, 1), 32, dtype=np.uint8)
+    parts = []
+    for f in fields:
+        parts += [f, sep]
+    parts[-1] = np.full((n, 1), 10, dtype=np.uint8)  # newline
+    rows = np.concatenate(parts, axis=1)
+    blob = rows[rows != 0].tobytes()
+    with open(path, "wb") as fh:
+        fh.write(blob)
+    return len(blob)
+
+
+def weight_text(w: np.ndarray) -> np.ndarray:
+    """'%.4f' of non-negative weights below 100, as a byte matrix."""
+    wi = np.rint(np.asarray(w, dtype=np.float64) * 1e4).astype(np.int64)
+    frac = int_text(wi % 10000 + 10000)[:, 1:]  # four digits, zero-padded
+    return np.concatenate(
+        [int_text(wi // 10000), np.full((len(w), 1), 46, np.uint8), frac],
+        axis=1)
+
+
+def rmat_tsv(scale: int, directory: str):
+    """RMAT-`scale` (bench.py's generator, seed 7) with the seed-11
+    weights as `src dst w` lines, and the vertex file 0..n-1."""
+    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
+    w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
+        np.float32)
+    efile = os.path.join(directory, f"rmat{scale}.e")
+    vfile = os.path.join(directory, f"rmat{scale}.v")
+    nbytes = write_tsv(efile, [int_text(src), int_text(dst), weight_text(w)])
+    write_tsv(vfile, [int_text(np.arange(n))])
+    return efile, vfile, len(src), nbytes
+
+
+def query_values(frag, app, device, **kw):
+    """(values [fnum, vp] numpy, launch counts, seconds) of one query."""
+    reset_launch_counts()
+    wk, secs = run_query(frag, app, device, **kw)
+    return wk.result_values(), launch_counts(), secs
+
+
+def by_oid(frag, vals) -> dict:
+    inner = frag.host_inner_mask()
+    return dict(zip(frag.host_oids[inner].tolist(), vals[inner].tolist()))
+
+
+def load_phase(device, scale: int = SCALE) -> dict:
+    """`LoadGraph` of an RMAT TSV through the native parser, every stage
+    timed; the garc cache round trip; `--rebalance` at fnum 4; string ids
+    and every partitioner x idxer on p2p-31."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.fragment import loader
+    from libgrape_lite_tpu_torch.fragment.partition import PARTITION_STATS
+    from libgrape_lite_tpu_torch.io import line_parser, native
+    from libgrape_lite_tpu_torch.models import SSSP, PageRank
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+    out = {"counts": {"gather_reduce": 0, "strict_tile": 0, "intersect": 0}}
+
+    def add(counts):
+        for k, v in counts.items():
+            out["counts"][k] += v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        efile, vfile, edges, nbytes = rmat_tsv(scale, tmp)
+        print(f"[load] rmat{scale} tsv: {edges} lines, {nbytes} bytes, "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        check(native.available(),
+              f"native loader did not build: {native.UNAVAILABLE_REASON}")
+        spec = loader.LoadGraphSpec(serialize=True,
+                                    serialization_prefix=os.path.join(
+                                        tmp, "garc"))
+        before = dict(line_parser.PARSE_COUNTS)
+        fresh = loader.LoadGraph(efile, vfile, CommSpec(1, device), spec)
+        stages = dict(loader.LOAD_SECONDS)
+        check(line_parser.PARSE_COUNTS["native"] == before["native"] + 2
+              and line_parser.PARSE_COUNTS["numpy"] == before["numpy"],
+              f"the native parser did not parse the load: "
+              f"{line_parser.PARSE_COUNTS}")
+        cache, _ = loader._cache_dir(efile, vfile, spec, 1)
+        garc = os.path.getsize(os.path.join(cache, "frag.garc"))
+        spec.serialize, spec.deserialize = False, True
+        cached = loader.LoadGraph(efile, vfile, CommSpec(1, device), spec)
+        stages["deserialize"] = loader.LOAD_SECONDS["deserialize"]
+        print("[load] parser native; host seconds: " + " ".join(
+            f"{k}={v:.3f}" for k, v in stages.items())
+            + f"; garc {garc} bytes ({garc / nbytes:.3f} of the tsv); "
+            f"vp={fresh.vp} ep={fresh.dev.oe.edge_nbr.shape[1]}", flush=True)
+        check(fresh.dev.total_enum == edges, "edge count off after load")
+        for name, app, kw in (("pagerank", PageRank,
+                               {"delta": 0.85, "max_round": PR_ROUNDS}),
+                              ("sssp", SSSP, {"source": 0})):
+            a, counts, secs_a = query_values(fresh, app(), device, **kw)
+            add(counts)
+            b, counts, secs_b = query_values(cached, app(), device, **kw)
+            add(counts)
+            check(counts["gather_reduce"] > 0,
+                  f"{name} on the deserialized fragment launched no K1")
+            check(np.array_equal(a, b, equal_nan=True),
+                  f"{name}: deserialized fragment differs from the load")
+            print(f"[load] {name} on deserialized == fresh load: bit-equal "
+                  f"(query s {secs_a:.4f} / {secs_b:.4f}; K1 launches "
+                  f"{counts['gather_reduce']})", flush=True)
+        out.update(stages=stages, garc_bytes=garc, tsv_bytes=nbytes)
+        del cached
+
+        # --rebalance at fnum 4: skew before and after, the same SSSP
+        res = {}
+        for rebalance in (False, True):
+            PARTITION_STATS.pop("rebalance", None)
+            t0 = time.perf_counter()
+            frag4 = loader.LoadGraph(
+                efile, vfile, CommSpec(4, device),
+                loader.LoadGraphSpec(rebalance=rebalance))
+            load_s = time.perf_counter() - t0
+            vals, counts, secs = query_values(frag4, SSSP(), device,
+                                              source=0)
+            add(counts)
+            res[rebalance] = by_oid(frag4, vals)
+            ep = frag4.dev.oe.edge_nbr.shape[1]
+            print(f"[load] fnum 4 rebalance={rebalance}: load s {load_s:.2f} "
+                  f"ep={ep} sssp s {secs:.4f}", flush=True)
+            if rebalance:
+                st = PARTITION_STATS["rebalance"]
+                print(f"[load] PARTITION_STATS rebalance: {json.dumps(st)}",
+                      flush=True)
+                check(st["after"]["skew"] < st["before"]["skew"],
+                      "rebalance did not lower the skew")
+                out["rebalance"] = st
+            del frag4
+        check(res[True] == res[False],
+              "SSSP by oid differs with --rebalance at fnum 4")
+        print("[load] sssp by oid with --rebalance == without: equal",
+              flush=True)
+
+        # p2p-31: string ids, and every partitioner x idxer at fnum 4
+        data = os.path.join(HERE, "dataset")
+        pe, pv = os.path.join(data, "p2p-31.e"), os.path.join(data,
+                                                              "p2p-31.v")
+        for app, extra in (("sssp", {"sssp_source": "6"}), ("wcc", {}),
+                           ("cdlp", {"cdlp_mr": CDLP_ROUNDS})):
+            texts = []
+            for string_id in (False, True):
+                prefix = os.path.join(tmp, f"{app}-{string_id}")
+                wk = run_app(QueryArgs(
+                    application=app, efile=pe, vfile=pv, fnum=4,
+                    device=device, out_prefix=prefix, string_id=string_id,
+                    **extra))
+                check(wk.fragment.is_string_keyed() == string_id,
+                      "string_id did not key the graph by strings")
+                texts.append([open(os.path.join(prefix, f"result_frag_{f}"))
+                              .read() for f in range(4)])
+            check(texts[0] == texts[1],
+                  f"{app}: --string_id output differs from the int load")
+            print(f"[load] p2p-31 {app} --string_id == int load "
+                  "(files identical)", flush=True)
+        with open(os.path.join(data, "p2p-31-SSSP")) as fh:
+            golden = {int(k): float(v) for k, v in  # float("infinity")
+                      (line.split() for line in fh if line.strip())}
+        for part in ("hash", "map", "segment"):
+            for idx in ("hashmap", "sorted_array", "pthash", "local"):
+                wk = run_app(QueryArgs(
+                    application="sssp", efile=pe, vfile=pv, fnum=4,
+                    device=device, sssp_source=6, partitioner_type=part,
+                    idxer_type=idx))
+                check(by_oid(wk.fragment, wk.result_values()) == golden,
+                      f"sssp {part} x {idx} fnum 4 off the golden")
+        print("[load] p2p-31 sssp golden: every partitioner x idxer at "
+              "fnum 4 ok", flush=True)
+    return out
+
+
+def spgemm_phase(frag, device, scale: int = BITMAP_SCALE) -> dict:
+    """`lcc_bitmap` and `triangle_count` under GRAPE_LCC_BACKEND=spgemm
+    against the intersect backend (K3) on the same fragment; the plan's
+    host seconds and geometry, the credit pass's device time and what
+    `auto` decides."""
+    from libgrape_lite_tpu_torch.models import LCC, TriangleCount
+    from libgrape_lite_tpu_torch.ops import spgemm_pack as sp
+
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    out = {"counts": {"gather_reduce": 0, "strict_tile": 0, "intersect": 0}}
+    t0 = time.perf_counter()
+    disp = sp.resolve_spgemm_dispatch(frag)  # memoized: the queries reuse it
+    plan_s = time.perf_counter() - t0
+    plan = disp.plan
+    st = plan.stats
+    bm_bytes = int(plan.host_streams["bm"].nbytes)
+    print(f"[spgemm] rmat{scale}: plan host s {plan_s:.2f} items={plan.items} "
+          f"items/edge={st['items_per_edge']} mask_edges={plan.mask_edges} "
+          f"n_ktiles={plan.n_ktiles} words={plan.words} rows={st['rowspace']} "
+          f"bitmap bytes={bm_bytes} "
+          f"p_pad={plan.p_pad}", flush=True)
+    streams = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+               for k, v in disp.state_entries().items()}
+    sync(device)
+
+    # device ms of the credit pass (host-clock ms in a CPU rehearsal)
+    credit_ms = time_ms(lambda: disp.credits(streams), device, samples=3,
+                        batch=1, warmup=1)
+    del streams
+    results = {}
+    for backend in ("intersect", "spgemm"):
+        os.environ["GRAPE_LCC_BACKEND"] = backend
+        try:
+            for name, app in (("triangle_count", TriangleCount),
+                              ("lcc_bitmap", LCC)):
+                vals, counts, secs = query_values(frag, app(), device)
+                _, _, secs2 = query_values(frag, app(), device)
+                for k, v in counts.items():
+                    out["counts"][k] += v
+                results[backend, name] = (vals, min(secs, secs2), counts)
+            tri = results[backend, "triangle_count"][0]
+            print(f"[spgemm] {backend}: triangle_count s "
+                  f"{results[backend, 'triangle_count'][1]:.4f} lcc_bitmap s "
+                  f"{results[backend, 'lcc_bitmap'][1]:.4f} "
+                  f"triangles={int(tri[frag.host_inner_mask()].sum() // 3)} "
+                  f"launches {results[backend, 'lcc_bitmap'][2]}", flush=True)
+        finally:
+            os.environ.pop("GRAPE_LCC_BACKEND", None)
+    check(results["intersect", "triangle_count"][2]["intersect"] > 0,
+          "the intersect backend did not launch K3")
+    for name in ("triangle_count", "lcc_bitmap"):
+        check(np.array_equal(results["spgemm", name][0],
+                             results["intersect", name][0]),
+              f"{name}: spgemm differs from the intersect backend (K3)")
+    print("[spgemm] per-vertex triangle counts and lcc: spgemm == intersect "
+          "(K3), bit-equal", flush=True)
+    os.environ["GRAPE_LCC_BACKEND"] = "auto"
+    try:
+        app = TriangleCount()
+        query_values(frag, app, device)
+    finally:
+        os.environ.pop("GRAPE_LCC_BACKEND", None)
+    dec = sp.SPGEMM_STATS["decisions"][-1]
+    measured = {b: results[b, "triangle_count"][1]
+                for b in ("intersect", "spgemm")}
+    print(f"[spgemm] auto -> {dec['backend']}: modeled spgemm "
+          f"{dec['t_spgemm_s']:.6f} s / intersect {dec['t_intersect_s']:.6f} s"
+          f" ({dec['profile']}); measured query spgemm "
+          f"{measured['spgemm']:.4f} s / intersect {measured['intersect']:.4f}"
+          f" s; credit pass {credit_ms} ms", flush=True)
+    check(dec["mode"] == "auto" and dec["backend"] == app.lcc_backend,
+          "auto's decision was not recorded")
+    out.update(plan_s=plan_s, items=plan.items,
+               items_per_edge=st["items_per_edge"], bitmap_bytes=bm_bytes,
+               credit_ms=credit_ms, query_s=measured,
+               lcc_bitmap_s={b: results[b, "lcc_bitmap"][1]
+                             for b in ("intersect", "spgemm")},
+               auto=dec)
+    return out
+
+
+def sampler_checks(frag, seeds, hops, fanouts, weighted_pick: bool):
+    """On the device: every pick that is not -1 is a neighbour of its
+    parent, never more often in one sample group than the row holds it
+    (a weighted pick takes each CSR slot at most once), and a parent
+    without neighbours (the isolated seeds among them) gives -1."""
+    indptr, nbr, _ = frag.device_csr()
+    n = indptr.numel() - 1
+    dev = nbr.device
+    src = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  (indptr[1:] - indptr[:-1]).long())
+    keys = src * n + nbr.long()  # sorted: rows by src, nbrs ascending
+    parents = torch.as_tensor(seeds, device=dev).long()
+    for h, k in zip(hops, fanouts):
+        par = parents.reshape(-1).repeat_interleave(k)
+        pick = h.reshape(-1).long()
+        ok = pick >= 0
+        live = par < n
+        deg = torch.zeros_like(par)
+        deg[live] = (indptr[par[live] + 1] - indptr[par[live]]).long()
+        check(bool((pick[deg == 0] == -1).all()),
+              "a parent without neighbours gave a sample")
+        q = par[ok] * n + pick[ok]
+        lo = torch.searchsorted(keys, q)
+        hi = torch.searchsorted(keys, q, right=True)
+        check(bool((hi > lo).all()), "a sample is not a neighbour of its "
+              "parent")
+        if weighted_pick:
+            group = torch.arange(par.numel(), device=dev) // k
+            gkey = torch.stack([group[ok], pick[ok]], 1)
+            _, inv, cnt = torch.unique(gkey, dim=0, return_inverse=True,
+                                       return_counts=True)
+            check(bool((cnt[inv] <= hi - lo).all()),
+                  "a weighted pick repeated a CSR slot")
+        parents = torch.where(pick >= 0, pick, n)
+
+
+class CsrSnapshot:
+    """A fixed (indptr, nbr, w) for `GraphSampler`, e.g. a CPU copy."""
+
+    def __init__(self, csr):
+        self._csr = csr
+
+    def device_csr(self):
+        return self._csr
+
+
+def sampler_phase(device, scale: int = SCALE, seeds_n: int = 65536,
+                  cpu_seeds: int = 4096) -> dict:
+    """The GNN sampler on RMAT-`scale` (both directions, as run_sampler
+    loads an undirected graph), 4-5 fanouts from `seeds_n` seeds per
+    strategy, then a 1% extend and its rebuild."""
+    from libgrape_lite_tpu_torch.sampler import (
+        AppendOnlyEdgecutFragment,
+        GraphSampler,
+    )
+
+    fanouts = (4, 5)
+    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
+    w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    frag = AppendOnlyEdgecutFragment(
+        n, np.concatenate([src, dst]), np.concatenate([dst, src]),
+        np.concatenate([w, w]), device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    seeds = rng.integers(0, n, seeds_n)
+    indptr = frag.device_csr()[0].cpu().numpy()
+    isolated = np.flatnonzero(indptr[1:] == indptr[:-1])[:64]
+    seeds[:len(isolated)] = isolated
+    print(f"[sampler] rmat{scale}: {frag.num_edges} edge slots, build s "
+          f"{build_s:.2f}, {len(isolated)} isolated seeds", flush=True)
+    out = {"build_s": build_s}
+
+    def run(tag):
+        rates = {}
+        for strategy in ("random", "edge_weight", "top_k"):
+            sampler = GraphSampler(frag, strategy)
+            sampler.sample(seeds[:1024], fanouts, seed=1)  # warm-up
+            sync(device)
+            t0 = time.perf_counter()
+            hops = sampler.sample(seeds, fanouts, seed=5)
+            sync(device)
+            secs = time.perf_counter() - t0
+            again = sampler.sample(seeds, fanouts, seed=5)
+            check(all(torch.equal(a, b) for a, b in zip(hops, again)),
+                  f"{strategy}: two runs with one seed differ")
+            sampler_checks(frag, seeds, hops, fanouts,
+                           strategy != "random")
+            rates[strategy] = seeds_n / secs
+            print(f"[sampler] {tag} {strategy}: {seeds_n} seeds x "
+                  f"{'-'.join(map(str, fanouts))} in {secs:.4f} s = "
+                  f"{seeds_n / secs:.0f} seeds/s; neighbour, slot and "
+                  "isolated-row checks ok; rerun bit-equal", flush=True)
+        return rates
+
+    out["rates"] = run("base")
+    # top_k on the card == top_k on the CPU (a subset of seeds)
+    cpu = CsrSnapshot(tuple(None if t is None else t.cpu()
+                            for t in frag.device_csr()))
+    sub = seeds[:cpu_seeds]
+    got = GraphSampler(frag, "top_k").sample(sub, fanouts)
+    want = GraphSampler(cpu, "top_k").sample(sub, fanouts)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+          "top_k on the card differs from the CPU run")
+    print(f"[sampler] top_k ({cpu_seeds} seeds): card == cpu, bit-equal",
+          flush=True)
+    del cpu
+    # 1% more edges, both directions, then the rebuild
+    m = len(src) // 100
+    es, ed = rng.integers(0, n, (2, m))
+    t0 = time.perf_counter()
+    frag.extend(np.concatenate([es, ed]), np.concatenate([ed, es]),
+                np.ones(2 * m, np.float32))
+    frag.flush()
+    sync(device)
+    rebuild_s = time.perf_counter() - t0
+    print(f"[sampler] extend +{2 * m} edge slots (1%): extend + rebuild s "
+          f"{rebuild_s:.2f}, now {frag.num_edges}", flush=True)
+    out["rebuild_s"] = rebuild_s
+    out["rates_after_extend"] = run("after extend")
+    return out
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -1835,6 +2263,12 @@ def main() -> int:
     variants = variants_phase(frag, e_sym, device)
     more = more_apps_phase(frag, e_sym, device)
     cliques = clique_phases(frag18, device)
+    load = load_phase(device)
+    spgemm = spgemm_phase(frag18, device)
+    print(f"[spgemm] rmat{BITMAP_SCALE} credit pass {spgemm['credit_ms']:.4f} "
+          f"ms beside K3 intersect oe {k3['oe']['ms']:.4f} + ie "
+          f"{k3['ie']['ms']:.4f} ms (kernel phase, same graph)", flush=True)
+    sampler = sampler_phase(device)
     t0 = time.perf_counter()
     grid, grid_edges = grid_fragment(GRID_SIDE, device)
     print(f"[graph] grid{GRID_SIDE}: vertices={grid.dev.total_vnum} "
@@ -1847,7 +2281,8 @@ def main() -> int:
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
-              "sssp": ss, **ldbc, **variants, **more, **cliques}
+              "sssp": ss, **ldbc, **variants, **more, **cliques,
+              "load": load, "spgemm": spgemm}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"][k] for r in runs)
                 for k in ("gather_reduce", "strict_tile", "intersect")}
@@ -1923,6 +2358,9 @@ def main() -> int:
         "more_apps": {app: {k: v for k, v in r.items() if k != "counts"}
                       for app, r in {**more, **cliques}.items()},
         "sssp_select": select,
+        "load": {k: v for k, v in load.items() if k != "counts"},
+        "spgemm": {k: v for k, v in spgemm.items() if k != "counts"},
+        "sampler": sampler,
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,14 @@ Applications, with their query flags:
   kclique (--kclique_k).
 --directed loads the graph directed.
 
+Loading: --partitioner_type hash|map|segment, --idxer_type
+hashmap|sorted_array|pthash|local, --string_id (vertex ids as strings),
+--rebalance [--rebalance_vertex_factor N] (degree-weighted fragments),
+--serialize / --deserialize with --serialization_prefix (the garc
+fragment cache, readable by the JAX package too), --memory_stats.
+GRAPE_LCC_BACKEND=intersect|spgemm|auto picks the triangle-credit
+backend of lcc_opt / lcc_bitmap / triangle_count.
+
 `--device` defaults to `cuda` and the run fails when CUDA is absent.
 """
 
@@ -63,6 +71,18 @@ def make_parser() -> argparse.ArgumentParser:
                         "above this degree (0 disables)")
     p.add_argument("--fnum", type=int, default=None,
                    help="fragment count, stacked on the one device")
+    p.add_argument("--partitioner_type", default="map",
+                   choices=["hash", "map", "segment"])
+    p.add_argument("--idxer_type", default="hashmap",
+                   choices=["hashmap", "sorted_array", "pthash", "local"])
+    p.add_argument("--serialize", action="store_true")
+    p.add_argument("--deserialize", action="store_true")
+    p.add_argument("--serialization_prefix", default="")
+    p.add_argument("--string_id", action="store_true",
+                   help="treat vertex ids as strings")
+    p.add_argument("--rebalance", action="store_true")
+    p.add_argument("--rebalance_vertex_factor", type=int, default=0)
+    p.add_argument("--memory_stats", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 

@@ -8,11 +8,16 @@ is a power of two and the padded global id is `pid = fid * vp + lid`,
 so the state of every fragment flattens to one pid-indexed vector.
 
 Undirected graphs store one symmetrised CSR and alias it as both the
-in- and the out-CSR, as the JAX package does.
+in- and the out-CSR, as the JAX package does.  On `--string_id` graphs
+the host keeps the `str` oids and the device's `oids` hold each vertex's
+pid as a numeric surrogate, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,7 +27,12 @@ import torch
 from libgrape_lite_tpu_torch.graph.csr import CSR, build_csr
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec, resolve_device
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy
+from libgrape_lite_tpu_torch.vertex_map.idxer import sorted_lookup
 from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+_LOG = logging.getLogger(__name__)
+#: the JAX package's default budget, one v5e chip's HBM
+_CPU_BUDGET_DEFAULT = 16 << 30
 
 
 def _round_up(x: int, m: int) -> int:
@@ -112,14 +122,22 @@ class ShardedEdgecutFragment:
         self.device = comm_spec.device
         self.host_oe = host_oe
         self.host_ie = host_ie
-        self.host_oids = np.asarray(oids, dtype=np.int64)  # [fnum, vp]
+        oids = np.asarray(oids)
+        # [fnum, vp]: int64, or str objects on string-keyed graphs (pad -1)
+        self.host_oids = oids if oids.dtype == object else oids.astype(
+            np.int64)
         self.host_ivnum = np.asarray(ivnum, dtype=np.int32)  # [fnum]
         self.directed = directed
         self.weighted = host_ie[0].edge_w is not None
         self.fnum = comm_spec.fnum
         self.vp = self.host_oids.shape[1]
         self._oid_index = None
+        self.edge_list = None  # the oid edge list, when retained
+        t0 = time.perf_counter()
         self.dev = self._to_device(total_vnum, total_enum)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.place_seconds = time.perf_counter() - t0  # host -> device
 
     # ---- FragmentBase API (fragment_base.h:50-133) ----
 
@@ -141,8 +159,13 @@ class ShardedEdgecutFragment:
     def inner_oids(self, fid: int) -> np.ndarray:
         return self.host_oids[fid, : self.inner_vertices_num(fid)]
 
+    def is_string_keyed(self) -> bool:
+        """True when the vertex oids are strings (`--string_id` graphs)."""
+        return self.host_oids.dtype == object
+
     def oid_to_pid(self, oids: np.ndarray) -> np.ndarray:
-        """oid -> padded global id; -1 for unknown oids."""
+        """oid -> padded global id; -1 for unknown oids.  A string-keyed
+        graph asked for a numeric id looks it up as text."""
         if self._oid_index is None:
             inner = self.host_inner_mask().reshape(-1)
             pids = np.nonzero(inner)[0].astype(np.int64)
@@ -150,11 +173,12 @@ class ShardedEdgecutFragment:
             order = np.argsort(vals, kind="stable")
             self._oid_index = (vals[order], pids[order])
         sorted_oids, pids = self._oid_index
-        q = np.asarray(oids, dtype=np.int64)
-        if len(sorted_oids) == 0:
-            return np.full(len(q), -1, dtype=np.int64)
-        pos = np.clip(np.searchsorted(sorted_oids, q), 0, len(sorted_oids) - 1)
-        return np.where(sorted_oids[pos] == q, pids[pos], -1)
+        q = np.asarray(oids)
+        if self.is_string_keyed():
+            q = np.array([str(o) for o in q.tolist()], dtype=object)
+        else:
+            q = q.astype(np.int64)
+        return sorted_lookup(sorted_oids, pids, q)
 
     def pid_to_oid(self, pids: np.ndarray) -> np.ndarray:
         return self.host_oids.reshape(-1)[np.asarray(pids)]
@@ -172,9 +196,11 @@ class ShardedEdgecutFragment:
         directed: bool,
         load_strategy: LoadStrategy = LoadStrategy.kBothOutIn,
         edata_dtype=np.float32,
+        retain_edge_list: bool = False,
     ) -> "ShardedEdgecutFragment":
         """Group edges by owner fragment and build padded CSRs
-        (`ShardedEdgecutFragment.build` of the JAX package)."""
+        (`ShardedEdgecutFragment.build` of the JAX package).
+        `retain_edge_list` keeps the oid edge list on `edge_list`."""
         fnum = comm_spec.fnum
         total_vnum = vertex_map.total_vertex_num()
         max_ivnum = max(vertex_map.inner_vertex_num(f) for f in range(fnum))
@@ -191,6 +217,12 @@ class ShardedEdgecutFragment:
             lid = parser.get_lid(g)
             return f * vp + lid, f, lid
 
+        edge_list = None
+        if retain_edge_list:
+            edge_list = (np.asarray(src_oid).copy(),
+                         np.asarray(dst_oid).copy(),
+                         None if weights is None
+                         else np.asarray(weights).copy())
         src_pid, src_fid, src_lid = to_pid(src_oid)
         dst_pid, dst_fid, dst_lid = to_pid(dst_oid)
         real_enum = len(src_pid)
@@ -215,6 +247,15 @@ class ShardedEdgecutFragment:
         ie_counts = np.bincount(dst_fid, minlength=fnum)
         ep_oe = _round_up(max(int(oe_counts.max()), 1), 128) if need_oe else 128
         ep_ie = _round_up(max(int(ie_counts.max()), 1), 128) if need_ie else 128
+        # every fragment pads to the most-loaded one's Ep: check the bill
+        # fits the card and report skew before an opaque allocator error
+        check_hbm_budget(
+            comm_spec.device, vp, ep_oe, ep_ie, aliased=not directed,
+            need_oe=need_oe, need_ie=need_ie, weighted=weights is not None,
+            edata_itemsize=np.dtype(edata_dtype).itemsize,
+            oe_counts=oe_counts if need_oe else None,
+            ie_counts=ie_counts if need_ie else None,
+        )
 
         w_np = None if weights is None else np.asarray(weights, edata_dtype)
         host_oe, host_ie = [], []
@@ -238,12 +279,24 @@ class ShardedEdgecutFragment:
 
         ivnum = np.array(
             [vertex_map.inner_vertex_num(f) for f in range(fnum)], np.int32)
-        oids = np.full((fnum, vp), -1, dtype=np.int64)
+        oids = np.full((fnum, vp), -1, dtype=(
+            object if vertex_map.is_string_keyed() else np.int64))
         for f in range(fnum):
             o = vertex_map.inner_oids(f)
             oids[f, : len(o)] = o
-        return cls(comm_spec, host_oe, host_ie, oids, ivnum, directed,
+        frag = cls(comm_spec, host_oe, host_ie, oids, ivnum, directed,
                    total_vnum, real_enum)
+        frag.edge_list = edge_list
+        return frag
+
+    def _device_oids(self) -> np.ndarray:
+        """[fnum, vp] int64 oids for the device; string oids cannot live
+        there, so a string-keyed graph stores each vertex's pid (pad -1)."""
+        if not self.is_string_keyed():
+            return self.host_oids
+        pid = (np.arange(self.fnum, dtype=np.int64)[:, None] * self.vp
+               + np.arange(self.vp, dtype=np.int64)[None, :])
+        return np.where(self.host_inner_mask(), pid, -1)
 
     def _to_device(self, total_vnum: int, total_enum: int) -> DeviceFragment:
         dev = self.device
@@ -270,7 +323,7 @@ class ShardedEdgecutFragment:
         return DeviceFragment(
             ivnum=put(self.host_ivnum),
             inner_mask=put(self.host_inner_mask()),
-            oids=put(self.host_oids),
+            oids=put(self._device_oids()),
             oe=oe,
             ie=ie,
             out_degree=out_degree,
@@ -281,6 +334,59 @@ class ShardedEdgecutFragment:
             total_vnum=int(total_vnum),
             total_enum=int(total_enum),
         )
+
+
+def check_hbm_budget(device, vp, ep_oe, ep_ie, aliased, need_oe, need_ie,
+                     weighted, edata_itemsize, oe_counts=None,
+                     ie_counts=None) -> int:
+    """The fragment's device bytes, estimated as the JAX package's
+    `_check_hbm_budget` does (`fragment/edgecut.py:468-510`); logs a
+    warning past the budget and on partition skew above 1.5.  The budget
+    is `GRAPE_HBM_BYTES` (0 disables the check); by default the card's
+    free memory (`torch.cuda.mem_get_info`) on a CUDA device, the JAX
+    package's 16 GiB elsewhere.  Returns the estimate."""
+    env = os.environ.get("GRAPE_HBM_BYTES")
+    if env is not None:
+        budget = int(env)
+    elif torch.device(device).type == "cuda":
+        budget = int(torch.cuda.mem_get_info(torch.device(device))[0])
+    else:
+        budget = _CPU_BUDGET_DEFAULT
+
+    def csr_bytes(ep):  # indptr + edge_src + edge_nbr + mask (+ weights)
+        return (vp + 1) * 4 + ep * (4 + 4 + 1) + (
+            ep * edata_itemsize if weighted else 0)
+
+    per_dev = vp * (4 + 4 + 8 + 1)  # degrees, oids, inner_mask
+    if aliased or not (need_oe and need_ie):
+        sides = 1
+        per_dev += csr_bytes(ep_oe if need_oe else ep_ie)
+    else:
+        sides = 2
+        per_dev += csr_bytes(ep_oe) + csr_bytes(ep_ie)
+    for name, counts, ep in (("oe", oe_counts, ep_oe),
+                             ("ie", ie_counts, ep_ie)):
+        if counts is None or len(counts) < 2:
+            continue
+        mean = max(float(counts.mean()), 1.0)
+        skew = float(counts.max()) / mean
+        if skew > 1.5:
+            _LOG.warning(
+                "partition skew: max/mean %s edges per shard = %.2f (%d vs "
+                "%.0f); every shard pads to Ep=%d -- consider --rebalance "
+                "or a hash partitioner", name, skew, int(counts.max()),
+                mean, ep)
+    if budget and per_dev > budget:
+        def fmt(b):
+            return (f"{b / (1 << 30):.2f} GiB" if b >= (1 << 30)
+                    else f"{b / (1 << 20):.2f} MiB")
+
+        _LOG.warning(
+            "fragment needs ~%s (vp=%d, ep=%d, %d CSR side(s)) -- exceeds "
+            "the %s device budget (GRAPE_HBM_BYTES); expect an allocator "
+            "failure at this scale/partition", fmt(per_dev), vp,
+            max(ep_oe, ep_ie), sides, fmt(budget))
+    return per_dev
 
 
 def fragment_from_numpy(arrays: dict, meta: dict,

@@ -108,23 +108,37 @@ def build_csr(
     num_edges_padded: int,
 ) -> CSR:
     """Sort edges by (src, nbr), ties in input order, count degrees,
-    pad.  Same arrays as the JAX package's builder.  The sort is the
+    pad.  Same arrays as the JAX package's `build_csr`.  A big fragment sorts
+    in the native counting sort (`io/native.py`), as the JAX package's
+    does, where its count array stays modest; otherwise the sort is the
     lexsort permutation, computed as one stable argsort of the combined
     key src * (max_nbr + 1) + nbr, which is faster than `np.lexsort`."""
     e = len(src_lid)
     if e > num_edges_padded:
         raise ValueError(f"edge overflow: {e} > {num_edges_padded}")
-    src64 = np.asarray(src_lid, dtype=np.int64)
     nbr64 = np.asarray(nbr_pid, dtype=np.int64)
     span = int(nbr64.max(initial=0)) + 1
-    order = np.argsort(src64 * span + nbr64, kind="stable")
-    src_sorted = np.asarray(src_lid)[order].astype(np.int32)
-    nbr_sorted = np.asarray(nbr_pid)[order].astype(np.int32)
-    w_sorted = None if weights is None else np.asarray(weights)[order]
+    nat = None
+    if e >= 1 << 17 and span <= min(16 * e, 1 << 25):
+        from libgrape_lite_tpu_torch.io.native import sort_edges_native
 
-    counts = np.bincount(src_sorted, minlength=num_rows)
-    indptr = np.zeros(num_rows + 1, dtype=np.int32)
-    np.cumsum(counts, out=indptr[1:])
+        nat = sort_edges_native(src_lid, nbr64, weights, num_rows, span)
+    if nat is not None:
+        s64, n64, w64, ip64 = nat
+        src_sorted = s64.astype(np.int32)
+        nbr_sorted = n64.astype(np.int32)
+        w_sorted = (None if weights is None
+                    else w64.astype(np.asarray(weights).dtype))
+        indptr = ip64.astype(np.int32)
+    else:
+        src64 = np.asarray(src_lid, dtype=np.int64)
+        order = np.argsort(src64 * span + nbr64, kind="stable")
+        src_sorted = np.asarray(src_lid)[order].astype(np.int32)
+        nbr_sorted = np.asarray(nbr_pid)[order].astype(np.int32)
+        w_sorted = None if weights is None else np.asarray(weights)[order]
+        counts = np.bincount(src_sorted, minlength=num_rows)
+        indptr = np.zeros(num_rows + 1, dtype=np.int32)
+        np.cumsum(counts, out=indptr[1:])
 
     pad = num_edges_padded - e
     edge_src = np.concatenate(

@@ -113,7 +113,15 @@ class CDLP(ParallelAppBase):
         return dict(state, labels=labels, step=step), active
 
     def finalize(self, frag, state):
-        return state["labels"].numpy()
+        labels = state["labels"].numpy()
+        if not frag.is_string_keyed():
+            return labels
+        # the device labels are pid surrogates: map them back to the
+        # string oids (JAX `models/cdlp.py:319`)
+        out = np.full(labels.shape, -1, dtype=object)
+        real = (labels >= 0) & (labels < frag.fnum * frag.vp)  # not pads
+        out[real] = frag.pid_to_oid(labels[real])
+        return out
 
 
 class CDLPOpt(CDLP):

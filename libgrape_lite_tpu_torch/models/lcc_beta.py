@@ -39,6 +39,7 @@ from libgrape_lite_tpu_torch.models.lcc import (
     emit_counts,
     row_pids,
 )
+from libgrape_lite_tpu_torch.ops import spgemm_pack
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
@@ -64,6 +65,12 @@ class LCCBeta(ParallelAppBase):
         return "lo"
 
     def init_state(self, frag, degree_threshold: int = 0, **_):
+        # GRAPE_LCC_BACKEND = spgemm / auto: the merge intersection has no
+        # spgemm lowering; a recorded decline, the results stay intersect's
+        spgemm_pack.resolve_lcc_backend(
+            type(self).__name__, frag, supported=False,
+            unsupported_reason="merge-intersection ELL kernel has no "
+            "spgemm lowering (use lcc_bitmap/lcc_opt)")
         # degree_threshold > 0 drops hub vertices' lists (the reference's
         # LCC cost cap, `lcc.h:234-243`); 0 disables it
         self.degree_threshold = int(degree_threshold)

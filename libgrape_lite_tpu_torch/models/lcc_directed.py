@@ -22,7 +22,7 @@ import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
 from libgrape_lite_tpu_torch.models.lcc import dedup_mask, row_pids
-from libgrape_lite_tpu_torch.ops import intersect
+from libgrape_lite_tpu_torch.ops import intersect, spgemm_pack
 from libgrape_lite_tpu_torch.utils.bitset import pack_bits, popcount_rows
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -36,6 +36,13 @@ class LCCDirected(ParallelAppBase):
         self.degree_threshold = 0
 
     def init_state(self, frag, degree_threshold: int = 0, **_):
+        # GRAPE_LCC_BACKEND = spgemm / auto: directed counts weigh
+        # reciprocal pairs twice, not the masked-SpGEMM credit algebra; a
+        # recorded decline, the results stay intersect's
+        spgemm_pack.resolve_lcc_backend(
+            type(self).__name__, frag, supported=False,
+            unsupported_reason="directed tricnt (direction-weighted "
+            "pairs) has no spgemm lowering")
         # hub cap like the undirected app; the directed degree is out + in
         # with multiplicity (reference lcc.h:234-238)
         self.degree_threshold = int(degree_threshold)

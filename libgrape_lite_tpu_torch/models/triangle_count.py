@@ -4,11 +4,10 @@ Counterpart of `libgrape_lite_tpu/models/triangle_count.py`:
 
   * `TriangleCount` -- per-vertex triangle counts T(v) and the global
     count T = sum T(v) / 3.  It is the bitmap LCC's credit pass (two
-    `row_and_popcount_indexed` calls of the AND-popcount kernel) with
-    another emit tail: the counts instead of the coefficient, so they
-    are integer-identical to the LCC credits by construction.  The JAX
-    package's `GRAPE_LCC_BACKEND=spgemm` branch is not ported (ROADMAP
-    Queue A); its default `intersect` backend is this one.
+    `row_and_popcount_indexed` calls of the AND-popcount kernel, or the
+    spgemm credit pass) with another emit tail: the counts instead of
+    the coefficient, so they are integer-identical to the LCC credits by
+    construction, under either `GRAPE_LCC_BACKEND`.
   * `CommonNeighbors` -- cn(v) = |N(u) & N(v)| for a source u: two pulls
     of the one-hot source vector over the deduplicated out-adjacency
     (cn = A (A e_u)), each a gather-reduce (int32 kind `sum`); the final

@@ -66,6 +66,8 @@ class WCC(ParallelAppBase):
         flat = comp.reshape(-1)
         real = flat != _SENTINEL
         reps, inv = np.unique(flat[real], return_inverse=True)
-        out = np.full(flat.shape, -1, dtype=np.int64)
+        # the representative's oid: a str on string-keyed graphs
+        out = np.full(flat.shape, -1, dtype=(
+            object if frag.is_string_keyed() else np.int64))
         out[real] = frag.pid_to_oid(reps)[inv]
         return out.reshape(comp.shape)

@@ -14,6 +14,7 @@ import numpy as np
 from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.models import APP_REGISTRY
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+from libgrape_lite_tpu_torch.utils.memory import get_memory_stats
 from libgrape_lite_tpu_torch.worker.worker import Worker
 
 _LOG = logging.getLogger(__name__)
@@ -41,9 +42,22 @@ class QueryArgs:
     degree_threshold: int = 0
     fnum: int | None = None
     device: str = "cuda"
+    partitioner_type: str = "map"
+    idxer_type: str = "hashmap"
+    rebalance: bool = False
+    rebalance_vertex_factor: int = 0
+    string_id: bool = False
+    memory_stats: bool = False
+    serialize: bool = False
+    deserialize: bool = False
+    serialization_prefix: str = ""
 
 
-def _coerce_source(v):
+def _coerce_source(v, string_id: bool = False):
+    """A numeric source string becomes an int, unless the graph's ids
+    are strings."""
+    if string_id or isinstance(v, int):
+        return v
     try:
         return int(v)
     except (TypeError, ValueError):
@@ -54,11 +68,11 @@ def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
     """Per-query arguments by app-name prefix (the JAX package's
     `build_query_kwargs`)."""
     if app_name.startswith("sssp"):
-        return {"source": _coerce_source(args.sssp_source)}
+        return {"source": _coerce_source(args.sssp_source, args.string_id)}
     if app_name.startswith("bfs"):
-        return {"source": _coerce_source(args.bfs_source)}
+        return {"source": _coerce_source(args.bfs_source, args.string_id)}
     if app_name == "bc":  # staged_bc and staged_bc_bfs take none
-        return {"source": _coerce_source(args.bc_source)}
+        return {"source": _coerce_source(args.bc_source, args.string_id)}
     if app_name == "kcore":
         return {"k": args.kcore_k}
     if app_name == "kclique":
@@ -70,11 +84,11 @@ def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
         # 0 disables it
         return {"degree_threshold": args.degree_threshold}
     if app_name == "common_neighbors":
-        return {"source": _coerce_source(args.cn_source)}
+        return {"source": _coerce_source(args.cn_source, args.string_id)}
     if app_name == "khop":
         # the hop bound is a constructor argument (run_app); the query
         # takes the source alone
-        return {"source": _coerce_source(args.bfs_source)}
+        return {"source": _coerce_source(args.bfs_source, args.string_id)}
     if app_name.startswith("cdlp"):
         return {"max_round": args.cdlp_mr}
     return {}
@@ -94,9 +108,19 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         directed=args.directed,
         weighted=getattr(app_cls, "needs_edata", False),
         load_strategy=app_cls.load_strategy,
+        partitioner_type=args.partitioner_type,
+        idxer_type=args.idxer_type,
+        rebalance=args.rebalance,
+        rebalance_vertex_factor=args.rebalance_vertex_factor,
+        string_id=args.string_id,
+        serialize=args.serialize,
+        deserialize=args.deserialize,
+        serialization_prefix=args.serialization_prefix,
         edata_dtype=np.float64,
     )
     frag = LoadGraph(args.efile, args.vfile or None, comm_spec, spec)
+    if args.memory_stats:
+        print(f"[memory] after load: {get_memory_stats(comm_spec.device)}")
     if name == "sssp_select":
         # the dense-vs-delta pick for this (graph, source), from a host
         # BFS probe over the CSRs the load just built
@@ -105,11 +129,13 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         )
 
         picked, reason = select_sssp_variant(
-            frag, _coerce_source(args.sssp_source))
+            frag, _coerce_source(args.sssp_source, args.string_id))
         _LOG.info("sssp_select -> %s: %s", picked, reason)
         app = APP_REGISTRY[picked]()
     worker = Worker(app, frag)
     worker.query(**build_query_kwargs(name, args))
+    if args.memory_stats:
+        print(f"[memory] after query: {get_memory_stats(comm_spec.device)}")
     if args.out_prefix:
         worker.output(args.out_prefix)
     return worker

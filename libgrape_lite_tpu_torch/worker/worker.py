@@ -121,7 +121,8 @@ def format_result_lines(oids, vals, fmt: str) -> str:
     lines = []
     if fmt == "int":
         for o, v in zip(oids.tolist(), np.asarray(vals).tolist()):
-            lines.append(f"{o} {int(v)}")
+            # string-keyed graphs carry str component / community ids
+            lines.append(f"{o} {v if isinstance(v, str) else int(v)}")
     elif fmt == "sssp_infinity":
         for o, v in zip(oids.tolist(), np.asarray(vals).tolist()):
             if not np.isfinite(v):

@@ -221,3 +221,38 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                            capture_output=True, text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+SLICE8_MODULES = [
+    "libgrape_lite_tpu_torch.utils.archive",
+    "libgrape_lite_tpu_torch.utils.memory",
+    "libgrape_lite_tpu_torch.utils.thread_pool",
+    "libgrape_lite_tpu_torch.io.native",
+    "libgrape_lite_tpu_torch.fragment.rebalancer",
+    "libgrape_lite_tpu_torch.fragment.partition",
+    "libgrape_lite_tpu_torch.ops.spgemm_pack",
+    "libgrape_lite_tpu_torch.sampler",
+    "libgrape_lite_tpu_torch.sampler.stream",
+    "libgrape_lite_tpu_torch.scripts.run_sampler",
+]
+
+
+def test_slice8_modules_import_without_jax():
+    """Each module of the load options, the spgemm backend and the
+    sampler imports with neither jax, the JAX package nor triton, and
+    builds nothing at import (no native library, no CUDA kernel)."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {SLICE8_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'libgrape_lite_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from libgrape_lite_tpu_torch.io import native\n"
+        "assert native._tried is False\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
