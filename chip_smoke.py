@@ -97,7 +97,29 @@ the port's own entry points:
      repeating a CSR slot, -1 for rows without neighbours, a rerun with
      the seed bit-equal) and top_k against a CPU run; then 1% more edges,
      the rebuild's seconds and the same samples again;
-  11. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
+  11. graph mutation and the dynamic-graph runtime (`[dyn]`): on RMAT-20
+     (built with its edge list) 2,048 seeded additive edges (uniform(0.1,
+     10) weights, seed 13) ride the delta overlay under the default
+     RepackPolicy; sssp, bfs (from 0), wcc, wcc_opt and khop k 2 over
+     base + overlay, each bit-equal to a cold query on the repacked graph
+     (RepackPolicy threshold 0) with two K1 launches a round (the base
+     pull and the overlay fold), seconds beside the base graph's;
+     sssp_auto, bfs_auto and wcc_auto refused over the overlay, then
+     after `fold_now` bit-equal to the repacked cold query;
+     `query_incremental` for sssp, bfs and wcc seeded from the base
+     results, over the overlay and over the repack, bit-equal to cold
+     (seeded and cold rounds and seconds); 2,048 removals of existing
+     edges forcing a repack, the incremental query falling back cold;
+     the overlay's K1 call alone (vp rows, 4,096 slots, min with
+     weights) against its plain version, with kernel, plain, library
+     (`scatter_reduce_` amin) and bound times.  On the 512 x 512 grid one
+     shortcut edge far from the source, repacked, then `query_incremental`
+     for sssp and bfs: fewer rounds than cold, bit-equal.  The
+     MutationContext shortcut SSSP (tests/test_mutation_context.py) on
+     the card; `run_app` with `--delta_efile` (p2p-31's mutable base and
+     delta) at fnum 1 and 4 for sssp, bfs, pagerank, wcc, cdlp, lcc and
+     lcc_bitmap against the p2p-31 goldens;
+  12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
      L2), launch counts zeroed before and read after; then each of its four
@@ -175,6 +197,20 @@ KCLIQUE4_SCALE = 16
 KCLIQUE5_SCALE = 16  # KCliqueDevice(5), called directly (D past its cap)
 KCLIQUE_CHECK_SCALE = 11  # device k = 4, 5 against the host recursion
 CN_SOURCE = 10316  # p2p-31's vertex in the most triangles (17)
+# the [dyn] phase: seeded additive edges on RMAT-20 (2,048 undirected adds
+# fill 2 x 2,048 = 4,096 overlay slots, the default capacity), the apps
+# over the overlay, the auto apps refused, incremental queries, and the
+# grid's shortcut (row, column) pair far from the source (0, 0)
+DYN_ADDS = 2048
+DYN_SEED = 13
+DYN_KHOP_K = 2
+DYN_APPS = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}),
+            ("wcc_opt", {}), ("khop", {"source": 0}))
+DYN_AUTO = (("sssp_auto", {"source": 0}), ("bfs_auto", {"source": 0}),
+            ("wcc_auto", {}))
+DYN_INC = ("sssp", "bfs", "wcc")
+DYN_SHORTCUT_SPAN = 11  # the grid's shortcut: (s - 12, s - 12) to the corner
+DYN_GOLDEN = ("sssp", "bfs", "pagerank", "wcc", "cdlp", "lcc", "lcc_bitmap")
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -209,26 +245,31 @@ def rmat_edges(scale: int, edge_factor: int, seed: int = 7):
     return n, src, dst
 
 
-def rmat_fragment(scale: int, device, directed: bool = False):
+def rmat_fragment(scale: int, device, directed: bool = False,
+                  retain: bool = False):
     """The weighted RMAT fragment (fnum 1) through the port's builder."""
     n, src, dst = rmat_edges(scale, EDGE_FACTOR)
-    return edge_fragment(n, src, dst, device, directed)
+    return edge_fragment(n, src, dst, device, directed, retain)
 
 
-def grid_fragment(side: int, device):
+def grid_fragment(side: int, device, retain: bool = False):
     """A side x side grid (4-neighbour, undirected; vertex r * side + c),
     weighted as the RMAT graphs are: a high-diameter graph."""
     ids = np.arange(side * side, dtype=np.int64).reshape(side, side)
     src = np.concatenate([ids[:, :-1].ravel(), ids[:-1, :].ravel()])
     dst = np.concatenate([ids[:, 1:].ravel(), ids[1:, :].ravel()])
-    return edge_fragment(side * side, src, dst, device, False)
+    return edge_fragment(side * side, src, dst, device, False, retain)
 
 
-def edge_fragment(n: int, src, dst, device, directed: bool):
+def edge_fragment(n: int, src, dst, device, directed: bool,
+                  retain: bool = False):
     """Vertices 0..n-1 and the edges src -> dst with uniform(0.1, 10)
     float32 weights from seed 11, through the port's builder with
-    bench.py's vertex map: segmented partitioner, hashmap idxer."""
+    bench.py's vertex map: segmented partitioner, hashmap idxer.
+    `retain` keeps the edge list, so the fragment can be mutated (a
+    rebuild keeps the segmented partitioner)."""
     from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+    from libgrape_lite_tpu_torch.fragment.loader import LoadGraphSpec
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.utils.id_parser import IdParser
     from libgrape_lite_tpu_torch.vertex_map.idxer import HashMapIdxer
@@ -243,7 +284,10 @@ def edge_fragment(n: int, src, dst, device, directed: bool):
     w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
         np.float32)
     frag = ShardedEdgecutFragment.build(
-        CommSpec(fnum=1, device=device), vm, src, dst, w, directed=directed)
+        CommSpec(fnum=1, device=device), vm, src, dst, w, directed=directed,
+        retain_edge_list=retain)
+    frag.load_spec = LoadGraphSpec(directed=directed,
+                                   partitioner_type="segment")
     return frag, (1 if directed else 2) * len(src)
 
 
@@ -936,16 +980,29 @@ def run_query(frag, app, device, **kw):
     return wk, time.perf_counter() - t0
 
 
+def timed_counted(fn, device):
+    """`fn()` -> Worker, once to warm up, once with the launch counts
+    zeroed just before and read just after, twice more for the best of
+    3 seconds (host clock, synchronised)."""
+    def run():
+        sync(device)
+        t0 = time.perf_counter()
+        wk = fn()
+        sync(device)
+        return wk, time.perf_counter() - t0
+
+    run()
+    reset_launch_counts()
+    wk, secs = run()
+    counts = launch_counts()
+    return wk, counts, min([secs] + [run()[1] for _ in range(2)])
+
+
 def counted(frag, app_factory, device, kw):
     """Drive one main-path query with the launch counts zeroed just
     before and read just after; then time two more runs (best of 3)."""
-    run_query(frag, app_factory(), device, **kw)  # warm-up
-    reset_launch_counts()
-    wk, secs = run_query(frag, app_factory(), device, **kw)
-    counts = launch_counts()
-    best = min([secs] + [run_query(frag, app_factory(), device, **kw)[1]
-                         for _ in range(2)])
-    return wk, counts, best
+    return timed_counted(
+        lambda: run_query(frag, app_factory(), device, **kw)[0], device)
 
 
 def pagerank_phase(frag, e_sym, device, mode) -> dict:
@@ -1588,7 +1645,11 @@ def profile_phases(frag, frag18, device) -> None:
 
 # ---- phase 7: goldens through run_app ----------------------------------
 
-def golden_phase(device) -> None:
+def golden_phase(device, names=None, efile: str = "p2p-31.e",
+                 delta_efile: str = "", tag: str = "golden") -> None:
+    """`run_app` at fnum 1 and 4 against the p2p-31 goldens, for every
+    app name with a golden (or `names`); `delta_efile` loads `efile`
+    through LoadGraphAndMutate with that edit file."""
     from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
     from libgrape_lite_tpu_torch.worker.worker import format_result_lines
 
@@ -1608,19 +1669,24 @@ def golden_phase(device) -> None:
                "wcc": ("p2p-31-WCC", {}), "pagerank": ("p2p-31-PR", {}),
                "cdlp": ("p2p-31-CDLP", {"cdlp_mr": CDLP_ROUNDS}),
                "lcc": ("p2p-31-LCC", {})}
-    apps = [(app, *goldens[app.split("_")[0]])
-            for app in ("pagerank", "sssp", "bfs", "wcc", "cdlp", "lcc",
-                        "lcc_bitmap") + GOLDEN_VARIANTS]
-    apps += [(app, "p2p-31-PR-directed", {"directed": True})
-             for app in ("pagerank_directed", "pagerank_auto")]
+    if names is None:
+        apps = [(app, *goldens[app.split("_")[0]])
+                for app in ("pagerank", "sssp", "bfs", "wcc", "cdlp", "lcc",
+                            "lcc_bitmap") + GOLDEN_VARIANTS]
+        apps += [(app, "p2p-31-PR-directed", {"directed": True})
+                 for app in ("pagerank_directed", "pagerank_auto")]
+    else:
+        apps = [(app, *goldens[app.split("_")[0]]) for app in names]
+    if delta_efile:
+        delta_efile = os.path.join(data, delta_efile)
     for app, golden, extra in apps:
         with open(os.path.join(data, golden)) as fh:
             want = load(fh.read())
         for fnum in (1, 4):
             wk = run_app(QueryArgs(
-                application=app, efile=os.path.join(data, "p2p-31.e"),
+                application=app, efile=os.path.join(data, efile),
                 vfile=os.path.join(data, "p2p-31.v"), fnum=fnum,
-                device=device, **extra))
+                device=device, delta_efile=delta_efile, **extra))
             vals = wk.result_values()
             frag = wk.fragment
             got = load("".join(
@@ -1641,7 +1707,7 @@ def golden_phase(device) -> None:
                 ok = (r == g) | (np.isinf(r) & np.isinf(g))
             check(bool(ok.all()), f"{app} fnum {fnum}: "
                   f"{int((~ok).sum())} vertices off the golden file")
-            print(f"[golden] {app}{' directed' if extra.get('directed') else ''}"
+            print(f"[{tag}] {app}{' directed' if extra.get('directed') else ''}"
                   f" fnum={fnum} rounds={wk.rounds} ok", flush=True)
 
 
@@ -2050,6 +2116,357 @@ def sampler_phase(device, scale: int = SCALE, seeds_n: int = 65536,
     return out
 
 
+# ---- phase 11: graph mutation and the dynamic-graph runtime -------------
+
+def dyn_factory(name: str):
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    if name == "khop":
+        return lambda: APP_REGISTRY[name](k=DYN_KHOP_K)
+    return APP_REGISTRY[name]
+
+
+def same_values(a, b, what: str) -> None:
+    """Bit-equal per-vertex results on the same vertex layout."""
+    check(a.fragment.vp == b.fragment.vp and np.array_equal(
+        a.fragment.host_oids, b.fragment.host_oids), f"{what}: layouts differ")
+    check(np.array_equal(a.result_values(), b.result_values()),
+          f"{what}: not bit-equal")
+
+
+def overlay_kernel_phase(overlay, device, reps: int) -> dict:
+    """The overlay fold's K1 call alone, at its shape (vp rows, the
+    overlay's slots; min with weights), against its plain version, with
+    scatter_reduce_(amin) over the slots into a +inf vector as the
+    library call (never called by the port)."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    ent = overlay.entries("ie", np.float32)
+    indptr = torch.from_numpy(ent["dyn_ie_indptr"]).to(device)
+    nbr = torch.from_numpy(ent["dyn_ie_nbr"]).to(device)
+    w = torch.from_numpy(ent["dyn_ie_w"]).to(device)
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    slots = int(indptr[:, -1].sum())
+    n = fnum * vp
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.where(torch.rand(n, generator=gen) < 0.3,
+                    torch.tensor(float("inf")),
+                    torch.rand(n, generator=gen) * 50).to(device)
+    got = spmv.gather_reduce(indptr, nbr, w, x, "min")
+    want = spmv.gather_reduce_plain(indptr, nbr, w, x, "min")
+    check(torch.equal(got, want),
+          "overlay gather_reduce not bit-equal to its plain version")
+    # the library call's inputs, gathered outside the timed call: each
+    # real slot's row (pid) and candidate x[nbr] + w
+    mask = torch.from_numpy(ent["dyn_ie_mask"]).to(device)
+    fids = torch.arange(fnum, device=device).unsqueeze(1).expand_as(nbr)
+    rows = (fids * vp + torch.from_numpy(ent["dyn_ie_src"]).to(device))[
+        mask].long()
+    cand = x[nbr[mask].long()] + w[mask]
+
+    def library():
+        return torch.full((n,), float("inf"), device=device).scatter_reduce_(
+            0, rows, cand, "amin", include_self=True)
+
+    check(torch.equal(library().view(fnum, vp), want),
+          "overlay library call disagrees")
+    ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, w, x, "min"),
+                 device, reps)
+    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(indptr, nbr, w, x,
+                                                        "min"),
+                       device, max(3, reps // 4), warmup=1)
+    lib_ms = time_ms(library, device, reps)
+    # indptr and y, then per real slot its nbr, w and gathered x
+    nbytes = 4 * fnum * (vp + 1) + 4 * n + slots * (4 + 4 + 4)
+    b_ms, b_by = bound(nbytes, 2 * slots)
+    passes = device_passes(
+        lambda: spmv.gather_reduce(indptr, nbr, w, x, "min"), device)
+    print(f"[dyn] overlay K1 gather_reduce min+w: rows={n} slots={slots} "
+          f"capacity={nbr.shape[1]} kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} (scatter_reduce_ amin) "
+          f"bound_ms={b_ms:.4f} ({b_by}) bit-equal; device ms a call: "
+          f"{passes_text(passes) or 'not measured (no device events)'}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, slots=slots, rows=n,
+                passes_ms=passes)
+
+
+def dyn_rmat_phase(frag, device) -> dict:
+    """RMAT-20 (built with its edge list): 2,048 seeded additive edges
+    ride the overlay under the default RepackPolicy; the overlay apps
+    against a cold query on the repacked graph, the auto apps refused
+    then run after fold_now, query_incremental seeded from the base
+    results, a non-additive batch falling back cold, and the overlay's
+    K1 call alone."""
+    from libgrape_lite_tpu_torch.dyn import DynGraph, RepackPolicy
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    out = {"runs": {}}
+    n = frag.dev.total_vnum
+    rng = np.random.default_rng(DYN_SEED)
+    src, dst = rng.integers(0, n, DYN_ADDS), rng.integers(0, n, DYN_ADDS)
+    wts = rng.uniform(0.1, 10.0, DYN_ADDS)
+    adds = [("a", int(a), int(b), float(x))
+            for a, b, x in zip(src, dst, wts)]
+
+    base = {}
+    for name, kw in DYN_APPS:
+        base[name] = counted(frag, dyn_factory(name), device, kw)
+        out["runs"][f"dyn {name} base"] = dict(counts=base[name][1],
+                                               seconds=base[name][2])
+
+    # the reference: the same batch folded into a rebuilt CSR
+    t0 = time.perf_counter()
+    ref = DynGraph(frag, RepackPolicy(threshold=0.0))
+    rep = ref.ingest(adds)
+    repack_s = time.perf_counter() - t0
+    check(rep["mode"] == "repack", f"threshold 0 gave {rep['mode']}")
+    repacked = ref.fragment
+    check(repacked.total_edges_num == frag.total_edges_num + DYN_ADDS,
+          "the repack lost edges")
+    print(f"[dyn] rmat{SCALE}: {DYN_ADDS} adds folded by a repack "
+          f"(threshold 0) in {repack_s:.3f} host s", flush=True)
+    cold = {name: counted(repacked, dyn_factory(name), device, kw)
+            for name, kw in DYN_APPS}
+
+    t0 = time.perf_counter()
+    dg = DynGraph(frag, RepackPolicy())
+    rep = dg.ingest(adds)
+    overlay_s = time.perf_counter() - t0
+    check(rep["mode"] == "overlay", f"default policy gave {rep['mode']} "
+          f"({rep['reason']}), expected overlay")
+    check(dg.fragment is frag and dg.overlay_count == DYN_ADDS,
+          "the overlay is not attached to the base fragment")
+    overlay = frag.dyn_overlay
+    print(f"[dyn] ingest: mode={rep['mode']} delta_ratio="
+          f"{rep['delta_ratio']:.6f} reason={rep['reason']!r} overlay "
+          f"build {overlay_s:.3f} host s (slots "
+          f"{int(frag.dyn_overlay.ie.indptr[:, -1].sum())} of "
+          f"{frag.dyn_overlay.capacity})", flush=True)
+    for name, kw in DYN_APPS:
+        wk, counts, secs = counted(frag, dyn_factory(name), device, kw)
+        cwk, _, csecs = cold[name]
+        same_values(wk, cwk, f"{name} over the overlay vs the repack")
+        check(wk.rounds == cwk.rounds, f"{name}: {wk.rounds} rounds over "
+              f"the overlay, {cwk.rounds} on the repack")
+        check(counts["gather_reduce"] == 2 * wk.rounds,
+              f"{name} over the overlay: {counts['gather_reduce']} K1 "
+              f"launches in {wk.rounds} rounds (two a round expected)")
+        bsecs = base[name][2]
+        out["runs"][f"dyn {name} overlay"] = dict(
+            counts=counts, seconds=secs, rounds=wk.rounds,
+            base_seconds=bsecs, repacked_seconds=csecs)
+        print(f"[dyn] {name} overlay: rounds={wk.rounds} seconds={secs:.4f}"
+              f" (base graph {bsecs:.4f}, repacked {csecs:.4f}) launches="
+              f"{counts} bit-equal to the repacked cold query", flush=True)
+
+    for name, kw in DYN_AUTO:
+        try:
+            Worker(dyn_factory(name)(), frag).query(**kw)
+        except ValueError as e:
+            check("no dyn-overlay contract" in str(e), f"{name}: {e}")
+        else:
+            check(False, f"{name} ran over the overlay")
+
+    # incremental IncEval seeded from the base results: over the overlay
+    # and over the repacked graph, each against the cold repacked query
+    for name, kw in DYN_APPS:
+        if name not in DYN_INC:
+            continue
+        prev = base[name][0]._result_state  # the base graph's fixed point
+        for label, g, kws in (("overlay", frag, {}),
+                              ("repack", repacked, {"prev_fragment": frag})):
+            def inc(g=g, kws=kws):
+                wk = Worker(dyn_factory(name)(), g)
+                wk.query_incremental(prev, rep["delta"], **kws, **kw)
+                return wk
+            wk, counts, secs = timed_counted(inc, device)
+            cwk, _, csecs = cold[name]
+            check(wk.inc_report["mode"] == "seeded",
+                  f"{name} incremental over the {label}: {wk.inc_report}")
+            same_values(wk, cwk, f"{name} incremental over the {label}")
+            out["runs"][f"dyn {name} incremental {label}"] = dict(
+                counts=counts, seconds=secs, rounds=wk.rounds,
+                cold_rounds=cwk.rounds, cold_seconds=csecs)
+            print(f"[dyn] {name} query_incremental over the {label}: "
+                  f"seeded rounds={wk.rounds} seconds={secs:.4f} (cold "
+                  f"rounds={cwk.rounds} seconds={csecs:.4f}) launches="
+                  f"{counts} bit-equal to cold", flush=True)
+
+    t0 = time.perf_counter()
+    dg.fold_now()
+    fold_s = time.perf_counter() - t0
+    check(dg.overlay_count == 0 and dg.fragment is not frag,
+          "fold_now left staged edges")
+    for name, kw in DYN_AUTO:
+        wk, counts, secs = counted(dg.fragment, dyn_factory(name), device,
+                                   kw)
+        same_values(wk, cold[name.removesuffix("_auto")][0],
+                    f"{name} after fold_now")
+        check(counts["gather_reduce"] > 0, f"{name}: no K1 launch")
+        out["runs"][f"dyn {name} folded"] = dict(counts=counts,
+                                                 seconds=secs)
+        print(f"[dyn] {name}: refused over the overlay (no dyn-overlay "
+              f"contract); after fold_now ({fold_s:.3f} host s) rounds="
+              f"{wk.rounds} seconds={secs:.4f} launches={counts} "
+              "bit-equal to the repacked cold query", flush=True)
+
+    # a non-additive batch: removals of existing edges force a repack,
+    # and the incremental query falls back cold
+    e_src, e_dst, _ = frag.edge_list
+    pick = rng.choice(len(e_src), DYN_ADDS, replace=False)
+    removals = [("d", int(e_src[i]), int(e_dst[i])) for i in pick]
+    prev = cold["sssp"][0]._result_state
+    t0 = time.perf_counter()
+    rep2 = dg.ingest(removals)
+    remove_s = time.perf_counter() - t0
+    check(rep2["mode"] == "repack" and "non-additive" in rep2["reason"],
+          f"removals: {rep2['mode']} ({rep2['reason']})")
+    kw = dict(DYN_APPS)["sssp"]
+    wk = Worker(dyn_factory("sssp")(), dg.fragment)
+    wk.query_incremental(prev, rep2["delta"], prev_fragment=repacked, **kw)
+    check(wk.inc_report["mode"] == "cold" and wk.inc_stats["cold"] == 1,
+          f"removals: incremental {wk.inc_report}")
+    cwk = Worker(dyn_factory("sssp")(), dg.fragment)
+    cwk.query(**kw)
+    same_values(wk, cwk, "sssp after removals")
+    print(f"[dyn] {DYN_ADDS} removals: mode={rep2['mode']} reason="
+          f"{rep2['reason']!r} repack {remove_s:.3f} host s; edges "
+          f"{dg.fragment.total_edges_num}; sssp query_incremental fell "
+          f"back cold ({wk.inc_report['reason']!r}), inc_stats="
+          f"{wk.inc_stats}, equal to a cold query", flush=True)
+
+    kern = overlay_kernel_phase(overlay, device, reps=30)
+    frag.dyn_overlay = None  # the base fragment leaves the runtime
+    out.update(repack_seconds=repack_s, fold_seconds=fold_s,
+               remove_seconds=remove_s, overlay_seconds=overlay_s,
+               kernel=kern)
+    return out
+
+
+def dyn_grid_phase(grid, device) -> dict:
+    """The 512 x 512 grid, where the incremental query pays off: one
+    shortcut edge far from the source (from (500, 500) to the far corner
+    (511, 511), weight 0.1), repacked, then query_incremental
+    for sssp and bfs seeded from the base results, bit-equal to cold."""
+    from libgrape_lite_tpu_torch.dyn import DynGraph, RepackPolicy
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    side = int(round(grid.dev.total_vnum ** 0.5))
+    a, b = side - 1 - DYN_SHORTCUT_SPAN, side - 1
+    shortcut = ("a", a * side + a, b * side + b, 0.1)
+    out = {"runs": {}}
+    prev = {}
+    for name in ("sssp", "bfs"):
+        wk = Worker(dyn_factory(name)(), grid)
+        wk.query(source=0)
+        prev[name] = wk._result_state
+    dg = DynGraph(grid, RepackPolicy(threshold=0.0))
+    t0 = time.perf_counter()
+    rep = dg.ingest([shortcut])
+    repack_s = time.perf_counter() - t0
+    check(rep["mode"] == "repack", f"grid shortcut: {rep['mode']}")
+    for name in ("sssp", "bfs"):
+        def inc(name=name):
+            wk = Worker(dyn_factory(name)(), dg.fragment)
+            wk.query_incremental(prev[name], rep["delta"],
+                                 prev_fragment=grid, source=0)
+            return wk
+
+        wk, counts, secs = timed_counted(inc, device)
+        cwk, _, csecs = counted(dg.fragment, dyn_factory(name), device,
+                                {"source": 0})
+        check(wk.inc_report["mode"] == "seeded", f"grid {name}: "
+              f"{wk.inc_report}")
+        same_values(wk, cwk, f"grid {name} incremental")
+        check(wk.rounds < cwk.rounds, f"grid {name}: seeded {wk.rounds} "
+              f"rounds, cold {cwk.rounds}")
+        out["runs"][f"dyn grid {name} incremental"] = dict(
+            counts=counts, seconds=secs, rounds=wk.rounds,
+            cold_rounds=cwk.rounds, cold_seconds=csecs)
+        print(f"[dyn] grid{side} {name} query_incremental after the "
+              f"shortcut {shortcut[1]}-{shortcut[2]}: seeded rounds="
+              f"{wk.rounds} seconds={secs:.4f} (cold rounds={cwk.rounds} "
+              f"seconds={csecs:.4f}) launches={counts} bit-equal to cold; "
+              f"repack {repack_s:.3f} host s", flush=True)
+    grid.dyn_overlay = None
+    out["repack_seconds"] = repack_s
+    return out
+
+
+def mutation_context_phase(device) -> dict:
+    """tests/test_mutation_context.py's app on the card: SSSP over the
+    chain 0-1-...-9 adds vertex 100 and the edges 0-100, 100-9 (0.5 each)
+    after round 2; the worker rebuilds the fragment between rounds."""
+    from libgrape_lite_tpu_torch.fragment.mutation import (
+        BasicFragmentMutator,
+    )
+    from libgrape_lite_tpu_torch.models import SSSP
+
+    class SSSPWithShortcut(SSSP):
+        fired = False
+
+        def collect_mutations(self, frag, host_state, rounds):
+            if self.fired or rounds != 2:
+                return None
+            self.fired = True
+            m = BasicFragmentMutator()
+            m.AddVertex(100)
+            m.AddEdge(0, 100, 0.5)
+            m.AddEdge(100, 9, 0.5)
+            return m
+
+    frag = chain_fragment(10, 2, device)
+    reset_launch_counts()
+    wk, _ = run_query(frag, SSSPWithShortcut(), device, source=0)
+    counts = launch_counts()
+    got = by_oid(wk.fragment, wk.result_values())
+    check(wk.fragment is not frag and wk.fragment.device == frag.device,
+          "MutationContext: the fragment was not rebuilt on its device")
+    check(got[9] == 1.0 and got[100] == 0.5 and got[5] == 5.0,
+          f"MutationContext shortcut: {got}")
+    check(counts["gather_reduce"] == wk.rounds, "MutationContext: "
+          f"{counts['gather_reduce']} K1 launches in {wk.rounds} rounds")
+    print(f"[dyn] MutationContext shortcut sssp on the chain (fnum 2): "
+          f"rounds={wk.rounds} dist(9)={got[9]} dist(100)={got[100]} "
+          f"dist(5)={got[5]} launches={counts}", flush=True)
+    return {"counts": counts, "rounds": wk.rounds}
+
+
+def chain_fragment(n: int, fnum: int, device):
+    """The path 0-1-...-(n-1), unit weights, map partitioner, mutable."""
+    from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.vertex_map.partitioner import (
+        MapPartitioner,
+    )
+    from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+    oids = np.arange(n, dtype=np.int64)
+    return ShardedEdgecutFragment.build(
+        CommSpec(fnum=fnum, device=device),
+        VertexMap.build(oids, MapPartitioner(fnum, oids)),
+        np.arange(n - 1), np.arange(1, n), np.ones(n - 1), directed=False,
+        retain_edge_list=True)
+
+
+def dyn_phases(frag, grid, device) -> dict:
+    out = dyn_rmat_phase(frag, device)
+    grid_out = dyn_grid_phase(grid, device)
+    out["runs"].update(grid_out.pop("runs"))
+    out["grid_repack_seconds"] = grid_out["repack_seconds"]
+    out["runs"]["dyn mutation_context"] = mutation_context_phase(device)
+    reset_launch_counts()
+    golden_phase(device, names=DYN_GOLDEN, efile="p2p-31.e.mutable_base",
+                 delta_efile="p2p-31.e.mutable_delta", tag="dyn golden")
+    out["runs"]["dyn --delta_efile goldens"] = {"counts": launch_counts()}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the repacked fragments are gone
+    return out
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -2234,7 +2651,7 @@ def main() -> int:
     check(not caps.missing(), f"nvcc does not build {caps.missing()}")
 
     t0 = time.perf_counter()
-    frag, e_sym = rmat_fragment(SCALE, device)
+    frag, e_sym = rmat_fragment(SCALE, device, retain=True)
     deg = frag.host_ie[0].degree
     print(f"[graph] rmat{SCALE}: vertices={frag.dev.total_vnum} "
           f"in_edge_slots={e_sym} ep={frag.dev.ie.edge_nbr.shape[1]} "
@@ -2270,7 +2687,7 @@ def main() -> int:
           f"{k3['ie']['ms']:.4f} ms (kernel phase, same graph)", flush=True)
     sampler = sampler_phase(device)
     t0 = time.perf_counter()
-    grid, grid_edges = grid_fragment(GRID_SIDE, device)
+    grid, grid_edges = grid_fragment(GRID_SIDE, device, retain=True)
     print(f"[graph] grid{GRID_SIDE}: vertices={grid.dev.total_vnum} "
           f"in_edge_slots={grid_edges} host_prep_s="
           f"{time.perf_counter() - t0:.2f}", flush=True)
@@ -2278,11 +2695,12 @@ def main() -> int:
     profile_phases(frag, frag18, device)
     golden_phase(device)
     more_golden_phase(device)
+    dyn = dyn_phases(frag, grid, device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
-              "load": load, "spgemm": spgemm}
+              "load": load, "spgemm": spgemm, **dyn["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"][k] for r in runs)
                 for k in ("gather_reduce", "strict_tile", "intersect")}
@@ -2298,6 +2716,7 @@ def main() -> int:
           "triangle_count did not launch intersect")
     gr = kern["gather_reduce[sum]"]
     st = kern["strict_tile"]
+    ov = dyn["kernel"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -2319,7 +2738,11 @@ def main() -> int:
                 for kind in ("sum", "min", "max")
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              library_int32_sum=kern_i32["sum"]["library"],
-             library_all_ms_int32_sum=kern_i32["sum"]["library_all_ms"]),
+             library_all_ms_int32_sum=kern_i32["sum"]["library_all_ms"],
+             **{f"overlay_{k}": ov[k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "max_abs_err", "slots", "rows")},
+             overlay_library="scatter_reduce_ amin"),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",
@@ -2361,6 +2784,9 @@ def main() -> int:
         "load": {k: v for k, v in load.items() if k != "counts"},
         "spgemm": {k: v for k, v in spgemm.items() if k != "counts"},
         "sampler": sampler,
+        "dyn": {k: v for k, v in dyn.items() if k != "runs"}
+        | {"runs": {k: {f: x for f, x in r.items() if f != "counts"}
+                    for k, r in dyn["runs"].items()}},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,35 @@ class AppBase:
     # loop state; the worker leaves them out of the result state
     ephemeral_keys: FrozenSet[str] = frozenset()
 
+    # state keys that are whole-graph scalars or tables rather than
+    # [fnum, vp, ...] rows; a mutation carries them over as they are
+    replicated_keys: FrozenSet[str] = frozenset()
+
+    # dyn/: True when the app folds a fragment's staged delta-edge
+    # overlay (frag.dyn_overlay) into its pull reduction -- sound only
+    # for min folds, where extra candidates merge exactly.  Apps without
+    # the contract must not run while an overlay holds staged edges
+    # (they would see the stale graph); Worker.query enforces this.
+    dyn_overlay_support: bool = False
+
+    # dyn/: the incremental-IncEval contract (dyn/incremental.py):
+    #   None            -- no contract; query_incremental runs cold
+    #   "monotone-min"  -- an additive delta reuses the previous fixed
+    #                      point: seeded = min(fresh init, migrated prev)
+    #                      per key of `inc_seed_keys`, equal to a cold
+    #                      run on the mutated graph
+    #   "restart"       -- declared, but the iteration has no reusable
+    #                      fixed point (fixed-round PageRank): cold, counted
+    inc_mode: str | None = None
+    inc_seed_keys: Dict[str, str] = {}
+
+    def inc_value_map(self, key: str, values: np.ndarray, old_frag,
+                      new_frag) -> np.ndarray:
+        """Remap carry values across a repack (rows migrate by oid in
+        the framework; values are the app's).  Identity by default,
+        right for distances and depths; WCC re-addresses its pid labels."""
+        return values
+
     # 0 means "run until the termination vote fires"
     max_rounds: int = 0
 
@@ -90,6 +119,64 @@ class AppBase:
 
     def finalize(self, frag, state: Dict) -> np.ndarray:
         raise NotImplementedError
+
+    # ---- MutationContext (reference grape/app/mutation_context.h) ----
+    #
+    # An app that mutates the graph mid-query defines
+    # `collect_mutations(frag, host_state, rounds)`, returning a
+    # BasicFragmentMutator or None; the worker calls it after PEval and
+    # after every round (reference worker.h:211-222), rebuilds the
+    # fragment, and carries the state over with `migrate_state`.
+
+    def migrate_state(self, old_frag, new_frag, old_state, new_state):
+        """Copy per-vertex state rows (numpy) across a rebuild, matched
+        by oid; new vertices keep `new_state`'s init values, replicated
+        keys carry over, and ephemeral keys keep the new fragment's."""
+        from libgrape_lite_tpu_torch.fragment.mutation import (
+            oid_row_alignment,
+        )
+
+        of, ol, nf, nl = oid_row_alignment(old_frag, new_frag)
+        out = dict(new_state)
+        for k, v in new_state.items():
+            if k in self.ephemeral_keys:
+                continue  # built by init_state for the new fragment
+            if k in self.replicated_keys:
+                out[k] = old_state.get(k, v)
+                continue
+            ov = old_state.get(k)
+            if (
+                ov is not None
+                and np.ndim(ov) >= 2
+                and ov.shape[:2] == (old_frag.fnum, old_frag.vp)
+                and np.ndim(v) >= 2
+                and v.shape[:2] == (new_frag.fnum, new_frag.vp)
+            ):
+                nv = np.array(v)
+                nv[nf, nl] = ov[of, ol]
+                out[k] = nv
+        return out
+
+    @staticmethod
+    def dyn_min_fold(relaxed: torch.Tensor, state: Dict, prefix: str,
+                     full: torch.Tensor, post=None) -> torch.Tensor:
+        """Merge the staged delta-edge overlay (dyn/ingest.py) into a
+        pull-mode min reduction.  The overlay is a small CSR over the
+        fragment's rows (`<prefix>indptr` [fnum, vp + 1], `nbr` pids,
+        `w` when weighted), so its fold is one gather-reduce (kind
+        `min`, weights added) -- the JAX package's gather plus
+        segment min -- and `post` (BFS's +1) maps it like the base pull.
+        Pad slots lie past indptr[:, vp], where the kernel stops.  min is
+        exact in any order, so the result equals a cold query on the
+        rebuilt graph."""
+        from libgrape_lite_tpu_torch.ops import spmv
+
+        extra = spmv.gather_reduce(state[prefix + "indptr"],
+                                   state[prefix + "nbr"],
+                                   state.get(prefix + "w"), full, "min")
+        if post is not None:
+            extra = post(extra)
+        return torch.minimum(relaxed, extra)
 
     @staticmethod
     def segment_reduce(values, edge_src, vp, kind="sum"):

@@ -26,7 +26,10 @@ Loading: --partitioner_type hash|map|segment, --idxer_type
 hashmap|sorted_array|pthash|local, --string_id (vertex ids as strings),
 --rebalance [--rebalance_vertex_factor N] (degree-weighted fragments),
 --serialize / --deserialize with --serialization_prefix (the garc
-fragment cache, readable by the JAX package too), --memory_stats.
+fragment cache, readable by the JAX package too), --memory_stats,
+--delta_efile / --delta_vfile (edit files in the reference's `a`/`d`/`u`
+grammar, applied to the parsed graph before the build:
+LoadGraphAndMutate).
 GRAPE_LCC_BACKEND=intersect|spgemm|auto picks the triangle-credit
 backend of lcc_opt / lcc_bitmap / triangle_count.
 
@@ -78,6 +81,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--serialize", action="store_true")
     p.add_argument("--deserialize", action="store_true")
     p.add_argument("--serialization_prefix", default="")
+    p.add_argument("--delta_efile", default="")
+    p.add_argument("--delta_vfile", default="")
     p.add_argument("--string_id", action="store_true",
                    help="treat vertex ids as strings")
     p.add_argument("--rebalance", action="store_true")

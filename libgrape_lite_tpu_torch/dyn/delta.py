@@ -1,0 +1,308 @@
+"""Delta-edge buffer: a bounded, typed staging area for graph updates.
+
+Counterpart of `libgrape_lite_tpu/dyn/delta.py`.  Mutations never touch
+the built CSR directly; they stage here:
+
+  * `DeltaBuffer` holds typed edge/vertex ops (`add_edge`,
+    `remove_edge`, `update_edge`, `add_vertex`, `remove_vertex`) up to
+    a fixed capacity, mirroring the reference mutation grammar
+    (`ev_fragment_mutator.h:118-127`; `parse_ops` accepts the same
+    `a/d/u` line forms as `fragment/mutation.parse_delta_efile`);
+  * the buffer is applied only between queries, either as an overlay
+    side-path (dyn/ingest.py) or by folding into a rebuilt CSR
+    (dyn/repack.py);
+  * `additive_only` is the soundness switch: edge ADDITIONS between
+    known vertices extend a min-fold reduction exactly (extra
+    candidates can only improve a tropical min), so they may ride the
+    overlay and seed incremental IncEval; removals, weight updates,
+    and vertex ops change the candidate set non-monotonically and
+    force a repack (SparseP's delta-ratio framing, arxiv 2201.05072:
+    past a threshold the amortized rebuild wins anyway).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
+
+
+class DeltaOverflowError(RuntimeError):
+    """The staged op count exceeded the buffer's declared capacity.
+
+    The buffer is bounded by design: the overlay side-path holds
+    fixed-shape [fnum, capacity] arrays, so an unbounded buffer would
+    silently grow past what the overlay can represent.  Catch this and
+    repack."""
+
+
+@dataclass(frozen=True)
+class DeltaSummary:
+    """Hashable snapshot of a buffer's content class — what the
+    incremental-IncEval contract (AppBase.inc_mode) decides on."""
+
+    n_add_edges: int = 0
+    n_remove_edges: int = 0
+    n_update_edges: int = 0
+    n_add_vertices: int = 0
+    n_remove_vertices: int = 0
+    additive_only: bool = True
+    touched_oids: Tuple = ()
+
+    @property
+    def n_edge_ops(self) -> int:
+        return self.n_add_edges + self.n_remove_edges + self.n_update_edges
+
+    @property
+    def n_ops(self) -> int:
+        return self.n_edge_ops + self.n_add_vertices + self.n_remove_vertices
+
+
+class DeltaBuffer:
+    """Bounded, typed buffer of staged graph updates (dyn/).
+
+    Ops accumulate until a repack folds them into the base CSR; the
+    overlay (dyn/ingest.py) always reflects the FULL buffer, so queries
+    between repacks see every staged edge."""
+
+    def __init__(self, capacity: int = 4096):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self.add_edges: List[Tuple[int, int, float]] = []
+        self.remove_edges: List[Tuple[int, int]] = []
+        self.update_edges: List[Tuple[int, int, float]] = []
+        self.add_vertices: List[int] = []
+        self.remove_vertices: List[int] = []
+
+    # ---- staging ---------------------------------------------------------
+
+    def _room(self, n: int) -> None:
+        if self.n_ops + n > self.capacity:
+            raise DeltaOverflowError(
+                f"staging {n} op(s) would exceed the delta buffer "
+                f"capacity ({self.n_ops} staged / {self.capacity}); "
+                "repack (DynGraph.fold_now) before staging more"
+            )
+
+    def add_edge(self, src, dst, w: float = 0.0) -> None:
+        self._room(1)
+        self.add_edges.append((src, dst, float(w)))
+
+    def remove_edge(self, src, dst) -> None:
+        self._room(1)
+        self.remove_edges.append((src, dst))
+
+    def update_edge(self, src, dst, w: float) -> None:
+        self._room(1)
+        self.update_edges.append((src, dst, float(w)))
+
+    def add_vertex(self, oid) -> None:
+        self._room(1)
+        self.add_vertices.append(oid)
+
+    def remove_vertex(self, oid) -> None:
+        self._room(1)
+        self.remove_vertices.append(oid)
+
+    def stage(self, ops: Iterable) -> int:
+        """Stage a batch of op tuples; returns how many were staged.
+
+        Atomic: the whole batch is validated (grammar) and checked
+        against the capacity bound BEFORE anything is appended, so a
+        failure stages NOTHING — the documented recoveries (fix the
+        batch, or catch DeltaOverflowError / repack / retry) must
+        never fold a half-staged prefix twice as duplicate edges.
+
+        Grammar (one tuple per op, matching the delta-efile forms):
+          ("a", src, dst[, w])   add edge
+          ("d", src, dst)        remove edge
+          ("u", src, dst, w)     update edge weight
+          ("av", oid)            add vertex
+          ("dv", oid)            remove vertex
+        """
+        ops = list(ops)
+        self._room(len(ops))
+        staged = []
+        for op in ops:
+            kind = op[0]
+            if kind == "a" and len(op) >= 3:
+                staged.append((self.add_edge, (
+                    op[1], op[2], op[3] if len(op) > 3 else 0.0)))
+            elif kind == "d" and len(op) >= 3:
+                staged.append((self.remove_edge, (op[1], op[2])))
+            elif kind == "u" and len(op) >= 4:
+                staged.append((self.update_edge, (op[1], op[2], op[3])))
+            elif kind == "av" and len(op) >= 2:
+                staged.append((self.add_vertex, (op[1],)))
+            elif kind == "dv" and len(op) >= 2:
+                staged.append((self.remove_vertex, (op[1],)))
+            else:
+                raise ValueError(
+                    f"malformed delta op {op!r}; expected "
+                    "('a', s, d[, w]) / ('d', s, d) / ('u', s, d, w) / "
+                    "('av', oid) / ('dv', oid)"
+                )
+        for fn, args in staged:
+            fn(*args)
+        return len(staged)
+
+    # ---- introspection ---------------------------------------------------
+
+    @property
+    def n_ops(self) -> int:
+        return (
+            len(self.add_edges) + len(self.remove_edges)
+            + len(self.update_edges) + len(self.add_vertices)
+            + len(self.remove_vertices)
+        )
+
+    @property
+    def n_edge_ops(self) -> int:
+        return (
+            len(self.add_edges) + len(self.remove_edges)
+            + len(self.update_edges)
+        )
+
+    @property
+    def additive_only(self) -> bool:
+        """True when every staged op is an edge ADDITION — the class
+        the overlay side-path and seeded incremental IncEval are exact
+        for (see module docstring)."""
+        return not (
+            self.remove_edges or self.update_edges
+            or self.add_vertices or self.remove_vertices
+        )
+
+    def delta_ratio(self, base_edges: int) -> float:
+        """Staged edge ops as a fraction of the base graph's real edge
+        count — the repack-policy trigger (SparseP framing)."""
+        return self.n_edge_ops / max(1, int(base_edges))
+
+    def touched_oids(self) -> np.ndarray:
+        """Every vertex id named by a staged op (delta-touched set)."""
+        ids: List = []
+        for s, d, _ in self.add_edges:
+            ids += [s, d]
+        for s, d in self.remove_edges:
+            ids += [s, d]
+        for s, d, _ in self.update_edges:
+            ids += [s, d]
+        ids += list(self.add_vertices) + list(self.remove_vertices)
+        if not ids:
+            return np.zeros(0, dtype=np.int64)
+        arr = np.asarray(ids)
+        return np.unique(arr)
+
+    def summary(self) -> DeltaSummary:
+        return DeltaSummary(
+            n_add_edges=len(self.add_edges),
+            n_remove_edges=len(self.remove_edges),
+            n_update_edges=len(self.update_edges),
+            n_add_vertices=len(self.add_vertices),
+            n_remove_vertices=len(self.remove_vertices),
+            additive_only=self.additive_only,
+            touched_oids=tuple(self.touched_oids().tolist()),
+        )
+
+    def clear(self) -> None:
+        self.add_edges.clear()
+        self.remove_edges.clear()
+        self.update_edges.clear()
+        self.add_vertices.clear()
+        self.remove_vertices.clear()
+
+    # ---- conversion ------------------------------------------------------
+
+    def to_mutator(self, directed: bool = True):
+        """The staged ops as a `fragment/mutation.BasicFragmentMutator`
+        — the repack path reuses the rebuild-on-mutate machinery.
+
+        On undirected graphs, remove/update ops apply to BOTH
+        orientations (the reference rule, `ev_fragment_mutator.h:
+        118-127`): the retained edge list stores each undirected edge
+        in ONE arbitrary orientation, so a one-sided RemoveEdge(3, 9)
+        would silently no-op when the list holds (9, 3)."""
+        from libgrape_lite_tpu_torch.fragment.mutation import (
+            BasicFragmentMutator,
+        )
+
+        m = BasicFragmentMutator()
+        for oid in self.add_vertices:
+            m.AddVertex(oid)
+        for oid in self.remove_vertices:
+            m.RemoveVertex(oid)
+        for s, d, w in self.add_edges:
+            m.AddEdge(s, d, w)
+        for s, d in self.remove_edges:
+            m.RemoveEdge(s, d)
+            if not directed:
+                m.RemoveEdge(d, s)
+        for s, d, w in self.update_edges:
+            m.UpdateEdge(s, d, w)
+            if not directed:
+                m.UpdateEdge(d, s, w)
+        return m
+
+
+def parse_ops_line(line: str, weighted: bool = True,
+                   string_id: bool = False) -> Optional[tuple]:
+    """One delta-stream line -> op tuple (None for blank/comment).
+
+    The line grammar is the reference delta-efile's
+    (`ev_fragment_mutator.h`): `a src dst [w]`, `d src dst`,
+    `u src dst w`, plus vertex forms `av oid` / `dv oid`."""
+    line = line.strip()
+    if not line or line[0] == "#":
+        return None
+    parts = line.split()
+    kind = parts[0]
+
+    def vid(tok):
+        return tok if string_id else int(tok)
+
+    def need(n, form):
+        # every malformed line gets the same descriptive grammar
+        # error naming the offending line — never a bare IndexError
+        if len(parts) < n:
+            raise ValueError(
+                f"malformed {kind!r} op {line!r}: expected {form!r}"
+            )
+
+    if kind == "a":
+        # in a weighted stream the weight is mandatory — defaulting a
+        # truncated line to 0.0 would silently add a zero-cost edge
+        # (SSSP distances collapse through it with no error)
+        need(4 if weighted else 3,
+             "a src dst w" if weighted else "a src dst")
+        w = float(parts[3]) if weighted else 0.0
+        return ("a", vid(parts[1]), vid(parts[2]), w)
+    if kind == "d":
+        need(3, "d src dst")
+        return ("d", vid(parts[1]), vid(parts[2]))
+    if kind == "u":
+        # the update weight is mandatory regardless of stream mode
+        need(4, "u src dst w")
+        return ("u", vid(parts[1]), vid(parts[2]), float(parts[3]))
+    if kind == "av":
+        need(2, "av oid")
+        return ("av", vid(parts[1]))
+    if kind == "dv":
+        need(2, "dv oid")
+        return ("dv", vid(parts[1]))
+    raise ValueError(f"unknown delta op line {line!r}")
+
+
+def parse_ops_file(path: str, weighted: bool = True,
+                   string_id: bool = False) -> List[tuple]:
+    """Read a whole delta stream file (scripts/gen_rmat.py --delta
+    emits this format; the serve CLI ingests it via --delta_stream)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            op = parse_ops_line(line, weighted=weighted,
+                                string_id=string_id)
+            if op is not None:
+                out.append(op)
+    return out

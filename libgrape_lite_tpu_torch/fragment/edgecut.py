@@ -133,6 +133,10 @@ class ShardedEdgecutFragment:
         self.vp = self.host_oids.shape[1]
         self._oid_index = None
         self.edge_list = None  # the oid edge list, when retained
+        # the LoadGraphSpec a rebuild keeps (partitioner, idxer, edata
+        # dtype), and the staged delta-edge overlay a DynGraph attaches
+        self.load_spec = None
+        self.dyn_overlay = None
         t0 = time.perf_counter()
         self.dev = self._to_device(total_vnum, total_enum)
         if self.device.type == "cuda":

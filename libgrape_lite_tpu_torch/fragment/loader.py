@@ -218,6 +218,7 @@ def LoadGraph(
         edata_dtype=spec.edata_dtype,
         retain_edge_list=spec.retain_edge_list,
     )
+    frag.load_spec = spec  # kept across a rebuild-on-mutate
     build = time.perf_counter() - t0
     LOAD_SECONDS["csr"] = build - frag.place_seconds
     LOAD_SECONDS["place"] = frag.place_seconds

@@ -10,6 +10,14 @@ fragments are folded with the buffer's op (`AutoAppBase`,
 Results equal the base apps'; the execution differs, as the reference's
 variants differ from theirs.
 
+The push reads no staged delta overlay (dyn/), so `sssp_auto`,
+`bfs_auto` and `wcc_auto` declare no overlay contract
+(`dyn_overlay_support = False`): `Worker.query` refuses them while an
+overlay holds staged edges, and they run on the repacked graph after
+`DynGraph.fold_now()`.  The JAX package's classes inherit the contract
+from SSSP, BFS and WCC and there compute on the stale base graph.  Their
+incremental contract is kept: seeding on a repacked graph is sound.
+
 The push is the gather-reduce kernel (K1) over a *push CSR*: per
 fragment, its out-edges sorted stably by destination pid, so that row p
 of fragment f lists the source pids `f * vp + src` of f's edges into p
@@ -82,6 +90,7 @@ class SSSPAuto(AutoAppBase, SSSP):
 
     sync_buffers = {"dist": "min"}
     ephemeral_keys = frozenset()
+    dyn_overlay_support = False  # the push reads no overlay
 
     def init_state(self, frag, source=0):
         self._oe = push_csr(frag, "oe", self.dtype)
@@ -97,6 +106,7 @@ class BFSAuto(AutoAppBase, BFS):
     """BFS via SyncBuffer<depth, min> (reference bfs_auto.h)."""
 
     sync_buffers = {"depth": "min"}
+    dyn_overlay_support = False  # the push reads no overlay
 
     def init_state(self, frag, source=0):
         self._oe = push_csr(frag, "oe")
@@ -115,6 +125,7 @@ class WCCAuto(AutoAppBase, WCC):
     (unlike WCC, whose second pull reads the labels the first folded)."""
 
     sync_buffers = {"comp": "min"}
+    dyn_overlay_support = False  # the push reads no overlay
 
     def init_state(self, frag, **_):
         self._sides = [push_csr(frag, "oe")]

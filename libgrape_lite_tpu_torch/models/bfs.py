@@ -12,7 +12,9 @@ INT32_MAX sentinel (min(d) + 1 == min(d + 1), and a reached depth never
 reaches the sentinel).  Rows without in-edges come back as the sentinel.
 Unreached vertices print as the reference's int64 maximum
 (`bfs_context.h:44`, golden `p2p-31-BFS`).  Integer min is exact in any
-order, so depths and round counts equal the JAX package's.
+order, so depths and round counts equal the JAX package's.  A staged
+delta overlay (dyn/) folds in through a second int32 gather-reduce with
+the same +1, and the previous depths can seed an incremental query.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from libgrape_lite_tpu_torch.app.base import (
     StepContext,
     resolve_source,
 )
+from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -32,10 +35,21 @@ _SENTINEL = np.iinfo(np.int32).max
 _OUT_SENTINEL = np.iinfo(np.int64).max  # printed for unreachable
 
 
+def _plus_one(near: torch.Tensor) -> torch.Tensor:
+    """min(d) + 1 == min(d + 1); the sentinel (no reached neighbour)
+    stays the sentinel."""
+    return torch.where(near != _SENTINEL, near + 1, near)
+
+
 class BFS(ParallelAppBase):
     load_strategy = LoadStrategy.kBothOutIn
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
+    # dyn/: unit-weight min relax -- additive deltas fold exactly, and
+    # the previous depths seed incremental IncEval
+    dyn_overlay_support = True
+    inc_mode = "monotone-min"
+    inc_seed_keys = {"depth": "min"}
 
     def init_state(self, frag, source=0):
         depth = torch.full((frag.fnum, frag.vp), _SENTINEL,
@@ -43,7 +57,9 @@ class BFS(ParallelAppBase):
         pid = resolve_source(frag, source, "BFS")
         if pid >= 0:
             depth[pid // frag.vp, pid % frag.vp] = 0
-        return {"depth": depth}
+        overlay = overlay_state_entries(frag, "ie", None, "dyn_ie_")
+        self.ephemeral_keys = frozenset(overlay)
+        return {"depth": depth, **overlay}
 
     def peval(self, ctx: StepContext, dev, state):
         return state, 1
@@ -51,12 +67,15 @@ class BFS(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         depth = state["depth"]
         ie = dev.ie
-        near = spmv.gather_reduce(ie.indptr, ie.edge_nbr, None,
-                                  ctx.gather_state(depth), "min")
-        relaxed = torch.where(near != _SENTINEL, near + 1, near)
+        full = ctx.gather_state(depth)
+        relaxed = _plus_one(spmv.gather_reduce(ie.indptr, ie.edge_nbr, None,
+                                               full, "min"))
+        if "dyn_ie_indptr" in state:
+            relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full,
+                                        _plus_one)
         new = torch.minimum(depth, relaxed)
         changed = (new < depth) & dev.inner_mask
-        return {"depth": new}, ctx.sum(changed.sum(dim=-1))
+        return dict(state, depth=new), ctx.sum(changed.sum(dim=-1))
 
     def finalize(self, frag, state):
         d = state["depth"].numpy().astype(np.int64)

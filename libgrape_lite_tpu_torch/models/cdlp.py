@@ -41,6 +41,7 @@ class CDLP(ParallelAppBase):
     message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
     result_format = "int"
     ephemeral_keys = frozenset({"lut"})
+    replicated_keys = frozenset({"step", "lut"})
 
     def __init__(self, max_round: int = 10):
         self.max_round = max_round

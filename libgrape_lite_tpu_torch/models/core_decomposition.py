@@ -33,6 +33,7 @@ class CoreDecomposition(ParallelAppBase):
     load_strategy = LoadStrategy.kOnlyOut
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
+    replicated_keys = frozenset({"level"})
 
     def init_state(self, frag, **_):
         dev = frag.device

@@ -16,6 +16,11 @@ from libgrape_lite_tpu_torch.models.bfs import _SENTINEL, BFS
 
 class KHopNeighborhood(BFS):
     result_format = "int"
+    # the hop cap makes the previous fixed point unusable, so an
+    # incremental query runs cold (the overlay fold is inherited: min is
+    # exact at any round budget)
+    inc_mode = None
+    inc_seed_keys: dict = {}
 
     def __init__(self, k: int = 2):
         k = int(k)

@@ -36,6 +36,10 @@ class PageRank(BatchShuffleAppBase):
     need_split_edges = True
     result_format = "float"
     ephemeral_keys = frozenset({"spmv_row_lo"})
+    replicated_keys = frozenset({"step", "dangling_sum", "total_dangling"})
+    # dyn/: a fixed-round iteration has no fixed point to reuse, so an
+    # incremental query is a counted cold run
+    inc_mode = "restart"
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  spmv_mode: str = "auto", dtype: torch.dtype = torch.float32):

@@ -28,6 +28,7 @@ class PageRankLocal(BatchShuffleAppBase):
     load_strategy = LoadStrategy.kBothOutIn
     message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
     result_format = "float"
+    replicated_keys = frozenset({"step"})
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  dtype: torch.dtype = torch.float32):

@@ -10,6 +10,11 @@ through the gather-reduce kernel (kind `min`), and votes the number of
 improved inner vertices.  The weight stream is pre-masked once at init
 (`wf_eff`, +inf on pad edges), as in the JAX package.  `min` is exact in
 any order, so the result is bit-identical to the JAX package's.
+
+On a fragment carrying a staged delta overlay (dyn/), each round also
+folds the overlay's edges in with a second gather-reduce (`dyn_min_fold`),
+and the previous fixed point can seed an incremental query
+(`inc_mode = "monotone-min"`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from libgrape_lite_tpu_torch.app.base import (
     StepContext,
     resolve_source,
 )
+from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -32,6 +38,11 @@ class SSSP(ParallelAppBase):
     result_format = "sssp_infinity"
     needs_edata = True  # double edata (run_app.cc:48-52)
     ephemeral_keys = frozenset({"wf_eff"})
+    # dyn/: staged additive deltas fold exactly into the min relax, and
+    # the previous fixed point seeds incremental IncEval
+    dyn_overlay_support = True
+    inc_mode = "monotone-min"
+    inc_seed_keys = {"dist": "min"}
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         self.dtype = dtype
@@ -58,7 +69,13 @@ class SSSP(ParallelAppBase):
             ie.edge_mask, ie.edge_w.to(dt),
             torch.tensor(float("inf"), dtype=dt, device=dev),
         )
-        return {"dist": dist, "wf_eff": wf_eff}
+        state = {"dist": dist, "wf_eff": wf_eff}
+        # the overlay's side arrays, only while it holds staged edges
+        overlay = overlay_state_entries(
+            frag, "ie", torch.empty((), dtype=dt).numpy().dtype, "dyn_ie_")
+        state.update(overlay)
+        self.ephemeral_keys = frozenset({"wf_eff", *overlay})
+        return state
 
     def peval(self, ctx: StepContext, dev, state):
         # the first pull round subsumes the reference PEval's source
@@ -71,6 +88,8 @@ class SSSP(ParallelAppBase):
         full = ctx.gather_state(dist)
         relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, state["wf_eff"],
                                      full, "min")
+        if "dyn_ie_indptr" in state:
+            relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full)
         new = torch.minimum(dist, relaxed)
         changed = (new < dist) & dev.inner_mask
         active = ctx.sum(changed.sum(dim=-1))

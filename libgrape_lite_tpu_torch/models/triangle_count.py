@@ -91,6 +91,7 @@ class CommonNeighbors(ParallelAppBase):
     load_strategy = LoadStrategy.kOnlyOut
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
+    replicated_keys = frozenset({"hop"})
     max_rounds = 8  # 2 pull rounds; the vote ends the query after hop 2
 
     def init_state(self, frag, source=-1, **_):

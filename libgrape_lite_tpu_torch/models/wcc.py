@@ -7,7 +7,10 @@ pulls the minimum label over the in-neighbourhood, then, on directed
 graphs, over the out-neighbourhood of the labels just folded -- both
 through the gather-reduce kernel (int32 kind `min`, no weights; rows
 without edges come back as the sentinel, which never lowers a label).
-Undirected graphs store one symmetrised CSR, so one pull suffices.
+Undirected graphs store one symmetrised CSR, so one pull suffices.  A
+staged delta overlay (dyn/) folds into each pull through a second int32
+gather-reduce, and the previous labels can seed an incremental query
+(`inc_value_map` re-addresses them across a repack).
 Labels are canonicalised on the host to the representative's oid (the
 LDBC check is partition isomorphism, `misc/wcc_check.cc`).  Integer min
 is exact in any order, so labels and round counts equal the JAX
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
+from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -30,6 +34,11 @@ class WCC(ParallelAppBase):
     load_strategy = LoadStrategy.kBothOutIn
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
+    # dyn/: min-label propagation is a min fold -- additive deltas merge
+    # exactly, and the previous labels seed incremental IncEval
+    dyn_overlay_support = True
+    inc_mode = "monotone-min"
+    inc_seed_keys = {"comp": "min"}
 
     def init_state(self, frag, **_):
         pids = torch.arange(frag.fnum * frag.vp, dtype=torch.int32,
@@ -37,15 +46,21 @@ class WCC(ParallelAppBase):
         comp = torch.where(frag.dev.inner_mask, pids,
                            torch.tensor(_SENTINEL, dtype=torch.int32,
                                         device=frag.device))
-        return {"comp": comp}
+        overlay = overlay_state_entries(frag, "ie", None, "dyn_ie_")
+        if frag.directed:
+            overlay.update(overlay_state_entries(frag, "oe", None, "dyn_oe_"))
+        self.ephemeral_keys = frozenset(overlay)
+        return {"comp": comp, **overlay}
 
     def peval(self, ctx: StepContext, dev, state):
         return state, 1
 
-    @staticmethod
-    def _pull(ctx, comp, csr):
-        return spmv.gather_reduce(csr.indptr, csr.edge_nbr, None,
-                                  ctx.gather_state(comp), "min")
+    def _pull(self, ctx, comp, csr, state, dyn_prefix):
+        full = ctx.gather_state(comp)
+        red = spmv.gather_reduce(csr.indptr, csr.edge_nbr, None, full, "min")
+        if dyn_prefix + "indptr" in state:
+            red = self.dyn_min_fold(red, state, dyn_prefix, full)
+        return red
 
     def _post_pull(self, ctx: StepContext, dev, new):
         """Hook between the neighbour pulls and the change count; WCCOpt
@@ -54,12 +69,33 @@ class WCC(ParallelAppBase):
 
     def inceval(self, ctx: StepContext, dev, state):
         comp = state["comp"]
-        new = torch.minimum(comp, self._pull(ctx, comp, dev.ie))
+        new = torch.minimum(comp, self._pull(ctx, comp, dev.ie, state,
+                                             "dyn_ie_"))
         if dev.directed:
-            new = torch.minimum(new, self._pull(ctx, new, dev.oe))
+            new = torch.minimum(new, self._pull(ctx, new, dev.oe, state,
+                                                "dyn_oe_"))
         new = self._post_pull(ctx, dev, new)
         changed = (new < comp) & dev.inner_mask
-        return {"comp": new}, ctx.sum(changed.sum(dim=-1))
+        return dict(state, comp=new), ctx.sum(changed.sum(dim=-1))
+
+    def inc_value_map(self, key, values, old_frag, new_frag):
+        """Labels are pids, so a repack (which renumbers the pid space)
+        re-addresses the label values: old representative pid -> its oid
+        -> its new pid.  A representative missing from the new map falls
+        back to the sentinel, and the fresh init wins."""
+        if old_frag is new_frag or key != "comp":
+            return values
+        flat = np.asarray(values).reshape(-1)
+        valid = flat != _SENTINEL
+        if not valid.any():
+            return values
+        reps = np.unique(flat[valid])
+        new_reps = new_frag.oid_to_pid(np.asarray(old_frag.pid_to_oid(reps)))
+        new_reps = np.where(new_reps < 0, _SENTINEL, new_reps).astype(
+            values.dtype)
+        out = flat.copy()
+        out[valid] = new_reps[np.searchsorted(reps, flat[valid])]
+        return out.reshape(np.asarray(values).shape)
 
     def finalize(self, frag, state):
         comp = state["comp"].numpy().astype(np.int64)

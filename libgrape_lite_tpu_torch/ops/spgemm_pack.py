@@ -707,7 +707,8 @@ def resolve_lcc_backend(app_name: str, frag, degree_threshold: int = 0,
     init_state: "intersect" or "spgemm", every non-intersect request's
     outcome recorded in SPGEMM_STATS.  `supported=False` (lcc_beta's
     merge intersection, lcc_directed's direction-weighted counts)
-    always yields intersect, with a recorded decline.  `chunk` is the
+    always yields intersect, with a recorded decline, and so does a
+    fragment with a staged delta overlay attached (dyn/).  `chunk` is the
     intersect model's edge chunk (the JAX package's GRAPE_LCC_CHUNK
     default)."""
     mode = lcc_backend_mode()
@@ -716,6 +717,12 @@ def resolve_lcc_backend(app_name: str, frag, degree_threshold: int = 0,
     if not supported:
         record_decline(app_name, unsupported_reason
                        or "app has no spgemm lowering", mode)
+        return "intersect"
+    if getattr(frag, "dyn_overlay", None) is not None:
+        record_decline(
+            app_name,
+            "dyn overlay attached: the host-planned bitmap would go "
+            "stale against staged deltas", mode)
         return "intersect"
     if mode == "spgemm":
         _record("decisions", {"app": app_name, "mode": mode,

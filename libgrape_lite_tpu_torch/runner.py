@@ -51,6 +51,9 @@ class QueryArgs:
     serialize: bool = False
     deserialize: bool = False
     serialization_prefix: str = ""
+    # reference LoadGraphAndMutate: edit files applied before the build
+    delta_efile: str = ""
+    delta_vfile: str = ""
 
 
 def _coerce_source(v, string_id: bool = False):
@@ -118,7 +121,16 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         serialization_prefix=args.serialization_prefix,
         edata_dtype=np.float64,
     )
-    frag = LoadGraph(args.efile, args.vfile or None, comm_spec, spec)
+    if args.delta_efile or args.delta_vfile:
+        from libgrape_lite_tpu_torch.fragment.mutation import (
+            LoadGraphAndMutate,
+        )
+
+        frag = LoadGraphAndMutate(
+            args.efile, args.vfile or None, args.delta_efile or None,
+            args.delta_vfile or None, comm_spec, spec)
+    else:
+        frag = LoadGraph(args.efile, args.vfile or None, comm_spec, spec)
     if args.memory_stats:
         print(f"[memory] after load: {get_memory_stats(comm_spec.device)}")
     if name == "sssp_select":
