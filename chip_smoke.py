@@ -119,6 +119,27 @@ the port's own entry points:
      the card; `run_app` with `--delta_efile` (p2p-31's mutable base and
      delta) at fnum 1 and 4 for sssp, bfs, pagerank, wcc, cdlp, lcc and
      lcc_bitmap against the p2p-31 goldens;
+  11b. the serving runtime (`[serve]`): K1 with a lane axis
+     (`gather_reduce_lanes`) alone on RMAT-20 at k 1, 2, 3, 8 and 32
+     lanes in the kinds min with weights, float sum and int32 min,
+     against its plain version (min bit-equal, sum within 1e-5 of each
+     row's sum of |terms|) and bit-equal to k single gather_reduce calls,
+     with kernel, plain, library (the CSR product with x as [N, k]; for
+     min the fastest of segment_reduce over the [E, k] candidates and
+     scatter_reduce_ amin over [E, k] and [k, E]), bound and k x single
+     times; `spmv.pull` of 65 lanes (two calls) bit-equal to 65 single
+     calls; then
+     `Worker.query_batch` of 8 seed-17 sources among vertices with edges
+     for sssp (plus one absent id), bfs, khop (k 2), common_neighbors and
+     personalized pagerank (10 rounds), every lane's values and rounds
+     bit-equal to its sequential `Worker.query` with one lane launch a
+     round, and a wcc batch through per-lane states; a `ServeSession` of
+     64 sssp queries at max_batch 1 and 8 (bit-equal; qps, p50, p99), the
+     async pump at W 1 and 4 byte-identical to the synchronous loop, and
+     again with the [dyn] adds ingested every 8 queries; the `serve` CLI
+     on p2p-31 at fnum 1 and 4 (16 queries, --inflight 1 and 4 with equal
+     --dump_results, a --delta_stream run); a profile of one 8-lane sssp
+     batch;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -211,6 +232,27 @@ DYN_AUTO = (("sssp_auto", {"source": 0}), ("bfs_auto", {"source": 0}),
 DYN_INC = ("sssp", "bfs", "wcc")
 DYN_SHORTCUT_SPAN = 11  # the grid's shortcut: (s - 12, s - 12) to the corner
 DYN_GOLDEN = ("sssp", "bfs", "pagerank", "wcc", "cdlp", "lcc", "lcc_bitmap")
+# the [serve] phase: K1 with a lane axis at each lane count; batches of
+# SERVE_BATCH seed-17 sources among vertices with edges (sssp adds one
+# absent id); a session of SERVE_QUERIES sssp queries at max_batch 1 and
+# SERVE_BATCH, the async pump at each window, then the [dyn] adds
+# ingested every SERVE_INGEST_EVERY queries; the serve CLI on p2p-31
+# (one lane is K1's single call; 2 and 3 lanes run lane groups of 2 and
+# 4, 8 and 32 groups of 8; a batch of SERVE_WIDE lanes is split by pull)
+SERVE_LANES = (1, 2, 3, 8, 32)
+SERVE_WIDE = 65
+SERVE_SEED = 17
+SERVE_BATCH = 8
+SERVE_APPS = (("sssp", {}), ("bfs", {}), ("khop", {}),
+              ("common_neighbors", {}),
+              ("pagerank", {"max_round": PR_ROUNDS}), ("wcc", {}))
+SERVE_GENERIC_LANES = 4  # wcc: identical lanes, run as per-lane states
+ABSENT_ID = 1 << 40  # no vertex has this id
+SERVE_QUERIES = 64
+SERVE_INGEST_EVERY = 8
+SERVE_WINDOWS = (1, 4)
+SERVE_CLI_QUERIES = 16
+SERVE_CLI_ADDS = 64
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -948,6 +990,7 @@ def launch_counts() -> dict:
     from libgrape_lite_tpu_torch.ops import intersect, spmv
 
     return {"gather_reduce": spmv.gather_reduce.launches,
+            "gather_reduce_lanes": spmv.gather_reduce_lanes.launches,
             "strict_tile": spmv.spmv_strict.launches,
             "intersect": intersect.row_and_popcount_indexed.launches}
 
@@ -960,8 +1003,10 @@ def plain_versions():
     from libgrape_lite_tpu_torch.ops import intersect, spmv
 
     reset_launch_counts()
-    with mock.patch.multiple(spmv, gather_reduce=spmv.gather_reduce_plain,
-                             spmv_strict=spmv.spmv_strict_plain), \
+    with mock.patch.multiple(
+            spmv, gather_reduce=spmv.gather_reduce_plain,
+            gather_reduce_lanes=spmv.gather_reduce_lanes_plain,
+            spmv_strict=spmv.spmv_strict_plain), \
             mock.patch.object(intersect, "row_and_popcount_indexed",
                               intersect.row_and_popcount_plain):
         yield
@@ -1582,11 +1627,18 @@ def profile_phase(label, frag, app_factory, device, kw) -> dict:
     torch.profiler, against the query's wall clock.  Every profiled app
     has run before (its phase's warm-up), so nothing is compiled or
     built here."""
+    return profile_call(
+        f"{label} query",
+        lambda: run_query(frag, app_factory(), device, **kw)[1])
+
+
+def profile_call(label, fn) -> dict:
+    """torch.profiler over `fn()`, which returns its own wall seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, secs = run_query(frag, app_factory(), device, **kw)
+        secs = fn()
     by_name = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -1595,7 +1647,7 @@ def profile_phase(label, frag, app_factory, device, kw) -> dict:
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     wall_ms = secs * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"[profile] {label} query: wall_ms={wall_ms:.3f} "
+    print(f"[profile] {label}: wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} idle_share="
           f"{1 - busy_ms / wall_ms:.3f} kernels={len(by_name)}", flush=True)
     for name, (t, c) in top:
@@ -1793,7 +1845,7 @@ def load_phase(device, scale: int = SCALE) -> dict:
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
 
-    out = {"counts": {"gather_reduce": 0, "strict_tile": 0, "intersect": 0}}
+    out = {"counts": dict.fromkeys(launch_counts(), 0)}
 
     def add(counts):
         for k, v in counts.items():
@@ -1919,7 +1971,7 @@ def spgemm_phase(frag, device, scale: int = BITMAP_SCALE) -> dict:
 
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
-    out = {"counts": {"gather_reduce": 0, "strict_tile": 0, "intersect": 0}}
+    out = {"counts": dict.fromkeys(launch_counts(), 0)}
     t0 = time.perf_counter()
     disp = sp.resolve_spgemm_dispatch(frag)  # memoized: the queries reuse it
     plan_s = time.perf_counter() - t0
@@ -2204,12 +2256,7 @@ def dyn_rmat_phase(frag, device) -> dict:
     from libgrape_lite_tpu_torch.worker.worker import Worker
 
     out = {"runs": {}}
-    n = frag.dev.total_vnum
-    rng = np.random.default_rng(DYN_SEED)
-    src, dst = rng.integers(0, n, DYN_ADDS), rng.integers(0, n, DYN_ADDS)
-    wts = rng.uniform(0.1, 10.0, DYN_ADDS)
-    adds = [("a", int(a), int(b), float(x))
-            for a, b, x in zip(src, dst, wts)]
+    adds, rng = dyn_adds(frag)
 
     base = {}
     for name, kw in DYN_APPS:
@@ -2467,6 +2514,481 @@ def dyn_phases(frag, grid, device) -> dict:
     return out
 
 
+# ---- phase 11b: the serving runtime ([serve]) ---------------------------
+
+def dyn_adds(frag):
+    """The [dyn] phase's DYN_ADDS seeded additive edges (seed DYN_SEED,
+    uniform(0.1, 10) weights) among the fragment's vertices, and the
+    generator after them (the phase draws its removals from it)."""
+    n = frag.dev.total_vnum
+    rng = np.random.default_rng(DYN_SEED)
+    src, dst = rng.integers(0, n, DYN_ADDS), rng.integers(0, n, DYN_ADDS)
+    wts = rng.uniform(0.1, 10.0, DYN_ADDS)
+    return ([("a", int(a), int(b), float(x))
+             for a, b, x in zip(src, dst, wts)], rng)
+
+
+def serve_sources(frag, count: int) -> list:
+    """`count` distinct seed-SERVE_SEED query sources (oids) among the
+    vertices with in-edges."""
+    cands = np.nonzero(frag.host_ie[0].degree[:frag.inner_vertices_num(0)]
+                       > 0)[0]
+    pids = np.random.default_rng(SERVE_SEED).choice(cands, count,
+                                                    replace=False)
+    return [int(o) for o in frag.pid_to_oid(pids)]
+
+
+def lanes_kernel_phase(frag, device, reps: int) -> dict:
+    """K1 with a lane axis (`gather_reduce_lanes`) at RMAT-20's shapes,
+    k lanes of x, in the serving apps' kinds: min with weights (SSSP),
+    float sum (personalized PageRank) and int32 min (BFS, k-hop).  Each
+    against its plain version (min bit-equal, sum within SUM_TOL of each
+    row's sum of |terms|) and bit-equal to k single `gather_reduce`
+    calls, in every kind; kernel, plain, library, bound and k x single
+    times.  Library: the sparse CSR product with x as [N, k] for sum;
+    for min the fastest of `segment_reduce` over the [E, k] candidates
+    (float only) and `scatter_reduce_` amin over [E, k] and [k, E], each
+    checked equal.  Then `spmv.pull` of SERVE_WIDE lanes, which splits
+    them into calls the kernel takes, bit-equal to single calls."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    ie = frag.dev.ie
+    indptr, nbr = ie.indptr, ie.edge_nbr
+    fnum, vp = frag.fnum, frag.vp
+    n = fnum * vp
+    check(fnum == 1, "the lane kernel phase runs on a single fragment")
+    e_real = int(indptr[:, -1].sum())
+    w = torch.where(ie.edge_mask, ie.edge_w,
+                    torch.tensor(float("inf"), device=device))
+    deg = (indptr[0, 1:] - indptr[0, :-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(vp, device=device), deg)
+    flat_nbr = nbr[0, :e_real].to(torch.int64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta state"
+        csr = torch.sparse_csr_tensor(
+            indptr[0].to(torch.int64), flat_nbr,
+            torch.ones(e_real, device=device), size=(vp, n),
+            check_invariants=False)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    out = {}
+    for k in SERVE_LANES:
+        far = torch.rand(k, n, generator=gen) < 0.3
+        cases = {
+            "min+w": (torch.where(far, torch.tensor(float("inf")),
+                                  torch.rand(k, n, generator=gen) * 50),
+                      w, "min"),
+            "sum": (torch.rand(k, n, generator=gen), None, "sum"),
+            "int32 min": (torch.where(
+                far, torch.tensor(INT32_MAX, dtype=torch.int32),
+                torch.randint(0, 64, (k, n), generator=gen,
+                              dtype=torch.int32)), None, "min"),
+        }
+        for name, (x, win, kind) in cases.items():
+            x = x.to(device)
+            got = spmv.gather_reduce_lanes(indptr, nbr, win, x, kind)
+            sync(device)
+            singles = torch.stack([spmv.gather_reduce(indptr, nbr, win, x[b],
+                                                      kind)
+                                   for b in range(k)])
+            check(torch.equal(got, singles), f"gather_reduce_lanes {name} "
+                  f"k={k} not bit-equal to {k} single gather_reduce calls")
+            if kind == "sum":
+                max_err = check_sum(
+                    got, spmv.gather_reduce_lanes_plain(
+                        indptr, nbr, None, x.double(), "sum"),
+                    spmv.gather_reduce_lanes_plain(
+                        indptr, nbr, None, x.double().abs(), "sum"),
+                    f"gather_reduce_lanes sum k={k}")
+            else:
+                check(torch.equal(got, spmv.gather_reduce_lanes_plain(
+                    indptr, nbr, win, x, kind)),
+                    f"gather_reduce_lanes {name} k={k} not bit-equal to "
+                    "its plain version")
+                max_err = 0.0
+            if kind == "sum":
+                xt = x.T.contiguous()
+
+                def library():
+                    return csr @ xt
+                lib_name = "sparse_csr_tensor @ x[N, k]"
+            else:
+                # the candidates gathered outside the timed calls
+                cand = x[:, flat_nbr]
+                if win is not None:
+                    cand = cand + win[0, :e_real]
+                cand_ek = cand.T.contiguous()
+                ident = identity_of(kind, x.dtype)
+                libraries = {
+                    "scatter_reduce_ amin over [k, E]": lambda: torch.full(
+                        (k, vp), ident, dtype=x.dtype,
+                        device=device).scatter_reduce_(
+                        1, rows.expand(k, e_real), cand, "amin",
+                        include_self=True),
+                    "scatter_reduce_ amin over [E, k]": lambda: torch.full(
+                        (vp, k), ident, dtype=x.dtype,
+                        device=device).scatter_reduce_(
+                        0, rows[:, None].expand(e_real, k), cand_ek, "amin",
+                        include_self=True).T,
+                }
+                if x.is_floating_point():
+                    # one lane: over [E], as K1's own row times it
+                    seg_in = cand_ek if k > 1 else cand[0]
+                    libraries["segment_reduce min over [E, k]"] = (
+                        lambda: torch.segment_reduce(
+                            seg_in, "min", lengths=deg, unsafe=True,
+                            initial=ident).reshape(vp, k).T)
+                for lname, call in libraries.items():
+                    check(torch.equal(call().reshape(k, 1, vp), got),
+                          f"lane library call {lname} disagrees ({name}, "
+                          f"k={k})")
+            ms = time_ms(lambda: spmv.gather_reduce_lanes(indptr, nbr, win, x,
+                                                          kind),
+                         device, reps)
+            single_ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, win,
+                                                           x[0], kind),
+                                device, reps)
+            plain_ms = time_ms(lambda: spmv.gather_reduce_lanes_plain(
+                indptr, nbr, win, x, kind), device, 3, batch=1, warmup=1)
+            if kind == "sum":
+                lib_ms = time_ms(library, device, reps)
+            else:
+                lib_all = {lname: time_ms(call, device, reps)
+                           for lname, call in libraries.items()}
+                lib_name = min(lib_all, key=lib_all.get)
+                lib_ms = lib_all[lib_name]
+            wb = 2 if win is not None else 1
+            b_ms, b_by = bound(4 * fnum * (vp + 1) + 4 * e_real * wb
+                               + 2 * 4 * k * n, k * e_real * wb)
+            rec = dict(lanes=k, kind=name, ms=ms, single_ms=single_ms,
+                       k_x_single_ms=k * single_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library=lib_name, bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=max_err, edges=e_real)
+            if kind != "sum":
+                rec["library_all_ms"] = lib_all
+            if (k, name) == (SERVE_BATCH, "min+w"):
+                rec["config"] = spmv.gather_config("min", weighted=True,
+                                                   lanes=True)
+                rec["passes_ms"] = device_passes(
+                    lambda: spmv.gather_reduce_lanes(indptr, nbr, win, x,
+                                                     kind), device)
+            out[f"k{k} {name}"] = rec
+            lib_text = (" ".join(f"{ln}={t:.4f}" for ln, t in lib_all.items())
+                        if kind != "sum" else "")
+            print(f"[serve] K1 lanes k={k} {name}: kernel_ms={ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} ({lib_name}; {lib_text}) "
+                  f"single_ms="
+                  f"{single_ms:.4f} k_x_single_ms={k * single_ms:.4f} "
+                  f"max_abs_err={max_err:.3e}; bit-equal to {k} single "
+                  "calls", flush=True)
+            if "passes_ms" in rec:
+                cfg = rec["config"]
+                print(f"[serve]   lane kernel: smem_per_block="
+                      f"{cfg['smem_bytes']} B registers={cfg['registers']} "
+                      f"blocks_per_sm={cfg['blocks_per_sm']} carveout="
+                      f"{cfg['carveout_pct']}%; device ms a call: "
+                      f"{passes_text(rec['passes_ms']) or 'not measured'}",
+                      flush=True)
+    # a batch wider than one call takes: pull splits it (64 + 1 lanes)
+    x = torch.where(torch.rand(SERVE_WIDE, n, generator=gen) < 0.3,
+                    torch.tensor(float("inf")),
+                    torch.rand(SERVE_WIDE, n, generator=gen) * 50).to(device)
+    before = (spmv.gather_reduce_lanes.launches, spmv.gather_reduce.launches)
+    got = spmv.pull(indptr, nbr, w, x, "min")
+    calls = (spmv.gather_reduce_lanes.launches - before[0],
+             spmv.gather_reduce.launches - before[1])
+    check(calls == (1, 1), f"pull of {SERVE_WIDE} lanes made {calls} "
+          "(lane, single) calls, (1, 1) expected")
+    for b in range(SERVE_WIDE):
+        check(torch.equal(got[b], spmv.gather_reduce(indptr, nbr, w, x[b],
+                                                     "min")),
+              f"pull of {SERVE_WIDE} lanes: lane {b} not bit-equal to its "
+              "single call")
+    out[f"k{SERVE_WIDE} min+w pull"] = dict(lanes=SERVE_WIDE, calls=calls,
+                                            max_abs_err=0.0)
+    print(f"[serve] K1 lanes k={SERVE_WIDE} min+w through spmv.pull: "
+          f"{calls[0]} lane call + {calls[1]} single call; every lane "
+          "bit-equal to its single call", flush=True)
+    return out
+
+
+def identity_of(kind: str, dtype):
+    if kind == "sum":
+        return 0
+    if dtype == torch.int32:
+        return INT32_MAX if kind == "min" else -INT32_MAX - 1
+    return float("inf") if kind == "min" else float("-inf")
+
+
+def serve_factory(name: str):
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    if name == "khop":
+        return lambda: APP_REGISTRY[name](k=DYN_KHOP_K)
+    return APP_REGISTRY[name]
+
+
+def serve_batch_phase(frag, device) -> dict:
+    """`Worker.query_batch` on RMAT-20: SERVE_BATCH seed-SERVE_SEED
+    sources each for sssp (plus one absent id), bfs, khop (k 2),
+    common_neighbors and personalized pagerank; every lane's values and
+    rounds bit-equal to its sequential `Worker.query`, one K1 lane launch
+    a round and no single launch; wcc (no native lanes) through the
+    per-lane states, its launches k times the sequential query's."""
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    sources = serve_sources(frag, SERVE_BATCH)
+    out = {}
+    for name, extra in SERVE_APPS:
+        factory = serve_factory(name)
+        lanes = [dict(extra, source=s) for s in sources]
+        if name == "sssp":
+            lanes.append(dict(extra, source=ABSENT_ID))
+        if name == "wcc":
+            lanes = [dict(extra) for _ in range(SERVE_GENERIC_LANES)]
+        run_query(frag, factory(), device, **lanes[0])  # warm-up
+        seq, seq_counts = [], None
+        for a in lanes:
+            reset_launch_counts()
+            wk, secs = run_query(frag, factory(), device, **a)
+            seq_counts = seq_counts or launch_counts()
+            seq.append((wk.result_values(), wk.rounds, secs))
+
+        def batch():
+            wk = Worker(factory(), frag)
+            wk.query_batch(lanes)
+            return wk
+
+        wk, counts, secs = timed_counted(batch, device)
+        for b, (vals, rounds, _) in enumerate(seq):
+            check(int(wk.batch_rounds[b]) == rounds,
+                  f"batched {name} lane {b}: {int(wk.batch_rounds[b])} "
+                  f"rounds, sequential {rounds}")
+            check(np.array_equal(wk.batch_result_values(b), vals),
+                  f"batched {name} lane {b} not bit-equal to its "
+                  "sequential query")
+        rounds = int(wk.batch_rounds.max())
+        if name == "wcc":
+            check(counts["gather_reduce_lanes"] == 0
+                  and counts["gather_reduce"]
+                  == len(lanes) * seq_counts["gather_reduce"],
+                  f"batched wcc launches {counts}, sequential {seq_counts}")
+        else:
+            check(counts["gather_reduce_lanes"] == rounds
+                  and counts["gather_reduce"] == 0,
+                  f"batched {name}: {counts} in {rounds} rounds (one K1 "
+                  "lane launch a round expected)")
+        seq_s = sum(s for _, _, s in seq)
+        out[f"serve batch {name}"] = dict(
+            counts=counts, lanes=len(lanes), seconds=secs,
+            sequential_seconds=seq_s, rounds=[int(r) for r in
+                                              wk.batch_rounds])
+        print(f"[serve] batch {name}: lanes={len(lanes)} rounds="
+              f"{[int(r) for r in wk.batch_rounds]} batch_s={secs:.4f} "
+              f"sequential_s={seq_s:.4f} (sum of {len(lanes)}) launches: "
+              f"K1 lanes {counts['gather_reduce_lanes']}, K1 single "
+              f"{counts['gather_reduce']}; every lane bit-equal to its "
+              "sequential query", flush=True)
+    return out
+
+
+def same_results(a, b, what: str) -> None:
+    check(len(a) == len(b), f"{what}: {len(a)} results against {len(b)}")
+    for x, y in zip(a, b):
+        check(x.ok and y.ok, f"{what}: a query failed ({x.error or y.error})")
+        check(x.app_key == y.app_key and x.rounds == y.rounds,
+              f"{what}: results out of order or rounds differ")
+        check(x.values.tobytes() == y.values.tobytes(),
+              f"{what}: values not byte-identical")
+
+
+def serve_session_phase(frag, device) -> dict:
+    """`ServeSession` on RMAT-20: SERVE_QUERIES sssp queries at
+    max_batch 1 and SERVE_BATCH (bit-equal), the async pump at each of
+    SERVE_WINDOWS against the synchronous loop (byte-identical, in
+    order), then again with the [dyn] adds ingested in chunks every
+    SERVE_INGEST_EVERY queries (sync, W 1 and W 4 identical).  Each
+    session serves the queries once before the measured pass."""
+    from libgrape_lite_tpu_torch.cli import serve_with_ingest
+    from libgrape_lite_tpu_torch.dyn import RepackPolicy
+    from libgrape_lite_tpu_torch.serve import (
+        PUMP_STATS,
+        BatchPolicy,
+        ServeSession,
+    )
+    from libgrape_lite_tpu_torch.serve.queue import latency_summary_ms
+
+    stream = [("sssp", {"source": s})
+              for s in serve_sources(frag, SERVE_QUERIES)]
+    out = {"runs": {}}
+
+    def serve(max_batch, window=None, dyn=False):
+        sess = ServeSession(
+            frag, policy=BatchPolicy(max_batch=max_batch),
+            dyn=RepackPolicy() if dyn else None)
+        # a resident session is warm: its workers built, its streams'
+        # memory cached (a first pass runs on cold allocator pools)
+        warm = sess.async_pump(window=window) if window else None
+        for app, args in stream:
+            sess.submit(app, args)
+        if warm:
+            warm.drain()
+            warm.close()
+        else:
+            sess.drain()
+        pump = sess.async_pump(window=window) if window else None
+        warm_hist = dict(sess.queue.batch_hist)
+        PUMP_STATS.reset()
+        reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        reqs = [sess.submit(app, args) for app, args in stream]
+        if dyn:
+            res = serve_with_ingest(sess, pump, reqs, dyn_adds(frag)[0],
+                                    SERVE_INGEST_EVERY)
+        else:
+            res = pump.drain() if pump else sess.drain()
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        frag.dyn_overlay = None  # the next run starts from the base graph
+        lat = latency_summary_ms([r.latency_s for r in res])
+        rec = dict(counts=counts, seconds=wall, qps=len(res) / wall,
+                   p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"],
+                   batch_hist={k: v - warm_hist.get(k, 0) for k, v in
+                               sess.queue.batch_hist.items()},
+                   stats=dict(sess.stats))
+        if pump:
+            rec["pump"] = dict(pump.stats, launch_cap=pump.launch_cap,
+                               **PUMP_STATS.snapshot())
+        tag = (f"max_batch={max_batch}" + (f" W={window}" if window else
+                                           " sync")
+               + (" ingest" if dyn else ""))
+        print(f"[serve] session {tag}: queries={len(res)} qps="
+              f"{rec['qps']:.1f} p50_ms={lat['p50_ms']} p99_ms="
+              f"{lat['p99_ms']} batch_hist={rec['batch_hist']} launches="
+              f"{counts}" + (f" pump={rec['pump']}" if pump else "")
+              + (f" overlay_applies={sess.stats['overlay_applies']} "
+                 f"repacks={sess.stats['repacks']}" if dyn else ""),
+              flush=True)
+        out["runs"][f"serve session {tag}"] = rec
+        return res, rec
+
+    one, _ = serve(1)
+    batched, rec = serve(SERVE_BATCH)
+    same_results(one, batched, f"max_batch 1 against {SERVE_BATCH}")
+    check(rec["counts"]["gather_reduce_lanes"] > 0,
+          "the batched session launched no K1 lane call")
+    for window in SERVE_WINDOWS:
+        res, rec = serve(SERVE_BATCH, window)
+        same_results(batched, res, f"the pump at W={window}")
+    check(rec["pump"]["max_inflight"] > 1
+          and rec["pump"]["overlapped_harvests"] >= 1,
+          f"the W={SERVE_WINDOWS[-1]} window never overlapped: "
+          f"{rec['pump']}")
+    ref, rec = serve(SERVE_BATCH, dyn=True)
+    check(rec["stats"]["overlay_applies"] > 0,
+          "the ingest never rode the overlay")
+    for window in SERVE_WINDOWS:
+        res, _ = serve(SERVE_BATCH, window, dyn=True)
+        same_results(ref, res, f"the pump at W={window} with ingest")
+    return out
+
+
+def serve_cli_phase(device) -> dict:
+    """`python -m libgrape_lite_tpu_torch.cli serve` (in this process) on
+    p2p-31 at fnum 1 and 4: SERVE_CLI_QUERIES queries at max_batch
+    SERVE_BATCH, --inflight 1 and 4 with equal --dump_results files and
+    the summary line parsed; then with a --delta_stream of seeded adds."""
+    import io
+    import tempfile
+
+    from libgrape_lite_tpu_torch import cli
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        oids = np.loadtxt(os.path.join(HERE, "dataset", "p2p-31.v"),
+                          dtype=np.int64, usecols=0)
+        rng = np.random.default_rng(DYN_SEED)
+        ends = rng.choice(oids, (SERVE_CLI_ADDS, 2))
+        delta = os.path.join(tmp, "adds.txt")
+        with open(delta, "w") as f:
+            for (a, b), x in zip(ends, rng.uniform(0.1, 10.0,
+                                                   SERVE_CLI_ADDS)):
+                f.write(f"a {a} {b} {x:.4f}\n")
+        for fnum in (1, 4):
+            for extra in ([], ["--delta_stream", delta]):
+                dumps, recs = [], []
+                for window in SERVE_WINDOWS:
+                    dump = os.path.join(tmp, f"dump{fnum}_{window}.txt")
+                    buf = io.StringIO()
+                    reset_launch_counts()
+                    with contextlib.redirect_stdout(buf):
+                        rc = cli.main([
+                            "serve", "--efile",
+                            os.path.join(HERE, "dataset", "p2p-31.e"),
+                            "--vfile",
+                            os.path.join(HERE, "dataset", "p2p-31.v"),
+                            "--fnum", str(fnum), "--num_queries",
+                            str(SERVE_CLI_QUERIES), "--max_batch",
+                            str(SERVE_BATCH), "--inflight", str(window),
+                            "--dump_results", dump, "--device", device,
+                            *extra])
+                    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+                    check(rc == 0 and rec["ok"] == SERVE_CLI_QUERIES,
+                          f"serve CLI fnum {fnum} W {window}: {rec}")
+                    check(not extra or rec["dyn"]["ingested"] > 0,
+                          "the CLI's delta stream ingested nothing")
+                    with open(dump) as f:
+                        dumps.append(f.read())
+                    recs.append(rec)
+                    out[f"serve cli fnum{fnum} W{window}"
+                        + (" delta" if extra else "")] = dict(
+                        counts=launch_counts(), qps=rec["qps"],
+                        p50_ms=rec["p50_ms"], p99_ms=rec["p99_ms"])
+                check(len(set(dumps)) == 1, f"serve CLI fnum {fnum}: "
+                      "--dump_results differ across --inflight")
+                print(f"[serve] cli fnum={fnum}"
+                      + (" --delta_stream" if extra else "")
+                      + ": " + " ".join(
+                          f"W{r['inflight']}: qps={r['qps']} p50_ms="
+                          f"{r['p50_ms']} p99_ms={r['p99_ms']} batch_hist="
+                          f"{r['batch_hist']}" for r in recs)
+                      + (f" dyn={recs[-1]['dyn']}" if extra else "")
+                      + "; dump files equal", flush=True)
+    return out
+
+
+def serve_profile(frag, device) -> dict:
+    """Where the time goes in one SERVE_BATCH-lane sssp batch."""
+    from libgrape_lite_tpu_torch.models import SSSP
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    lanes = [{"source": s} for s in serve_sources(frag, SERVE_BATCH)]
+
+    def batch():
+        wk = Worker(SSSP(), frag)
+        sync(device)
+        t0 = time.perf_counter()
+        wk.query_batch(lanes)
+        sync(device)
+        return time.perf_counter() - t0
+
+    batch()  # warm-up
+    return profile_call(f"serve sssp batch of {SERVE_BATCH}", batch)
+
+
+def serve_phases(frag, device) -> dict:
+    out = {"kernel": lanes_kernel_phase(frag, device, reps=10)}
+    out["runs"] = serve_batch_phase(frag, device)
+    out["runs"].update(serve_session_phase(frag, device)["runs"])
+    out["runs"].update(serve_cli_phase(device))
+    if torch.device(device).type == "cuda":
+        out["profile"] = serve_profile(frag, device)
+    return out
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -2696,14 +3218,17 @@ def main() -> int:
     golden_phase(device)
     more_golden_phase(device)
     dyn = dyn_phases(frag, grid, device)
+    serve = serve_phases(frag, device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
-              "load": load, "spgemm": spgemm, **dyn["runs"]}
+              "load": load, "spgemm": spgemm, **dyn["runs"],
+              **serve["runs"]}
     runs = list(by_app.values())
-    launches = {k: sum(r["counts"][k] for r in runs)
-                for k in ("gather_reduce", "strict_tile", "intersect")}
+    launches = {k: sum(r["counts"].get(k, 0) for r in runs)
+                for k in ("gather_reduce", "gather_reduce_lanes",
+                          "strict_tile", "intersect")}
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     for app in ("bfs", "wcc"):
@@ -2715,6 +3240,7 @@ def main() -> int:
     check(cliques["triangle_count"]["counts"]["intersect"] > 0,
           "triangle_count did not launch intersect")
     gr = kern["gather_reduce[sum]"]
+    gl = serve["kernel"][f"k{SERVE_BATCH} min+w"]
     st = kern["strict_tile"]
     ov = dyn["kernel"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2743,6 +3269,20 @@ def main() -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                           "library_ms", "max_abs_err", "slots", "rows")},
              overlay_library="scatter_reduce_ amin"),
+        dict(name="gather_reduce_lanes", route="cuda",
+             source="libgrape_lite_tpu_torch/csrc/spmv.cu",
+             replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
+             launches=launches["gather_reduce_lanes"],
+             **{k: gl[k] for k in keys}, lanes=SERVE_BATCH, kind="min+w",
+             library=gl["library"],
+             launches_by_app={app: r["counts"]["gather_reduce_lanes"]
+                              for app, r in serve["runs"].items()},
+             max_abs_err_all=max(r["max_abs_err"]
+                                 for r in serve["kernel"].values()),
+             cases={k: {f: v for f, v in r.items()
+                        if f not in ("config", "passes_ms")}
+                    for k, r in serve["kernel"].items()},
+             config=gl["config"], passes_ms=gl["passes_ms"]),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",
@@ -2787,6 +3327,9 @@ def main() -> int:
         "dyn": {k: v for k, v in dyn.items() if k != "runs"}
         | {"runs": {k: {f: x for f, x in r.items() if f != "counts"}
                     for k, r in dyn["runs"].items()}},
+        "serve": {k: {f: x for f, x in r.items() if f != "counts"}
+                  for k, r in serve["runs"].items()}
+        | {"profile": serve.get("profile")},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,14 @@ An app provides
 `dev` is the fragment's `DeviceFragment`; all fragments sit stacked on
 one device, so the JAX package's per-shard collectives become operations
 over the leading axis (`StepContext`).
+
+Batched source lanes (serve/, `Worker.query_batch`): an app that names
+its per-lane query argument in `batch_query_key` takes a sequence of k
+values for it in `init_state` and returns carry leaves with a leading
+[k] lane axis; its `peval` / `inceval` then run all k lanes at once (one
+`spmv.pull` over lane-stacked x a round) and vote a [k] tensor.  The
+JAX package runs one lane's superstep under `jax.vmap` instead.  Every
+other app batches through `init_state_batch`'s per-lane states.
 """
 
 from __future__ import annotations
@@ -42,6 +50,12 @@ class StepContext:
         return x.reshape((-1,) + tuple(x.shape[2:]))
 
     @staticmethod
+    def gather_lanes(x: torch.Tensor) -> torch.Tensor:
+        """[fnum, vp] -> [fnum * vp]; lane-stacked [k, fnum, vp] -> the
+        lanes' full vectors [k, fnum * vp]."""
+        return x.reshape(tuple(x.shape[:-2]) + (-1,))
+
+    @staticmethod
     def sum(x: torch.Tensor) -> torch.Tensor:
         return x.sum(dim=0)
 
@@ -63,6 +77,35 @@ def resolve_source(frag, source, app_name: str) -> int:
     return pid
 
 
+def is_lane_sequence(source) -> bool:
+    """True for a batched query's sequence of lane values."""
+    return isinstance(source, (list, tuple, np.ndarray))
+
+
+def source_lane_array(frag, source, app_name: str, fill, hit,
+                      dtype: torch.dtype):
+    """(batched, arr): the source-vector contract's shared scaffolding
+    (JAX `app/base.py::source_lane_array`).  `source` is one query id or
+    a sequence of k lane ids; `arr` is [k, fnum, vp] on the fragment's
+    device, `hit` at each resolved source and `fill` elsewhere -- SSSP's
+    distances (inf / 0), BFS's depths (sentinel / 0), personalized
+    PageRank's teleport vector (0 / 1).  An absent or None source leaves
+    its lane all `fill`."""
+    batched = is_lane_sequence(source)
+    sources = list(source) if batched else [source]
+    arr = torch.full((len(sources), frag.fnum, frag.vp), fill, dtype=dtype,
+                     device=frag.device)
+    pids = [resolve_source(frag, s, app_name) if s is not None else -1
+            for s in sources]
+    lanes = [b for b, pid in enumerate(pids) if pid >= 0]
+    if lanes:
+        hits = np.array([pids[b] for b in lanes], dtype=np.int64)
+        idx = (torch.tensor(lanes), torch.from_numpy(hits // frag.vp),
+               torch.from_numpy(hits % frag.vp))
+        arr[tuple(i.to(frag.device) for i in idx)] = hit
+    return batched, arr
+
+
 class AppBase:
     # trait parity (parallel_app_base.h:42-46)
     load_strategy: LoadStrategy = LoadStrategy.kBothOutIn
@@ -76,6 +119,23 @@ class AppBase:
     # state keys that are whole-graph scalars or tables rather than
     # [fnum, vp, ...] rows; a mutation carries them over as they are
     replicated_keys: FrozenSet[str] = frozenset()
+
+    # the mesh the superstep runs on; the port has the 1-D fragment
+    # stack only (the JAX package's "vc2d" is not ported)
+    mesh_kind: str = "frag"
+
+    # serve/: the query argument that varies per lane of a batched
+    # query (e.g. "source"); queries differing in nothing else coalesce.
+    # With `lane_native`, `init_state` also takes a sequence of k values
+    # for it and returns carry leaves with a leading [k] lane axis
+    # (ephemeral leaves built once, shared), and `peval` / `inceval` run
+    # the lanes together and vote a [k] tensor.
+    # None: such queries never share a batch.
+    batch_query_key: str | None = None
+    # serve/: True when init_state takes the vector argument and
+    # peval / inceval run lane-stacked states (the native lanes above);
+    # a batch of an app without them runs per-lane states
+    lane_native: bool = False
 
     # dyn/: True when the app folds a fragment's staged delta-edge
     # overlay (frag.dyn_overlay) into its pull reduction -- sound only
@@ -110,6 +170,23 @@ class AppBase:
 
     def init_state(self, frag, **query_args) -> Dict:
         raise NotImplementedError
+
+    def init_state_batch(self, frag, args_list):
+        """Initial state for k query lanes (serve/, JAX
+        `AppBase.init_state_batch`): an app with a `batch_query_key` and
+        lanes whose other arguments agree gets ONE lane-stacked state
+        from one `init_state` call with the vector argument (a dict);
+        every other batch gets a list of k per-lane states, each run
+        by the worker through the single-lane supersteps."""
+        key = self.batch_query_key
+        if key is not None and self.lane_native:
+            fixed = {k: v for k, v in args_list[0].items() if k != key}
+            if all({k: v for k, v in a.items() if k != key} == fixed
+                   for a in args_list[1:]):
+                return self.init_state(
+                    frag, **fixed,
+                    **{key: [a.get(key, 0) for a in args_list]})
+        return [self.init_state(frag, **a) for a in args_list]
 
     def peval(self, ctx: StepContext, dev, state: Dict):
         raise NotImplementedError
@@ -168,12 +245,12 @@ class AppBase:
         segment min -- and `post` (BFS's +1) maps it like the base pull.
         Pad slots lie past indptr[:, vp], where the kernel stops.  min is
         exact in any order, so the result equals a cold query on the
-        rebuilt graph."""
+        rebuilt graph.  Lane-stacked `full` [k, N] folds every lane in
+        one `gather_reduce_lanes` call."""
         from libgrape_lite_tpu_torch.ops import spmv
 
-        extra = spmv.gather_reduce(state[prefix + "indptr"],
-                                   state[prefix + "nbr"],
-                                   state.get(prefix + "w"), full, "min")
+        extra = spmv.pull(state[prefix + "indptr"], state[prefix + "nbr"],
+                          state.get(prefix + "w"), full, "min")
         if post is not None:
             extra = post(extra)
         return torch.minimum(relaxed, extra)

@@ -50,6 +50,35 @@
 //   a row's sum must stay below 2^31 (the apps' counts are bounded by the
 //   in-degree).
 //
+// gather_reduce_lanes is the same function for k lanes of x at once,
+// y[b, f, r] for b < k: the counterpart of the JAX package's batched
+// serve queries, whose pull runs under jax.vmap over a leading lane
+// axis (libgrape_lite_tpu/worker/worker.py::_make_batched_runner, over
+// the same pack-gather pipeline).  k single calls would read indptr,
+// nbr and w k times (272 MB a call at RMAT-20 with weights).
+//   Bound: indptr, nbr and w read once, plus k x's and k y's.
+//   Design: the merge path as it is.  merge_partition_kernel runs once
+//   (it reads indptr alone).  merge_gather_lanes_kernel stages a block's
+//   row ends, nbr and w once with the same bulk copies, keeps each
+//   thread's nbr and w slots in registers, and takes the lanes in groups
+//   of G (the smallest power of two that holds them, 2 to 8; a block
+//   asked to leave room for 3 on an SM): one gather of each edge's x for
+//   all the group's lanes
+//   -- x comes lane-minor (the wrapper transposes [k, N] to [N, k]), so
+//   the group's values of one vertex share a 32-byte sector: one random
+//   sector an edge serves 8 lanes, where k lane-major reads cost k --
+//   then the single kernel's walk, segmented scan and carry for the
+//   group's lanes together: the merge items and the row keys are every
+//   lane's, so one walk and one scan (its syncs and key shuffles) carry
+//   8 values a step.  Each lane thus reduces in exactly the single
+//   kernel's order: its output is bit-equal to gather_reduce on that
+//   lane's x, float sums included.  Carries go to slot
+//   b * nblocks + blk with row b * fnum * vp + pid, so carry_fold_kernel
+//   folds every lane's runs in one launch over the flat [k * fnum * vp]
+//   y (keys of two lanes never meet).  One lane is gather_reduce itself:
+//   the entry points take 2 or more, and the wrapper calls the single
+//   kernel for one.
+//
 // strict_tile replaces the strict-tile Pallas kernel
 // (libgrape_lite_tpu/ops/spmv.py::_spmv_partials, body _spmv_tile_kernel)
 // together with the XLA scatter-add that folds its tile partials
@@ -133,6 +162,11 @@ constexpr int kStageInts = kItemsPerBlock + 12;
 constexpr int kPartitionThreads = 256;
 constexpr int kFoldThreads = 256;
 constexpr int kFoldUnroll = 8;
+// gather_reduce_lanes: at most this many lanes gathered, walked and
+// scanned at once (their x adjacent in xt)
+constexpr int kMaxLaneGroup = 8;
+// resident lane-kernel blocks an SM is asked to fit (caps registers)
+constexpr int kLaneBlocksPerSm = 3;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -237,6 +271,71 @@ __device__ __forceinline__ T block_segmented_scan(int key, T val,
     prev_key = warp > 0 ? s_wkey[warp - 1] : -1;
   }
   return val;
+}
+
+// block_segmented_scan for G lanes at once: one key (the row) per
+// thread and G values, each lane's combined in exactly the order of
+// block_segmented_scan, so lane j's results equal that function's on
+// lane j's values; the syncs and the key logic are shared.
+template <typename T, int KIND, int G>
+__device__ __forceinline__ void block_segmented_scan_lanes(
+    int key, T (&val)[G], int& prev_key, T (&prev)[G], int* s_wkey,
+    T (*s_wval)[kGatherWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const T ident = identity<KIND>(T());
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int k2 = __shfl_up_sync(0xffffffffu, key, off);
+    const bool take = lane >= off && k2 == key;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const T v2 = __shfl_up_sync(0xffffffffu, val[j], off);
+      if (take) val[j] = combine<KIND>(v2, val[j]);
+    }
+  }
+  if (lane == 31) {
+    s_wkey[warp] = key;
+#pragma unroll
+    for (int j = 0; j < G; ++j) s_wval[j][warp] = val[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int wk = lane < kGatherWarps ? s_wkey[lane] : -1;
+    T wv[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      wv[j] = lane < kGatherWarps ? s_wval[j][lane] : ident;
+#pragma unroll
+    for (int off = 1; off < kGatherWarps; off <<= 1) {
+      const int k2 = __shfl_up_sync(0xffffffffu, wk, off);
+      const bool take = lane >= off && k2 == wk;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const T v2 = __shfl_up_sync(0xffffffffu, wv[j], off);
+        if (take) wv[j] = combine<KIND>(v2, wv[j]);
+      }
+    }
+    if (lane < kGatherWarps) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) s_wval[j][lane] = wv[j];
+    }
+  }
+  __syncthreads();
+  const int lane0_key = __shfl_sync(0xffffffffu, key, 0);
+  const bool from_warp =
+      warp > 0 && key == lane0_key && s_wkey[warp - 1] == key;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (from_warp) val[j] = combine<KIND>(s_wval[j][warp - 1], val[j]);
+    prev[j] = __shfl_up_sync(0xffffffffu, val[j], 1);
+  }
+  prev_key = __shfl_up_sync(0xffffffffu, key, 1);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) prev[j] = warp > 0 ? s_wval[j][warp - 1] : ident;
+    prev_key = warp > 0 ? s_wkey[warp - 1] : -1;
+  }
 }
 
 // Diagonal d of the merge of a fragment's row ends (ends[0..rows)) with
@@ -437,6 +536,171 @@ __global__ void carry_fold_kernel(const int* __restrict__ carry_row,
   if (lane == 0) y[key] = combine<KIND>(acc, y[key]);
 }
 
+// Pass 2 for `lanes` lanes of x, lane-minor (xt[pid * lanes + b]), into
+// y[lanes, lane_rows]: merge_gather_kernel's staging once, then for each
+// group of G lanes one gather of every edge's x for all of them and
+// merge_gather_kernel's walk, scan and carry for all of them at once.
+template <typename T, int KIND, bool HAS_W, int G>
+__global__ void __launch_bounds__(kGatherThreads, kLaneBlocksPerSm)
+merge_gather_lanes_kernel(const int* __restrict__ indptr,
+                          const int* __restrict__ nbr,
+                          const float* __restrict__ w,
+                          const T* __restrict__ xt, T* __restrict__ y,
+                          const int* __restrict__ part,
+                          int* __restrict__ carry_row,
+                          T* __restrict__ carry_val, int vp, long long ep,
+                          int bpf, int lanes, long long lane_rows,
+                          long long nblocks) {
+  __shared__ alignas(16) int s_stage[kStageInts];
+  __shared__ alignas(16) float s_w[HAS_W ? kStageInts : 4];
+  __shared__ alignas(16) T s_val[G][kItemsPerBlock];
+  __shared__ alignas(8) unsigned long long s_bar;
+  __shared__ int s_wkey[kGatherWarps];
+  __shared__ T s_wval[G][kGatherWarps];
+
+  const int tid = threadIdx.x;
+  const long long blk = blockIdx.x;
+  const long long f = blk / bpf;
+  const int lb = static_cast<int>(blk - f * bpf);
+  const int* ip = indptr + f * (static_cast<long long>(vp) + 1);
+  const int nnz = ip[vp];
+  const long long d0 = static_cast<long long>(lb) * kItemsPerBlock;
+  if (d0 >= vp + static_cast<long long>(nnz)) {  // past the fragment's path
+    for (int b = tid; b < lanes; b += kGatherThreads)
+      carry_row[b * nblocks + blk] = -1;
+    return;
+  }
+  const int* pf = part + f * (static_cast<long long>(bpf) + 1);
+  const int r0 = pf[lb], r1 = pf[lb + 1];
+  const long long d1 =
+      min(d0 + kItemsPerBlock, vp + static_cast<long long>(nnz));
+  const int e0 = static_cast<int>(d0 - r0);
+  const int e1 = static_cast<int>(d1 - r1);
+  const int nrows = r1 - r0, nedges = e1 - e0;
+
+  // stage the row ends and the edge span once, as merge_gather_kernel
+  const int* g_end = ip + r0 + 1;
+  const int* g_nbr = nbr + f * ep + e0;
+  const int s_r = quad_offset(g_end);
+  const int s_e = ((s_r + nrows + 3) & ~3) + quad_offset(g_nbr);
+  int ra0, ra1, ea0, ea1, wa0 = 0, wa1 = 0;
+  const unsigned rb = bulk_span(g_end, nrows, ra0, ra1);
+  const unsigned eb = bulk_span(g_nbr, nedges, ea0, ea1);
+  const float* g_w = HAS_W ? w + f * ep + e0 : nullptr;
+  const int s_wo = HAS_W ? quad_offset(g_w) : 0;
+  unsigned wb = 0;
+  if constexpr (HAS_W)
+    wb = bulk_span(reinterpret_cast<const int*>(g_w), nedges, wa0, wa1);
+  if (tid == 0) {
+    bulk_expect(&s_bar, rb + eb + wb);
+    bulk_copy(s_stage + s_r + ra0, g_end + ra0, rb, &s_bar);
+    bulk_copy(s_stage + s_e + ea0, g_nbr + ea0, eb, &s_bar);
+    if constexpr (HAS_W)
+      bulk_copy(reinterpret_cast<int*>(s_w) + s_wo + wa0,
+                reinterpret_cast<const int*>(g_w) + wa0, wb, &s_bar);
+  }
+  stage_ragged(s_stage + s_r, g_end, nrows, ra0, ra1, tid);
+  stage_ragged(s_stage + s_e, g_nbr, nedges, ea0, ea1, tid);
+  if constexpr (HAS_W)
+    stage_ragged(reinterpret_cast<int*>(s_w) + s_wo,
+                 reinterpret_cast<const int*>(g_w), nedges, wa0, wa1, tid);
+  __syncthreads();  // the barrier's init before anyone waits on it
+  bulk_wait(&s_bar);
+
+  // what no lane changes: this thread's gather slots (nbr, w) and the
+  // start of its walk
+  const int* s_end = s_stage + s_r;
+  int idx[kItemsPerThread];
+  float wv[kItemsPerThread];
+#pragma unroll
+  for (int k = 0; k < kItemsPerThread; ++k) {
+    const int i = tid + k * kGatherThreads;
+    idx[k] = i < nedges ? s_stage[s_e + i] : -1;
+    wv[k] = HAS_W && i < nedges ? s_w[s_wo + i] : 0.0f;
+  }
+  const int items = nrows + nedges;
+  const int t0 = min(tid * kItemsPerThread, items);
+  const int t1 = min(t0 + kItemsPerThread, items);
+  const int x0 = static_cast<int>(merge_search(s_end, nrows, nedges, t0, e0));
+  const T ident = identity<KIND>(T());
+  const int tail_edges = nrows > 0 ? e1 - s_end[nrows - 1] : nedges;
+  const bool carries = r1 < vp && tail_edges > 0;
+
+  for (int g = 0; g < lanes; g += G) {
+    const int gl = min(G, lanes - g);
+    // gather: every edge's x for the group's lanes at once -- adjacent
+    // in xt, so one sector serves up to 8 lanes -- all loads in flight
+    // before the first store
+    T val[kItemsPerThread][G];
+#pragma unroll
+    for (int k = 0; k < kItemsPerThread; ++k) {
+      const T* row = xt + static_cast<long long>(idx[k]) * lanes + g;
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (idx[k] >= 0 && j < gl) val[k][j] = __ldg(row + j);
+    }
+#pragma unroll
+    for (int k = 0; k < kItemsPerThread; ++k) {
+      const int i = tid + k * kGatherThreads;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (i < nedges && j < gl) {
+          T v = val[k][j];
+          if constexpr (HAS_W) v = apply_weight<KIND>(v, wv[k]);
+          s_val[j][i] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // merge_gather_kernel's walk and scan for the group's lanes at once:
+    // the merge items and row keys are the lanes' own, only the values
+    // differ, so each lane combines in that kernel's order
+    int xr = x0, ye = t0 - x0;
+    T acc[G], head[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[j] = head[j] = ident;
+    bool has_head = false;
+    for (int k = 0; k < kItemsPerThread && xr + ye < t1; ++k) {
+      if (ye < nedges && (xr == nrows || e0 + ye < s_end[xr])) {
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          if (j < gl) acc[j] = combine<KIND>(acc[j], s_val[j][ye]);
+        ++ye;
+      } else {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j < gl) {
+            if (has_head) y[(g + j) * lane_rows + f * vp + r0 + xr] = acc[j];
+            else head[j] = acc[j];
+          }
+          acc[j] = ident;
+        }
+        has_head = true;
+        ++xr;
+      }
+    }
+    int prev_key;
+    T prev[G];
+    block_segmented_scan_lanes<T, KIND, G>(xr, acc, prev_key, prev,
+                                                    s_wkey, s_wval);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j >= gl) continue;
+      const long long yb = (g + j) * lane_rows + f * vp + r0;
+      if (has_head) y[yb + x0] = tid > 0 ? combine<KIND>(prev[j], head[j])
+                                         : head[j];
+      if (tid == kGatherThreads - 1) {
+        const long long slot = (g + j) * nblocks + blk;
+        carry_row[slot] = carries
+            ? static_cast<int>((g + j) * lane_rows + f * vp + r1) : -1;
+        carry_val[slot] = acc[j];
+      }
+    }
+    __syncthreads();  // s_val and the scan's slots serve the next group
+  }
+}
+
 // ---- strict-tile segment sum (K2) ---------------------------------------
 
 // Ints of each of the two staged spans of a strict tile (src, then
@@ -552,37 +816,49 @@ long long blocks_per_fragment(int vp, long long ep) {
 // The first call sets the carve-out: shared memory for as many blocks
 // as the SM holds by threads and registers, the rest of the SM's 256 KB
 // left to L1, where the hot x columns are reused.
-template <typename T, int KIND, bool HAS_W>
+template <typename Kernel>
+cudaError_t kernel_config(Kernel kernel, int* cfg) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int dev = 0, smem_sm = 0, blocks = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kGatherThreads, 0);
+  if (err != cudaSuccess) return err;
+  // 1 KB a block is reserved by the system
+  const long long need =
+      static_cast<long long>(blocks) * (attr.sharedSizeBytes + 1024);
+  const int pct = static_cast<int>(
+      std::min(100LL, (100 * need + smem_sm - 1) / smem_sm));
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+  if (err != cudaSuccess) return err;
+  const int c[6] = {kGatherThreads, kItemsPerThread,
+                    static_cast<int>(attr.sharedSizeBytes), attr.numRegs,
+                    blocks, pct};
+  for (int i = 0; i < 6; ++i) cfg[i] = c[i];
+  return cudaSuccess;
+}
+
+// The facts of merge_gather_kernel (G = 0), or of
+// merge_gather_lanes_kernel with lane groups of G.
+template <typename T, int KIND, bool HAS_W, int G = 0>
 cudaError_t gather_config(int* out) {
   static int cfg[6] = {0, 0, 0, 0, 0, -1};
   if (cfg[5] < 0) {
-    const auto kernel = merge_gather_kernel<T, KIND, HAS_W>;
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    int dev = 0, smem_sm = 0, blocks = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, kGatherThreads, 0);
+    cudaError_t err;
+    if constexpr (G > 0)
+      err = kernel_config(merge_gather_lanes_kernel<T, KIND, HAS_W, G>, cfg);
+    else
+      err = kernel_config(merge_gather_kernel<T, KIND, HAS_W>, cfg);
     if (err != cudaSuccess) return err;
-    // 1 KB a block is reserved by the system
-    const long long need =
-        static_cast<long long>(blocks) * (attr.sharedSizeBytes + 1024);
-    const int pct = static_cast<int>(
-        std::min(100LL, (100 * need + smem_sm - 1) / smem_sm));
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
-    if (err != cudaSuccess) return err;
-    const int c[6] = {kGatherThreads, kItemsPerThread,
-                      static_cast<int>(attr.sharedSizeBytes), attr.numRegs,
-                      blocks, pct};
-    for (int i = 0; i < 6; ++i) cfg[i] = c[i];
   }
   for (int i = 0; i < 6; ++i) out[i] = cfg[i];
   return cudaSuccess;
@@ -625,6 +901,71 @@ cudaError_t run_gather_f32(const int* indptr, const int* nbr, const float* w,
                                             fnum, vp, ep, s)
            : run_gather<float, KIND, false>(indptr, nbr, w, x, y, scratch,
                                              fnum, vp, ep, s);
+}
+
+// The lane group for `lanes` (>= 2) lanes: the smallest power of two
+// that holds them, at most kMaxLaneGroup.  One lane is not a group:
+// the wrapper gives it to merge_gather_kernel.
+int lane_group(int lanes) {
+  int g = 2;
+  while (g < lanes && g < kMaxLaneGroup) g <<= 1;
+  return g;
+}
+
+// The three passes for `lanes` lanes of x on one stream; scratch holds
+// part[fnum * (bpf + 1)], then carry_row[lanes * fnum * bpf], then
+// carry_val[lanes * fnum * bpf].
+template <typename T, int KIND, bool HAS_W, int G>
+cudaError_t run_gather_lanes_g(const int* indptr, const int* nbr,
+                               const float* w, const T* xt, T* y,
+                               int* scratch, int fnum, int vp, long long ep,
+                               int lanes, cudaStream_t s) {
+  int cfg[6];
+  cudaError_t err = gather_config<T, KIND, HAS_W, G>(cfg);
+  if (err != cudaSuccess) return err;
+  const int bpf = static_cast<int>(blocks_per_fragment(vp, ep));
+  const long long bounds = static_cast<long long>(fnum) * (bpf + 1);
+  const long long nblocks = static_cast<long long>(fnum) * bpf;
+  const long long slots = lanes * nblocks;
+  int* part = scratch;
+  int* carry_row = part + bounds;
+  T* carry_val = reinterpret_cast<T*>(carry_row + slots);
+  merge_partition_kernel<<<static_cast<unsigned>(
+      (bounds + kPartitionThreads - 1) / kPartitionThreads),
+      kPartitionThreads, 0, s>>>(indptr, part, vp, bpf, bounds);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  merge_gather_lanes_kernel<T, KIND, HAS_W, G>
+      <<<static_cast<unsigned>(nblocks), kGatherThreads, 0, s>>>(
+          indptr, nbr, w, xt, y, part, carry_row, carry_val, vp, ep, bpf,
+          lanes, static_cast<long long>(fnum) * vp, nblocks);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  carry_fold_kernel<T, KIND><<<static_cast<unsigned>(
+      (slots * 32 + kFoldThreads - 1) / kFoldThreads),
+      kFoldThreads, 0, s>>>(carry_row, carry_val, y, slots);
+  return cudaGetLastError();
+}
+
+template <typename T, int KIND, bool HAS_W>
+cudaError_t run_gather_lanes(const int* indptr, const int* nbr,
+                             const float* w, const T* xt, T* y, int* scratch,
+                             int fnum, int vp, long long ep, int lanes,
+                             cudaStream_t s) {
+  switch (lane_group(lanes)) {
+    case 2: return run_gather_lanes_g<T, KIND, HAS_W, 2>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+    case 4: return run_gather_lanes_g<T, KIND, HAS_W, 4>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+    default: return run_gather_lanes_g<T, KIND, HAS_W, kMaxLaneGroup>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+  }
+}
+
+template <int KIND>
+cudaError_t run_gather_lanes_f32(const int* indptr, const int* nbr,
+                                 const float* w, const float* xt, float* y,
+                                 int* scratch, int fnum, int vp, long long ep,
+                                 int lanes, cudaStream_t s) {
+  return w ? run_gather_lanes<float, KIND, true>(
+                 indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s)
+           : run_gather_lanes<float, KIND, false>(
+                 indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
 }
 
 }  // namespace
@@ -681,6 +1022,64 @@ int grape_gather_reduce_i32(const int* indptr, const int* nbr, const int* x,
     case kSum: return run_gather<int, kSum, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
     case kMin: return run_gather<int, kMin, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
     case kMax: return run_gather<int, kMax, false>(indptr, nbr, nullptr, x, y, scratch, fnum, vp, ep, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// int32 words of scratch that grape_gather_reduce_lanes(_i32) needs.
+long long grape_gather_lanes_scratch_ints(int fnum, int vp, long long ep,
+                                          int lanes) {
+  const long long bpf = blocks_per_fragment(vp, ep);
+  return fnum * (bpf + 1) + 2LL * lanes * fnum * bpf;
+}
+
+// The launch facts of the lane kernel that takes kMaxLaneGroup lanes at
+// once, for one kind (see gather_config).
+int grape_gather_lanes_config(int kind, int has_w, int is_int, int* out) {
+  constexpr int G = kMaxLaneGroup;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_int && !has_w && kind == kSum) err = gather_config<int, kSum, false, G>(out);
+  else if (is_int && !has_w && kind == kMin) err = gather_config<int, kMin, false, G>(out);
+  else if (is_int && !has_w && kind == kMax) err = gather_config<int, kMax, false, G>(out);
+  else if (!is_int && kind == kSum) err = has_w ? gather_config<float, kSum, true, G>(out) : gather_config<float, kSum, false, G>(out);
+  else if (!is_int && kind == kMin) err = has_w ? gather_config<float, kMin, true, G>(out) : gather_config<float, kMin, false, G>(out);
+  else if (!is_int && kind == kMax) err = has_w ? gather_config<float, kMax, true, G>(out) : gather_config<float, kMax, false, G>(out);
+  return static_cast<int>(err);
+}
+
+// y[lanes, fnum * vp] = gather-reduce of each lane of x (lanes >= 2; one
+// lane is grape_gather_reduce) over the stacked CSR, x lane-minor:
+// xt[pid * lanes + lane]; w may be null; scratch holds
+// grape_gather_lanes_scratch_ints(fnum, vp, ep, lanes) int32 words.
+// Returns the first launch error, cudaSuccess when all three launched.
+int grape_gather_reduce_lanes(const int* indptr, const int* nbr,
+                              const float* w, const float* xt, float* y,
+                              int* scratch, int fnum, int vp, long long ep,
+                              int kind, int lanes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(fnum) * vp * lanes == 0) return cudaSuccess;
+  if (lanes < 2) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kind) {
+    case kSum: return run_gather_lanes_f32<kSum>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+    case kMin: return run_gather_lanes_f32<kMin>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+    case kMax: return run_gather_lanes_f32<kMax>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// int32 sum / min / max of each lane of x over the stacked CSR, no
+// weights (the identities of grape_gather_reduce_i32 on empty rows).
+int grape_gather_reduce_lanes_i32(const int* indptr, const int* nbr,
+                                  const int* xt, int* y, int* scratch,
+                                  int fnum, int vp, long long ep, int kind,
+                                  int lanes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(fnum) * vp * lanes == 0) return cudaSuccess;
+  if (lanes < 2) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kind) {
+    case kSum: return run_gather_lanes<int, kSum, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
+    case kMin: return run_gather_lanes<int, kMin, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
+    case kMax: return run_gather_lanes<int, kMax, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -187,6 +187,28 @@ class ShardedEdgecutFragment:
     def pid_to_oid(self, pids: np.ndarray) -> np.ndarray:
         return self.host_oids.reshape(-1)[np.asarray(pids)]
 
+    # ---- eviction and re-admission (serve/) ----
+
+    def release_device(self) -> bool:
+        """Evict: drop the stacked device tensors (`dev`).  The host
+        CSRs and the vertex map stay, so `restore_device` places the
+        same content again; caches derived per fragment (strict plans,
+        deduplicated and push CSRs) stay too.  False when already
+        released."""
+        if self.dev is None:
+            return False
+        self._dev_meta = (self.dev.total_vnum, self.dev.total_enum)
+        self.dev = None
+        return True
+
+    def restore_device(self) -> bool:
+        """Re-admission: place the device tensors from the host CSRs
+        again.  False when already resident."""
+        if self.dev is not None:
+            return False
+        self.dev = self._to_device(*self._dev_meta)
+        return True
+
     # ---- construction ----
 
     @classmethod

@@ -91,6 +91,7 @@ class SSSPAuto(AutoAppBase, SSSP):
     sync_buffers = {"dist": "min"}
     ephemeral_keys = frozenset()
     dyn_overlay_support = False  # the push reads no overlay
+    lane_native = False  # its sources batch as per-lane states
 
     def init_state(self, frag, source=0):
         self._oe = push_csr(frag, "oe", self.dtype)
@@ -107,6 +108,7 @@ class BFSAuto(AutoAppBase, BFS):
 
     sync_buffers = {"depth": "min"}
     dyn_overlay_support = False  # the push reads no overlay
+    lane_native = False  # its sources batch as per-lane states
 
     def init_state(self, frag, source=0):
         self._oe = push_csr(frag, "oe")
@@ -148,14 +150,15 @@ class PageRankAuto(AutoAppBase, PageRank):
 
     sync_buffers = {"rank": "sum"}
     ephemeral_keys = frozenset()
+    lane_native = False  # its lanes batch as per-lane states
 
     # PageRank's PEval (degree / dangling set-up) applies unchanged
     peval = PageRank.peval
 
     def init_state(self, frag, delta: float | None = None,
-                   max_round: int | None = None):
+                   max_round: int | None = None, source=None):
         self._oe = push_csr(frag, "oe")
-        state = PageRank.init_state(self, frag, delta, max_round)
+        state = PageRank.init_state(self, frag, delta, max_round, source)
         state.pop("spmv_row_lo", None)  # no pull, so no strict plan
         return state
 

@@ -14,7 +14,9 @@ Unreached vertices print as the reference's int64 maximum
 (`bfs_context.h:44`, golden `p2p-31-BFS`).  Integer min is exact in any
 order, so depths and round counts equal the JAX package's.  A staged
 delta overlay (dyn/) folds in through a second int32 gather-reduce with
-the same +1, and the previous depths can seed an incremental query.
+the same +1, and the previous depths can seed an incremental query.  A
+sequence of sources builds k lanes, relaxed together by one
+`gather_reduce_lanes` call a round.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
-    resolve_source,
+    source_lane_array,
 )
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
@@ -50,13 +52,13 @@ class BFS(ParallelAppBase):
     dyn_overlay_support = True
     inc_mode = "monotone-min"
     inc_seed_keys = {"depth": "min"}
+    batch_query_key = "source"  # serve/: k sources, one pull a round
+    lane_native = True
 
     def init_state(self, frag, source=0):
-        depth = torch.full((frag.fnum, frag.vp), _SENTINEL,
-                           dtype=torch.int32, device=frag.device)
-        pid = resolve_source(frag, source, "BFS")
-        if pid >= 0:
-            depth[pid // frag.vp, pid % frag.vp] = 0
+        batched, depth = source_lane_array(frag, source, "BFS", _SENTINEL, 0,
+                                           torch.int32)
+        depth = depth if batched else depth[0]
         overlay = overlay_state_entries(frag, "ie", None, "dyn_ie_")
         self.ephemeral_keys = frozenset(overlay)
         return {"depth": depth, **overlay}
@@ -67,15 +69,15 @@ class BFS(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         depth = state["depth"]
         ie = dev.ie
-        full = ctx.gather_state(depth)
-        relaxed = _plus_one(spmv.gather_reduce(ie.indptr, ie.edge_nbr, None,
-                                               full, "min"))
+        full = ctx.gather_lanes(depth)
+        relaxed = _plus_one(spmv.pull(ie.indptr, ie.edge_nbr, None, full,
+                                      "min"))
         if "dyn_ie_indptr" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full,
                                         _plus_one)
         new = torch.minimum(depth, relaxed)
         changed = (new < depth) & dev.inner_mask
-        return dict(state, depth=new), ctx.sum(changed.sum(dim=-1))
+        return dict(state, depth=new), changed.sum(dim=(-2, -1))
 
     def finalize(self, frag, state):
         d = state["depth"].numpy().astype(np.int64)

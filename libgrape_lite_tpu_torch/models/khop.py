@@ -3,8 +3,8 @@
 Counterpart of `libgrape_lite_tpu/models/khop.py`: after k IncEval rounds
 of BFS's pull (the gather-reduce kernel, int32 kind `min`) the depth
 plane holds exactly the ball of radius k around the source.  The result
-is the hop distance inside the ball and -1 outside it.  Single source
-only: the batched source lanes are ROADMAP Queue A item 5.
+is the hop distance inside the ball and -1 outside it.  BFS's source
+lanes carry over: k sources run as one batch of lanes.
 """
 
 from __future__ import annotations

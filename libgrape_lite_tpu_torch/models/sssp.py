@@ -15,6 +15,10 @@ On a fragment carrying a staged delta overlay (dyn/), each round also
 folds the overlay's edges in with a second gather-reduce (`dyn_min_fold`),
 and the previous fixed point can seed an incremental query
 (`inc_mode = "monotone-min"`).
+
+A sequence of sources builds k lanes ([k, fnum, vp] distances, the
+weight stream shared); a round then relaxes every lane with one
+`gather_reduce_lanes` call and votes each lane's improved count.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
-    resolve_source,
+    source_lane_array,
 )
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
@@ -43,23 +47,23 @@ class SSSP(ParallelAppBase):
     dyn_overlay_support = True
     inc_mode = "monotone-min"
     inc_seed_keys = {"dist": "min"}
+    batch_query_key = "source"  # serve/: k sources, one pull a round
+    lane_native = True
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         self.dtype = dtype
 
     def initial_dist(self, frag, source) -> torch.Tensor:
-        """[fnum, vp] distances: 0 at the source, +inf elsewhere."""
+        """[fnum, vp] distances: 0 at the source, +inf elsewhere; a
+        sequence of k sources gives [k, fnum, vp]."""
         if not frag.weighted:
             raise ValueError(
                 "SSSP requires edge weights; load the graph with "
                 "weighted=True"
             )
-        dist = torch.full((frag.fnum, frag.vp), float("inf"),
-                          dtype=self.dtype, device=frag.device)
-        pid = resolve_source(frag, source, type(self).__name__)
-        if pid >= 0:
-            dist[pid // frag.vp, pid % frag.vp] = 0
-        return dist
+        batched, dist = source_lane_array(frag, source, type(self).__name__,
+                                          float("inf"), 0, self.dtype)
+        return dist if batched else dist[0]
 
     def init_state(self, frag, source=0):
         dev, dt = frag.device, self.dtype
@@ -85,15 +89,14 @@ class SSSP(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         dist = state["dist"]
         ie = dev.ie
-        full = ctx.gather_state(dist)
-        relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, state["wf_eff"],
-                                     full, "min")
+        full = ctx.gather_lanes(dist)
+        relaxed = spmv.pull(ie.indptr, ie.edge_nbr, state["wf_eff"], full,
+                            "min")
         if "dyn_ie_indptr" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full)
         new = torch.minimum(dist, relaxed)
         changed = (new < dist) & dev.inner_mask
-        active = ctx.sum(changed.sum(dim=-1))
-        return dict(state, dist=new), active
+        return dict(state, dist=new), changed.sum(dim=(-2, -1))
 
     def finalize(self, frag, state):
         return np.asarray(state["dist"].cpu().numpy())

@@ -29,7 +29,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
-    resolve_source,
+    source_lane_array,
 )
 from libgrape_lite_tpu_torch.models.lcc import LCC, dedup_mask, emit_counts
 from libgrape_lite_tpu_torch.ops import spmv
@@ -93,20 +93,16 @@ class CommonNeighbors(ParallelAppBase):
     result_format = "int"
     replicated_keys = frozenset({"hop"})
     max_rounds = 8  # 2 pull rounds; the vote ends the query after hop 2
+    batch_query_key = "source"  # serve/: k sources, one pull a hop
+    lane_native = True
 
     def init_state(self, frag, source=-1, **_):
-        if isinstance(source, (list, tuple, np.ndarray)):
-            raise ValueError(
-                "common_neighbors takes one source; batched source lanes "
-                "are not ported (ROADMAP Queue A item 5)")
         self._csr = dedup_csr(frag)
-        seed = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
-                           device=frag.device)
-        pid = resolve_source(frag, source, "CommonNeighbors")
-        if pid >= 0:
-            seed[pid // frag.vp, pid % frag.vp] = 1
+        batched, seed = source_lane_array(frag, source, "CommonNeighbors",
+                                          0, 1, torch.int32)
+        seed = seed if batched else seed[0]
         return {"cn": seed.clone(), "seed": seed,
-                "hop": torch.zeros((), dtype=torch.int32,
+                "hop": torch.zeros(seed.shape[:-2], dtype=torch.int32,
                                    device=frag.device)}
 
     def peval(self, ctx: StepContext, dev, state):
@@ -114,14 +110,14 @@ class CommonNeighbors(ParallelAppBase):
 
     def inceval(self, ctx: StepContext, dev, state):
         indptr, nbr = self._csr
-        pulled = spmv.gather_reduce(indptr, nbr, None,
-                                    ctx.gather_state(state["cn"]), "sum")
+        pulled = spmv.pull(indptr, nbr, None, ctx.gather_lanes(state["cn"]),
+                           "sum")
         hop = state["hop"] + 1
         done = hop >= 2
         # the final hop zeroes the source row and masks padding
         last = torch.where(dev.inner_mask & (state["seed"] == 0), pulled, 0)
-        return (dict(state, cn=torch.where(done, last, pulled), hop=hop),
-                torch.where(done, 0, 1))
+        cn = torch.where(done[..., None, None], last, pulled)
+        return dict(state, cn=cn, hop=hop), torch.where(done, 0, 1)
 
     def finalize(self, frag, state):
         return state["cn"].numpy().astype(np.int64)

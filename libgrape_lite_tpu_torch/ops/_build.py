@@ -7,7 +7,9 @@ build runs at first use, never at import, so the package imports on a
 machine without `nvcc`.  `build_all` starts one `nvcc` per source, all
 at once.  Every library exports `grape_cuda_error_string`; the wrappers
 check their arguments with `require` / `check_cuda_args` and each
-launch's return code with `check_rc`.
+launch's return code with `check_rc`, and count their launches with
+`count_launch`.  Loading and counting take a lock: the serving pump runs
+batches in threads of their own.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections.abc import Sequence
 from pathlib import Path
@@ -31,6 +34,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 #: ptxas resource report (registers, shared memory, spills) per source,
 #: filled by the build that produced the library in this process
 BUILD_LOG: dict[str, str] = {}
@@ -98,14 +103,21 @@ def build_all(names: list[str] | None = None,
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        lib.grape_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.grape_cuda_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.grape_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.grape_cuda_error_string.restype = ctypes.c_char_p
+            _LOADED[name] = lib
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (`wrapper.launches`)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def require(cond: bool, msg: str) -> None:

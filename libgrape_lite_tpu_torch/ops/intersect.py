@@ -31,6 +31,7 @@ from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops._build import (
     check_cuda_args,
     check_rc,
+    count_launch,
     require,
 )
 from libgrape_lite_tpu_torch.utils.bitset import nonzero_words, popcount
@@ -210,7 +211,7 @@ def row_and_popcount_indexed(a: torch.Tensor, ia: torch.Tensor | None,
                 b.data_ptr(), _ptr(ib), _ptr(fb), ob.data_ptr(), b.shape[0],
                 out.data_ptr(), n, words, sw, int(vec), int(same), stream)
             check_rc(lib, rc, name)
-    row_and_popcount_indexed.launches += 1
+    count_launch(row_and_popcount_indexed)
     return out
 
 

@@ -17,6 +17,11 @@ compute it (sources and design notes in `csrc/spmv.cu`):
   (block partition, block gather-reduce with carries, carry fold: three
   device passes per call).  `merge_partition_plain` and
   `gather_reduce_merge_plain` are that schedule's plain twins.
+  `gather_reduce_lanes` runs it for k lanes of x in one call (the JAX
+  package's vmapped pull of a batched serve query): the CSR is staged
+  once a block, and each lane's rows come out bit-equal to
+  `gather_reduce` on that lane.  `pull` picks one or the other by the
+  rank of x.
 * `spmv_strict` -- the counterpart of the strict-tile kernel
   (`libgrape_lite_tpu/ops/spmv.py::spmv_strict`): a segment sum of
   per-edge values over equal tiles of `tile` edges, each tile summing
@@ -28,9 +33,11 @@ compute it (sources and design notes in `csrc/spmv.cu`):
   order (window partials, then their fold).
 
 Each wrapper takes its plain version (`gather_reduce_plain`,
-`spmv_strict_plain`) only for tensors on the CPU; for CUDA tensors it
-launches its kernel or raises.  `wrapper.launches` counts wrapper calls
-that launched their kernels (three device passes each).  `plan_tiles`,
+`gather_reduce_lanes_plain`, `spmv_strict_plain`) only for tensors on
+the CPU; for CUDA tensors it launches its kernel or raises.
+`wrapper.launches` counts wrapper calls that launched their kernels
+(three device passes each; `_build.count_launch` under a lock, as the
+serving pump launches from several threads).  `plan_tiles`,
 `strict_worthwhile` and `plan_for_app` are the JAX package's host-side
 planning rules, unchanged.
 """
@@ -47,11 +54,13 @@ from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops._build import (
     check_cuda_args,
     check_rc,
+    count_launch,
     require,
 )
 from libgrape_lite_tpu_torch.ops.segment import identity, segment_reduce
 
 KINDS = {"sum": 0, "min": 1, "max": 2}
+MAX_LANES = 64  # gather_reduce_lanes: lanes of x a call
 LANE = 128  # the strict plan's row-window alignment (JAX package's rule)
 INT32_LIMIT = 1 << 31
 STRICT_TILE = 2048  # edges per strict tile (the JAX package's tile)
@@ -89,6 +98,13 @@ def strict_worthwhile(rmax: int, tile: int) -> bool:
 
 
 _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: strict plans built from the host CSRs, and plans served from the
+#: per-fragment cache (a serving session's "builds no plan" check)
+PLAN_STATS = {"planned": 0, "frag_cache_hits": 0}
+
+
+def plan_stats() -> dict:
+    return dict(PLAN_STATS)
 
 
 def plan_for_app(frag, vp: int, dtype: torch.dtype, mode: str = "auto"):
@@ -103,7 +119,10 @@ def plan_for_app(frag, vp: int, dtype: torch.dtype, mode: str = "auto"):
     if mode == "auto" and dtype != torch.float32:
         return None
     cached = _PLAN_CACHE.setdefault(frag, {}).get(vp)
-    if cached is None:
+    if cached is not None:
+        PLAN_STATS["frag_cache_hits"] += 1
+    else:
+        PLAN_STATS["planned"] += 1
         edge_src = [c.edge_src for c in frag.host_ie]
         if not any((s < vp).any() for s in edge_src):
             cached = False  # no real edge anywhere: nothing to tile
@@ -143,6 +162,16 @@ def _lib():
         lib.grape_strict_tile.restype = i
         lib.grape_strict_scratch_ints.argtypes = [i, i]
         lib.grape_strict_scratch_ints.restype = ll
+        lib.grape_gather_reduce_lanes.argtypes = [p, p, p, p, p, p, i, i, ll,
+                                                  i, i, p]
+        lib.grape_gather_reduce_lanes.restype = i
+        lib.grape_gather_reduce_lanes_i32.argtypes = [p, p, p, p, p, i, i, ll,
+                                                      i, i, p]
+        lib.grape_gather_reduce_lanes_i32.restype = i
+        lib.grape_gather_lanes_scratch_ints.argtypes = [i, i, ll, i]
+        lib.grape_gather_lanes_scratch_ints.restype = ll
+        lib.grape_gather_lanes_config.argtypes = [i, i, i, p]
+        lib.grape_gather_lanes_config.restype = i
         _LIB = lib
     return _LIB
 
@@ -288,7 +317,7 @@ def gather_reduce(indptr: torch.Tensor, nbr: torch.Tensor,
                 stream,
             )
     check_rc(lib, rc, name)
-    gather_reduce.launches += 1
+    count_launch(gather_reduce)
     return y
 
 
@@ -296,19 +325,124 @@ gather_reduce.launches = 0
 
 
 def gather_config(kind: str = "sum", weighted: bool = False,
-                  int32: bool = False) -> dict:
-    """Launch facts of the merge-path gather kernel for one kind, as the
-    card reports them (a CUDA device must be current): threads, items
-    per thread and per block, static shared memory and registers per
-    thread, resident blocks per SM and the shared-memory carve-out (%)."""
+                  int32: bool = False, lanes: bool = False) -> dict:
+    """Launch facts of the merge-path gather kernel for one kind (of its
+    lane form with `lanes`), as the card reports them (a CUDA device must
+    be current): threads, items per thread and per block, static shared
+    memory and registers per thread, resident blocks per SM and the
+    shared-memory carve-out (%)."""
     out = (ctypes.c_int * 6)()
-    check_rc(_lib(), _lib().grape_gather_config(
-        KINDS[kind], int(weighted), int(int32), out), "gather_config")
+    fn = (_lib().grape_gather_lanes_config if lanes
+          else _lib().grape_gather_config)
+    check_rc(_lib(), fn(KINDS[kind], int(weighted), int(int32), out),
+             "gather_config")
     keys = ("threads", "items_per_thread", "smem_bytes", "registers",
             "blocks_per_sm", "carveout_pct")
     cfg = dict(zip(keys, out))
     cfg["items_per_block"] = cfg["threads"] * cfg["items_per_thread"]
     return cfg
+
+
+# ---- gather_reduce_lanes: K1 for k lanes of x (the vmapped pull) ---------
+
+def gather_reduce_lanes_plain(indptr: torch.Tensor, nbr: torch.Tensor,
+                              w: torch.Tensor | None, x: torch.Tensor,
+                              kind: str = "sum") -> torch.Tensor:
+    """Plain PyTorch lanes: `gather_reduce_plain` on each lane of x
+    [k, N], stacked [k, fnum, vp]."""
+    return torch.stack([gather_reduce_plain(indptr, nbr, w, x[b], kind)
+                        for b in range(x.shape[0])])
+
+
+def lane_chunk(fnum: int, vp: int) -> int:
+    """The most lanes one `gather_reduce_lanes` call takes over fnum x vp
+    rows: MAX_LANES, with its carry keys lane * fnum * vp + pid int32."""
+    return max(1, min(MAX_LANES, (INT32_LIMIT - 1) // max(1, fnum * vp)))
+
+
+def gather_reduce_lanes(indptr: torch.Tensor, nbr: torch.Tensor,
+                        w: torch.Tensor | None, x: torch.Tensor,
+                        kind: str = "sum") -> torch.Tensor:
+    """`gather_reduce` for k lanes of x [k, N] (on the card 1 <= k <=
+    `lane_chunk(fnum, vp)`; `pull` splits larger batches) at once -> y
+    [k, fnum, vp]: one merge partition, one gather pass that stages each
+    block's CSR span once and reduces it for every lane (x transposed to
+    [N, k] first, so a vertex's lanes share a sector), one carry fold
+    over every lane's carries.  Lane b of y is bit-equal to
+    `gather_reduce(indptr, nbr, w, x[b], kind)`, float sums included
+    (the same partition, walk, scan and carry order).  One lane is
+    `gather_reduce`'s own call."""
+    name = "gather_reduce_lanes"
+    require(kind in KINDS, f"{name}: unknown kind {kind!r}")
+    is_int = x.dtype == torch.int32
+    require(not is_int or w is None, f"{name}: int32 x takes no weights")
+    require(x.dim() == 2, f"{name}: x must be [k, N]")
+    if x.device.type == "cpu":
+        return gather_reduce_lanes_plain(indptr, nbr, w, x, kind)
+    require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+    check_cuda_args(name, x.device, indptr=indptr, nbr=nbr, w=w, x=x)
+    require(indptr.dim() == 2 and nbr.dim() == 2,
+            f"{name}: indptr/nbr must be [fnum, *]")
+    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
+    ep = nbr.shape[1]
+    lanes, n = x.shape
+    most = lane_chunk(fnum, vp)
+    require(1 <= lanes <= most,
+            f"{name}: {lanes} lanes, the kernel takes 1 to {most} here")
+    require(nbr.shape[0] == fnum, f"{name}: nbr has {nbr.shape[0]} "
+            f"fragments, indptr {fnum}")
+    require(indptr.dtype == torch.int32 and nbr.dtype == torch.int32,
+            f"{name}: indptr and nbr must be int32")
+    require(x.dtype in (torch.float32, torch.int32),
+            f"{name}: x must be float32 or int32")
+    require(w is None or (w.dtype == torch.float32 and w.shape == nbr.shape),
+            f"{name}: w must be float32 shaped like nbr")
+    require(ep < INT32_LIMIT and n < INT32_LIMIT,
+            f"{name}: sizes must stay below 2^31 (int32 indices)")
+    if lanes == 1:
+        return gather_reduce(indptr, nbr, w, x[0], kind).unsqueeze(0)
+    y = torch.empty((lanes, fnum, vp), dtype=x.dtype, device=x.device)
+    lib = _lib()
+    scratch = torch.empty(
+        lib.grape_gather_lanes_scratch_ints(fnum, vp, ep, lanes),
+        dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        # the kernel gathers lane-minor: a vertex's lanes side by side
+        xt = x.t().contiguous()
+        stream = torch.cuda.current_stream().cuda_stream
+        if is_int:
+            rc = lib.grape_gather_reduce_lanes_i32(
+                indptr.data_ptr(), nbr.data_ptr(), xt.data_ptr(),
+                y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
+                lanes, stream,
+            )
+        else:
+            rc = lib.grape_gather_reduce_lanes(
+                indptr.data_ptr(), nbr.data_ptr(),
+                None if w is None else w.data_ptr(), xt.data_ptr(),
+                y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
+                lanes, stream,
+            )
+    check_rc(lib, rc, name)
+    count_launch(gather_reduce_lanes)
+    return y
+
+
+gather_reduce_lanes.launches = 0
+
+
+def pull(indptr: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor | None,
+         x: torch.Tensor, kind: str = "sum") -> torch.Tensor:
+    """The apps' pull: `gather_reduce` for x [N] -> [fnum, vp], one
+    `gather_reduce_lanes` call for lane-stacked x [k, N] -> [k, fnum, vp]
+    (one a chunk of `lane_chunk` lanes where k is larger)."""
+    if x.dim() == 1:
+        return gather_reduce(indptr, nbr, w, x, kind)
+    step = lane_chunk(indptr.shape[0], indptr.shape[1] - 1)
+    if x.shape[0] <= step:
+        return gather_reduce_lanes(indptr, nbr, w, x, kind)
+    return torch.cat([gather_reduce_lanes(indptr, nbr, w, x[i:i + step], kind)
+                      for i in range(0, x.shape[0], step)])
 
 
 # ---- spmv_strict: counterpart of the strict-tile kernel (K2) -------------
@@ -447,7 +581,7 @@ def spmv_strict(values: torch.Tensor, edge_src: torch.Tensor,
             scratch.data_ptr(), fnum, ep, num_tiles, tile, vp, stream,
         )
     check_rc(lib, rc, name)
-    spmv_strict.launches += 1
+    count_launch(spmv_strict)
     return y
 
 
@@ -456,13 +590,17 @@ spmv_strict.launches = 0
 
 def reset_launch_counts() -> None:
     gather_reduce.launches = 0
+    gather_reduce_lanes.launches = 0
     spmv_strict.launches = 0
 
 
 __all__ = [
-    "gather_config", "gather_reduce", "gather_reduce_merge_plain",
-    "gather_reduce_plain", "merge_partition_plain", "plan_for_app",
-    "plan_tiles", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
+    "MAX_LANES", "PLAN_STATS", "gather_config", "gather_reduce",
+    "lane_chunk",
+    "gather_reduce_lanes", "gather_reduce_lanes_plain",
+    "gather_reduce_merge_plain", "gather_reduce_plain",
+    "merge_partition_plain", "plan_for_app", "plan_stats", "plan_tiles",
+    "pull", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
     "spmv_strict_segments_plain", "strict_tile_carries_plain",
     "strict_worthwhile",
 ]

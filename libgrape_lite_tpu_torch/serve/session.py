@@ -1,0 +1,354 @@
+"""ServeSession: one resident graph serving many queries.
+
+Counterpart of `libgrape_lite_tpu/serve/session.py`.  A session pins the
+expensive per-graph artifacts once and every query reuses them:
+
+  * the fragment's device tensors (`frag.dev`), and the per-fragment
+    caches the apps build on them (strict plans, deduplicated and push
+    CSRs);
+  * one resident Worker per app (`worker`), so the second query of an
+    app builds no worker and no plan -- `cache_stats()` counts both,
+    the port's counterpart of the JAX session's compiled-runner and
+    pack-plan counters (PyTorch runs eagerly: nothing is compiled).
+
+Queries arrive through the AdmissionQueue (serve/queue.py) and coalesce
+into batched queries (`Worker.query_batch`) under the BatchPolicy.
+`ingest` applies a delta stream between dispatches (dyn/): staged edges
+ride the overlay that the min-fold apps fold each round, until the
+repack policy folds them into a rebuilt fragment.
+
+Typical use::
+
+    sess = ServeSession(frag)
+    reqs = [sess.submit("sssp", {"source": s}) for s in sources]
+    sess.drain()                      # or pump() under a wait policy
+    values = reqs[0].result.values
+
+Not here yet: the guard policies (a session takes `guard` None or
+"off"), and the result-cache and admission hooks of the autopilot.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+from libgrape_lite_tpu_torch.ops.spmv import plan_stats
+from libgrape_lite_tpu_torch.serve.policy import BatchPolicy, compat_key
+from libgrape_lite_tpu_torch.serve.queue import (
+    AdmissionQueue,
+    QueryRequest,
+    ServeResult,
+)
+from libgrape_lite_tpu_torch.worker.worker import Worker
+
+GUARD_OFF = (None, "", "off")
+
+
+def check_guard(guard) -> None:
+    if guard not in GUARD_OFF:
+        raise ValueError(
+            f"guard {guard!r}: guard policies are not ported (guard/ is "
+            "ROADMAP Queue A item 6); use None or 'off'")
+
+
+def _error_results(batch: List[QueryRequest], error: str):
+    return [ServeResult(request_id=req.id, app_key=req.app_key, ok=False,
+                        error={"error": error}, lane=b,
+                        batch_size=len(batch))
+            for b, req in enumerate(batch)]
+
+
+class ServeSession:
+    def __init__(self, fragment, apps: Dict | None = None,
+                 policy: BatchPolicy | None = None,
+                 guard: Optional[str] = None, dyn=None):
+        """`apps` maps app_key -> app factory (default: the whole
+        APP_REGISTRY).  `dyn` enables live ingest: True (RepackPolicy
+        from the environment), a RepackPolicy, or a DynGraph; the
+        fragment must keep its edge list (retain_edge_list=True) for
+        the repack path."""
+        check_guard(guard)
+        if apps is None:
+            from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+            apps = dict(APP_REGISTRY)
+        self.dyn = None
+        if dyn is not None and dyn is not False:
+            from libgrape_lite_tpu_torch.dyn import DynGraph
+
+            self.dyn = (dyn if isinstance(dyn, DynGraph) else DynGraph(
+                fragment, policy=None if dyn is True else dyn))
+            fragment = self.dyn.fragment
+        self.fragment = fragment
+        self.apps = apps
+        self.policy = policy or BatchPolicy()
+        self.guard = guard
+        self.queue = AdmissionQueue(self._dispatch, self.policy,
+                                    self._compat_key)
+        self._workers: Dict[str, Worker] = {}
+        self._worker_stats = {"hits": 0, "misses": 0}
+        self._pump = None  # the attached AsyncServePump, if any
+        self._closed = False
+        self.stats = {
+            "queries": 0, "batches": 0, "failed": 0,
+            "sequential_fallbacks": 0, "ingested_ops": 0,
+            "overlay_applies": 0, "repacks": 0, "forced_repacks": 0,
+        }
+
+    # ---- resident workers ----
+
+    def worker(self, app_key: str) -> Worker:
+        """The resident Worker of one app: built on first use, then
+        reused by every query."""
+        w = self._workers.get(app_key)
+        if w is None:
+            if app_key not in self.apps:
+                raise ValueError(
+                    f"unknown application {app_key!r}; session serves: "
+                    f"{sorted(self.apps)}")
+            w = Worker(self.apps[app_key](), self.fragment)
+            self._workers[app_key] = w
+            self._worker_stats["misses"] += 1
+        else:
+            self._worker_stats["hits"] += 1
+        return w
+
+    def cache_stats(self) -> dict:
+        """{"runner": resident-worker hits and misses, "pack": the
+        strict planner's counters (ops/spmv.py::plan_stats)} -- the JAX
+        session's keys."""
+        return {"runner": dict(self._worker_stats), "pack": plan_stats()}
+
+    # ---- eviction, re-admission, close ----
+
+    @property
+    def resident(self) -> bool:
+        """True while the fragment's device tensors are placed."""
+        return self.fragment.dev is not None
+
+    def release_device(self, *, release_fragment: bool = True) -> dict:
+        """Evict: quiesce an attached pump, drop each resident worker's
+        result buffers and -- unless the fragment is shared with
+        another session -- the fragment's device tensors.  The host
+        side stays, so `restore_device` builds no worker and no plan."""
+        if self._pump is not None and self._pump.inflight():
+            self._pump.quiesce(reason="release_device")
+        for w in self._workers.values():
+            w.release_buffers()
+        released = False
+        if release_fragment:
+            released = self.fragment.release_device()
+        return {"fragment_released": released,
+                "workers": len(self._workers)}
+
+    def restore_device(self) -> bool:
+        """Re-admit an evicted session: place the device tensors from the
+        host CSRs again.  False when already resident."""
+        if self._closed:
+            raise RuntimeError("session is closed")
+        return self.fragment.restore_device()
+
+    def close(self) -> None:
+        """Drain and detach the pump, release the device, drop the
+        workers; later submits raise.  Idempotent."""
+        if self._closed:
+            return
+        if self._pump is not None:
+            self._pump.close()
+        self.release_device()
+        self._workers.clear()
+        self._closed = True
+
+    # ---- live ingest (dyn/) ----
+
+    def ingest(self, ops, *, force_repack: bool = False) -> dict:
+        """Apply a batch of delta ops between dispatches (a superstep
+        boundary: no query is in flight; an attached pump is quiesced
+        first).  Below the repack threshold the staged edges ride the
+        overlay; a repack's rebuilt fragment goes to every resident
+        worker.  Returns the DynGraph's report."""
+        if self.dyn is None:
+            raise RuntimeError(
+                "session was built without dyn=; pass dyn=True (or a "
+                "RepackPolicy / DynGraph) to enable live ingest")
+        if self._pump is not None and self._pump.inflight():
+            self._pump.quiesce(reason="ingest")
+        # one ingest can fold more than once (a buffer at capacity), so
+        # count from the DynGraph's own counters
+        before_r = self.dyn.stats["repacks"]
+        before_o = self.dyn.stats["overlay_applies"]
+        report = self.dyn.ingest(ops, force_repack=force_repack)
+        self.stats["ingested_ops"] += report.get("staged", 0)
+        self.stats["repacks"] += self.dyn.stats["repacks"] - before_r
+        self.stats["overlay_applies"] += (
+            self.dyn.stats["overlay_applies"] - before_o)
+        if self.dyn.fragment is not self.fragment:
+            self._adopt_fragment()
+        return report
+
+    def _adopt_fragment(self) -> None:
+        """Point the session and every resident worker at the rebuilt
+        fragment."""
+        self.fragment = self.dyn.fragment
+        for w in self._workers.values():
+            w.fragment = self.dyn.fragment
+
+    def _ensure_dyn_view(self, app_key: str, w: Worker) -> None:
+        """An app without an overlay contract must see a consistent
+        graph: fold the staged overlay first, a counted forced repack."""
+        if self.dyn is None or self.dyn.overlay_count == 0:
+            return
+        if getattr(w.app, "dyn_overlay_support", False):
+            return
+        self.dyn.fold_now(reason=f"{app_key} has no dyn-overlay contract")
+        self.stats["repacks"] += 1
+        self.stats["forced_repacks"] += 1
+        self._adopt_fragment()
+
+    # ---- admission ----
+
+    def _compat_for(self, app_key: str, args: dict, max_rounds, guard,
+                    tenant) -> tuple:
+        # an unknown app must not raise while the queue picks a batch
+        # (it would wedge the head); dispatch fails it as a result.  The
+        # lane key is read off the app's class: no worker is built here
+        if app_key not in self.apps:
+            return (app_key, "?unknown", tenant)
+        app_cls = self.apps[app_key]
+        return compat_key(
+            app_key, args, max_rounds, guard or self.guard,
+            getattr(app_cls, "batch_query_key", None),
+            getattr(app_cls, "mesh_kind", "frag"),
+        ) + (tenant,)
+
+    def _compat_key(self, req: QueryRequest) -> tuple:
+        return self._compat_for(req.app_key, req.args, req.max_rounds,
+                                req.guard, req.tenant)
+
+    def submit(self, app_key: str, args: dict | None = None, *,
+               max_rounds: int | None = None,
+               guard: str | None = None, priority: int = 0,
+               deadline_s: float | None = None,
+               tenant: str | None = None) -> QueryRequest:
+        if self._closed:
+            raise RuntimeError("session is closed")
+        check_guard(guard)
+        return self.queue.submit(
+            app_key, args, max_rounds=max_rounds, guard=guard,
+            priority=priority, deadline_s=deadline_s, tenant=tenant)
+
+    def pump(self, **kw) -> List[ServeResult]:
+        return self.queue.pump(**kw)
+
+    def drain(self) -> List[ServeResult]:
+        return self.queue.drain()
+
+    def async_pump(self, window: int | None = None):
+        """An AsyncServePump over this session (serve/pipeline.py): up
+        to `window` batches admitted and not yet harvested at once
+        (default `policy.inflight`).  W = 1 is byte- and order-identical
+        to the synchronous `pump` / `drain`."""
+        from libgrape_lite_tpu_torch.serve.pipeline import AsyncServePump
+
+        return AsyncServePump(self, window=window)
+
+    def serve(self, stream) -> List[ServeResult]:
+        """Submit every item of a scripted stream, drain, and return the
+        results in completion order.  Items are (app_key, args) pairs or
+        {"app", "args", "max_rounds", "guard", "priority", "deadline_s",
+        "tenant"} dicts."""
+        for item in stream:
+            if isinstance(item, dict):
+                self.submit(
+                    item["app"], item.get("args"),
+                    max_rounds=item.get("max_rounds"),
+                    guard=item.get("guard"),
+                    priority=item.get("priority", 0),
+                    deadline_s=item.get("deadline_s"),
+                    tenant=item.get("tenant"),
+                )
+            else:
+                app_key, args = item
+                self.submit(app_key, args)
+        return self.drain()
+
+    # ---- dispatch ----
+
+    def _dispatch(self, batch: List[QueryRequest]) -> List[ServeResult]:
+        """Run one coalesced batch: one query through `Worker.query`,
+        several through `Worker.query_batch`, with a sequential fallback
+        for apps that cannot batch (host-only loops, MutationContext).
+        Failures become error results; nothing raises out of the loop."""
+        self.stats["batches"] += 1
+        self.stats["queries"] += len(batch)
+        try:
+            w = self.worker(batch[0].app_key)
+        except ValueError as e:
+            self.stats["failed"] += len(batch)
+            return _error_results(batch, str(e))
+        try:
+            self._ensure_dyn_view(batch[0].app_key, w)
+        except Exception as e:  # a forced repack that failed
+            self.stats["failed"] += len(batch)
+            return _error_results(batch, f"{type(e).__name__}: {e}")
+        if len(batch) > 1:
+            try:
+                w._check_batchable()
+            except ValueError:
+                self.stats["sequential_fallbacks"] += 1
+                return [self._run_single(w, req) for req in batch]
+            return self._run_batched(w, batch, batch[0].max_rounds)
+        return [self._run_single(w, batch[0])]
+
+    @staticmethod
+    def _exec_stages(total_ns: int) -> dict:
+        """The stages of one synchronous execution.  The host loop
+        enqueues and waits on the card in turns every round, so the
+        whole of it counts as dispatch, as the JAX session counts paths
+        it cannot split."""
+        return {"window_wait_us": 0, "dispatch_us": total_ns // 1000,
+                "device_us": 0}
+
+    def _run_single(self, w: Worker, req: QueryRequest) -> ServeResult:
+        try:
+            t0 = time.perf_counter_ns()
+            w.query(req.max_rounds, **req.args)
+            t_exec = time.perf_counter_ns()
+            vals = w.result_values()
+            stages = self._exec_stages(t_exec - t0)
+            stages["harvest_us"] = (time.perf_counter_ns() - t_exec) // 1000
+            return ServeResult(
+                request_id=req.id, app_key=req.app_key, ok=True,
+                values=vals, rounds=w.rounds,
+                terminate_code=w._terminate_code, batch_size=1,
+                stages=stages)
+        except Exception as e:  # one bad query must not stop the loop
+            self.stats["failed"] += 1
+            return ServeResult(
+                request_id=req.id, app_key=req.app_key, ok=False,
+                error={"error": f"{type(e).__name__}: {e}"}, batch_size=1)
+
+    def _run_batched(self, w: Worker, batch: List[QueryRequest],
+                     mr) -> List[ServeResult]:
+        try:
+            t0 = time.perf_counter_ns()
+            w.query_batch([req.args for req in batch], mr)
+            t_exec = time.perf_counter_ns()
+        except Exception as e:  # the whole batch fails, lane by lane
+            self.stats["failed"] += len(batch)
+            return _error_results(batch, f"{type(e).__name__}: {e}")
+        stages = self._exec_stages(t_exec - t0)
+        results = [
+            ServeResult(
+                request_id=req.id, app_key=req.app_key, ok=True,
+                values=w.batch_result_values(b),
+                rounds=int(w.batch_rounds[b]),
+                terminate_code=int(w.batch_terminate[b]),
+                lane=b, batch_size=len(batch), stages=dict(stages))
+            for b, req in enumerate(batch)
+        ]
+        harvest_us = (time.perf_counter_ns() - t_exec) // 1000
+        for r in results:
+            r.stages["harvest_us"] = harvest_us
+        return results

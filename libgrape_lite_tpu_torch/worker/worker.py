@@ -14,18 +14,38 @@ after PEval and after every round, the fragment rebuilt and the state
 migrated by oid; `query` refuses an app without an overlay contract
 while the fragment holds staged delta edges; and `query_incremental`
 seeds a query from a previous result (dyn/incremental.py).
+
+Batched queries (serve/, the JAX worker's `query_batch` and its vmapped
+runner): k point queries of one app share one round loop over the
+fragment.  An app with native lanes runs all k in each superstep (one
+`gather_reduce_lanes` pull a round); any other runs each live lane's
+single-lane superstep in the same loop.  A lane whose vote has reached
+0 (or a negative abort) keeps its carry pinned, so every lane executes
+exactly the supersteps of its own sequential query and its result is
+byte-identical to `Worker.query`.  The k votes are read back as one [k]
+vector a round.  `query_batch_prepare` does the host half (checks,
+state built and placed); its `launch()` runs the loop in a thread of
+its own, on a CUDA stream of its own, so the async serve pump
+(serve/pipeline.py) can prepare and harvest other batches meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import os
-from typing import Dict
+import threading
+from typing import Dict, List
 
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import AppBase, StepContext
+from libgrape_lite_tpu_torch.app.base import (
+    AppBase,
+    StepContext,
+    is_lane_sequence,
+)
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -42,6 +62,226 @@ def _place(v, device: torch.device):
     if isinstance(v, np.ndarray):
         return torch.from_numpy(np.array(v, order="C")).to(device)
     return torch.as_tensor(v, device=device)
+
+
+def _tensors(state):
+    """Every tensor of a state dict, or of a list of them."""
+    states = state if isinstance(state, list) else [state]
+    return [v for st in states for v in st.values()
+            if isinstance(v, torch.Tensor)]
+
+
+def _lane_votes(active, batch: int, device) -> torch.Tensor:
+    """A lane-stacked superstep's vote as a [k] int64 tensor."""
+    if isinstance(active, torch.Tensor):
+        return active.to(torch.int64).reshape(-1).expand(batch)
+    return torch.full((batch,), int(active), dtype=torch.int64,
+                      device=device)
+
+
+def _read_votes(votes: list, device) -> List[int]:
+    """Per-lane votes (tensors or ints) read back in one transfer."""
+    if not any(isinstance(v, torch.Tensor) for v in votes):
+        return [int(v) for v in votes]
+    return torch.stack([
+        v.to(torch.int64).reshape(()) if isinstance(v, torch.Tensor)
+        else torch.tensor(int(v), device=device) for v in votes]).tolist()
+
+
+def _lane_loop(app: AppBase, dev, state, eph: frozenset, max_rounds: int,
+               batch: int):
+    """PEval, then IncEval while any lane's vote is positive and fewer
+    than `max_rounds` rounds ran, with the freeze mask (JAX
+    `_lane_body`).  `state` is one lane-stacked dict (native lanes) or a
+    list of per-lane dicts.  Returns (state, rounds [k], votes [k])."""
+    ctx = StepContext()
+    limit = max_rounds if max_rounds > 0 else _INT32_MAX
+    rounds = [0] * batch
+    r = 0
+    if isinstance(state, list):
+        lanes, votes = [], []
+        for st in state:
+            st, a = app.peval(ctx, dev, st)
+            lanes.append(st)
+            votes.append(a)
+        act = _read_votes(votes, dev.inner_mask.device)
+        while r < limit and any(a > 0 for a in act):
+            live = [b for b in range(batch) if act[b] > 0]
+            votes = []
+            for b in live:
+                lanes[b], a = app.inceval(ctx, dev, lanes[b])
+                votes.append(a)
+            r += 1
+            for b, a in zip(live, _read_votes(votes, dev.inner_mask.device)):
+                act[b] = a
+                rounds[b] = r
+        return lanes, rounds, act
+
+    eph_part = {k: v for k, v in state.items() if k in eph}
+
+    def strip(st):
+        return {k: v for k, v in st.items() if k not in eph}
+
+    device = dev.inner_mask.device
+    carry, a = app.peval(ctx, dev, state)
+    carry = strip(carry)
+    act_d = _lane_votes(a, batch, device)
+    act = act_d.tolist()
+    while r < limit and any(a > 0 for a in act):
+        new, a = app.inceval(ctx, dev, {**carry, **eph_part})
+        new = strip(new)
+        a = _lane_votes(a, batch, device)
+        if all(x > 0 for x in act):
+            carry, act_d = new, a
+        else:  # pin the settled lanes' carries and votes
+            live = act_d > 0
+
+            def sel(v, old):
+                return torch.where(
+                    live.reshape((batch,) + (1,) * (v.dim() - 1)), v, old)
+
+            carry = {k: sel(v, carry[k]) for k, v in new.items()}
+            act_d = torch.where(live, a, act_d)
+        r += 1
+        for b in range(batch):
+            if act[b] > 0:
+                rounds[b] = r
+        act = act_d.tolist()
+    return {**carry, **eph_part}, rounds, act
+
+
+class BatchDispatch:
+    """One launched batched query (JAX `BatchDispatch`): its outputs
+    held self-contained, so a window of dispatches can coexist without
+    touching the worker's own result fields.  `is_ready()` polls,
+    `wait()` joins the batch's thread (and re-raises its failure),
+    `lane_values(b)` moves one lane to the host and finalizes it."""
+
+    __slots__ = ("app", "fragment", "eph", "state", "_thread", "_error",
+                 "_rounds", "_active")
+
+    def __init__(self, *, app, fragment, eph):
+        self.app = app
+        self.fragment = fragment
+        self.eph = frozenset(eph)
+        self.state = None  # one lane-stacked dict, or k per-lane dicts
+        self._thread = None
+        self._error = None
+        self._rounds = None
+        self._active = None
+
+    def _finish(self, state, rounds, active) -> None:
+        self.state = state
+        self._rounds = np.asarray(rounds, dtype=np.int32)
+        self._active = np.asarray(active, dtype=np.int64)
+
+    def is_ready(self) -> bool:
+        return self._thread is None or not self._thread.is_alive()
+
+    def wait(self) -> "BatchDispatch":
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            raise self._error
+        return self
+
+    @property
+    def rounds(self) -> np.ndarray:
+        return self.wait()._rounds
+
+    @property
+    def terminate(self) -> np.ndarray:
+        return np.minimum(0, self.wait()._active)
+
+    def lane_state(self, lane: int) -> Dict:
+        """Lane `lane`'s state (ephemeral leaves are shared)."""
+        self.wait()
+        if isinstance(self.state, list):
+            return self.state[lane]
+        return {k: (v if k in self.eph else v[lane])
+                for k, v in self.state.items()}
+
+    def lane_values(self, lane: int) -> np.ndarray:
+        """Lane `lane`'s assembled values, [fnum, vp] numpy: its carry
+        to the host (ephemeral leaves stay on the card, as
+        `Worker.result_values` leaves them), then finalize."""
+        host = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in self.lane_state(lane).items()
+                if k not in self.eph}
+        return self.app.finalize(self.fragment, host)
+
+
+class PreparedBatch:
+    """A batched query with its host half done -- checks passed, state
+    built and placed -- and its round loop not yet started (JAX
+    `PreparedBatch`).  `run()` runs the loop here; `launch()` runs it in
+    a thread of its own, on a CUDA stream of its own that first waits
+    for the preparing stream, and returns at once.  The stream comes
+    from the worker's `idle_streams`, where finished batches put theirs
+    back: the caching allocator keeps its blocks per stream, so a stream
+    that served a batch already holds the memory the next one asks for.
+    The batch runs on a copy of the worker's app, so batches in flight
+    together never share the attributes an app sets per query."""
+
+    __slots__ = ("app", "fragment", "state", "eph", "batch", "max_rounds",
+                 "idle_streams")
+
+    def __init__(self, *, app, fragment, state, eph, batch, max_rounds,
+                 idle_streams):
+        self.app = app
+        self.fragment = fragment
+        self.state = state
+        self.eph = frozenset(eph)
+        self.batch = batch
+        self.max_rounds = max_rounds
+        self.idle_streams = idle_streams
+
+    def _dispatch(self) -> BatchDispatch:
+        return BatchDispatch(app=self.app, fragment=self.fragment,
+                             eph=self.eph)
+
+    def _loop(self):
+        return _lane_loop(self.app, self.fragment.dev, self.state, self.eph,
+                          self.max_rounds, self.batch)
+
+    def run(self) -> BatchDispatch:
+        d = self._dispatch()
+        d._finish(*self._loop())
+        return d
+
+    def launch(self) -> BatchDispatch:
+        d = self._dispatch()
+        device = torch.device(self.fragment.device)
+        stream = None
+        if device.type == "cuda":
+            try:
+                stream = self.idle_streams.pop()
+            except IndexError:
+                stream = torch.cuda.Stream(device=device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            # inputs made on the preparing stream stay allocated until
+            # this stream's work on them is done
+            for t in _tensors(self.state):
+                t.record_stream(stream)
+
+        def body():
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    out = self._loop()
+                d._finish(*out)
+            except Exception as e:  # re-raised by wait()
+                d._error = e
+            finally:
+                if stream is not None:
+                    stream.synchronize()
+                    self.idle_streams.append(stream)
+
+        d._thread = threading.Thread(target=body, name="grape-batch",
+                                     daemon=True)
+        d._thread.start()
+        return d
 
 
 class Worker:
@@ -61,6 +301,14 @@ class Worker:
         self.inc_stats = {"seeded": 0, "cold": 0}
         self.inc_report = None
         self._seed_fn = None  # set only inside query_incremental
+        # the last query's negative (abort) vote, else 0
+        self._terminate_code = 0
+        # query_batch: per-lane rounds and terminate codes, the dispatch;
+        # the CUDA streams of finished launched batches (PreparedBatch)
+        self.batch_rounds = None
+        self.batch_terminate = None
+        self._batch = None
+        self.idle_streams: List = []
 
     def _check_dyn_view(self) -> None:
         """An app without an overlay contract must not run while the
@@ -83,6 +331,11 @@ class Worker:
         one that `init_state` produced."""
         self._check_dyn_view()
         app, frag = self.app, self.fragment
+        key = app.batch_query_key
+        if key is not None and is_lane_sequence(query_args.get(key)):
+            raise ValueError(
+                f"{type(app).__name__}.query takes one {key} a query; run "
+                f"a list of {key}s through Worker.query_batch")
         mr = app.max_rounds if max_rounds is None else max_rounds
         if getattr(app, "host_only", False):
             return self._query_host(mr, initial_state, query_args)
@@ -124,6 +377,7 @@ class Worker:
                                   "round; the rebuilt topology was NOT "
                                   "re-evaluated -- raise max_rounds")
         self.rounds = rounds
+        self._terminate_code = min(0, active)
         return self._keep(state)
 
     def _apply_mutations(self, state: Dict, frag, rounds: int,
@@ -211,6 +465,96 @@ class Worker:
         }
         self._result_fragment = self.fragment
         return self._result_state
+
+    # ---- batched multi-source queries (serve/) ----
+
+    def _check_batchable(self) -> None:
+        """Batched queries cover superstep apps on the fragment stack;
+        everything else fails loudly before any state is built (JAX
+        `Worker._check_batchable`)."""
+        app = self.app
+        if getattr(app, "host_only", False):
+            raise ValueError(
+                f"{type(app).__name__} is a host-only app: its data-"
+                "dependent host loop has no superstep carry to batch")
+        if hasattr(app, "collect_mutations"):
+            raise ValueError(
+                "MutationContext apps rebuild the fragment between rounds "
+                "and cannot share one batched query")
+        if app.mesh_kind != "frag":
+            raise ValueError(
+                "batched queries support the frag mesh only (app "
+                f"mesh_kind={app.mesh_kind!r})")
+
+    def query_batch_prepare(self, args_list,
+                            max_rounds: int | None = None) -> PreparedBatch:
+        """The host half of a batched query: the checks, then the k
+        lanes' state built (`init_state_batch`, on a copy of the app) and
+        placed on the fragment's device.  Leaves this worker's result
+        fields alone, so prepared batches can coexist."""
+        self._check_batchable()
+        self._check_dyn_view()
+        if not args_list:
+            raise ValueError("query_batch needs at least one lane")
+        app = copy.copy(self.app)
+        frag = self.fragment
+        mr = app.max_rounds if max_rounds is None else max_rounds
+        state = app.init_state_batch(frag, list(args_list))
+        if isinstance(state, list):
+            state = [{k: _place(v, frag.device) for k, v in st.items()}
+                     for st in state]
+        else:
+            state = {k: _place(v, frag.device) for k, v in state.items()}
+        # read after init_state_batch: apps extend it there (the overlay)
+        eph = frozenset(getattr(app, "ephemeral_keys", ()) or ())
+        return PreparedBatch(app=app, fragment=frag, state=state, eph=eph,
+                             batch=len(args_list), max_rounds=mr,
+                             idle_streams=self.idle_streams)
+
+    def query_batch_dispatch(self, args_list,
+                             max_rounds: int | None = None) -> BatchDispatch:
+        """Prepare and launch in one call: the batch runs in its own
+        thread and stream while this one returns."""
+        return self.query_batch_prepare(args_list, max_rounds).launch()
+
+    def query_batch(self, args_list, max_rounds: int | None = None):
+        """Run k point queries as one batch over the shared fragment:
+        `args_list` holds one query-argument dict per lane (e.g.
+        [{"source": 3}, {"source": 9}]).  Each lane's result is
+        byte-identical to its own `Worker.query`; per-lane round counts
+        land in `batch_rounds`, terminate codes in `batch_terminate`,
+        lane b's state in `batch_lane_state(b)`."""
+        d = self.query_batch_prepare(args_list, max_rounds).run()
+        self.batch_rounds = d.rounds
+        self.batch_terminate = d.terminate
+        self.rounds = int(d.rounds.max())
+        self._terminate_code = int(d.terminate.min())
+        self._batch = d
+        self._result_state = d.state
+        self._result_fragment = self.fragment
+        return d.state
+
+    def batch_lane_state(self, lane: int) -> Dict:
+        """Lane `lane`'s state of the last query_batch (ephemeral leaves
+        shared)."""
+        if self._batch is None:
+            raise RuntimeError("query_batch() first")
+        return self._batch.lane_state(lane)
+
+    def batch_result_values(self, lane: int) -> np.ndarray:
+        """Per-vertex assembled values for one lane, [fnum, vp] numpy."""
+        if self._batch is None:
+            raise RuntimeError("query_batch() first")
+        return self._batch.lane_values(lane)
+
+    def release_buffers(self) -> None:
+        """Drop the device references of the last results (a serving
+        session's `release_device`)."""
+        self._result_state = None
+        self._result_fragment = None
+        self._batch = None
+        self.batch_rounds = None
+        self.batch_terminate = None
 
     # ---- Output / Assemble (reference worker.h:148-154, ctx.Output) ----
 

@@ -258,6 +258,8 @@ def test_registry_and_query_arguments_match_jax():
 
 
 def test_common_neighbors_refuses_a_source_list(graph_cache):
+    """A query takes one source; a list of sources is a batch of lanes
+    (Worker.query_batch, tests/test_torch_lanes.py)."""
     frag = port_fragment(graph_cache(1), "carried", 1)
-    with pytest.raises(ValueError, match="Queue A item 5"):
+    with pytest.raises(ValueError, match="Worker.query_batch"):
         Worker(port_app("common_neighbors"), frag).query(source=[6, 7])
