@@ -102,17 +102,21 @@ the port's own entry points:
      10) weights, seed 13) ride the delta overlay under the default
      RepackPolicy; sssp, bfs (from 0), wcc, wcc_opt and khop k 2 over
      base + overlay, each bit-equal to a cold query on the repacked graph
-     (RepackPolicy threshold 0) with two K1 launches a round (the base
-     pull and the overlay fold), seconds beside the base graph's;
+     (RepackPolicy threshold 0) with one K1 launch (the base pull) and
+     one `overlay_fold` launch a round, seconds beside the base graph's;
      sssp_auto, bfs_auto and wcc_auto refused over the overlay, then
      after `fold_now` bit-equal to the repacked cold query;
      `query_incremental` for sssp, bfs and wcc seeded from the base
      results, over the overlay and over the repack, bit-equal to cold
      (seeded and cold rounds and seconds); 2,048 removals of existing
      edges forcing a repack, the incremental query falling back cold;
-     the overlay's K1 call alone (vp rows, 4,096 slots, min with
-     weights) against its plain version, with kernel, plain, library
-     (`scatter_reduce_` amin) and bound times.  On the 512 x 512 grid one
+     `overlay_fold` alone (vp rows, 4,096 slots, min with weights; 8
+     lanes; BFS's int32 hop; a star of 4,096 slots in one row; x, w and
+     the pull result mixing -0.0 and +0.0) against its plain version,
+     the former K1 path (gather_reduce over the overlay's CSR, then
+     torch.minimum) and `scatter_reduce_` amin (the library call), each
+     bit-equal (with -0.0: the K1 path), with kernel, plain, K1 path,
+     library and bound times.  On the 512 x 512 grid one
      shortcut edge far from the source, repacked, then `query_incremental`
      for sssp and bfs: fewer rounds than cold, bit-equal.  The
      MutationContext shortcut SSSP (tests/test_mutation_context.py) on
@@ -127,7 +131,10 @@ the port's own entry points:
      with kernel, plain, library (the CSR product with x as [N, k]; for
      min the fastest of segment_reduce over the [E, k] candidates and
      scatter_reduce_ amin over [E, k] and [k, E]), bound and k x single
-     times; `spmv.pull` of 65 lanes (two calls) bit-equal to 65 single
+     times, each case's device passes (printed beside the earlier
+     design's recorded time, LANES_BEFORE_MS, which stays out of the
+     kernels line) and the lane kernel's ptxas registers and spills;
+     `spmv.pull` of 65 lanes (two calls) bit-equal to 65 single
      calls; then
      `Worker.query_batch` of 8 seed-17 sources among vertices with edges
      for sssp (plus one absent id), bfs, khop (k 2), common_neighbors and
@@ -240,6 +247,18 @@ DYN_GOLDEN = ("sssp", "bfs", "pagerank", "wcc", "cdlp", "lcc", "lcc_bitmap")
 # (one lane is K1's single call; 2 and 3 lanes run lane groups of 2 and
 # 4, 8 and 32 groups of 8; a batch of SERVE_WIDE lanes is split by pull)
 SERVE_LANES = (1, 2, 3, 8, 32)
+# kernel_ms of the lane K1's earlier design (scalar lane gathers staged
+# through shared memory), by (lanes, kind), as recorded in PERF.md (the
+# lane K1 findings, run BB: this script on an NVIDIA H100 80GB HBM3 at
+# 700 W): printed beside each case's time as a recorded figure, never
+# put in the kernels line, which holds only this run's measurements
+LANES_BEFORE_MS = {
+    (1, "min+w"): 0.2511, (1, "sum"): 0.2040, (1, "int32 min"): 0.2083,
+    (2, "min+w"): 0.4048, (2, "sum"): 0.3643, (2, "int32 min"): 0.3709,
+    (3, "min+w"): 0.5654, (3, "sum"): 0.5343, (3, "int32 min"): 0.5550,
+    (8, "min+w"): 1.2461, (8, "sum"): 1.2082, (8, "int32 min"): 1.2576,
+    (32, "min+w"): 6.0477, (32, "sum"): 5.9872, (32, "int32 min"): 6.1534,
+}
 SERVE_WIDE = 65
 SERVE_SEED = 17
 SERVE_BATCH = 8
@@ -991,6 +1010,7 @@ def launch_counts() -> dict:
 
     return {"gather_reduce": spmv.gather_reduce.launches,
             "gather_reduce_lanes": spmv.gather_reduce_lanes.launches,
+            "overlay_fold": spmv.overlay_fold.launches,
             "strict_tile": spmv.spmv_strict.launches,
             "intersect": intersect.row_and_popcount_indexed.launches}
 
@@ -1006,6 +1026,7 @@ def plain_versions():
     with mock.patch.multiple(
             spmv, gather_reduce=spmv.gather_reduce_plain,
             gather_reduce_lanes=spmv.gather_reduce_lanes_plain,
+            overlay_fold=spmv.overlay_fold_plain,
             spmv_strict=spmv.spmv_strict_plain), \
             mock.patch.object(intersect, "row_and_popcount_indexed",
                               intersect.row_and_popcount_plain):
@@ -2186,63 +2207,179 @@ def same_values(a, b, what: str) -> None:
           f"{what}: not bit-equal")
 
 
-def overlay_kernel_phase(overlay, device, reps: int) -> dict:
-    """The overlay fold's K1 call alone, at its shape (vp rows, the
-    overlay's slots; min with weights), against its plain version, with
-    scatter_reduce_(amin) over the slots into a +inf vector as the
-    library call (never called by the port)."""
+def overlay_planes(ent: dict, device) -> dict:
+    """An overlay's ie planes (`DeltaOverlay.entries`) on the device,
+    without their prefix: src, nbr, w, mask."""
+    return {k.removeprefix("dyn_ie_"): torch.from_numpy(v).to(device)
+            for k, v in ent.items()}
+
+
+def star_planes(fnum: int, vp: int, cap: int, device) -> dict:
+    """Every slot of an overlay of `cap` slots in one row (row vp // 2 of
+    fragment 0), neighbours and uniform(0.1, 10) weights from seed 19."""
+    rng = np.random.default_rng(19)
+    src = np.full((fnum, cap), vp, np.int32)
+    nbr = np.zeros((fnum, cap), np.int32)
+    w = np.zeros((fnum, cap), np.float32)
+    mask = np.zeros((fnum, cap), bool)
+    src[0], mask[0] = vp // 2, True
+    nbr[0] = rng.integers(0, fnum * vp, cap)
+    w[0] = rng.uniform(0.1, 10.0, cap)
+    return {k: torch.from_numpy(v).to(device) for k, v in dict(
+        src=src, nbr=nbr, w=w, mask=mask).items()}
+
+
+def overlay_csr(pl: dict, vp: int) -> torch.Tensor:
+    """The CSR [fnum, vp + 1] of an overlay's sorted `src` plane (each
+    fragment's real slots come first, so it indexes the nbr / w planes):
+    the former K1 path's view of the overlay."""
+    fnum = pl["src"].shape[0]
+    fids = torch.arange(fnum, device=pl["src"].device).unsqueeze(1)
+    rows = (fids * vp + pl["src"])[pl["mask"]].long()
+    deg = torch.bincount(rows, minlength=fnum * vp).view(fnum, vp)
+    indptr = torch.zeros((fnum, vp + 1), dtype=torch.int32,
+                         device=pl["src"].device)
+    indptr[:, 1:] = deg.cumsum(1)
+    return indptr
+
+
+def overlay_fold_case(name, pl, x, relaxed, device, reps: int,
+                      plus_one: bool = False, weighted: bool = True,
+                      signed_zeros: bool = False) -> dict:
+    """One overlay fold case: `overlay_fold` into a copy of `relaxed`
+    against its plain version, the former K1 path (`gather_reduce`, or
+    the lane form, over the CSR of the sorted `src` plane, built outside
+    the timed call, then BFS's hop and `torch.minimum`) and the library
+    call (`scatter_reduce_` amin of the real slots' candidates, gathered
+    outside the timed call, into a copy of `relaxed`), each bit-equal --
+    sign bits of zeros included; with `signed_zeros` the library call's
+    match is reported, not required (scatter_reduce_ picks between -0.0
+    and +0.0 its own way); then kernel, plain, K1 path, library and
+    bound times."""
     from libgrape_lite_tpu_torch.ops import spmv
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
-    ent = overlay.entries("ie", np.float32)
-    indptr = torch.from_numpy(ent["dyn_ie_indptr"]).to(device)
-    nbr = torch.from_numpy(ent["dyn_ie_nbr"]).to(device)
-    w = torch.from_numpy(ent["dyn_ie_w"]).to(device)
-    fnum, vp = indptr.shape[0], indptr.shape[1] - 1
-    slots = int(indptr[:, -1].sum())
+    w = pl["w"] if weighted else None
+    args = (pl["src"], pl["nbr"], w, pl["mask"], x)
+    fnum, cap = pl["src"].shape
+    vp = relaxed.shape[-1]
+    lanes = x.shape[0] if x.dim() == 2 else 1
+    slots = int(pl["mask"].sum())
+    indptr = overlay_csr(pl, vp)
+
+    def kernel(dest=None):
+        return spmv.overlay_fold(relaxed.clone() if dest is None else dest,
+                                 *args, plus_one)
+
+    def k1_path():
+        extra = spmv.pull(indptr, pl["nbr"], w, x, "min")
+        if plus_one:
+            extra = torch.where(extra != INT32_MAX, extra + 1, extra)
+        return torch.minimum(relaxed, extra)
+
+    fids = torch.arange(fnum, device=device).unsqueeze(1).expand_as(pl["nbr"])
+    rows = (fids * vp + pl["src"])[pl["mask"]].long()
+    cand = x[..., pl["nbr"][pl["mask"]].long()]
+    if w is not None:
+        cand = cand + w[pl["mask"]]
+    if plus_one:
+        cand = torch.where(cand != INT32_MAX, cand + 1, cand)
+    cand = cand.reshape(lanes, -1)
+    rows_l = (rows + torch.arange(lanes, device=device).unsqueeze(1)
+              * (fnum * vp)).reshape(-1)
+
+    def library(dest=None):
+        dest = relaxed.clone() if dest is None else dest
+        dest.view(-1).scatter_reduce_(0, rows_l, cand.reshape(-1), "amin",
+                                      include_self=True)
+        return dest
+
+    got = kernel()
+    sync(device)
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    agree = {}
+    for other, what in ((spmv.overlay_fold_plain(relaxed.clone(), *args,
+                                                 plus_one), "plain version"),
+                        (k1_path(), "former K1 path"),
+                        (library(), "library call")):
+        agree[what] = torch.equal(bits(got), bits(other))
+        # signed zeros: the plain version orders them as the kernel does
+        # (-0.0 below +0.0); scatter_reduce_ picks between them its own way
+        check(agree[what] or (signed_zeros and what == "library call"),
+              f"overlay_fold {name} not bit-equal to its {what}")
+    dest = relaxed.clone()
+    ms = time_ms(lambda: kernel(dest), device, reps)
+    plain_ms = time_ms(lambda: spmv.overlay_fold_plain(dest, *args, plus_one),
+                       device, max(3, reps // 4), warmup=1)
+    k1_ms = time_ms(k1_path, device, reps)
+    lib_ms = time_ms(lambda: library(dest), device, reps)
+    # per real slot its src, nbr, (w,) gathered x, and its row read and
+    # written; the mask of every slot
+    per_slot = 4 + 4 + (4 if w is not None else 0) + 4 * lanes * 3
+    b_ms, b_by = bound(slots * per_slot + fnum * cap, lanes * slots * 2)
+    print(f"[dyn] overlay_fold {name}: lanes={lanes} rows={fnum * vp} "
+          f"slots={slots} capacity={cap} kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} k1_path_ms={k1_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(scatter_reduce_ amin) bound_ms={b_ms:.6f} ({b_by}) bit-equal "
+          f"to: {', '.join(k for k, v in agree.items() if v)} (one device "
+          "pass a call)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, k1_path_ms=k1_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0, slots=slots, rows=fnum * vp, lanes=lanes,
+                bit_equal_to=[k for k, v in agree.items() if v])
+
+
+def overlay_kernel_phase(overlay, device, reps: int) -> dict:
+    """The overlay fold (`overlay_fold`) alone at the [dyn] overlay's
+    shape (vp rows, its real slots of 4,096; SSSP's min with weights) on
+    a pull result with +inf rows; SERVE_BATCH lanes of it; BFS's int32
+    hop; a star (all 4,096 slots in one row); and -0.0 -- x, weights and
+    the pull result mixing -0.0 and +0.0 on the same rows.  Each through
+    `overlay_fold_case` (bit-equal to the plain version, the former K1
+    path and `scatter_reduce_`, timed)."""
+    pl = overlay_planes(overlay.entries("ie", np.float32), device)
+    fnum, vp = overlay.fnum, overlay.vp
     n = fnum * vp
     gen = torch.Generator(device="cpu").manual_seed(3)
-    x = torch.where(torch.rand(n, generator=gen) < 0.3,
-                    torch.tensor(float("inf")),
-                    torch.rand(n, generator=gen) * 50).to(device)
-    got = spmv.gather_reduce(indptr, nbr, w, x, "min")
-    want = spmv.gather_reduce_plain(indptr, nbr, w, x, "min")
-    check(torch.equal(got, want),
-          "overlay gather_reduce not bit-equal to its plain version")
-    # the library call's inputs, gathered outside the timed call: each
-    # real slot's row (pid) and candidate x[nbr] + w
-    mask = torch.from_numpy(ent["dyn_ie_mask"]).to(device)
-    fids = torch.arange(fnum, device=device).unsqueeze(1).expand_as(nbr)
-    rows = (fids * vp + torch.from_numpy(ent["dyn_ie_src"]).to(device))[
-        mask].long()
-    cand = x[nbr[mask].long()] + w[mask]
 
-    def library():
-        return torch.full((n,), float("inf"), device=device).scatter_reduce_(
-            0, rows, cand, "amin", include_self=True)
+    def floats(*shape):
+        return torch.where(torch.rand(*shape, generator=gen) < 0.3,
+                           torch.tensor(float("inf")),
+                           torch.rand(*shape, generator=gen) * 50).to(device)
 
-    check(torch.equal(library().view(fnum, vp), want),
-          "overlay library call disagrees")
-    ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, w, x, "min"),
-                 device, reps)
-    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(indptr, nbr, w, x,
-                                                        "min"),
-                       device, max(3, reps // 4), warmup=1)
-    lib_ms = time_ms(library, device, reps)
-    # indptr and y, then per real slot its nbr, w and gathered x
-    nbytes = 4 * fnum * (vp + 1) + 4 * n + slots * (4 + 4 + 4)
-    b_ms, b_by = bound(nbytes, 2 * slots)
-    passes = device_passes(
-        lambda: spmv.gather_reduce(indptr, nbr, w, x, "min"), device)
-    print(f"[dyn] overlay K1 gather_reduce min+w: rows={n} slots={slots} "
-          f"capacity={nbr.shape[1]} kernel_ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} library_ms={lib_ms:.4f} (scatter_reduce_ amin) "
-          f"bound_ms={b_ms:.4f} ({b_by}) bit-equal; device ms a call: "
-          f"{passes_text(passes) or 'not measured (no device events)'}",
-          flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0, slots=slots, rows=n,
-                passes_ms=passes)
+    out = {}
+    out["min+w"] = overlay_fold_case("min+w", pl, floats(n), floats(fnum, vp),
+                                     device, reps)
+    out[f"k{SERVE_BATCH} min+w"] = overlay_fold_case(
+        f"k={SERVE_BATCH} min+w", pl, floats(SERVE_BATCH, n),
+        floats(SERVE_BATCH, fnum, vp), device, reps)
+    depth = torch.where(torch.rand(n, generator=gen) < 0.3,
+                        torch.tensor(INT32_MAX, dtype=torch.int32),
+                        torch.randint(0, 64, (n,), generator=gen,
+                                      dtype=torch.int32)).to(device)
+    pulled = torch.where(depth != INT32_MAX, depth + 1, depth)
+    out["int32 min +1"] = overlay_fold_case(
+        "int32 min +1 (bfs)", pl, depth, pulled.view(fnum, vp), device, reps,
+        plus_one=True, weighted=False)
+    star = star_planes(fnum, vp, pl["src"].shape[1], device)
+    out["star min+w"] = overlay_fold_case("star min+w", star, floats(n),
+                                          floats(fnum, vp), device, reps)
+    # -0.0: x and w take +-0.0 (and small values) on the star row and the
+    # real slots, the pull result +-0.0 on the folded rows
+    signs = lambda *shape: torch.where(torch.rand(*shape, generator=gen)
+                                       < 0.5, -0.0, 0.0)
+    zpl = dict(pl, w=torch.where(pl["mask"], signs(*pl["w"].shape).to(device),
+                                 pl["w"]))
+    xz = torch.where(torch.rand(n, generator=gen) < 0.5, signs(n),
+                     torch.rand(n, generator=gen)).to(device)
+    rz = torch.where(torch.rand(fnum, vp, generator=gen) < 0.5,
+                     signs(fnum, vp), torch.tensor(float("inf"))).to(device)
+    out["-0.0"] = overlay_fold_case("-0.0", zpl, xz, rz, device, reps,
+                                    signed_zeros=True)
+    return out
 
 
 def dyn_rmat_phase(frag, device) -> dict:
@@ -2290,7 +2427,7 @@ def dyn_rmat_phase(frag, device) -> dict:
     print(f"[dyn] ingest: mode={rep['mode']} delta_ratio="
           f"{rep['delta_ratio']:.6f} reason={rep['reason']!r} overlay "
           f"build {overlay_s:.3f} host s (slots "
-          f"{int(frag.dyn_overlay.ie.indptr[:, -1].sum())} of "
+          f"{int(frag.dyn_overlay.ie.mask.sum())} of "
           f"{frag.dyn_overlay.capacity})", flush=True)
     for name, kw in DYN_APPS:
         wk, counts, secs = counted(frag, dyn_factory(name), device, kw)
@@ -2298,9 +2435,10 @@ def dyn_rmat_phase(frag, device) -> dict:
         same_values(wk, cwk, f"{name} over the overlay vs the repack")
         check(wk.rounds == cwk.rounds, f"{name}: {wk.rounds} rounds over "
               f"the overlay, {cwk.rounds} on the repack")
-        check(counts["gather_reduce"] == 2 * wk.rounds,
-              f"{name} over the overlay: {counts['gather_reduce']} K1 "
-              f"launches in {wk.rounds} rounds (two a round expected)")
+        check(counts["gather_reduce"] == wk.rounds
+              and counts["overlay_fold"] == wk.rounds,
+              f"{name} over the overlay: {counts} in {wk.rounds} rounds "
+              "(one K1 and one overlay fold a round expected)")
         bsecs = base[name][2]
         out["runs"][f"dyn {name} overlay"] = dict(
             counts=counts, seconds=secs, rounds=wk.rounds,
@@ -2550,7 +2688,7 @@ def lanes_kernel_phase(frag, device, reps: int) -> dict:
     (float only) and `scatter_reduce_` amin over [E, k] and [k, E], each
     checked equal.  Then `spmv.pull` of SERVE_WIDE lanes, which splits
     them into calls the kernel takes, bit-equal to single calls."""
-    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.ops import _build, spmv
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
     ie = frag.dev.ie
@@ -2558,6 +2696,9 @@ def lanes_kernel_phase(frag, device, reps: int) -> dict:
     fnum, vp = frag.fnum, frag.vp
     n = fnum * vp
     check(fnum == 1, "the lane kernel phase runs on a single fragment")
+    for line in ptxas_lines(_build.BUILD_LOG.get("spmv", "")):
+        if line.startswith("merge_gather_lanes_kernel"):
+            print(f"[serve]   ptxas {line}", flush=True)
     e_real = int(indptr[:, -1].sum())
     w = torch.where(ie.edge_mask, ie.edge_w,
                     torch.tensor(float("inf"), device=device))
@@ -2666,30 +2807,33 @@ def lanes_kernel_phase(frag, device, reps: int) -> dict:
                        bound_by=b_by, max_abs_err=max_err, edges=e_real)
             if kind != "sum":
                 rec["library_all_ms"] = lib_all
-            if (k, name) == (SERVE_BATCH, "min+w"):
-                rec["config"] = spmv.gather_config("min", weighted=True,
-                                                   lanes=True)
-                rec["passes_ms"] = device_passes(
-                    lambda: spmv.gather_reduce_lanes(indptr, nbr, win, x,
-                                                     kind), device)
+            rec["passes_ms"] = device_passes(
+                lambda: spmv.gather_reduce_lanes(indptr, nbr, win, x, kind),
+                device)
+            if k == SERVE_BATCH:
+                rec["config"] = spmv.gather_config(
+                    kind, weighted=win is not None,
+                    int32=x.dtype == torch.int32, lanes=True)
             out[f"k{k} {name}"] = rec
             lib_text = (" ".join(f"{ln}={t:.4f}" for ln, t in lib_all.items())
                         if kind != "sum" else "")
             print(f"[serve] K1 lanes k={k} {name}: kernel_ms={ms:.4f} "
+                  f"(earlier design, recorded in PERF.md: "
+                  f"{LANES_BEFORE_MS.get((k, name))}) "
                   f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={plain_ms:.4f} "
                   f"library_ms={lib_ms:.4f} ({lib_name}; {lib_text}) "
                   f"single_ms="
                   f"{single_ms:.4f} k_x_single_ms={k * single_ms:.4f} "
                   f"max_abs_err={max_err:.3e}; bit-equal to {k} single "
                   "calls", flush=True)
-            if "passes_ms" in rec:
-                cfg = rec["config"]
-                print(f"[serve]   lane kernel: smem_per_block="
-                      f"{cfg['smem_bytes']} B registers={cfg['registers']} "
-                      f"blocks_per_sm={cfg['blocks_per_sm']} carveout="
-                      f"{cfg['carveout_pct']}%; device ms a call: "
-                      f"{passes_text(rec['passes_ms']) or 'not measured'}",
-                      flush=True)
+            cfg = rec.get("config")
+            cfg_text = (f"smem_per_block={cfg['smem_bytes']} B registers="
+                        f"{cfg['registers']} blocks_per_sm="
+                        f"{cfg['blocks_per_sm']} carveout="
+                        f"{cfg['carveout_pct']}%; " if cfg else "")
+            print(f"[serve]   lane kernel k={k} {name}: {cfg_text}device ms "
+                  f"a call: {passes_text(rec['passes_ms']) or 'not measured'}",
+                  flush=True)
     # a batch wider than one call takes: pull splits it (64 + 1 lanes)
     x = torch.where(torch.rand(SERVE_WIDE, n, generator=gen) < 0.3,
                     torch.tensor(float("inf")),
@@ -2890,6 +3034,8 @@ def serve_session_phase(frag, device) -> dict:
     ref, rec = serve(SERVE_BATCH, dyn=True)
     check(rec["stats"]["overlay_applies"] > 0,
           "the ingest never rode the overlay")
+    check(rec["counts"]["overlay_fold"] > 0,
+          "the session with ingest launched no overlay fold")
     for window in SERVE_WINDOWS:
         res, _ = serve(SERVE_BATCH, window, dyn=True)
         same_results(ref, res, f"the pump at W={window} with ingest")
@@ -3228,7 +3374,7 @@ def main() -> int:
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
-                          "strict_tile", "intersect")}
+                          "overlay_fold", "strict_tile", "intersect")}
     for k, v in launches.items():
         check(v > 0, f"{k} was never launched on the main path")
     for app in ("bfs", "wcc"):
@@ -3242,7 +3388,7 @@ def main() -> int:
     gr = kern["gather_reduce[sum]"]
     gl = serve["kernel"][f"k{SERVE_BATCH} min+w"]
     st = kern["strict_tile"]
-    ov = dyn["kernel"]
+    ov = dyn["kernel"]["min+w"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -3264,11 +3410,7 @@ def main() -> int:
                 for kind in ("sum", "min", "max")
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              library_int32_sum=kern_i32["sum"]["library"],
-             library_all_ms_int32_sum=kern_i32["sum"]["library_all_ms"],
-             **{f"overlay_{k}": ov[k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms", "max_abs_err", "slots", "rows")},
-             overlay_library="scatter_reduce_ amin"),
+             library_all_ms_int32_sum=kern_i32["sum"]["library_all_ms"]),
         dict(name="gather_reduce_lanes", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
@@ -3279,10 +3421,22 @@ def main() -> int:
                               for app, r in serve["runs"].items()},
              max_abs_err_all=max(r["max_abs_err"]
                                  for r in serve["kernel"].values()),
-             cases={k: {f: v for f, v in r.items()
-                        if f not in ("config", "passes_ms")}
+             cases={k: {f: v for f, v in r.items() if f != "config"}
                     for k, r in serve["kernel"].items()},
              config=gl["config"], passes_ms=gl["passes_ms"]),
+        dict(name="overlay_fold", route="cuda",
+             source="libgrape_lite_tpu_torch/csrc/spmv.cu",
+             replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
+             replaces_note="K1's use on the delta overlay; the JAX package "
+             "folds it with an XLA segment min (libgrape_lite_tpu/app/"
+             "base.py:351)",
+             launches=launches["overlay_fold"], **{k: ov[k] for k in keys},
+             kind="min+w", library="scatter_reduce_ amin",
+             k1_path_ms=ov["k1_path_ms"], slots=ov["slots"], rows=ov["rows"],
+             launches_by_app={app: r["counts"]["overlay_fold"]
+                              for app, r in by_app.items()
+                              if r["counts"].get("overlay_fold")},
+             cases=dyn["kernel"]),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",

@@ -236,24 +236,23 @@ class AppBase:
 
     @staticmethod
     def dyn_min_fold(relaxed: torch.Tensor, state: Dict, prefix: str,
-                     full: torch.Tensor, post=None) -> torch.Tensor:
+                     full: torch.Tensor, plus_one: bool = False
+                     ) -> torch.Tensor:
         """Merge the staged delta-edge overlay (dyn/ingest.py) into a
-        pull-mode min reduction.  The overlay is a small CSR over the
-        fragment's rows (`<prefix>indptr` [fnum, vp + 1], `nbr` pids,
-        `w` when weighted), so its fold is one gather-reduce (kind
-        `min`, weights added) -- the JAX package's gather plus
-        segment min -- and `post` (BFS's +1) maps it like the base pull.
-        Pad slots lie past indptr[:, vp], where the kernel stops.  min is
-        exact in any order, so the result equals a cold query on the
-        rebuilt graph.  Lane-stacked `full` [k, N] folds every lane in
-        one `gather_reduce_lanes` call."""
+        pull-mode min reduction: one `overlay_fold` over the overlay's
+        slot planes (`<prefix>src` rows, `nbr` pids, `w` when weighted,
+        `mask`), in place into `relaxed` (the caller's fresh pull
+        result) -- the JAX package's gather plus segment min over `src`,
+        then `minimum`.  `plus_one` adds BFS's hop to each slot as the
+        base pull's post-map does to each row.  min is exact in any
+        order, so the result equals a cold query on the rebuilt graph.
+        Lane-stacked `full` [k, N] folds every lane in the same launch."""
         from libgrape_lite_tpu_torch.ops import spmv
 
-        extra = spmv.pull(state[prefix + "indptr"], state[prefix + "nbr"],
-                          state.get(prefix + "w"), full, "min")
-        if post is not None:
-            extra = post(extra)
-        return torch.minimum(relaxed, extra)
+        return spmv.overlay_fold(relaxed, state[prefix + "src"],
+                                 state[prefix + "nbr"],
+                                 state.get(prefix + "w"),
+                                 state[prefix + "mask"], full, plus_one)
 
     @staticmethod
     def segment_reduce(values, edge_src, vp, kind="sum"):

@@ -34,8 +34,9 @@
 //       in one thread are written directly; the rest meet in a fixed-order
 //       segmented scan of the thread tails.  The row that runs past the
 //       block leaves a carry (row, partial);
-//     pass 3 (carry_fold_kernel): the first block of each run of carries
-//       for one row folds the run, a warp in block order, into y[row].
+//     pass 3 (carry_fold_kernel): the first slot of each run of carries
+//       for one row folds the run into y[row]: its own thread for a run
+//       of one or two, else its warp, in block order.
 //   No atomics: sums are bit-identical from rerun to rerun, min and max
 //   equal any-order results.  Pads after a fragment's indptr[vp] edges
 //   lie past its merge path; offsets f * ep are 64-bit.  The carve-out
@@ -56,29 +57,51 @@
 // axis (libgrape_lite_tpu/worker/worker.py::_make_batched_runner, over
 // the same pack-gather pipeline).  k single calls would read indptr,
 // nbr and w k times (272 MB a call at RMAT-20 with weights).
-//   Bound: indptr, nbr and w read once, plus k x's and k y's.
+//   Bound: indptr, nbr and w read once, plus k x's and k y's.  What
+//   bounds it in practice is the gathers' load instructions: by scalar
+//   loads each lane cost ~0.14 ms at RMAT-20 (33.5 M edges), 50x the
+//   0.0025 ms its x and y take at 3.35 TB/s; by the vector loads below
+//   ~0.06 ms.
 //   Design: the merge path as it is.  merge_partition_kernel runs once
 //   (it reads indptr alone).  merge_gather_lanes_kernel stages a block's
-//   row ends, nbr and w once with the same bulk copies, keeps each
-//   thread's nbr and w slots in registers, and takes the lanes in groups
-//   of G (the smallest power of two that holds them, 2 to 8; a block
-//   asked to leave room for 3 on an SM): one gather of each edge's x for
-//   all the group's lanes
-//   -- x comes lane-minor (the wrapper transposes [k, N] to [N, k]), so
-//   the group's values of one vertex share a 32-byte sector: one random
-//   sector an edge serves 8 lanes, where k lane-major reads cost k --
-//   then the single kernel's walk, segmented scan and carry for the
-//   group's lanes together: the merge items and the row keys are every
-//   lane's, so one walk and one scan (its syncs and key shuffles) carry
-//   8 values a step.  Each lane thus reduces in exactly the single
+//   row ends, nbr and w once with the same bulk copies, and takes the
+//   lanes in groups of G (the smallest power of two that holds them, 2
+//   to 8).  x comes lane-minor, each vertex's lanes in a row of `pitch`
+//   (the lanes rounded up to the vector width; the wrapper transposes
+//   and pads), so a thread fetches an edge's G lanes with G / 4 16-byte
+//   loads (one 8-byte load for G 2): a quarter of the load instructions
+//   of scalar gathers.  Each thread classifies its kItemsPerThread merge
+//   items once (edge or row end: merge_gather_kernel's walk without
+//   values), loads its own edges' lanes straight into registers, then
+//   walks them: no shared-memory round trip of the gathered values and
+//   no sync before the walk.  The walk, the block's segmented scan
+//   (its syncs and key shuffles shared by the G lanes) and the carry
+//   are merge_gather_kernel's, so each lane reduces in exactly that
 //   kernel's order: its output is bit-equal to gather_reduce on that
-//   lane's x, float sums included.  Carries go to slot
-//   b * nblocks + blk with row b * fnum * vp + pid, so carry_fold_kernel
-//   folds every lane's runs in one launch over the flat [k * fnum * vp]
-//   y (keys of two lanes never meet).  One lane is gather_reduce itself:
-//   the entry points take 2 or more, and the wrapper calls the single
-//   kernel for one.
+//   lane's x, float sums included.  Carries go to slot b * nblocks +
+//   blk with row b * fnum * vp + pid, so carry_fold_kernel folds every
+//   lane's runs in one launch over the flat [k * fnum * vp] y (keys of
+//   two lanes never meet).  One lane is gather_reduce itself: the entry
+//   points take 2 or more, and the wrapper calls the single kernel for
+//   one.
 //
+// overlay_fold is K1's use on the delta overlay (dyn/ingest.py): the
+// JAX package folds the overlay's slots with an XLA segment min by their
+// row (libgrape_lite_tpu/app/base.py::dyn_min_fold), not a Pallas kernel;
+// a merge path over the overlay's CSR walks every row end of the graph
+// (three passes over 1.05 M rows at RMAT-20) for a few thousand edges.
+//   Bound: the slots' bytes and their rows' read and write (~100 KB at
+//   4,096 slots): in practice one launch.
+//   Design: one pass over the slots, in place into the caller's pull
+//   result, every lane in the same launch: one thread a slot and lane,
+//   a warp min over each run of equal rows among its 32 slots (src is
+//   sorted within a fragment), one integer atomic a run.  Min is exact
+//   in any order, so the result equals the merge path's followed by a
+//   minimum.  Floats go through atomicMin / atomicMax on their bits
+//   (ordered_min: -0.0 below +0.0, +inf the identity; no NaN), never a
+//   float atomic; an overlay with every slot in one row costs cap / 32
+//   atomics, not a serial walk.
+
 // strict_tile replaces the strict-tile Pallas kernel
 // (libgrape_lite_tpu/ops/spmv.py::_spmv_partials, body _spmv_tile_kernel)
 // together with the XLA scatter-add that folds its tile partials
@@ -108,8 +131,9 @@
 //       carry (row, partial) in the tile's left or right slot; a tile
 //       inside one row puts its sum left and 0 right, so a hub's slots
 //       form one unbroken run in tile order;
-//     pass 3 (K1's carry_fold_kernel): a warp folds each run of carries,
-//       256 a step, into y[row] (a star of 2^22 edges: 4,096 slots).
+//     pass 3 (K1's carry_fold_kernel): folds each run of carries into
+//       y[row], a longer run by a warp 256 a step (a star of 2^22
+//       edges: 4,096 slots).
 //   No atomics: reruns are bit-identical.  Pads (src == vp, or past ep)
 //   credit no row.  row_lo and rmax are the plan's, checked by the
 //   wrapper; the kernel reads each row from src.  Offsets f * ep are
@@ -165,8 +189,11 @@ constexpr int kFoldUnroll = 8;
 // gather_reduce_lanes: at most this many lanes gathered, walked and
 // scanned at once (their x adjacent in xt)
 constexpr int kMaxLaneGroup = 8;
-// resident lane-kernel blocks an SM is asked to fit (caps registers)
-constexpr int kLaneBlocksPerSm = 3;
+// resident lane-kernel blocks an SM is asked to fit (caps registers):
+// a group of 8 lanes holds 32 gathered values a thread and runs best at
+// 3 (80 registers), smaller groups at 4 (64)
+template <int G>
+constexpr int kLaneBlocksPerSm = G >= 8 ? 3 : 4;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -501,47 +528,97 @@ merge_gather_kernel(const int* __restrict__ indptr,
   }
 }
 
-// Pass 3: one warp per block carry; the first block of each run of
+// Pass 3: a thread per carry slot; the first slot of each run of
 // carries for one row folds the run into y[row], which the block holding
-// the row's end wrote.  The warp reads 32 kFoldUnroll carries at a time
-// (a hub row of 2^22 edges leaves 4,096); each lane folds its share in
-// block order and a fixed butterfly joins the lanes.
+// the row's end wrote.  The warp fold below reads 32 kFoldUnroll carries
+// at a time (a hub row of 2^22 edges leaves 4,096); each lane folds the
+// carries at its offset mod 32 in block order and a fixed butterfly
+// joins the lanes.  A run of one or two (most runs: a row crossing one
+// block or tile boundary) is written by its own thread with what that
+// fold gives when the other lanes hold identities: (id + c0) + (id + c1)
+// (an identity-combined carry absorbs further identities).  The warp
+// takes its longer runs one at a time.
 template <typename T, int KIND>
 __global__ void carry_fold_kernel(const int* __restrict__ carry_row,
                                   const T* __restrict__ carry_val,
                                   T* __restrict__ y, long long nblocks) {
   const long long b =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  if (b >= nblocks) return;  // the whole warp leaves together
-  const int key = carry_row[b];
-  if (key < 0 || (b > 0 && carry_row[b - 1] == key)) return;
-  T acc = identity<KIND>(T());
-  for (long long base = b;; base += 32 * kFoldUnroll) {
-    bool mine[kFoldUnroll], all = true;
+  const T ident = identity<KIND>(T());
+  int key = -1, len = 0;  // len: the run's length, 3 for any longer
+  if (b < nblocks) {
+    key = carry_row[b];
+    if (key >= 0 && (b == 0 || carry_row[b - 1] != key)) {
+      len = 1;
+      while (len < 3 && b + len < nblocks && carry_row[b + len] == key) ++len;
+    }
+  }
+  if (len == 1 || len == 2) {
+    T acc = combine<KIND>(ident, carry_val[b]);
+    if (len == 2)
+      acc = combine<KIND>(acc, combine<KIND>(ident, carry_val[b + 1]));
+    y[key] = combine<KIND>(acc, y[key]);
+  }
+  for (unsigned runs = __ballot_sync(0xffffffffu, len == 3); runs;
+       runs &= runs - 1) {
+    const int src = __ffs(runs) - 1;
+    const int rkey = __shfl_sync(0xffffffffu, key, src);
+    T acc = ident;
+    for (long long base = b - lane + src;; base += 32 * kFoldUnroll) {
+      bool mine[kFoldUnroll], all = true;
 #pragma unroll
-    for (int u = 0; u < kFoldUnroll; ++u) {
-      const long long j = base + u * 32 + lane;
-      mine[u] = j < nblocks && carry_row[j] == key;
-      all = all && mine[u];
+      for (int u = 0; u < kFoldUnroll; ++u) {
+        const long long j = base + u * 32 + lane;
+        mine[u] = j < nblocks && carry_row[j] == rkey;
+        all = all && mine[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldUnroll; ++u)
+        if (mine[u]) acc = combine<KIND>(acc, carry_val[base + u * 32 + lane]);
+      if (!__all_sync(0xffffffffu, all)) break;  // the run ends in this span
     }
 #pragma unroll
-    for (int u = 0; u < kFoldUnroll; ++u)
-      if (mine[u]) acc = combine<KIND>(acc, carry_val[base + u * 32 + lane]);
-    if (!__all_sync(0xffffffffu, all)) break;  // the run ends in this span
+    for (int off = 16; off > 0; off >>= 1)
+      acc = combine<KIND>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (lane == 0) y[rkey] = combine<KIND>(acc, y[rkey]);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc = combine<KIND>(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (lane == 0) y[key] = combine<KIND>(acc, y[key]);
 }
 
-// Pass 2 for `lanes` lanes of x, lane-minor (xt[pid * lanes + b]), into
-// y[lanes, lane_rows]: merge_gather_kernel's staging once, then for each
-// group of G lanes one gather of every edge's x for all of them and
-// merge_gather_kernel's walk, scan and carry for all of them at once.
+// A vertex's values of lanes g .. g + G - 1 in xt (lane-minor, rows of
+// `pitch` lanes): 16-byte vector loads (8 bytes for G 2), so one load
+// instruction brings up to 4 lanes.  The rows of the last group hold
+// fewer than G lanes when pitch - g < G: only `avail` lanes are read.
+template <typename T, int V> struct LaneVec;
+template <> struct LaneVec<float, 2> { using type = float2; };
+template <> struct LaneVec<float, 4> { using type = float4; };
+template <> struct LaneVec<int, 2> { using type = int2; };
+template <> struct LaneVec<int, 4> { using type = int4; };
+
+template <typename T, int G>
+__device__ __forceinline__ void load_lanes(const T* p, int avail,
+                                           T (&v)[G]) {
+  constexpr int V = G < 4 ? G : 4;
+  using Vec = typename LaneVec<T, V>::type;
+#pragma unroll
+  for (int q = 0; q < G / V; ++q) {
+    if (q * V < avail) {
+      const Vec u = __ldg(reinterpret_cast<const Vec*>(p) + q);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[q * V + i] = e[i];
+    }
+  }
+}
+
+// Pass 2 for `lanes` lanes of x, lane-minor (xt[pid * pitch + b], pitch
+// the lanes rounded up to the vector width), into y[lanes, lane_rows]:
+// merge_gather_kernel's staging once, then for each group of G lanes
+// merge_gather_kernel's walk, scan and carry for all of them at once,
+// each thread gathering its own edges' lanes by vector loads straight
+// into registers.
 template <typename T, int KIND, bool HAS_W, int G>
-__global__ void __launch_bounds__(kGatherThreads, kLaneBlocksPerSm)
+__global__ void __launch_bounds__(kGatherThreads, kLaneBlocksPerSm<G>)
 merge_gather_lanes_kernel(const int* __restrict__ indptr,
                           const int* __restrict__ nbr,
                           const float* __restrict__ w,
@@ -549,11 +626,10 @@ merge_gather_lanes_kernel(const int* __restrict__ indptr,
                           const int* __restrict__ part,
                           int* __restrict__ carry_row,
                           T* __restrict__ carry_val, int vp, long long ep,
-                          int bpf, int lanes, long long lane_rows,
+                          int bpf, int lanes, int pitch, long long lane_rows,
                           long long nblocks) {
   __shared__ alignas(16) int s_stage[kStageInts];
   __shared__ alignas(16) float s_w[HAS_W ? kStageInts : 4];
-  __shared__ alignas(16) T s_val[G][kItemsPerBlock];
   __shared__ alignas(8) unsigned long long s_bar;
   __shared__ int s_wkey[kGatherWarps];
   __shared__ T s_wval[G][kGatherWarps];
@@ -607,66 +683,69 @@ merge_gather_lanes_kernel(const int* __restrict__ indptr,
   __syncthreads();  // the barrier's init before anyone waits on it
   bulk_wait(&s_bar);
 
-  // what no lane changes: this thread's gather slots (nbr, w) and the
-  // start of its walk
+  // what no lane changes: merge_gather_kernel's walk over this thread's
+  // kItemsPerThread merge items, taken once without values -- bit k of
+  // emask says item k is an edge -- and each edge item's nbr and w
   const int* s_end = s_stage + s_r;
+  const int items = nrows + nedges;
+  const int t0 = min(tid * kItemsPerThread, items);
+  const int t1 = min(t0 + kItemsPerThread, items);
+  const int n_items = t1 - t0;
+  const int x0 = static_cast<int>(merge_search(s_end, nrows, nedges, t0, e0));
+  unsigned emask = 0;
+  {
+    int xr = x0, ye = t0 - x0;
+    for (int k = 0; k < n_items; ++k) {
+      if (ye < nedges && (xr == nrows || e0 + ye < s_end[xr])) {
+        emask |= 1u << k;
+        ++ye;
+      } else {
+        ++xr;
+      }
+    }
+  }
   int idx[kItemsPerThread];
   float wv[kItemsPerThread];
 #pragma unroll
   for (int k = 0; k < kItemsPerThread; ++k) {
-    const int i = tid + k * kGatherThreads;
-    idx[k] = i < nedges ? s_stage[s_e + i] : -1;
-    wv[k] = HAS_W && i < nedges ? s_w[s_wo + i] : 0.0f;
+    const int i = t0 - x0 + __popc(emask & ((1u << k) - 1));
+    const bool edge = (emask >> k) & 1u;
+    idx[k] = edge ? s_stage[s_e + i] : -1;
+    wv[k] = HAS_W && edge ? s_w[s_wo + i] : 0.0f;
   }
-  const int items = nrows + nedges;
-  const int t0 = min(tid * kItemsPerThread, items);
-  const int t1 = min(t0 + kItemsPerThread, items);
-  const int x0 = static_cast<int>(merge_search(s_end, nrows, nedges, t0, e0));
   const T ident = identity<KIND>(T());
   const int tail_edges = nrows > 0 ? e1 - s_end[nrows - 1] : nedges;
   const bool carries = r1 < vp && tail_edges > 0;
 
   for (int g = 0; g < lanes; g += G) {
     const int gl = min(G, lanes - g);
-    // gather: every edge's x for the group's lanes at once -- adjacent
-    // in xt, so one sector serves up to 8 lanes -- all loads in flight
-    // before the first store
+    // gather: each edge item's G lanes, all loads in flight before the
+    // walk; a vertex's lanes are adjacent in xt, one sector for 8
     T val[kItemsPerThread][G];
 #pragma unroll
-    for (int k = 0; k < kItemsPerThread; ++k) {
-      const T* row = xt + static_cast<long long>(idx[k]) * lanes + g;
-#pragma unroll
-      for (int j = 0; j < G; ++j)
-        if (idx[k] >= 0 && j < gl) val[k][j] = __ldg(row + j);
-    }
-#pragma unroll
-    for (int k = 0; k < kItemsPerThread; ++k) {
-      const int i = tid + k * kGatherThreads;
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if (i < nedges && j < gl) {
-          T v = val[k][j];
-          if constexpr (HAS_W) v = apply_weight<KIND>(v, wv[k]);
-          s_val[j][i] = v;
-        }
-      }
-    }
-    __syncthreads();
+    for (int k = 0; k < kItemsPerThread; ++k)
+      if (idx[k] >= 0)
+        load_lanes<T, G>(xt + static_cast<long long>(idx[k]) * pitch + g,
+                         pitch - g, val[k]);
 
-    // merge_gather_kernel's walk and scan for the group's lanes at once:
-    // the merge items and row keys are the lanes' own, only the values
+    // merge_gather_kernel's walk for the group's lanes at once: the
+    // merge items and row keys are the lanes' own, only the values
     // differ, so each lane combines in that kernel's order
-    int xr = x0, ye = t0 - x0;
+    int xr = x0;
     T acc[G], head[G];
 #pragma unroll
     for (int j = 0; j < G; ++j) acc[j] = head[j] = ident;
     bool has_head = false;
-    for (int k = 0; k < kItemsPerThread && xr + ye < t1; ++k) {
-      if (ye < nedges && (xr == nrows || e0 + ye < s_end[xr])) {
 #pragma unroll
-        for (int j = 0; j < G; ++j)
-          if (j < gl) acc[j] = combine<KIND>(acc[j], s_val[j][ye]);
-        ++ye;
+    for (int k = 0; k < kItemsPerThread; ++k) {
+      if (k >= n_items) break;
+      if ((emask >> k) & 1u) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          T v = val[k][j];
+          if constexpr (HAS_W) v = apply_weight<KIND>(v, wv[k]);
+          acc[j] = combine<KIND>(acc[j], v);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < G; ++j) {
@@ -683,7 +762,7 @@ merge_gather_lanes_kernel(const int* __restrict__ indptr,
     int prev_key;
     T prev[G];
     block_segmented_scan_lanes<T, KIND, G>(xr, acc, prev_key, prev,
-                                                    s_wkey, s_wval);
+                                           s_wkey, s_wval);
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       if (j >= gl) continue;
@@ -697,8 +776,94 @@ merge_gather_lanes_kernel(const int* __restrict__ indptr,
         carry_val[slot] = acc[j];
       }
     }
-    __syncthreads();  // s_val and the scan's slots serve the next group
+    if (g + G < lanes) __syncthreads();  // the scan's slots serve the next group
   }
+}
+
+// ---- the overlay fold (K1 on the delta overlay) ------------------------
+
+constexpr int kOverlayThreads = 256;
+
+// The order the overlay fold reduces floats in: their bits as int32 with
+// the negative floats' magnitude bits flipped, a total order on non-NaN
+// values with -0.0 below +0.0.
+__device__ __forceinline__ int ordered_key(float v) {
+  const int b = __float_as_int(v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float ordered_min(float a, float b) {
+  return ordered_key(b) < ordered_key(a) ? b : a;
+}
+
+__device__ __forceinline__ int ordered_min(int a, int b) { return min(a, b); }
+
+// *a = ordered_min(*a, v) by integer atomics on the float's bits: where
+// v's sign bit is clear, non-negative floats order as their int32 bits
+// and every negative float's bits are a negative int32 (atomicMin);
+// where it is set, negative floats order inversely to their bits read
+// unsigned, all above every non-negative float's (atomicMax).
+__device__ __forceinline__ void atomic_ordered_min(float* a, float v) {
+  const int b = __float_as_int(v);
+  if (b >= 0) atomicMin(reinterpret_cast<int*>(a), b);
+  else atomicMax(reinterpret_cast<unsigned*>(a), static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ void atomic_ordered_min(int* a, int v) {
+  atomicMin(a, v);
+}
+
+// One thread a slot of one lane (blockIdx.y): slot s = f * cap + i of
+// the overlay planes [fnum, cap] relaxes row f * vp + src[s] of lane b
+// of y [lanes, rows] from x[b * n + nbr[s]] (+ w[s]; BFS: + 1, the
+// sentinel INT_MAX kept).  A row's slots are adjacent (src is sorted
+// within a fragment), so a warp first takes the min of each run of
+// equal rows among its 32 slots, and the run's first slot applies it
+// with one atomic: an overlay whose slots all fall in one row costs
+// cap / 32 atomics, not a serial walk.
+template <typename T, bool HAS_W, bool PLUS_ONE>
+__global__ void __launch_bounds__(kOverlayThreads)
+overlay_fold_kernel(const int* __restrict__ src, const int* __restrict__ nbr,
+                    const float* __restrict__ w,
+                    const unsigned char* __restrict__ mask,
+                    const T* __restrict__ x, T* __restrict__ y, int cap,
+                    long long slots, int vp, long long n, long long rows) {
+  const long long s =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  int key = -1;  // no row: a pad slot, or past the planes
+  T v = identity<kMin>(T());
+  if (s < slots && mask[s]) {
+    key = static_cast<int>(s / cap * vp + src[s]);
+    const T xv = __ldg(x + b * n + nbr[s]);
+    if constexpr (HAS_W) v = apply_weight<kMin>(xv, w[s]);
+    else if constexpr (PLUS_ONE) v = xv == INT_MAX ? xv : xv + 1;
+    else v = xv;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int k2 = __shfl_down_sync(0xffffffffu, key, off);
+    const T v2 = __shfl_down_sync(0xffffffffu, v, off);
+    if (lane + off < 32 && k2 == key) v = ordered_min(v, v2);
+  }
+  const int before = __shfl_up_sync(0xffffffffu, key, 1);
+  if (key >= 0 && (lane == 0 || before != key))
+    atomic_ordered_min(y + b * rows + key, v);
+}
+
+template <typename T, bool HAS_W, bool PLUS_ONE>
+cudaError_t run_overlay_fold(const int* src, const int* nbr, const float* w,
+                             const unsigned char* mask, const T* x, T* y,
+                             int fnum, int cap, int vp, long long n,
+                             int lanes, cudaStream_t s) {
+  const long long slots = static_cast<long long>(fnum) * cap;
+  const dim3 grid(static_cast<unsigned>(
+      (slots + kOverlayThreads - 1) / kOverlayThreads), lanes);
+  overlay_fold_kernel<T, HAS_W, PLUS_ONE><<<grid, kOverlayThreads, 0, s>>>(
+      src, nbr, w, mask, x, y, cap, slots, vp, n,
+      static_cast<long long>(fnum) * vp);
+  return cudaGetLastError();
 }
 
 // ---- strict-tile segment sum (K2) ---------------------------------------
@@ -888,7 +1053,7 @@ cudaError_t run_gather(const int* indptr, const int* nbr, const float* w,
           indptr, nbr, w, x, y, part, carry_row, carry_val, vp, ep, bpf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   carry_fold_kernel<T, KIND><<<static_cast<unsigned>(
-      (nblocks * 32 + kFoldThreads - 1) / kFoldThreads),
+      (nblocks + kFoldThreads - 1) / kFoldThreads),
       kFoldThreads, 0, s>>>(carry_row, carry_val, y, nblocks);
   return cudaGetLastError();
 }
@@ -910,6 +1075,14 @@ int lane_group(int lanes) {
   int g = 2;
   while (g < lanes && g < kMaxLaneGroup) g <<= 1;
   return g;
+}
+
+// The lanes of an xt row: `lanes` rounded up to the group's vector
+// width (load_lanes), so every vector load is aligned and in the row
+// (ops/spmv.py::lane_pitch, checked at every launch).
+int lanes_pitch(int lanes) {
+  const int v = std::min(lane_group(lanes), 4);
+  return (lanes + v - 1) / v * v;
 }
 
 // The three passes for `lanes` lanes of x on one stream; scratch holds
@@ -937,10 +1110,11 @@ cudaError_t run_gather_lanes_g(const int* indptr, const int* nbr,
   merge_gather_lanes_kernel<T, KIND, HAS_W, G>
       <<<static_cast<unsigned>(nblocks), kGatherThreads, 0, s>>>(
           indptr, nbr, w, xt, y, part, carry_row, carry_val, vp, ep, bpf,
-          lanes, static_cast<long long>(fnum) * vp, nblocks);
+          lanes, lanes_pitch(lanes), static_cast<long long>(fnum) * vp,
+          nblocks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   carry_fold_kernel<T, KIND><<<static_cast<unsigned>(
-      (slots * 32 + kFoldThreads - 1) / kFoldThreads),
+      (slots + kFoldThreads - 1) / kFoldThreads),
       kFoldThreads, 0, s>>>(carry_row, carry_val, y, slots);
   return cudaGetLastError();
 }
@@ -1049,16 +1223,19 @@ int grape_gather_lanes_config(int kind, int has_w, int is_int, int* out) {
 
 // y[lanes, fnum * vp] = gather-reduce of each lane of x (lanes >= 2; one
 // lane is grape_gather_reduce) over the stacked CSR, x lane-minor:
-// xt[pid * lanes + lane]; w may be null; scratch holds
+// xt[pid * pitch + lane], 16-B aligned, pitch = lanes rounded up to 2
+// (for 2 lanes) or 4 (pad lanes are read, never written; another pitch
+// is refused); w may be null; scratch holds
 // grape_gather_lanes_scratch_ints(fnum, vp, ep, lanes) int32 words.
 // Returns the first launch error, cudaSuccess when all three launched.
 int grape_gather_reduce_lanes(const int* indptr, const int* nbr,
                               const float* w, const float* xt, float* y,
                               int* scratch, int fnum, int vp, long long ep,
-                              int kind, int lanes, void* stream) {
+                              int kind, int lanes, int pitch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_cast<long long>(fnum) * vp * lanes == 0) return cudaSuccess;
-  if (lanes < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes < 2 || pitch != lanes_pitch(lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
     case kSum: return run_gather_lanes_f32<kSum>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
     case kMin: return run_gather_lanes_f32<kMin>(indptr, nbr, w, xt, y, scratch, fnum, vp, ep, lanes, s);
@@ -1072,16 +1249,53 @@ int grape_gather_reduce_lanes(const int* indptr, const int* nbr,
 int grape_gather_reduce_lanes_i32(const int* indptr, const int* nbr,
                                   const int* xt, int* y, int* scratch,
                                   int fnum, int vp, long long ep, int kind,
-                                  int lanes, void* stream) {
+                                  int lanes, int pitch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_cast<long long>(fnum) * vp * lanes == 0) return cudaSuccess;
-  if (lanes < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes < 2 || pitch != lanes_pitch(lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kind) {
     case kSum: return run_gather_lanes<int, kSum, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
     case kMin: return run_gather_lanes<int, kMin, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
     case kMax: return run_gather_lanes<int, kMax, false>(indptr, nbr, nullptr, xt, y, scratch, fnum, vp, ep, lanes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Fold the delta overlay's real slots into y in place, every lane:
+// y[b, f * vp + src[f, s]] = min(that, x[b, nbr[f, s]] + w[f, s]) for
+// each slot with mask[f, s] (planes [fnum, cap], src sorted within a
+// fragment), x [lanes, n] lane-major, y [lanes, fnum * vp]; w may be
+// null.  Floats reduce in ordered_min's order (-0.0 below +0.0; no
+// NaN).  One launch; returns its error.
+int grape_overlay_fold(const int* src, const int* nbr, const float* w,
+                       const unsigned char* mask, const float* x, float* y,
+                       int fnum, int cap, int vp, long long n, int lanes,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(fnum) * cap * lanes == 0) return cudaSuccess;
+  return static_cast<int>(
+      w ? run_overlay_fold<float, true, false>(src, nbr, w, mask, x, y, fnum,
+                                               cap, vp, n, lanes, s)
+        : run_overlay_fold<float, false, false>(src, nbr, w, mask, x, y,
+                                                fnum, cap, vp, n, lanes, s));
+}
+
+// The int32 overlay fold, no weights; plus_one adds BFS's hop to each
+// slot's x first, the sentinel INT32_MAX kept.
+int grape_overlay_fold_i32(const int* src, const int* nbr,
+                           const unsigned char* mask, const int* x, int* y,
+                           int fnum, int cap, int vp, long long n, int lanes,
+                           int plus_one, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(fnum) * cap * lanes == 0) return cudaSuccess;
+  return static_cast<int>(
+      plus_one ? run_overlay_fold<int, false, true>(src, nbr, nullptr, mask,
+                                                    x, y, fnum, cap, vp, n,
+                                                    lanes, s)
+               : run_overlay_fold<int, false, false>(src, nbr, nullptr, mask,
+                                                     x, y, fnum, cap, vp, n,
+                                                     lanes, s));
 }
 
 // int32 words of scratch that grape_strict_tile needs: two carry slots
@@ -1114,7 +1328,7 @@ int grape_strict_tile(const float* values, const int* src, float* y,
       values, src, y, carry_row, carry_val, ep, num_tiles, tile, vp);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   carry_fold_kernel<float, kSum><<<static_cast<unsigned>(
-      (slots * 32 + kFoldThreads - 1) / kFoldThreads), kFoldThreads, 0, s>>>(
+      (slots + kFoldThreads - 1) / kFoldThreads), kFoldThreads, 0, s>>>(
       carry_row, carry_val, y, slots);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@ two representations of the staged updates:
     fragment as `frag.dyn_overlay`.  Overlay-contracted apps (SSSP, BFS,
     WCC: `AppBase.dyn_overlay_support`) take them as ephemeral state and
     fold the extra edges into their pull reduction each round with one
-    gather-reduce (K1, kind `min`) over the overlay's own small CSR,
-    merged with `torch.minimum` -- min is exact in any order, so the
+    `overlay_fold` launch over the overlay's slots (ops/spmv.py: a
+    segment min by `src` applied in place to the pull result) -- min is
+    exact in any order, so the
     query result is bit-identical to a cold run on the rebuilt graph
     while the base CSR stays untouched.
   * **repack** -- everything else (ratio past the policy threshold,
@@ -41,25 +42,22 @@ _LOG = logging.getLogger(__name__)
 
 
 class _OverlaySide:
-    """One pull direction's side arrays: [fnum, cap] slots plus the
-    [fnum, vp + 1] row pointer over them."""
+    """One pull direction's side arrays: [fnum, cap] slots."""
 
-    def __init__(self, src, nbr, w, mask, indptr):
+    def __init__(self, src, nbr, w, mask):
         self.src = src        # i32 local row (the vertex relaxed); pad = vp
         self.nbr = nbr        # i32 pid of the contributing neighbour; pad 0
         self.w = w            # f64 edge weight; pad 0
         self.mask = mask      # bool, True on the real slots
-        self.indptr = indptr  # i32 [fnum, vp + 1], the CSR of src's rows
 
 
 class DeltaOverlay:
     """Side-path for staged ADD edges.
 
-    Slots are grouped by owner fragment and sorted by local row, so each
-    fragment's real slots form a CSR: `indptr` (built once per apply from
-    the sorted `src` plane) lets the fold run on the gather-reduce
-    kernel.  Pad slots route to the vp overflow row with mask False and
-    lie past `indptr[f, vp]`."""
+    Slots are grouped by owner fragment and sorted by local row, so a
+    row's slots are adjacent (the fold's warps reduce each run before
+    one atomic).  Pad slots follow a fragment's real slots and route to
+    the vp overflow row with mask False."""
 
     def __init__(self, fnum: int, vp: int, capacity: int,
                  ie: _OverlaySide, oe: _OverlaySide, count: int,
@@ -93,7 +91,6 @@ class DeltaOverlay:
             nbr=np.zeros((fnum, cap), dtype=np.int32),
             w=np.zeros((fnum, cap), dtype=np.float64),
             mask=np.zeros((fnum, cap), dtype=bool),
-            indptr=np.zeros((fnum, vp + 1), dtype=np.int32),
         )
 
     @classmethod
@@ -136,8 +133,6 @@ class DeltaOverlay:
                 side.nbr[f, :n] = nbr[m][order]
                 side.w[f, :n] = ww[m][order]
                 side.mask[f, :n] = True
-                side.indptr[f, 1:] = np.cumsum(
-                    np.bincount(side.src[f, :n], minlength=frag.vp))
             return side
 
         full = f"overlay capacity ({capacity} slots/fragment) exceeded"
@@ -156,7 +151,7 @@ class DeltaOverlay:
     def entries(self, direction: str, weight_dtype=None,
                 prefix: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Ephemeral state entries for one pull direction: keys
-        `dyn_<dir>_{src,nbr,mask,indptr[,w]}`.  The weight column comes
+        `dyn_<dir>_{src,nbr,mask[,w]}`.  The weight column comes
         only with `weight_dtype` (BFS and WCC fold unweighted), cast
         first to the fragment's edata type and then to the app's."""
         side = self.ie if direction == "ie" else self.oe
@@ -165,7 +160,6 @@ class DeltaOverlay:
             prefix + "src": side.src,
             prefix + "nbr": side.nbr,
             prefix + "mask": side.mask,
-            prefix + "indptr": side.indptr,
         }
         if weight_dtype is not None:
             out[prefix + "w"] = side.w.astype(self.edata_dtype).astype(
@@ -342,8 +336,8 @@ def overlay_state_entries(frag, direction: str, weight_dtype=None,
     tensors on the fragment's device, or {} when no overlay is attached
     or it holds no staged edge.  (The JAX
     package ships the empty overlay's masked slots too, to keep its
-    compiled state structure; here an empty overlay would only cost a
-    gather-reduce launch a round that folds nothing.)"""
+    compiled state structure; here an empty overlay would only cost an
+    `overlay_fold` launch a round that folds nothing.)"""
     ov = getattr(frag, "dyn_overlay", None)
     if ov is None or ov.count == 0:
         return {}

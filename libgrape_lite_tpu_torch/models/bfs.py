@@ -13,8 +13,8 @@ reaches the sentinel).  Rows without in-edges come back as the sentinel.
 Unreached vertices print as the reference's int64 maximum
 (`bfs_context.h:44`, golden `p2p-31-BFS`).  Integer min is exact in any
 order, so depths and round counts equal the JAX package's.  A staged
-delta overlay (dyn/) folds in through a second int32 gather-reduce with
-the same +1, and the previous depths can seed an incremental query.  A
+delta overlay (dyn/) folds in through one int32 `overlay_fold` pass over
+its slots with the same +1 a slot, and the previous depths can seed an incremental query.  A
 sequence of sources builds k lanes, relaxed together by one
 `gather_reduce_lanes` call a round.
 """
@@ -72,9 +72,9 @@ class BFS(ParallelAppBase):
         full = ctx.gather_lanes(depth)
         relaxed = _plus_one(spmv.pull(ie.indptr, ie.edge_nbr, None, full,
                                       "min"))
-        if "dyn_ie_indptr" in state:
+        if "dyn_ie_src" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full,
-                                        _plus_one)
+                                        plus_one=True)
         new = torch.minimum(depth, relaxed)
         changed = (new < depth) & dev.inner_mask
         return dict(state, depth=new), changed.sum(dim=(-2, -1))

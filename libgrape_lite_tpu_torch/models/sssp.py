@@ -12,7 +12,8 @@ improved inner vertices.  The weight stream is pre-masked once at init
 any order, so the result is bit-identical to the JAX package's.
 
 On a fragment carrying a staged delta overlay (dyn/), each round also
-folds the overlay's edges in with a second gather-reduce (`dyn_min_fold`),
+folds the overlay's edges in with one `overlay_fold` pass over its slots
+(`dyn_min_fold`),
 and the previous fixed point can seed an incremental query
 (`inc_mode = "monotone-min"`).
 
@@ -92,7 +93,7 @@ class SSSP(ParallelAppBase):
         full = ctx.gather_lanes(dist)
         relaxed = spmv.pull(ie.indptr, ie.edge_nbr, state["wf_eff"], full,
                             "min")
-        if "dyn_ie_indptr" in state:
+        if "dyn_ie_src" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full)
         new = torch.minimum(dist, relaxed)
         changed = (new < dist) & dev.inner_mask

@@ -15,8 +15,9 @@ Counterpart of `libgrape_lite_tpu/models/triangle_count.py`:
     package masks duplicate edges per edge; the kernel takes no per-edge
     mask for int32, so the deduplicated out-CSR is built once per
     fragment on the device and cached (`dedup_csr`), as the push CSR of
-    models/auto_apps.py is.  Single source only: the batched source
-    lanes are ROADMAP Queue A item 5.
+    models/auto_apps.py is.  Lane-native: a sequence of sources builds
+    k one-hot lanes, and each hop pulls them all with one
+    `gather_reduce_lanes` call (serve/, `Worker.query_batch`).
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ graphs, over the out-neighbourhood of the labels just folded -- both
 through the gather-reduce kernel (int32 kind `min`, no weights; rows
 without edges come back as the sentinel, which never lowers a label).
 Undirected graphs store one symmetrised CSR, so one pull suffices.  A
-staged delta overlay (dyn/) folds into each pull through a second int32
-gather-reduce, and the previous labels can seed an incremental query
+staged delta overlay (dyn/) folds into each pull through one int32
+`overlay_fold` pass over its slots, and the previous labels can seed an incremental query
 (`inc_value_map` re-addresses them across a repack).
 Labels are canonicalised on the host to the representative's oid (the
 LDBC check is partition isomorphism, `misc/wcc_check.cc`).  Integer min
@@ -58,7 +58,7 @@ class WCC(ParallelAppBase):
     def _pull(self, ctx, comp, csr, state, dyn_prefix):
         full = ctx.gather_state(comp)
         red = spmv.gather_reduce(csr.indptr, csr.edge_nbr, None, full, "min")
-        if dyn_prefix + "indptr" in state:
+        if dyn_prefix + "src" in state:
             red = self.dyn_min_fold(red, state, dyn_prefix, full)
         return red
 

@@ -21,7 +21,10 @@ compute it (sources and design notes in `csrc/spmv.cu`):
   package's vmapped pull of a batched serve query): the CSR is staged
   once a block, and each lane's rows come out bit-equal to
   `gather_reduce` on that lane.  `pull` picks one or the other by the
-  rank of x.
+  rank of x.  `overlay_fold` is K1's use on the delta overlay
+  (`dyn/ingest.py`): one pass over the overlay's slots that folds a min
+  in place into the caller's pull result (one lane or k), where a merge
+  path would walk every row for a few thousand edges.
 * `spmv_strict` -- the counterpart of the strict-tile kernel
   (`libgrape_lite_tpu/ops/spmv.py::spmv_strict`): a segment sum of
   per-edge values over equal tiles of `tile` edges, each tile summing
@@ -33,10 +36,11 @@ compute it (sources and design notes in `csrc/spmv.cu`):
   order (window partials, then their fold).
 
 Each wrapper takes its plain version (`gather_reduce_plain`,
-`gather_reduce_lanes_plain`, `spmv_strict_plain`) only for tensors on
-the CPU; for CUDA tensors it launches its kernel or raises.
-`wrapper.launches` counts wrapper calls that launched their kernels
-(three device passes each; `_build.count_launch` under a lock, as the
+`gather_reduce_lanes_plain`, `overlay_fold_plain`, `spmv_strict_plain`)
+only for tensors on the CPU; for CUDA tensors it launches its kernel or
+raises.  `wrapper.launches` counts wrapper calls that launched their
+kernels (three device passes each, `overlay_fold` one;
+`_build.count_launch` under a lock, as the
 serving pump launches from several threads).  `plan_tiles`,
 `strict_worthwhile` and `plan_for_app` are the JAX package's host-side
 planning rules, unchanged.
@@ -63,6 +67,7 @@ KINDS = {"sum": 0, "min": 1, "max": 2}
 MAX_LANES = 64  # gather_reduce_lanes: lanes of x a call
 LANE = 128  # the strict plan's row-window alignment (JAX package's rule)
 INT32_LIMIT = 1 << 31
+INT32_MAX = (1 << 31) - 1  # the int32 min identity, BFS's sentinel
 STRICT_TILE = 2048  # edges per strict tile (the JAX package's tile)
 
 
@@ -163,15 +168,21 @@ def _lib():
         lib.grape_strict_scratch_ints.argtypes = [i, i]
         lib.grape_strict_scratch_ints.restype = ll
         lib.grape_gather_reduce_lanes.argtypes = [p, p, p, p, p, p, i, i, ll,
-                                                  i, i, p]
+                                                  i, i, i, p]
         lib.grape_gather_reduce_lanes.restype = i
         lib.grape_gather_reduce_lanes_i32.argtypes = [p, p, p, p, p, i, i, ll,
-                                                      i, i, p]
+                                                      i, i, i, p]
         lib.grape_gather_reduce_lanes_i32.restype = i
         lib.grape_gather_lanes_scratch_ints.argtypes = [i, i, ll, i]
         lib.grape_gather_lanes_scratch_ints.restype = ll
         lib.grape_gather_lanes_config.argtypes = [i, i, i, p]
         lib.grape_gather_lanes_config.restype = i
+        lib.grape_overlay_fold.argtypes = [p, p, p, p, p, p, i, i, i, ll, i,
+                                           p]
+        lib.grape_overlay_fold.restype = i
+        lib.grape_overlay_fold_i32.argtypes = [p, p, p, p, p, i, i, i, ll, i,
+                                               i, p]
+        lib.grape_overlay_fold_i32.restype = i
         _LIB = lib
     return _LIB
 
@@ -354,6 +365,25 @@ def gather_reduce_lanes_plain(indptr: torch.Tensor, nbr: torch.Tensor,
                         for b in range(x.shape[0])])
 
 
+def lane_pitch(lanes: int) -> int:
+    """The lanes of a row of the lane kernel's x: 2 for 2 lanes, else
+    `lanes` rounded up to 4, so that its 8- and 16-byte vector loads of
+    a vertex's lanes stay aligned and inside the row (`csrc/spmv.cu`
+    refuses another pitch)."""
+    return 2 if lanes == 2 else -(-lanes // 4) * 4
+
+
+def lane_minor(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """x [k, N] as the lane kernel reads it: [N, pitch], a vertex's
+    lanes side by side, the pad lanes zero."""
+    k, n = x.shape
+    if pitch == k:
+        return x.t().contiguous()
+    xt = x.new_zeros((n, pitch))
+    xt[:, :k] = x.t()
+    return xt
+
+
 def lane_chunk(fnum: int, vp: int) -> int:
     """The most lanes one `gather_reduce_lanes` call takes over fnum x vp
     rows: MAX_LANES, with its carry keys lane * fnum * vp + pid int32."""
@@ -367,8 +397,9 @@ def gather_reduce_lanes(indptr: torch.Tensor, nbr: torch.Tensor,
     `lane_chunk(fnum, vp)`; `pull` splits larger batches) at once -> y
     [k, fnum, vp]: one merge partition, one gather pass that stages each
     block's CSR span once and reduces it for every lane (x transposed to
-    [N, k] first, so a vertex's lanes share a sector), one carry fold
-    over every lane's carries.  Lane b of y is bit-equal to
+    [N, pitch] first, the lanes padded to the vector width, so a
+    vertex's lanes come in 16-byte loads from one sector), one carry
+    fold over every lane's carries.  Lane b of y is bit-equal to
     `gather_reduce(indptr, nbr, w, x[b], kind)`, float sums included
     (the same partition, walk, scan and carry order).  One lane is
     `gather_reduce`'s own call."""
@@ -406,22 +437,23 @@ def gather_reduce_lanes(indptr: torch.Tensor, nbr: torch.Tensor,
     scratch = torch.empty(
         lib.grape_gather_lanes_scratch_ints(fnum, vp, ep, lanes),
         dtype=torch.int32, device=x.device)
+    pitch = lane_pitch(lanes)
     with torch.cuda.device(x.device):
-        # the kernel gathers lane-minor: a vertex's lanes side by side
-        xt = x.t().contiguous()
+        # the kernel gathers a vertex's lanes by vector loads
+        xt = lane_minor(x, pitch)
         stream = torch.cuda.current_stream().cuda_stream
         if is_int:
             rc = lib.grape_gather_reduce_lanes_i32(
                 indptr.data_ptr(), nbr.data_ptr(), xt.data_ptr(),
                 y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
-                lanes, stream,
+                lanes, pitch, stream,
             )
         else:
             rc = lib.grape_gather_reduce_lanes(
                 indptr.data_ptr(), nbr.data_ptr(),
                 None if w is None else w.data_ptr(), xt.data_ptr(),
                 y.data_ptr(), scratch.data_ptr(), fnum, vp, ep, KINDS[kind],
-                lanes, stream,
+                lanes, pitch, stream,
             )
     check_rc(lib, rc, name)
     count_launch(gather_reduce_lanes)
@@ -429,6 +461,117 @@ def gather_reduce_lanes(indptr: torch.Tensor, nbr: torch.Tensor,
 
 
 gather_reduce_lanes.launches = 0
+
+
+# ---- overlay_fold: K1 on the delta overlay (a pass over its slots) -------
+
+def _flip(bits: torch.Tensor) -> torch.Tensor:
+    """A float's bits (int32 / int64) <-> the key the card's fold orders
+    floats by (`ordered_key` in csrc/spmv.cu: the negative floats'
+    magnitude bits flipped, so integer order is float order with -0.0
+    below +0.0); the map is its own inverse."""
+    return torch.where(bits >= 0, bits, bits ^ torch.iinfo(bits.dtype).max)
+
+
+def overlay_fold_plain(relaxed: torch.Tensor, src: torch.Tensor,
+                       nbr: torch.Tensor, w: torch.Tensor | None,
+                       mask: torch.Tensor, x: torch.Tensor,
+                       plus_one: bool = False) -> torch.Tensor:
+    """Plain PyTorch overlay fold, in place into `relaxed`: each slot's
+    candidate x[..., nbr] (+ w; + 1 short of the int32 sentinel), the
+    identity where `mask` is off, a segment min over `src` (pads route
+    to the overflow row vp) -- the JAX package's fold -- then the
+    minimum with `relaxed`.  Floats are reduced as their ordered int32
+    keys, so -0.0 wins over +0.0 whatever the order, as on the card
+    and in the JAX fold."""
+    vp = relaxed.shape[-1]
+    cand = x[..., nbr.long()]
+    if w is not None:
+        cand = cand + w
+    if plus_one:
+        cand = torch.where(cand != INT32_MAX, cand + 1, cand)
+    cand = torch.where(mask, cand, identity("min", x.dtype))
+    if not x.dtype.is_floating_point:
+        extra = segment_reduce(cand, src.expand_as(cand), vp, "min")
+        return torch.minimum(relaxed, extra, out=relaxed)
+    ibits = torch.int64 if x.dtype == torch.float64 else torch.int32
+    key = _flip(cand.view(ibits))
+    extra = segment_reduce(key, src.expand_as(key), vp, "min")
+    best = torch.minimum(_flip(relaxed.view(ibits)), extra)
+    return relaxed.copy_(_flip(best).view(relaxed.dtype))
+
+
+def overlay_fold(relaxed: torch.Tensor, src: torch.Tensor, nbr: torch.Tensor,
+                 w: torch.Tensor | None, mask: torch.Tensor, x: torch.Tensor,
+                 plus_one: bool = False) -> torch.Tensor:
+    """Fold the delta overlay (`dyn/ingest.py::DeltaOverlay`: planes
+    src, nbr, w, mask [fnum, cap], src sorted within a fragment, pads
+    src == vp with mask off) into a min reduction, in place:
+
+        relaxed[.., f, src[f, s]] = min(relaxed[.., f, src[f, s]],
+                                        x[.., nbr[f, s]] (+) w[f, s])
+
+    for every slot with mask[f, s], and returns `relaxed`, which the
+    caller owns (a fresh pull result).  x [N] with relaxed [fnum, vp],
+    or k lanes x [k, N] (lane-major) with relaxed [k, fnum, vp].
+    `plus_one` (int32, unweighted: BFS) adds one hop to each candidate,
+    the sentinel INT32_MAX kept.  The result equals
+    `torch.minimum(relaxed, post(gather_reduce(indptr, nbr, w, x,
+    "min")))` over the CSR of the sorted `src` plane (a zero's sign
+    aside): min is exact in any order.  On the card one launch, one thread a slot and lane.
+    Floats order -0.0 below +0.0 on the card and in the plain version
+    alike; +inf is the identity; no NaN."""
+    name = "overlay_fold"
+    is_int = x.dtype == torch.int32
+    require(not is_int or w is None, f"{name}: int32 x takes no weights")
+    require(not plus_one or (is_int and w is None),
+            f"{name}: plus_one takes unweighted int32 x")
+    if x.device.type == "cpu":
+        return overlay_fold_plain(relaxed, src, nbr, w, mask, x, plus_one)
+    require(x.device.type == "cuda", f"{name}: unsupported device {x.device}")
+    check_cuda_args(name, x.device, relaxed=relaxed, src=src, nbr=nbr, w=w,
+                    mask=mask, x=x)
+    require(src.dim() == 2 and src.shape == nbr.shape == mask.shape,
+            f"{name}: src, nbr and mask must be [fnum, cap] alike")
+    fnum, cap = src.shape
+    require(x.dim() in (1, 2), f"{name}: x must be [N] or [k, N]")
+    lanes = x.shape[0] if x.dim() == 2 else 1
+    vp = relaxed.shape[-1]
+    require(relaxed.shape == (*x.shape[:-1], fnum, vp),
+            f"{name}: relaxed {tuple(relaxed.shape)} does not match x "
+            f"{tuple(x.shape)} over {fnum} fragments")
+    require(src.dtype == torch.int32 and nbr.dtype == torch.int32
+            and mask.dtype == torch.bool,
+            f"{name}: src and nbr must be int32, mask bool")
+    require(x.dtype in (torch.float32, torch.int32) and relaxed.dtype == x.dtype,
+            f"{name}: x and relaxed must be float32 or int32 alike")
+    require(w is None or (w.dtype == torch.float32 and w.shape == nbr.shape),
+            f"{name}: w must be float32 shaped like nbr")
+    require(fnum * vp < INT32_LIMIT and x.shape[-1] < INT32_LIMIT
+            and lanes < 1 << 16,
+            f"{name}: sizes out of range (int32 rows, 65535 lanes)")
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if is_int:
+            rc = lib.grape_overlay_fold_i32(
+                src.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
+                x.data_ptr(), relaxed.data_ptr(), fnum, cap, vp, x.shape[-1],
+                lanes, int(plus_one), stream,
+            )
+        else:
+            rc = lib.grape_overlay_fold(
+                src.data_ptr(), nbr.data_ptr(),
+                None if w is None else w.data_ptr(), mask.data_ptr(),
+                x.data_ptr(), relaxed.data_ptr(), fnum, cap, vp, x.shape[-1],
+                lanes, stream,
+            )
+    check_rc(lib, rc, name)
+    count_launch(overlay_fold)
+    return relaxed
+
+
+overlay_fold.launches = 0
 
 
 def pull(indptr: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor | None,
@@ -591,15 +734,17 @@ spmv_strict.launches = 0
 def reset_launch_counts() -> None:
     gather_reduce.launches = 0
     gather_reduce_lanes.launches = 0
+    overlay_fold.launches = 0
     spmv_strict.launches = 0
 
 
 __all__ = [
     "MAX_LANES", "PLAN_STATS", "gather_config", "gather_reduce",
-    "lane_chunk",
+    "lane_chunk", "lane_minor", "lane_pitch",
     "gather_reduce_lanes", "gather_reduce_lanes_plain",
     "gather_reduce_merge_plain", "gather_reduce_plain",
-    "merge_partition_plain", "plan_for_app", "plan_stats", "plan_tiles",
+    "merge_partition_plain", "overlay_fold", "overlay_fold_plain",
+    "plan_for_app", "plan_stats", "plan_tiles",
     "pull", "reset_launch_counts", "spmv_strict", "spmv_strict_plain",
     "spmv_strict_segments_plain", "strict_tile_carries_plain",
     "strict_worthwhile",
