@@ -147,6 +147,31 @@ the port's own entry points:
      on p2p-31 at fnum 1 and 4 (16 queries, --inflight 1 and 4 with equal
      --dump_results, a --delta_stream run); a profile of one 8-lane sssp
      batch;
+  11c. the serving fleet and its autopilot (`[fleet]`, `[autopilot]`): a
+     replica of the RMAT-20 fragment (`replicate_fragment`, its host
+     seconds and priced `fragment_bytes`); 64 seed-17 queries, sssp and
+     bfs in turns, at max_batch 8 with the [dyn] adds ingested in chunks
+     every 16 queries by `run_fleet_script`, on one ServeSession, on a
+     FleetRouter of 2 replicas, on 2 with replica 0 drained before query
+     32, and through a FleetManager with a tenant an app -- every query
+     bit-equal across the four, none dropped, the fence equal to the
+     ingests, each replica of the router launching the lane K1 and the
+     overlay fold (qps, p50 and p99 a replica and in all, the drain's and
+     the catch-up's seconds); eviction at full size: two tenants on the
+     fragment and its replica under a budget of 1.5x one tenant's price,
+     alternating groups of 8 sssp queries (evictions and re-admissions
+     recorded, PLAN_STATS and the worker builds flat, results bit-equal
+     to a never-evicted session; each re-admission's `restore_device`
+     seconds and each eviction's drop in `memory_allocated()` beside its
+     price); the serve CLI's `--replicas 2 --drain_at 8 --tenants by_app`
+     (with a --delta_stream) and `--autopilot` paths on p2p-31 at fnum 1
+     and 4, each --dump_results equal to the plain run's; then the
+     autopilot (`cli.serve_autopilot_stream`): min 1, max 2 replicas, a
+     256-entry result cache, 128 sssp queries over 64 sources arriving
+     through the feeder at half the max_batch 8 session's measured qps,
+     x4 from arrival 64 -- a scale-up recorded, every result (cache hits
+     too) bit-equal to one session, none dropped (the scale-up's seconds,
+     the replica count over time, hits and misses);
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -272,6 +297,15 @@ SERVE_INGEST_EVERY = 8
 SERVE_WINDOWS = (1, 4)
 SERVE_CLI_QUERIES = 16
 SERVE_CLI_ADDS = 64
+FLEET_QUERIES = 64  # alternating sssp and bfs from seed-17 sources
+FLEET_INGEST_EVERY = 16
+FLEET_DRAIN_AT = 32
+EVICT_GROUPS = 6  # tenants a, b, a, b, ...: each switch evicts the other
+EVICT_GROUP = 8  # sssp queries a group
+AUTOPILOT_QUERIES = 128  # 64 sources, each twice
+AUTOPILOT_CACHE = 256
+AUTOPILOT_STEP_AT = 64  # arrival index of the x4 rate step
+AUTOPILOT_CLI_CACHE = 64
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -3135,6 +3169,474 @@ def serve_phases(frag, device) -> dict:
     return out
 
 
+# ---- phase 11c: the serving fleet and its autopilot ([fleet], [autopilot])
+
+def fleet_stream(frag) -> list:
+    """FLEET_QUERIES seed-17 sources (`serve_sources`), sssp and bfs in
+    turns."""
+    return [("sssp" if i % 2 == 0 else "bfs", {"source": s})
+            for i, s in enumerate(serve_sources(frag, FLEET_QUERIES))]
+
+
+def timed_replica(frag, device):
+    """`replicate_fragment(frag)` (a rebuild from the edge list) and its
+    host seconds."""
+    from libgrape_lite_tpu_torch.fragment.mutation import replicate_fragment
+
+    sync(device)
+    t0 = time.perf_counter()
+    rep = replicate_fragment(frag)
+    sync(device)
+    return rep, time.perf_counter() - t0
+
+
+def count_by_replica(router) -> dict:
+    """Launch counts by replica, taken around each replica's pump drain:
+    `run_fleet_script` does all device work in drains, replica after
+    replica, each joined before the next starts."""
+    per = {r.idx: dict.fromkeys(launch_counts(), 0)
+           for r in router.replicas}
+    for r in router.replicas:
+        def drain(inner=r.pump.drain, idx=r.idx):
+            before = launch_counts()
+            out = inner()
+            after = launch_counts()
+            for k in per[idx]:
+                per[idx][k] += after[k] - before[k]
+            return out
+
+        r.pump.drain = drain
+    return per
+
+
+def fleet_drill_phase(frag, rep, device) -> dict:
+    """The fleet drill on RMAT-20: FLEET_QUERIES queries (sssp and bfs in
+    turns) at max_batch SERVE_BATCH with the [dyn] adds ingested in
+    chunks every FLEET_INGEST_EVERY queries by `run_fleet_script`, four
+    ways: (a) one bare ServeSession, (b) a FleetRouter over `frag` and
+    its replica `rep`, (c) the same with replica 0 drained before query
+    FLEET_DRAIN_AT, (d) a FleetManager with a tenant a app over (b)'s
+    router.  Every query bit-equal across the four, none dropped, the
+    fence equal to the ingests, and in (b) each replica launching the
+    lane K1 and the overlay fold."""
+    from libgrape_lite_tpu_torch.dyn import RepackPolicy
+    from libgrape_lite_tpu_torch.fleet import (
+        FLEET_STATS,
+        FleetBudget,
+        FleetManager,
+        FleetRouter,
+        run_fleet_script,
+    )
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+    from libgrape_lite_tpu_torch.serve.queue import latency_summary_ms
+
+    stream = fleet_stream(frag)
+    adds = dyn_adds(frag)[0]
+    n_ingests = -(-FLEET_QUERIES // FLEET_INGEST_EVERY)
+    out = {"runs": {}}
+
+    def drill(tag, replicas, drain_at=None, tenants=False):
+        FLEET_STATS.reset()
+        sessions = [ServeSession(f, policy=BatchPolicy(max_batch=SERVE_BATCH),
+                                 dyn=RepackPolicy())
+                    for f in (frag, rep)[:replicas]]
+        router = FleetRouter(sessions) if replicas > 1 else None
+        target = router or sessions[0]
+        manager = tenant_of = None
+        if tenants:
+            manager = FleetManager(FleetBudget(device=device))
+            for app in sorted({app for app, _ in stream}):
+                manager.add_tenant(app, target)
+            tenant_of = lambda i, app: app  # noqa: E731
+        per = count_by_replica(router) if router else None
+        reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        reqs = run_fleet_script(
+            target, stream, manager=manager, tenant_of=tenant_of,
+            delta_ops=adds, ingest_every=FLEET_INGEST_EVERY,
+            drain_at=drain_at)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        for f in (frag, rep):
+            f.dyn_overlay = None  # the next run starts from the base graph
+        results = [q.result for q in reqs]
+        dropped = sum(r is None for r in results)
+        check(dropped == 0, f"fleet {tag}: {dropped} queries dropped")
+        check(all(r.ok for r in results), f"fleet {tag}: a query failed: "
+              f"{[r.error for r in results if not r.ok][:1]}")
+        lat = latency_summary_ms([r.latency_s for r in results])
+        rec = dict(counts=counts, seconds=wall,
+                   qps=len(results) / wall, p50_ms=lat["p50_ms"],
+                   p99_ms=lat["p99_ms"], fleet=FLEET_STATS.snapshot(),
+                   repacks=sum(s.stats["repacks"] for s in sessions))
+        if router is not None:
+            check(router.fence == n_ingests,
+                  f"fleet {tag}: fence {router.fence}, {n_ingests} ingests")
+            rec["replicas"] = {
+                f"r{idx}": dict(router.replicas[idx].summary(wall),
+                                counts=per[idx])
+                for idx in per}
+            rec["events"] = [dict(e) for e in FLEET_STATS.events
+                             if e["kind"] in ("drain", "rejoin")]
+        if manager is not None:
+            rec["tenants"] = manager.snapshot()["tenants"]
+        print(f"[fleet] {tag}: queries={len(results)} qps={rec['qps']:.1f} "
+              f"p50_ms={lat['p50_ms']} p99_ms={lat['p99_ms']} launches="
+              f"{counts} fleet={rec['fleet']}"
+              + "".join(f" {k}: served={v['served']} qps={v.get('qps')} "
+                        f"p50_ms={v['p50_ms']} p99_ms={v['p99_ms']} "
+                        f"launches={v['counts']}"
+                        for k, v in rec.get("replicas", {}).items())
+              + "".join(f" {e['kind']}: wall_s={e['wall_s']}"
+                        for e in rec.get("events", [])), flush=True)
+        out["runs"][f"fleet {tag}"] = rec
+        return results, rec
+
+    ref, _ = drill("R1 session", 1)
+    for tag, kw in (("R2", {}), (f"R2 drain_at={FLEET_DRAIN_AT}",
+                                 {"drain_at": FLEET_DRAIN_AT}),
+                    ("R2 tenants=by_app", {"tenants": True})):
+        res, rec = drill(tag, 2, **kw)
+        same_results(ref, res, f"fleet {tag} against one session")
+        if tag == "R2":
+            for name, r in rec["replicas"].items():
+                for k in ("gather_reduce_lanes", "overlay_fold"):
+                    check(r["counts"][k] > 0,
+                          f"fleet R2: replica {name} launched no {k}")
+        if "drain" in tag:
+            kinds = [e["kind"] for e in rec["events"]]
+            check(kinds == ["drain", "rejoin"], f"fleet {tag}: {kinds}")
+    return out
+
+
+def fleet_evict_phase(frag, rep, ref, sources, device) -> dict:
+    """Eviction at full size: tenants a (`frag`) and b (`rep`), a session
+    each, under a budget of 1.5x one tenant's priced footprint, served
+    in EVICT_GROUPS alternating groups of EVICT_GROUP sssp queries: each
+    switch evicts the other tenant.  Gates: evictions and re-admissions
+    recorded, PLAN_STATS and the worker builds flat across them, every
+    result bit-equal to a never-evicted session's (`ref`).  Prints each
+    re-admission's `restore_device` seconds and each eviction's drop in
+    `torch.cuda.memory_allocated()` beside its priced bytes."""
+    from libgrape_lite_tpu_torch.fleet import (
+        FLEET_STATS,
+        FleetBudget,
+        FleetManager,
+        session_footprint,
+    )
+    from libgrape_lite_tpu_torch.fragment.edgecut import DEVICE_CACHES
+    from libgrape_lite_tpu_torch.ops.spmv import plan_stats
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    FLEET_STATS.reset()
+    # the push CSRs earlier phases cached on `frag` go first, so the two
+    # tenants price alike
+    for cache in DEVICE_CACHES:
+        cache.pop(frag, None)
+    policy = BatchPolicy(max_batch=SERVE_BATCH)
+    sessions = {"a": ServeSession(frag, policy=policy),
+                "b": ServeSession(rep, policy=policy)}
+    price = max(session_footprint(s).total for s in sessions.values())
+    mgr = FleetManager(FleetBudget(capacity_bytes=int(1.5 * price)))
+    for name, sess in sessions.items():
+        mgr.add_tenant(name, sess)
+    evictions, restores = [], []
+    on_card = torch.device(device).type == "cuda"
+
+    def evict_cb(victim, inner=mgr._evict_cb):
+        sync(device)
+        before = torch.cuda.memory_allocated() if on_card else 0
+        inner(victim)
+        sync(device)
+        after = torch.cuda.memory_allocated() if on_card else 0
+        evictions.append({"name": victim, "drop_bytes": before - after})
+
+    mgr._evict_cb = evict_cb
+    for name, sess in sessions.items():
+        def restore(inner=sess.restore_device, name=name):
+            sync(device)
+            t0 = time.perf_counter()
+            placed = inner()
+            sync(device)
+            if placed:
+                restores.append({"name": name,
+                                 "seconds": time.perf_counter() - t0})
+            return placed
+
+        sess.restore_device = restore
+    reset_launch_counts()
+    plans = None
+    t0 = time.perf_counter()
+    for g in range(EVICT_GROUPS):
+        name = "ab"[g % 2]
+        group = sources[g * EVICT_GROUP:(g + 1) * EVICT_GROUP]
+        tickets = [mgr.submit(name, "sssp", {"source": s}) for s in group]
+        mgr.drain()
+        for s, t in zip(group, tickets):
+            check(t.done and t.result.ok, f"evict: tenant {name} query "
+                  f"failed: {t.result.error if t.result else 'dropped'}")
+            check(t.result.values.tobytes() == ref[s].tobytes(),
+                  f"evict: tenant {name} source {s} not bit-equal to the "
+                  "never-evicted session")
+        if g == 1:
+            plans = plan_stats()  # both tenants warm
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    frag.restore_device()  # later phases use `frag`
+    priced = [e for e in FLEET_STATS.events if e["kind"] == "evict"]
+    check(len(priced) == len(evictions) > 0,
+          f"evict: {len(evictions)} releases, {len(priced)} recorded")
+    for ev, p in zip(evictions, priced):
+        ev["priced_bytes"] = p["freed_bytes"]
+    readmits = sum(1 for e in FLEET_STATS.events
+                   if e["kind"] == "tenant_readmit")
+    check(FLEET_STATS.evictions > 0 and readmits > 0 and restores,
+          f"evict: evictions {FLEET_STATS.evictions}, re-admits {readmits}")
+    check(plan_stats() == plans, f"evict: PLAN_STATS moved across the "
+          f"re-admissions: {plans} -> {plan_stats()}")
+    for name, sess in sessions.items():
+        check(sess.cache_stats()["runner"]["misses"] == 1,
+              f"evict: tenant {name} built a worker again")
+    rec = dict(counts=counts, seconds=wall, capacity=int(1.5 * price),
+               tenant_price_bytes=price, evictions=evictions,
+               restores=restores, readmits=readmits,
+               fleet=FLEET_STATS.snapshot())
+    print(f"[fleet] evict: capacity={rec['capacity']} tenant_price_bytes="
+          f"{price} groups={EVICT_GROUPS}x{EVICT_GROUP} evictions="
+          f"{FLEET_STATS.evictions} readmits={readmits} plan_stats flat="
+          f"{plans}; " + " ".join(
+              f"evict {e['name']}: drop={e['drop_bytes']} priced="
+              f"{e['priced_bytes']} "
+              f"({e['drop_bytes'] / e['priced_bytes']:.3f})"
+              for e in evictions) + "; " + " ".join(
+              f"restore {r['name']}: {r['seconds']:.4f} s" for r in restores)
+          + f"; launches={counts}", flush=True)
+    return {"fleet evict": rec}
+
+
+def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
+    """The autopilot on RMAT-20 (the CLI's `serve_autopilot_stream`):
+    min 1, max 2 replicas, a result cache of AUTOPILOT_CACHE entries,
+    AUTOPILOT_QUERIES sssp queries over 64 sources -- the first 32 twice
+    in turn, then the other 32 twice each in a row -- arriving through
+    the feeder at half `session_qps` (the max_batch SERVE_BATCH session's
+    measured qps), x4 from arrival AUTOPILOT_STEP_AT.  Gates: a scale-up
+    recorded, every result (cache hits too) bit-equal to `ref`, none
+    dropped."""
+    from libgrape_lite_tpu_torch.autopilot import (
+        AUTOPILOT_STATS,
+        Autoscaler,
+        ResultCache,
+        ScalerConfig,
+    )
+    from libgrape_lite_tpu_torch.cli import serve_autopilot_stream
+    from libgrape_lite_tpu_torch.fleet import (
+        FLEET_STATS,
+        FleetBudget,
+        FleetRouter,
+    )
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+    from libgrape_lite_tpu_torch.serve.queue import latency_summary_ms
+
+    FLEET_STATS.reset()
+    AUTOPILOT_STATS.reset()
+    policy = BatchPolicy(max_batch=SERVE_BATCH)
+
+    def make_session(f):
+        return ServeSession(f, policy=policy)
+
+    router = FleetRouter([make_session(frag)])
+    cache = ResultCache(capacity=AUTOPILOT_CACHE)
+    router.attach_cache(cache)
+    cfg = ScalerConfig(min_replicas=1, max_replicas=2)
+    ap = Autoscaler(router, cfg, session_factory=make_session,
+                    budget=FleetBudget(device=device))
+    half, rest = sources[:32], sources[32:64]
+    order = half + half + [s for s in rest for _ in (0, 1)]
+    stream = [{"app": "sssp", "args": {"source": s}, "max_rounds": None}
+              for s in order]
+    rate = f"{session_qps / 2:.1f}:4x@{AUTOPILOT_STEP_AT}"
+    timeline, acts = [], []
+
+    def act(d, inner=ap.act):
+        ta = time.perf_counter()
+        taken = inner(d)
+        acts.append({"action": taken.action, "reason": taken.reason,
+                     "at_s": round(ta - t0, 4),
+                     "seconds": time.perf_counter() - ta})
+        return taken
+
+    def tick(inner=ap.tick):
+        d = inner()
+        n = sum(1 for r in router.replicas if r.routable)
+        if not timeline or timeline[-1][1] != n:
+            timeline.append((round(time.perf_counter() - t0, 4), n))
+        return d
+
+    ap.act, ap.tick = act, tick
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    reqs = serve_autopilot_stream(router, ap, stream, rate)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    results = [q.result for q in reqs]
+    check(len(results) == AUTOPILOT_QUERIES
+          and all(r is not None for r in results),
+          f"autopilot: {len(results)} results for {AUTOPILOT_QUERIES}")
+    for item, r in zip(stream, results):
+        s = item["args"]["source"]
+        check(r.ok, f"autopilot: source {s} failed: {r.error}")
+        check(r.values.tobytes() == ref[s].tobytes(),
+              f"autopilot: source {s} not bit-equal to one session")
+    snap = AUTOPILOT_STATS.snapshot()
+    check(snap["scale_ups"] >= 1, "autopilot: no scale-up recorded "
+          f"(ticks {snap['ticks']}, holds {snap['holds']})")
+    lat = latency_summary_ms([r.latency_s for r in results])
+    rec = dict(counts=counts, seconds=wall, qps=len(results) / wall,
+               p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"], rate=rate,
+               replicas_over_time=timeline,
+               acts=[a for a in acts if a["action"] != "hold"],
+               cache=cache.snapshot(),
+               router=router.summary(wall), fleet=FLEET_STATS.snapshot(),
+               **{k: snap[k] for k in ("ticks", "scale_ups", "scale_downs",
+                                       "holds", "cache_hits",
+                                       "cache_misses")})
+    print(f"[autopilot] rmat{SCALE}: queries={len(results)} rate={rate} "
+          f"qps={rec['qps']:.1f} p50_ms={lat['p50_ms']} p99_ms="
+          f"{lat['p99_ms']} scale_ups={snap['scale_ups']} scale_downs="
+          f"{snap['scale_downs']} ticks={snap['ticks']} acts="
+          f"{rec['acts']} replicas_over_time={timeline} cache="
+          f"{rec['cache']} launches={counts}", flush=True)
+    return {"autopilot": rec}
+
+
+def fleet_cli_phase(device) -> dict:
+    """The serve CLI's fleet and autopilot paths on p2p-31 at fnum 1 and
+    4: `--replicas 2 --drain_at 8 --tenants by_app` with a --delta_stream
+    of SERVE_CLI_ADDS seeded adds, `--autopilot --min_replicas 1
+    --max_replicas 2 --cache_entries 64` (the JAX CLI refuses it a delta
+    stream, and so does this one), each --dump_results equal to the plain
+    run's."""
+    import io
+    import tempfile
+
+    from libgrape_lite_tpu_torch import cli
+
+    out = {}
+
+    def run(argv, tag):
+        buf = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["serve", "--efile",
+                           os.path.join(HERE, "dataset", "p2p-31.e"),
+                           "--vfile", os.path.join(HERE, "dataset", "p2p-31.v"),
+                           "--num_queries", str(SERVE_CLI_QUERIES),
+                           "--max_batch", str(SERVE_BATCH),
+                           "--device", device, *argv])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rec["ok"] == SERVE_CLI_QUERIES, f"{tag}: {rec}")
+        out[tag] = dict(counts=launch_counts(), qps=rec["qps"],
+                        p50_ms=rec["p50_ms"], p99_ms=rec["p99_ms"])
+        return rec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        oids = np.loadtxt(os.path.join(HERE, "dataset", "p2p-31.v"),
+                          dtype=np.int64, usecols=0)
+        rng = np.random.default_rng(DYN_SEED)
+        ends = rng.choice(oids, (SERVE_CLI_ADDS, 2))
+        delta = os.path.join(tmp, "adds.txt")
+        with open(delta, "w") as f:
+            for (a, b), x in zip(ends, rng.uniform(0.1, 10.0,
+                                                   SERVE_CLI_ADDS)):
+                f.write(f"a {a} {b} {x:.4f}\n")
+
+        def dump(name):
+            with open(os.path.join(tmp, name)) as f:
+                return f.read()
+
+        for fnum in (1, 4):
+            f = ["--fnum", str(fnum)]
+            d = ["--delta_stream", delta]
+            run([*f, *d, "--dump_results", os.path.join(tmp, "p.txt")],
+                f"fleet cli fnum{fnum} plain delta")
+            rec = run([*f, *d, "--replicas", "2", "--drain_at", "8",
+                       "--tenants", "by_app", "--dump_results",
+                       os.path.join(tmp, "f.txt")],
+                      f"fleet cli fnum{fnum} replicas")
+            check(dump("p.txt") == dump("f.txt"), f"fleet CLI fnum {fnum}: "
+                  "--dump_results differ from the plain run")
+            check(rec["fleet"]["dropped"] == 0
+                  and rec["fleet"]["drains"] == 1
+                  and rec["fleet"]["rejoins"] == 1,
+                  f"fleet CLI fnum {fnum}: {rec['fleet']}")
+            run([*f, "--dump_results", os.path.join(tmp, "p2.txt")],
+                f"fleet cli fnum{fnum} plain")
+            ap = run([*f, "--autopilot", "--min_replicas", "1",
+                      "--max_replicas", "2", "--cache_entries",
+                      str(AUTOPILOT_CLI_CACHE), "--dump_results",
+                      os.path.join(tmp, "a.txt")],
+                     f"autopilot cli fnum{fnum}")
+            check(dump("p2.txt") == dump("a.txt"), f"autopilot CLI fnum "
+                  f"{fnum}: --dump_results differ from the plain run")
+            print(f"[fleet] cli fnum={fnum}: --replicas 2 --drain_at 8 "
+                  f"--tenants by_app --delta_stream: dump equal, fleet="
+                  f"{ {k: rec['fleet'][k] for k in ('fence', 'drains', 'rejoins', 'dropped')} } "
+                  f"qps={rec['qps']}; --autopilot: dump equal, autopilot="
+                  f"{ {k: ap['autopilot'][k] for k in ('ticks', 'scale_ups', 'cache_hits', 'cache_misses')} } "
+                  f"qps={ap['qps']}", flush=True)
+        with contextlib.redirect_stderr(io.StringIO()):
+            try:
+                cli.main(["serve", "--efile",
+                          os.path.join(HERE, "dataset", "p2p-31.e"),
+                          "--autopilot", "--delta_stream", delta,
+                          "--device", device])
+                refused = False
+            except SystemExit as e:
+                refused = e.code not in (0, None)
+        check(refused, "the autopilot CLI took a --delta_stream")
+    return out
+
+
+def fleet_phases(frag, session_qps, device) -> dict:
+    """[fleet] and [autopilot]: replicas of the RMAT-20 fragment, the
+    fleet drill, eviction at full size, the autopilot drill and the CLI
+    paths; seconds of each half."""
+    from libgrape_lite_tpu_torch.fleet import fragment_bytes
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    t0 = time.perf_counter()
+    rep, rep_s = timed_replica(frag, device)
+    print(f"[fleet] rmat{SCALE} replica: build_host_s={rep_s:.2f} "
+          f"fragment_bytes={fragment_bytes(rep)} (original "
+          f"{fragment_bytes(frag)})", flush=True)
+    out = {"replica_build_s": rep_s, "fragment_bytes": fragment_bytes(rep)}
+    runs = fleet_drill_phase(frag, rep, device)["runs"]
+    sources = serve_sources(frag, FLEET_QUERIES)
+    sess = ServeSession(frag, policy=BatchPolicy(max_batch=SERVE_BATCH))
+    reqs = [sess.submit("sssp", {"source": s}) for s in sources]
+    sess.drain()
+    ref = {s: q.result.values for s, q in zip(sources, reqs)}
+    del sess, reqs
+    runs.update(fleet_evict_phase(frag, rep, ref, sources, device))
+    runs.update(fleet_cli_phase(device))
+    del rep
+    out["fleet_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs.update(autopilot_phase(frag, ref, sources, session_qps, device))
+    out["autopilot_seconds"] = time.perf_counter() - t0
+    print(f"[time] fleet {out['fleet_seconds']:.1f} s, autopilot "
+          f"{out['autopilot_seconds']:.1f} s", flush=True)
+    out["runs"] = runs
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -3365,12 +3867,15 @@ def main() -> int:
     more_golden_phase(device)
     dyn = dyn_phases(frag, grid, device)
     serve = serve_phases(frag, device)
+    fleet = fleet_phases(
+        frag, serve["runs"][f"serve session max_batch={SERVE_BATCH} sync"]
+        ["qps"], device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
               "load": load, "spgemm": spgemm, **dyn["runs"],
-              **serve["runs"]}
+              **serve["runs"], **fleet["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -3418,7 +3923,8 @@ def main() -> int:
              **{k: gl[k] for k in keys}, lanes=SERVE_BATCH, kind="min+w",
              library=gl["library"],
              launches_by_app={app: r["counts"]["gather_reduce_lanes"]
-                              for app, r in serve["runs"].items()},
+                              for app, r in {**serve["runs"],
+                                             **fleet["runs"]}.items()},
              max_abs_err_all=max(r["max_abs_err"]
                                  for r in serve["kernel"].values()),
              cases={k: {f: v for f, v in r.items() if f != "config"}
@@ -3484,6 +3990,12 @@ def main() -> int:
         "serve": {k: {f: x for f, x in r.items() if f != "counts"}
                   for k, r in serve["runs"].items()}
         | {"profile": serve.get("profile")},
+        "fleet": {k: v for k, v in fleet.items() if k != "runs"}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in fleet["runs"].items() if not k.startswith("autopilot")},
+        "autopilot": {k: {f: x for f, x in r.items() if f != "counts"}
+                      for k, r in fleet["runs"].items()
+                      if k.startswith("autopilot")},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

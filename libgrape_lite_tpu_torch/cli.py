@@ -43,6 +43,16 @@ ones, and prints one JSON summary line (the JAX CLI's keys):
         --vfile dataset/p2p-31.v --application sssp --num_queries 16 \
         --max_batch 8 [--inflight 4] [--dump_results out.txt] \
         [--delta_stream ops.txt --ingest_every 8] [--device cpu]
+
+The fleet paths (fleet/, autopilot/): `--replicas R [--drain_at K]`
+serves from R replica sessions behind a version-fenced router (replica 0
+drained before query K), `--tenants by_app|N` puts N tenants under one
+device budget, and `--autopilot [--min_replicas N --max_replicas M
+--cache_entries C]` lets an autoscaler move the replica count with a
+shared result cache in front; `--slo 'sssp=5,*=100'` sets latency
+objectives.  On a one-app stream `--dump_results` of a fleet run equals
+the plain run's (on a mixed stream the plain loop ingests by dispatch
+count, `run_fleet_script` by submit count).
 """
 
 from __future__ import annotations
@@ -106,17 +116,9 @@ def make_parser() -> argparse.ArgumentParser:
 # serve flags whose subsystem is not ported yet: (subsystem, ROADMAP
 # Queue A item).  Given at all, each is a usage error
 _UNPORTED_SERVE_FLAGS = {
-    "replicas": ("fleet/", 5),
-    "drain_at": ("fleet/", 5),
-    "tenants": ("fleet/", 5),
-    "autopilot": ("autopilot/", 5),
-    "min_replicas": ("autopilot/", 5),
-    "max_replicas": ("autopilot/", 5),
-    "cache_entries": ("autopilot/", 5),
-    "trace": ("obs/", 6),
-    "metrics": ("obs/", 6),
-    "metrics_port": ("obs/", 6),
-    "slo": ("obs/", 6),
+    "trace": ("obs/ tracer", 6),
+    "metrics": ("obs/ metrics", 6),
+    "metrics_port": ("obs/ exporter", 6),
 }
 
 
@@ -170,14 +172,41 @@ def make_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--guard", default="",
                    help="per-lane guard policy: only off here (warn, "
                         "halt, rollback: ROADMAP Queue A item 6)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="fleet/: serve from R replica sessions behind a "
+                        "least-outstanding router with a graph-version "
+                        "fence; 1 keeps the single-session path")
+    p.add_argument("--drain_at", type=int, default=-1,
+                   help="fleet/: begin draining replica 0 before query K "
+                        "(it rejoins after the next ingest, or at the "
+                        "end); needs --replicas >= 2")
+    p.add_argument("--tenants", default="",
+                   help="fleet/: 'by_app' gives each app a tenant, N "
+                        "round-robins the queries over N tenants; tenants "
+                        "share the device budget (GRAPE_FLEET_HBM_BYTES) "
+                        "under weighted round-robin and never share a "
+                        "batch")
+    p.add_argument("--autopilot", action="store_true",
+                   help="autopilot/: an autoscaler moves the replica "
+                        "count between --min_replicas and --max_replicas "
+                        "(drain, rejoin, replicate), with a shared "
+                        "fence-epoch result cache (--cache_entries)")
+    p.add_argument("--min_replicas", type=int, default=1,
+                   help="autopilot: replica floor (and the initial count)")
+    p.add_argument("--max_replicas", type=int, default=4,
+                   help="autopilot: replica ceiling")
+    p.add_argument("--cache_entries", type=int, default=1024,
+                   help="autopilot: result-cache entries (0: no cache)")
+    p.add_argument("--slo", default="",
+                   help="obs/slo.py latency objectives in ms, e.g. "
+                        "'sssp=5,tenant:t0=50,*=100'; a breach counts "
+                        "against the key's error budget, never raises "
+                        "(also GRAPE_SLO; budget: GRAPE_SLO_BUDGET)")
     unported = p.add_argument_group(
         "not ported yet (each one a usage error naming its ROADMAP item)")
-    for flag in ("replicas", "drain_at", "min_replicas", "max_replicas",
-                 "cache_entries", "metrics_port"):
-        unported.add_argument(f"--{flag}", type=int, default=None)
-    for flag in ("tenants", "trace", "metrics", "slo"):
+    unported.add_argument("--metrics_port", type=int, default=None)
+    for flag in ("trace", "metrics"):
         unported.add_argument(f"--{flag}", default=None)
-    unported.add_argument("--autopilot", action="store_true", default=None)
     return p
 
 
@@ -219,6 +248,13 @@ def serve_main(argv=None) -> int:
     if ns.guard not in ("", "off"):
         parser.error(f"--guard {ns.guard} needs guard/ and serve/batch.py, "
                      "not ported yet: ROADMAP Queue A item 6")
+    if ns.slo:
+        from libgrape_lite_tpu_torch.obs import slo
+
+        try:
+            slo.configure(ns.slo)
+        except ValueError as e:
+            parser.error(f"--slo: {e}")
     queries = _serve_queries(ns)
     if not queries:
         # fail before the graph load, not on an empty percentile after
@@ -249,25 +285,58 @@ def serve_main(argv=None) -> int:
             parse_rate_spec(ns.arrival_rate)
         except ValueError as e:
             sys.exit(f"serve: {e}")
-        if delta_ops:
-            # the ingest cadence is pinned by dispatch count, which a
-            # wall-clock feeder cannot reproduce
-            sys.exit("serve: --arrival_rate does not compose with "
-                     "--delta_stream")
+    fleet_mode = ns.replicas > 1 or bool(ns.tenants)
+    if ns.drain_at >= 0 and ns.replicas < 2:
+        sys.exit("serve: --drain_at needs --replicas >= 2 (draining the "
+                 "only replica would drop traffic)")
+    if ns.autopilot:
+        # the autopilot owns the replica count: the static fleet knobs
+        # do not compose with it
+        for flag, bad in (("--tenants", bool(ns.tenants)),
+                          ("--drain_at", ns.drain_at >= 0),
+                          ("--delta_stream", bool(ns.delta_stream))):
+            if bad:
+                sys.exit(f"serve: --autopilot does not compose with "
+                         f"{flag} yet")
+        if ns.min_replicas < 1:
+            sys.exit("serve: --min_replicas must be >= 1")
+        if ns.max_replicas < ns.min_replicas:
+            sys.exit("serve: --max_replicas must be >= --min_replicas")
+    elif fleet_mode and ns.arrival_rate:
+        sys.exit("serve: --arrival_rate does not compose with "
+                 "--replicas/--tenants yet")
+    if ns.arrival_rate and delta_ops:
+        # the ingest cadence is pinned by dispatch count, which a
+        # wall-clock feeder cannot reproduce
+        sys.exit("serve: --arrival_rate does not compose with "
+                 "--delta_stream")
+    # replicas (and autopilot scale-ups) rebuild from the edge list
     spec = LoadGraphSpec(directed=ns.directed, weighted=weighted,
                          string_id=ns.string_id, edata_dtype=np.float64,
-                         retain_edge_list=bool(ns.delta_stream))
+                         retain_edge_list=bool(ns.delta_stream)
+                         or ns.replicas > 1 or ns.autopilot)
     frag = LoadGraph(ns.efile, ns.vfile or None,
                      CommSpec(fnum=ns.fnum, device=ns.device), spec)
-    dyn = None
-    if ns.delta_stream:
+
+    def dyn_policy():
+        # one copy of the repack decision, so a fleet run uses the plain
+        # run's policy
+        if not ns.delta_stream:
+            return None
         from libgrape_lite_tpu_torch.dyn import RepackPolicy
 
-        dyn = (RepackPolicy(threshold=ns.dyn_repack_ratio)
-               if ns.dyn_repack_ratio is not None
-               else RepackPolicy.from_env())
-    sess = ServeSession(frag, policy=BatchPolicy(
-        max_batch=ns.max_batch, max_wait_s=ns.max_wait_ms / 1e3), dyn=dyn)
+        return (RepackPolicy(threshold=ns.dyn_repack_ratio)
+                if ns.dyn_repack_ratio is not None
+                else RepackPolicy.from_env())
+
+    policy = BatchPolicy(max_batch=ns.max_batch,
+                         max_wait_s=ns.max_wait_ms / 1e3)
+    if ns.autopilot:
+        return _serve_autopilot(ns, frag, queries, policy)
+    if fleet_mode:
+        return _serve_fleet(ns, frag, queries, delta_ops, policy,
+                            dyn_policy)
+    sess = ServeSession(frag, policy=policy, dyn=dyn_policy())
     pump = sess.async_pump(window=ns.inflight) if ns.inflight > 1 else None
     t0 = time.perf_counter()
     if ns.arrival_rate:
@@ -339,23 +408,230 @@ def serve_with_ingest(sess, pump, reqs, delta_ops, ingest_every: int):
     return results
 
 
-def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops) -> int:
+def _serve_fleet(ns, frag, queries, delta_ops, policy, dyn_policy) -> int:
+    """The fleet path (JAX `cli.py::_serve_fleet`): R replica sessions
+    behind a version-fenced router and/or N tenants under one budget,
+    driven by `run_fleet_script`, so a `--replicas 2 --drain_at K` run
+    is byte-identical, query by query, to the plain run."""
+    from libgrape_lite_tpu_torch.fleet import (
+        FLEET_STATS,
+        FleetBudget,
+        FleetManager,
+        FleetRouter,
+        run_fleet_script,
+    )
+    from libgrape_lite_tpu_torch.fragment.mutation import replicate_fragment
+    from libgrape_lite_tpu_torch.serve import ServeSession
+
+    FLEET_STATS.reset()  # the summary's fleet counters are this run's
+    frags = [frag] + [replicate_fragment(frag)
+                      for _ in range(ns.replicas - 1)]
+    sessions = [ServeSession(f, policy=policy, dyn=dyn_policy())
+                for f in frags]
+    router = (FleetRouter(sessions, window=max(1, ns.inflight))
+              if ns.replicas > 1 else None)
+    target = router if router is not None else sessions[0]
+    manager = tenant_of = None
+    if ns.tenants:
+        manager = FleetManager(FleetBudget(device=frag.device))
+        if ns.tenants == "by_app":
+            names = sorted({app for app, _ in queries})
+            tenant_of = lambda i, app: app  # noqa: E731
+        else:
+            try:
+                n_t = max(1, int(ns.tenants))
+            except ValueError:
+                sys.exit(f"serve: --tenants must be 'by_app' or an "
+                         f"integer, got {ns.tenants!r}")
+            names = [f"t{j}" for j in range(n_t)]
+            tenant_of = lambda i, app: f"t{i % n_t}"  # noqa: E731
+        for name in names:
+            manager.add_tenant(name, target)
+    t0 = time.perf_counter()
+    reqs = run_fleet_script(
+        target, [(app_key, {"source": src}) for app_key, src in queries],
+        manager=manager, tenant_of=tenant_of, delta_ops=delta_ops,
+        ingest_every=max(1, ns.ingest_every),
+        drain_at=ns.drain_at if ns.drain_at >= 0 else None, drain_idx=0,
+        submit_kwargs={"max_rounds": ns.max_rounds or None})
+    wall = time.perf_counter() - t0
+    results = [q.result for q in reqs if q.result is not None]
+    fleet_block = {
+        "replicas": ns.replicas,
+        "tenants": len(manager.tenants) if manager is not None else 0,
+        "fence": router.fence if router is not None else 0,
+        "dropped": len(reqs) - len(results),
+        **FLEET_STATS.snapshot(),
+    }
+    if router is not None:
+        fleet_block["router"] = router.summary(wall)
+    if manager is not None:
+        snap = manager.snapshot()
+        fleet_block["tenant_stats"] = snap["tenants"]
+        fleet_block["budget"] = {"capacity": snap["budget"]["capacity"],
+                                 "used_bytes": snap["budget"]["used_bytes"]}
+    return _serve_summary(ns, sessions[0], None, reqs, results, wall,
+                          delta_ops, fleet_block=fleet_block,
+                          sessions=sessions)
+
+
+def serve_autopilot_stream(router, autopilot, stream,
+                           arrival_rate="") -> list:
+    """Serve `stream` (the ServeSession.serve dict items) through
+    `router` while `autopilot` (an Autoscaler) ticks after every pump
+    pass.  With `arrival_rate` a feeder thread appends arrivals to an
+    inbox at that rate (a number or a step schedule, '50:2x@100') and
+    this thread alone submits, pumps and ticks; without it every query
+    is submitted up front, one pump and tick after each.  Returns the
+    requests in submit order, each finished."""
+    from collections import deque
+
+    def busy():
+        return any(r.session.queue.pending() or r.pump.inflight()
+                   for r in router.replicas)
+
+    reqs = []
+    if arrival_rate:
+        from libgrape_lite_tpu_torch.serve import ArrivalFeeder
+
+        inbox: deque = deque()
+
+        def enqueue(app_key, args, **kw):
+            inbox.append((app_key, args, kw))
+
+        feeder = ArrivalFeeder(enqueue, stream, arrival_rate)
+        feeder.start()
+        while feeder.is_alive() or inbox or busy():
+            moved = 0
+            while inbox:
+                app_key, args, kw = inbox.popleft()
+                reqs.append(router.submit(app_key, args, **kw))
+                moved += 1
+            got = router.pump()
+            autopilot.tick()
+            if not got and not moved:
+                time.sleep(1e-4)
+        feeder.join()
+    else:
+        for item in stream:
+            reqs.append(router.submit(item["app"], item["args"],
+                                      max_rounds=item["max_rounds"]))
+            router.pump()
+            autopilot.tick()
+        while busy():
+            got = router.pump()
+            autopilot.tick()
+            if not got:
+                # a launched batch runs in its own thread: let it have
+                # the interpreter instead of spinning on it
+                time.sleep(1e-4)
+    router.drain()
+    return reqs
+
+
+def _serve_autopilot(ns, frag, queries, policy) -> int:
+    """The closed-loop path (JAX `cli.py::_serve_autopilot`): a replica
+    fleet whose size an Autoscaler moves between --min_replicas and
+    --max_replicas, with a shared fence-epoch result cache in front."""
+    from libgrape_lite_tpu_torch.autopilot import (
+        AUTOPILOT_STATS,
+        Autoscaler,
+        ResultCache,
+        ScalerConfig,
+    )
+    from libgrape_lite_tpu_torch.fleet import (
+        FLEET_STATS,
+        FleetBudget,
+        FleetRouter,
+    )
+    from libgrape_lite_tpu_torch.fragment.mutation import replicate_fragment
+    from libgrape_lite_tpu_torch.serve import ServeSession
+
+    FLEET_STATS.reset()
+    AUTOPILOT_STATS.reset()
+
+    def make_session(f):
+        return ServeSession(f, policy=policy)
+
+    n0 = max(1, ns.min_replicas, ns.replicas)
+    sessions = [make_session(f) for f in
+                [frag] + [replicate_fragment(frag) for _ in range(n0 - 1)]]
+    router = FleetRouter(sessions, window=max(1, ns.inflight))
+    cache = None
+    if ns.cache_entries > 0:
+        cache = ResultCache(capacity=ns.cache_entries)
+        router.attach_cache(cache)
+    cfg = ScalerConfig(min_replicas=n0,
+                       max_replicas=max(n0, ns.max_replicas))
+    autopilot = Autoscaler(router, cfg, session_factory=make_session,
+                           budget=FleetBudget(device=frag.device))
+    stream = [{"app": app_key, "args": {"source": src},
+               "max_rounds": ns.max_rounds or None}
+              for app_key, src in queries]
+    t0 = time.perf_counter()
+    reqs = serve_autopilot_stream(router, autopilot, stream,
+                                  ns.arrival_rate)
+    wall = time.perf_counter() - t0
+    results = [q.result for q in reqs if q.result is not None]
+    ap = AUTOPILOT_STATS.snapshot()
+    autopilot_block = {
+        "min_replicas": cfg.min_replicas,
+        "max_replicas": cfg.max_replicas,
+        "replicas_final": sum(1 for r in router.replicas if r.routable),
+        "replicas_peak": len(router.replicas),
+        **{k: ap[k] for k in (
+            "ticks", "scale_ups", "scale_downs", "holds", "shed",
+            "deferred", "cache_hits", "cache_misses", "cache_stores")},
+    }
+    if cache is not None:
+        autopilot_block["cache"] = cache.snapshot()
+    fleet_block = {
+        "replicas": len(router.replicas),
+        "tenants": 0,
+        "fence": router.fence,
+        "dropped": len(reqs) - len(results),
+        **FLEET_STATS.snapshot(),
+        "router": router.summary(wall),
+    }
+    return _serve_summary(
+        ns, router.replicas[0].session, None, reqs, results, wall, [],
+        fleet_block=fleet_block,
+        sessions=[r.session for r in router.replicas],
+        autopilot_block=autopilot_block)
+
+
+def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops,
+                   fleet_block=None, sessions=None,
+                   autopilot_block=None) -> int:
     """Print the serve summary record (JAX `cli.py::_serve_summary`'s
-    keys, plus the device it ran on) and write --dump_results."""
+    keys, plus the device it ran on) and write --dump_results.  With
+    `sessions` (the fleet paths) the batch histograms, admission waits,
+    worker counters and dyn counters add up over them."""
     import hashlib
 
     import torch
 
+    from libgrape_lite_tpu_torch.obs import slo
     from libgrape_lite_tpu_torch.serve import PUMP_STATS
     from libgrape_lite_tpu_torch.serve.queue import latency_summary_ms
 
+    sessions = sessions or [sess]
     lat = latency_summary_ms([r.latency_s for r in results])
     ok = sum(1 for r in results if r.ok)
     per_app, by_app = {}, {}
     for r in results:
         per_app[r.app_key] = per_app.get(r.app_key, 0) + 1
         by_app.setdefault(r.app_key, []).append(r.latency_s)
-    waits = sess.queue.admission_wait_summary()
+    waits = latency_summary_ms(
+        [w for s in sessions for w in s.queue.admission_waits])
+    batch_hist: dict = {}
+    cache = {"runner": {"hits": 0, "misses": 0},
+             "pack": sess.cache_stats()["pack"]}
+    for s in sessions:
+        for k, v in s.queue.batch_hist.items():
+            batch_hist[k] = batch_hist.get(k, 0) + v
+        for k, v in s.cache_stats()["runner"].items():
+            cache["runner"][k] += v
     record = {
         "queries": len(results),
         "ok": ok,
@@ -366,8 +642,7 @@ def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops) -> int:
         "p99_ms": lat["p99_ms"],
         "max_batch": ns.max_batch,
         "inflight": ns.inflight,
-        "batch_hist": {str(k): v
-                       for k, v in sorted(sess.queue.batch_hist.items())},
+        "batch_hist": {str(k): v for k, v in sorted(batch_hist.items())},
         "admission_wait_ms": {"p50": waits["p50_ms"],
                               "p99": waits["p99_ms"]},
         "apps": per_app,
@@ -375,7 +650,7 @@ def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops) -> int:
             app: {"p50": s["p50_ms"], "p99": s["p99_ms"]}
             for app, s in ((a, latency_summary_ms(v))
                            for a, v in sorted(by_app.items()))},
-        "cache": sess.cache_stats(),
+        "cache": cache,
         "device": (torch.cuda.get_device_name(sess.fragment.device)
                    if sess.fragment.device.type == "cuda" else "cpu"),
     }
@@ -388,19 +663,26 @@ def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops) -> int:
             k: {"p50": s["p50_ms"], "p99": s["p99_ms"]}
             for k, s in ((k, latency_summary_ms(v))
                          for k, v in sorted(stage_lists.items()))}
+    if slo.configured():
+        record["slo"] = slo.SLO_STATS.snapshot()
     if pump is not None:
         record["pump"] = {"window": pump.window, **pump.stats,
                           **PUMP_STATS.snapshot()}
     if delta_ops:
-        ingested = sess.stats["ingested_ops"]
+        ingested = sum(s.stats["ingested_ops"] for s in sessions)
         record["dyn"] = {
             "ingested": ingested,
-            "overlay_applies": sess.stats["overlay_applies"],
-            "repack_count": sess.stats["repacks"],
+            "overlay_applies": sum(s.stats["overlay_applies"]
+                                   for s in sessions),
+            "repack_count": sum(s.stats["repacks"] for s in sessions),
             "queries": len(results),
             "queries_ok": ok,
             "updates_per_s": round(ingested / wall, 2) if wall > 0 else 0.0,
         }
+    if fleet_block is not None:
+        record["fleet"] = fleet_block
+    if autopilot_block is not None:
+        record["autopilot"] = autopilot_block
     if ns.dump_results:
         with open(ns.dump_results, "w") as fh:
             for i, req in enumerate(reqs):

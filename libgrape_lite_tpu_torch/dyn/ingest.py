@@ -181,6 +181,11 @@ class DeltaOverlay:
                                          prefix).items()}
         return dict(self._placed[key])
 
+    def drop_placed(self) -> None:
+        """Forget the device copies (`placed`): an evicted fragment's
+        overlay holds no device memory; the next query places again."""
+        self._placed.clear()
+
 
 class DynGraph:
     """A built fragment, its delta buffer and the apply policy: the

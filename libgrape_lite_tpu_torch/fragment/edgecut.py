@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -33,6 +34,31 @@ from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
 _LOG = logging.getLogger(__name__)
 #: the JAX package's default budget, one v5e chip's HBM
 _CPU_BUDGET_DEFAULT = 16 << 30
+
+#: the per-fragment caches of device tensors derived from `dev` (the push
+#: CSRs, `dest_degree`), each weak-keyed on the fragment: `release_device`
+#: empties a fragment's entries, and fleet/budget.py prices them
+DEVICE_CACHES: list = []
+
+
+def device_cache() -> "weakref.WeakKeyDictionary":
+    """A new per-fragment cache of device tensors, registered in
+    DEVICE_CACHES."""
+    cache = weakref.WeakKeyDictionary()
+    DEVICE_CACHES.append(cache)
+    return cache
+
+
+def device_budget_bytes(device) -> int:
+    """The device byte budget: `GRAPE_HBM_BYTES` when set (0: no limit),
+    else the card's free memory (`torch.cuda.mem_get_info`) on a CUDA
+    device, else the JAX package's 16 GiB."""
+    env = os.environ.get("GRAPE_HBM_BYTES")
+    if env is not None:
+        return int(env)
+    if torch.device(device).type == "cuda":
+        return int(torch.cuda.mem_get_info(torch.device(device))[0])
+    return _CPU_BUDGET_DEFAULT
 
 
 def _round_up(x: int, m: int) -> int:
@@ -190,15 +216,20 @@ class ShardedEdgecutFragment:
     # ---- eviction and re-admission (serve/) ----
 
     def release_device(self) -> bool:
-        """Evict: drop the stacked device tensors (`dev`).  The host
-        CSRs and the vertex map stay, so `restore_device` places the
-        same content again; caches derived per fragment (strict plans,
-        deduplicated and push CSRs) stay too.  False when already
-        released."""
+        """Evict: drop the stacked device tensors (`dev`), the device
+        caches derived from them (DEVICE_CACHES: push CSRs,
+        `dest_degree`; rebuilt at their next use) and the overlay's
+        placed planes.  The host CSRs, the vertex map and the host plans
+        (strict, spgemm) stay, so `restore_device` places the same
+        content again and plans nothing.  False when already released."""
         if self.dev is None:
             return False
         self._dev_meta = (self.dev.total_vnum, self.dev.total_enum)
         self.dev = None
+        for cache in DEVICE_CACHES:
+            cache.pop(self, None)
+        if self.dyn_overlay is not None:
+            self.dyn_overlay.drop_placed()
         return True
 
     def restore_device(self) -> bool:
@@ -368,16 +399,9 @@ def check_hbm_budget(device, vp, ep_oe, ep_ie, aliased, need_oe, need_ie,
     """The fragment's device bytes, estimated as the JAX package's
     `_check_hbm_budget` does (`fragment/edgecut.py:468-510`); logs a
     warning past the budget and on partition skew above 1.5.  The budget
-    is `GRAPE_HBM_BYTES` (0 disables the check); by default the card's
-    free memory (`torch.cuda.mem_get_info`) on a CUDA device, the JAX
-    package's 16 GiB elsewhere.  Returns the estimate."""
-    env = os.environ.get("GRAPE_HBM_BYTES")
-    if env is not None:
-        budget = int(env)
-    elif torch.device(device).type == "cuda":
-        budget = int(torch.cuda.mem_get_info(torch.device(device))[0])
-    else:
-        budget = _CPU_BUDGET_DEFAULT
+    is `device_budget_bytes(device)` (0 disables the check).  Returns
+    the estimate."""
+    budget = device_budget_bytes(device)
 
     def csr_bytes(ep):  # indptr + edge_src + edge_nbr + mask (+ weights)
         return (vp + 1) * 4 + ep * (4 + 4 + 1) + (

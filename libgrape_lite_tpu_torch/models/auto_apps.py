@@ -29,18 +29,17 @@ folded over fragments in fragment order: no float atomics.
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 
 from libgrape_lite_tpu_torch.app.base import AutoAppBase, StepContext
+from libgrape_lite_tpu_torch.fragment.edgecut import device_cache
 from libgrape_lite_tpu_torch.models.bfs import BFS, _SENTINEL
 from libgrape_lite_tpu_torch.models.pagerank import PageRank
 from libgrape_lite_tpu_torch.models.sssp import SSSP
 from libgrape_lite_tpu_torch.models.wcc import WCC
 from libgrape_lite_tpu_torch.ops import spmv
 
-_PUSH: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_PUSH = device_cache()
 
 
 def push_csr(frag, side: str = "oe", dtype: torch.dtype | None = None):

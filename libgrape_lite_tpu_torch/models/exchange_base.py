@@ -39,6 +39,7 @@ import weakref
 import torch
 
 from libgrape_lite_tpu_torch.app.base import AppBase
+from libgrape_lite_tpu_torch.fragment.edgecut import device_cache
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.ops.segment import identity, segment_reduce
 from libgrape_lite_tpu_torch.parallel.message_manager import (
@@ -46,7 +47,7 @@ from libgrape_lite_tpu_torch.parallel.message_manager import (
     plan_initial_capacity,
 )
 
-_DEST_DEGREE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_DEST_DEGREE = device_cache()
 
 
 def dest_degree(frag) -> torch.Tensor:

@@ -82,6 +82,13 @@ class PumpStats:
 #: one record for every pump of the process; reset() between runs
 PUMP_STATS = PumpStats()
 
+# federated as "pump" (obs/federation.py); the class keeps its own
+# snapshot() / reset()
+from libgrape_lite_tpu_torch.obs import federation as _federation  # noqa: E402
+
+_federation.register("pump", PUMP_STATS.snapshot, PUMP_STATS.reset,
+                     module=__name__)
+
 
 class PendingBatch:
     """One admitted batch in the window: its requests plus either ready

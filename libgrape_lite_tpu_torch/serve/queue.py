@@ -24,8 +24,15 @@ delivers through the same bookkeeping: batch composition, FIFO order,
 the batch-size histogram and the admission-wait record are one
 implementation however many batches are in flight.
 
-Not here yet: the JAX queue's admission-control and result-cache hooks
-(the autopilot's), and its obs counters.
+The autopilot's hooks: `admission` (a callable(req) -> "admit" |
+"defer" | "shed", consulted before a batch is picked: a shed request
+fails with its reason, a deferred tenant queues behind in-budget ones)
+and `result_cache` (`deliver` stores every cacheable ok result).  Every
+finished query, delivered or failed undispatched, is counted against
+its SLO (`obs.slo.observe`).
+
+Not here yet: the JAX queue's flight-recorder events and metrics
+(ROADMAP Queue A item 6a).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from libgrape_lite_tpu_torch.obs import slo
 from libgrape_lite_tpu_torch.serve.policy import BatchPolicy
 
 _IDS = itertools.count()
@@ -162,10 +170,21 @@ class AdmissionQueue:
         self._lock = threading.Lock()
         self.batch_hist: Dict[int, int] = {}
         self.completed = 0
-        # deadline-expired requests, failed with their reason and
-        # returned by the next pump / drain (take_expired)
+        # deadline-expired and shed requests, failed with their reason
+        # and returned by the next pump / drain (take_expired)
         self.expired = 0
+        self.shed = 0
         self._expired_out: List[ServeResult] = []
+        # the admission hook (autopilot/admission.py): callable(req) ->
+        # "admit" | "defer" | "shed", run before a batch is picked
+        self.admission = None
+        # the result cache (autopilot/cache.py): deliver() stores every
+        # ok result that cache_meta(req) -> (compat, source) names, under
+        # the epoch cache_epoch(); ServeSession.attach_result_cache wires
+        # all three
+        self.result_cache = None
+        self.cache_meta = None
+        self.cache_epoch = None
         # each popped request's submit -> dispatch wait, seconds
         self.admission_waits: List[float] = []
 
@@ -186,46 +205,88 @@ class AdmissionQueue:
     def pending(self) -> int:
         return len(self._pending)
 
+    def _fail_undispatched(self, req: QueryRequest, waited: float,
+                           error: dict) -> None:
+        """Fail one request that never dispatched: an error result with
+        its reason, out through take_expired, counted against its SLO
+        like any finished query.  The caller holds the lock."""
+        res = ServeResult(
+            request_id=req.id, app_key=req.app_key, ok=False,
+            error={**error, "waited_s": round(waited, 6)},
+            latency_s=waited, stages={"queue_wait_us": int(waited * 1e6)})
+        req.result = res
+        self._expired_out.append(res)
+        self.completed += 1
+        slo.observe(req.app_key, req.tenant, waited, ok=False)
+
     def _expire_overdue(self, now: float) -> None:
         """Fail every pending request whose deadline passed before it
-        dispatched (an error result with the reason, out through
-        take_expired).  The caller holds the lock."""
+        dispatched.  The caller holds the lock."""
         live: List[QueryRequest] = []
         for req in self._pending:
             if (req.deadline_s is not None
                     and now - req.submitted_s > req.deadline_s):
-                waited = now - req.submitted_s
-                res = ServeResult(
-                    request_id=req.id, app_key=req.app_key, ok=False,
-                    error={
-                        "error": "deadline expired before dispatch",
-                        "reason": "deadline_expired",
-                        "deadline_s": req.deadline_s,
-                        "waited_s": round(waited, 6),
-                    },
-                    latency_s=waited,
-                    stages={"queue_wait_us": int(waited * 1e6)},
-                )
-                req.result = res
-                self._expired_out.append(res)
+                self._fail_undispatched(req, now - req.submitted_s, {
+                    "error": "deadline expired before dispatch",
+                    "reason": "deadline_expired",
+                    "deadline_s": req.deadline_s})
                 self.expired += 1
-                self.completed += 1
             else:
                 live.append(req)
         self._pending = live
 
+    def _review_admission(self) -> set:
+        """Run the admission hook over the pending requests: a shed one
+        fails with its reason; a deferred one stays, and its tenant is
+        returned so `_head_batch` serves in-budget tenants first.  The
+        caller holds the lock."""
+        deferred: set = set()
+        if self.admission is None:
+            return deferred
+        live: List[QueryRequest] = []
+        for req in self._pending:
+            try:
+                verdict = self.admission(req)
+            except Exception:
+                verdict = "admit"  # a broken hook must not wedge the queue
+            if verdict == "shed":
+                self._fail_undispatched(
+                    req, time.perf_counter() - req.submitted_s, {
+                        "error": "shed: tenant over error budget",
+                        "reason": "shed_over_budget",
+                        "tenant": req.tenant or ""})
+                self.shed += 1
+            else:
+                if verdict == "defer":
+                    deferred.add(req.tenant)
+                live.append(req)
+        self._pending = live
+        return deferred
+
     def take_expired(self) -> List[ServeResult]:
-        """The deadline-expired failures since the last call."""
+        """The out-of-band results since the last call: deadline-expired
+        and shed failures, and cache hits that never dispatched."""
         with self._lock:
             out, self._expired_out = self._expired_out, []
         return out
 
-    def _head_batch(self) -> List[QueryRequest]:
+    def push_oob(self, res: ServeResult) -> None:
+        """Append one out-of-band result (a cache hit served without a
+        dispatch, serve/session.py) to the take_expired channel."""
+        with self._lock:
+            self._expired_out.append(res)
+            self.completed += 1
+
+    def _head_batch(self, deferred: set = frozenset()) -> List[QueryRequest]:
         """The head -- the first request of the highest priority class
         present -- plus the next compatible requests of that class in
-        FIFO order, up to max_batch lanes."""
-        top = max(r.priority for r in self._pending)
-        head = next(r for r in self._pending if r.priority == top)
+        FIFO order, up to max_batch lanes.  Tenants in `deferred` head a
+        batch only when nothing in budget is pending."""
+        cands = [r for r in self._pending if r.tenant not in deferred]
+        if not cands:
+            cands = self._pending
+        top = max(r.priority for r in cands)
+        head = next(r for r in cands if r.priority == top)
         key = self._compat(head)
         batch = [head]
         for req in self._pending[self._pending.index(head) + 1:]:
@@ -244,9 +305,10 @@ class AdmissionQueue:
         now = time.perf_counter() if now is None else now
         with self._lock:
             self._expire_overdue(now)
+            deferred = self._review_admission()
             if not self._pending:
                 return []
-            batch = self._head_batch()
+            batch = self._head_batch(deferred)
             if not force and len(batch) < self.policy.max_batch:
                 if now - batch[0].submitted_s < self.policy.max_wait_s:
                     return []
@@ -277,6 +339,12 @@ class AdmissionQueue:
                 st["queue_wait_us"] = int(
                     (req.popped_s - req.submitted_s) * 1e6)
             req.result = res
+            slo.observe(req.app_key, req.tenant, res.latency_s, res.ok)
+            if self.result_cache is not None and res.ok:
+                meta = self.cache_meta(req) if self.cache_meta else None
+                if meta is not None:
+                    fence = self.cache_epoch() if self.cache_epoch else 0
+                    self.result_cache.store(*meta, fence, res)
         self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
         self.completed += len(batch)
         return results

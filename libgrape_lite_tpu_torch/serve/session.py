@@ -24,8 +24,12 @@ Typical use::
     sess.drain()                      # or pump() under a wait policy
     values = reqs[0].result.values
 
+The autopilot's hooks: `attach_result_cache` (a fence-epoch result
+cache looked up at submit, filled at delivery) and `attach_admission`
+(the queue sheds or defers over-budget tenants).
+
 Not here yet: the guard policies (a session takes `guard` None or
-"off"), and the result-cache and admission hooks of the autopilot.
+"off").
 """
 
 from __future__ import annotations
@@ -90,9 +94,15 @@ class ServeSession:
         self._worker_stats = {"hits": 0, "misses": 0}
         self._pump = None  # the attached AsyncServePump, if any
         self._closed = False
+        # the result cache (autopilot/cache.py) and its epoch source: a
+        # bare session's own ingest counter, or a fleet replica's router
+        # fence (attach_result_cache)
+        self._cache = None
+        self._cache_epoch = None
+        self._ingest_epoch = 0
         self.stats = {
             "queries": 0, "batches": 0, "failed": 0,
-            "sequential_fallbacks": 0, "ingested_ops": 0,
+            "sequential_fallbacks": 0, "cache_hits": 0, "ingested_ops": 0,
             "overlay_applies": 0, "repacks": 0, "forced_repacks": 0,
         }
 
@@ -185,6 +195,14 @@ class ServeSession:
             self.dyn.stats["overlay_applies"] - before_o)
         if self.dyn.fragment is not self.fragment:
             self._adopt_fragment()
+        if report.get("staged", 0):
+            # a content-changing ingest moves the cache epoch (an empty
+            # forced repack keeps every answer); a session owning its
+            # epoch drops the stale one here, a fleet replica's router
+            # does it when the fence moves
+            self._ingest_epoch += 1
+            if self._cache is not None:
+                self._cache.invalidate_stale(self._cache_epoch())
         return report
 
     def _adopt_fragment(self) -> None:
@@ -226,6 +244,72 @@ class ServeSession:
         return self._compat_for(req.app_key, req.args, req.max_rounds,
                                 req.guard, req.tenant)
 
+    # ---- result cache and admission control (autopilot/) ----
+
+    def attach_result_cache(self, cache, epoch=None) -> None:
+        """Wire a ResultCache (autopilot/cache.py): `submit` looks it up
+        before the request enters the queue, and the queue's `deliver`
+        stores every cacheable ok result.  `epoch` gives the
+        invalidation fence (a FleetRouter passes `lambda: router.fence`);
+        by default the session's ingest counter, which every
+        content-changing ingest moves."""
+        self._cache = cache
+        self._cache_epoch = epoch or (lambda: self._ingest_epoch)
+        self.queue.result_cache = cache
+        self.queue.cache_meta = self._cache_meta
+        self.queue.cache_epoch = self._cache_epoch
+
+    def attach_admission(self, controller) -> None:
+        """Wire an AdmissionController (autopilot/admission.py): the
+        queue's pop sheds or defers over-budget tenants first."""
+        self.queue.admission = controller.review
+
+    def _cacheable(self, app_key: str, args: dict, guard):
+        """The lane source when the query is cacheable -- a point query
+        (the app's `batch_query_key`) with its lane argument and no guard
+        named, as in the JAX session -- else None."""
+        if self._cache is None or (guard or self.guard) is not None:
+            return None
+        app = self.apps.get(app_key)
+        bq = getattr(app, "batch_query_key", None) if app else None
+        if bq is None:
+            return None
+        return args.get(bq)
+
+    def _cache_meta(self, req: QueryRequest):
+        """(compat, source) of a cacheable request, else None: the
+        queue's store hook."""
+        source = self._cacheable(req.app_key, req.args, req.guard)
+        if source is None:
+            return None
+        return (self._compat_key(req), source)
+
+    def _deliver_cached(self, app_key: str, args: dict, entry, *,
+                        max_rounds, priority, deadline_s,
+                        tenant) -> QueryRequest:
+        """Serve one cache hit without dispatching: a request and its
+        result with zeroed stages (no queue wait, no device time), the
+        same `slo.observe` as a delivered result, pushed on the queue's
+        out-of-band channel so every pump and drain returns it."""
+        from libgrape_lite_tpu_torch.obs import slo
+
+        req = QueryRequest(
+            app_key=app_key, args=dict(args), max_rounds=max_rounds,
+            priority=int(priority), deadline_s=deadline_s, tenant=tenant)
+        req.popped_s = req.submitted_s
+        vals, rounds, code = entry
+        res = ServeResult(
+            request_id=req.id, app_key=app_key, ok=True, values=vals,
+            rounds=rounds, terminate_code=code, batch_size=1,
+            stages={"queue_wait_us": 0, "window_wait_us": 0,
+                    "dispatch_us": 0, "device_us": 0, "harvest_us": 0})
+        res.latency_s = time.perf_counter() - req.submitted_s
+        req.result = res
+        self.stats["cache_hits"] += 1
+        slo.observe(app_key, tenant, res.latency_s, True)
+        self.queue.push_oob(res)
+        return req
+
     def submit(self, app_key: str, args: dict | None = None, *,
                max_rounds: int | None = None,
                guard: str | None = None, priority: int = 0,
@@ -234,6 +318,17 @@ class ServeSession:
         if self._closed:
             raise RuntimeError("session is closed")
         check_guard(guard)
+        args = dict(args or {})
+        # the result cache first: a hit never enters the queue
+        source = self._cacheable(app_key, args, guard)
+        if source is not None:
+            compat = self._compat_for(app_key, args, max_rounds, guard,
+                                      tenant)
+            entry = self._cache.lookup(compat, source, self._cache_epoch())
+            if entry is not None:
+                return self._deliver_cached(
+                    app_key, args, entry, max_rounds=max_rounds,
+                    priority=priority, deadline_s=deadline_s, tenant=tenant)
         return self.queue.submit(
             app_key, args, max_rounds=max_rounds, guard=guard,
             priority=priority, deadline_s=deadline_s, tenant=tenant)

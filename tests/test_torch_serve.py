@@ -452,12 +452,8 @@ def test_cli_serve_delta_stream(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--replicas", "2", 5), ("--drain_at", "3", 5), ("--tenants", "by_app", 5),
-    ("--autopilot", None, 5), ("--min_replicas", "1", 5),
-    ("--max_replicas", "4", 5), ("--cache_entries", "64", 5),
     ("--guard", "halt", 6), ("--trace", "t.json", 6),
     ("--metrics", "m.txt", 6), ("--metrics_port", "0", 6),
-    ("--slo", "sssp=5", 6),
 ])
 def test_cli_serve_unported_flags_are_usage_errors(capsys, flag, value,
                                                    item):

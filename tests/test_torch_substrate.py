@@ -194,6 +194,8 @@ def test_port_sources_import_no_jax():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "libgrape_lite_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for sub in ("fleet", "autopilot", "obs"):  # the serving fleet's slice
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -250,6 +252,44 @@ def test_slice8_modules_import_without_jax():
         "assert not bad, bad\n"
         "from libgrape_lite_tpu_torch.io import native\n"
         "assert native._tried is False\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+FLEET_MODULES = [
+    "libgrape_lite_tpu_torch.obs",
+    "libgrape_lite_tpu_torch.obs.federation",
+    "libgrape_lite_tpu_torch.obs.slo",
+    "libgrape_lite_tpu_torch.fleet",
+    "libgrape_lite_tpu_torch.fleet.budget",
+    "libgrape_lite_tpu_torch.fleet.router",
+    "libgrape_lite_tpu_torch.fleet.drain",
+    "libgrape_lite_tpu_torch.fleet.tenancy",
+    "libgrape_lite_tpu_torch.autopilot",
+    "libgrape_lite_tpu_torch.autopilot.signals",
+    "libgrape_lite_tpu_torch.autopilot.cache",
+    "libgrape_lite_tpu_torch.autopilot.admission",
+    "libgrape_lite_tpu_torch.autopilot.scaler",
+]
+
+
+def test_fleet_modules_import_without_jax():
+    """Each module of the fleet, the autopilot and the port's obs/ imports
+    with neither jax, the JAX package nor triton, and registers its
+    federation namespace without asking for a card."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {FLEET_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'libgrape_lite_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "from libgrape_lite_tpu_torch.obs import federation\n"
+        "assert federation.self_check() == [], federation.self_check()\n"
         "print('ok')\n"
     )
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
