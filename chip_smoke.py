@@ -172,6 +172,25 @@ the port's own entry points:
      x4 from arrival 64 -- a scale-up recorded, every result (cache hits
      too) bit-equal to one session, none dropped (the scale-up's seconds,
      the replica count over time, hits and misses);
+  11d. observability (`[obs]`): PageRank (auto, 10 rounds) and SSSP
+     from 0 on RMAT-20 through `Worker.query` with obs/ armed as `run_app
+     --trace --metrics` arms it, against the same query disarmed:
+     bit-equal values, one `query`, one `peval` and `rounds` `superstep`
+     spans whose `active` args are the votes a `--profile` run logs,
+     `grape_supersteps_total` = rounds + 1, the same host syncs (CUDA's
+     sync-debug mode), the wall of each (median of 5) and the spans'
+     summed `device_wait_us` beside the query's device busy time
+     (torch.profiler); a 16-query 8-lane sssp session on RMAT-20 with
+     the [dyn] adds ingested every 8, armed, byte-identical to disarmed
+     and launching the lane K1 and the overlay fold, then a deadline
+     storm (queries with 0-ms deadlines) that writes a postmortem
+     bundle, rendered and joined to the trace by `postmortem --trace`;
+     on p2p-31 `run_app --trace --metrics --profile` (its per-round
+     lines), `serve` with --trace, --metrics and --metrics_port 0 (one
+     scrape over 127.0.0.1 holding every name the JAX exporter gives
+     such a run, one serve_query span a query, dumps equal to the
+     disarmed run's) and `serve --replicas 2 --trace` (fleet_pump spans
+     on both replicas);
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -3637,6 +3656,365 @@ def fleet_phases(frag, session_qps, device) -> dict:
     return out
 
 
+# ---- phase 11d: observability ([obs]) -----------------------------------
+
+def obs_reset() -> None:
+    """Disarm obs/ and forget its sinks (every [obs] run starts clean)."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.obs import exporter
+    from libgrape_lite_tpu_torch.obs.recorder import RECORDER
+
+    exporter.stop_exporter()
+    RECORDER.set_sink(None)
+    obs.reset()
+
+
+def host_spans(events, name: str) -> list:
+    """The `name` spans on host rows (not the per-fragment, lane or
+    replica mirrors)."""
+    from libgrape_lite_tpu_torch.obs.events import FRAG_TID_BASE
+
+    return [e for e in events if e.get("ph") == "X" and e["name"] == name
+            and e["tid"] < FRAG_TID_BASE]
+
+
+def profiled_votes(frag, app_factory, device, kw):
+    """One disarmed `Worker.query` at vlog level 1 (`run_app --profile`):
+    the per-round lines it logs and the votes they report, PEval first."""
+    import io
+
+    from libgrape_lite_tpu_torch.utils import logging as glog
+
+    buf = io.StringIO()
+    old = glog.vlog_level()
+    glog.set_vlog_level(1)
+    try:
+        with contextlib.redirect_stderr(buf):
+            wk = run_query(frag, app_factory(), device, **kw)[0]
+    finally:
+        glog.set_vlog_level(old)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if "PEval: " in ln or "IncEval round " in ln]
+    votes = [int(ln.rsplit("active=", 1)[1]) for ln in lines]
+    return wk, lines, votes
+
+
+def obs_query_phase(label, frag, app_factory, device, kw, tmp) -> dict:
+    """One main-path query armed (trace and metrics files, as `run_app
+    --trace --metrics` arms them) against the same query disarmed:
+    bit-equal values, one `query` span, one `peval` and `rounds`
+    `superstep` spans whose `active` args are the votes the profiled run
+    logs, `grape_supersteps_total` = rounds + 1, equal host syncs; the
+    wall of each, median of 5 (interleaved, each armed run re-armed
+    fresh), beside the wall armed with no file sink (`in_memory`) and
+    the seconds of one flush into the file sinks, which every armed
+    query ends with; and the spans' summed `device_wait_us` beside the
+    query's device busy time from torch.profiler."""
+    from libgrape_lite_tpu_torch import obs
+
+    obs_reset()
+    plain, lines, votes = profiled_votes(frag, app_factory, device, kw)
+    want = plain.result_values()
+    syncs_plain = host_syncs(frag, app_factory, device, kw)
+    trace = os.path.join(tmp, f"{label}.json")
+    metrics = os.path.join(tmp, f"{label}_metrics")
+    obs.configure(trace_path=trace, metrics_path=metrics)
+    reset_launch_counts()
+    wk = run_query(frag, app_factory(), device, **kw)[0]
+    counts = launch_counts()
+    obs.flush()
+    check(np.array_equal(wk.result_values(), want),
+          f"[obs] {label}: armed values not bit-equal to disarmed")
+    check(wk.rounds == plain.rounds, f"[obs] {label}: rounds differ")
+    events = obs.load_trace(trace)
+    q, pe, st = (host_spans(events, n) for n in ("query", "peval",
+                                                   "superstep"))
+    check(len(q) == 1 and len(pe) == 1 and len(st) == wk.rounds,
+          f"[obs] {label}: {len(q)} query, {len(pe)} peval, {len(st)} "
+          f"superstep spans for {wk.rounds} rounds")
+    active = [e["args"]["active"] for e in pe + st]
+    check(active == votes, f"[obs] {label}: span votes {active[:8]} differ "
+          f"from the profiled run's {votes[:8]}")
+    check([e["args"]["round"] for e in st] == list(range(1, wk.rounds + 1)),
+          f"[obs] {label}: superstep rounds out of order")
+    with open(metrics + ".json") as f:
+        snap = json.load(f)
+    check(snap["grape_supersteps_total"]["value"] == wk.rounds + 1,
+          f"[obs] {label}: grape_supersteps_total "
+          f"{snap['grape_supersteps_total']['value']} != {wk.rounds + 1}")
+    check(snap["grape_active_per_round"]["values"] == votes,
+          f"[obs] {label}: the active series differs from the votes")
+    obs.configure(in_memory=True)
+    syncs_armed = host_syncs(frag, app_factory, device, kw)
+    check(syncs_armed == syncs_plain, f"[obs] {label}: host syncs armed "
+          f"{syncs_armed} != disarmed {syncs_plain}")
+    walls = {"disarmed": [], "armed": [], "in_memory": []}
+    for i in range(5):
+        obs_reset()
+        walls["disarmed"].append(run_query(frag, app_factory(), device,
+                                           **kw)[1])
+        obs.configure(in_memory=True)
+        walls["in_memory"].append(run_query(frag, app_factory(), device,
+                                            **kw)[1])
+        obs.configure(trace_path=os.path.join(tmp, f"{label}_{i}.json"),
+                      metrics_path=os.path.join(tmp, f"{label}_{i}_m"))
+        walls["armed"].append(run_query(frag, app_factory(), device,
+                                        **kw)[1])
+    t0 = time.perf_counter()
+    obs.flush()  # the sinks again, as the last armed query left them
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    obs.configure(in_memory=True)
+    prof = (profile_call(f"{label} armed query", lambda: run_query(
+        frag, app_factory(), device, **kw)[1])
+        if torch.device(device).type == "cuda" else None)
+    ev = obs.history()
+    waits = [e["args"]["device_wait_us"] for e in
+             host_spans(ev, "peval") + host_spans(ev, "superstep")]
+    wait_ms = sum(waits) / 1e3
+    obs_reset()
+    print(f"[obs] {label}: rounds={wk.rounds} spans query=1 peval=1 "
+          f"superstep={len(st)} active=votes supersteps_total="
+          f"{wk.rounds + 1} host_syncs armed={syncs_armed} disarmed="
+          f"{syncs_plain} wall_ms median of 5 armed="
+          f"{med['armed'] * 1e3:.3f} disarmed={med['disarmed'] * 1e3:.3f} "
+          f"(x{med['armed'] / med['disarmed']:.3f}) in_memory="
+          f"{med['in_memory'] * 1e3:.3f} flush_ms={flush_ms:.3f} "
+          f"device_wait_ms="
+          f"{wait_ms:.3f}" + (f" device_busy_ms={prof['device_busy_ms']:.3f}"
+                              if prof else "") + " bit-equal", flush=True)
+    print(f"[obs]   {label} --profile: {lines[0]} ... {lines[-1]} "
+          f"({len(lines)} lines)", flush=True)
+    return dict(counts=counts, rounds=wk.rounds, host_syncs=syncs_armed,
+                wall_ms_armed=med["armed"] * 1e3,
+                wall_ms_disarmed=med["disarmed"] * 1e3,
+                wall_ms_in_memory=med["in_memory"] * 1e3, flush_ms=flush_ms,
+                device_wait_ms=wait_ms,
+                device_busy_ms=prof["device_busy_ms"] if prof else None)
+
+
+def obs_session_phase(frag, device, tmp) -> dict:
+    """An 8-lane sssp `ServeSession` on RMAT-20 with the [dyn] adds
+    ingested every SERVE_INGEST_EVERY queries, armed, against the same
+    session disarmed (byte-identical results; the lane K1 and the
+    overlay fold launched); then a deadline storm through the same
+    session's queue -- queries with 0-ms deadlines -- with the recorder's
+    sink set, and `postmortem <bundle> --trace <trace>`, which must join
+    the bundle's serve_query rows to the trace's."""
+    import io
+
+    from libgrape_lite_tpu_torch import cli, obs
+    from libgrape_lite_tpu_torch.dyn import RepackPolicy
+    from libgrape_lite_tpu_torch.obs.recorder import (
+        DEADLINE_STORM_THRESHOLD,
+        RECORDER,
+    )
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    stream = [("sssp", {"source": s})
+              for s in serve_sources(frag, SERVE_CLI_QUERIES)]
+    adds = dyn_adds(frag)[0]
+
+    def serve():
+        sess = ServeSession(frag, policy=BatchPolicy(max_batch=SERVE_BATCH),
+                            dyn=RepackPolicy())
+        reqs = [sess.submit(a, kw) for a, kw in stream]
+        res = cli.serve_with_ingest(sess, None, reqs, adds,
+                                    SERVE_INGEST_EVERY)
+        return sess, res
+
+    obs_reset()
+    _, plain = serve()
+    frag.dyn_overlay = None
+    trace = os.path.join(tmp, "serve.json")
+    sink = os.path.join(tmp, "postmortem")
+    obs.configure(trace_path=trace, metrics_path=os.path.join(tmp, "serve_m"))
+    RECORDER.set_sink(sink)
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    sess, armed = serve()
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    same_results(plain, armed, "[obs] the armed session")
+    check(counts["gather_reduce_lanes"] > 0 and counts["overlay_fold"] > 0,
+          f"[obs] the armed session launched {counts}")
+    storm = [sess.submit("sssp", {"source": s}, deadline_s=0.0)
+             for s in range(DEADLINE_STORM_THRESHOLD)]
+    sess.drain()
+    frag.dyn_overlay = None
+    check(all(q.result is not None and not q.result.ok
+              and q.result.error["reason"] == "deadline_expired"
+              for q in storm), "[obs] the 0-ms deadlines did not expire")
+    obs.flush()
+    bundles = sorted(os.listdir(sink))
+    check(len(bundles) == 1 and "deadline_storm" in bundles[0],
+          f"[obs] the deadline storm wrote {bundles}")
+    rows = host_spans(obs.load_trace(trace), "serve_batch")
+    queries = [e for e in obs.load_trace(trace)
+               if e.get("ph") == "X" and e["name"] == "serve_query"]
+    check(len(queries) == len(stream), f"[obs] {len(queries)} serve_query "
+          f"spans for {len(stream)} queries")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["postmortem", os.path.join(sink, bundles[0]),
+                       "--trace", trace])
+    report = buf.getvalue().strip().splitlines()
+    check(rc == 0, f"[obs] postmortem --trace exited {rc}: {report[-1:]}")
+    print(f"[obs] session rmat{SCALE} max_batch={SERVE_BATCH} ingest every "
+          f"{SERVE_INGEST_EVERY}: queries={len(armed)} serve_batch="
+          f"{len(rows)} serve_query={len(queries)} wall_s={wall:.4f} "
+          f"launches={counts} byte-identical to disarmed", flush=True)
+    print(f"[obs]   deadline storm: {len(storm)} expired, bundle "
+          f"{bundles[0]}; postmortem: {report[0]} | {report[-1]}",
+          flush=True)
+    obs_reset()
+    return {"obs session": dict(counts=counts, seconds=wall,
+                                queries=len(armed))}
+
+
+# the names the JAX package's exporter gives an armed 16-query sssp serve
+# run (tests/test_torch_telemetry.py holds the port's scrape to the JAX
+# one on the CPU)
+OBS_SCRAPE_NAMES = (
+    "grape_graph_edges", "grape_graph_vertices", "grape_queries_total",
+    "grape_query_rounds", "grape_serve_admission_wait_seconds_bucket",
+    "grape_serve_admission_wait_seconds_count",
+    "grape_serve_admission_wait_seconds_sum", "grape_stats_pump_engaged",
+    "grape_stats_recorder_dropped", "grape_stats_recorder_dumps",
+    "grape_stats_recorder_recorded", "grape_stats_recorder_triggers",
+    "grape_stats_registry", "grape_stats_slo_breaches",
+    "grape_stats_slo_budget_frac", "grape_stats_slo_max_burn",
+    "grape_stats_slo_observed", "grape_supersteps_total",
+)
+
+
+def obs_cli_phase(device, tmp) -> dict:
+    """The CLI's obs flags on p2p-31: `run_app --trace --metrics
+    --profile` (its per-round lines, spans and metrics); `serve` of
+    SERVE_CLI_QUERIES sssp queries at max_batch SERVE_BATCH with
+    --trace, --metrics and --metrics_port 0 (the endpoint scraped once
+    over 127.0.0.1 for every name of OBS_SCRAPE_NAMES; one serve_query
+    span a query; --dump_results equal to the disarmed run's); and
+    `--replicas 2` armed (fleet_pump spans on both replicas)."""
+    import io
+    import urllib.request
+
+    from libgrape_lite_tpu_torch import cli, obs
+    from libgrape_lite_tpu_torch.obs import exporter
+    from libgrape_lite_tpu_torch.utils import logging as glog
+
+    out = {}
+    p2p = ["--efile", os.path.join(HERE, "dataset", "p2p-31.e"),
+           "--vfile", os.path.join(HERE, "dataset", "p2p-31.v")]
+    obs_reset()
+    trace = os.path.join(tmp, "run_app.json")
+    err = io.StringIO()
+    old = glog.vlog_level()
+    reset_launch_counts()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["--application", "sssp", *p2p, "--sssp_source",
+                           "6", "--device", device, "--trace", trace,
+                           "--metrics", os.path.join(tmp, "run_app_m"),
+                           "--profile"])
+    finally:
+        glog.set_vlog_level(old)
+    out["obs run_app"] = dict(counts=launch_counts())
+    lines = [ln for ln in err.getvalue().splitlines()
+             if "PEval: " in ln or "IncEval round " in ln]
+    rounds = len(host_spans(obs.load_trace(trace), "superstep"))
+    check(rc == 0 and rounds > 0 and len(lines) == rounds + 1,
+          f"[obs] run_app --profile: rc {rc}, {len(lines)} lines for "
+          f"{rounds} rounds")
+    print(f"[obs] run_app sssp p2p-31 --trace --metrics --profile: "
+          f"rounds={rounds} lines={len(lines)}: {lines[0]} | {lines[1]} "
+          f"... {lines[-1]}", flush=True)
+
+    def serve(extra, dump):
+        buf = io.StringIO()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["serve", *p2p, "--num_queries",
+                           str(SERVE_CLI_QUERIES), "--max_batch",
+                           str(SERVE_BATCH), "--dump_results", dump,
+                           "--device", device, *extra])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rec["ok"] == SERVE_CLI_QUERIES,
+              f"[obs] serve {extra}: {rec}")
+        with open(dump) as f:
+            return f.read(), launch_counts()
+
+    obs_reset()
+    plain, _ = serve([], os.path.join(tmp, "plain.txt"))
+    trace = os.path.join(tmp, "serve_cli.json")
+    armed, counts = serve(["--trace", trace, "--metrics",
+                           os.path.join(tmp, "serve_cli_m"),
+                           "--metrics_port", "0"],
+                          os.path.join(tmp, "armed.txt"))
+    out["obs serve cli"] = dict(counts=counts)
+    exp = exporter.get_exporter()
+    check(exp is not None and exp.url.startswith("http://127.0.0.1:"),
+          "[obs] --metrics_port 0 started no exporter on 127.0.0.1")
+    with urllib.request.urlopen(exp.url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    names = {ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+             if ln and not ln.startswith("#")}
+    missing = sorted(set(OBS_SCRAPE_NAMES) - names)
+    check(not missing, f"[obs] the scrape lacks {missing}")
+    queries = [e for e in obs.load_trace(trace)
+               if e.get("ph") == "X" and e["name"] == "serve_query"]
+    check(len(queries) == SERVE_CLI_QUERIES,
+          f"[obs] {len(queries)} serve_query spans")
+    check(armed == plain, "[obs] serve --trace --dump_results differ from "
+          "the disarmed run's")
+    print(f"[obs] serve p2p-31 {SERVE_CLI_QUERIES} sssp max_batch="
+          f"{SERVE_BATCH} --trace --metrics --metrics_port 0: scraped "
+          f"{exp.url}/metrics ({len(names)} names, all "
+          f"{len(OBS_SCRAPE_NAMES)} of the JAX exporter's), serve_query="
+          f"{len(queries)}, dumps equal to disarmed", flush=True)
+    obs_reset()
+    plain, _ = serve(["--replicas", "2"], os.path.join(tmp, "plain2.txt"))
+    trace = os.path.join(tmp, "fleet_cli.json")
+    armed, counts = serve(["--replicas", "2", "--trace", trace],
+                          os.path.join(tmp, "armed2.txt"))
+    out["obs fleet cli"] = dict(counts=counts)
+    pumps = [e for e in obs.load_trace(trace)
+             if e.get("ph") == "X" and e["name"] == "fleet_pump"]
+    reps = sorted({e["args"]["replica"] for e in pumps})
+    check(reps == [0, 1], f"[obs] fleet_pump spans on replicas {reps}")
+    check(armed == plain, "[obs] serve --replicas 2 --trace dumps differ")
+    print(f"[obs] serve --replicas 2 --trace: fleet_pump={len(pumps)} on "
+          f"replicas {reps}, dumps equal to disarmed", flush=True)
+    obs_reset()
+    return out
+
+
+def obs_phases(frag, device) -> dict:
+    """[obs]: the main path armed (PageRank auto and SSSP on RMAT-20, the
+    8-lane session with ingest, the deadline storm and its postmortem)
+    and the CLI's obs flags on p2p-31; seconds in all."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.models import SSSP, PageRank
+
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["obs pagerank auto"] = obs_query_phase(
+            "pagerank", frag, lambda: PageRank(spmv_mode="auto"), device,
+            {"delta": 0.85, "max_round": PR_ROUNDS}, tmp)
+        runs["obs sssp"] = obs_query_phase("sssp", frag, SSSP, device,
+                                           {"source": 0}, tmp)
+        runs.update(obs_session_phase(frag, device, tmp))
+        runs.update(obs_cli_phase(device, tmp))
+    secs = time.perf_counter() - t0
+    print(f"[time] obs {secs:.1f} s", flush=True)
+    return {"seconds": secs, "runs": runs}
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -3870,12 +4248,13 @@ def main() -> int:
     fleet = fleet_phases(
         frag, serve["runs"][f"serve session max_batch={SERVE_BATCH} sync"]
         ["qps"], device)
+    observ = obs_phases(frag, device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
               "load": load, "spgemm": spgemm, **dyn["runs"],
-              **serve["runs"], **fleet["runs"]}
+              **serve["runs"], **fleet["runs"], **observ["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -3924,7 +4303,8 @@ def main() -> int:
              library=gl["library"],
              launches_by_app={app: r["counts"]["gather_reduce_lanes"]
                               for app, r in {**serve["runs"],
-                                             **fleet["runs"]}.items()},
+                                             **fleet["runs"],
+                                             **observ["runs"]}.items()},
              max_abs_err_all=max(r["max_abs_err"]
                                  for r in serve["kernel"].values()),
              cases={k: {f: v for f, v in r.items() if f != "config"}
@@ -3996,6 +4376,9 @@ def main() -> int:
         "autopilot": {k: {f: x for f, x in r.items() if f != "counts"}
                       for k, r in fleet["runs"].items()
                       if k.startswith("autopilot")},
+        "obs": {"seconds": observ["seconds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in observ["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,12 @@ backend of lcc_opt / lcc_bitmap / triangle_count.
 
 `--device` defaults to `cuda` and the run fails when CUDA is absent.
 
+Observability (obs/): `--trace t.json` writes a Chrome trace (Perfetto
+loads it; `libgrape_lite_tpu_torch/scripts/trace_report.py` prints its
+per-superstep table) with a JSONL twin `t.jsonl`, `--metrics m` writes
+`m.json` and `m.prom`, and `--profile` logs each round's seconds and
+active count; GRAPE_TRACE and GRAPE_METRICS arm the same sinks.
+
 The `serve` subcommand loads the graph once and serves a stream of
 point queries through a ServeSession (serve/), batching compatible
 ones, and prints one JSON summary line (the JAX CLI's keys):
@@ -52,7 +58,19 @@ device budget, and `--autopilot [--min_replicas N --max_replicas M
 shared result cache in front; `--slo 'sssp=5,*=100'` sets latency
 objectives.  On a one-app stream `--dump_results` of a fleet run equals
 the plain run's (on a mixed stream the plain loop ingests by dispatch
-count, `run_fleet_script` by submit count).
+count, `run_fleet_script` by submit count).  `--trace` / `--metrics` arm
+obs/ for the run (per-query `serve_query` rows, the pump's and the
+router's spans); `--metrics_port P` (or GRAPE_METRICS_PORT) serves a live
+OpenMetrics endpoint on 127.0.0.1 for the run's duration, 0 an ephemeral
+port (its URL goes to stderr).
+
+The `postmortem` subcommand renders a flight-recorder bundle (obs/
+recorder.py writes one per trigger into GRAPE_POSTMORTEM's directory);
+with `--trace` it checks that every `serve_query` row of the bundle is
+byte for byte the trace's row of that query:
+
+    python -m libgrape_lite_tpu_torch.cli postmortem bundle.json \
+        [--trace t.json] [--json]
 """
 
 from __future__ import annotations
@@ -110,16 +128,17 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--rebalance_vertex_factor", type=int, default=0)
     p.add_argument("--memory_stats", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--profile", action="store_true",
+                   help="log each round's seconds and active count")
+    p.add_argument("--trace", default="",
+                   help="arm obs/ tracing: a Chrome trace_event JSON "
+                        "(Perfetto loads it) at this path and a JSONL twin "
+                        "beside it; the same as GRAPE_TRACE=path")
+    p.add_argument("--metrics", default="",
+                   help="write the obs/ metrics snapshot to <path>.json and "
+                        "<path>.prom at query end; the same as "
+                        "GRAPE_METRICS=path")
     return p
-
-
-# serve flags whose subsystem is not ported yet: (subsystem, ROADMAP
-# Queue A item).  Given at all, each is a usage error
-_UNPORTED_SERVE_FLAGS = {
-    "trace": ("obs/ tracer", 6),
-    "metrics": ("obs/ metrics", 6),
-    "metrics_port": ("obs/ exporter", 6),
-}
 
 
 def make_serve_parser() -> argparse.ArgumentParser:
@@ -202,11 +221,16 @@ def make_serve_parser() -> argparse.ArgumentParser:
                         "'sssp=5,tenant:t0=50,*=100'; a breach counts "
                         "against the key's error budget, never raises "
                         "(also GRAPE_SLO; budget: GRAPE_SLO_BUDGET)")
-    unported = p.add_argument_group(
-        "not ported yet (each one a usage error naming its ROADMAP item)")
-    unported.add_argument("--metrics_port", type=int, default=None)
-    for flag in ("trace", "metrics"):
-        unported.add_argument(f"--{flag}", default=None)
+    p.add_argument("--trace", default="",
+                   help="obs/ Chrome-trace path (per-query lane rows)")
+    p.add_argument("--metrics", default="",
+                   help="obs/ metrics snapshot: <path>.json and <path>.prom")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="obs/exporter.py: a live OpenMetrics endpoint on "
+                        "127.0.0.1 for the run's duration (/metrics, "
+                        "/federation, /healthz); 0 binds an ephemeral port "
+                        "(the URL goes to stderr); the same as "
+                        "GRAPE_METRICS_PORT")
     return p
 
 
@@ -239,12 +263,11 @@ def serve_main(argv=None) -> int:
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
 
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.obs import exporter
+
     parser = make_serve_parser()
     ns = parser.parse_args(argv)
-    for flag, (subsystem, item) in _UNPORTED_SERVE_FLAGS.items():
-        if getattr(ns, flag) is not None:
-            parser.error(f"--{flag} needs {subsystem}, not ported yet: "
-                         f"ROADMAP Queue A item {item}")
     if ns.guard not in ("", "off"):
         parser.error(f"--guard {ns.guard} needs guard/ and serve/batch.py, "
                      "not ported yet: ROADMAP Queue A item 6")
@@ -255,6 +278,14 @@ def serve_main(argv=None) -> int:
             slo.configure(ns.slo)
         except ValueError as e:
             parser.error(f"--slo: {e}")
+    if ns.trace or ns.metrics:
+        obs.configure(trace_path=ns.trace or None,
+                      metrics_path=ns.metrics or None)
+    exp = (exporter.start_exporter(ns.metrics_port)
+           if ns.metrics_port is not None
+           else exporter.maybe_start_from_env())
+    if exp is not None:
+        print(f"[serve] metrics exporter: {exp.url}", file=sys.stderr)
     queries = _serve_queries(ns)
     if not queries:
         # fail before the graph load, not on an empty percentile after
@@ -697,13 +728,123 @@ def _serve_summary(ns, sess, pump, reqs, results, wall, delta_ops,
     if results and not ok:
         print("[serve] every query failed", file=sys.stderr)
         sys.exit(1)
+    from libgrape_lite_tpu_torch import obs
+
+    if obs.armed():
+        obs.flush()
     return 0
+
+
+def make_postmortem_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="libgrape_lite_tpu_torch postmortem")
+    p.add_argument("bundle",
+                   help="flight-recorder bundle json (obs/recorder.py writes "
+                        "one per trigger into the GRAPE_POSTMORTEM "
+                        "directory)")
+    p.add_argument("--trace", default="",
+                   help="Chrome trace of the same run: check that every "
+                        "serve_query row of the bundle is byte for byte the "
+                        "trace's row of that query id (exit 1 on any "
+                        "mismatch)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw bundle instead of the report")
+    return p
+
+
+def postmortem_main(argv=None) -> int:
+    """The `postmortem` subcommand (JAX `cli.py::postmortem_main`):
+    render a bundle; with --trace, prove its `serve_query` rows are the
+    trace's rows (the sort_keys serialization of each, by query id: the
+    bundle copies the tracer's history, so any drift is a fault).
+    Returns 0, 1 (rows drifted or absent) or 2 (unreadable or foreign
+    bundle or trace)."""
+    from collections import Counter
+
+    from libgrape_lite_tpu_torch.obs.recorder import BUNDLE_SCHEMA
+
+    ns = make_postmortem_parser().parse_args(argv)
+    try:
+        with open(ns.bundle) as fh:
+            bundle = json.load(fh)
+    except (OSError, ValueError) as e:
+        print(f"postmortem: {ns.bundle}: {e}", file=sys.stderr)
+        return 2
+    if not isinstance(bundle, dict) or bundle.get("schema") != BUNDLE_SCHEMA:
+        schema = bundle.get("schema") if isinstance(bundle, dict) else None
+        print(f"postmortem: {ns.bundle}: schema {schema!r} != "
+              f"{BUNDLE_SCHEMA!r}", file=sys.stderr)
+        return 2
+    if ns.json:
+        print(json.dumps(bundle, indent=1))
+        return 0
+
+    events = bundle.get("events") or []
+    spans = bundle.get("spans") or []
+    instants = bundle.get("instants") or []
+    fed = bundle.get("federation") or {}
+    guard = bundle.get("guard")
+    guard_text = ("yes (" + str((guard.get("verdict") or {}).get("kind"))
+                  + ")" if guard else "no")
+    lines = [
+        f"postmortem: {bundle['reason']}",
+        f"  trace_id:    {bundle.get('trace_id')}",
+        f"  extra:       "
+        f"{json.dumps(bundle.get('extra') or {}, sort_keys=True)}",
+        f"  ring events: {len(events)} "
+        f"({dict(Counter(e.get('kind') for e in events))})",
+        f"  spans:       {len(spans)} "
+        f"({dict(Counter(s.get('name') for s in spans))})",
+        f"  instants:    {len(instants)} "
+        f"({dict(Counter(i.get('name') for i in instants))})",
+        f"  federation:  {sorted(fed)}",
+        f"  guard:       {guard_text}",
+    ]
+    slo_snap = fed.get("slo") or {}
+    if slo_snap.get("objectives_ms"):
+        lines.append(
+            f"  slo:         {slo_snap.get('breaches', 0)} breach(es) of "
+            f"{slo_snap.get('observed', 0)} observed, max burn "
+            f"{slo_snap.get('max_burn', 0.0)}")
+    print("\n".join(lines))
+    if not ns.trace:
+        return 0
+    try:
+        with open(ns.trace) as fh:
+            trace = json.load(fh)
+    except (OSError, ValueError) as e:
+        print(f"postmortem: {ns.trace}: {e}", file=sys.stderr)
+        return 2
+    by_qid: dict = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X" or ev.get("name") != "serve_query":
+            continue
+        qid = (ev.get("args") or {}).get("query_id")
+        if qid is not None:
+            by_qid.setdefault(qid, []).append(json.dumps(ev, sort_keys=True))
+    matched = mismatched = missing = 0
+    for row in spans:
+        if row.get("name") != "serve_query":
+            continue
+        qid = (row.get("args") or {}).get("query_id")
+        want = json.dumps(row, sort_keys=True)
+        cands = by_qid.get(qid, [])
+        if want in cands:
+            matched += 1
+        elif cands:
+            mismatched += 1
+        else:
+            missing += 1
+    print(f"trace cross-check: {matched} serve_query row(s) byte-matched, "
+          f"{mismatched} mismatched, {missing} absent from the trace")
+    return 1 if (mismatched or missing) else 0
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
+    if argv and argv[0] == "postmortem":
+        return postmortem_main(argv[1:])
     ns = make_parser().parse_args(argv)
     run_app(QueryArgs(**vars(ns)))
     return 0

@@ -15,14 +15,17 @@ siblings serve:
      versions must reach the fence or rejoin raises
      `FenceViolationError`.
 
-Rejoining a replica lost with its process (`rejoin_lost`) needs a
-checkpoint lineage (`ft/`, ROADMAP Queue A item 6b).
+With obs/ armed the drain and the rejoin are `fleet_drain_begin` and
+`fleet_rejoin` trace instants.  Rejoining a replica lost with its
+process (`rejoin_lost`) needs a checkpoint lineage (`ft/`, ROADMAP
+Queue A item 6b).
 """
 
 from __future__ import annotations
 
 import time
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fleet.budget import FLEET_STATS
 from libgrape_lite_tpu_torch.fleet.router import FenceViolationError
 
@@ -40,6 +43,9 @@ def begin_drain(router, idx: int, *, offline=None) -> dict:
             "-- traffic would drop")
     t0 = time.perf_counter()
     r.routable = False
+    obs.tracer().instant("fleet_drain_begin", replica=idx,
+                         outstanding=r.outstanding,
+                         pending=r.session.queue.pending())
     drained = r.pump.drain()
     router._collect()
     if offline is not None:
@@ -76,6 +82,8 @@ def rejoin(router, idx: int) -> dict:
             f"replica {idx} rejoining at version {r.version} but the fence "
             f"is {router.fence} -- catch-up log incomplete")
     r.routable = True
+    obs.tracer().instant("fleet_rejoin", replica=idx, fence=router.fence,
+                         catchup_ops=applied)
     report = {"replica": idx, "catchup_ops": applied, "version": r.version,
               "wall_s": round(time.perf_counter() - t0, 4)}
     FLEET_STATS.record("rejoin", **report)

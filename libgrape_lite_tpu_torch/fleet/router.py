@@ -20,16 +20,21 @@ list, deterministically, so replicas answer byte-identically):
 
 Each replica serves through an `AsyncServePump` (window 1 by default:
 the synchronous loop's batches and order) whose quiesce is the drain
-barrier.  The JAX router's trace spans and gauges, and the flight
-recorder's trigger on a fence violation, wait for the port's `obs/`
-tracer and recorder (ROADMAP Queue A item 6a).
+barrier.  With obs/ armed each replica's pump pass is a `fleet_pump`
+span (and a `fleet_replica` span on the replica's own row when it
+delivered), each ingest a `fleet_ingest` instant, and a submit sets the
+replica's `grape_fleet_outstanding_r<idx>` gauge.  A fence violation
+triggers the flight recorder (a postmortem bundle when a sink is set)
+before it raises.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fleet.budget import FLEET_STATS
+from libgrape_lite_tpu_torch.obs.recorder import RECORDER
 
 
 class FenceError(RuntimeError):
@@ -126,6 +131,9 @@ class FleetRouter:
 
     def _check_fence(self, r: Replica) -> None:
         if r.version != self.fence:
+            RECORDER.trigger("fence_violation", extra={
+                "replica": r.idx, "replica_version": r.version,
+                "fence": self.fence})
             raise FenceViolationError(
                 f"replica {r.idx} is routable at graph version "
                 f"{r.version} but the fence is {self.fence} -- results "
@@ -143,6 +151,10 @@ class FleetRouter:
         pick.outstanding += 1
         self._live.append((req, pick))
         self.stats["routed"] += 1
+        tr = obs.tracer()
+        if tr.enabled:
+            obs.metrics().gauge(f"grape_fleet_outstanding_r{pick.idx}").set(
+                pick.outstanding)
         return req
 
     def _collect(self) -> None:
@@ -163,18 +175,29 @@ class FleetRouter:
     def pump(self) -> List:
         """One pass: pump every routable replica once (fence-checked),
         collect the accounting, return this pass's results."""
-        out = []
-        for r in self._routable():
-            out.extend(r.pump.pump(force=True))
-        self._collect()
-        return out
+        return self._each_replica(lambda r: r.pump.pump(force=True))
 
     def drain(self) -> List:
         """Drain every routable replica's queue and window (a draining
         replica is finished by fleet/drain.py)."""
+        return self._each_replica(lambda r: r.pump.drain())
+
+    def _each_replica(self, step) -> List:
+        """`step(replica)` on every routable replica in turn, each call a
+        `fleet_pump` span (and a `fleet_replica` span on the replica's
+        row when it delivered); then the accounting."""
         out = []
+        tr = obs.tracer()
         for r in self._routable():
-            out.extend(r.pump.drain())
+            with tr.span("fleet_pump", replica=r.idx,
+                         outstanding=r.outstanding) as sp:
+                got = step(r)
+            if tr.enabled and got:
+                tr.emit_span_raw(
+                    "fleet_replica", t0_ns=sp.t0_ns, dur_ns=sp.dur_ns,
+                    tid=tr.replica_tid(r.idx), replica=r.idx,
+                    results=len(got))
+            out.extend(got)
         self._collect()
         return out
 
@@ -205,6 +228,10 @@ class FleetRouter:
         if self.cache is not None:
             # results of the old epoch describe a graph that is gone
             self.cache.invalidate_stale(self.fence)
+        obs.tracer().instant(
+            "fleet_ingest", fence=self.fence, ops=len(ops),
+            applied=len(reports),
+            deferred=len(self.replicas) - len(reports))
         return {"fence": self.fence, "applied_replicas": len(reports),
                 "reports": reports}
 

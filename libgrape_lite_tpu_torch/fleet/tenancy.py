@@ -17,7 +17,9 @@ accounting.  The `FleetManager` runs N tenants in one process:
   `ServeSession.release_device`: the device tensors go, the host side
   (workers, host plans) stays, so a re-admission restores the tensors
   and builds no worker and no plan.  Every decision lands in
-  FLEET_STATS.
+  FLEET_STATS; with obs/ armed an eviction also counts in
+  `grape_fleet_evictions_total` and an admission sets
+  `grape_fleet_resident_bytes`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Dict, List, Optional
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fleet.budget import (
     FLEET_STATS,
     FleetBudget,
@@ -131,6 +134,8 @@ class FleetManager:
             for o in self.tenants.values())
         t.target.release_device(release_fragment=not shared)
         t.admitted = False
+        if obs.tracer().enabled:
+            obs.metrics().counter("grape_fleet_evictions_total").inc()
 
     def ensure_resident(self, name: str) -> None:
         """Admit (or re-admit) a tenant before its work dispatches: the
@@ -158,6 +163,9 @@ class FleetManager:
         if was_evicted:
             t.stats["readmits"] += 1
             FLEET_STATS._record({"kind": "tenant_readmit", "name": name})
+        if obs.tracer().enabled:
+            obs.metrics().gauge("grape_fleet_resident_bytes").set(
+                self.budget.used_bytes())
 
     # ---- admission front and fairness ----
 

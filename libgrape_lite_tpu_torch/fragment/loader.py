@@ -162,72 +162,99 @@ def LoadGraph(
     spec: LoadGraphSpec | None = None,
 ) -> ShardedEdgecutFragment:
     """Entry point, mirroring `LoadGraph<FRAG_T>` (`loader.h:42-53`).
-    The device is `comm_spec.device`."""
+    The device is `comm_spec.device`.
+
+    With obs/ armed the load is a `load_graph` span with `read_edges`,
+    `partition`, `build_fragment`, `deserialize` and `serialize`
+    children, and sets the `grape_graph_edges` / `grape_graph_vertices`
+    gauges (the JAX loader's spans and gauges)."""
+    from libgrape_lite_tpu_torch import obs
+
     spec = _fold_rebalance_env(spec or LoadGraphSpec())
     LOAD_SECONDS.clear()
-    cache = sig = None
-    if (spec.serialize or spec.deserialize) and spec.serialization_prefix:
-        cache, sig = _cache_dir(efile, vfile or "", spec, comm_spec.fnum)
-    if spec.deserialize and cache and os.path.exists(
-            os.path.join(cache, "sig")):
+    tr = obs.tracer()
+    with tr.span("load_graph", efile=efile, fnum=comm_spec.fnum) as lsp:
+        cache = sig = None
+        if (spec.serialize or spec.deserialize) and spec.serialization_prefix:
+            cache, sig = _cache_dir(efile, vfile or "", spec, comm_spec.fnum)
+        if spec.deserialize and cache and os.path.exists(
+                os.path.join(cache, "sig")):
+            t0 = time.perf_counter()
+            with tr.span("deserialize", cache=cache):
+                frag = _deserialize_fragment(cache, comm_spec, spec)
+            LOAD_SECONDS["deserialize"] = time.perf_counter() - t0
+            lsp.set(path="deserialize")
+            return _validate_load(frag)
+
         t0 = time.perf_counter()
-        frag = _deserialize_fragment(cache, comm_spec, spec)
-        LOAD_SECONDS["deserialize"] = time.perf_counter() - t0
+        with tr.span("read_edges"):
+            src, dst, w = read_edge_file(efile, weighted=spec.weighted,
+                                         string_id=spec.string_id)
+            if not spec.weighted:
+                w = None
+            if vfile:
+                oids = read_vertex_file(vfile, string_id=spec.string_id)
+            else:
+                # efile-only loading: the vertex universe is the set of
+                # endpoints
+                oids = np.unique(np.concatenate([src, dst]))
+        LOAD_SECONDS["parse"] = time.perf_counter() - t0
+        lsp.set(edges=int(len(src)), vertices=int(len(oids)))
+
+        t0 = time.perf_counter()
+        fnum = comm_spec.fnum
+        with tr.span("partition", kind=spec.partitioner_type):
+            if spec.rebalance:
+                from libgrape_lite_tpu_torch.fragment.rebalancer import (
+                    Rebalancer,
+                )
+
+                partitioner = Rebalancer(
+                    spec.rebalance_vertex_factor).partition(
+                        oids, src, dst, fnum)
+                # the skew the rebalancer fixed: in-edge counts of the
+                # pull direction (both orientations when undirected)
+                # against the cut it replaced
+                d_all = dst if spec.directed else np.concatenate([dst, src])
+                before = _shard_skew(
+                    make_partitioner(spec.partitioner_type, fnum, oids),
+                    d_all, fnum)
+                after = _shard_skew(partitioner, d_all, fnum)
+                PARTITION_STATS["rebalance"] = {
+                    "fnum": fnum,
+                    "vertex_factor": spec.rebalance_vertex_factor,
+                    "before": before, "after": after,
+                }
+            else:
+                partitioner = make_partitioner(spec.partitioner_type, fnum,
+                                               oids)
+            vm = VertexMap.build(oids, partitioner,
+                                 idxer_type=spec.idxer_type)
+        LOAD_SECONDS["vertex_map"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with tr.span("build_fragment"):
+            frag = ShardedEdgecutFragment.build(
+                comm_spec, vm, src, dst, w,
+                directed=spec.directed,
+                load_strategy=spec.load_strategy,
+                edata_dtype=spec.edata_dtype,
+                retain_edge_list=spec.retain_edge_list,
+            )
+            frag.load_spec = spec  # kept across a rebuild-on-mutate
+        build = time.perf_counter() - t0
+        LOAD_SECONDS["csr"] = build - frag.place_seconds
+        LOAD_SECONDS["place"] = frag.place_seconds
+
+        if spec.serialize and cache:
+            t0 = time.perf_counter()
+            with tr.span("serialize", cache=cache):
+                _serialize_fragment(frag, cache, sig)
+            LOAD_SECONDS["serialize"] = time.perf_counter() - t0
+        if tr.enabled:
+            obs.metrics().gauge("grape_graph_edges").set(int(len(src)))
+            obs.metrics().gauge("grape_graph_vertices").set(int(len(oids)))
         return _validate_load(frag)
-
-    t0 = time.perf_counter()
-    src, dst, w = read_edge_file(efile, weighted=spec.weighted,
-                                 string_id=spec.string_id)
-    if not spec.weighted:
-        w = None
-    if vfile:
-        oids = read_vertex_file(vfile, string_id=spec.string_id)
-    else:
-        # efile-only loading: the vertex universe is the set of endpoints
-        oids = np.unique(np.concatenate([src, dst]))
-    LOAD_SECONDS["parse"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    fnum = comm_spec.fnum
-    if spec.rebalance:
-        from libgrape_lite_tpu_torch.fragment.rebalancer import Rebalancer
-
-        partitioner = Rebalancer(spec.rebalance_vertex_factor).partition(
-            oids, src, dst, fnum)
-        # the skew the rebalancer fixed: in-edge counts of the pull
-        # direction (both orientations when undirected) against the cut
-        # it replaced
-        d_all = dst if spec.directed else np.concatenate([dst, src])
-        before = _shard_skew(
-            make_partitioner(spec.partitioner_type, fnum, oids), d_all, fnum)
-        after = _shard_skew(partitioner, d_all, fnum)
-        PARTITION_STATS["rebalance"] = {
-            "fnum": fnum, "vertex_factor": spec.rebalance_vertex_factor,
-            "before": before, "after": after,
-        }
-    else:
-        partitioner = make_partitioner(spec.partitioner_type, fnum, oids)
-    vm = VertexMap.build(oids, partitioner, idxer_type=spec.idxer_type)
-    LOAD_SECONDS["vertex_map"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    frag = ShardedEdgecutFragment.build(
-        comm_spec, vm, src, dst, w,
-        directed=spec.directed,
-        load_strategy=spec.load_strategy,
-        edata_dtype=spec.edata_dtype,
-        retain_edge_list=spec.retain_edge_list,
-    )
-    frag.load_spec = spec  # kept across a rebuild-on-mutate
-    build = time.perf_counter() - t0
-    LOAD_SECONDS["csr"] = build - frag.place_seconds
-    LOAD_SECONDS["place"] = frag.place_seconds
-
-    if spec.serialize and cache:
-        t0 = time.perf_counter()
-        _serialize_fragment(frag, cache, sig)
-        LOAD_SECONDS["serialize"] = time.perf_counter() - t0
-    return _validate_load(frag)
 
 
 # ---- the garc stream format (utils/archive.py) --------------------------

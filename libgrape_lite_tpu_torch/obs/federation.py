@@ -13,10 +13,11 @@ plain ``STATS["k"] += 1`` idiom, and snapshots copy lists and dicts
 under the federation lock.
 
 `EXPECTED` holds the namespaces this package registers: the async pump,
-the fleet, the SLO surface and the autopilot.  The JAX package's other
-namespaces (plan, spgemm, partition, pipeline, recorder, vc_tiles, gang)
-belong to modules that register nothing here yet (the rest of `obs/` is
-ROADMAP Queue A item 6a).
+the fleet, the SLO surface, the flight recorder and the autopilot, each
+also scraped by the live exporter (obs/exporter.py) and copied into
+every postmortem bundle (obs/recorder.py).  The JAX package's other
+namespaces (plan, spgemm, partition, pipeline, vc_tiles, gang) belong to
+modules this package does not have or that keep their counters apart.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ EXPECTED: Dict[str, str] = {
     "pump": "libgrape_lite_tpu_torch.serve.pipeline",
     "fleet": "libgrape_lite_tpu_torch.fleet.budget",
     "slo": "libgrape_lite_tpu_torch.obs.slo",
+    "recorder": "libgrape_lite_tpu_torch.obs.recorder",
     "autopilot": "libgrape_lite_tpu_torch.autopilot.signals",
 }
 

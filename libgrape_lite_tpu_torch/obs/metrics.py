@@ -1,0 +1,282 @@
+"""MetricsRegistry: counters, gauges, histograms and series, with a
+Prometheus-text and a JSON snapshot.
+
+Counterpart of `libgrape_lite_tpu/obs/metrics.py`: the same instruments,
+snapshot keys and text, so identical registries print byte-equal text in
+both packages.  Spans say when, metrics say how much in all: rounds,
+active vertices per round, queries, admission waits, evictions.
+Instruments are made on first use (`registry.counter(name)` is
+get-or-create), so call sites never coordinate registration.
+
+Disarmed, `obs.metrics()` is the shared `NULL_METRICS`, whose
+instruments are one no-op object: call sites stay unconditional.
+
+Names follow Prometheus: `*_total` for counters, `*_seconds` for latency
+histograms, plain gauges otherwise.  A `series` (an ordered per-round
+list) goes to the JSON snapshot only; the text gives its last value as a
+gauge.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from typing import Dict, List, Optional
+
+#: default latency buckets (seconds)
+DEFAULT_BUCKETS = (
+    0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
+    10.0, 60.0,
+)
+
+
+class Counter:
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+
+class Gauge:
+    __slots__ = ("name", "help", "value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+
+class Histogram:
+    __slots__ = ("name", "help", "buckets", "counts", "sum", "count")
+
+    def __init__(self, name: str, help: str = "",
+                 buckets=DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help
+        self.buckets = tuple(sorted(buckets))
+        self.counts = [0] * (len(self.buckets) + 1)  # the +Inf tail
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, v: float) -> None:
+        self.sum += v
+        self.count += 1
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+
+class Series:
+    """Ordered per-round observations; JSON snapshot only (the text
+    reports the last value)."""
+
+    __slots__ = ("name", "help", "values")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.values: List[float] = []
+
+    def append(self, v: float) -> None:
+        self.values.append(v)
+
+
+class _NullInstrument:
+    """One object serves every disarmed instrument kind."""
+
+    __slots__ = ()
+
+    def inc(self, n: float = 1) -> None:
+        pass
+
+    def set(self, v: float) -> None:
+        pass
+
+    def observe(self, v: float) -> None:
+        pass
+
+    def append(self, v: float) -> None:
+        pass
+
+
+_NULL_INSTRUMENT = _NullInstrument()
+
+
+def gang_identity() -> tuple:
+    """(rank, world size) from `torch.distributed` when a process group
+    is initialized, else (0, 1).  Read live: a group can be set up after
+    observability is armed."""
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return int(dist.get_rank()), int(dist.get_world_size())
+    except Exception:
+        pass
+    return 0, 1
+
+
+class MetricsRegistry:
+    def __init__(self):
+        self._lock = threading.Lock()  # creation only; updates are GIL-atomic
+        self._instruments: Dict[str, object] = {}
+
+    def _get(self, name: str, cls, **kw):
+        inst = self._instruments.get(name)
+        if inst is None:
+            with self._lock:
+                inst = self._instruments.get(name)
+                if inst is None:
+                    inst = cls(name, **kw)
+                    self._instruments[name] = inst
+        if not isinstance(inst, cls):
+            raise TypeError(
+                f"metric {name!r} already registered as "
+                f"{type(inst).__name__}, requested {cls.__name__}")
+        return inst
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get(name, Counter, help=help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(name, Gauge, help=help)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets=DEFAULT_BUCKETS) -> Histogram:
+        return self._get(name, Histogram, help=help, buckets=buckets)
+
+    def series(self, name: str, help: str = "") -> Series:
+        return self._get(name, Series, help=help)
+
+    # ---- snapshots ----
+
+    def snapshot(self) -> dict:
+        """JSON-ready dump of every instrument."""
+        out = {}
+        for name, inst in sorted(self._instruments.items()):
+            if isinstance(inst, Counter):
+                out[name] = {"type": "counter", "value": inst.value}
+            elif isinstance(inst, Gauge):
+                out[name] = {"type": "gauge", "value": inst.value}
+            elif isinstance(inst, Histogram):
+                out[name] = {
+                    "type": "histogram",
+                    "sum": inst.sum,
+                    "count": inst.count,
+                    "buckets": {
+                        ("+Inf" if i == len(inst.buckets) else repr(b)): c
+                        for i, (b, c) in enumerate(
+                            zip(list(inst.buckets) + [None], inst.counts))
+                    },
+                }
+            elif isinstance(inst, Series):
+                out[name] = {"type": "series", "values": list(inst.values)}
+        return out
+
+    def to_prometheus_text(self) -> str:
+        """Prometheus text exposition format v0.0.4."""
+        lines = []
+        for name, inst in sorted(self._instruments.items()):
+            if getattr(inst, "help", ""):
+                lines.append(f"# HELP {name} {inst.help}")
+            if isinstance(inst, Counter):
+                lines.append(f"# TYPE {name} counter")
+                lines.append(f"{name} {_fmt(inst.value)}")
+            elif isinstance(inst, Gauge):
+                lines.append(f"# TYPE {name} gauge")
+                lines.append(f"{name} {_fmt(inst.value)}")
+            elif isinstance(inst, Histogram):
+                lines.append(f"# TYPE {name} histogram")
+                cum = 0
+                for b, c in zip(inst.buckets, inst.counts):
+                    cum += c
+                    lines.append(f'{name}_bucket{{le="{_fmt(b)}"}} {cum}')
+                cum += inst.counts[-1]
+                lines.append(f'{name}_bucket{{le="+Inf"}} {cum}')
+                lines.append(f"{name}_sum {_fmt(inst.sum)}")
+                lines.append(f"{name}_count {inst.count}")
+            elif isinstance(inst, Series):
+                last = inst.values[-1] if inst.values else 0
+                lines.append(f"# TYPE {name} gauge")
+                lines.append(f"{name} {_fmt(last)}")
+        return "\n".join(lines) + "\n"
+
+    def write(self, json_path: Optional[str] = None,
+              prom_path: Optional[str] = None) -> None:
+        import os
+
+        for p in (json_path, prom_path):
+            if p:
+                os.makedirs(os.path.dirname(os.path.abspath(p)),
+                            exist_ok=True)
+        rank, nprocs = gang_identity()
+        if json_path:
+            snap = self.snapshot()
+            if nprocs > 1:
+                # who wrote each row; single-process snapshots keep the
+                # plain schema
+                for row in snap.values():
+                    row["rank"] = rank
+                    row["nprocs"] = nprocs
+            with open(json_path, "w") as fh:
+                json.dump(snap, fh, indent=1, sort_keys=True)
+                fh.write("\n")
+        if prom_path:
+            text = self.to_prometheus_text()
+            if nprocs > 1:
+                text += (
+                    "# TYPE grape_gang_rank gauge\n"
+                    f"grape_gang_rank {rank}\n"
+                    "# TYPE grape_gang_nprocs gauge\n"
+                    f"grape_gang_nprocs {nprocs}\n")
+            with open(prom_path, "w") as fh:
+                fh.write(text)
+
+
+def _fmt(v) -> str:
+    if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+class _NullMetrics:
+    """Disarmed registry: every instrument is the shared no-op."""
+
+    __slots__ = ()
+
+    def counter(self, name: str, help: str = ""):
+        return _NULL_INSTRUMENT
+
+    def gauge(self, name: str, help: str = ""):
+        return _NULL_INSTRUMENT
+
+    def histogram(self, name: str, help: str = "", buckets=None):
+        return _NULL_INSTRUMENT
+
+    def series(self, name: str, help: str = ""):
+        return _NULL_INSTRUMENT
+
+    def snapshot(self) -> dict:
+        return {}
+
+    def to_prometheus_text(self) -> str:
+        return ""
+
+    def write(self, json_path=None, prom_path=None) -> None:
+        pass
+
+
+NULL_METRICS = _NullMetrics()

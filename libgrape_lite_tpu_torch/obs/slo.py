@@ -15,9 +15,9 @@ a key's burn is ``breaches / (observed * f)``: 1.0 spends the budget as
 fast as it accrues.  `SLO_STATS` is the federated ``slo`` namespace.
 `observe` is called where the queue delivers a result and where it fails
 one undispatched (deadline expiry, shedding); with no objective
-configured it is one falsy-dict check.  The JAX package also emits a
-trace instant and a metrics counter at each breach: those wait for the
-port's tracer (ROADMAP Queue A item 6a).
+configured it is one falsy-dict check.  Each breach is also a
+`slo_breach` trace instant and a `grape_slo_breaches_total` count when
+obs/ is armed.
 """
 
 from __future__ import annotations
@@ -137,7 +137,9 @@ def observe(app: str, tenant: Optional[str], latency_s: float,
     SLO_STATS["observed"] += 1
     by_obs = SLO_STATS["observed_by_key"]
     by_obs[key] = by_obs.get(key, 0) + 1
-    if (not ok) or latency_s * 1e3 > objective_ms:
+    latency_ms = latency_s * 1e3
+    breached = (not ok) or latency_ms > objective_ms
+    if breached:
         SLO_STATS["breaches"] += 1
         by_br = SLO_STATS["breaches_by_key"]
         by_br[key] = by_br.get(key, 0) + 1
@@ -146,6 +148,17 @@ def observe(app: str, tenant: Optional[str], latency_s: float,
     SLO_STATS["burn_by_key"][key] = burn
     if burn > SLO_STATS["max_burn"]:
         SLO_STATS["max_burn"] = burn
+    if breached:
+        from libgrape_lite_tpu_torch import obs
+
+        obs.tracer().instant(
+            "slo_breach", key=key, app=app,
+            tenant=tenant if tenant is not None else "",
+            latency_ms=round(latency_ms, 3), objective_ms=objective_ms,
+            ok=ok, burn=burn)
+        obs.metrics().counter(
+            "grape_slo_breaches_total",
+            "queries past their SLO objective (or failed)").inc()
 
 
 maybe_configure_from_env()

@@ -39,6 +39,9 @@ _COUNT_LOCK = threading.Lock()
 #: ptxas resource report (registers, shared memory, spills) per source,
 #: filled by the build that produced the library in this process
 BUILD_LOG: dict[str, str] = {}
+#: libraries built or loaded in this process: a traced round during which
+#: it moves is marked `compiled` (worker/worker.py)
+LOAD_EVENTS = 0
 
 
 def sources() -> list[str]:
@@ -103,9 +106,11 @@ def build_all(names: list[str] | None = None,
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
+    global LOAD_EVENTS
     with _LOAD_LOCK:
         lib = _LOADED.get(name)
         if lib is None:
+            LOAD_EVENTS += 1
             build_all([name])
             lib = ctypes.CDLL(str(lib_path(name)))
             lib.grape_cuda_error_string.argtypes = [ctypes.c_int]

@@ -1,7 +1,10 @@
 """run_app: dispatch by app name, load, query, output.
 
 Counterpart of `libgrape_lite_tpu/runner.py::run_app` (reference
-`examples/analytical_apps/run_app.{cc,h}`).
+`examples/analytical_apps/run_app.{cc,h}`).  `trace` / `metrics` arm
+obs/ before the load (a Chrome trace with its JSONL twin, and the
+metrics snapshot as `<metrics>.json` / `.prom`); `profile` logs each
+round's seconds and vote (vlog level 1).
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ class QueryArgs:
     # reference LoadGraphAndMutate: edit files applied before the build
     delta_efile: str = ""
     delta_vfile: str = ""
+    # obs/: per-round timing lines, the Chrome trace, the metrics files
+    profile: bool = False
+    trace: str = ""
+    metrics: str = ""
 
 
 def _coerce_source(v, string_id: bool = False):
@@ -98,6 +105,14 @@ def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
 
 
 def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.utils import logging as glog
+
+    if args.trace or args.metrics:
+        # armed before the load, so the load_graph span is in the trace;
+        # the flags win over GRAPE_TRACE / GRAPE_METRICS
+        obs.configure(trace_path=args.trace or None,
+                      metrics_path=args.metrics or None)
     name = args.application
     if name not in APP_REGISTRY:
         raise ValueError(
@@ -145,9 +160,21 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         _LOG.info("sssp_select -> %s: %s", picked, reason)
         app = APP_REGISTRY[picked]()
     worker = Worker(app, frag)
+    if args.profile and glog.vlog_level() < 1:
+        glog.set_vlog_level(1)  # --profile exists to show the round times
     worker.query(**build_query_kwargs(name, args))
     if args.memory_stats:
         print(f"[memory] after query: {get_memory_stats(comm_spec.device)}")
     if args.out_prefix:
         worker.output(args.out_prefix)
+    if obs.armed():
+        # the worker flushes each query; this lands what came after
+        flushed = obs.flush()
+        if flushed["trace"]:
+            glog.log_info(f"obs: trace -> {flushed['trace']} (JSONL twin "
+                          f"{flushed['jsonl']}); open via "
+                          "https://ui.perfetto.dev")
+        if flushed["metrics"]:
+            glog.log_info(f"obs: metrics -> {flushed['metrics']}.json / "
+                          ".prom")
     return worker

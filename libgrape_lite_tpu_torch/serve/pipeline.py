@@ -24,6 +24,12 @@ yet harvested:
 * **ingest barrier** (`ingest`): a delta apply quiesces the window first,
   so every batch lands on the graph it was admitted against.
 
+With obs/ armed each admission is a `serve_dispatch` span and each
+harvest a `serve_harvest` span (window, occupancy, overlap), each
+harvested query a `serve_query` span on its lane's row from dispatch to
+harvest; `grape_serve_window_depth`, the queue-depth series and
+`grape_supersteps_total` follow the window.
+
 W = 1 is byte- and order-identical to the synchronous loop.  Batches the
 window cannot hold -- host-only or MutationContext apps (the sequential
 fallback), unknown apps, a forced repack of the overlay -- run through
@@ -37,7 +43,9 @@ import os
 import time
 from typing import List, Optional
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.serve.queue import QueryRequest, ServeResult
+from libgrape_lite_tpu_torch.serve.session import queue_wait_us
 
 #: env override of the window depth (recorded in PUMP_STATS)
 INFLIGHT_ENV = "GRAPE_SERVE_INFLIGHT"
@@ -96,7 +104,7 @@ class PendingBatch:
     launched once the launch cap lets it (`dispatch`)."""
 
     __slots__ = ("batch", "mode", "results", "prepared", "dispatch",
-                 "reason", "t_admit_ns", "t_launch_ns", "disp_ns")
+                 "reason", "t_admit_ns", "t_launch_ns", "disp_ns", "t0_ns")
 
     def __init__(self, batch: List[QueryRequest], mode: str,
                  results: Optional[List[ServeResult]] = None,
@@ -112,6 +120,7 @@ class PendingBatch:
         self.t_admit_ns = 0
         self.t_launch_ns = 0
         self.disp_ns = 0
+        self.t0_ns = 0  # the serve_dispatch span's start (armed)
 
     def ready(self) -> bool:
         if self.mode == "ready":
@@ -196,16 +205,29 @@ class AsyncServePump:
         return n
 
     def _dispatch(self, batch: List[QueryRequest]) -> None:
+        tr = obs.tracer()
         t_admit = time.perf_counter_ns()
-        pb = self._dispatch_stage(batch)
+        with tr.span("serve_dispatch", app=batch[0].app_key,
+                     batch=len(batch), window=self.window,
+                     inflight=len(self._inflight),
+                     queue_depth=self.session.queue.pending()) as sp:
+            pb = self._dispatch_stage(batch)
+            sp.set(mode=pb.mode, reason=pb.reason)
         pb.t_admit_ns = t_admit
         pb.disp_ns = time.perf_counter_ns() - t_admit
+        if tr.enabled:
+            pb.t0_ns = sp.t0_ns
         self._inflight.append(pb)
         self.dispatched_queries += len(batch)
         self.stats["dispatched"] += 1
         self.stats["max_inflight"] = max(self.stats["max_inflight"],
                                          len(self._inflight))
         self._launch_next()
+        if tr.enabled:
+            m = obs.metrics()
+            m.gauge("grape_serve_window_depth").set(len(self._inflight))
+            m.series("grape_serve_queue_depth_series").append(
+                self.session.queue.pending())
 
     def _fail_batch(self, pb: PendingBatch, e: Exception) -> None:
         """One failed batch becomes per-lane error results; the pump and
@@ -296,13 +318,21 @@ class AsyncServePump:
         if not block and not pb.ready():
             return []
         self._inflight.pop(0)
+        tr = obs.tracer()
         overlapped = bool(self._inflight)
-        results = (pb.results if pb.mode == "ready"
-                   else self._results_from_dispatch(pb))
+        with tr.span("serve_harvest", app=pb.batch[0].app_key,
+                     batch=len(pb.batch), window=self.window,
+                     inflight=len(self._inflight), overlapped=overlapped,
+                     mode=pb.mode):
+            results = (pb.results if pb.mode == "ready"
+                       else self._results_from_dispatch(pb))
         delivered = self.session.queue.deliver(pb.batch, results)
         self.stats["harvested"] += 1
         if overlapped:
             self.stats["overlapped_harvests"] += 1
+        if tr.enabled:
+            obs.metrics().gauge("grape_serve_window_depth").set(
+                len(self._inflight))
         return delivered
 
     def _results_from_dispatch(self, pb: PendingBatch) -> List[ServeResult]:
@@ -321,6 +351,10 @@ class AsyncServePump:
             return pb.results
         self._launch_next()
         batch = pb.batch
+        tr = obs.tracer()
+        if tr.enabled:
+            obs.metrics().counter("grape_supersteps_total").inc(
+                int(d.rounds.sum()) + len(batch))
         results = [
             ServeResult(
                 request_id=req.id, app_key=req.app_key, ok=True,
@@ -349,6 +383,16 @@ class AsyncServePump:
         }
         for r in results:
             r.stages = dict(stages)
+        if tr.enabled:
+            now_ns = time.perf_counter_ns()
+            for b, (req, res) in enumerate(zip(batch, results)):
+                # each query's lane row, dispatch to harvest
+                tr.emit_span_raw(
+                    "serve_query", t0_ns=pb.t0_ns,
+                    dur_ns=max(0, now_ns - pb.t0_ns), tid=tr.lane_tid(b),
+                    query_id=req.id, app=req.app_key, lane=b,
+                    rounds=res.rounds, ok=res.ok, tenant=req.tenant or "",
+                    queue_wait_us=queue_wait_us(req))
         return results
 
     # ---- driving ----

@@ -31,8 +31,12 @@ and `result_cache` (`deliver` stores every cacheable ok result).  Every
 finished query, delivered or failed undispatched, is counted against
 its SLO (`obs.slo.observe`).
 
-Not here yet: the JAX queue's flight-recorder events and metrics
-(ROADMAP Queue A item 6a).
+The flight recorder (obs/recorder.py) gets a `deadline_expired` record
+for each sweep that fails requests, and a `deadline_storm` trigger (a
+postmortem bundle when a sink is set) when one sweep fails at least
+`DEADLINE_STORM_THRESHOLD`; a shed records `shed_over_budget`.  With
+obs/ armed each popped request's admission wait goes into the
+`grape_serve_admission_wait_seconds` histogram.
 """
 
 from __future__ import annotations
@@ -45,7 +49,12 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.obs import slo
+from libgrape_lite_tpu_torch.obs.recorder import (
+    DEADLINE_STORM_THRESHOLD,
+    RECORDER,
+)
 from libgrape_lite_tpu_torch.serve.policy import BatchPolicy
 
 _IDS = itertools.count()
@@ -223,6 +232,7 @@ class AdmissionQueue:
         """Fail every pending request whose deadline passed before it
         dispatched.  The caller holds the lock."""
         live: List[QueryRequest] = []
+        swept: List[int] = []
         for req in self._pending:
             if (req.deadline_s is not None
                     and now - req.submitted_s > req.deadline_s):
@@ -231,9 +241,22 @@ class AdmissionQueue:
                     "reason": "deadline_expired",
                     "deadline_s": req.deadline_s})
                 self.expired += 1
+                swept.append(req.id)
             else:
                 live.append(req)
         self._pending = live
+        if swept:
+            # the recorder never raises and takes no queue lock
+            RECORDER.record("deadline_expired", n=len(swept),
+                            ids=swept[:16])
+            if len(swept) >= DEADLINE_STORM_THRESHOLD:
+                # a window's worth failing in one sweep is a postmortem
+                # trigger, not just a count
+                RECORDER.trigger("deadline_storm", extra={
+                    "expired_in_sweep": len(swept),
+                    "request_ids": swept[:64],
+                    "pending": len(self._pending),
+                })
 
     def _review_admission(self) -> set:
         """Run the admission hook over the pending requests: a shed one
@@ -244,6 +267,7 @@ class AdmissionQueue:
         if self.admission is None:
             return deferred
         live: List[QueryRequest] = []
+        shed_n = 0
         for req in self._pending:
             try:
                 verdict = self.admission(req)
@@ -256,11 +280,14 @@ class AdmissionQueue:
                         "reason": "shed_over_budget",
                         "tenant": req.tenant or ""})
                 self.shed += 1
+                shed_n += 1
             else:
                 if verdict == "defer":
                     deferred.add(req.tenant)
                 live.append(req)
         self._pending = live
+        if shed_n:
+            RECORDER.record("shed_over_budget", n=shed_n)
         return deferred
 
     def take_expired(self) -> List[ServeResult]:
@@ -315,9 +342,14 @@ class AdmissionQueue:
             ids = {r.id for r in batch}
             self._pending = [r for r in self._pending if r.id not in ids]
         t_pop = time.perf_counter()
+        hist = obs.metrics().histogram(
+            "grape_serve_admission_wait_seconds",
+            help="per-request submit->dispatch wait in the admission queue")
         for req in batch:
             req.popped_s = t_pop
-            self.admission_waits.append(t_pop - req.submitted_s)
+            wait = t_pop - req.submitted_s
+            self.admission_waits.append(wait)
+            hist.observe(wait)
         return batch
 
     def deliver(self, batch: List[QueryRequest],

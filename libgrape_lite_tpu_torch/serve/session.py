@@ -28,6 +28,10 @@ The autopilot's hooks: `attach_result_cache` (a fence-epoch result
 cache looked up at submit, filled at delivery) and `attach_admission`
 (the queue sheds or defers over-budget tenants).
 
+With obs/ armed each synchronous dispatch is a `serve_batch` span, and
+each of its queries a `serve_query` span on its lane's row with the
+query id, tenant and queue wait (a cache hit too, with `cached`).
+
 Not here yet: the guard policies (a session takes `guard` None or
 "off").
 """
@@ -37,6 +41,7 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional
 
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.ops.spmv import plan_stats
 from libgrape_lite_tpu_torch.serve.policy import BatchPolicy, compat_key
 from libgrape_lite_tpu_torch.serve.queue import (
@@ -54,6 +59,13 @@ def check_guard(guard) -> None:
         raise ValueError(
             f"guard {guard!r}: guard policies are not ported (guard/ is "
             "ROADMAP Queue A item 6); use None or 'off'")
+
+
+def queue_wait_us(req: QueryRequest) -> int:
+    """Submit -> pop microseconds of one request (0 before its pop)."""
+    if not req.popped_s:
+        return 0
+    return int(max(0.0, req.popped_s - req.submitted_s) * 1e6)
 
 
 def _error_results(batch: List[QueryRequest], error: str):
@@ -293,6 +305,7 @@ class ServeSession:
         out-of-band channel so every pump and drain returns it."""
         from libgrape_lite_tpu_torch.obs import slo
 
+        t0_ns = time.perf_counter_ns()
         req = QueryRequest(
             app_key=app_key, args=dict(args), max_rounds=max_rounds,
             priority=int(priority), deadline_s=deadline_s, tenant=tenant)
@@ -307,6 +320,13 @@ class ServeSession:
         req.result = res
         self.stats["cache_hits"] += 1
         slo.observe(app_key, tenant, res.latency_s, True)
+        tr = obs.tracer()
+        if tr.enabled:
+            tr.emit_span_raw(
+                "serve_query", t0_ns=t0_ns,
+                dur_ns=time.perf_counter_ns() - t0_ns, tid=tr.lane_tid(0),
+                query_id=req.id, app=app_key, lane=0, rounds=rounds,
+                ok=True, cached=True, tenant=tenant or "", queue_wait_us=0)
         self.queue.push_oob(res)
         return req
 
@@ -387,14 +407,31 @@ class ServeSession:
         except Exception as e:  # a forced repack that failed
             self.stats["failed"] += len(batch)
             return _error_results(batch, f"{type(e).__name__}: {e}")
+        tr = obs.tracer()
         if len(batch) > 1:
             try:
                 w._check_batchable()
             except ValueError:
                 self.stats["sequential_fallbacks"] += 1
                 return [self._run_single(w, req) for req in batch]
-            return self._run_batched(w, batch, batch[0].max_rounds)
-        return [self._run_single(w, batch[0])]
+            with tr.span("serve_batch", app=batch[0].app_key,
+                         batch=len(batch)) as sp:
+                results = self._run_batched(w, batch, batch[0].max_rounds)
+        else:
+            with tr.span("serve_batch", app=batch[0].app_key,
+                         batch=1) as sp:
+                results = [self._run_single(w, batch[0])]
+        if tr.enabled:
+            # one row a query: the lane's interval is the batch's, tagged
+            # with its request id so the timeline stays attributable
+            for b, (req, res) in enumerate(zip(batch, results)):
+                tr.emit_span_raw(
+                    "serve_query", t0_ns=sp.t0_ns, dur_ns=sp.dur_ns,
+                    tid=tr.lane_tid(b), query_id=req.id, app=req.app_key,
+                    lane=b, rounds=res.rounds, ok=res.ok,
+                    tenant=req.tenant or "",
+                    queue_wait_us=queue_wait_us(req))
+        return results
 
     @staticmethod
     def _exec_stages(total_ns: int) -> dict:

@@ -27,6 +27,18 @@ vector a round.  `query_batch_prepare` does the host half (checks,
 state built and placed); its `launch()` runs the loop in a thread of
 its own, on a CUDA stream of its own, so the async serve pump
 (serve/pipeline.py) can prepare and harvest other batches meanwhile.
+
+With obs/ armed (the JAX worker's `query_stepwise` spans, `_query_
+stepwise_impl`): `query` emits a `query` span (mode "host"), a `peval`
+span and one `superstep` span a round, each with its `round` and its
+`active` vote, mirrored onto per-fragment rows at fnum > 1, plus the
+`active_vertices` counter, the `grape_active_per_round` series and
+`grape_supersteps_total`; `query_batch` emits a `query` span (mode
+"batched").  Each round's span is marked `dispatched` between the app's
+call returning and the read of its vote, the read that already ends the
+round, so arming adds no host synchronisation; every span arg is a value
+the loop already holds on the host.  `--profile` (vlog level 1) logs
+each round's seconds and vote.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import copy
 import logging
 import os
 import threading
+import time
 from typing import Dict, List
 
 import numpy as np
@@ -46,7 +59,11 @@ from libgrape_lite_tpu_torch.app.base import (
     StepContext,
     is_lane_sequence,
 )
+from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+from libgrape_lite_tpu_torch.ops import _build
+from libgrape_lite_tpu_torch.ops.spmv import PLAN_STATS
+from libgrape_lite_tpu_torch.utils import logging as glog
 
 _INT32_MAX = np.iinfo(np.int32).max
 _LOG = logging.getLogger(__name__)
@@ -54,6 +71,12 @@ _LOG = logging.getLogger(__name__)
 
 def _to_host(v) -> np.ndarray:
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _built_marker() -> int:
+    """Moves when a CUDA library is built or loaded, or the strict plan
+    cache misses: the port's counterpart of a jit-cache miss."""
+    return _build.LOAD_EVENTS + PLAN_STATS["planned"]
 
 
 def _place(v, device: torch.device):
@@ -339,6 +362,21 @@ class Worker:
         mr = app.max_rounds if max_rounds is None else max_rounds
         if getattr(app, "host_only", False):
             return self._query_host(mr, initial_state, query_args)
+        tr = obs.tracer()
+        try:
+            with tr.span("query", mode="host", app=type(app).__name__) as sp:
+                out = self._query_rounds(mr, initial_state, query_args, tr)
+                self._finish_query_obs(sp)
+        finally:
+            # a raise out of the loop still lands its spans in the sinks
+            if tr.enabled:
+                obs.flush()
+        return out
+
+    def _query_rounds(self, mr: int, initial_state, query_args: Dict, tr):
+        """PEval, then IncEval rounds while the vote is positive (the
+        body of `query`), each round in its span when `tr` is armed."""
+        app, frag = self.app, self.fragment
         state = app.init_state(frag, **query_args)
         if self._seed_fn is not None:  # inside query_incremental
             state = self._seed_fn(state)
@@ -351,8 +389,18 @@ class Worker:
 
         mutating = hasattr(app, "collect_mutations")
         ctx = StepContext()
-        state, active = app.peval(ctx, frag.dev, state)
-        active = int(active)
+        t0 = time.perf_counter()
+        built = _built_marker() if tr.enabled else 0
+        with tr.span("peval", round=0) as sp:
+            state, active = app.peval(ctx, frag.dev, state)
+            if tr.enabled:
+                self._mark_dispatched(sp, built)
+            active = int(active)  # the vote, read back: the round's sync
+            sp.set(active=active)
+        glog.vlog(1, "PEval: %.6fs active=%d", time.perf_counter() - t0,
+                  active)
+        if tr.enabled:
+            self._round_obs(tr, sp, 0, "peval", active)
         if mutating:
             # edits staged during PEval apply even when the query would
             # converge at once (worker.h:211-222); a ForceTerminate vote
@@ -364,9 +412,19 @@ class Worker:
         limit = mr if mr > 0 else _INT32_MAX
         rounds = 0
         while active > 0 and rounds < limit:
-            state, active = app.inceval(ctx, frag.dev, state)
-            active = int(active)  # the termination vote, read back
+            t0 = time.perf_counter()
+            built = _built_marker() if tr.enabled else 0
+            with tr.span("superstep", round=rounds + 1) as sp:
+                state, active = app.inceval(ctx, frag.dev, state)
+                if tr.enabled:
+                    self._mark_dispatched(sp, built)
+                active = int(active)  # the termination vote, read back
+                sp.set(active=active)
             rounds += 1
+            glog.vlog(1, "IncEval round %d: %.6fs active=%d", rounds,
+                      time.perf_counter() - t0, active)
+            if tr.enabled:
+                self._round_obs(tr, sp, rounds, "superstep", active)
             if mutating:
                 state, frag, changed = self._apply_mutations(
                     state, frag, rounds, query_args)
@@ -379,6 +437,46 @@ class Worker:
         self.rounds = rounds
         self._terminate_code = min(0, active)
         return self._keep(state)
+
+    @staticmethod
+    def _mark_dispatched(sp, built: int) -> None:
+        """The round's launches are queued: mark `compiled` when a CUDA
+        library was built or loaded or a plan cache missed since `built`
+        was read, then `dispatched` (the vote's read follows)."""
+        if _built_marker() != built:
+            sp.mark("compiled")
+        sp.mark("dispatched")
+
+    def _round_obs(self, tr, sp, rounds: int, name: str, active: int) -> None:
+        """An armed round's records after its span closed: the
+        per-fragment mirrors, the active counter and series, the
+        superstep count."""
+        self._mirror_superstep(tr, sp, rounds, name)
+        tr.counter("active_vertices", value=active)
+        m = obs.metrics()
+        m.series("grape_active_per_round").append(active)
+        m.counter("grape_supersteps_total").inc()
+
+    def _mirror_superstep(self, tr, sp, rounds: int, name: str) -> None:
+        """Re-emit a closed round span on every per-fragment track: the
+        stacked fragments run each round together, so the host interval
+        is each fragment's."""
+        if self.fragment.fnum <= 1:
+            return
+        for f in range(self.fragment.fnum):
+            tr.emit_span_raw(name, t0_ns=sp.t0_ns, dur_ns=sp.dur_ns,
+                             tid=tr.frag_tid(f), round=rounds, frag=f)
+
+    def _finish_query_obs(self, sp) -> None:
+        """An armed query's close-out: rounds and terminate code on the
+        query span, the query counters.  (The JAX package's pack-ledger
+        gauges belong to its TPU pack planner, which is not ported.)"""
+        if not obs.armed():
+            return
+        sp.set(rounds=self.rounds, terminate_code=self._terminate_code)
+        m = obs.metrics()
+        m.counter("grape_queries_total").inc()
+        m.gauge("grape_query_rounds").set(self.rounds)
 
     def _apply_mutations(self, state: Dict, frag, rounds: int,
                          query_args: Dict):
@@ -398,7 +496,8 @@ class Worker:
         fresh = {k: _to_host(v)
                  for k, v in app.init_state(frag, **query_args).items()}
         migrated = app.migrate_state(old_frag, frag, host_state, fresh)
-        _LOG.debug("applied mutations after round %d", rounds)
+        glog.vlog(1, "applied mutations after round %d", rounds)
+        obs.tracer().instant("apply_mutations", round=rounds)
         return ({k: _place(v, frag.device) for k, v in migrated.items()},
                 frag, True)
 
@@ -430,8 +529,9 @@ class Worker:
         mode, reason = incremental_plan(app, delta)
         self.inc_report = {"mode": mode, "reason": reason}
         self.inc_stats[mode] += 1
+        obs.tracer().instant("query_incremental", mode=mode)
         if mode == "cold":
-            _LOG.debug("query_incremental: cold recompute (%s)", reason)
+            glog.vlog(1, "query_incremental: cold recompute (%s)", reason)
             return self.query(max_rounds, **query_args)
         prev_frag = prev_fragment or self._result_fragment or self.fragment
         prev = {k: v for k, v in prev_result.items()
@@ -454,8 +554,16 @@ class Worker:
         if initial_state:
             raise ValueError(f"{type(app).__name__} runs its own host loop "
                              "and takes no initial_state")
-        state = app.host_compute(self.fragment, max_rounds=mr, **query_args)
-        self.rounds = app.rounds
+        tr = obs.tracer()
+        try:
+            with tr.span("query", mode="host", app=type(app).__name__) as sp:
+                state = app.host_compute(self.fragment, max_rounds=mr,
+                                         **query_args)
+                self.rounds = app.rounds
+                self._finish_query_obs(sp)
+        finally:
+            if tr.enabled:
+                obs.flush()
         return self._keep(state)
 
     def _keep(self, state: Dict) -> Dict:
@@ -524,11 +632,26 @@ class Worker:
         byte-identical to its own `Worker.query`; per-lane round counts
         land in `batch_rounds`, terminate codes in `batch_terminate`,
         lane b's state in `batch_lane_state(b)`."""
-        d = self.query_batch_prepare(args_list, max_rounds).run()
-        self.batch_rounds = d.rounds
-        self.batch_terminate = d.terminate
-        self.rounds = int(d.rounds.max())
-        self._terminate_code = int(d.terminate.min())
+        prepared = self.query_batch_prepare(args_list, max_rounds)
+        batch = prepared.batch
+        tr = obs.tracer()
+        try:
+            with tr.span("query", mode="batched",
+                         app=type(self.app).__name__, batch=batch) as sp:
+                d = prepared.run()
+                self.batch_rounds = d.rounds
+                self.batch_terminate = d.terminate
+                self.rounds = int(d.rounds.max())
+                self._terminate_code = int(d.terminate.min())
+                if tr.enabled:
+                    # every lane runs PEval and its own counted rounds
+                    obs.metrics().counter("grape_supersteps_total").inc(
+                        int(d.rounds.sum()) + batch)
+                    sp.set(lane_rounds=[int(x) for x in d.rounds])
+                self._finish_query_obs(sp)
+        finally:
+            if tr.enabled:
+                obs.flush()
         self._batch = d
         self._result_state = d.state
         self._result_fragment = self.fragment

@@ -295,7 +295,8 @@ def test_federation_namespaces_and_self_check():
     import libgrape_lite_tpu_torch.fleet  # noqa: F401
     import libgrape_lite_tpu_torch.serve  # noqa: F401
 
-    assert set(federation.EXPECTED) == {"pump", "fleet", "slo", "autopilot"}
+    assert set(federation.EXPECTED) == {"pump", "fleet", "slo", "autopilot",
+                                        "recorder"}
     assert set(federation.EXPECTED) <= set(jfederation.EXPECTED)
     for ns, owner in federation.EXPECTED.items():
         assert owner == jfederation.EXPECTED[ns].replace(

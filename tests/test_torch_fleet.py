@@ -17,7 +17,8 @@ held against the JAX package's `fleet/` on the same inputs.
   ingest: every query's values and rounds bit-equal to the JAX fleet's
   (sssp and bfs are min folds: exact) and to the port's bare session;
 * the serve CLI's fleet and autopilot paths: --dump_results equal to the
-  plain port run and to the JAX CLI's; --trace and --metrics refused.
+  plain port run and to the JAX CLI's, armed with --trace or --metrics
+  too.
 """
 
 import json
@@ -726,15 +727,33 @@ def test_cli_fleet_misuse_fails_before_the_load(tmp_path, extra, msg):
 
 @pytest.mark.parametrize("flag,value", [("--trace", "t.json"),
                                         ("--metrics", "m.txt")])
-def test_cli_trace_and_metrics_still_refuse(capsys, flag, value):
+def test_cli_trace_and_metrics_still_refuse(tmp_path, monkeypatch, flag,
+                                            value):
+    """Refused until obs/ was ported; now the fleet path takes --trace
+    (a `fleet_pump` span on each replica) and --metrics (the snapshot
+    files), with --dump_results equal to the disarmed run's."""
+    from libgrape_lite_tpu_torch import obs
     from libgrape_lite_tpu_torch.cli import serve_main
 
-    with pytest.raises(SystemExit) as exc:
-        serve_main([*P2P, "--num_queries", "2", "--device", "cpu", "--replicas",
-                    "2", flag, value])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue A item 6" in err and flag in err
+    monkeypatch.chdir(tmp_path)
+    argv = [*P2P, "--num_queries", "4", "--device", "cpu", "--replicas",
+            "2"]
+    assert serve_main(argv + ["--dump_results", "plain.txt"]) == 0
+    try:
+        assert serve_main(argv + [flag, value, "--dump_results",
+                                  "armed.txt"]) == 0
+        if flag == "--trace":
+            pumps = [e for e in obs.load_trace("t.json")
+                     if e["ph"] == "X" and e["name"] == "fleet_pump"]
+            assert {e["args"]["replica"] for e in pumps} == {0, 1}
+        else:
+            snap = json.loads((tmp_path / "m.txt.json").read_text())
+            assert snap["grape_serve_admission_wait_seconds"]["count"] == 4
+            assert snap["grape_fleet_outstanding_r1"]["value"] >= 1
+    finally:
+        obs.reset()
+    assert (tmp_path / "armed.txt").read_text() == \
+        (tmp_path / "plain.txt").read_text()
 
 
 def test_cli_slo_flag_reports_burn(capsys):

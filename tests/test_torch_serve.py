@@ -13,8 +13,9 @@ the JAX package's ServeSession and CLI where a result is compared.
   the port's counterpart of the JAX compile check); eviction and
   re-admission; live ingest through the session;
 * the `serve` CLI: a scripted stream whose --dump_results equal the JAX
-  CLI's, an empty stream, a delta stream, and each flag whose subsystem
-  is not ported a usage error naming its ROADMAP item.
+  CLI's, an empty stream, a delta stream, `--guard` (its subsystem not
+  ported) a usage error naming its ROADMAP item, and the obs/ flags
+  working with the disarmed run's dumps.
 """
 
 import json
@@ -455,13 +456,50 @@ def test_cli_serve_delta_stream(capsys, tmp_path):
     ("--guard", "halt", 6), ("--trace", "t.json", 6),
     ("--metrics", "m.txt", 6), ("--metrics_port", "0", 6),
 ])
-def test_cli_serve_unported_flags_are_usage_errors(capsys, flag, value,
+def test_cli_serve_unported_flags_are_usage_errors(capsys, tmp_path,
+                                                   monkeypatch, flag, value,
                                                    item):
-    from libgrape_lite_tpu_torch.cli import serve_main
+    """`--guard` other than off is still a usage error naming its ROADMAP
+    item.  The obs/ flags were usage errors too until obs/ was ported:
+    now each works -- its file or endpoint exists -- and the run's
+    --dump_results equal the disarmed run's."""
+    import urllib.request
 
-    argv = [*P2P, "--num_queries", "2", "--device", "cpu", flag]
-    with pytest.raises(SystemExit) as exc:
-        serve_main(argv + ([value] if value is not None else []))
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue A item {item}" in err and flag in err
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.cli import serve_main
+    from libgrape_lite_tpu_torch.obs import exporter
+
+    argv = [*P2P, "--num_queries", "2", "--device", "cpu"]
+    if flag == "--guard":
+        with pytest.raises(SystemExit) as exc:
+            serve_main(argv + [flag, value])
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert f"ROADMAP Queue A item {item}" in err and flag in err
+        return
+    monkeypatch.chdir(tmp_path)
+    assert serve_main(argv + ["--dump_results", "plain.txt"]) == 0
+    try:
+        assert serve_main(argv + [flag, value, "--dump_results",
+                                  "armed.txt"]) == 0
+        if flag == "--trace":
+            rows = [e for e in obs.load_trace("t.json")
+                    if e["ph"] == "X" and e["name"] == "serve_query"]
+            assert sorted(e["args"]["lane"] for e in rows) == [0, 1]
+        elif flag == "--metrics":
+            snap = json.loads((tmp_path / "m.txt.json").read_text())
+            assert snap["grape_serve_admission_wait_seconds"]["count"] == 2
+            assert (tmp_path / "m.txt.prom").exists()
+        else:
+            exp = exporter.get_exporter()
+            assert exp is not None and exp.port > 0
+            assert f"[serve] metrics exporter: {exp.url}" in \
+                capsys.readouterr().err
+            text = urllib.request.urlopen(exp.url + "/metrics",
+                                          timeout=10).read().decode()
+            assert 'grape_stats_registry{namespace="pump"} 1' in text
+    finally:
+        exporter.stop_exporter()
+        obs.reset()
+    assert (tmp_path / "armed.txt").read_text() == \
+        (tmp_path / "plain.txt").read_text()
