@@ -321,9 +321,16 @@ FLEET_INGEST_EVERY = 16
 FLEET_DRAIN_AT = 32
 EVICT_GROUPS = 6  # tenants a, b, a, b, ...: each switch evicts the other
 EVICT_GROUP = 8  # sssp queries a group
-AUTOPILOT_QUERIES = 128  # 64 sources, each twice
+AUTOPILOT_SOURCES = 128
+AUTOPILOT_QUERIES = 2 * AUTOPILOT_SOURCES  # each source twice
 AUTOPILOT_CACHE = 256
-AUTOPILOT_STEP_AT = 64  # arrival index of the x4 rate step
+AUTOPILOT_WARM = 32  # sources asked twice in turn before the step
+AUTOPILOT_STEP_AT = 2 * AUTOPILOT_WARM  # arrival index of the rate step
+# the step's factor: half the session's qps becomes 4x it, held for the
+# 192 misses after the step, so the queue stays over up_queue_depth for
+# many reads (64 misses at x4 kept it there for 2-4 reads, against the
+# scaler's window of 3)
+AUTOPILOT_STEP_X = 8
 AUTOPILOT_CLI_CACHE = 64
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
@@ -3435,15 +3442,18 @@ def fleet_evict_phase(frag, rep, ref, sources, device) -> dict:
     return {"fleet evict": rec}
 
 
-def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
+def autopilot_phase(frag, session_qps, device) -> dict:
     """The autopilot on RMAT-20 (the CLI's `serve_autopilot_stream`):
     min 1, max 2 replicas, a result cache of AUTOPILOT_CACHE entries,
-    AUTOPILOT_QUERIES sssp queries over 64 sources -- the first 32 twice
-    in turn, then the other 32 twice each in a row -- arriving through
-    the feeder at half `session_qps` (the max_batch SERVE_BATCH session's
-    measured qps), x4 from arrival AUTOPILOT_STEP_AT.  Gates: a scale-up
-    recorded, every result (cache hits too) bit-equal to `ref`, none
-    dropped."""
+    AUTOPILOT_QUERIES sssp queries over AUTOPILOT_SOURCES sources -- the
+    first AUTOPILOT_WARM twice in turn, then the others twice each in a
+    row -- arriving through the feeder at half `session_qps` (the
+    max_batch SERVE_BATCH session's measured qps), x AUTOPILOT_STEP_X
+    from arrival AUTOPILOT_STEP_AT.  Gates: a scale-up recorded, every
+    result (cache hits too) bit-equal to one plain session's, none
+    dropped.  Each tick's queue depth a routable replica is kept: the
+    line shows the deepest and the longest run of reads over
+    `up_queue_depth`, the scaler's overload signal."""
     from libgrape_lite_tpu_torch.autopilot import (
         AUTOPILOT_STATS,
         Autoscaler,
@@ -3466,18 +3476,25 @@ def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
     def make_session(f):
         return ServeSession(f, policy=policy)
 
+    sources = serve_sources(frag, AUTOPILOT_SOURCES)
+    sess = make_session(frag)
+    reqs = [sess.submit("sssp", {"source": s}) for s in sources]
+    sess.drain()
+    ref = {s: q.result.values for s, q in zip(sources, reqs)}
+    del sess, reqs
     router = FleetRouter([make_session(frag)])
     cache = ResultCache(capacity=AUTOPILOT_CACHE)
     router.attach_cache(cache)
     cfg = ScalerConfig(min_replicas=1, max_replicas=2)
     ap = Autoscaler(router, cfg, session_factory=make_session,
                     budget=FleetBudget(device=device))
-    half, rest = sources[:32], sources[32:64]
-    order = half + half + [s for s in rest for _ in (0, 1)]
+    warm, rest = sources[:AUTOPILOT_WARM], sources[AUTOPILOT_WARM:]
+    order = warm + warm + [s for s in rest for _ in (0, 1)]
     stream = [{"app": "sssp", "args": {"source": s}, "max_rounds": None}
               for s in order]
-    rate = f"{session_qps / 2:.1f}:4x@{AUTOPILOT_STEP_AT}"
-    timeline, acts = [], []
+    rate = (f"{session_qps / 2:.1f}:{AUTOPILOT_STEP_X}x@"
+            f"{AUTOPILOT_STEP_AT}")
+    timeline, acts, depths = [], [], []
 
     def act(d, inner=ap.act):
         ta = time.perf_counter()
@@ -3489,6 +3506,8 @@ def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
 
     def tick(inner=ap.tick):
         d = inner()
+        sig = ap.reader.recent[-1]
+        depths.append(sig.queue_depth / max(1, sig.replicas))
         n = sum(1 for r in router.replicas if r.routable)
         if not timeline or timeline[-1][1] != n:
             timeline.append((round(time.perf_counter() - t0, 4), n))
@@ -3512,8 +3531,10 @@ def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
         check(r.values.tobytes() == ref[s].tobytes(),
               f"autopilot: source {s} not bit-equal to one session")
     snap = AUTOPILOT_STATS.snapshot()
-    check(snap["scale_ups"] >= 1, "autopilot: no scale-up recorded "
-          f"(ticks {snap['ticks']}, holds {snap['holds']})")
+    run = over_run = 0
+    for dep in depths:
+        run = run + 1 if dep > cfg.up_queue_depth else 0
+        over_run = max(over_run, run)
     lat = latency_summary_ms([r.latency_s for r in results])
     rec = dict(counts=counts, seconds=wall, qps=len(results) / wall,
                p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"], rate=rate,
@@ -3521,15 +3542,22 @@ def autopilot_phase(frag, ref, sources, session_qps, device) -> dict:
                acts=[a for a in acts if a["action"] != "hold"],
                cache=cache.snapshot(),
                router=router.summary(wall), fleet=FLEET_STATS.snapshot(),
+               max_depth=max(depths, default=0), over_depth_run=over_run,
                **{k: snap[k] for k in ("ticks", "scale_ups", "scale_downs",
                                        "holds", "cache_hits",
                                        "cache_misses")})
     print(f"[autopilot] rmat{SCALE}: queries={len(results)} rate={rate} "
           f"qps={rec['qps']:.1f} p50_ms={lat['p50_ms']} p99_ms="
           f"{lat['p99_ms']} scale_ups={snap['scale_ups']} scale_downs="
-          f"{snap['scale_downs']} ticks={snap['ticks']} acts="
+          f"{snap['scale_downs']} ticks={snap['ticks']} max_depth="
+          f"{rec['max_depth']:g} reads_over_{cfg.up_queue_depth}="
+          f"{over_run} (window {cfg.window}) acts="
           f"{rec['acts']} replicas_over_time={timeline} cache="
           f"{rec['cache']} launches={counts}", flush=True)
+    check(snap["scale_ups"] >= 1, "autopilot: no scale-up recorded "
+          f"(ticks {snap['ticks']}, holds {snap['holds']}, deepest queue "
+          f"{rec['max_depth']:g} a replica, {over_run} reads in a row over "
+          f"{cfg.up_queue_depth})")
     return {"autopilot": rec}
 
 
@@ -3646,7 +3674,7 @@ def fleet_phases(frag, session_qps, device) -> dict:
     del rep
     out["fleet_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    runs.update(autopilot_phase(frag, ref, sources, session_qps, device))
+    runs.update(autopilot_phase(frag, session_qps, device))
     out["autopilot_seconds"] = time.perf_counter() - t0
     print(f"[time] fleet {out['fleet_seconds']:.1f} s, autopilot "
           f"{out['autopilot_seconds']:.1f} s", flush=True)
