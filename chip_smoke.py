@@ -191,6 +191,24 @@ the port's own entry points:
      such a run, one serve_query span a query, dumps equal to the
      disarmed run's) and `serve --replicas 2 --trace` (fleet_pump spans
      on both replicas);
+  11e. fault tolerance (`[ft]`): PageRank (auto, 10 rounds) and SSSP from
+     0 on RMAT-20 through `Worker.query(checkpoint_every=2, ...)`: results
+     bit-equal to the unchecked query, the wall of each (median of 3),
+     the bytes a snapshot, `checkpoint_save` (what the loop pays: the
+     wait for the previous write and the pinned copies' enqueue) against
+     `checkpoint_write` (the writer thread) from the spans, equal host
+     syncs with and without checkpoints; `kill@4,mode=raise` then
+     `Worker.resume` bit-equal; `corrupt@6,kill@7,mode=raise` then resume
+     falling back to round 4, bit-equal; then
+     `libgrape_lite_tpu_torch/scripts/fault_drill.py --apps sssp
+     --corrupt` on p2p-31 on the card (the killed child exits 17, the
+     resumed files byte-identical);
+  11f. the guards (`[guard]`): sssp, pagerank and wcc on RMAT-20 under
+     `guard="halt"` with no fault (no breach, a probe a round, bit-equal),
+     and under `corrupt_carry@4` with `guard="rollback"` and
+     `checkpoint_every=2` (detected in round 4, one rollback, the result
+     bit-equal to the fault-free one); the guarded and unguarded walls
+     (median of 3) and the host syncs the probes add;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -4043,6 +4061,251 @@ def obs_phases(frag, device) -> dict:
     return {"seconds": secs, "runs": runs}
 
 
+# ---- phase 7e: fault tolerance and the guards ----
+
+FT_EVERY = 2  # checkpoint cadence of the [ft] and [guard] runs
+FT_KILL = "kill@4,mode=raise"
+FT_CORRUPT = "corrupt@6,kill@7,mode=raise"  # resume falls back to round 4
+GUARD_CORRUPT_AT = 4
+
+
+def ft_apps():
+    from libgrape_lite_tpu_torch.models import SSSP, PageRank
+
+    return (("pagerank", lambda: PageRank(spmv_mode="auto"),
+             {"delta": 0.85, "max_round": PR_ROUNDS}),
+            ("sssp", SSSP, {"source": 0}))
+
+
+def same_bits(wk, want, what: str) -> None:
+    got = wk.result_values()
+    check(got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+          f"{what}: not bit-equal to the plain query")
+
+
+def span_ms(events, name: str) -> list:
+    return [e["dur"] / 1e3 for e in events
+            if e.get("ph") == "X" and e["name"] == name]
+
+
+def killed_then_resumed(frag, factory, device, kw, spec, ckdir):
+    """Run `kw` with checkpoints under the raise-mode fault `spec`, then
+    `Worker.resume` from its lineage (armed in memory, to read the
+    `resume` instant's round).  Returns (worker, checkpoint rounds left
+    by the kill, the round resumed from)."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.ft.checkpoint import list_checkpoints
+    from libgrape_lite_tpu_torch.ft.faults import FaultPlan, InjectedFault
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    try:
+        Worker(factory(), frag).query(
+            checkpoint_every=FT_EVERY, checkpoint_dir=ckdir,
+            fault_plan=FaultPlan.from_spec(spec), **kw)
+    except InjectedFault:
+        pass
+    else:
+        check(False, f"[ft] {spec}: the query was not killed")
+    left = [r for r, _ in list_checkpoints(ckdir)]
+    obs_reset()
+    obs.configure(in_memory=True)
+    wk = Worker(factory(), frag)
+    wk.resume(ckdir)
+    sync(device)
+    resumed = [e["args"]["round"] for e in obs.history()
+               if e["name"] == "resume"]
+    obs_reset()
+    return wk, left, resumed[0] if resumed else None
+
+
+def ft_query_phase(label, frag, factory, device, kw, tmp) -> dict:
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.ft.checkpoint import list_checkpoints
+
+    obs_reset()
+    plain = run_query(frag, factory(), device, **kw)[0]
+    want = plain.result_values()
+    ckdir = os.path.join(tmp, label, "ck")
+    ck_kw = dict(kw, checkpoint_every=FT_EVERY, checkpoint_dir=ckdir)
+    reset_launch_counts()
+    wk = run_query(frag, factory(), device, **ck_kw)[0]
+    counts = launch_counts()
+    same_bits(wk, want, f"[ft] {label} checkpoint_every {FT_EVERY}")
+    steps = list_checkpoints(ckdir)
+    check(len(steps) == 2, f"[ft] {label}: {len(steps)} checkpoints kept")
+    snap_bytes = os.path.getsize(os.path.join(steps[-1][1], "state.npz"))
+    walls = {"plain": [], "checkpointed": []}
+    for _ in range(3):
+        walls["plain"].append(run_query(frag, factory(), device, **kw)[1])
+        walls["checkpointed"].append(
+            run_query(frag, factory(), device, **ck_kw)[1])
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    obs.configure(in_memory=True)
+    run_query(frag, factory(), device, **ck_kw)
+    ev = obs.history()
+    obs_reset()
+    save, write = span_ms(ev, "checkpoint_save"), span_ms(ev,
+                                                          "checkpoint_write")
+    check(len(save) == len(write) == wk.rounds // FT_EVERY + 1,
+          f"[ft] {label}: {len(save)} saves, {len(write)} writes")
+    host_syncs(frag, factory, device, kw)  # a first-use sync, if any
+    syncs_plain = host_syncs(frag, factory, device, kw)
+    syncs_ck = host_syncs(frag, factory, device, ck_kw)
+    check(syncs_ck == syncs_plain, f"[ft] {label}: host syncs with "
+          f"checkpoints {syncs_ck} != without {syncs_plain}")
+    wk_k, left_k, from_k = killed_then_resumed(
+        frag, factory, device, kw, FT_KILL, os.path.join(tmp, label, "kill"))
+    same_bits(wk_k, want, f"[ft] {label} {FT_KILL} then resume")
+    check(wk_k.rounds == plain.rounds and from_k == 4,
+          f"[ft] {label}: resumed from {from_k}, rounds {wk_k.rounds}")
+    kc, left_c, from_c = killed_then_resumed(
+        frag, factory, device, kw, FT_CORRUPT,
+        os.path.join(tmp, label, "corrupt"))
+    same_bits(kc, want, f"[ft] {label} {FT_CORRUPT} then resume")
+    check(left_c == [4, 6] and from_c == 4,
+          f"[ft] {label}: {FT_CORRUPT} left {left_c}, resumed from "
+          f"{from_c} (want 4)")
+    print(f"[ft] {label}: rounds={wk.rounds} checkpoint_every={FT_EVERY} "
+          f"snapshots={len(save)} bytes_a_snapshot={snap_bytes} wall_ms "
+          f"median of 3 checkpointed={med['checkpointed']:.3f} plain="
+          f"{med['plain']:.3f} (x{med['checkpointed'] / med['plain']:.3f}) "
+          f"checkpoint_save_ms mean={np.mean(save):.3f} max="
+          f"{max(save):.3f} checkpoint_write_ms mean={np.mean(write):.3f} "
+          f"max={max(write):.3f} host_syncs={syncs_ck}={syncs_plain} "
+          f"bit-equal; {FT_KILL}: kept {left_k}, resumed from {from_k}, "
+          f"bit-equal; {FT_CORRUPT}: kept {left_c}, resumed from {from_c}, "
+          f"bit-equal", flush=True)
+    return dict(counts=counts, rounds=wk.rounds, snapshot_bytes=snap_bytes,
+                wall_ms_checkpointed=med["checkpointed"],
+                wall_ms_plain=med["plain"],
+                checkpoint_save_ms=float(np.mean(save)),
+                checkpoint_write_ms=float(np.mean(write)),
+                host_syncs=syncs_ck, resumed_from=from_k,
+                corrupt_resumed_from=from_c)
+
+
+def ft_drill_phase(device, tmp) -> dict:
+    """The port's fault drill through the CLI on p2p-31, on the card."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "libgrape_lite_tpu_torch.scripts.fault_drill",
+         "--apps", "sssp", "--corrupt", "--device", device,
+         "--workdir", os.path.join(tmp, "drill")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    out = r.stdout + r.stderr
+    check(r.returncode == 0 and "fault_drill: PASS" in r.stdout,
+          f"[ft] fault_drill --apps sssp --corrupt failed (rc "
+          f"{r.returncode}):\n{out[-3000:]}")
+    check("(exit 17;" in r.stdout and "corrupted), resumed" in r.stdout,
+          f"[ft] fault_drill: no exit-17 kill and corrupt fallback in\n"
+          f"{r.stdout[-2000:]}")
+    line = [ln for ln in r.stdout.splitlines() if "PASS:" in ln][-1]
+    print(f"[ft] cli drill p2p-31 fnum 2 ({secs:.1f} s): {line}", flush=True)
+    return dict(counts={}, seconds=secs)
+
+
+def ft_phases(frag, device) -> dict:
+    """[ft]: checkpoints, kill/resume and the corrupt-shard fallback on
+    RMAT-20, then the CLI drill on p2p-31; seconds in all."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, factory, kw in ft_apps():
+            runs[f"ft {label}"] = ft_query_phase(label, frag, factory,
+                                                 device, kw, tmp)
+        runs["ft cli drill"] = ft_drill_phase(device, tmp)
+    secs = time.perf_counter() - t0
+    return {"seconds": secs, "runs": runs}
+
+
+def guard_query_phase(label, frag, factory, device, kw, tmp) -> dict:
+    from libgrape_lite_tpu_torch.ft.faults import FaultPlan
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    plain = run_query(frag, factory(), device, **kw)[0]
+    want = plain.result_values()
+    g_kw = dict(kw, guard="halt")
+    reset_launch_counts()
+    wk = run_query(frag, factory(), device, **g_kw)[0]
+    counts = launch_counts()
+    rep = wk.guard_report
+    same_bits(wk, want, f"[guard] {label} halt")
+    check(not rep["breaches"] and rep["probes"] == plain.rounds + 1,
+          f"[guard] {label} halt with no fault: breaches "
+          f"{[b['verdict'] for b in rep['breaches']]}, probes "
+          f"{rep['probes']}")
+    heal = Worker(factory(), frag)
+    sync(device)
+    t0 = time.perf_counter()
+    heal.query(checkpoint_every=FT_EVERY,
+               checkpoint_dir=os.path.join(tmp, label),
+               guard="rollback",
+               fault_plan=FaultPlan(corrupt_carry_at=GUARD_CORRUPT_AT), **kw)
+    sync(device)
+    heal_s = time.perf_counter() - t0
+    hrep = heal.guard_report
+    same_bits(heal, want, f"[guard] {label} corrupt_carry@"
+              f"{GUARD_CORRUPT_AT} rollback")
+    check(hrep["rollbacks"] == 1 and len(hrep["breaches"]) == 1
+          and hrep["breaches"][0]["round"] == GUARD_CORRUPT_AT
+          and heal.rounds == plain.rounds,
+          f"[guard] {label}: rollbacks {hrep['rollbacks']}, breaches at "
+          f"{[b['round'] for b in hrep['breaches']]}, rounds {heal.rounds}")
+    failed = sorted(hrep["breaches"][0]["verdict"]["failed"])
+    walls = {"plain": [], "guarded": []}
+    for _ in range(3):
+        walls["plain"].append(run_query(frag, factory(), device, **kw)[1])
+        walls["guarded"].append(run_query(frag, factory(), device,
+                                          **g_kw)[1])
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    host_syncs(frag, factory, device, kw)  # a first-use sync, if any
+    syncs_plain = host_syncs(frag, factory, device, kw)
+    syncs_g = host_syncs(frag, factory, device, g_kw)
+    check(syncs_g == syncs_plain + rep["probes"]
+          or torch.device(device).type != "cuda",  # no syncs counted
+          f"[guard] {label}: {syncs_g - syncs_plain} host syncs for "
+          f"{rep['probes']} probes (one read a probe)")
+    extra = ""
+    if label == "pagerank":
+        rank = wk._result_state["rank"]
+        extra = (f" mass_err={abs(float(rank.double().sum()) - 1.0):.3e} "
+                 f"(mass_rtol {factory().mass_rtol:g})")
+    print(f"[guard] {label}: rounds={wk.rounds} halt no fault: probes="
+          f"{rep['probes']} breaches=0 bit-equal{extra}; corrupt_carry@"
+          f"{GUARD_CORRUPT_AT} rollback: breach at "
+          f"{hrep['breaches'][0]['round']} {failed}, rollbacks=1, "
+          f"{heal_s * 1e3:.3f} ms, bit-equal; wall_ms median of 3 guarded="
+          f"{med['guarded']:.3f} plain={med['plain']:.3f} (x"
+          f"{med['guarded'] / med['plain']:.3f}) host_syncs guarded="
+          f"{syncs_g} plain={syncs_plain} (+{syncs_g - syncs_plain} for "
+          f"{rep['probes']} probes)", flush=True)
+    return dict(counts=counts, rounds=wk.rounds, probes=rep["probes"],
+                wall_ms_guarded=med["guarded"], wall_ms_plain=med["plain"],
+                host_syncs_guarded=syncs_g, host_syncs_plain=syncs_plain,
+                heal_ms=heal_s * 1e3, failed=failed)
+
+
+def guard_phases(frag, device) -> dict:
+    """[guard]: sssp, pagerank and wcc on RMAT-20 guarded (halt, no fault)
+    and self-healing (corrupt_carry under rollback); seconds in all."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.models import WCC
+
+    t0 = time.perf_counter()
+    runs = {}
+    apps = ft_apps() + (("wcc", WCC, {}),)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, factory, kw in apps:
+            runs[f"guard {label}"] = guard_query_phase(
+                label, frag, factory, device, kw, tmp)
+    secs = time.perf_counter() - t0
+    return {"seconds": secs, "runs": runs}
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -4277,12 +4540,17 @@ def main() -> int:
         frag, serve["runs"][f"serve session max_batch={SERVE_BATCH} sync"]
         ["qps"], device)
     observ = obs_phases(frag, device)
+    ft = ft_phases(frag, device)
+    grd = guard_phases(frag, device)
+    print(f"[time] ft {ft['seconds']:.1f} s, guard {grd['seconds']:.1f} s",
+          flush=True)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
               "load": load, "spgemm": spgemm, **dyn["runs"],
-              **serve["runs"], **fleet["runs"], **observ["runs"]}
+              **serve["runs"], **fleet["runs"], **observ["runs"],
+              **ft["runs"], **grd["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -4309,7 +4577,7 @@ def main() -> int:
              replaces="libgrape_lite_tpu/ops/spmv_pack.py:1954",
              launches=launches["gather_reduce"],
              **{k: gr[k] for k in keys},
-             launches_by_app={app: r["counts"]["gather_reduce"]
+             launches_by_app={app: r["counts"].get("gather_reduce", 0)
                               for app, r in by_app.items()},
              max_abs_err_all_kinds=max(
                  kern[f"gather_reduce[{k}]"]["max_abs_err"]
@@ -4407,6 +4675,12 @@ def main() -> int:
         "obs": {"seconds": observ["seconds"]}
         | {k: {f: x for f, x in r.items() if f != "counts"}
            for k, r in observ["runs"].items()},
+        "ft": {"seconds": ft["seconds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in ft["runs"].items()},
+        "guard": {"seconds": grd["seconds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in grd["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -197,6 +197,22 @@ class AppBase:
     def finalize(self, frag, state: Dict) -> np.ndarray:
         raise NotImplementedError
 
+    # ---- runtime invariants (guard/) ----
+    #
+    # Named predicates over consecutive carries, evaluated on the carry's
+    # device by the guard monitor when GRAPE_GUARD (or
+    # Worker.query(guard=...)) arms it.  The default is the generic floor
+    # (NaN-free float carries); apps override to declare their algebraic
+    # invariants (monotone distances, conserved mass, label ranges).
+    # `state` is the example carry, to read dtypes and keys from.
+
+    def invariants(self, frag, state: Dict) -> list:
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            default_invariants,
+        )
+
+        return default_invariants(self, frag, state)
+
     # ---- MutationContext (reference grape/app/mutation_context.h) ----
     #
     # An app that mutates the graph mid-query defines

@@ -41,6 +41,16 @@ per-superstep table) with a JSONL twin `t.jsonl`, `--metrics m` writes
 `m.json` and `m.prom`, and `--profile` logs each round's seconds and
 active count; GRAPE_TRACE and GRAPE_METRICS arm the same sinks.
 
+Fault tolerance (ft/, guard/): `--checkpoint_every K --checkpoint_dir D`
+snapshots the query's carry every K supersteps, `--resume
+--checkpoint_dir D` continues the newest usable snapshot (the lineage's
+format is the JAX package's), `--guard warn|halt|rollback` probes the
+app's invariants each round (rollback heals from the last snapshot; a
+halt exits 1).  GRAPE_FT_FAULTS injects faults (kill@K, corrupt@K,
+corrupt_carry@K, capacity=N, mode=raise; a kill exits 17),
+GRAPE_GUARD / GRAPE_GUARD_EVERY / GRAPE_GUARD_STAGNATION arm the guard,
+GRAPE_RETRY_SEED seeds the cache-read retry's jitter.
+
 The `serve` subcommand loads the graph once and serves a stream of
 point queries through a ServeSession (serve/), batching compatible
 ones, and prints one JSON summary line (the JAX CLI's keys):
@@ -138,6 +148,24 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write the obs/ metrics snapshot to <path>.json and "
                         "<path>.prom at query end; the same as "
                         "GRAPE_METRICS=path")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="snapshot the query carry every K supersteps "
+                        "(ft/checkpoint.py; 0 = off; requires "
+                        "--checkpoint_dir)")
+    p.add_argument("--checkpoint_dir", default="",
+                   help="directory for superstep checkpoints")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the last complete checkpoint in "
+                        "--checkpoint_dir (query args replay from the "
+                        "checkpoint metadata; the config fingerprint "
+                        "must match)")
+    p.add_argument("--guard", default="",
+                   choices=["", "off", "warn", "halt", "rollback"],
+                   help="runtime invariant guard policy (guard/): warn "
+                        "logs breaches, halt raises with a diagnostic "
+                        "bundle, rollback self-heals from the last "
+                        "checkpoint (needs --checkpoint_every); default "
+                        "reads GRAPE_GUARD")
     return p
 
 

@@ -17,8 +17,9 @@ siblings serve:
 
 With obs/ armed the drain and the rejoin are `fleet_drain_begin` and
 `fleet_rejoin` trace instants.  Rejoining a replica lost with its
-process (`rejoin_lost`) needs a checkpoint lineage (`ft/`, ROADMAP
-Queue A item 6b).
+process (`rejoin_lost`) reads a sharded checkpoint lineage, which only
+the multi-GPU runtime writes (ROADMAP Queue A item 8); a single-process
+loss resumes through `Worker.resume`.
 """
 
 from __future__ import annotations
@@ -91,12 +92,27 @@ def rejoin(router, idx: int) -> dict:
 
 
 def rejoin_lost(router, checkpoint_dir: str, *, session_factory):
-    """Rejoin after a process loss, from the newest sharded checkpoint:
-    not ported yet."""
+    """Process-loss rejoin (JAX `fleet/drain.py::rejoin_lost`): a replica
+    lost with a dead rank cannot drain or replay a catch-up log; what
+    survives is the last committed sharded checkpoint, from which a
+    replacement replica resumes the interrupted queries.  Reads the
+    lineage's newest metadata (`ft.checkpoint.latest_meta`).  A
+    single-file lineage is a single-process loss: the ordinary
+    `Worker.resume` path, a ValueError here.  A sharded lineage needs the
+    multi-GPU runtime that writes one (ROADMAP Queue A item 8)."""
+    from libgrape_lite_tpu_torch.ft.checkpoint import latest_meta
+
+    meta = latest_meta(checkpoint_dir)
+    if meta.get("layout") != "sharded":
+        raise ValueError(
+            f"rejoin_lost needs a sharded (multi-process) checkpoint "
+            f"lineage; {checkpoint_dir!r} holds a "
+            f"{meta.get('layout', 'single-file')!r} layout -- use the "
+            f"ordinary resume path for single-process loss")
     raise NotImplementedError(
-        "rejoin_lost resumes from a sharded checkpoint lineage "
-        "(ft.checkpoint.latest_meta); ft/ is not ported yet: ROADMAP "
-        "Queue A item 6")
+        f"rejoin_lost: {checkpoint_dir!r} is a sharded lineage; the port "
+        "restores one with its multi-GPU runtime (ft/distributed.py, "
+        "restore_resharded): ROADMAP Queue A item 8")
 
 
 def drain_replica(router, idx: int, *, offline=None) -> dict:

@@ -445,10 +445,28 @@ def _serialize_fragment(frag: ShardedEdgecutFragment, cache: str, sig: str):
         f.write(sig)
 
 
+def _read_cache_file(path: str) -> bytes:
+    """Read one cache file under the shared transient-IO retry policy
+    (ft/retry.py): serialization prefixes live on shared filesystems,
+    where a stale-handle EIO is worth another try before failing."""
+    from libgrape_lite_tpu_torch.ft.retry import (
+        CACHE_READ_POLICY,
+        is_transient_io_error,
+        with_retries,
+    )
+
+    def _read():
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    return with_retries(_read, policy=CACHE_READ_POLICY,
+                        retryable=is_transient_io_error,
+                        describe=f"garc cache read {path}")
+
+
 def _read_garc(cache: str):
     """Parse frag.garc -> (meta dict, per-fragment streams)."""
-    with open(os.path.join(cache, "frag.garc"), "rb") as fh:
-        blob = fh.read()
+    blob = _read_cache_file(os.path.join(cache, "frag.garc"))
     # v3 starts with the raw magic; v2 deflated the whole archive
     if not blob.startswith(_GARC_MAGIC.to_bytes(8, "little")):
         blob = zlib.decompress(blob)

@@ -92,5 +92,22 @@ class BC(ParallelAppBase):
     def inceval(self, ctx, dev, state):
         return state, 0
 
+
+    def invariants(self, frag, state):
+        # Brandes partials: shortest-path counts and dependencies are
+        # finite and nonnegative (in_range(lo=0) rejects NaN); depth is
+        # the BFS level or the untouched sentinel
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            finite, in_range,
+        )
+
+        return [
+            finite("pn"),
+            in_range("pn", lo=0),
+            finite("delta"),
+            in_range("delta", lo=0),
+            in_range("depth", lo=0, hi=_SENT),
+        ]
+
     def finalize(self, frag, state):
         return np.asarray(state["delta"].numpy())

@@ -79,6 +79,19 @@ class BFS(ParallelAppBase):
         changed = (new < depth) & dev.inner_mask
         return dict(state, depth=new), changed.sum(dim=(-2, -1))
 
+
+    def invariants(self, frag, state):
+        # levels live in [0, SENTINEL] and only ever improve (pull-mode
+        # unit-weight relaxation is tropical-min, like SSSP)
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [
+            in_range("depth", lo=0, hi=_SENTINEL),
+            monotone_non_increasing("depth"),
+        ]
+
     def finalize(self, frag, state):
         d = state["depth"].numpy().astype(np.int64)
         return np.where(d == _SENTINEL, _OUT_SENTINEL, d)

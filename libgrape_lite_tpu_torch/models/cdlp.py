@@ -113,6 +113,30 @@ class CDLP(ParallelAppBase):
         active = (step < self.max_round).to(torch.int32)
         return dict(state, labels=labels, step=step), active
 
+
+    def invariants(self, frag, state):
+        # labels are NOT monotone under mode adoption (the most frequent
+        # neighbour label can exceed the current one), so the invariant
+        # is universe membership: every label is an id that existed at
+        # init (at most the largest oid) or the pad sentinel.  The JAX
+        # package reads that id off its carried `lut`; here the lut is
+        # an ephemeral leaf, so the largest oid comes off the fragment.
+        from libgrape_lite_tpu_torch.guard.invariants import Invariant
+
+        def in_universe(dev, prev, cur):
+            lab = cur["labels"]
+            big = torch.iinfo(lab.dtype).max
+            max_id = dev.oids.max().to(lab.dtype)  # pad rows hold -1
+            ok = (lab >= 0) & ((lab <= max_id) | (lab == big))
+            nbad = (~ok).sum()
+            return nbad == 0, nbad.to(torch.float32)
+
+        return [Invariant(
+            "cdlp_label_universe", in_universe, ("labels",),
+            "labels stay within the initial id universe (or the pad "
+            "sentinel)",
+        )]
+
     def finalize(self, frag, state):
         labels = state["labels"].numpy()
         if not frag.is_string_keyed():

@@ -61,5 +61,24 @@ class CoreDecomposition(ParallelAppBase):
                  "level": level2}
         return state, ctx.sum(alive2.sum(dim=-1)) > 0
 
+
+    def invariants(self, frag, state):
+        # coreness algebra: core numbers are written exactly once
+        # (0 -> level) and never negative; the peeling level only
+        # advances; dead vertices never resurrect
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range,
+            monotone_non_decreasing,
+            monotone_non_increasing,
+            set_once,
+        )
+
+        return [
+            in_range("core", lo=0),
+            set_once("core", unset=0),
+            monotone_non_decreasing("level"),
+            monotone_non_increasing("alive"),
+        ]
+
     def finalize(self, frag, state):
         return state["core"].numpy().astype(np.int64)

@@ -28,8 +28,10 @@ doubling.  So rounds, retries and the settled capacity equal the JAX
 app's, with no round thrown away.  `exchange_relax_plain` is the literal
 route: the per-edge messages through `exchange`, then a scatter-min.
 
-Left out until the port has `guard/` and `ft/` (ROADMAP Queue A item
-6): the JAX base's `invariants`, `_round_hooks` and `_HostRoundHooks`.
+guard/ and ft/ reach the host loops through `_round_hooks` (JAX
+`exchange_base.py:100-160`): the worker cannot probe a loop the app runs
+itself, so `sssp_msg` and `sssp_delta` call the hooks at their round
+boundaries, and `invariants` gives the distance state SSSP's algebra.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ class ExchangeAppBase(AppBase):
     runs the app's own round loop and sets `rounds`."""
 
     host_only = True
+    host_guard = True  # the host loops run guard probes (_round_hooks)
 
     def __init__(self, initial_capacity: int | None = None,
                  dtype: torch.dtype = torch.float32):
@@ -141,3 +144,80 @@ class ExchangeAppBase(AppBase):
     def _save_cap(self, frag, cap: int) -> None:
         self.final_capacity = cap
         self._learned_cap[frag] = cap
+
+    # ---- runtime invariants and host-loop guard probes (guard/) --------
+
+    def invariants(self, frag, state):
+        """The exchange apps' distance state is tropical-min like
+        models/sssp.py's: never negative (in_range(lo=0) rejects NaN
+        too) and only ever improving; +inf is the unreached sentinel.
+        The monitor drops these for a subclass whose carry has no
+        "dist" leaf."""
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [
+            in_range("dist", lo=0.0),
+            monotone_non_increasing("dist"),
+        ]
+
+    def _round_hooks(self, frag, carry0: dict) -> "_HostRoundHooks":
+        """Guard and fault-injection hooks for the app's own host loop,
+        at its round boundaries (its consistent cuts).  Armed by
+        Worker.query(guard=...) through `_host_guard_cfg`, or by
+        GRAPE_GUARD when host_compute is called directly."""
+        return _HostRoundHooks(self, frag, carry0)
+
+
+class _HostRoundHooks:
+    """A host-driven loop's guard monitor and fault plan for one query.
+
+    `observe(carry, rounds, active)` keeps the worker's order in a
+    round: injected corruption first (so detection is same-round), then
+    the probe (warn logs; halt and rollback raise -- a host loop has no
+    checkpoint lineage, so rollback halts), then the remaining fault
+    hooks (kill@K).  Returns the carry for the loop to adopt, corrupted
+    where a fault fired."""
+
+    def __init__(self, app, frag, carry0: dict):
+        from libgrape_lite_tpu_torch.ft.faults import active_plan
+        from libgrape_lite_tpu_torch.guard.config import GuardConfig
+
+        # the worker hands over this query's resolved config (a disabled
+        # one too: guard="off" disarms an env-armed GRAPE_GUARD); the env
+        # covers host_compute calls that bypass the worker
+        cfg = getattr(app, "_host_guard_cfg", None) or GuardConfig.resolve(
+            None)
+        self.monitor = None
+        if cfg.enabled:
+            from libgrape_lite_tpu_torch.guard.monitor import GuardMonitor
+
+            self.monitor = GuardMonitor(app=app, frag=frag, config=cfg)
+        app._host_guard_monitor = self.monitor
+        plan = active_plan()
+        self.plan = None if plan.is_noop() else plan
+        self._prev = dict(carry0)
+
+    @property
+    def armed(self) -> bool:
+        return self.monitor is not None or self.plan is not None
+
+    def observe(self, carry: dict, rounds: int, active: int) -> dict:
+        if self.plan is not None:
+            corrupted = self.plan.maybe_corrupt_carry(carry, rounds)
+            if corrupted is not None:
+                carry = {**carry, **{
+                    k: torch.from_numpy(v).to(carry[k].device)
+                    for k, v in corrupted.items()}}
+        if (self.monitor is not None and active >= 0
+                and self.monitor.due(rounds)):
+            breach = self.monitor.check(self._prev, carry, rounds, active)
+            if breach is not None:
+                # no snapshot lineage in a host loop: whatever survives
+                # the warn policy halts
+                self.monitor.raise_breach(breach)
+            self._prev = dict(carry)
+        if self.plan is not None:
+            self.plan.on_superstep(rounds, None)
+        return carry

@@ -53,5 +53,15 @@ class KCore(ParallelAppBase):
         removed = alive & (alive_neighbours(ctx, dev, alive) < self.k)
         return {"alive": alive & ~removed}, ctx.sum(removed.sum(dim=-1))
 
+
+    def invariants(self, frag, state):
+        # peeling only removes: a dead vertex never resurrects (monotone
+        # across any probe cadence -- removal is transitive)
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            monotone_non_increasing,
+        )
+
+        return [monotone_non_increasing("alive")]
+
     def finalize(self, frag, state):
         return state["alive"].numpy().astype(np.int64)

@@ -168,5 +168,13 @@ class LCC(ParallelAppBase):
         tri.index_add_(0, w.long(), cnt)  # far end
         return tri.view(dev.fnum, dev.vp)
 
+
+    def invariants(self, frag, state):
+        # a clustering coefficient is a triangle fraction: [0, 1] on a
+        # deduplicated simple graph (in_range also rejects NaN)
+        from libgrape_lite_tpu_torch.guard.invariants import in_range
+
+        return [in_range("lcc", lo=0.0, hi=1.0)]
+
     def finalize(self, frag, state):
         return np.asarray(state["lcc"].numpy())

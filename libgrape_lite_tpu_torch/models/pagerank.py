@@ -108,21 +108,30 @@ class PageRank(BatchShuffleAppBase):
         self._spmv_rmax = plan[2] if plan else 0
         if plan:
             state["spmv_row_lo"] = torch.from_numpy(plan[0]).to(dev)
+        self._set_constants(frag.dev, dt)
         return state
+
+    def _set_constants(self, dev, dt) -> None:
+        """The round's constants, rounded to the state type once a query,
+        as the JAX package rounds them with jnp.asarray.  Set in
+        init_state, so a resumed query (no PEval) has them too."""
+        n, d = dev.total_vnum, self.delta
+
+        def c(v):
+            return torch.tensor(v, dtype=dt, device=dev.out_degree.device)
+
+        self._const = {"teleport": c((1.0 - d) / n), "d_over_n": c(d / n),
+                       "d": c(d), "zero": c(0.0), "one_minus_d": c(1.0 - d)}
 
     def peval(self, ctx: StepContext, dev, state):
         dt = state["rank"].dtype
         deg = dev.out_degree
         dangling = dev.inner_mask & (deg == 0)
-        n, d = dev.total_vnum, self.delta
+        n = dev.total_vnum
 
         def c(v):
             return torch.tensor(v, dtype=dt, device=deg.device)
 
-        # the round's constants, rounded to the state type once per
-        # query, as the JAX package rounds them with jnp.asarray
-        self._const = {"teleport": c((1.0 - d) / n), "d_over_n": c(d / n),
-                       "d": c(d), "zero": c(0.0), "one_minus_d": c(1.0 - d)}
         zero = self._const["zero"]
         vote = 1 if self.max_round > 0 else 0
         if self._personalized:
@@ -208,6 +217,47 @@ class PageRank(BatchShuffleAppBase):
         else:
             cur = spmv.pull(ie.indptr, ie.edge_nbr, None, full, "sum")
         return self.round_update(dev, state, cur.to(rank.dtype))
+
+
+    # PageRank is a probability distribution: within each round the
+    # stored form is rank/deg (dangling vertices hold the raw base), so
+    # the conserved quantity is sum(deg>0 ? rank*deg : rank) == 1; the
+    # final round multiplies the degree back in, making it sum(rank).
+    # The tolerance absorbs f32 sum error at RMAT-20 scale.
+    mass_rtol = 1e-3
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            Invariant, finite, in_range,
+        )
+
+        mr = self.max_round
+        rtol = self.mass_rtol
+        personalized = self._personalized
+
+        def mass_fn(dev, prev, cur):
+            rank = cur["rank"]
+            dt = rank.dtype
+            deg = dev.out_degree.to(dt)
+            iter_mass = torch.where(deg > 0, rank * deg, rank).sum()
+            is_final = cur["step"] >= mr
+            mass = torch.where(is_final, rank.sum(), iter_mass)
+            # PPR conserves the seed mass (1 when the source resolves, 0
+            # for an absent seed) instead of the global unit mass
+            target = (cur["seed"].sum() if personalized
+                      else torch.ones((), dtype=dt, device=rank.device))
+            err = (mass - target).abs()
+            return err <= rtol, err
+
+        out = [finite("rank"), in_range("rank", lo=0.0)]
+        if mr > 0:  # a 0-round query never leaves the rank/deg form
+            requires = (("rank", "step", "seed") if personalized
+                        else ("rank", "step"))
+            out.append(Invariant(
+                "pagerank_mass", mass_fn, requires,
+                f"total probability mass conserved within {rtol:g}",
+            ))
+        return out
 
     def finalize(self, frag, state):
         return np.asarray(state["rank"].cpu().numpy())

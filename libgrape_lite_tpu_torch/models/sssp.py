@@ -99,5 +99,19 @@ class SSSP(ParallelAppBase):
         changed = (new < dist) & dev.inner_mask
         return dict(state, dist=new), changed.sum(dim=(-2, -1))
 
+
+    def invariants(self, frag, state):
+        # distances are tropical-min state: never negative, never NaN
+        # (in_range(lo=0) rejects NaN), and only ever improving; +inf is
+        # the unreached sentinel
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [
+            in_range("dist", lo=0.0),
+            monotone_non_increasing("dist"),
+        ]
+
     def finalize(self, frag, state):
         return np.asarray(state["dist"].cpu().numpy())

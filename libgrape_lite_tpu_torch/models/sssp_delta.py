@@ -91,6 +91,12 @@ class SSSPDelta(ExchangeAppBase):
         self.rounds = self.retries = self.buckets = 0
         limit = max_rounds if (max_rounds and max_rounds > 0) else None
         n_pend = 1 if pid >= 0 else 0
+        # guard/ft hooks at round boundaries (bucket advances are not
+        # rounds: no probe there).  `pending` is part of the probed
+        # carry: a bucketed round can leave dist unchanged while the near
+        # set drains, and a dist-only digest would repeat -- the watchdog
+        # would take healthy progress for a cycle
+        hooks = self._round_hooks(frag, {"dist": dist, "pending": pending})
         while n_pend > 0 and (limit is None or self.rounds < limit):
             near = pending & (dist < torch.full((), thr, dtype=dt,
                                                 device=device))
@@ -123,6 +129,10 @@ class SSSPDelta(ExchangeAppBase):
             dist, pending = new, new_pend
             n_pend = int(n_pend_d)
             self.rounds += 1
+            if hooks.armed:
+                probed = hooks.observe({"dist": dist, "pending": pending},
+                                       self.rounds, n_pend)
+                dist, pending = probed["dist"], probed["pending"]
         self._save_cap(frag, cap)
         return {"dist": dist}
 

@@ -62,6 +62,8 @@ class SSSPMsg(ExchangeAppBase):
         self.rounds = self.retries = 0
         limit = max_rounds if (max_rounds and max_rounds > 0) else None
         active = 1
+        # guard/ft hooks at round boundaries (the loop's consistent cuts)
+        hooks = self._round_hooks(frag, {"dist": dist})
         while active > 0 and (limit is None or self.rounds < limit):
             relaxed, sent = self._relax(frag, dist, changed, dest_deg, w)
             new = torch.minimum(dist, relaxed)
@@ -70,6 +72,9 @@ class SSSPMsg(ExchangeAppBase):
             cap = self._fit_cap(cap, sent)
             dist, changed, active = new, new_changed, n_active
             self.rounds += 1
+            if hooks.armed:
+                dist = hooks.observe({"dist": dist}, self.rounds,
+                                     active)["dist"]
         self._save_cap(frag, cap)
         return {"dist": dist}
 

@@ -52,6 +52,13 @@ class TriangleCount(LCC):
 
     _emit = emit_counts
 
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import in_range
+
+        # a triangle count is a non-negative cardinality
+        return [in_range("tri", lo=0)]
+
     def finalize(self, frag, state):
         vals = state["tri"].numpy().astype(np.int64)
         self.global_triangles = int(vals[frag.host_inner_mask()].sum() // 3)
@@ -119,6 +126,12 @@ class CommonNeighbors(ParallelAppBase):
         last = torch.where(dev.inner_mask & (state["seed"] == 0), pulled, 0)
         cn = torch.where(done[..., None, None], last, pulled)
         return dict(state, cn=cn, hop=hop), torch.where(done, 0, 1)
+
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import in_range
+
+        return [in_range("cn", lo=0)]
 
     def finalize(self, frag, state):
         return state["cn"].numpy().astype(np.int64)

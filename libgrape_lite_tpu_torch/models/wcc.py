@@ -97,6 +97,19 @@ class WCC(ParallelAppBase):
         out[valid] = new_reps[np.searchsorted(reps, flat[valid])]
         return out.reshape(np.asarray(values).shape)
 
+
+    def invariants(self, frag, state):
+        # min-gid propagation: labels are pids (or the pad sentinel) and
+        # only ever shrink toward the component representative
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [
+            in_range("comp", lo=0, hi=np.iinfo(np.int32).max),
+            monotone_non_increasing("comp"),
+        ]
+
     def finalize(self, frag, state):
         comp = state["comp"].numpy().astype(np.int64)
         flat = comp.reshape(-1)

@@ -114,17 +114,19 @@ def plan_initial_capacity(frag, requested: int | None, learned) -> int:
     of two from 1024 up that lets the densest vertex push all its edges
     to one destination fragment twice over.
 
-    The JAX package also clamps the result under an armed fault plan
-    (`GRAPE_FT_FAULTS=capacity=N`, `ft/faults.py`); the port has no
-    `ft/` yet, so there is no clamp."""
+    An armed fault plan (GRAPE_FT_FAULTS=capacity=N, ft/faults.py)
+    clamps the result, so the overflow-retry ladder runs in drills
+    instead of being dead code on real graphs."""
+    from libgrape_lite_tpu_torch.ft.faults import active_plan
+
     if requested:
-        return max(1, requested)
+        return active_plan().clamp_capacity(max(1, requested))
     if frag in learned:
-        return learned[frag]
+        return active_plan().clamp_capacity(learned[frag])
     max_deg = max(
         int(np.diff(c.indptr).max(initial=1)) for c in frag.host_oe
     )
     cap = 1024
     while cap < 2 * max_deg:
         cap *= 2
-    return cap
+    return active_plan().clamp_capacity(cap)

@@ -4,7 +4,11 @@ Counterpart of `libgrape_lite_tpu/runner.py::run_app` (reference
 `examples/analytical_apps/run_app.{cc,h}`).  `trace` / `metrics` arm
 obs/ before the load (a Chrome trace with its JSONL twin, and the
 metrics snapshot as `<metrics>.json` / `.prom`); `profile` logs each
-round's seconds and vote (vlog level 1).
+round's seconds and vote (vlog level 1).  `checkpoint_every` /
+`checkpoint_dir` snapshot the query's supersteps, `resume` continues
+the lineage in `checkpoint_dir`, `guard` sets the breach policy (ft/,
+guard/).  A guard halt raises out of `run_app` (the CLI exits 1, as the
+JAX package's does).
 """
 
 from __future__ import annotations
@@ -61,6 +65,13 @@ class QueryArgs:
     profile: bool = False
     trace: str = ""
     metrics: str = ""
+    # ft/ and guard/: the superstep checkpoint cadence (0 = off), its
+    # directory, a resume from it, and the breach policy ("" reads
+    # GRAPE_GUARD)
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    resume: bool = False
+    guard: str = ""
 
 
 def _coerce_source(v, string_id: bool = False):
@@ -108,6 +119,13 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     from libgrape_lite_tpu_torch import obs
     from libgrape_lite_tpu_torch.utils import logging as glog
 
+    # flag-consistency checks fail in milliseconds, before the load
+    if (args.checkpoint_every or args.resume) and not args.checkpoint_dir:
+        raise ValueError(
+            "--checkpoint_every/--resume require --checkpoint_dir")
+    if args.checkpoint_dir and not (args.checkpoint_every or args.resume):
+        raise ValueError(
+            "--checkpoint_dir requires --checkpoint_every (or --resume)")
     if args.trace or args.metrics:
         # armed before the load, so the load_graph span is in the trace;
         # the flags win over GRAPE_TRACE / GRAPE_METRICS
@@ -162,7 +180,20 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     worker = Worker(app, frag)
     if args.profile and glog.vlog_level() < 1:
         glog.set_vlog_level(1)  # --profile exists to show the round times
-    worker.query(**build_query_kwargs(name, args))
+    guard = args.guard or None  # None: GRAPE_GUARD
+    if args.resume:
+        # the query args replay from the checkpoint's metadata (the
+        # fingerprint holds them to this app and fragment); a cadence
+        # flag overrides the recorded one
+        worker.resume(args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every or None,
+                      guard=guard)
+    elif args.checkpoint_every:
+        worker.query(checkpoint_every=args.checkpoint_every,
+                     checkpoint_dir=args.checkpoint_dir, guard=guard,
+                     **build_query_kwargs(name, args))
+    else:
+        worker.query(guard=guard, **build_query_kwargs(name, args))
     if args.memory_stats:
         print(f"[memory] after query: {get_memory_stats(comm_spec.device)}")
     if args.out_prefix:

@@ -515,8 +515,29 @@ def test_fence_violation_and_drain_guards_are_loud():
     router.fence += 1  # a fence move that never logged a catch-up
     with pytest.raises(FenceViolationError, match="catch-up log"):
         router.rejoin(0)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # a process loss rejoins from a checkpoint lineage: none there, a
+    # single-file one resumes through Worker.resume, a sharded one needs
+    # the multi-GPU runtime (ROADMAP item 8)
+    with pytest.raises(FileNotFoundError):
         rejoin_lost(router, "/nonexistent", session_factory=None)
+    import os
+    import tempfile
+
+    from libgrape_lite_tpu_torch.ft.checkpoint import CheckpointManager
+
+    d = tempfile.mkdtemp()
+    mgr = CheckpointManager(d, fingerprint={"app": "sssp"}, query_args={},
+                            checkpoint_every=1)
+    mgr.save_async({"dist": torch.zeros(4)}, 2, 1)
+    mgr.close()
+    with pytest.raises(ValueError, match="ordinary resume path"):
+        rejoin_lost(router, d, session_factory=None)
+    meta_path = os.path.join(d, "ckpt_00000002", "meta.json")
+    meta = json.load(open(meta_path))
+    meta["layout"] = "sharded"
+    json.dump(meta, open(meta_path, "w"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        rejoin_lost(router, d, session_factory=None)
 
 
 def test_drain_catchup_applies_missed_deltas():

@@ -194,7 +194,8 @@ def test_port_sources_import_no_jax():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "libgrape_lite_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    for sub in ("fleet", "autopilot", "obs"):  # the serving fleet's slice
+    # the serving fleet's slice; fault tolerance and the guards
+    for sub in ("fleet", "autopilot", "obs", "ft", "guard"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         tree = ast.parse(open(path).read(), path)
@@ -274,6 +275,17 @@ FLEET_MODULES = [
     "libgrape_lite_tpu_torch.autopilot.cache",
     "libgrape_lite_tpu_torch.autopilot.admission",
     "libgrape_lite_tpu_torch.autopilot.scaler",
+    "libgrape_lite_tpu_torch.ft",
+    "libgrape_lite_tpu_torch.ft.checkpoint",
+    "libgrape_lite_tpu_torch.ft.faults",
+    "libgrape_lite_tpu_torch.ft.fingerprint",
+    "libgrape_lite_tpu_torch.ft.retry",
+    "libgrape_lite_tpu_torch.guard",
+    "libgrape_lite_tpu_torch.guard.config",
+    "libgrape_lite_tpu_torch.guard.invariants",
+    "libgrape_lite_tpu_torch.guard.monitor",
+    "libgrape_lite_tpu_torch.guard.watchdog",
+    "libgrape_lite_tpu_torch.scripts.fault_drill",
 ]
 
 
