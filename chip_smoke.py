@@ -209,6 +209,36 @@ the port's own entry points:
      `checkpoint_every=2` (detected in round 4, one rollback, the result
      bit-equal to the fault-free one); the guarded and unguarded walls
      (median of 3) and the host syncs the probes add;
+  11g. guarded serving (`[guard] serve`): 8 seed-17 sssp sources on
+     RMAT-20 as one batch under `guard="halt"` with no fault, bit-equal
+     to the unguarded batch and to the 8 sequential queries, one lane K1
+     launch a round, the host syncs the unguarded batch's plus one a
+     chunk boundary; `corrupt_carry@4` (ft/faults.py) on one lane
+     breaching that lane alone, the 7 others bit-equal; the same breach in
+     the middle batch of an async pump at W 4, the other two batches
+     bit-equal; the guarded and unguarded batch walls (median of 3) and
+     the probe's host ms a chunk boundary; `serve --guard halt` on p2p-31
+     at fnum 1 and 4 with `--replicas 2 --tenants by_app`, its
+     --dump_results equal to the unguarded run's; then
+     `scripts/fault_drill.py --postmortem` in a child process (exit 0,
+     every breach bundle's rows joined to the trace);
+  11h. the 2-D vertex cut (`[vc]`): RMAT-20's edge list as
+     ImmutableVertexcutFragments at fnum 4 and 16 (k 2 and 4;
+     symmetrised and weighted for sssp_vc, bfs_vc and wcc_vc, raw for
+     pagerank_vc and pagerank_vc_rep), each build's host seconds and
+     `tile_stats` (pad waste, tile skew); each app through `Worker.query`
+     bit-equal by oid to its 1-D twin on RMAT-20 (PageRank within 1e-4
+     relative), its K1 launches counted (one a tile pull), its seconds
+     and MTEPS beside the twin's; each tile pull's K1 call against its
+     plain version on the query's own carry (min bit-equal, sums within
+     1e-5 of each row's sum of |terms|) with kernel, plain and bound ms;
+     at k 2 an 8-lane sssp_vc session bit-equal to its sequential
+     queries (one lane K1 launch a round), a checkpointed sssp_vc
+     (`checkpoint_every=2`, `kill@4`) resumed bit-equal, and
+     `fragment_bytes` equal to the placed tensors' bytes; a profile of
+     one sssp_vc query at k 2 and 4; on p2p-31 `run_app --vc` pagerank and
+     GRAPE_PARTITION=2d sssp, bfs and wcc at fnum 1 and 4 against the
+     goldens, and a `--delta_efile` run recording its decline;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -1797,10 +1827,12 @@ def profile_phases(frag, frag18, device) -> None:
 # ---- phase 7: goldens through run_app ----------------------------------
 
 def golden_phase(device, names=None, efile: str = "p2p-31.e",
-                 delta_efile: str = "", tag: str = "golden") -> None:
+                 delta_efile: str = "", tag: str = "golden",
+                 extra_args: dict | None = None) -> None:
     """`run_app` at fnum 1 and 4 against the p2p-31 goldens, for every
     app name with a golden (or `names`); `delta_efile` loads `efile`
-    through LoadGraphAndMutate with that edit file."""
+    through LoadGraphAndMutate with that edit file; `extra_args` go to
+    every run's QueryArgs."""
     from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
     from libgrape_lite_tpu_torch.worker.worker import format_result_lines
 
@@ -1837,7 +1869,8 @@ def golden_phase(device, names=None, efile: str = "p2p-31.e",
             wk = run_app(QueryArgs(
                 application=app, efile=os.path.join(data, efile),
                 vfile=os.path.join(data, "p2p-31.v"), fnum=fnum,
-                device=device, delta_efile=delta_efile, **extra))
+                device=device, delta_efile=delta_efile, **extra,
+                **(extra_args or {})))
             vals = wk.result_values()
             frag = wk.fragment
             got = load("".join(
@@ -4306,6 +4339,503 @@ def guard_phases(frag, device) -> dict:
     return {"seconds": secs, "runs": runs}
 
 
+# ---- phase 11g: guarded serving -------------------------------------------
+
+GUARD_POISON_LANE = 3  # the lane corrupt_carry poisons in [guard] serve
+GUARD_PUMP_WINDOW = 4
+
+
+def call_syncs(fn, device) -> int:
+    """Host synchronisations inside `fn()`, as CUDA's sync-debug mode
+    reports them."""
+    if torch.device(device).type != "cuda":
+        return 0
+    sync(device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def p2p_stream(tmp) -> str:
+    """A 16-query sssp and bfs stream over p2p-31 sources."""
+    path = os.path.join(tmp, "guard_stream.txt")
+    with open(path, "w") as f:
+        for s in (6, 17, 3, 42, 11, 12, 13, 14):
+            f.write(f"sssp {s}\nbfs {s}\n")
+    return path
+
+
+def guard_serve_cli_phase(device, tmp) -> dict:
+    """`serve --guard halt --replicas 2 --tenants by_app` on p2p-31 at
+    fnum 1 and 4 against the unguarded single-session run, then the
+    postmortem drill in a child process."""
+    import io
+
+    from libgrape_lite_tpu_torch import cli
+
+    stream = p2p_stream(tmp)
+    data = os.path.join(HERE, "dataset")
+    out = {}
+    for fnum in (1, 4):
+        dumps = []
+        for extra in ([], ["--guard", "halt", "--replicas", "2",
+                           "--tenants", "by_app"]):
+            dump = os.path.join(tmp, f"g{fnum}_{len(extra)}.txt")
+            buf = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["serve", "--efile",
+                               os.path.join(data, "p2p-31.e"), "--vfile",
+                               os.path.join(data, "p2p-31.v"), "--fnum",
+                               str(fnum), "--stream", stream, "--max_batch",
+                               str(SERVE_BATCH), "--dump_results", dump,
+                               "--device", device, *extra])
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+            check(rc == 0 and rec["failed"] == 0,
+                  f"[guard] serve cli fnum {fnum} {extra}: {rec}")
+            with open(dump) as f:
+                dumps.append(f.read())
+            out[f"guard serve cli fnum{fnum}"
+                + (" guarded" if extra else "")] = dict(
+                counts=launch_counts(), qps=rec["qps"])
+        check(dumps[0] == dumps[1], f"[guard] serve cli fnum {fnum}: "
+              "--guard halt fleet dumps differ from the unguarded run")
+        print(f"[guard] serve cli fnum={fnum}: --guard halt --replicas 2 "
+              "--tenants by_app --dump_results equal to the unguarded run",
+              flush=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "libgrape_lite_tpu_torch.scripts.fault_drill",
+         "--postmortem", "--device", device, "--workdir",
+         os.path.join(tmp, "pm_drill")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0 and "[postmortem] PASS" in r.stdout,
+          f"[guard] fault_drill --postmortem failed (rc {r.returncode}):\n"
+          f"{(r.stdout + r.stderr)[-3000:]}")
+    line = [ln for ln in r.stdout.splitlines() if "PASS:" in ln][-1]
+    print(f"[guard] postmortem drill ({secs:.1f} s): {line}", flush=True)
+    out["guard serve postmortem drill"] = dict(counts={}, seconds=secs)
+    return out
+
+
+def guard_serve_phase(frag, device) -> dict:
+    """[guard] serve: a guarded 8-lane sssp batch on RMAT-20 against the
+    unguarded batch and the sequential queries, one poisoned lane alone
+    and mid-window, the syncs and walls; then the CLI and the drill."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.ft.faults import FaultPlan
+    from libgrape_lite_tpu_torch.guard.config import GuardConfig
+    from libgrape_lite_tpu_torch.models import SSSP
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+    from libgrape_lite_tpu_torch.serve import batch as sb
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    t_phase = time.perf_counter()
+    lanes = [{"source": s} for s in serve_sources(frag, SERVE_BATCH)]
+    seq = []
+    for a in lanes:
+        wk = run_query(frag, SSSP(), device, **a)[0]
+        seq.append((wk.result_values(), wk.rounds))
+
+    def batch(guard=None, hook=None):
+        wk = Worker(SSSP(), frag)
+        if hook is None:
+            wk.query_batch(lanes, guard=guard)
+        else:
+            sb.run_guarded_batch(wk, lanes, 0, GuardConfig.resolve(guard),
+                                 chunk_hook=hook)
+        return wk
+
+    wk_u, counts_u, _ = timed_counted(batch, device)
+    wk_g, counts_g, _ = timed_counted(lambda: batch("halt"), device)
+    rounds = int(wk_g.batch_rounds.max())
+    check(wk_g.batch_breaches == [None] * len(lanes),
+          f"[guard] serve: a clean batch breached {wk_g.batch_breaches}")
+    for b, (vals, r) in enumerate(seq):
+        got = wk_g.batch_result_values(b)
+        check(int(wk_g.batch_rounds[b]) == r and np.array_equal(got, vals)
+              and np.array_equal(got, wk_u.batch_result_values(b)),
+              f"[guard] serve: guarded lane {b} not bit-equal to the "
+              "unguarded batch and its sequential query")
+    check(counts_g["gather_reduce_lanes"] == rounds
+          and counts_g["gather_reduce"] == 0,
+          f"[guard] serve: {counts_g} in {rounds} rounds (one lane K1 "
+          "launch a round)")
+    walls = {"plain": [], "guarded": []}
+    for _ in range(3):
+        for key, g in (("plain", None), ("guarded", "halt")):
+            sync(device)
+            t0 = time.perf_counter()
+            batch(g)
+            sync(device)
+            walls[key].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    before = dict(sb.GUARDED_BATCH_STATS)
+    batch("halt")
+    bounds = sb.GUARDED_BATCH_STATS["boundaries"] - before["boundaries"]
+    probe_ms = ((sb.GUARDED_BATCH_STATS["probe_s"] - before["probe_s"])
+                / max(bounds, 1) * 1e3)
+    call_syncs(batch, device)  # a first-use sync, if any
+    syncs_u = call_syncs(batch, device)
+    syncs_g = call_syncs(lambda: batch("halt"), device)
+    check(bounds == rounds + 1 and (syncs_g == syncs_u + bounds
+                                    or torch.device(device).type != "cuda"),
+          f"[guard] serve: {syncs_g} host syncs guarded, {syncs_u} "
+          f"unguarded, for {bounds} chunk boundaries (one read a "
+          "boundary, not a lane)")
+
+    # corrupt_carry@4 on one lane
+    reset_launch_counts()
+    wk_c = batch("halt", hook=sb.lane_fault_hook(
+        FaultPlan(corrupt_carry_at=GUARD_CORRUPT_AT), GUARD_POISON_LANE))
+    counts_c = launch_counts()
+    br = wk_c.batch_breaches
+    check([b for b in range(len(lanes)) if br[b] is not None]
+          == [GUARD_POISON_LANE]
+          and br[GUARD_POISON_LANE]["verdict"]["kind"] == "invariant"
+          and br[GUARD_POISON_LANE]["round"] == GUARD_CORRUPT_AT,
+          f"[guard] serve: corrupt_carry@{GUARD_CORRUPT_AT} on lane "
+          f"{GUARD_POISON_LANE} breached {br}")
+    for b, (vals, _) in enumerate(seq):
+        if b != GUARD_POISON_LANE:
+            check(np.array_equal(wk_c.batch_result_values(b), vals),
+                  f"[guard] serve: lane {b} perturbed by lane "
+                  f"{GUARD_POISON_LANE}'s breach")
+    check(counts_c["gather_reduce_lanes"] == int(wk_c.batch_rounds.max()),
+          f"[guard] serve: poisoned batch {counts_c} (one lane K1 launch "
+          "a round, the frozen lane's pull discarded)")
+
+    # the same breach in the middle batch of a W 4 window
+    orig = sb.guarded_lane_loop
+
+    def poisoned(app, frag_, state, eph, mr, k, cfg, chunk_hook=None):
+        return orig(app, frag_, state, eph, mr, k, cfg,
+                    chunk_hook=sb.lane_fault_hook(
+                        FaultPlan(corrupt_carry_at=GUARD_CORRUPT_AT),
+                        GUARD_POISON_LANE))
+
+    with mock.patch.object(sb, "guarded_lane_loop", poisoned):
+        sess = ServeSession(frag, apps={"sssp": SSSP},
+                            policy=BatchPolicy(max_batch=SERVE_BATCH))
+        pump = sess.async_pump(window=GUARD_PUMP_WINDOW)
+        head = [sess.submit("sssp", a) for a in lanes]
+        mid = [sess.submit("sssp", a, guard="halt") for a in lanes]
+        tail = [sess.submit("sssp", a) for a in reversed(lanes)]
+        reset_launch_counts()
+        pump.drain()
+        counts_p = launch_counts()
+    want = [v for v, _ in seq]
+    check(pump.stats["max_inflight"] >= 3,
+          f"[guard] serve pump: window held {pump.stats['max_inflight']}")
+    check(not mid[GUARD_POISON_LANE].result.ok
+          and mid[GUARD_POISON_LANE].result.error["round"]
+          == GUARD_CORRUPT_AT,
+          "[guard] serve pump: the poisoned lane did not fail with its "
+          "bundle")
+    for reqs, vals in ((head, want), (mid, want), (tail, want[::-1])):
+        for b, (req, v) in enumerate(zip(reqs, vals)):
+            if reqs is mid and b == GUARD_POISON_LANE:
+                continue
+            check(req.result.ok and np.array_equal(req.result.values, v),
+                  f"[guard] serve pump W{GUARD_PUMP_WINDOW}: a query next "
+                  "to the breach is not bit-equal")
+    print(f"[guard] serve rmat{SCALE} {len(lanes)} sssp lanes: rounds="
+          f"{rounds} halt no fault bit-equal (unguarded batch and sequential)"
+          f"; wall_ms median of 3 guarded={med['guarded']:.3f} unguarded="
+          f"{med['plain']:.3f} (x{med['guarded'] / med['plain']:.3f}); "
+          f"probe_ms a chunk boundary={probe_ms:.3f} ({bounds} boundaries)"
+          f"; host_syncs guarded={syncs_g} unguarded={syncs_u} "
+          f"(+{syncs_g - syncs_u}); lane K1 launches="
+          f"{counts_g['gather_reduce_lanes']}; corrupt_carry@"
+          f"{GUARD_CORRUPT_AT} lane "
+          f"{GUARD_POISON_LANE}: breach alone "
+          f"{sorted(br[GUARD_POISON_LANE]['verdict']['failed'])}, 7 lanes "
+          f"bit-equal; pump W{GUARD_PUMP_WINDOW} mid-window breach isolated "
+          f"(max_inflight {pump.stats['max_inflight']})", flush=True)
+    runs = {"guard serve batch": dict(
+        counts=counts_g, rounds=rounds, wall_ms_guarded=med["guarded"],
+        wall_ms_plain=med["plain"], probe_ms=probe_ms, boundaries=bounds,
+        host_syncs_guarded=syncs_g, host_syncs_plain=syncs_u),
+        "guard serve poisoned": dict(counts=counts_c),
+        "guard serve pump": dict(counts=counts_p)}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs.update(guard_serve_cli_phase(device, tmp))
+    return {"seconds": time.perf_counter() - t_phase, "runs": runs}
+
+
+# ---- phase 11h: the 2-D vertex cut -----------------------------------------
+
+VC_FNUMS = (4, 16)  # k 2 and 4
+VC_APPS = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}))
+
+
+def vc_by_oid(wk, n: int) -> np.ndarray:
+    """A vertex-cut result by oid 0..n-1 (the masters' rows in order)."""
+    vals = wk.result_values()
+    frag = wk.fragment
+    out = np.concatenate([vals[f, :frag.inner_vertices_num(f)]
+                          for f in range(frag.fnum)])
+    check(len(out) == n, "vertex-cut masters do not cover the vertices")
+    return out
+
+
+def vc_k1_case(label, side, w, x, kind, device) -> dict:
+    """One tile pull's K1 call against its plain version on `x`."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    got = spmv.gather_reduce(side.indptr, side.nbr, w, x, kind)
+    if kind == "sum":
+        want = spmv.gather_reduce_plain(side.indptr, side.nbr, None,
+                                        x.double(), "sum")
+        sabs = spmv.gather_reduce_plain(side.indptr, side.nbr, None,
+                                        x.abs().double(), "sum")
+        err = check_sum(got, want, sabs, f"[vc] {label} K1 sum")
+    else:
+        want = spmv.gather_reduce_plain(side.indptr, side.nbr, w, x, kind)
+        check(torch.equal(got, want), f"[vc] {label} K1 {kind} not "
+              "bit-equal to its plain version")
+        err = 0.0
+    edges = int(side.indptr[0, -1])
+    rows = side.indptr.shape[1] - 1
+    nbytes = (side.indptr.nbytes + edges * (4 + (4 if w is not None else 0)
+                                            + x.element_size())
+              + rows * x.element_size())
+    b_ms, b_by = bound(nbytes, edges)
+    ms = time_ms(lambda: spmv.gather_reduce(side.indptr, side.nbr, w, x,
+                                            kind), device, 10)
+    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(
+        side.indptr, side.nbr, w, x, kind), device, 3, batch=1)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, edges=edges, rows=rows)
+
+
+def vc_build(fnum, src, dst, w, n, sym, device):
+    from libgrape_lite_tpu_torch.fragment.vertexcut import (
+        ImmutableVertexcutFragment,
+    )
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+
+    sync(device)
+    t0 = time.perf_counter()
+    f = ImmutableVertexcutFragment.build(
+        CommSpec(fnum=fnum, device=device), np.arange(n, dtype=np.int64),
+        src, dst, w, edata_dtype=np.float32, directed=False,
+        symmetrize=sym)
+    sync(device)
+    secs = time.perf_counter() - t0
+    st = f.tile_stats()
+    print(f"[vc] build rmat{SCALE} k={f.k} {'symmetrised' if sym else 'raw'}"
+          f": host_s={secs:.2f} vc={f.vc} edges="
+          f"{sum(t['edges'] for t in st['per_tile'])} max_tile_edges="
+          f"{st['max_tile_edges']} tile_skew={st['tile_skew']} "
+          f"pad_waste_frac={st['pad_waste_frac']} (a [k^2, Ep] COO stack; "
+          "the card holds the concatenated CSR)", flush=True)
+    return f, secs, st
+
+
+def vc_app_runs(k, fs, fr, frag, e_sym, n, device) -> dict:
+    """sssp_vc, bfs_vc, wcc_vc on the symmetrised tiles and pagerank_vc,
+    pagerank_vc_rep on the raw ones against the 1-D twins on `frag`."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, PageRank
+
+    out, cases = {}, {}
+    for name, kw in VC_APPS:
+        wk2, counts, secs2 = counted(fs, APP_REGISTRY[name + "_vc"], device,
+                                     kw)
+        wk1, _, secs1 = counted(frag, APP_REGISTRY[name], device, kw)
+        one = wk1.result_values()[0, :n]
+        check(np.array_equal(vc_by_oid(wk2, n), one)
+              and wk2.rounds == wk1.rounds,
+              f"[vc] {name}_vc k {k} not bit-equal to the 1-D {name}")
+        check(counts["gather_reduce"] == wk2.rounds > 0,
+              f"[vc] {name}_vc k {k}: {counts} in {wk2.rounds} rounds (one "
+              "K1 launch a tile pull)")
+        x = wk2._result_state[wk2.app.state_key]
+        w = fs.dev.ie.w.to(x.dtype) if name == "sssp" else None
+        cases[f"{name}_vc k{k}"] = vc_k1_case(f"{name}_vc k{k}", fs.dev.ie,
+                                              w, x, "min", device)
+        out[f"vc {name} k{k}"] = dict(
+            counts=counts, rounds=wk2.rounds, seconds=secs2,
+            mteps=e_sym / secs2 / 1e6, twin_seconds=secs1,
+            twin_mteps=e_sym / secs1 / 1e6)
+        print(f"[vc] {name}_vc k={k}: rounds={wk2.rounds} seconds="
+              f"{secs2:.4f} mteps={e_sym / secs2 / 1e6:.1f} beside 1-D "
+              f"{name} seconds={secs1:.4f} mteps={e_sym / secs1 / 1e6:.1f}; "
+              f"bit-equal by oid; K1 launches={counts['gather_reduce']}",
+              flush=True)
+    kw = {"max_round": PR_ROUNDS}
+    wk1, _, secs1 = counted(frag, PageRank, device, kw)
+    one = wk1.result_values()[0, :n].astype(np.float64)
+    for name in ("pagerank_vc", "pagerank_vc_rep"):
+        wk2, counts, secs2 = counted(fr, APP_REGISTRY[name], device, kw)
+        got = vc_by_oid(wk2, n).astype(np.float64)
+        nz = one != 0
+        rel = float((np.abs(got - one)[nz] / np.abs(one[nz])).max())
+        check(rel <= 1e-4 and np.isfinite(got).all(),
+              f"[vc] {name} k {k}: {rel:.3e} relative off 1-D pagerank")
+        check(counts["gather_reduce"] == 2 * wk2.rounds > 0,
+              f"[vc] {name} k {k}: {counts} in {wk2.rounds} rounds (two "
+              "K1 launches a round)")
+        out[f"vc {name} k{k}"] = dict(
+            counts=counts, rounds=wk2.rounds, seconds=secs2,
+            mteps=e_sym * wk2.rounds / secs2 / 1e6, twin_seconds=secs1,
+            twin_mteps=e_sym * wk1.rounds / secs1 / 1e6, max_rel_err=rel)
+        print(f"[vc] {name} k={k}: rounds={wk2.rounds} seconds={secs2:.4f}"
+              f" mteps={e_sym * wk2.rounds / secs2 / 1e6:.1f} beside 1-D "
+              f"pagerank seconds={secs1:.4f} mteps="
+              f"{e_sym * wk1.rounds / secs1 / 1e6:.1f}; max_rel_err={rel:.3e}"
+              f"; K1 launches={counts['gather_reduce']}", flush=True)
+        if name == "pagerank_vc":
+            rank = wk2._result_state["rank_col"]
+            for side in ("ie", "oe"):
+                cases[f"pagerank_vc {side} k{k}"] = vc_k1_case(
+                    f"pagerank_vc {side} k{k}", getattr(fr.dev, side),
+                    None, rank, "sum", device)
+    for label, c in cases.items():
+        print(f"[vc] K1 {label}: edges={c['edges']} rows={c['rows']} "
+              f"max_abs_err={c['max_abs_err']:.3e} ms={c['ms']:.4f} "
+              f"plain_ms={c['plain_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+              f"({c['bound_by']})", flush=True)
+    return out, cases
+
+
+def vc_k2_extras(fs, frag, n, device, tmp) -> dict:
+    """At k 2: the 8-lane sssp_vc session, kill and resume, the bytes."""
+    from libgrape_lite_tpu_torch.fleet.budget import fragment_bytes
+    from libgrape_lite_tpu_torch.models import SSSPVC2D
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    out = {}
+    sources = serve_sources(frag, SERVE_BATCH)
+    seq = [run_query(fs, SSSPVC2D(), device, source=s)[0].result_values()
+           for s in sources]
+    sess = ServeSession(fs, apps={"sssp_vc": SSSPVC2D},
+                        policy=BatchPolicy(max_batch=SERVE_BATCH))
+    sess.serve([("sssp_vc", {"source": sources[0]})] * 2)  # warm-up
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    res = sess.serve([("sssp_vc", {"source": s}) for s in sources])
+    sync(device)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    check(all(r.ok and np.array_equal(r.values, v)
+              for r, v in zip(res, seq)),
+          "[vc] the 8-lane sssp_vc session is not bit-equal to its "
+          "sequential queries")
+    rounds = max(r.rounds for r in res)
+    check(counts["gather_reduce_lanes"] == rounds
+          and counts["gather_reduce"] == 0,
+          f"[vc] sssp_vc session: {counts} in {rounds} rounds (one lane K1 "
+          "launch a round)")
+    out["vc sssp session k2"] = dict(counts=counts, seconds=secs,
+                                     rounds=rounds)
+    ref = seq[0]
+    wk, left, resumed = killed_then_resumed(
+        fs, SSSPVC2D, device, {"source": sources[0]}, FT_KILL,
+        os.path.join(tmp, "vc_ck"))
+    check(np.array_equal(wk.result_values(), ref) and left == [2, 4],
+          f"[vc] sssp_vc kill@4 resume: checkpoints {left}, resumed from "
+          f"{resumed}, not bit-equal")
+    placed = [t for t in (fs.dev.ie.indptr, fs.dev.ie.nbr, fs.dev.ie.w,
+                          fs.dev.vmask) if t is not None]
+    if fs.dev.oe is not None:
+        placed += [fs.dev.oe.indptr, fs.dev.oe.nbr, fs.dev.oe.w]
+    priced = fragment_bytes(fs)
+    check(priced == sum(t.nbytes for t in placed),
+          f"[vc] fragment_bytes {priced} != the placed tensors' "
+          f"{sum(t.nbytes for t in placed)}")
+    sess.release_device()
+    sync(device)
+    m0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+    t0 = time.perf_counter()
+    sess.restore_device()
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    grew = (torch.cuda.memory_allocated() if device == "cuda" else 0) - m0
+    again = sess.serve([("sssp_vc", {"source": sources[0]})])
+    check(again[0].ok and np.array_equal(again[0].values, ref),
+          "[vc] sssp_vc after release and restore not bit-equal")
+    print(f"[vc] k=2 session of {SERVE_BATCH} sssp_vc lanes: {secs:.4f} s, "
+          f"{rounds} rounds, lane K1 launches="
+          f"{counts['gather_reduce_lanes']}, bit-equal to sequential; "
+          f"kill@4 resumed from round {resumed} bit-equal; fragment_bytes="
+          f"{priced} = placed tensors; restore_device {restore_s:.3f} s, "
+          f"memory_allocated +{grew}", flush=True)
+    out["vc sssp resume k2"] = dict(counts={}, resumed_from=resumed)
+    out["vc bytes k2"] = dict(counts={}, fragment_bytes=priced,
+                              restore_s=restore_s, allocated_delta=grew)
+    return out
+
+
+def vc_cli_phase(device) -> None:
+    """p2p-31 through `run_app`: --vc pagerank and GRAPE_PARTITION=2d
+    sssp, bfs and wcc against the goldens; a delta run's decline."""
+    from libgrape_lite_tpu_torch.fragment.partition import PARTITION_STATS
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+    golden_phase(device, names=["pagerank"], tag="vc --vc",
+                 extra_args={"vc": True})
+    data = os.path.join(HERE, "dataset")
+    with mock.patch.dict(os.environ, {"GRAPE_PARTITION": "2d"}):
+        golden_phase(device, names=["sssp", "bfs", "wcc"],
+                     tag="vc GRAPE_PARTITION=2d")
+        check(PARTITION_STATS["last_decision"]["engaged"],
+              "[vc] GRAPE_PARTITION=2d did not engage the vertex cut")
+        wk = run_app(QueryArgs(
+            application="bfs", bfs_source=6,
+            efile=os.path.join(data, "p2p-31.e.mutable_base"),
+            vfile=os.path.join(data, "p2p-31.v"), fnum=4, device=device,
+            delta_efile=os.path.join(data, "p2p-31.e.mutable_delta")))
+        d = PARTITION_STATS["last_decision"]
+        check(not d["engaged"] and "delta-mutation" in d["reason"]
+              and wk.app.mesh_kind == "frag",
+              f"[vc] a --delta_efile run under GRAPE_PARTITION=2d: {d}")
+    print(f"[vc] --delta_efile under GRAPE_PARTITION=2d: declined, "
+          f"\"{d['reason']}\"; ran 1-D", flush=True)
+
+
+def vc_phases(frag, e_sym, device) -> dict:
+    """[vc]: the vertex cut at k 2 and 4 on RMAT-20, then p2p-31."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    src, dst, w = frag.edge_list
+    n = frag.dev.total_vnum
+    runs, cases, builds = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fnum in VC_FNUMS:
+            fs, s_sym, st = vc_build(fnum, src, dst, w, n, True, device)
+            fr, s_raw, _ = vc_build(fnum, src, dst, None, n, False, device)
+            k = fs.k
+            builds[f"k{k}"] = dict(host_s_sym=s_sym, host_s_raw=s_raw,
+                                   tile_skew=st["tile_skew"],
+                                   pad_waste_frac=st["pad_waste_frac"],
+                                   max_tile_edges=st["max_tile_edges"])
+            r, c = vc_app_runs(k, fs, fr, frag, e_sym, n, device)
+            runs.update(r)
+            cases.update(c)
+            if k == 2:
+                runs.update(vc_k2_extras(fs, frag, n, device, tmp))
+            from libgrape_lite_tpu_torch.models import SSSPVC2D
+
+            runs[f"vc sssp profile k{k}"] = dict(counts={}, **profile_call(
+                f"[vc] sssp_vc k={k}",
+                lambda: run_query(fs, SSSPVC2D(), device, source=0)[1]))
+            del fs, fr
+    vc_cli_phase(device)
+    return {"seconds": time.perf_counter() - t_phase, "runs": runs,
+            "k1": cases, "builds": builds}
+
+
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
 def caps_phase():
@@ -4544,13 +5074,17 @@ def main() -> int:
     grd = guard_phases(frag, device)
     print(f"[time] ft {ft['seconds']:.1f} s, guard {grd['seconds']:.1f} s",
           flush=True)
+    gsrv = guard_serve_phase(frag, device)
+    vc = vc_phases(frag, e_sym, device)
+    print(f"[time] guard serve {gsrv['seconds']:.1f} s, vc "
+          f"{vc['seconds']:.1f} s", flush=True)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
               "load": load, "spgemm": spgemm, **dyn["runs"],
               **serve["runs"], **fleet["runs"], **observ["runs"],
-              **ft["runs"], **grd["runs"]}
+              **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -4579,6 +5113,10 @@ def main() -> int:
              **{k: gr[k] for k in keys},
              launches_by_app={app: r["counts"].get("gather_reduce", 0)
                               for app, r in by_app.items()},
+             launches_vc={app: r["counts"].get("gather_reduce", 0)
+                          for app, r in vc["runs"].items()
+                          if r["counts"].get("gather_reduce")},
+             vc_cases=vc["k1"],
              max_abs_err_all_kinds=max(
                  kern[f"gather_reduce[{k}]"]["max_abs_err"]
                  for k in ("sum", "min", "max")),
@@ -4600,7 +5138,10 @@ def main() -> int:
              launches_by_app={app: r["counts"]["gather_reduce_lanes"]
                               for app, r in {**serve["runs"],
                                              **fleet["runs"],
-                                             **observ["runs"]}.items()},
+                                             **observ["runs"],
+                                             **gsrv["runs"],
+                                             **vc["runs"]}.items()
+                              if "gather_reduce_lanes" in r["counts"]},
              max_abs_err_all=max(r["max_abs_err"]
                                  for r in serve["kernel"].values()),
              cases={k: {f: v for f, v in r.items() if f != "config"}
@@ -4681,6 +5222,12 @@ def main() -> int:
         "guard": {"seconds": grd["seconds"]}
         | {k: {f: x for f, x in r.items() if f != "counts"}
            for k, r in grd["runs"].items()},
+        "guard_serve": {"seconds": gsrv["seconds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in gsrv["runs"].items()},
+        "vc": {"seconds": vc["seconds"], "builds": vc["builds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in vc["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,14 @@ An app provides
 one device, so the JAX package's per-shard collectives become operations
 over the leading axis (`StepContext`).
 
+Vertex-cut apps (`mesh_kind = "vc2d"`, models/vc2d.py and
+models/pagerank_vc.py) run on the k x k tiles of an
+ImmutableVertexcutFragment with a `VCStepContext`: their per-tile
+partials come stacked [k, k, vc] (tile (i, j) at [i, j]), and the
+context's row- and column-axis reductions and `vc_transpose` stand for
+the JAX package's pmin / psum over the SUMMA mesh's axes and its
+ppermute.
+
 Batched source lanes (serve/, `Worker.query_batch`): an app that names
 its per-lane query argument in `batch_query_key` takes a sequence of k
 values for it in `init_state` and returns carry leaves with a leading
@@ -68,6 +76,61 @@ class StepContext:
         return x.amax(dim=0)
 
 
+class VCStepContext(StepContext):
+    """The 2-D superstep toolkit over the k x k tiles stacked on one
+    device (JAX `models/vc2d.py` over the SUMMA mesh).  A per-tile value
+    is a [..., k, k, vc] tensor, tile (i, j) at [i, j]: row i is the src
+    chunk, column j the dst chunk.  Reducing over the row axis folds the
+    k tiles of one column (JAX's pmin / psum over `vcrow`), which
+    completes dst chunk j; over the column axis, the k tiles of one row
+    (`vccol`), src chunk i.  Both leave [..., k, vc], indexed by the
+    chunk they completed, so the master carry's [k * vc] layout needs no
+    transpose afterwards; `vc_transpose` swaps a per-tile value's axes
+    ((i, j) -> (j, i), JAX's ppermute).  Leading lane axes pass through.
+    On several cards (ROADMAP Queue A item 8) these become collectives."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def tiles(self, y: torch.Tensor) -> torch.Tensor:
+        """K1's [..., 1, k * k * vc] output as [..., k, k, vc]."""
+        k = self.k
+        return y.reshape(tuple(y.shape[:-2]) + (k, k, -1))
+
+    @staticmethod
+    def row_min(x: torch.Tensor) -> torch.Tensor:
+        return x.amin(dim=-3)
+
+    @staticmethod
+    def col_min(x: torch.Tensor) -> torch.Tensor:
+        return x.amin(dim=-2)
+
+    @staticmethod
+    def row_sum(x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=-3)
+
+    @staticmethod
+    def col_sum(x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=-2)
+
+    @staticmethod
+    def vc_transpose(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(-3, -2)
+
+    @staticmethod
+    def flat(x: torch.Tensor) -> torch.Tensor:
+        """[..., k, vc] chunk-indexed -> the [..., k * vc] gpid layout."""
+        return x.reshape(tuple(x.shape[:-2]) + (-1,))
+
+
+def make_context(app, frag) -> StepContext:
+    """The superstep context of `app` on `frag`: the 2-D one for a
+    vertex-cut app, else the fragment stack's."""
+    if getattr(app, "mesh_kind", "frag") == "vc2d":
+        return VCStepContext(frag.k)
+    return StepContext()
+
+
 def resolve_source(frag, source, app_name: str) -> int:
     """oid -> pid for a query source; logs when the oid is absent."""
     pid = int(frag.oid_to_pid(np.array([source]))[0])
@@ -120,8 +183,8 @@ class AppBase:
     # [fnum, vp, ...] rows; a mutation carries them over as they are
     replicated_keys: FrozenSet[str] = frozenset()
 
-    # the mesh the superstep runs on; the port has the 1-D fragment
-    # stack only (the JAX package's "vc2d" is not ported)
+    # the mesh the superstep runs on: "frag" (the fragment stack) or
+    # "vc2d" (the k x k tiles of a vertex-cut fragment, VCStepContext)
     mesh_kind: str = "frag"
 
     # serve/: the query argument that varies per lane of a batched
@@ -324,3 +387,10 @@ class AutoAppBase(AppBase):
         combined = AutoParallelMessageManager.sync(
             dev, self.propose(ctx, dev, state), self.sync_buffers)
         return self.update(ctx, dev, state, combined)
+
+
+class GatherScatterAppBase(AppBase):
+    """Vertex-cut app (reference `gather_scatter_app_base.h:30-61`, JAX
+    `app/base.py:421`)."""
+
+    message_strategy = MessageStrategy.kGatherScatter

@@ -19,8 +19,14 @@ Applications, with their query flags:
   kcore (--kcore_k), core_decomposition;
   pagerank_local, pagerank_local_parallel (--pr_d, --pr_mr);
   khop (--khop_k, --bfs_source), common_neighbors (--cn_source);
-  kclique (--kclique_k).
---directed loads the graph directed.
+  kclique (--kclique_k);
+  pagerank_vc, pagerank_vc_rep, sssp_vc, bfs_vc, wcc_vc (the 2-D vertex
+    cut: fnum must be k^2; the same query flags as their 1-D names).
+--directed loads the graph directed.  `--vc` runs vertex-cut storage
+(with it `pagerank` names pagerank_vc, reference run_app_vc.h:82-89);
+GRAPE_PARTITION=2d|auto swaps sssp, bfs, wcc and pagerank for their 2-D
+twins when the planner engages (fragment/partition.py), every decline
+recorded with its reason.
 
 Loading: --partitioner_type hash|map|segment, --idxer_type
 hashmap|sorted_array|pthash|local, --string_id (vertex ids as strings),
@@ -130,6 +136,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--serialize", action="store_true")
     p.add_argument("--deserialize", action="store_true")
     p.add_argument("--serialization_prefix", default="")
+    p.add_argument("--vc", action="store_true",
+                   help="vertex-cut (2-D) storage; fnum must be k^2")
     p.add_argument("--delta_efile", default="")
     p.add_argument("--delta_vfile", default="")
     p.add_argument("--string_id", action="store_true",
@@ -217,8 +225,11 @@ def make_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--string_id", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--guard", default="",
-                   help="per-lane guard policy: only off here (warn, "
-                        "halt, rollback: ROADMAP Queue A item 6)")
+                   choices=["", "off", "warn", "halt", "rollback"],
+                   help="per-lane guard policy (breach isolation: a "
+                        "poisoned lane fails alone; rollback degrades to "
+                        "per-lane halt in a batch); default reads "
+                        "GRAPE_GUARD")
     p.add_argument("--replicas", type=int, default=1,
                    help="fleet/: serve from R replica sessions behind a "
                         "least-outstanding router with a graph-version "
@@ -296,9 +307,6 @@ def serve_main(argv=None) -> int:
 
     parser = make_serve_parser()
     ns = parser.parse_args(argv)
-    if ns.guard not in ("", "off"):
-        parser.error(f"--guard {ns.guard} needs guard/ and serve/batch.py, "
-                     "not ported yet: ROADMAP Queue A item 6")
     if ns.slo:
         from libgrape_lite_tpu_torch.obs import slo
 
@@ -395,7 +403,8 @@ def serve_main(argv=None) -> int:
     if fleet_mode:
         return _serve_fleet(ns, frag, queries, delta_ops, policy,
                             dyn_policy)
-    sess = ServeSession(frag, policy=policy, dyn=dyn_policy())
+    sess = ServeSession(frag, policy=policy, guard=ns.guard or None,
+                        dyn=dyn_policy())
     pump = sess.async_pump(window=ns.inflight) if ns.inflight > 1 else None
     t0 = time.perf_counter()
     if ns.arrival_rate:
@@ -485,7 +494,8 @@ def _serve_fleet(ns, frag, queries, delta_ops, policy, dyn_policy) -> int:
     FLEET_STATS.reset()  # the summary's fleet counters are this run's
     frags = [frag] + [replicate_fragment(frag)
                       for _ in range(ns.replicas - 1)]
-    sessions = [ServeSession(f, policy=policy, dyn=dyn_policy())
+    sessions = [ServeSession(f, policy=policy, guard=ns.guard or None,
+                             dyn=dyn_policy())
                 for f in frags]
     router = (FleetRouter(sessions, window=max(1, ns.inflight))
               if ns.replicas > 1 else None)
@@ -610,7 +620,7 @@ def _serve_autopilot(ns, frag, queries, policy) -> int:
     AUTOPILOT_STATS.reset()
 
     def make_session(f):
-        return ServeSession(f, policy=policy)
+        return ServeSession(f, policy=policy, guard=ns.guard or None)
 
     n0 = max(1, ns.min_replicas, ns.replicas)
     sessions = [make_session(f) for f in

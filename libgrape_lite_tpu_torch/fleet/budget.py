@@ -6,8 +6,8 @@ Footprints are priced from what already exists, not from a new model:
 
   * **fragment bytes**: the stacked device CSRs and vertex planes,
     priced from their host twins (`host_oe` / `host_ie`: the shapes and
-    types `_to_device` places), so an evicted session prices as a
-    resident one;
+    types `_to_device` places; a vertex-cut fragment's concatenated tile
+    CSRs), so an evicted session prices as a resident one;
   * **plan bytes**: the per-fragment caches built for the fragment --
     the device caches of DEVICE_CACHES (push CSRs, `dest_degree`), the
     strict plans (`ops/spmv.py`) and the spgemm plans
@@ -94,9 +94,13 @@ _federation.register("fleet", FLEET_STATS.snapshot, FLEET_STATS.reset,
 
 def fragment_bytes(frag) -> int:
     """Device bytes of one stacked fragment, priced from the host CSR
-    twins; an undirected fragment's aliased ie pays once.  (The JAX
-    package's vertex-cut branch waits for the port's vertex cut, ROADMAP
-    Queue A item 7.)"""
+    twins; an undirected fragment's aliased ie pays once.  A vertex-cut
+    fragment prices the host arrays its `dev` places
+    (`ImmutableVertexcutFragment.device_arrays`: the concatenated tile
+    CSRs and the vertex mask), not the JAX package's COO tile blocks,
+    which the port does not place."""
+    if getattr(frag, "mesh_kind", "frag") == "vc2d":
+        return sum(int(a.nbytes) for a in frag.device_arrays().values())
     def csr(csrs):
         b = 0
         for c in csrs:

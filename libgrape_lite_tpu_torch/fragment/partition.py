@@ -1,13 +1,255 @@
-"""Partition records.
+"""1-D edge cut or 2-D vertex cut: the partition planner and its records.
 
-Counterpart of the record half of `libgrape_lite_tpu/fragment/
-partition.py`: `PARTITION_STATS`, where the loader records what
-`--rebalance` did (per-shard in-edge counts and skew before and after,
-under the key "rebalance").  The 1-D / 2-D partition resolution
-(`resolve_partition`) and its records belong to the vertex cut, which
-the port does not have yet.
+Counterpart of `libgrape_lite_tpu/fragment/partition.py`.
+`GRAPE_PARTITION` picks the layout of a run:
+
+  * unset / "" / "0" / "off" / "1d" -- the 1-D edge cut, untouched;
+  * "2d" -- the 2-D vertex cut when the app and geometry allow it; an
+    ineligible request declines with its reason recorded and runs 1-D;
+  * "auto" -- 2-D only when the modeled round wins.
+
+`PARTITION_STATS` records every decision and decline (and, under
+"rebalance", what the loader's `--rebalance` did).  Like the vertex
+cut's VC_TILE_STATS it is a FederatedStats that is not registered.
+
+The cost model is the JAX package's formula, term for term: a round
+costs its most loaded shard's (or tile's) padded edges times the ops an
+edge takes over the compute rate, plus its exchange bytes over the link
+rate.  The two rates are TPU constants in the JAX package (a v5e rate
+profile, `ops/calibration.py`); the port carries none over and has no
+H100 profile yet (ROADMAP Queue A item 6d), so `modeled_costs` prices
+each term in its own unit -- `padded_edge_ops` and `exchange_bytes`, with
+`t_round_s` filled only when the caller passes a profile.  Without one,
+`auto` engages the 2-D layout only when it wins on both terms, and
+otherwise declines with the reason recorded.
 """
 
 from __future__ import annotations
 
-PARTITION_STATS: dict = {}
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from libgrape_lite_tpu_torch.fragment.edgecut import _next_pow2, _round_up
+from libgrape_lite_tpu_torch.obs.federation import FederatedStats
+
+# 1-D app name -> its registered 2-D twin; min folds are bit-equal to
+# the 1-D pull, PageRankVC's sum fold agrees within float eps
+VC2D_APPS = {
+    "sssp": "sssp_vc",
+    "bfs": "bfs_vc",
+    "wcc": "wcc_vc",
+    "pagerank": "pagerank_vc",
+}
+
+#: ops an edge takes in a pull round (the JAX package's
+#: `parallel/pipeline.py::DEFAULT_OPS_PER_EDGE`: a count, not a rate)
+DEFAULT_OPS_PER_EDGE = 30.0
+
+PARTITION_STATS = FederatedStats("partition", {
+    "resolved_2d": 0,     # decisions that engaged the 2-D path
+    "declined": 0,        # 2d / auto requested, ineligible or priced out
+    "last_decision": None,
+}, register_=False)
+
+
+@dataclass(frozen=True)
+class RateProfile:
+    """The two rates that turn the model's terms into seconds: edge ops
+    a second and exchange bytes a second.  The port ships no values
+    (ROADMAP Queue A item 6d fits them from H100 walls)."""
+
+    edge_ops_per_s: float
+    link_bytes_per_s: float
+    name: str = "given"
+
+
+def exchange_bytes_1d(fnum: int, vp: int, itemsize: int = 4) -> int:
+    """The 1-D round's exchange: the full-state gather, fnum * vp items
+    (JAX `parallel/mirror.py::exchange_bytes_ledger`'s "gather")."""
+    return fnum * vp * itemsize
+
+
+def exchange_bytes_2d(k: int, vc: int, itemsize: int = 4,
+                      pulls: int = 1) -> int:
+    """The 2-D round's exchange a device (JAX `parallel/mirror.py::
+    vc2d_exchange_bytes`): per pull a ring reduction of the [vc]
+    partials along k row peers, 2 (k - 1) / k * vc items, and one
+    transpose, (1 - 1/k) * vc on average."""
+    if k <= 1:
+        return 0
+    per_pull = (2 * (k - 1) / k + (1 - 1 / k)) * vc * itemsize
+    return int(round(pulls * per_pull))
+
+
+def partition_mode() -> str:
+    """1d | 2d | auto from GRAPE_PARTITION (default 1d).  An unknown
+    value runs 1d, with a log line."""
+    v = (os.environ.get("GRAPE_PARTITION", "") or "1d").strip().lower()
+    if v in ("", "0", "off", "1d"):
+        return "1d"
+    if v == "2d":
+        return "2d"
+    if v in ("auto", "1"):
+        return "auto"
+    from libgrape_lite_tpu_torch.utils import logging as glog
+
+    glog.log_info(f"GRAPE_PARTITION={v!r} is not one of 1d|2d|auto; using 1d")
+    return "1d"
+
+
+def _timed(term: dict, ope: float, profile) -> dict:
+    if profile is not None:
+        term["t_round_s"] = (term["padded_edges"] * ope
+                             / profile.edge_ops_per_s
+                             + term["exchange_bytes"]
+                             / profile.link_bytes_per_s)
+    return term
+
+
+def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
+                  fnum: int, *, directed: bool = False, itemsize: int = 4,
+                  ops_per_edge: float | None = None,
+                  profile: RateProfile | None = None) -> dict:
+    """One pull round priced under both layouts.  `src` / `dst` are the
+    raw oid edge list (symmetrised here when undirected); shards and
+    tiles follow the map partitioner's and VCPartitioner's contiguous
+    ranges.  Each layout's record holds its most loaded shard or tile
+    (`max_shard_edges` / `max_tile_edges`), the padded edge ops of a
+    round and its exchange bytes; `t_round_s` only with a `profile`."""
+    ope = DEFAULT_OPS_PER_EDGE if ops_per_edge is None else ops_per_edge
+    s = np.asarray(src)
+    d = np.asarray(dst)
+    if not directed:
+        s, d = np.concatenate([s, d]), np.concatenate([d, s])
+
+    # 1-D: contiguous oid blocks; in-CSR rows are the destination owner
+    shard_w = max(1, -(-n_vertices // fnum))
+    shard_counts = np.bincount(np.minimum(d // shard_w, fnum - 1),
+                               minlength=fnum)
+    max_shard = int(shard_counts.max())
+    vp = _next_pow2(max(shard_w, 8))
+    # one fragment exchanges nothing in either layout
+    bytes_1d = exchange_bytes_1d(fnum, vp, itemsize) if fnum > 1 else 0
+    out = {"1d": _timed({
+        "max_shard_edges": max_shard,
+        "padded_edges": _round_up(max_shard, 128),
+        "padded_edge_ops": _round_up(max_shard, 128) * ope,
+        "exchange_bytes": bytes_1d,
+    }, ope, profile)}
+    k = int(round(np.sqrt(fnum)))
+    if k * k == fnum and k >= 1:
+        chunk = max(1, -(-n_vertices // k))
+        vc = _round_up(chunk, 128)
+        tile = (np.minimum(s // chunk, k - 1) * k
+                + np.minimum(d // chunk, k - 1))
+        max_tile = int(np.bincount(tile, minlength=k * k).max())
+        out["2d"] = _timed({
+            "k": k,
+            "max_tile_edges": max_tile,
+            "padded_edges": _round_up(max_tile, 128),
+            "padded_edge_ops": _round_up(max_tile, 128) * ope,
+            "exchange_bytes": exchange_bytes_2d(k, vc, itemsize),
+        }, ope, profile)
+    for rec in out.values():
+        del rec["padded_edges"]
+    return out
+
+
+def precheck_partition(app_name: str, fnum: int, *, directed: bool = False,
+                       string_id: bool = False) -> str | None:
+    """The eligibility checks that need no edge data: a decline reason,
+    or None.  The runner records a cheap decline with it before reading
+    the edge file."""
+    if app_name not in VC2D_APPS:
+        return (f"no 2-D vertex-cut implementation for {app_name!r} "
+                f"(known: {sorted(VC2D_APPS)})")
+    k = int(round(np.sqrt(fnum)))
+    if k * k != fnum:
+        return f"fnum={fnum} is not a perfect square"
+    if string_id:
+        return ("string ids: the vertex-cut fragment is specialized to "
+                "integer oids (reference immutable_vertexcut_fragment.h)")
+    if directed and app_name == "pagerank":
+        return ("pagerank_vc accumulates both directions (the reference's "
+                "undirected gather-scatter semantics); the directed 1-D "
+                "formulation has no 2-D twin")
+    return None
+
+
+def _beats(costs: dict) -> tuple:
+    """(2-D wins, the comparison's text): by seconds when a profile
+    timed both layouts, else on both terms at once."""
+    one, two = costs["1d"], costs["2d"]
+    if "t_round_s" in one:
+        return (two["t_round_s"] < one["t_round_s"],
+                f"modeled 2-D round cost {two['t_round_s']:.3e}s does not "
+                f"beat 1-D {one['t_round_s']:.3e}s")
+    wins = (two["padded_edge_ops"] < one["padded_edge_ops"]
+            and two["exchange_bytes"] < one["exchange_bytes"])
+    return wins, (
+        f"modeled 2-D round ({two['padded_edge_ops']:.3e} padded edge ops, "
+        f"{two['exchange_bytes']} exchange B) does not beat 1-D "
+        f"({one['padded_edge_ops']:.3e}, {one['exchange_bytes']} B) on "
+        "both terms, and no rate profile weighs one against the other "
+        "(ROADMAP Queue A item 6d)")
+
+
+def resolve_partition(app_name: str, fnum: int, src: np.ndarray,
+                      dst: np.ndarray, oids: np.ndarray, *,
+                      directed: bool = False, string_id: bool = False,
+                      mode: str | None = None, eligible: bool = True,
+                      reason: str = "",
+                      profile: RateProfile | None = None) -> dict:
+    """The partition decision for one (app, graph, fnum): {"mode": "1d" |
+    "2d", "engaged", "costs", "reason", ...}, recorded in
+    PARTITION_STATS.  Every 2d / auto request that lands on 1-D carries
+    its reason; `eligible=False` with `reason` records a decline the
+    planner cannot see (a delta load, the serialization cache)."""
+    from libgrape_lite_tpu_torch.utils import logging as glog
+
+    mode = partition_mode() if mode is None else mode
+    decision = {
+        "app": app_name, "requested": mode, "fnum": fnum,
+        "mode": "1d", "engaged": False,
+        "profile": profile.name if profile is not None else "none",
+    }
+
+    def declined(why: str, count: bool = True):
+        decision["reason"] = why
+        PARTITION_STATS["last_decision"] = decision
+        if count:
+            PARTITION_STATS["declined"] += 1
+            glog.vlog(1, "partition: 2d declined for %s: %s", app_name, why)
+        return decision
+
+    if mode == "1d":
+        return declined("GRAPE_PARTITION off (1d)", count=False)
+    if not eligible:
+        return declined(reason or "caller declared ineligible")
+    why = precheck_partition(app_name, fnum, directed=directed,
+                             string_id=string_id)
+    if why is not None:
+        return declined(why)
+    k = int(round(np.sqrt(fnum)))
+    n_vertices = int(np.asarray(oids).max()) + 1 if len(oids) else 1
+    costs = modeled_costs(src, dst, n_vertices, fnum, directed=directed,
+                          profile=profile)
+    decision["costs"] = costs
+    if "2d" not in costs:
+        return declined("cost model found no k^2 tiling")
+    if mode == "auto":
+        wins, text = _beats(costs)
+        if not wins:
+            return declined(text + " (balanced cut or k too small for the "
+                            "byte win; GRAPE_PARTITION=2d forces)")
+    decision["mode"] = "2d"
+    decision["engaged"] = True
+    PARTITION_STATS["resolved_2d"] += 1
+    PARTITION_STATS["last_decision"] = decision
+    glog.vlog(1, "partition: 2d engaged for %s (k=%d, max tile %d vs max "
+              "shard %d edges, %d vs %d exchange B/round)", app_name, k,
+              costs["2d"]["max_tile_edges"], costs["1d"]["max_shard_edges"],
+              costs["2d"]["exchange_bytes"], costs["1d"]["exchange_bytes"])
+    return decision

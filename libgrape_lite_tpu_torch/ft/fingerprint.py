@@ -153,10 +153,19 @@ def compute_fingerprint(app, frag, query_args: Dict[str, Any], *,
         "query_args": canonical_query_args(query_args),
         "x64": float_carry_is_64bit(carry),
         "spmv_mode": str(getattr(app, "spmv_mode", "auto")),
-        # the 1-D fragment stack until the vertex cut is ported
-        "partition_mode": "1d",
+        # the partition layout (GRAPE_PARTITION, as the JAX package
+        # reads it): a 2-D snapshot never restores into a 1-D worker
+        # silently
+        "partition_mode": _partition_mode(),
         "processes": processes(),
     }
+
+
+def _partition_mode() -> str:
+    # local import: the fingerprint module imports standalone
+    from libgrape_lite_tpu_torch.fragment.partition import partition_mode
+
+    return partition_mode()
 
 
 def fingerprint_mismatch(expected: Dict, found: Dict) -> list[str]:

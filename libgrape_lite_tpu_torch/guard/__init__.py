@@ -20,7 +20,9 @@ cut at each superstep boundary; `ft/` uses it for checkpoint/restore, and
 
 Guards are off by default and cost nothing then: the worker's loop
 checks one flag.  On, `Worker.query` probes every round (GRAPE_GUARD_EVERY
-thins the cadence), on the carry's device.  The JAX package's cross-rank
+thins the cadence), on the carry's device; a guarded batch
+(`Worker.query_batch(guard=)`, serve/batch.py) probes all its lanes in
+one read a chunk and isolates a breached lane.  The JAX package's cross-rank
 breach vote (`vote.py`) comes with the port's multi-GPU runtime (ROADMAP
 Queue A item 8).
 """

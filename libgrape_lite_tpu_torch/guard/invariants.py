@@ -26,7 +26,7 @@ Soundness notes baked into the builders:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -37,6 +37,10 @@ class Invariant:
     fn: Callable  # (dev, prev, cur) -> (ok 0-d, measure 0-d)
     requires: Tuple[str, ...]
     description: str = field(default="")
+    # the elementwise violation mask (prev, cur) -> bool of a counting
+    # invariant, or None: lets a guarded batch count every lane of a
+    # lane-stacked carry in one pass (serve/batch.py)
+    bad: Optional[Callable] = field(default=None, compare=False)
 
     def check(self, dev, prev, cur):
         ok, measure = self.fn(dev, prev, cur)
@@ -49,7 +53,7 @@ def _count_invariant(name, key, bad_fn, description):
         nbad = bad_fn(prev, cur).sum()
         return nbad == 0, nbad.to(torch.float32)
 
-    return Invariant(name, fn, (key,), description)
+    return Invariant(name, fn, (key,), description, bad=bad_fn)
 
 
 def no_nan(key: str) -> Invariant:

@@ -118,6 +118,12 @@ class GuardMonitor:
         glog.vlog(1, "guard: mutation boundary -- watchdog history reset, "
                   "invariants re-resolve against the mutated fragment")
 
+    def resolve(self, carry: Dict) -> list:
+        """The invariants that apply to `carry` (resolved once)."""
+        if self._invariants is None:
+            self._resolve(carry)
+        return self._invariants
+
     def _resolve(self, carry: Dict) -> None:
         declared = self.app.invariants(self.frag, carry)
         kept, dropped = [], []
@@ -161,11 +167,13 @@ class GuardMonitor:
 
     # ---- per-probe entry point ------------------------------------------
 
-    def check(self, prev: Dict, cur: Dict, rounds: int,
-              active: int) -> Optional[Breach]:
+    def check(self, prev: Dict, cur: Dict, rounds: int, active: int, *,
+              probed=None) -> Optional[Breach]:
         """One probe of the carry `cur` after superstep `rounds` against
         the last probed carry `prev`: a Breach for the worker to act on,
-        or None while healthy."""
+        or None while healthy.  `probed` is the probe's (oks, measures,
+        digest, residual) when the caller evaluated it already (a guarded
+        batch probes every lane in one pass, serve/batch.py)."""
         self.probes += 1
         obs.metrics().counter("grape_guard_probes_total").inc()
         if self._invariants is None:
@@ -183,7 +191,8 @@ class GuardMonitor:
             }
             return self._policy(verdict, rounds, active, failed=None)
 
-        oks, vals, digest, residual = self._probe(prev, cur)
+        oks, vals, digest, residual = (probed if probed is not None
+                                       else self._probe(prev, cur))
         self._digest_hist.append((rounds, digest_hex(digest)[:16]))
         self._active_hist.append((rounds, int(active)))
         del self._digest_hist[:-_HISTORY], self._active_hist[:-_HISTORY]

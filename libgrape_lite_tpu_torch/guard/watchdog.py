@@ -72,6 +72,25 @@ def carry_digest(carry: Dict) -> torch.Tensor:
     return (sums & _M32).reshape(-1)
 
 
+def carry_digest_lanes(carry: Dict, lanes: int) -> torch.Tensor:
+    """[lanes, 2 * nleaves] int64: `carry_digest` of every lane of a
+    lane-stacked carry (each leaf [lanes, ...]) at once, row b equal
+    word for word to `carry_digest` of lane b's slice."""
+    keys = sorted(carry)
+    if not keys:
+        return torch.zeros((lanes, 0), dtype=torch.int64)
+    sums = []
+    for k in keys:
+        bits = _u32_words(carry[k]).reshape(lanes, -1)
+        pos = torch.arange(bits.shape[1], dtype=torch.int64,
+                           device=bits.device)
+        w1 = (_mul32(pos, 2654435761) + 1) & _M32
+        w2 = (_mul32(pos, 0x85EBCA77) + 0x9E3779B1) & _M32
+        mixed = bits ^ (bits >> 16)
+        sums += [_mul32(bits, w1).sum(dim=1), _mul32(mixed, w2).sum(dim=1)]
+    return torch.stack(sums, dim=1) & _M32
+
+
 def digest_hex(digest: Tuple[int, ...]) -> str:
     return "".join(f"{int(w) & 0xFFFFFFFF:08x}" for w in digest)
 

@@ -21,8 +21,9 @@ same app, as in the JAX registry), the unnormalised `pagerank_local`
 (with `pagerank_local_parallel`), the hop-bounded BFS `khop`, the 2-hop
 `common_neighbors` query, `triangle_count` (the bitmap LCC's credits)
 and `kclique` (dispatching to the device clique apps or a host
-recursion).  The JAX registry's vertex-cut names (`pagerank_vc*`,
-`sssp_vc`, `bfs_vc`, `wcc_vc`) are not ported.
+recursion).  The vertex-cut names run on an ImmutableVertexcutFragment
+(fragment/vertexcut.py): `sssp_vc`, `bfs_vc`, `wcc_vc` (models/vc2d.py)
+and `pagerank_vc`, `pagerank_vc_rep` (models/pagerank_vc.py).
 """
 
 from libgrape_lite_tpu_torch.models.auto_apps import (
@@ -46,9 +47,14 @@ from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
 from libgrape_lite_tpu_torch.models.lcc_directed import LCCDirected
 from libgrape_lite_tpu_torch.models.pagerank import PageRank
 from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
+from libgrape_lite_tpu_torch.models.pagerank_vc import (
+    PageRankVC,
+    PageRankVCReplicated,
+)
 from libgrape_lite_tpu_torch.models.sssp import SSSP
 from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
 from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
+from libgrape_lite_tpu_torch.models.vc2d import BFSVC2D, SSSPVC2D, WCCVC2D
 from libgrape_lite_tpu_torch.models.triangle_count import (
     CommonNeighbors,
     TriangleCount,
@@ -99,11 +105,17 @@ APP_REGISTRY = {
     "triangle_count": TriangleCount,
     "common_neighbors": CommonNeighbors,
     "khop": KHopNeighborhood,
+    "pagerank_vc": PageRankVC,
+    "pagerank_vc_rep": PageRankVCReplicated,
+    "sssp_vc": SSSPVC2D,
+    "bfs_vc": BFSVC2D,
+    "wcc_vc": WCCVC2D,
 }
 
 __all__ = ["APP_REGISTRY", "BC", "BFS", "BFSAuto", "BFSMsg", "BFSOpt",
-           "CDLP", "CDLPOpt", "CommonNeighbors", "CoreDecomposition",
-           "KClique", "KCore", "KHopNeighborhood", "LCC", "LCCBeta",
-           "LCCDirected", "PageRank", "PageRankAuto", "PageRankLocal",
-           "SSSP", "SSSPAuto", "SSSPDelta", "SSSPMsg", "TriangleCount",
-           "WCC", "WCCAuto", "WCCOpt"]
+           "BFSVC2D", "CDLP", "CDLPOpt", "CommonNeighbors",
+           "CoreDecomposition", "KClique", "KCore", "KHopNeighborhood",
+           "LCC", "LCCBeta", "LCCDirected", "PageRank", "PageRankAuto",
+           "PageRankLocal", "PageRankVC", "PageRankVCReplicated", "SSSP",
+           "SSSPAuto", "SSSPDelta", "SSSPMsg", "SSSPVC2D", "TriangleCount",
+           "WCC", "WCCAuto", "WCCOpt", "WCCVC2D"]

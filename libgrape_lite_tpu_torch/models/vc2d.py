@@ -1,0 +1,266 @@
+"""2-D vertex-cut min-fold apps: SSSP, BFS and WCC on the k x k tiles.
+
+Counterpart of `libgrape_lite_tpu/models/vc2d.py`.  Tile (i, j) holds the
+edges with src in chunk i and dst in chunk j (undirected graphs are
+symmetrised at build, so one dst-side pull a round covers both
+directions); the master carry (`dist` / `depth` / `comp`) is one [k * vc]
+gpid-indexed vector.
+
+A round (`inceval`):
+
+  1. the tile partials: ONE K1 call (`ops/spmv.py::pull`, kind min) over
+     the fragment's concatenated ie tile CSR gathers each edge's source
+     value (plus its weight for SSSP) into its tile's dst row -- [k, k,
+     vc] partials, tile (i, j) folding chunk j's rows;
+  2. the row-axis min (`VCStepContext.row_min`, the JAX package's pmin
+     over `vcrow`) folds the k partials of each column, completing chunk
+     j (the JAX package's transpose back to the row copy is the identity
+     of the one-card [k * vc] layout);
+  3. directed WCC also pulls the src side over the oe tile CSR and folds
+     it over the column axis;
+  4. the master fold `min(val, relax)` and the vote, the changed real
+     vertices.
+
+min is exact in any grouping and every candidate is computed from the
+operands the 1-D pull uses, so SSSP, BFS and WCC are bit-equal to the
+1-D apps (gpid order is oid order, so WCC's representative is the
+min-oid member there too).  A sequence of sources (SSSP, BFS) builds
+[B, k * vc] lanes pulled by one `gather_reduce_lanes` call a round.
+
+Not carried over: the TPU pack plans of the tiles (`_resolve_tile_packs`,
+`GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull) and the
+pipelined round (`inceval_pipelined`, its row reduction overlapped with
+the next fold: a cross-device overlap, ROADMAP Queue A item 8).
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from libgrape_lite_tpu_torch.app.base import (
+    GatherScatterAppBase,
+    VCStepContext,
+    is_lane_sequence,
+)
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
+
+_INT_SENT = np.iinfo(np.int32).max
+_OUT_SENTINEL = np.iinfo(np.int64).max  # BFS prints the reference's max
+_LOG = logging.getLogger(__name__)
+
+
+def vc_source_carry(frag, source, app_name: str, fill, hit,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """[k * vc] gpid-space carry seeded at `source` -- or [B, k * vc] for
+    a sequence of B sources (the batched lanes), on the fragment's
+    device.  A source outside the oid space leaves its lane all `fill`,
+    logged as the 1-D apps log an absent source."""
+    batched = is_lane_sequence(source)
+    srcs = np.asarray(source if batched else [source],
+                      dtype=np.int64).reshape(-1)
+    arr = torch.full((len(srcs), frag.k * frag.vc), fill, dtype=dtype,
+                     device=frag.device)
+    for b, s in enumerate(srcs.tolist()):
+        if 0 <= s < frag.k * frag.chunk:
+            arr[b, int(frag.oid_to_gpid(np.array([s]))[0])] = hit
+        else:
+            _LOG.warning("%s: source %r is outside the oid space; all "
+                         "vertices will be unreachable", app_name, s)
+    return arr if batched else arr[0]
+
+
+def vc_finalize_rows(frag, flat) -> np.ndarray:
+    """A gpid-space [k * vc] result as [fnum, vc] rows in inner_oids
+    order (masters on the diagonal tiles): the Worker's output contract
+    for every vertex-cut app."""
+    vals = np.asarray(flat).reshape(frag.k, frag.vc)
+    out = np.zeros((frag.fnum, frag.vc), dtype=vals.dtype)
+    for c in range(frag.k):
+        oids = frag.inner_oids(c * frag.k + c)
+        out[c * frag.k + c, :len(oids)] = vals[c, oids % frag.chunk]
+    return out
+
+
+def tile_pull(ctx: VCStepContext, side, w, x: torch.Tensor,
+              kind: str) -> torch.Tensor:
+    """One K1 call over an orientation's concatenated tile CSR: x [N] or
+    [B, N] gathered by gpid -> the [..., k, k, vc] tile partials."""
+    if side is None:
+        raise ValueError(
+            "this app pulls the src side of the tiles, which symmetrised "
+            "storage does not place; build the vertex-cut fragment with "
+            "symmetrize=False")
+    return ctx.tiles(spmv.pull(side.indptr, side.nbr, w, x, kind))
+
+
+class VC2DMinAppBase(GatherScatterAppBase):
+    """The shared scaffolding of the tropical-min vertex-cut apps: the
+    carry, the round and the diagonal-master finalize.  Subclasses
+    declare `state_key` and the tile partials."""
+
+    load_strategy = LoadStrategy.kNullLoadStrategy
+    message_strategy = MessageStrategy.kGatherScatter
+    mesh_kind = "vc2d"
+    state_key = ""  # the carry leaf ("dist" / "depth" / "comp")
+
+    def _init_common(self, frag, carry: torch.Tensor, eph=None):
+        """The carry and ephemeral leaves, and the partition record the
+        query span carries (trace_report's tile table)."""
+        self._partition = "2d"
+        self._mesh_k = frag.k
+        self._partition_stats = frag.tile_stats()
+        self._src_pull = self._wants_src_pull(frag)
+        eph = dict(eph or {})
+        self.ephemeral_keys = frozenset(eph)
+        return {self.state_key: carry, **eph}
+
+    def _wants_src_pull(self, frag) -> bool:
+        """Directed WCC pulls the src side too; undirected tiles are
+        symmetrised instead."""
+        return False
+
+    def peval(self, ctx, dev, state):
+        # as the 1-D pull apps: the first pull round subsumes the
+        # reference's source-only PEval
+        return state, 1
+
+    def _dst_partial(self, ctx, dev, val, state) -> torch.Tensor:
+        """[..., k, k, vc] partials of the pull into dst: one K1 call."""
+        raise NotImplementedError
+
+    def _src_partial(self, ctx, dev, val, state) -> torch.Tensor:
+        """[..., k, k, vc] partials of the pull into src (directed WCC)."""
+        raise NotImplementedError
+
+    def inceval(self, ctx: VCStepContext, dev, state):
+        val = state[self.state_key]
+        relax = ctx.flat(ctx.row_min(self._dst_partial(ctx, dev, val,
+                                                       state)))
+        if self._src_pull:
+            relax = torch.minimum(relax, ctx.flat(ctx.col_min(
+                self._src_partial(ctx, dev, val, state))))
+        new = torch.minimum(val, relax)
+        changed = (new < val) & dev.vmask
+        return {**state, self.state_key: new}, changed.sum(dim=-1)
+
+    def finalize(self, frag, state):
+        return vc_finalize_rows(frag, state[self.state_key].numpy())
+
+
+class SSSPVC2D(VC2DMinAppBase):
+    """SSSP on the tiles: `min(dist[src] + w)` a tile (K1 float32 min
+    with weights), completed by the row-axis min -- bit-equal to the
+    1-D pull."""
+
+    state_key = "dist"
+    result_format = "sssp_infinity"
+    needs_edata = True
+    batch_query_key = "source"
+    lane_native = True
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        self.dtype = dtype
+
+    def init_state(self, frag, source=0):
+        if not frag.weighted:
+            raise ValueError(
+                "SSSP requires edge weights; build the vertex-cut fragment "
+                "with weights (use bfs_vc for unit-weight traversal)")
+        dist = vc_source_carry(frag, source, "SSSPVC2D", float("inf"), 0.0,
+                               self.dtype)
+        # K1 takes the weights in the carry's type: cast once a query
+        return self._init_common(frag, dist,
+                                 {"w_eff": frag.dev.ie.w.to(self.dtype)})
+
+    def _dst_partial(self, ctx, dev, val, state):
+        return tile_pull(ctx, dev.ie, state["w_eff"], val, "min")
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [in_range("dist", lo=0.0), monotone_non_increasing("dist")]
+
+
+def _plus_one(near: torch.Tensor) -> torch.Tensor:
+    """min(d) + 1 == min(d + 1); the sentinel (no reached neighbour)
+    stays the sentinel."""
+    return torch.where(near != _INT_SENT, near + 1, near)
+
+
+class BFSVC2D(VC2DMinAppBase):
+    """BFS levels on the tiles: int32 min of the neighbours' depths (K1
+    int32 min), plus the hop -- bit-equal to the 1-D pull."""
+
+    state_key = "depth"
+    result_format = "int"
+    batch_query_key = "source"
+    lane_native = True
+
+    def init_state(self, frag, source=0):
+        depth = vc_source_carry(frag, source, "BFSVC2D", _INT_SENT, 0,
+                                torch.int32)
+        return self._init_common(frag, depth)
+
+    def _dst_partial(self, ctx, dev, val, state):
+        return _plus_one(tile_pull(ctx, dev.ie, None, val, "min"))
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [in_range("depth", lo=0, hi=_INT_SENT),
+                monotone_non_increasing("depth")]
+
+    def finalize(self, frag, state):
+        out = vc_finalize_rows(frag, state["depth"].numpy().astype(np.int64))
+        return np.where(out == _INT_SENT, _OUT_SENTINEL, out)
+
+
+class WCCVC2D(VC2DMinAppBase):
+    """WCC on the tiles: min-gpid label propagation (K1 int32 min).  gpid
+    order is oid order, so the converged representative is the min-oid
+    member, the vertex the 1-D path canonicalises to.
+
+    Directed raw storage pulls both tile orientations a round from the
+    same carry; the fixed point is the same, but round counts can differ
+    from the 1-D path's dependent second pull, so the bit-equality holds
+    for the symmetrised form (run_app always symmetrises wcc_vc)."""
+
+    state_key = "comp"
+    result_format = "int"
+
+    def _wants_src_pull(self, frag) -> bool:
+        return bool(frag.directed) and not frag.symmetrized
+
+    def init_state(self, frag, **_):
+        gpids = torch.arange(frag.k * frag.vc, dtype=torch.int32,
+                             device=frag.device)
+        comp = torch.where(frag.dev.vmask, gpids,
+                           torch.full_like(gpids, _INT_SENT))
+        return self._init_common(frag, comp)
+
+    def _dst_partial(self, ctx, dev, val, state):
+        return tile_pull(ctx, dev.ie, None, val, "min")
+
+    def _src_partial(self, ctx, dev, val, state):
+        return tile_pull(ctx, dev.oe, None, val, "min")
+
+    def invariants(self, frag, state):
+        from libgrape_lite_tpu_torch.guard.invariants import (
+            in_range, monotone_non_increasing,
+        )
+
+        return [in_range("comp", lo=0, hi=_INT_SENT),
+                monotone_non_increasing("comp")]
+
+    def finalize(self, frag, state):
+        out = vc_finalize_rows(frag, state["comp"].numpy().astype(np.int64))
+        # label -> representative oid: gpid encodes the oid
+        return np.where(out == _INT_SENT, -1, frag.gpid_to_oid(out))

@@ -9,6 +9,16 @@ round's seconds and vote (vlog level 1).  `checkpoint_every` /
 the lineage in `checkpoint_dir`, `guard` sets the breach policy (ft/,
 guard/).  A guard halt raises out of `run_app` (the CLI exits 1, as the
 JAX package's does).
+
+The vertex cut (JAX `runner.py:183-310`): `vc` runs the gather-scatter
+app on an ImmutableVertexcutFragment (`pagerank` names `pagerank_vc`,
+reference `run_app_vc.h:82-89`).  Without it, `GRAPE_PARTITION=2d|auto`
+asks the partition planner (fragment/partition.py) after a probe read
+of the edge file; an engaged decision swaps in the app's 2-D twin and
+builds the vertex-cut fragment from the probe's arrays.  Every declined
+request is recorded with its reason -- the cheap ones (another app, a
+non-square fnum, string ids, a delta load, the serialization cache)
+without reading the edge file.
 """
 
 from __future__ import annotations
@@ -72,6 +82,8 @@ class QueryArgs:
     checkpoint_dir: str = ""
     resume: bool = False
     guard: str = ""
+    # vertex-cut (2-D) storage; fnum must be k^2
+    vc: bool = False
 
 
 def _coerce_source(v, string_id: bool = False):
@@ -115,6 +127,92 @@ def build_query_kwargs(app_name: str, args: QueryArgs) -> dict:
     return {}
 
 
+def _resolve_partition(args: QueryArgs, name: str, app, comm_spec,
+                       weighted: bool):
+    """GRAPE_PARTITION's branch (JAX `runner.py:202-286`): (name, app,
+    the probe's (src, dst, w, oids) when the 2-D twin engaged, else
+    None).  Consulted only when GRAPE_PARTITION asks; every decline is
+    recorded, the structural ones before any edge is read."""
+    from libgrape_lite_tpu_torch.fragment.partition import (
+        VC2D_APPS,
+        partition_mode,
+        precheck_partition,
+        resolve_partition,
+    )
+
+    if partition_mode() == "1d":
+        return name, app, None
+    empty = np.zeros(0, dtype=np.int64)
+    kw = dict(directed=args.directed, string_id=args.string_id)
+    if args.delta_efile or args.delta_vfile:
+        resolve_partition(name, comm_spec.fnum, empty, empty, empty,
+                          eligible=False,
+                          reason="delta-mutation load has no vertex-cut "
+                                 "path", **kw)
+    elif args.serialize or args.deserialize or not args.efile:
+        # the garc cache is an edge-cut artifact, and a deserialize run
+        # may name no edge file at all
+        resolve_partition(name, comm_spec.fnum, empty, empty, empty,
+                          eligible=False,
+                          reason="serialization cache flags (or no edge "
+                                 "file): the vertex-cut fragment has no "
+                                 "serialized form", **kw)
+    elif precheck_partition(name, comm_spec.fnum, **kw) is not None:
+        resolve_partition(name, comm_spec.fnum, empty, empty, empty, **kw)
+    else:
+        from libgrape_lite_tpu_torch.io.line_parser import (
+            read_edge_file,
+            read_vertex_file,
+        )
+
+        src, dst, w = read_edge_file(args.efile, weighted=weighted)
+        oids = (read_vertex_file(args.vfile) if args.vfile
+                else np.unique(np.concatenate([src, dst])))
+        decision = resolve_partition(name, comm_spec.fnum, src, dst, oids,
+                                     directed=args.directed)
+        if decision["engaged"]:
+            name = VC2D_APPS[name]
+            return name, APP_REGISTRY[name](), (src, dst, w, oids)
+        # a declined probe falls through to the 1-D loader, which reads
+        # the file again
+    return name, app, None
+
+
+def _load_vertexcut(args: QueryArgs, name: str, comm_spec, weighted: bool,
+                    inputs):
+    """The vertex-cut fragment of a run: from the partition probe's
+    arrays, or read here.  A probe-engaged min-fold twin gets symmetrised
+    tiles when the graph is undirected (wcc_vc always: weak connectivity
+    is the undirected traversal); pagerank_vc keeps raw storage.  The
+    `--vc` path builds raw directed storage, the JAX package's build
+    defaults (its --vc is the reference's PageRank-only path)."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.fragment.vertexcut import (
+        ImmutableVertexcutFragment,
+    )
+
+    with obs.tracer().span("load_graph", efile=args.efile,
+                           fnum=comm_spec.fnum, path="vertexcut"):
+        if inputs is None:
+            from libgrape_lite_tpu_torch.io.line_parser import (
+                read_edge_file,
+                read_vertex_file,
+            )
+
+            src, dst, w = read_edge_file(args.efile, weighted=weighted)
+            oids = (read_vertex_file(args.vfile) if args.vfile
+                    else np.unique(np.concatenate([src, dst])))
+            directed, sym = True, False
+        else:
+            src, dst, w, oids = inputs
+            directed = args.directed
+            sym = name == "wcc_vc" or (name != "pagerank_vc"
+                                       and not args.directed)
+        return ImmutableVertexcutFragment.build(
+            comm_spec, oids, src, dst, w if weighted else None,
+            directed=directed, symmetrize=sym)
+
+
 def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     from libgrape_lite_tpu_torch import obs
     from libgrape_lite_tpu_torch.utils import logging as glog
@@ -132,6 +230,8 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         obs.configure(trace_path=args.trace or None,
                       metrics_path=args.metrics or None)
     name = args.application
+    if args.vc and name == "pagerank":
+        name = "pagerank_vc"  # reference run_app_vc.h:82-89
     if name not in APP_REGISTRY:
         raise ValueError(
             f"unknown application {name!r}; known: {sorted(APP_REGISTRY)}"
@@ -140,9 +240,10 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     app = app_cls(k=args.khop_k) if name == "khop" else app_cls()
     if comm_spec is None:
         comm_spec = CommSpec(fnum=args.fnum, device=args.device)
+    weighted = getattr(app_cls, "needs_edata", False)
     spec = LoadGraphSpec(
         directed=args.directed,
-        weighted=getattr(app_cls, "needs_edata", False),
+        weighted=weighted,
         load_strategy=app_cls.load_strategy,
         partitioner_type=args.partitioner_type,
         idxer_type=args.idxer_type,
@@ -154,7 +255,30 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         serialization_prefix=args.serialization_prefix,
         edata_dtype=np.float64,
     )
-    if args.delta_efile or args.delta_vfile:
+    vc_inputs = None
+    if not args.vc:
+        name, app, vc_inputs = _resolve_partition(args, name, app, comm_spec,
+                                                  weighted)
+    from libgrape_lite_tpu_torch.utils.types import MessageStrategy
+
+    is_vc = (APP_REGISTRY[name].message_strategy
+             == MessageStrategy.kGatherScatter)
+    if args.vc and not is_vc:
+        raise ValueError(
+            f"--vc has no vertex-cut implementation for {name!r} (the "
+            "reference's --vc path supports pagerank only, "
+            "run_app_vc.h:82-89)")
+    if is_vc and (args.delta_efile or args.delta_vfile):
+        raise ValueError("--delta_efile/--delta_vfile are not supported "
+                         "with vertex-cut storage")
+    if is_vc and args.string_id:
+        raise ValueError(
+            "--string_id is not supported with vertex-cut storage (the "
+            "reference's VC fragment is specialized to uint64 oids, "
+            "immutable_vertexcut_fragment.h)")
+    if is_vc:
+        frag = _load_vertexcut(args, name, comm_spec, weighted, vc_inputs)
+    elif args.delta_efile or args.delta_vfile:
         from libgrape_lite_tpu_torch.fragment.mutation import (
             LoadGraphAndMutate,
         )

@@ -26,10 +26,17 @@ armed with `GRAPE_FT_FAULTS=corrupt_carry@K` and `--guard rollback` must
 detect the corruption within one cadence, roll back, replay, exit 0 and
 write files byte-identical to the reference.
 
-`--postmortem` (the guarded fleet's flight-recorder drill) and
-`--kill_rank` (the multi-process reshard drill) exit 2: the first waits
-for guarded serving (the next slice of ROADMAP Queue A item 6), the
-second for the multi-GPU runtime (item 8).
+**postmortem** (`--postmortem`): the flight-recorder loop through the
+`serve` CLI under the fleet.  A 2-replica, 2-tenant run of a 24-query
+sssp / bfs stream armed with `GRAPE_FT_FAULTS=corrupt_carry@K` and
+`--guard halt` must fail every poisoned query alone (exit 1, all 24
+failed), each breach dumping a bundle into `GRAPE_POSTMORTEM`; the newest
+bundle must carry the guard forensics and `serve_query` rows, and `cli
+postmortem <bundle> --trace <trace.json>` must find every row byte for
+byte in the trace.
+
+`--kill_rank` (the multi-process reshard drill) exits 2: it waits for the
+multi-GPU runtime (ROADMAP Queue A item 8).
 
 Exit code 0 iff every app passes.  `--device` defaults to cuda.
 """
@@ -197,6 +204,81 @@ def self_heal_drill(app: str, args, workdir: str) -> bool:
     return True
 
 
+def postmortem_drill(args, workdir: str) -> bool:
+    """Guard breaches under the fleet dump flight-recorder bundles whose
+    serve_query rows equal the Chrome trace's (JAX `scripts/
+    fault_drill.py::postmortem_drill`)."""
+    import glob
+    import json
+
+    wd = os.path.join(workdir, "postmortem")
+    os.makedirs(wd, exist_ok=True)
+    stream = os.path.join(wd, "stream.txt")
+    with open(stream, "w") as fh:
+        for i in range(16):
+            fh.write(f"sssp {6 + i}\n")
+        for i in range(8):
+            fh.write(f"bfs {6 + i}\n")
+    pm = os.path.join(wd, "pm")
+    trace = os.path.join(wd, "trace.json")
+    # --max_batch 1 runs each query through Worker.query's guard (the
+    # corrupt_carry hook's path); halt isolates every poisoned query, so
+    # the stream still completes
+    rc, log = run_cli(
+        ["serve", "--efile", args.efile, "--vfile", args.vfile,
+         "--device", args.device, "--fnum", str(args.fnum),
+         "--stream", stream, "--max_batch", "1", "--guard", "halt",
+         "--replicas", "2", "--tenants", "by_app", "--trace", trace],
+        env_overrides={
+            "GRAPE_FT_FAULTS": f"corrupt_carry@{args.corrupt_carry_at}",
+            "GRAPE_POSTMORTEM": pm,
+        })
+    if rc != 1:
+        print(f"[postmortem] FAIL: poisoned serve rc={rc} (expected 1: "
+              f"every lane breaches, the stream completes)\n{log}")
+        return False
+    if "invariant breach at superstep" not in log:
+        print(f"[postmortem] FAIL: no breach was ever detected\n{log}")
+        return False
+    try:
+        rec = json.loads(
+            [ln for ln in log.splitlines() if ln.startswith("{")][-1])
+    except (IndexError, ValueError):
+        print(f"[postmortem] FAIL: serve wrote no summary record\n{log}")
+        return False
+    if rec["queries"] != 24 or rec["failed"] != 24:
+        print(f"[postmortem] FAIL: expected all 24 poisoned lanes to fail "
+              f"alone, got {rec['failed']}/{rec['queries']}")
+        return False
+    bundles = sorted(glob.glob(os.path.join(pm, "postmortem_*.json")))
+    if len(bundles) < 2:
+        print(f"[postmortem] FAIL: {len(bundles)} bundle(s) dumped, "
+              f"expected one per breach")
+        return False
+    newest = bundles[-1]
+    with open(newest) as fh:
+        bundle = json.load(fh)
+    sq = [sp for sp in bundle.get("spans", [])
+          if sp.get("name") == "serve_query"]
+    if not sq or not bundle.get("guard") or not bundle.get("federation"):
+        print(f"[postmortem] FAIL: newest bundle lacks serve_query spans / "
+              f"guard forensics / federation snapshot ({len(sq)} spans)")
+        return False
+    rc, log = run_cli(["postmortem", newest, "--trace", trace])
+    if rc != 0:
+        print(f"[postmortem] FAIL: postmortem --trace rc={rc}\n{log}")
+        return False
+    if "0 mismatched, 0 absent" not in log:
+        print(f"[postmortem] FAIL: bundle span rows drifted from the "
+              f"Chrome trace\n{log}")
+        return False
+    print(f"[postmortem] PASS: {len(bundles)} breach bundle(s) dumped "
+          f"under the 2-replica fleet; newest carries {len(sq)} "
+          f"serve_query row(s), every one byte-identical to the Chrome "
+          f"trace's row for the same query id")
+    return True
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--apps", default="",
@@ -222,8 +304,8 @@ def main(argv=None) -> int:
     p.add_argument("--corrupt_carry_at", type=int, default=4,
                    help="superstep of the corrupt_carry injection")
     p.add_argument("--postmortem", action="store_true",
-                   help="the guarded fleet's flight-recorder drill: not "
-                        "ported (exit 2)")
+                   help="the guarded fleet's flight-recorder drill: "
+                        "breach bundles joined to the trace")
     p.add_argument("--kill_rank", action="store_true",
                    help="the multi-process reshard drill: not ported "
                         "(exit 2)")
@@ -232,11 +314,6 @@ def main(argv=None) -> int:
                         "removed on success)")
     args = p.parse_args(argv)
 
-    if args.postmortem:
-        print("fault_drill: --postmortem drives guarded serving (serve "
-              "--guard), which the port has not yet: the next slice of "
-              "ROADMAP Queue A item 6", file=sys.stderr)
-        return 2
     if args.kill_rank:
         print("fault_drill: --kill_rank needs sharded checkpoints across "
               "processes (ft/distributed.py): ROADMAP Queue A item 8",
@@ -246,11 +323,14 @@ def main(argv=None) -> int:
         args.apps = "sssp,pagerank,wcc" if args.self_heal else (
             "sssp,pagerank,cdlp")
     workdir = args.workdir or tempfile.mkdtemp(prefix="grape-fault-drill-")
-    run_one = self_heal_drill if args.self_heal else drill
     rc = 0
-    for app in filter(None, args.apps.split(",")):
-        if not run_one(app.strip(), args, workdir):
-            rc = 1
+    if args.postmortem:
+        rc = 0 if postmortem_drill(args, workdir) else 1
+    else:
+        run_one = self_heal_drill if args.self_heal else drill
+        for app in filter(None, args.apps.split(",")):
+            if not run_one(app.strip(), args, workdir):
+                rc = 1
     if rc == 0 and not args.workdir:
         shutil.rmtree(workdir, ignore_errors=True)
     else:

@@ -10,9 +10,10 @@ prints:
 * one row per round (PEval = round 0): wall ms, device-wait ms (the wait
   in the read of the round's vote: the device-time estimate, tracer.py),
   launch ms, active vertices, and any instants inside the round;
-* the modeled per-round cost and the pipeline and 2-D tile tables when
-  the query span carries them (JAX traces only: the port has no pack
-  ledger, pipeline or vertex cut yet);
+* the 2-D tile table when the query span carries a partition record (a
+  vertex-cut query of either package), and the modeled per-round cost
+  and the pipeline table (JAX traces only: the port has no pack ledger
+  or pipeline yet);
 * the async serve pump's table (serve_dispatch / serve_harvest spans):
   per-batch dispatch and harvest lag, window occupancy, the hidden
   harvest share, and a PUMP DRIFT flag when a W > 1 window hides < 10%;
@@ -108,7 +109,7 @@ def query_ledger(events):
 
 def query_partition(events):
     """The 2-D vertex-cut tile record of the last query span that
-    carried one (a JAX trace of a 2-D vertex-cut query), or None."""
+    carried one (a 2-D vertex-cut query), or None."""
     pt = None
     for ev in events:
         if ev.get("ph") == "X" and ev.get("name") == "query":

@@ -13,7 +13,9 @@ at once, each launched batch running in its own thread and CUDA stream,
 harvested FIFO, with `ingest` as a window barrier.
 
 The CLI surface is `python -m libgrape_lite_tpu_torch.cli serve ...`.
-The JAX package's guarded batches (`serve/batch.py`) wait for guard/.
+Guarded batches (`serve/batch.py`): with a guard policy armed a batch
+probes every lane at each chunk boundary in one read, and a breached lane
+fails alone with its diagnostic bundle.
 """
 
 from libgrape_lite_tpu_torch.serve.feeder import ArrivalFeeder

@@ -32,9 +32,13 @@ harvest; `grape_serve_window_depth`, the queue-depth series and
 
 W = 1 is byte- and order-identical to the synchronous loop.  Batches the
 window cannot hold -- host-only or MutationContext apps (the sequential
-fallback), unknown apps, a forced repack of the overlay -- run through
-the session's own synchronous dispatch, each decline recorded in
-`PUMP_STATS`.
+fallback), unknown apps, a forced repack of the overlay, a guarded
+single query (`Worker.query`'s guard machinery) -- run through the
+session's own synchronous dispatch, each decline recorded in
+`PUMP_STATS`.  A guarded batch rides the window: its launched thread
+runs serve/batch.py's chunk loop, its verdicts land in the dispatch
+handle, and at harvest a breached lane becomes a failed result with its
+bundle while its batchmates' values harvest lazily as any batch's.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from typing import List, Optional
 
 from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.serve.queue import QueryRequest, ServeResult
-from libgrape_lite_tpu_torch.serve.session import queue_wait_us
+from libgrape_lite_tpu_torch.serve.session import lane_results, queue_wait_us
 
 #: env override of the window depth (recorded in PUMP_STATS)
 INFLIGHT_ENV = "GRAPE_SERVE_INFLIGHT"
@@ -283,11 +287,21 @@ class AsyncServePump:
             w._check_batchable()
         except ValueError:
             return self._run_declined(batch, "sequential_fallback")
+        guard = batch[0].guard or sess.guard
+        from libgrape_lite_tpu_torch.guard.config import GuardConfig
+
+        if len(batch) == 1 and GuardConfig.resolve(guard).enabled:
+            # a single guarded query runs Worker.query's guard machinery
+            return self._run_declined(batch, "guarded_single")
         sess.stats["batches"] += 1
         sess.stats["queries"] += len(batch)
+        # None leaves the policy to GRAPE_GUARD, read where the batch is
+        # prepared
+        guard_kw = {} if guard is None else {"guard": guard}
         try:
             prepared = w.query_batch_prepare(
-                [req.args for req in batch], batch[0].max_rounds)
+                [req.args for req in batch], batch[0].max_rounds,
+                **guard_kw)
         except Exception as e:  # the whole batch fails, lane by lane
             pb = PendingBatch(batch, "deferred", reason="dispatch_error")
             self._fail_batch(pb, e)
@@ -355,16 +369,13 @@ class AsyncServePump:
         if tr.enabled:
             obs.metrics().counter("grape_supersteps_total").inc(
                 int(d.rounds.sum()) + len(batch))
-        results = [
-            ServeResult(
-                request_id=req.id, app_key=req.app_key, ok=True,
-                values_fn=(lambda dd=d, bb=b: dd.lane_values(bb)),
-                rounds=int(d.rounds[b]), terminate_code=int(d.terminate[b]),
-                lane=b, batch_size=len(batch))
-            for b, req in enumerate(batch)
-        ]
+        results = lane_results(batch, d.rounds, d.terminate, d.breaches,
+                               d.lane_values, None, deferred=True)
+        sess.stats["failed"] += sum(not r.ok for r in results)
         if self.eager_values:
             for r in results:
+                if not r.ok:
+                    continue
                 try:
                     r.resolve()
                 except Exception as e:  # one lane's extraction failing

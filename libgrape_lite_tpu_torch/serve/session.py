@@ -32,8 +32,14 @@ With obs/ armed each synchronous dispatch is a `serve_batch` span, and
 each of its queries a `serve_query` span on its lane's row with the
 query id, tenant and queue wait (a cache hit too, with `cached`).
 
-Not here yet: the guard policies (a session takes `guard` None or
-"off").
+Guards (guard/, serve/batch.py): `guard` is the session's default
+policy and a request's own `guard=` wins over it.  A guarded batch
+isolates breaches: a lane whose invariants fail comes back as a failed
+ServeResult carrying its diagnostic bundle while its batchmates return
+their own queries' bytes; a guarded single query that breaches fails
+the same way.  A guarded request is never cached (its verdicts are
+part of the answer).  A vertex-cut fragment takes no `dyn`: its tile
+pulls do not read the delta overlay.
 """
 
 from __future__ import annotations
@@ -51,14 +57,16 @@ from libgrape_lite_tpu_torch.serve.queue import (
 )
 from libgrape_lite_tpu_torch.worker.worker import Worker
 
-GUARD_OFF = (None, "", "off")
-
-
 def check_guard(guard) -> None:
-    if guard not in GUARD_OFF:
-        raise ValueError(
-            f"guard {guard!r}: guard policies are not ported (guard/ is "
-            "ROADMAP Queue A item 6); use None or 'off'")
+    """Refuse an unknown guard policy at the door (None reads
+    GRAPE_GUARD at dispatch; a GuardConfig passes as it is)."""
+    from libgrape_lite_tpu_torch.guard.config import POLICIES, GuardConfig
+
+    if guard is None or isinstance(guard, GuardConfig):
+        return
+    if (str(guard) or "off") not in POLICIES:
+        raise ValueError(f"unknown guard policy {guard!r} (expected one "
+                         f"of {POLICIES})")
 
 
 def queue_wait_us(req: QueryRequest) -> int:
@@ -66,6 +74,30 @@ def queue_wait_us(req: QueryRequest) -> int:
     if not req.popped_s:
         return 0
     return int(max(0.0, req.popped_s - req.submitted_s) * 1e6)
+
+
+def lane_results(batch: List[QueryRequest], rounds, terminate, breaches,
+                 values, stages: dict | None,
+                 deferred: bool = False) -> List[ServeResult]:
+    """A batch's results, a lane each: a breached lane (its bundle in
+    `breaches`) fails with the bundle, every other lane carries its
+    values -- `values(b)` now, or on first read when `deferred`."""
+    out = []
+    for b, req in enumerate(batch):
+        common = dict(request_id=req.id, app_key=req.app_key,
+                      rounds=int(rounds[b]), lane=b, batch_size=len(batch),
+                      stages=None if stages is None else dict(stages))
+        if breaches is not None and breaches[b] is not None:
+            out.append(ServeResult(ok=False, error=breaches[b], **common))
+        elif deferred:
+            out.append(ServeResult(
+                ok=True, values_fn=(lambda bb=b: values(bb)),
+                terminate_code=int(terminate[b]), **common))
+        else:
+            out.append(ServeResult(ok=True, values=values(b),
+                                   terminate_code=int(terminate[b]),
+                                   **common))
+    return out
 
 
 def _error_results(batch: List[QueryRequest], error: str):
@@ -91,6 +123,14 @@ class ServeSession:
             apps = dict(APP_REGISTRY)
         self.dyn = None
         if dyn is not None and dyn is not False:
+            if getattr(fragment, "mesh_kind", "frag") == "vc2d":
+                # the 2-D tile pulls never read the overlay: staged edges
+                # would be silently invisible
+                raise ValueError(
+                    "dyn ingest is not supported on a vertex-cut "
+                    "fragment: the 2-D tile pulls do not read the delta "
+                    "overlay, so staged edges would be silently "
+                    "invisible; repack into a new fragment instead")
             from libgrape_lite_tpu_torch.dyn import DynGraph
 
             self.dyn = (dyn if isinstance(dyn, DynGraph) else DynGraph(
@@ -407,20 +447,22 @@ class ServeSession:
         except Exception as e:  # a forced repack that failed
             self.stats["failed"] += len(batch)
             return _error_results(batch, f"{type(e).__name__}: {e}")
+        guard = batch[0].guard or self.guard
         tr = obs.tracer()
         if len(batch) > 1:
             try:
                 w._check_batchable()
             except ValueError:
                 self.stats["sequential_fallbacks"] += 1
-                return [self._run_single(w, req) for req in batch]
+                return [self._run_single(w, req, guard) for req in batch]
             with tr.span("serve_batch", app=batch[0].app_key,
                          batch=len(batch)) as sp:
-                results = self._run_batched(w, batch, batch[0].max_rounds)
+                results = self._run_batched(w, batch, batch[0].max_rounds,
+                                            guard)
         else:
             with tr.span("serve_batch", app=batch[0].app_key,
                          batch=1) as sp:
-                results = [self._run_single(w, batch[0])]
+                results = [self._run_single(w, batch[0], guard)]
         if tr.enabled:
             # one row a query: the lane's interval is the batch's, tagged
             # with its request id so the timeline stays attributable
@@ -442,10 +484,13 @@ class ServeSession:
         return {"window_wait_us": 0, "dispatch_us": total_ns // 1000,
                 "device_us": 0}
 
-    def _run_single(self, w: Worker, req: QueryRequest) -> ServeResult:
+    def _run_single(self, w: Worker, req: QueryRequest,
+                    guard=None) -> ServeResult:
+        from libgrape_lite_tpu_torch.guard.monitor import GuardError
+
         try:
             t0 = time.perf_counter_ns()
-            w.query(req.max_rounds, **req.args)
+            w.query(req.max_rounds, guard=guard, **req.args)
             t_exec = time.perf_counter_ns()
             vals = w.result_values()
             stages = self._exec_stages(t_exec - t0)
@@ -455,31 +500,31 @@ class ServeSession:
                 values=vals, rounds=w.rounds,
                 terminate_code=w._terminate_code, batch_size=1,
                 stages=stages)
+        except GuardError as e:  # a breach fails this query alone
+            self.stats["failed"] += 1
+            return ServeResult(
+                request_id=req.id, app_key=req.app_key, ok=False,
+                error=e.bundle, rounds=w.rounds, batch_size=1)
         except Exception as e:  # one bad query must not stop the loop
             self.stats["failed"] += 1
             return ServeResult(
                 request_id=req.id, app_key=req.app_key, ok=False,
                 error={"error": f"{type(e).__name__}: {e}"}, batch_size=1)
 
-    def _run_batched(self, w: Worker, batch: List[QueryRequest],
-                     mr) -> List[ServeResult]:
+    def _run_batched(self, w: Worker, batch: List[QueryRequest], mr,
+                     guard=None) -> List[ServeResult]:
         try:
             t0 = time.perf_counter_ns()
-            w.query_batch([req.args for req in batch], mr)
+            w.query_batch([req.args for req in batch], mr, guard=guard)
             t_exec = time.perf_counter_ns()
         except Exception as e:  # the whole batch fails, lane by lane
             self.stats["failed"] += len(batch)
             return _error_results(batch, f"{type(e).__name__}: {e}")
         stages = self._exec_stages(t_exec - t0)
-        results = [
-            ServeResult(
-                request_id=req.id, app_key=req.app_key, ok=True,
-                values=w.batch_result_values(b),
-                rounds=int(w.batch_rounds[b]),
-                terminate_code=int(w.batch_terminate[b]),
-                lane=b, batch_size=len(batch), stages=dict(stages))
-            for b, req in enumerate(batch)
-        ]
+        results = lane_results(batch, w.batch_rounds, w.batch_terminate,
+                               w.batch_breaches, w.batch_result_values,
+                               stages)
+        self.stats["failed"] += sum(not r.ok for r in results)
         harvest_us = (time.perf_counter_ns() - t_exec) // 1000
         for r in results:
             r.stages["harvest_us"] = harvest_us

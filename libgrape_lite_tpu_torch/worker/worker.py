@@ -66,8 +66,8 @@ import torch
 
 from libgrape_lite_tpu_torch.app.base import (
     AppBase,
-    StepContext,
     is_lane_sequence,
+    make_context,
 )
 from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
@@ -121,66 +121,136 @@ def _read_votes(votes: list, device) -> List[int]:
         else torch.tensor(int(v), device=device) for v in votes]).tolist()
 
 
-def _lane_loop(app: AppBase, dev, state, eph: frozenset, max_rounds: int,
-               batch: int):
-    """PEval, then IncEval while any lane's vote is positive and fewer
-    than `max_rounds` rounds ran, with the freeze mask (JAX
-    `_lane_body`).  `state` is one lane-stacked dict (native lanes) or a
-    list of per-lane dicts.  Returns (state, rounds [k], votes [k])."""
-    ctx = StepContext()
-    limit = max_rounds if max_rounds > 0 else _INT32_MAX
-    rounds = [0] * batch
-    r = 0
-    if isinstance(state, list):
-        lanes, votes = [], []
-        for st in state:
-            st, a = app.peval(ctx, dev, st)
-            lanes.append(st)
-            votes.append(a)
-        act = _read_votes(votes, dev.inner_mask.device)
-        while r < limit and any(a > 0 for a in act):
-            live = [b for b in range(batch) if act[b] > 0]
+class _LaneLoop:
+    """k lanes' PEval and IncEval rounds with the freeze mask (JAX
+    `_lane_body`), one round at a time.  `state` is one lane-stacked dict
+    (native lanes) or a list of per-lane dicts.  A lane whose vote is not
+    positive -- settled, aborted, or frozen by the guard (`freeze`) --
+    keeps its carry pinned, so every lane runs exactly its own
+    sequential query's supersteps.  Each round reads the k votes back in
+    one transfer."""
+
+    def __init__(self, app: AppBase, frag, state, eph: frozenset,
+                 batch: int):
+        self.app = app
+        self.dev = frag.dev
+        self.ctx = make_context(app, frag)
+        self.eph = eph
+        self.batch = batch
+        self.native = not isinstance(state, list)
+        self.device = frag.dev.inner_mask.device
+        self.rounds = [0] * batch
+        self.r = 0
+        self.act: List[int] = []
+        self._act_d = None
+        if self.native:
+            self.eph_part = {k: v for k, v in state.items() if k in eph}
+            self._carry = self._strip(state)
+        else:
+            self.lanes = list(state)
+
+    def _strip(self, st: Dict) -> Dict:
+        return {k: v for k, v in st.items() if k not in self.eph}
+
+    # ---- the carry, as the guard reads and the fault hooks replace it --
+
+    def carry(self):
+        """The lane-stacked carry dict, or the k per-lane carries."""
+        if self.native:
+            return self._carry
+        return [self._strip(st) for st in self.lanes]
+
+    def replace(self, new) -> None:
+        """Adopt replacement carry leaves: a dict of lane-stacked leaves,
+        or a list with a dict (or None) a lane; values are placed on the
+        fragment's device."""
+        if isinstance(new, dict):
+            self._carry = {**self._carry, **{
+                k: _place(v, self.device) for k, v in new.items()}}
+            return
+        for b, lane in enumerate(new):
+            if lane:
+                self.lanes[b] = {**self.lanes[b], **{
+                    k: _place(v, self.device) for k, v in lane.items()}}
+
+    def freeze(self, lane: int) -> None:
+        """Pin lane `lane` where it stands: its vote becomes 0."""
+        self.act[lane] = 0
+        if self.native:
+            # a copy first (the votes may be a broadcast view), then a
+            # fill on the card: no host sync
+            self._act_d = self._act_d.clone()
+            self._act_d[lane] = 0
+
+    def live(self) -> bool:
+        return any(a > 0 for a in self.act)
+
+    # ---- rounds ----
+
+    def peval(self) -> None:
+        app, ctx, dev = self.app, self.ctx, self.dev
+        if not self.native:
+            votes = []
+            for b, st in enumerate(self.lanes):
+                self.lanes[b], a = app.peval(ctx, dev, st)
+                votes.append(a)
+            self.act = _read_votes(votes, self.device)
+            return
+        carry, a = app.peval(ctx, dev, {**self._carry, **self.eph_part})
+        self._carry = self._strip(carry)
+        self._act_d = _lane_votes(a, self.batch, self.device)
+        self.act = self._act_d.tolist()
+
+    def step(self) -> None:
+        """One IncEval round of every live lane."""
+        app, ctx, dev, batch = self.app, self.ctx, self.dev, self.batch
+        live = [b for b in range(batch) if self.act[b] > 0]
+        self.r += 1
+        if not self.native:
             votes = []
             for b in live:
-                lanes[b], a = app.inceval(ctx, dev, lanes[b])
+                self.lanes[b], a = app.inceval(ctx, dev, self.lanes[b])
                 votes.append(a)
-            r += 1
-            for b, a in zip(live, _read_votes(votes, dev.inner_mask.device)):
-                act[b] = a
-                rounds[b] = r
-        return lanes, rounds, act
-
-    eph_part = {k: v for k, v in state.items() if k in eph}
-
-    def strip(st):
-        return {k: v for k, v in st.items() if k not in eph}
-
-    device = dev.inner_mask.device
-    carry, a = app.peval(ctx, dev, state)
-    carry = strip(carry)
-    act_d = _lane_votes(a, batch, device)
-    act = act_d.tolist()
-    while r < limit and any(a > 0 for a in act):
-        new, a = app.inceval(ctx, dev, {**carry, **eph_part})
-        new = strip(new)
-        a = _lane_votes(a, batch, device)
-        if all(x > 0 for x in act):
-            carry, act_d = new, a
-        else:  # pin the settled lanes' carries and votes
-            live = act_d > 0
+            for b, a in zip(live, _read_votes(votes, self.device)):
+                self.act[b] = a
+                self.rounds[b] = self.r
+            return
+        new, a = app.inceval(ctx, dev, {**self._carry, **self.eph_part})
+        new = self._strip(new)
+        a = _lane_votes(a, batch, self.device)
+        if len(live) == batch:
+            self._carry, self._act_d = new, a
+        else:  # pin the settled and frozen lanes' carries and votes
+            keep = self._act_d > 0
 
             def sel(v, old):
                 return torch.where(
-                    live.reshape((batch,) + (1,) * (v.dim() - 1)), v, old)
+                    keep.reshape((batch,) + (1,) * (v.dim() - 1)), v, old)
 
-            carry = {k: sel(v, carry[k]) for k, v in new.items()}
-            act_d = torch.where(live, a, act_d)
-        r += 1
-        for b in range(batch):
-            if act[b] > 0:
-                rounds[b] = r
-        act = act_d.tolist()
-    return {**carry, **eph_part}, rounds, act
+            self._carry = {k: sel(v, self._carry[k]) for k, v in new.items()}
+            self._act_d = torch.where(keep, a, self._act_d)
+        for b in live:
+            self.rounds[b] = self.r
+        self.act = self._act_d.tolist()
+
+    def result(self):
+        """(state, rounds [k], votes [k])."""
+        if self.native:
+            return {**self._carry, **self.eph_part}, self.rounds, self.act
+        return self.lanes, self.rounds, self.act
+
+
+def _lane_loop(app: AppBase, frag, state, eph: frozenset, max_rounds: int,
+               batch: int):
+    """PEval, then IncEval while any lane's vote is positive and fewer
+    than `max_rounds` rounds ran.  Returns (state, rounds [k], votes
+    [k])."""
+    loop = _LaneLoop(app, frag, state, eph, batch)
+    limit = max_rounds if max_rounds > 0 else _INT32_MAX
+    loop.peval()
+    while loop.r < limit and loop.live():
+        loop.step()
+    return loop.result()
 
 
 class BatchDispatch:
@@ -188,10 +258,12 @@ class BatchDispatch:
     held self-contained, so a window of dispatches can coexist without
     touching the worker's own result fields.  `is_ready()` polls,
     `wait()` joins the batch's thread (and re-raises its failure),
-    `lane_values(b)` moves one lane to the host and finalizes it."""
+    `lane_values(b)` moves one lane to the host and finalizes it.  A
+    guarded batch also carries its verdicts: `breaches` (a diagnostic
+    bundle or None a lane) and `monitors` (a GuardMonitor a lane)."""
 
     __slots__ = ("app", "fragment", "eph", "state", "_thread", "_error",
-                 "_rounds", "_active")
+                 "_rounds", "_active", "breaches", "monitors")
 
     def __init__(self, *, app, fragment, eph):
         self.app = app
@@ -202,11 +274,16 @@ class BatchDispatch:
         self._error = None
         self._rounds = None
         self._active = None
+        self.breaches = None
+        self.monitors = None
 
-    def _finish(self, state, rounds, active) -> None:
+    def _finish(self, state, rounds, active, breaches=None,
+                monitors=None) -> None:
         self.state = state
         self._rounds = np.asarray(rounds, dtype=np.int32)
         self._active = np.asarray(active, dtype=np.int64)
+        self.breaches = breaches
+        self.monitors = monitors
 
     def is_ready(self) -> bool:
         return self._thread is None or not self._thread.is_alive()
@@ -255,13 +332,18 @@ class PreparedBatch:
     back: the caching allocator keeps its blocks per stream, so a stream
     that served a batch already holds the memory the next one asks for.
     The batch runs on a copy of the worker's app, so batches in flight
-    together never share the attributes an app sets per query."""
+    together never share the attributes an app sets per query.
+
+    With `guard_cfg` enabled the loop is the guarded chunk loop
+    (serve/batch.py): a probe of every lane at each chunk boundary, a
+    breached lane frozen, its verdict snapshot into the dispatch; the
+    values still harvest lazily, lane by lane."""
 
     __slots__ = ("app", "fragment", "state", "eph", "batch", "max_rounds",
-                 "idle_streams")
+                 "idle_streams", "guard_cfg", "chunk_hook")
 
     def __init__(self, *, app, fragment, state, eph, batch, max_rounds,
-                 idle_streams):
+                 idle_streams, guard_cfg=None, chunk_hook=None):
         self.app = app
         self.fragment = fragment
         self.state = state
@@ -269,13 +351,26 @@ class PreparedBatch:
         self.batch = batch
         self.max_rounds = max_rounds
         self.idle_streams = idle_streams
+        self.guard_cfg = guard_cfg
+        self.chunk_hook = chunk_hook
+
+    @property
+    def guarded(self) -> bool:
+        return self.guard_cfg is not None and self.guard_cfg.enabled
 
     def _dispatch(self) -> BatchDispatch:
         return BatchDispatch(app=self.app, fragment=self.fragment,
                              eph=self.eph)
 
     def _loop(self):
-        return _lane_loop(self.app, self.fragment.dev, self.state, self.eph,
+        if self.guarded:
+            from libgrape_lite_tpu_torch.serve.batch import guarded_lane_loop
+
+            return guarded_lane_loop(
+                self.app, self.fragment, self.state, self.eph,
+                self.max_rounds, self.batch, self.guard_cfg,
+                chunk_hook=self.chunk_hook)
+        return _lane_loop(self.app, self.fragment, self.state, self.eph,
                           self.max_rounds, self.batch)
 
     def run(self) -> BatchDispatch:
@@ -300,6 +395,7 @@ class PreparedBatch:
 
         def body():
             try:
+                # a guarded batch's probe reads wait on this stream only
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
                     out = self._loop()
@@ -340,6 +436,8 @@ class Worker:
         # the CUDA streams of finished launched batches (PreparedBatch)
         self.batch_rounds = None
         self.batch_terminate = None
+        # a guarded batch's verdicts: a breach bundle or None a lane
+        self.batch_breaches = None
         self._batch = None
         self.idle_streams: List = []
         # guard/: the last query's monitor (guard_report), None when off
@@ -556,7 +654,7 @@ class Worker:
             return state, guard_prev, None
 
         mutating = hasattr(app, "collect_mutations")
-        ctx = StepContext()
+        ctx = make_context(app, frag)
         limit = mr if mr > 0 else _INT32_MAX
         try:
             if meta is not None:  # resumed: PEval ran before the kill
@@ -719,6 +817,18 @@ class Worker:
         if not obs.armed():
             return
         sp.set(rounds=self.rounds, terminate_code=self._terminate_code)
+        # a vertex-cut query carries its tile layout (trace_report's tile
+        # table reads this record)
+        part = getattr(self.app, "_partition_stats", None)
+        if part is not None:
+            sp.set(partition={
+                "mode": getattr(self.app, "_partition", "2d"),
+                "k": part["k"],
+                "max_tile_edges": part["max_tile_edges"],
+                "mean_tile_edges": part["mean_tile_edges"],
+                "tile_skew": part["tile_skew"],
+                "per_tile": part["per_tile"],
+            })
         m = obs.metrics()
         m.counter("grape_queries_total").inc()
         m.gauge("grape_query_rounds").set(self.rounds)
@@ -843,9 +953,9 @@ class Worker:
     # ---- batched multi-source queries (serve/) ----
 
     def _check_batchable(self) -> None:
-        """Batched queries cover superstep apps on the fragment stack;
-        everything else fails loudly before any state is built (JAX
-        `Worker._check_batchable`)."""
+        """Batched queries cover superstep apps on the fragment stack and
+        on the vertex cut's tiles; everything else fails loudly before
+        any state is built (JAX `Worker._check_batchable`)."""
         app = self.app
         if getattr(app, "host_only", False):
             raise ValueError(
@@ -855,19 +965,27 @@ class Worker:
             raise ValueError(
                 "MutationContext apps rebuild the fragment between rounds "
                 "and cannot share one batched query")
-        if app.mesh_kind != "frag":
+        if app.mesh_kind not in ("frag", "vc2d"):
             raise ValueError(
-                "batched queries support the frag mesh only (app "
-                f"mesh_kind={app.mesh_kind!r})")
+                "batched queries support the frag and vc2d meshes only "
+                f"(app mesh_kind={app.mesh_kind!r})")
 
     def query_batch_prepare(self, args_list,
-                            max_rounds: int | None = None) -> PreparedBatch:
+                            max_rounds: int | None = None, *, guard=None,
+                            chunk_hook=None) -> PreparedBatch:
         """The host half of a batched query: the checks, then the k
         lanes' state built (`init_state_batch`, on a copy of the app) and
         placed on the fragment's device.  Leaves this worker's result
-        fields alone, so prepared batches can coexist."""
+        fields alone, so prepared batches can coexist.  `guard` (a
+        policy or GuardConfig; default GRAPE_GUARD) arms the guarded
+        chunk loop; `chunk_hook` is its test seam (serve/batch.py)."""
+        from libgrape_lite_tpu_torch.guard.config import GuardConfig
+
         self._check_batchable()
+        # before the guard routing: a guarded batch refuses a stale dyn
+        # view as the plain one does
         self._check_dyn_view()
+        guard_cfg = GuardConfig.resolve(guard)
         if not args_list:
             raise ValueError("query_batch needs at least one lane")
         app = copy.copy(self.app)
@@ -883,22 +1001,42 @@ class Worker:
         eph = frozenset(getattr(app, "ephemeral_keys", ()) or ())
         return PreparedBatch(app=app, fragment=frag, state=state, eph=eph,
                              batch=len(args_list), max_rounds=mr,
-                             idle_streams=self.idle_streams)
+                             idle_streams=self.idle_streams,
+                             guard_cfg=guard_cfg if guard_cfg.enabled
+                             else None, chunk_hook=chunk_hook)
 
-    def query_batch_dispatch(self, args_list,
-                             max_rounds: int | None = None) -> BatchDispatch:
+    def query_batch_dispatch(self, args_list, max_rounds: int | None = None,
+                             *, guard=None) -> BatchDispatch:
         """Prepare and launch in one call: the batch runs in its own
         thread and stream while this one returns."""
-        return self.query_batch_prepare(args_list, max_rounds).launch()
+        return self.query_batch_prepare(args_list, max_rounds,
+                                        guard=guard).launch()
 
-    def query_batch(self, args_list, max_rounds: int | None = None):
+    def query_batch(self, args_list, max_rounds: int | None = None, *,
+                    guard=None):
         """Run k point queries as one batch over the shared fragment:
         `args_list` holds one query-argument dict per lane (e.g.
         [{"source": 3}, {"source": 9}]).  Each lane's result is
         byte-identical to its own `Worker.query`; per-lane round counts
         land in `batch_rounds`, terminate codes in `batch_terminate`,
-        lane b's state in `batch_lane_state(b)`."""
-        prepared = self.query_batch_prepare(args_list, max_rounds)
+        lane b's state in `batch_lane_state(b)`.
+
+        With `guard` armed (a policy or GuardConfig; default
+        GRAPE_GUARD) the batch runs serve/batch.py's guarded chunk loop:
+        per-lane verdicts in `batch_breaches`, a breached lane frozen
+        while its batchmates run on."""
+        from libgrape_lite_tpu_torch.guard.config import GuardConfig
+
+        self._guard_monitor = None
+        self.batch_breaches = None
+        guard_cfg = GuardConfig.resolve(guard)
+        if guard_cfg.enabled:
+            from libgrape_lite_tpu_torch.serve.batch import run_guarded_batch
+
+            mr = self.app.max_rounds if max_rounds is None else max_rounds
+            return run_guarded_batch(self, args_list, mr, guard_cfg)
+        prepared = self.query_batch_prepare(args_list, max_rounds,
+                                            guard=guard_cfg)
         batch = prepared.batch
         tr = obs.tracer()
         try:
@@ -944,6 +1082,7 @@ class Worker:
         self._batch = None
         self.batch_rounds = None
         self.batch_terminate = None
+        self.batch_breaches = None
 
     # ---- Output / Assemble (reference worker.h:148-154, ctx.Output) ----
 

@@ -10,8 +10,8 @@
 * the flag checks raise the JAX CLI's errors before the load;
 * `libgrape_lite_tpu_torch/scripts/fault_drill.py --apps sssp` passes in a
   subprocess at `--device cpu` (three CLI runs, ~15 s on one core), and
-  its `--postmortem` / `--kill_rank` modes exit 2 naming what they wait
-  for.
+  its `--kill_rank` mode exits 2 naming what it waits for, while
+  `--postmortem` runs the guarded fleet's drill.
 """
 
 import os
@@ -140,9 +140,18 @@ def test_fault_drill_passes_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--postmortem", "item 6"),
                                        ("--kill_rank", "item 8")])
-def test_fault_drill_unported_modes_exit_2(capsys, flag, item):
+def test_fault_drill_unported_modes_exit_2(capsys, tmp_path, flag, item):
+    """`--kill_rank` still exits 2 naming its ROADMAP item; `--postmortem`
+    exited 2 until guarded serving (item 6) was ported, and now runs its
+    drill: every poisoned query fails alone and each bundle joins the
+    trace."""
     from libgrape_lite_tpu_torch.scripts import fault_drill
 
+    if flag == "--postmortem":
+        assert fault_drill.main([flag, "--device", "cpu", "--workdir",
+                                 str(tmp_path / "drill")]) == 0
+        assert "[postmortem] PASS" in capsys.readouterr().out
+        return
     assert fault_drill.main([flag, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue A {item}" in err and flag in err

@@ -299,9 +299,11 @@ def test_lane_keys_match_jax_registry():
     for name, cls in APP_REGISTRY.items():
         assert cls.batch_query_key == JAPPS[name].batch_query_key, name
     native = {n for n, c in APP_REGISTRY.items() if c.lane_native}
+    # the vertex cut's sssp_vc and bfs_vc pull their lanes together too
     assert native == {"sssp", "sssp_select", "bfs", "khop", "pagerank",
                       "pagerank_parallel", "pagerank_opt",
-                      "pagerank_directed", "common_neighbors"}
+                      "pagerank_directed", "common_neighbors", "sssp_vc",
+                      "bfs_vc"}
 
 
 # ---- overlay, threads, refusals -------------------------------------------

@@ -184,11 +184,14 @@ def test_session_unknown_app_rejected():
 
 
 def test_session_refuses_guard_policies():
-    with pytest.raises(ValueError, match="item 6"):
-        ServeSession(port_fragment(1), guard="halt")
-    sess = ServeSession(port_fragment(1), guard="off")
-    with pytest.raises(ValueError, match="item 6"):
-        sess.submit("sssp", {"source": 6}, guard="rollback")
+    """Guard policies are served (tests/test_torch_guarded_serve.py); an
+    unknown one is refused at the door, the session's and a request's."""
+    with pytest.raises(ValueError, match="unknown guard policy"):
+        ServeSession(port_fragment(1), guard="panic")
+    sess = ServeSession(port_fragment(1), guard="halt")
+    with pytest.raises(ValueError, match="unknown guard policy"):
+        sess.submit("sssp", {"source": 6}, guard="sometimes")
+    assert sess.submit("sssp", {"source": 6}, guard="rollback").app_key
 
 
 # ---- caches, eviction, ingest --------------------------------------------
@@ -459,10 +462,11 @@ def test_cli_serve_delta_stream(capsys, tmp_path):
 def test_cli_serve_unported_flags_are_usage_errors(capsys, tmp_path,
                                                    monkeypatch, flag, value,
                                                    item):
-    """`--guard` other than off is still a usage error naming its ROADMAP
-    item.  The obs/ flags were usage errors too until obs/ was ported:
-    now each works -- its file or endpoint exists -- and the run's
-    --dump_results equal the disarmed run's."""
+    """Each flag was a usage error naming its ROADMAP item until its
+    subsystem was ported: now each works -- `--guard halt` guards the
+    batches, the obs/ flags' file or endpoint exists -- and the run's
+    --dump_results equal the disarmed run's (an unknown guard policy is
+    still a usage error)."""
     import urllib.request
 
     from libgrape_lite_tpu_torch import obs
@@ -472,11 +476,8 @@ def test_cli_serve_unported_flags_are_usage_errors(capsys, tmp_path,
     argv = [*P2P, "--num_queries", "2", "--device", "cpu"]
     if flag == "--guard":
         with pytest.raises(SystemExit) as exc:
-            serve_main(argv + [flag, value])
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert f"ROADMAP Queue A item {item}" in err and flag in err
-        return
+            serve_main(argv + [flag, "panic"])
+        assert exc.value.code == 2 and flag in capsys.readouterr().err
     monkeypatch.chdir(tmp_path)
     assert serve_main(argv + ["--dump_results", "plain.txt"]) == 0
     try:
@@ -490,7 +491,7 @@ def test_cli_serve_unported_flags_are_usage_errors(capsys, tmp_path,
             snap = json.loads((tmp_path / "m.txt.json").read_text())
             assert snap["grape_serve_admission_wait_seconds"]["count"] == 2
             assert (tmp_path / "m.txt.prom").exists()
-        else:
+        elif flag == "--metrics_port":
             exp = exporter.get_exporter()
             assert exp is not None and exp.port > 0
             assert f"[serve] metrics exporter: {exp.url}" in \

@@ -194,9 +194,15 @@ def test_port_sources_import_no_jax():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "libgrape_lite_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    # the serving fleet's slice; fault tolerance and the guards
+    # the serving fleet's slice; fault tolerance and the guards; guarded
+    # serving and the vertex cut
     for sub in ("fleet", "autopilot", "obs", "ft", "guard"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    for mod in ("serve/batch.py", "fragment/vertexcut.py",
+                "fragment/partition.py", "models/vc2d.py",
+                "models/pagerank_vc.py"):
+        assert any(f.endswith(os.sep + mod.replace("/", os.sep))
+                   for f in files), mod
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):
@@ -286,6 +292,12 @@ FLEET_MODULES = [
     "libgrape_lite_tpu_torch.guard.monitor",
     "libgrape_lite_tpu_torch.guard.watchdog",
     "libgrape_lite_tpu_torch.scripts.fault_drill",
+    "libgrape_lite_tpu_torch.serve.batch",
+    "libgrape_lite_tpu_torch.fragment.vertexcut",
+    "libgrape_lite_tpu_torch.fragment.partition",
+    "libgrape_lite_tpu_torch.models.vc2d",
+    "libgrape_lite_tpu_torch.models.pagerank_vc",
+    "libgrape_lite_tpu_torch.vertex_map.partitioner",
 ]
 
 
