@@ -491,9 +491,11 @@ def device_passes(fn, device, calls: int = 5) -> dict:
     fn()
     sync(device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)  # see profile_call: the window's edges
         for _ in range(calls):
             fn()
         sync(device)
+        time.sleep(PROFILE_PAD_S)
     out = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -1733,22 +1735,10 @@ def more_golden_phase(device) -> None:
 
 
 def host_syncs(frag, app_factory, device, kw) -> int:
-    """Host synchronisations inside one `Worker.query`, as CUDA's
-    sync-debug mode reports them (one warning per synchronising call)."""
+    """Host synchronisations inside one `Worker.query`."""
     from libgrape_lite_tpu_torch.worker.worker import Worker
 
-    if torch.device(device).type != "cuda":
-        return 0
-    wk = Worker(app_factory(), frag)
-    sync(device)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            wk.query(**kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return call_syncs(lambda: Worker(app_factory(), frag).query(**kw), device)
 
 
 def profile_phase(label, frag, app_factory, device, kw) -> dict:
@@ -1761,29 +1751,109 @@ def profile_phase(label, frag, app_factory, device, kw) -> dict:
         lambda: run_query(frag, app_factory(), device, **kw)[1])
 
 
-def profile_call(label, fn) -> dict:
-    """torch.profiler over `fn()`, which returns its own wall seconds."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_PAD_S = 0.05  # host time kept around `fn` inside the profiled step
+PROFILE_ATTEMPTS = 5  # profiled runs of `fn` until one trace is complete
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        secs = fn()
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+
+def profile_once(fn, pad_s: float):
+    """One torch.profiler step over `fn()`: (wall s, {kernel name: (us,
+    count)}, the wrapper launches the counters saw, lead_ms, tail_ms)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kept = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "clears events"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(
+                         list(p.events()))) as prof:
+            warm = torch.zeros(1 << 16, device="cuda")
+            for _ in range(32):
+                warm.add_(1)
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(pad_s)
+            before = launch_counts()
+            secs = fn()
+            after = launch_counts()
+            time.sleep(pad_s)
+            prof.step()
+    check(len(kept) == 1, f"[profile] {len(kept)} kept steps")
+    by_name, spans, step = {}, [], None
+    for ev in kept[0]:
+        if ev.name.startswith("ProfilerStep"):
+            # the step's range, on the host and as a device annotation
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                step = ev.time_range
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
             t, c = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
+            spans.append(ev.time_range)
+    lead_ms = tail_ms = None
+    if step is not None and spans:
+        lead_ms = (min(r.start for r in spans) - step.start) / 1e3
+        tail_ms = (step.end - max(r.end for r in spans)) / 1e3
+    launched = {k: after[k] - before[k] for k in after}
+    return secs, by_name, launched, lead_ms, tail_ms
+
+
+def trace_passes(by_name, launched) -> dict:
+    """{pass: (events in the trace, events the launches make)} for the
+    spmv kernels, whose wrappers launch a fixed set of passes a call."""
+    k1 = launched["gather_reduce"] + launched["gather_reduce_lanes"]
+    want = {"merge_partition": k1, "merge_gather": k1,
+            "carry_fold": k1 + launched["strict_tile"],
+            "strict_segments": launched["strict_tile"],
+            "overlay_fold": launched["overlay_fold"]}
+    return {p: (sum(c for name, (_, c) in by_name.items() if p in name), n)
+            for p, n in want.items()}
+
+
+def profile_call(label, fn, pad_s: float = PROFILE_PAD_S) -> dict:
+    """torch.profiler over `fn()`, which returns its own wall seconds.
+    A trace can miss kernels: the profiler drops one whose device
+    timestamps, put on the host clock, fall outside the profiled window
+    (a BFS trace whose first kernel sat 0.37 ms before the window held 3
+    of its 6 K1 calls), so a warm-up step goes first and the kept step
+    holds `pad_s` of host time before and after `fn`; and late in a long
+    process traces lost kernels inside the window as well (sssp_vc 6 of
+    8 K1 calls, 50 ms from either edge).  A trace is complete when it
+    holds every pass of every spmv launch the counters saw; `fn` runs up
+    to PROFILE_ATTEMPTS times for one, and if none is, no idle share is
+    given.  `lead_ms` and `tail_ms` are the gaps between the step's
+    edges and its first and last device events."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        secs, by_name, launched, lead_ms, tail_ms = profile_once(fn, pad_s)
+        passes = trace_passes(by_name, launched)
+        complete = all(seen == want for seen, want in passes.values())
+        if complete:
+            break
+    k1 = launched["gather_reduce"] + launched["gather_reduce_lanes"]
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     wall_ms = secs * 1e3
+    idle = 1 - busy_ms / wall_ms if complete else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    missing = {p: f"{seen}/{want}" for p, (seen, want) in passes.items()
+               if seen != want}
     print(f"[profile] {label}: wall_ms={wall_ms:.3f} "
-          f"device_busy_ms={busy_ms:.3f} idle_share="
-          f"{1 - busy_ms / wall_ms:.3f} kernels={len(by_name)}", flush=True)
+          f"device_busy_ms={busy_ms:.3f} idle_share={share_text(idle)} "
+          f"kernels={len(by_name)} k1_launches={k1} trace "
+          + ("complete" if complete else f"INCOMPLETE {missing}")
+          + f" attempts={attempt} lead_ms={lead_ms} tail_ms={tail_ms} "
+          f"pad_s={pad_s}", flush=True)
     for name, (t, c) in top:
         print(f"[profile]   {t / 1e3:9.3f} ms  x{c:<5d} {name[:90]}",
               flush=True)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle,
+                trace_complete=complete, attempts=attempt, k1_launches=k1,
+                lead_ms=lead_ms, tail_ms=tail_ms,
                 top=[(n[:90], t / 1e3, c) for n, (t, c) in top])
+
+
+def share_text(share) -> str:
+    return "not measured" if share is None else f"{share:.3f}"
 
 
 def profile_phases(frag, frag18, device) -> None:
@@ -1807,7 +1877,7 @@ def profile_phases(frag, frag18, device) -> None:
     syncs = host_syncs(frag, APP_REGISTRY["core_decomposition"], device, {})
     print(f"[profile]   core_decomposition: rounds={rounds} "
           f"host_syncs={syncs} ({syncs / max(rounds, 1):.2f} per round) "
-          f"idle_share={1 - r['device_busy_ms'] / r['wall_ms']:.3f}",
+          f"idle_share={share_text(r['idle_share'])}",
           flush=True)
     for name in ("sssp_delta", "bfs_opt"):
         app = APP_REGISTRY[name]
@@ -1821,7 +1891,7 @@ def profile_phases(frag, frag18, device) -> None:
               + "".join(f"{k}={v} " for k, v in counters.items())
               + f"loop_iterations={loops} host_syncs={syncs} "
               f"({syncs / max(loops, 1):.2f} per iteration) idle_share="
-              f"{1 - r['device_busy_ms'] / r['wall_ms']:.3f}", flush=True)
+              f"{share_text(r['idle_share'])}", flush=True)
 
 
 # ---- phase 7: goldens through run_app ----------------------------------
@@ -3844,9 +3914,13 @@ def obs_query_phase(label, frag, app_factory, device, kw, tmp) -> dict:
     flush_ms = (time.perf_counter() - t0) * 1e3
     med = {k: float(np.median(v)) for k, v in walls.items()}
     obs.configure(in_memory=True)
-    prof = (profile_call(f"{label} armed query", lambda: run_query(
-        frag, app_factory(), device, **kw)[1])
-        if torch.device(device).type == "cuda" else None)
+
+    def armed_query():
+        obs.configure(in_memory=True)  # a new history each attempt
+        return run_query(frag, app_factory(), device, **kw)[1]
+
+    prof = (profile_call(f"{label} armed query", armed_query)
+            if torch.device(device).type == "cuda" else None)
     ev = obs.history()
     waits = [e["args"]["device_wait_us"] for e in
              host_spans(ev, "peval") + host_spans(ev, "superstep")]
@@ -4587,7 +4661,12 @@ def vc_by_oid(wk, n: int) -> np.ndarray:
 
 
 def vc_k1_case(label, side, w, x, kind, device) -> dict:
-    """One tile pull's K1 call against its plain version on `x`."""
+    """One tile pull's K1 call against its plain version on `x`.  The
+    bound counts what the kernel must move once: indptr, nbr (and w) a
+    edge, x once, y once.  Library: one PyTorch call of the same function,
+    as the 1-D K1 rows take it: a sparse CSR product for the sum,
+    segment_reduce (f32) or scatter_reduce_ (int32) over the candidates,
+    gathered outside the timed call, for the min."""
     from libgrape_lite_tpu_torch.ops import spmv
     from libgrape_lite_tpu_torch.utils.timing import time_ms
 
@@ -4605,16 +4684,39 @@ def vc_k1_case(label, side, w, x, kind, device) -> dict:
         err = 0.0
     edges = int(side.indptr[0, -1])
     rows = side.indptr.shape[1] - 1
-    nbytes = (side.indptr.nbytes + edges * (4 + (4 if w is not None else 0)
-                                            + x.element_size())
-              + rows * x.element_size())
-    b_ms, b_by = bound(nbytes, edges)
+    per_edge = 2 if w is not None else 1
+    nbytes = (side.indptr.nbytes + 4 * per_edge * edges
+              + x.numel() * x.element_size() + rows * x.element_size())
+    b_ms, b_by = bound(nbytes, per_edge * edges)
+    ip = side.indptr[0].to(torch.int64)
+    idx = side.nbr[0, :edges].to(torch.int64)
+    if kind == "sum":
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # "beta state"
+            csr = torch.sparse_csr_tensor(
+                ip, idx, torch.ones(edges, dtype=x.dtype, device=x.device),
+                size=(rows, x.numel()), check_invariants=False)
+        library = lambda: csr @ x  # noqa: E731
+    else:
+        cand = x[idx] + (w[0, :edges] if w is not None else 0)
+        if x.is_floating_point():
+            deg = ip[1:] - ip[:-1]
+            library = lambda: torch.segment_reduce(  # noqa: E731
+                cand, "min", lengths=deg, unsafe=True,
+                initial=float("inf"))
+        else:
+            seg = torch.repeat_interleave(
+                torch.arange(rows, device=x.device), ip[1:] - ip[:-1])
+            acc = torch.empty(rows, dtype=x.dtype, device=x.device)
+            library = lambda: acc.fill_(INT32_MAX).scatter_reduce_(  # noqa
+                0, seg, cand, "amin")
     ms = time_ms(lambda: spmv.gather_reduce(side.indptr, side.nbr, w, x,
                                             kind), device, 10)
     plain_ms = time_ms(lambda: spmv.gather_reduce_plain(
         side.indptr, side.nbr, w, x, kind), device, 3, batch=1)
+    lib_ms = time_ms(library, device, 10)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, edges=edges, rows=rows)
+                bound_by=b_by, library_ms=lib_ms, edges=edges, rows=rows)
 
 
 def vc_build(fnum, src, dst, w, n, sym, device):
@@ -4702,7 +4804,8 @@ def vc_app_runs(k, fs, fr, frag, e_sym, n, device) -> dict:
     for label, c in cases.items():
         print(f"[vc] K1 {label}: edges={c['edges']} rows={c['rows']} "
               f"max_abs_err={c['max_abs_err']:.3e} ms={c['ms']:.4f} "
-              f"plain_ms={c['plain_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
+              f"plain_ms={c['plain_ms']:.4f} library_ms="
+              f"{c['library_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
               f"({c['bound_by']})", flush=True)
     return out, cases
 

@@ -175,6 +175,11 @@ class ImmutableVertexcutFragment:
     # ---- host tiles ----
 
     @property
+    def _tile_ep(self) -> int:
+        """Ep: the largest tile's edge count rounded up to 128."""
+        return _round_up(max(int(self._tile_counts.max(initial=0)), 1), 128)
+
+    @property
     def _host_tiles(self):
         """(src, dst, w, mask) [fnum, Ep] COO blocks, each tile's edges in
         input order from slot 0 (JAX `_host_tiles`).  Built on first
@@ -183,7 +188,7 @@ class ImmutableVertexcutFragment:
             sg, dg, w, fid = self._edges
             fnum = self.fnum
             counts = self._tile_counts
-            ep = _round_up(max(int(counts.max(initial=0)), 1), 128)
+            ep = self._tile_ep
             order = np.argsort(fid, kind="stable")
             starts = np.concatenate([[0], np.cumsum(counts)])
             s_arr = np.zeros((fnum, ep), dtype=np.int32)
@@ -224,7 +229,7 @@ class ImmutableVertexcutFragment:
         if orientation in self._host_csrs:
             return self._host_csrs[orientation]
         cat = self._concat_csr(orientation)
-        ep = self._host_tiles[0].shape[1]
+        ep = self._tile_ep
         vc = self.vc
         csrs = []
         for f in range(self.fnum):
@@ -261,7 +266,7 @@ class ImmutableVertexcutFragment:
         and `trace_report` read; also the fill and pad-waste profile in
         VC_TILE_STATS.  Host data only."""
         counts = self._tile_counts
-        ep = _round_up(max(int(counts.max(initial=0)), 1), 128)
+        ep = self._tile_ep
         mean = max(float(counts.mean()), 1.0)
         fills = counts / max(ep, 1)
         edges = int(counts.sum())
