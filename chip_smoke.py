@@ -90,6 +90,17 @@ the port's own entry points:
      `lcc_bitmap` under GRAPE_LCC_BACKEND=spgemm bit-equal to the
      intersect backend (K3) with both backends' query seconds, and
      `auto`'s decision with its modeled seconds;
+     then the rate profile (`[calib]`, ops/calibration.py): `calibrate`
+     in a child process sweeps K1, K2, K3 and the spgemm pass on the card
+     and fits the profile (`--out`, `--samples-out`): its rates, accepted
+     regressors, condition, residual and drift per surface; `--check` on
+     the recorded samples exits 0, a profile with a 20x slower op rate
+     exits 2, a schema-broken one exits 2; a second sweep (another seed)
+     gated against the fitted profile; the live harvest of a serving
+     session (more than 0 samples); `query_wall_s` against the measured
+     SSSP and PageRank walls; and the three consumers under
+     GRAPE_RATE_PROFILE=<fitted>: spgemm's `auto` on RMAT-18, the
+     partition ledger on RMAT-20 at fnum 4, an admission record;
   10. the GNN sampler (`[sampler]`): an AppendOnlyEdgecutFragment over
      RMAT-20's edges in both directions, 65,536 seeds at fanouts 4-5 for
      random, edge_weight and top_k (seeds per second), checked on the
@@ -279,9 +290,13 @@ from unittest import mock
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.ops.calibration import default_profile
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# the bound column's rates: the default rate profile, one H100 SXM's data
+# sheet (HBM3; float32 outside the tensor cores)
+HBM_BYTES_PER_S = default_profile().hbm_bps
+FP32_OPS_PER_S = default_profile().ops_per_s
 SCALE, EDGE_FACTOR = 20, 16
 BITMAP_SCALE = 18  # lcc_bitmap: two (2^18)^2-bit bitmaps, 8 GiB each
 DIRECTED_SCALE = 16  # lcc_directed, the secondary path
@@ -380,6 +395,10 @@ AUTOPILOT_STEP_AT = 2 * AUTOPILOT_WARM  # arrival index of the rate step
 # scaler's window of 3)
 AUTOPILOT_STEP_X = 8
 AUTOPILOT_CLI_CACHE = 64
+CALIB_SCALES, CALIB_EFS = "16,18", "4,16"  # the calibrate sweep's graphs
+CALIB_SEEDS = (7, 8)  # the fit's sweep, the second sweep's
+CALIB_REPEATS = 5
+CALIB_OPS_SLOWDOWN = 20.0  # the corrupted profile's op rate, divided
 PROBE_E_LOGS = (22, 26)  # rate probe: 16 MiB planes (in L2), 256 MiB (HBM)
 # the rate probe's kernels: wrapper, its cases (the headline first), the
 # line of the Pallas call it replaces in scripts/pallas_probe.py
@@ -398,20 +417,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def rmat_edges(scale: int, edge_factor: int, seed: int = 7):
-    """bench.py's vectorised RMAT (a=0.57, b=0.19, c=0.19, d=0.05)."""
-    n = 1 << scale
-    e = n * edge_factor
-    rng = np.random.default_rng(seed)
-    src = np.zeros(e, dtype=np.int64)
-    dst = np.zeros(e, dtype=np.int64)
-    a, b, c = 0.57, 0.19, 0.19
-    for _ in range(scale):
-        r = rng.random(e)
-        src_bit = r >= a + b
-        dst_bit = ((r >= a) & (r < a + b)) | (r >= a + b + c)
-        src = (src << 1) | src_bit
-        dst = (dst << 1) | dst_bit
-    return n, src, dst
+    """bench.py's vectorised RMAT (a=0.57, b=0.19, c=0.19, d=0.05), the
+    rate sweep's generator."""
+    from libgrape_lite_tpu_torch.ops.calibration import rmat_edges as rmat
+
+    return rmat(scale, edge_factor, seed)
 
 
 def rmat_fragment(scale: int, device, directed: bool = False,
@@ -2242,6 +2252,241 @@ def spgemm_phase(frag, device, scale: int = BITMAP_SCALE) -> dict:
                lcc_bitmap_s={b: results[b, "lcc_bitmap"][1]
                              for b in ("intersect", "spgemm")},
                auto=dec)
+    return out
+
+
+def calibrate_cli(args, device) -> tuple:
+    """`python -m libgrape_lite_tpu_torch.cli calibrate <args> --json` in a
+    child process: (exit code, its JSON record or None, its stderr)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "libgrape_lite_tpu_torch.cli", "calibrate",
+         *args, "--device", str(device), "--json"], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    return r.returncode, json.loads(lines[-1]) if lines else None, r.stderr
+
+
+def drift_text(surfaces: dict) -> str:
+    return " ".join(f"{k}={e['drift_pct']:g}%" for k, e in
+                    sorted(surfaces.items()))
+
+
+def calib_harvest_phase(frag, prof, device) -> dict:
+    """GRAPE_CALIBRATE_HARVEST=1 over a warm serving session on RMAT-20:
+    4 sssp and 2 bfs queries one at a time, then 8 sssp sources in one
+    batch; the harvested samples and their drift under `prof`."""
+    from libgrape_lite_tpu_torch.ops import calibration as calib
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    src = serve_sources(frag, SERVE_BATCH)
+    singles = [("sssp", {"source": s}) for s in src[:4]]
+    singles += [("bfs", {"source": s}) for s in src[4:6]]
+    batch = [("sssp", {"source": s}) for s in src]
+    sessions = [(ServeSession(frag, policy=BatchPolicy(max_batch=1)),
+                 singles),
+                (ServeSession(frag, policy=BatchPolicy(max_batch=SERVE_BATCH)),
+                 batch)]
+    for sess, stream in sessions:  # warm: workers built, pools cached
+        sess.serve(stream)
+    calib.reset_harvest()
+    os.environ[calib.HARVEST_ENV] = "1"
+    try:
+        reset_launch_counts()
+        for sess, stream in sessions:
+            res = sess.serve(stream)
+            check(all(r.ok for r in res), "a harvested query failed")
+        counts = launch_counts()
+        got = calib.harvested_samples()
+    finally:
+        os.environ.pop(calib.HARVEST_ENV, None)
+        calib.reset_harvest()
+    check(len(got) == len(singles) + 1,
+          f"harvested {len(got)} samples of {len(singles) + 1} dispatches")
+    rep = calib.drift_report(prof, got)
+    return dict(counts=counts, harvested=len(got), drift_pct=rep["drift_pct"],
+                walls_ms=[round(s["wall_s"] * 1e3, 4) for s in got],
+                modeled_ms=[round(prof.wall_s(s) * 1e3, 4) for s in got])
+
+
+def calib_phase(frag, frag18, spgemm, device) -> dict:
+    """The rate profile on the card: fit, gates, second sweep, harvest,
+    `query_wall_s` against measured walls and the consumers under the
+    fitted profile.  A CalibrationError raised here ends the run."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.autopilot.admission import (
+        AdmissionConfig,
+        AdmissionController,
+        query_wall_s,
+    )
+    from libgrape_lite_tpu_torch.autopilot.signals import AUTOPILOT_STATS
+    from libgrape_lite_tpu_torch.fragment.partition import resolve_partition
+    from libgrape_lite_tpu_torch.models import SSSP, PageRank
+    from libgrape_lite_tpu_torch.obs.slo import SLO_STATS
+    from libgrape_lite_tpu_torch.ops import calibration as calib
+    from libgrape_lite_tpu_torch.ops import spgemm_pack as sp
+
+    t_phase = time.perf_counter()
+    out = {}
+    sweep = ["--scales", CALIB_SCALES, "--ef", CALIB_EFS, "--repeats",
+             str(CALIB_REPEATS)]
+    torch.cuda.empty_cache()  # room for the child's sweep
+    with tempfile.TemporaryDirectory() as tmp:
+        rates = os.path.join(tmp, "rates.json")
+        samples = os.path.join(tmp, "samples.json")
+        t0 = time.perf_counter()
+        rc, rec, err = calibrate_cli(sweep + [
+            "--seed", str(CALIB_SEEDS[0]), "--out", rates,
+            "--samples-out", samples], device)
+        fit_s = time.perf_counter() - t0
+        check(rc == 0 and rec is not None,
+              f"calibrate exited {rc}: {err[-3000:]}")
+        blk = rec["calibration"]
+        print(f"[calib] fit ({fit_s:.1f} s, child process): "
+              f"{blk['profile']} source={blk['source']} "
+              f"samples={blk['samples']} regressors={'+'.join(blk['regressors'])}"
+              f" cond={blk['cond']:.4g} residual={blk['residual_pct']:g}% "
+              f"drift={blk['drift_pct']:g}% unfitted={blk['unfitted']}",
+              flush=True)
+        r = blk["rates"]
+        print(f"[calib] rates: ops_per_s={r['ops_per_s']:.6g} "
+              f"gather_per_s={r['gather_per_s']:.6g} hbm_bps={r['hbm_bps']:.6g}"
+              f" dispatch_overhead_s={r['dispatch_overhead_s']:.6g} "
+              f"hbm_capacity_bytes={r['hbm_capacity_bytes']}", flush=True)
+        for note in blk["fallback_notes"]:
+            print(f"[calib]   refused step: {note}", flush=True)
+        print(f"[calib] drift per surface: {drift_text(blk['surfaces'])}; "
+              f"held out: {drift_text(blk['held_out'])}", flush=True)
+        check(blk["fitted"] and blk["drift_ok"], "the fit failed its gate")
+
+        rc, rec, err = calibrate_cli(["--check", "--samples", samples,
+                                      "--profile", rates], device)
+        check(rc == 0, f"--check on the recorded samples exited {rc}: "
+              f"{err[-2000:]}")
+        d = json.load(open(rates))
+        bad = os.path.join(tmp, "rates_bad.json")
+        d["ops_per_s"] /= CALIB_OPS_SLOWDOWN
+        with open(bad, "w") as f:
+            json.dump(d, f)
+        rc_bad, rec_bad, _ = calibrate_cli(["--check", "--samples", samples,
+                                            "--profile", bad], device)
+        check(rc_bad == 2 and not rec_bad["calibration"]["drift_ok"],
+              f"the corrupted profile exited {rc_bad}")
+        d["ops_per_s"] = True
+        with open(bad, "w") as f:
+            json.dump(d, f)
+        rc_broken, _, err = calibrate_cli(["--check", "--samples", samples,
+                                           "--profile", bad], device)
+        check(rc_broken == 2 and "bool" in err,
+              f"the schema-broken profile exited {rc_broken}")
+        print(f"[calib] --check recorded samples: exit 0; ops_per_s / "
+              f"{CALIB_OPS_SLOWDOWN:g}: exit 2 (drift "
+              f"{rec_bad['calibration']['drift_pct']:g}%); a bool rate: "
+              "exit 2", flush=True)
+
+        t0 = time.perf_counter()
+        rc2, rec2, err = calibrate_cli(sweep + [
+            "--check", "--profile", rates, "--seed", str(CALIB_SEEDS[1])],
+            device)
+        check(rec2 is not None, f"the second sweep printed nothing: "
+              f"{err[-2000:]}")
+        blk2 = rec2["calibration"]
+        print(f"[calib] second sweep (seed {CALIB_SEEDS[1]}, "
+              f"{time.perf_counter() - t0:.1f} s) under the fitted profile: "
+              f"exit {rc2}, drift {blk2['drift_pct']:g}% "
+              f"({drift_text(blk2['surfaces'])}; held out: "
+              f"{drift_text(blk2['held_out'])})", flush=True)
+
+        prof = calib.load_profile(rates)
+        harvest = calib_harvest_phase(frag, prof, device)
+        print(f"[calib] harvest: {harvest['harvested']} samples from a "
+              f"serving session, drift {harvest['drift_pct']:g}% under the "
+              f"fitted profile; walls ms {harvest['walls_ms']} modeled "
+              f"{harvest['modeled_ms']} launches {harvest['counts']}",
+              flush=True)
+
+        priced = {}
+        for name, factory, kw, weighted in (
+                ("sssp", SSSP, {"source": 0}, True),
+                ("pagerank", PageRank, {"delta": 0.85,
+                                        "max_round": PR_ROUNDS}, False)):
+            wk, counts, secs = counted(frag, factory, device, kw)
+            priced[name] = dict(
+                counts=counts, rounds=wk.rounds, measured_s=secs,
+                fitted_s=query_wall_s(frag, wk.rounds, profile=prof,
+                                      weighted=weighted),
+                datasheet_s=query_wall_s(frag, wk.rounds,
+                                         profile=calib.default_profile(),
+                                         weighted=weighted))
+            q = priced[name]
+            print(f"[calib] query_wall_s {name} RMAT-20 ({wk.rounds} rounds):"
+                  f" fitted {q['fitted_s']:.6f} s, data sheet "
+                  f"{q['datasheet_s']:.6f} s, measured {secs:.6f} s "
+                  f"(x{secs / q['fitted_s']:.3f} the fitted price)",
+                  flush=True)
+
+        burn = SLO_STATS.get("burn_by_key")
+        os.environ[calib.PROFILE_ENV] = rates
+        os.environ["GRAPE_LCC_BACKEND"] = "auto"
+        try:
+            app = sp.resolve_lcc_backend("triangle_count", frag18)
+            dec = sp.SPGEMM_STATS["decisions"][-1]
+            check(dec["profile"] == prof.label() and dec["backend"] == app,
+                  "spgemm auto did not record the fitted profile")
+            q = spgemm["query_s"]
+            print(f"[calib] spgemm auto rmat{BITMAP_SCALE} under "
+                  f"{dec['profile']}: {dec['backend']} (modeled spgemm "
+                  f"{dec['t_spgemm_s']:.6f} s / intersect "
+                  f"{dec['t_intersect_s']:.6f} s; data sheet: "
+                  f"{spgemm['auto']['backend']}); measured triangle_count "
+                  f"spgemm {q['spgemm']:.4f} s / intersect "
+                  f"{q['intersect']:.4f} s", flush=True)
+            src, dst = frag.edge_list[0], frag.edge_list[1]
+            part = resolve_partition("sssp", 4, src, dst,
+                                     np.arange(frag.dev.total_vnum),
+                                     mode="auto")
+            check(part["profile"] == prof.label(),
+                  "the partition record does not carry the fitted label")
+            c1, c2 = part["costs"]["1d"], part["costs"]["2d"]
+            print(f"[calib] partition auto sssp RMAT-20 fnum 4 under "
+                  f"{part['profile']}: engaged={part['engaged']} 1-D "
+                  f"compute {c1.get('t_compute_s', 0):.4e} s, "
+                  f"{c1['exchange_bytes']} exchange B; 2-D "
+                  f"{c2.get('t_compute_s', 0):.4e} s, "
+                  f"{c2['exchange_bytes']} B; reason: "
+                  f"{part.get('reason', 'both terms win')}", flush=True)
+            wall = query_wall_s(frag)
+            SLO_STATS["burn_by_key"] = {**(burn or {}), "tenant:calib": 1.5}
+            ctl = AdmissionController(
+                config=AdmissionConfig(max_cost_s=wall / 2), fragment=frag)
+            req = type("Req", (), {"tenant": "calib", "app_key": "sssp",
+                                   "max_rounds": None})()
+            verdict = ctl.review(req)
+            adm = AUTOPILOT_STATS["decisions"][-1]
+            check(verdict == "shed" and adm["profile"] == prof.label(),
+                  "the admission record does not carry the fitted label")
+            print(f"[calib] admission under {adm['profile']}: query_wall_s "
+                  f"{wall:.6f} s (16 rounds); a tenant at burn 1.5 with "
+                  f"max_cost_s {wall / 2:.6f}: {verdict}", flush=True)
+        finally:
+            os.environ.pop(calib.PROFILE_ENV, None)
+            os.environ.pop("GRAPE_LCC_BACKEND", None)
+            SLO_STATS["burn_by_key"] = burn
+    counts = dict.fromkeys(launch_counts(), 0)
+    for rec_ in [harvest] + list(priced.values()):
+        for k, v in rec_["counts"].items():
+            counts[k] += v
+    out.update(
+        counts=counts, seconds=time.perf_counter() - t_phase, fit=blk,
+        second_sweep=dict(exit=rc2, drift_pct=blk2["drift_pct"],
+                          surfaces=blk2["surfaces"], held_out=blk2["held_out"]),
+        harvest={k: v for k, v in harvest.items() if k != "counts"},
+        query_wall={k: {f: x for f, x in v.items() if f != "counts"}
+                    for k, v in priced.items()},
+        spgemm_auto=dec, partition={k: part.get(k) for k in (
+            "engaged", "reason", "costs", "profile")},
+        admission=adm)
+    print(f"[time] calib {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -5157,6 +5402,7 @@ def main() -> int:
     print(f"[spgemm] rmat{BITMAP_SCALE} credit pass {spgemm['credit_ms']:.4f} "
           f"ms beside K3 intersect oe {k3['oe']['ms']:.4f} + ie "
           f"{k3['ie']['ms']:.4f} ms (kernel phase, same graph)", flush=True)
+    calib = calib_phase(frag, frag18, spgemm, device)
     sampler = sampler_phase(device)
     t0 = time.perf_counter()
     grid, grid_edges = grid_fragment(GRID_SIDE, device, retain=True)
@@ -5185,7 +5431,7 @@ def main() -> int:
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
-              "load": load, "spgemm": spgemm, **dyn["runs"],
+              "load": load, "spgemm": spgemm, "calib": calib, **dyn["runs"],
               **serve["runs"], **fleet["runs"], **observ["runs"],
               **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"]}
     runs = list(by_app.values())
@@ -5303,6 +5549,7 @@ def main() -> int:
         "sssp_select": select,
         "load": {k: v for k, v in load.items() if k != "counts"},
         "spgemm": {k: v for k, v in spgemm.items() if k != "counts"},
+        "calib": {k: v for k, v in calib.items() if k != "counts"},
         "sampler": sampler,
         "dyn": {k: v for k, v in dyn.items() if k != "runs"}
         | {"runs": {k: {f: x for f, x in r.items() if f != "counts"}

@@ -200,6 +200,12 @@ class AppBase:
     # a batch of an app without them runs per-lane states
     lane_native: bool = False
 
+    # ops/calibration.py: the K1 pull a round of this app, as the rate
+    # harvest counts it -- "plain" (x only) or "weighted" (x and the edge
+    # weights) over the fragment's in-CSR; None when a round is not one
+    # such pull (no harvest)
+    k1_pull: str | None = None
+
     # dyn/: True when the app folds a fragment's staged delta-edge
     # overlay (frag.dyn_overlay) into its pull reduction -- sound only
     # for min folds, where extra candidates merge exactly.  Apps without

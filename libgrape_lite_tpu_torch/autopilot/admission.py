@@ -21,9 +21,11 @@ per-round ledgers (`spmv_pack.plan_ledger`), and falls back to the
 fragment's CSR bytes a round when no plan is resolved.  This package
 has no pack plans (its K1 walks the CSR itself), so `query_cost` is
 that fallback: `fragment_bytes` x rounds, the JAX package's answer on a
-fresh fragment.  The wall-clock price `query_wall_s` needs an H100
-`RateProfile` (ROADMAP Queue A item 6d); until then it is 0.0, the JAX
-package's answer with no plan resolved, so `max_cost_s` never sheds.
+fresh fragment.  The wall-clock price `query_wall_s` is one K1 pull over
+the fragment's in-CSR a round (`calibration.k1_columns`, the columns the
+rate sweep and the live harvest count) through the active rate profile's
+wall model, times the rounds.  Every shed and defer record carries the
+profile's label.
 """
 
 from __future__ import annotations
@@ -52,11 +54,23 @@ def query_cost(fragment, max_rounds: Optional[int] = None) -> float:
 
 
 def query_wall_s(fragment, max_rounds: Optional[int] = None,
-                 profile=None) -> float:
-    """One point query's modelled wall seconds: 0.0 until an H100
-    `RateProfile` exists (ROADMAP Queue A item 6d), as the JAX package
-    answers with no resolved plan."""
-    return 0.0
+                 profile=None, weighted: Optional[bool] = None) -> float:
+    """One point query's modelled wall seconds on `fragment` under
+    `profile` (default: the active RateProfile): one K1 pull over its
+    in-CSR a round (with its edge weights when `weighted` is None and it
+    carries them), priced by `profile.wall_s`, times the round limit.
+    0.0 for a fragment without a stacked in-CSR (the vertex cut)."""
+    from libgrape_lite_tpu_torch.ops.calibration import (
+        active_profile,
+        k1_columns,
+    )
+
+    cols = k1_columns(fragment, weighted=weighted)
+    if cols is None:
+        return 0.0
+    p = profile or active_profile()
+    rounds = int(max_rounds) if max_rounds else DEFAULT_PRICED_ROUNDS
+    return p.wall_s(cols) * rounds
 
 
 @dataclass(frozen=True)
@@ -145,7 +159,10 @@ class AdmissionController:
         except Exception:
             return "admit"
         if verdict != "admit":
+            from libgrape_lite_tpu_torch.ops.calibration import profile_label
+
             record_decision(verdict, tenant=req.tenant or "",
                             app=req.app_key, burn=round(burn, 4),
-                            cost=round(cost, 1), cost_s=round(cost_s, 6))
+                            cost=round(cost, 1), cost_s=round(cost_s, 6),
+                            profile=profile_label())
         return verdict

@@ -87,6 +87,17 @@ byte for byte the trace's row of that query:
 
     python -m libgrape_lite_tpu_torch.cli postmortem bundle.json \
         [--trace t.json] [--json]
+
+The `calibrate` subcommand (ops/calibration.py) times the port's kernels
+on the card, fits the rate profile every priced decision reads, writes
+it (install it with GRAPE_RATE_PROFILE=<path>) and gates modelled
+against measured seconds; exit 0 when the fit or the gate holds, 2 when
+the fit is infeasible, the drift passes 5% or a file is unreadable:
+
+    python -m libgrape_lite_tpu_torch.cli calibrate --out rates.json \
+        --samples-out samples.json [--scales 16,18 --ef 4,16] [--json]
+    python -m libgrape_lite_tpu_torch.cli calibrate --check \
+        --samples samples.json --profile rates.json
 """
 
 from __future__ import annotations
@@ -877,12 +888,168 @@ def postmortem_main(argv=None) -> int:
     return 1 if (mismatched or missing) else 0
 
 
+def make_calibrate_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="libgrape_lite_tpu_torch calibrate")
+    p.add_argument("--out", default="",
+                   help="write the fitted rate profile json here "
+                        "(install it with GRAPE_RATE_PROFILE=<path>)")
+    p.add_argument("--samples-out", default="",
+                   help="write the measured sweep json (--check "
+                        "--samples replays it)")
+    p.add_argument("--samples", default="",
+                   help="fit or check a recorded sample set instead of "
+                        "measuring")
+    p.add_argument("--check", action="store_true",
+                   help="no fit: gate the active profile (or --profile) "
+                        "against the samples; exit 2 past the 5%% "
+                        "tolerance")
+    p.add_argument("--profile", default="",
+                   help="the profile json --check gates (default: the "
+                        "active profile)")
+    p.add_argument("--scales", default="16,18",
+                   help="comma-separated RMAT scales of the sweep")
+    p.add_argument("--ef", default="4,16",
+                   help="comma-separated RMAT edge factors of the sweep")
+    p.add_argument("--repeats", type=int, default=3,
+                   help="best-of-N walls a call")
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--min-wall-s", type=float, default=-1.0,
+                   help="leave out sweep samples under this wall "
+                        "(default: 20 ms on the CPU, 0 on the card)")
+    p.add_argument("--json", action="store_true",
+                   help="print one JSON record instead of the table")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (raises without CUDA) or cpu (plain "
+                        "versions on the host clock: no card's rates)")
+    return p
+
+
+def _ints(text: str) -> tuple:
+    return tuple(int(v) for v in text.split(",") if v)
+
+
+def calibrate_main(argv=None) -> int:
+    """The `calibrate` subcommand: measure (or read) samples, fit the
+    rate profile and write it, or gate a profile against the samples.
+    Samples of the HELD_OUT surfaces are reported, never fitted or gated.
+    Exit 0 when the fit or the gate holds, 2 when the fit is infeasible,
+    the drift passes DRIFT_TOLERANCE or a samples or profile file is
+    unreadable."""
+    from libgrape_lite_tpu_torch.ops import calibration as calib
+    from libgrape_lite_tpu_torch.parallel.comm_spec import resolve_device
+
+    ns = make_calibrate_parser().parse_args(argv)
+    device = resolve_device(ns.device)
+    try:
+        if ns.samples:
+            samples = calib.load_samples(ns.samples)
+        else:
+            samples = calib.microbench_samples(
+                scales=_ints(ns.scales), efs=_ints(ns.ef), seed=ns.seed,
+                repeats=ns.repeats, device=device,
+                log=lambda line: print(line, file=sys.stderr, flush=True))
+            floor = (ns.min_wall_s if ns.min_wall_s >= 0
+                     else calib.default_min_wall_s(device))
+            kept = [s for s in samples if s["wall_s"] >= floor]
+            if len(kept) < len(samples):
+                print(f"calibrate: dropped {len(samples) - len(kept)} "
+                      f"sample(s) under the {floor * 1e3:g} ms floor",
+                      file=sys.stderr)
+            samples = kept
+        gated, held = calib.split_held_out(samples)
+        if not gated:
+            print("calibrate: no usable samples: nothing to fit",
+                  file=sys.stderr)
+            return 2
+        notes: list = []
+        fit = None
+        if ns.check:
+            prof = (calib.load_profile(ns.profile) if ns.profile
+                    else calib.active_profile())
+        else:
+            fit, notes = calib.fit_rates_auto(
+                gated, base=calib.default_profile(),
+                source="samples" if ns.samples else "microbench",
+                device=device)
+            prof = fit.profile
+        rep = calib.drift_report(prof, gated)
+        held_rep = calib.drift_report(prof, held) if held else None
+    except calib.CalibrationError as e:
+        print(f"calibrate: {e}", file=sys.stderr)
+        return 2
+
+    out_path = samples_path = None
+    if not ns.check and ns.out:
+        out_path = calib.save_profile(prof, ns.out)
+    if ns.samples_out:
+        samples_path = calib.save_samples(samples, ns.samples_out, device)
+    block = {
+        "profile": prof.label(),
+        "fingerprint": calib.backend_fingerprint(device),
+        "source": prof.source,
+        "fitted": bool(prof.fitted),
+        "samples": len(samples),
+        "regressors": list(fit.regressors) if fit is not None else [],
+        "cond": fit.cond if fit is not None else None,
+        "residual_pct": (round(fit.residual * 100.0, 3) if fit is not None
+                         else -1.0),
+        "drift_pct": rep["drift_pct"],
+        "max_sample_drift_pct": rep["max_sample_drift_pct"],
+        "drift_ok": rep["drift_ok"],
+        "rates": {
+            "ops_per_s": prof.ops_per_s,
+            "gather_per_s": prof.gather_per_s,
+            "hbm_bps": prof.hbm_bps,
+            "dispatch_overhead_s": prof.dispatch_overhead_s,
+            "exchange_bps": dict(prof.exchange_bps),
+            "hbm_capacity_bytes": prof.hbm_capacity_bytes,
+        },
+        "unfitted": sorted(prof.unfitted),
+        "fallback_notes": list(notes),
+        "surfaces": rep["surfaces"],
+        # measured under the profile, neither fitted nor gated
+        "held_out": held_rep["surfaces"] if held_rep else {},
+    }
+    if ns.json:
+        print(json.dumps({"calibration": block, "out": out_path,
+                          "samples_out": samples_path}))
+    else:
+        print(f"profile:  {block['profile']} (source={block['source']}, "
+              f"fitted={block['fitted']})")
+        for r, v in sorted(block["rates"].items()):
+            print(f"  {r:<22} {v}")
+        if fit is not None:
+            print(f"  regressors: {'+'.join(fit.regressors)}, condition "
+                  f"{fit.cond:.4g}")
+        if block["unfitted"]:
+            print(f"  unfitted (inherited): {', '.join(block['unfitted'])}")
+        for n in notes:
+            print(f"  [fallback] {n}")
+        for surf, e in sorted(rep["surfaces"].items()) + sorted(
+                block["held_out"].items()):
+            tag = " (held out)" if surf in block["held_out"] else ""
+            print(f"drift[{surf}]{tag}: modeled {e['modeled_s']:.6f}s vs "
+                  f"measured {e['measured_s']:.6f}s over {e['samples']} "
+                  f"sample(s) = {e['drift_pct']:g}%")
+        verdict = "OK" if rep["drift_ok"] else "FAIL"
+        print(f"{verdict}: drift {rep['drift_pct']:g}% (tolerance "
+              f"{rep['tolerance_pct']:g}%), residual "
+              f"{block['residual_pct']:g}%")
+        if out_path:
+            print(f"profile -> {out_path}")
+        if samples_path:
+            print(f"samples -> {samples_path}")
+    return 0 if rep["drift_ok"] else 2
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
     if argv and argv[0] == "postmortem":
         return postmortem_main(argv[1:])
+    if argv and argv[0] == "calibrate":
+        return calibrate_main(argv[1:])
     ns = make_parser().parse_args(argv)
     run_app(QueryArgs(**vars(ns)))
     return 0

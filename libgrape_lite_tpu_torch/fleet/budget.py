@@ -22,7 +22,8 @@ largest `idle_seconds * freeable_bytes / weight` goes first.  A fragment
 shared by residents is billed once and freeable only with its last
 resident.  The capacity is GRAPE_FLEET_HBM_BYTES, else GRAPE_HBM_BYTES,
 else the card's free memory (`device_budget_bytes`, as the loader's
-check reads it; the JAX package's 16 GiB on the CPU); 0 means no limit.
+check reads it; the default rate profile's 80 GB on the CPU); 0 means no
+limit.
 Every decision -- admit, evict, re-admit, reject -- is recorded in
 `FLEET_STATS`.
 """

@@ -26,14 +26,16 @@ import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch.graph.csr import CSR, build_csr
+from libgrape_lite_tpu_torch.ops.calibration import default_profile
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec, resolve_device
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy
 from libgrape_lite_tpu_torch.vertex_map.idxer import sorted_lookup
 from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
 
 _LOG = logging.getLogger(__name__)
-#: the JAX package's default budget, one v5e chip's HBM
-_CPU_BUDGET_DEFAULT = 16 << 30
+#: the budget off the card: the default rate profile's device memory
+#: (one H100's data-sheet 80 GB)
+_CPU_BUDGET_DEFAULT = default_profile().hbm_capacity_bytes
 
 #: the per-fragment caches of device tensors derived from `dev` (the push
 #: CSRs, `dest_degree`), each weak-keyed on the fragment: `release_device`
@@ -52,7 +54,7 @@ def device_cache() -> "weakref.WeakKeyDictionary":
 def device_budget_bytes(device) -> int:
     """The device byte budget: `GRAPE_HBM_BYTES` when set (0: no limit),
     else the card's free memory (`torch.cuda.mem_get_info`) on a CUDA
-    device, else the JAX package's 16 GiB."""
+    device, else the default rate profile's `hbm_capacity_bytes`."""
     env = os.environ.get("GRAPE_HBM_BYTES")
     if env is not None:
         return int(env)

@@ -260,6 +260,10 @@ def LoadGraph(
 # ---- the garc stream format (utils/archive.py) --------------------------
 
 _GARC_MAGIC = 0x47415243  # "GARC"
+#: a v2 frag.garc inflates to at most this many times its file's size
+#: (deflate's own ceiling is 1032:1; a fragment's CSR planes stay far
+#: below this)
+_V2_INFLATE_RATIO = 256
 
 # stream encodings, one flag byte per array.  _ENC_PICKLE is never
 # written since format v3 and refused on read: a crafted cache file must
@@ -467,9 +471,10 @@ def _read_cache_file(path: str) -> bytes:
 def _read_garc(cache: str):
     """Parse frag.garc -> (meta dict, per-fragment streams)."""
     blob = _read_cache_file(os.path.join(cache, "frag.garc"))
-    # v3 starts with the raw magic; v2 deflated the whole archive
+    # v3 starts with the raw magic; v2 deflated the whole archive, and
+    # its inflate is capped at a multiple of the file's size
     if not blob.startswith(_GARC_MAGIC.to_bytes(8, "little")):
-        blob = zlib.decompress(blob)
+        blob = _bounded_decompress(blob, _V2_INFLATE_RATIO * len(blob))
     oa = OutArchive(blob)
     if oa.get_scalar() != _GARC_MAGIC:
         raise ValueError("bad garc magic")

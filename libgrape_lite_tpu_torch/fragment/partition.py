@@ -15,24 +15,27 @@ cut's VC_TILE_STATS it is a FederatedStats that is not registered.
 The cost model is the JAX package's formula, term for term: a round
 costs its most loaded shard's (or tile's) padded edges times the ops an
 edge takes over the compute rate, plus its exchange bytes over the link
-rate.  The two rates are TPU constants in the JAX package (a v5e rate
-profile, `ops/calibration.py`); the port carries none over and has no
-H100 profile yet (ROADMAP Queue A item 6d), so `modeled_costs` prices
-each term in its own unit -- `padded_edge_ops` and `exchange_bytes`, with
-`t_round_s` filled only when the caller passes a profile.  Without one,
-`auto` engages the 2-D layout only when it wins on both terms, and
-otherwise declines with the reason recorded.
+rate.  Both rates come from the active rate profile
+(`ops/calibration.py`).  Each layout's record holds its terms in their own
+units (`padded_edge_ops`, `exchange_bytes`), the compute term in seconds
+(`t_compute_s`) when the profile measured `ops_per_s`, and the round in
+seconds (`t_round_s`) only when it measured the exchange rate too.
+Seconds decide `auto` only then: a rate the profile did not measure
+(listed in its `unfitted`, as every data-sheet rate is) decides nothing.
+On one card no link is measured (`StepContext.gather_state` is a
+reshape), so `auto` engages the 2-D layout only when it wins on both terms,
+and otherwise declines, its reason naming the unfitted exchange rate.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
 
 import numpy as np
 
 from libgrape_lite_tpu_torch.fragment.edgecut import _next_pow2, _round_up
 from libgrape_lite_tpu_torch.obs.federation import FederatedStats
+from libgrape_lite_tpu_torch.ops.calibration import RateProfile, active_profile
 
 # 1-D app name -> its registered 2-D twin; min folds are bit-equal to
 # the 1-D pull, PageRankVC's sum fold agrees within float eps
@@ -52,17 +55,6 @@ PARTITION_STATS = FederatedStats("partition", {
     "declined": 0,        # 2d / auto requested, ineligible or priced out
     "last_decision": None,
 }, register_=False)
-
-
-@dataclass(frozen=True)
-class RateProfile:
-    """The two rates that turn the model's terms into seconds: edge ops
-    a second and exchange bytes a second.  The port ships no values
-    (ROADMAP Queue A item 6d fits them from H100 walls)."""
-
-    edge_ops_per_s: float
-    link_bytes_per_s: float
-    name: str = "given"
 
 
 def exchange_bytes_1d(fnum: int, vp: int, itemsize: int = 4) -> int:
@@ -99,12 +91,13 @@ def partition_mode() -> str:
     return "1d"
 
 
-def _timed(term: dict, ope: float, profile) -> dict:
-    if profile is not None:
-        term["t_round_s"] = (term["padded_edges"] * ope
-                             / profile.edge_ops_per_s
-                             + term["exchange_bytes"]
-                             / profile.link_bytes_per_s)
+def _timed(term: dict, ope: float, profile: RateProfile, mode: str) -> dict:
+    """Seconds of a layout's terms, each only under a measured rate."""
+    if profile.measured("ops_per_s"):
+        term["t_compute_s"] = term["padded_edges"] * ope / profile.ops_per_s
+        if profile.measured("exchange_bps"):
+            term["t_round_s"] = (term["t_compute_s"] + term["exchange_bytes"]
+                                 / profile.exchange_bps[mode])
     return term
 
 
@@ -117,8 +110,10 @@ def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
     tiles follow the map partitioner's and VCPartitioner's contiguous
     ranges.  Each layout's record holds its most loaded shard or tile
     (`max_shard_edges` / `max_tile_edges`), the padded edge ops of a
-    round and its exchange bytes; `t_round_s` only with a `profile`."""
+    round and its exchange bytes, and the seconds `_timed` allows under
+    `profile` (default: the active one)."""
     ope = DEFAULT_OPS_PER_EDGE if ops_per_edge is None else ops_per_edge
+    profile = profile or active_profile()
     s = np.asarray(src)
     d = np.asarray(dst)
     if not directed:
@@ -137,7 +132,7 @@ def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
         "padded_edges": _round_up(max_shard, 128),
         "padded_edge_ops": _round_up(max_shard, 128) * ope,
         "exchange_bytes": bytes_1d,
-    }, ope, profile)}
+    }, ope, profile, "gather")}
     k = int(round(np.sqrt(fnum)))
     if k * k == fnum and k >= 1:
         chunk = max(1, -(-n_vertices // k))
@@ -151,7 +146,7 @@ def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
             "padded_edges": _round_up(max_tile, 128),
             "padded_edge_ops": _round_up(max_tile, 128) * ope,
             "exchange_bytes": exchange_bytes_2d(k, vc, itemsize),
-        }, ope, profile)
+        }, ope, profile, "vc2d")
     for rec in out.values():
         del rec["padded_edges"]
     return out
@@ -178,9 +173,9 @@ def precheck_partition(app_name: str, fnum: int, *, directed: bool = False,
     return None
 
 
-def _beats(costs: dict) -> tuple:
-    """(2-D wins, the comparison's text): by seconds when a profile
-    timed both layouts, else on both terms at once."""
+def _beats(costs: dict, profile: RateProfile) -> tuple:
+    """(2-D wins, the comparison's text): by seconds when the profile
+    measured every rate they use, else on both terms at once."""
     one, two = costs["1d"], costs["2d"]
     if "t_round_s" in one:
         return (two["t_round_s"] < one["t_round_s"],
@@ -188,12 +183,15 @@ def _beats(costs: dict) -> tuple:
                 f"beat 1-D {one['t_round_s']:.3e}s")
     wins = (two["padded_edge_ops"] < one["padded_edge_ops"]
             and two["exchange_bytes"] < one["exchange_bytes"])
+    unmeasured = [r for r in ("ops_per_s", "exchange_bps")
+                  if not profile.measured(r)]
     return wins, (
         f"modeled 2-D round ({two['padded_edge_ops']:.3e} padded edge ops, "
         f"{two['exchange_bytes']} exchange B) does not beat 1-D "
         f"({one['padded_edge_ops']:.3e}, {one['exchange_bytes']} B) on "
-        "both terms, and no rate profile weighs one against the other "
-        "(ROADMAP Queue A item 6d)")
+        f"both terms, and rate profile {profile.label()} has no measured "
+        f"{' or '.join(unmeasured)} to weigh one against the other "
+        "(unfitted: one card measures no link)")
 
 
 def resolve_partition(app_name: str, fnum: int, src: np.ndarray,
@@ -210,10 +208,10 @@ def resolve_partition(app_name: str, fnum: int, src: np.ndarray,
     from libgrape_lite_tpu_torch.utils import logging as glog
 
     mode = partition_mode() if mode is None else mode
+    profile = profile or active_profile()
     decision = {
         "app": app_name, "requested": mode, "fnum": fnum,
-        "mode": "1d", "engaged": False,
-        "profile": profile.name if profile is not None else "none",
+        "mode": "1d", "engaged": False, "profile": profile.label(),
     }
 
     def declined(why: str, count: bool = True):
@@ -240,7 +238,7 @@ def resolve_partition(app_name: str, fnum: int, src: np.ndarray,
     if "2d" not in costs:
         return declined("cost model found no k^2 tiling")
     if mode == "auto":
-        wins, text = _beats(costs)
+        wins, text = _beats(costs, profile)
         if not wins:
             return declined(text + " (balanced cut or k too small for the "
                             "byte win; GRAPE_PARTITION=2d forces)")

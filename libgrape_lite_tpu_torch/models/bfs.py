@@ -54,6 +54,7 @@ class BFS(ParallelAppBase):
     inc_seed_keys = {"depth": "min"}
     batch_query_key = "source"  # serve/: k sources, one pull a round
     lane_native = True
+    k1_pull = "plain"  # ops/calibration.py: one K1 pull a round
 
     def init_state(self, frag, source=0):
         batched, depth = source_lane_array(frag, source, "BFS", _SENTINEL, 0,

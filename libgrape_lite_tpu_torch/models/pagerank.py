@@ -55,6 +55,7 @@ class PageRank(BatchShuffleAppBase):
     # serve/: personalized queries batch over their seeds
     batch_query_key = "source"
     lane_native = True
+    k1_pull = "plain"  # ops/calibration.py: one K1 pull a round
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  spmv_mode: str = "auto", dtype: torch.dtype = torch.float32):

@@ -50,6 +50,7 @@ class SSSP(ParallelAppBase):
     inc_seed_keys = {"dist": "min"}
     batch_query_key = "source"  # serve/: k sources, one pull a round
     lane_native = True
+    k1_pull = "weighted"  # ops/calibration.py: one K1 pull a round
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         self.dtype = dtype

@@ -22,9 +22,10 @@ intersect backend (the same 3-credit algebra over the same oriented
 edges).
 
 `GRAPE_LCC_BACKEND` = intersect | spgemm | auto selects the LCC backend
-(`resolve_lcc_backend`); `auto` prices both ledgers at an H100 rate
-record (`H100_RATES`: the data-sheet HBM3 rate and FP32 peak that
-PERF.md's bound column uses).  Every decision and every decline is
+(`resolve_lcc_backend`); `auto` prices both ledgers at the active rate
+profile (`ops/calibration.py`: the H100 data sheet unless
+GRAPE_RATE_PROFILE installs a fitted one; `H100_RATES` reads the data
+sheet's two rates).  Every decision and every decline is
 recorded in `SPGEMM_STATS`, never silent.  Plans are memoized per
 fragment and, under `GRAPE_PACK_PLAN_CACHE`, in an npz disk cache whose
 file names are the JAX package's.
@@ -43,7 +44,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.ops import calibration
+
 _LOG = logging.getLogger(__name__)
+_DATASHEET = calibration.default_profile()
 
 C = 128          # lane width == K-tile width (one [128,128]-bit tile)
 WPT = C // 32    # uint32 words per bitmap row per K-tile
@@ -625,10 +629,10 @@ SPGEMM_STATS: dict = {
 }
 _STATS_CAP = 64
 
-#: the rates `auto` prices at: one H100 SXM's data-sheet HBM3 bandwidth
-#: and FP32 peak, the two constants of chip_smoke.py's bound column
-H100_RATES = {"label": "h100-sxm-datasheet", "ops_per_s": 67e12,
-              "bytes_per_s": 3.35e12}
+#: the data-sheet rates `auto` prices at when no profile is installed,
+#: read from the default profile (ops/calibration.py)
+H100_RATES = {"label": _DATASHEET.label(), "ops_per_s": _DATASHEET.ops_per_s,
+              "bytes_per_s": _DATASHEET.hbm_bps}
 
 
 def _record(kind: str, rec: dict):
@@ -686,18 +690,23 @@ def intersect_ledger_geom(n_pad: int, ep_oe: int, ep_ie: int,
 
 
 def price_backends(spgemm_ledger: dict, intersect: dict,
-                   rates: dict | None = None) -> dict:
-    """Modeled seconds of both backends, each max(ops / op rate, bytes /
-    bandwidth) at `rates` (default `H100_RATES`); spgemm's ops are its
-    ledger's op columns summed."""
-    r = rates or H100_RATES
-    t = spgemm_ledger["totals"]
-    sp = max((t["vpu_ops"] + t["mxu_ops"] + t["gather_rows"])
-             / r["ops_per_s"], t["hbm_bytes"] / r["bytes_per_s"])
-    it = max(intersect["word_ops"] / r["ops_per_s"],
-             intersect["hbm_bytes"] / r["bytes_per_s"])
-    return {"t_spgemm_s": sp, "t_intersect_s": it,
-            "spgemm_wins": bool(sp < it), "profile": r["label"]}
+                   profile=None) -> dict:
+    """Modeled seconds of both backends at `profile` (default: the active
+    RateProfile), each max(compute, bytes / hbm_bps) with the columns of
+    `calibration.spgemm_columns` / `intersect_columns`: spgemm's compute is
+    its ops over ops_per_s plus its gather rows over gather_per_s.  Gather
+    rows are priced in op equivalents, so at the data sheet (gather rows
+    at the op rate) the sums are the ones priced before profiles existed,
+    bit for bit."""
+    p = profile or calibration.active_profile()
+    sg = calibration.spgemm_columns(spgemm_ledger)
+    it = calibration.intersect_columns(intersect)
+    t_sp = max((sg["ops"] + sg["gather_rows"] * (p.ops_per_s
+                                                 / p.gather_per_s))
+               / p.ops_per_s, sg["hbm_bytes"] / p.hbm_bps)
+    t_it = max(it["ops"] / p.ops_per_s, it["hbm_bytes"] / p.hbm_bps)
+    return {"t_spgemm_s": t_sp, "t_intersect_s": t_it,
+            "spgemm_wins": bool(t_sp < t_it), "profile": p.label()}
 
 
 def resolve_lcc_backend(app_name: str, frag, degree_threshold: int = 0,

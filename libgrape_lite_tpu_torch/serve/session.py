@@ -57,6 +57,19 @@ from libgrape_lite_tpu_torch.serve.queue import (
 )
 from libgrape_lite_tpu_torch.worker.worker import Worker
 
+
+def _calibration_harvester():
+    """The live-harvest hook (ops/calibration.py): when
+    GRAPE_CALIBRATE_HARVEST is armed, the callable that joins an
+    execution's measured wall to its worker's K1 columns; None (the
+    common case) costs one environment read."""
+    from libgrape_lite_tpu_torch.ops import calibration
+
+    if not calibration.harvest_armed():
+        return None
+    return calibration.harvest_from_worker
+
+
 def check_guard(guard) -> None:
     """Refuse an unknown guard policy at the door (None reads
     GRAPE_GUARD at dispatch; a GuardConfig passes as it is)."""
@@ -495,6 +508,11 @@ class ServeSession:
             vals = w.result_values()
             stages = self._exec_stages(t_exec - t0)
             stages["harvest_us"] = (time.perf_counter_ns() - t_exec) // 1000
+            harvest = _calibration_harvester()
+            if harvest is not None:
+                # the query's last vote read ended its wall: device_us is
+                # 0 here, the execution is timed whole
+                harvest(w, (t_exec - t0) / 1e9, w.rounds)
             return ServeResult(
                 request_id=req.id, app_key=req.app_key, ok=True,
                 values=vals, rounds=w.rounds,
@@ -521,6 +539,13 @@ class ServeSession:
             self.stats["failed"] += len(batch)
             return _error_results(batch, f"{type(e).__name__}: {e}")
         stages = self._exec_stages(t_exec - t0)
+        harvest = _calibration_harvester()
+        if harvest is not None:
+            # the lanes run in lockstep to the longest lane's rounds
+            br = w.batch_rounds
+            rounds = (max(int(r) for r in br) if br is not None and len(br)
+                      else w.rounds)
+            harvest(w, (t_exec - t0) / 1e9, rounds, lanes=len(batch))
         results = lane_results(batch, w.batch_rounds, w.batch_terminate,
                                w.batch_breaches, w.batch_result_values,
                                stages)

@@ -7,7 +7,7 @@
 * `ResultCache`'s counters, LRU and epoch invalidation equal the JAX
   cache's on one scripted sequence; `query_cost` equals the JAX price on
   p2p-31 at fnum 1, 2, 4 and 8 (an integer number of bytes: exact);
-  `query_wall_s` is 0.0;
+  `query_wall_s` is one K1 pull a round priced at the data sheet;
 * `obs/slo.py`: `parse_spec`, `objective_for` and the burn after the
   same observations equal the JAX module's (burn rounded to 4 places by
   both); `obs/federation.py`: the namespaces, `self_check`;
@@ -58,6 +58,7 @@ from libgrape_lite_tpu_torch.fleet import FLEET_STATS, FleetBudget, FleetRouter
 from libgrape_lite_tpu_torch.fragment.mutation import replicate_fragment
 from libgrape_lite_tpu_torch.obs import federation, slo
 from libgrape_lite_tpu_torch.obs.slo import SLO_STATS
+from libgrape_lite_tpu_torch.ops import calibration
 from libgrape_lite_tpu_torch.ops.spmv import plan_stats
 from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
 from tests.conftest import dataset_path
@@ -190,7 +191,10 @@ def test_query_cost_matches_jax(fnum):
         assert query_cost(frag, rounds) == jadmission.query_cost(
             jfrag, rounds) > 0
     assert query_cost(frag) == query_cost(frag, DEFAULT_PRICED_ROUNDS)
-    assert query_wall_s(frag) == 0.0
+    one_pull = calibration.default_profile().wall_s(
+        calibration.k1_columns(frag))
+    assert one_pull > 0
+    assert query_wall_s(frag) == one_pull * DEFAULT_PRICED_ROUNDS
     assert AUTOPILOT_STATS["priced"] == 5  # one count a price
 
 

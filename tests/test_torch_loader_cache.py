@@ -6,7 +6,7 @@ a cache either package writes loads in the other with every fragment leaf
 equal, at fnum 1, 2, 4 and 8, directed and undirected, integer and string
 ids.  Also the stream codecs (byte-identical to the JAX package's), the
 fnum / weight / direction refusals and the refusal of a pickle stream
-and of a decompression bomb.
+and of a decompression bomb (a stream's, and a v2 archive's whole).
 """
 
 import os
@@ -219,6 +219,26 @@ def test_decompression_bomb_refused():
     with pytest.raises(ValueError, match="exceeds"):
         loader._bounded_decompress(bomb, 0)
     assert loader._bounded_decompress(zlib.compress(b""), 0) == b""
+
+
+def test_v2_whole_archive_inflate_is_capped(tmp_path):
+    """A v2 frag.garc (the whole archive deflated) loads as the archive it
+    wraps, and a small crafted bomb in its place is refused: the inflate
+    stops at `_V2_INFLATE_RATIO` times the file's size."""
+    _, spec = spec_pair(tmp_path)
+    want = port_load(1, spec)
+    cache, _ = loader._cache_dir(E, V, spec, 1)
+    path = os.path.join(cache, "frag.garc")
+    blob = open(path, "rb").read()
+    with open(path, "wb") as fh:
+        fh.write(zlib.compress(blob, 9))
+    assert_same_host(port_load(1, spec), want)
+    bomb = zlib.compress(b"\x00" * (32 << 20), 9)  # ~32 KiB on disk
+    assert len(bomb) * loader._V2_INFLATE_RATIO < 32 << 20
+    with open(path, "wb") as fh:
+        fh.write(bomb)
+    with pytest.raises(ValueError, match="exceeds"):
+        port_load(1, spec)
 
 
 def test_trailing_bytes_and_bad_magic_refused(tmp_path):

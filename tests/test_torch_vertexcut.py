@@ -438,26 +438,30 @@ def test_resolve_partition_decisions_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("fnum", [1, 4, 9, 16])
 def test_modeled_costs_terms_match_jax(fnum):
-    """The same terms; with a rate profile given (here the JAX package's
-    default rates, passed in by the test: the port carries none) the same
-    seconds."""
+    """The same terms; under a profile that measured the compute and link
+    rates (here the JAX package's default rates, set by the test: the
+    port carries none) the same seconds; under the data sheet, whose rates
+    are all unfitted, no seconds."""
     from libgrape_lite_tpu.fragment.partition import modeled_costs as J
     from libgrape_lite_tpu.ops.calibration import active_profile
-    from libgrape_lite_tpu_torch.fragment.partition import (
+    from libgrape_lite_tpu_torch.fragment.partition import modeled_costs
+    from libgrape_lite_tpu_torch.ops.calibration import (
+        EXCHANGE_MODES,
         RateProfile,
-        modeled_costs,
     )
 
     src, dst, _, oids = edges()
     n = int(oids.max()) + 1
     jp = active_profile()
-    prof = RateProfile(edge_ops_per_s=jp.vpu_lanes_per_cycle * jp.clock_hz,
-                       link_bytes_per_s=jp.ici_bps)
+    prof = RateProfile(ops_per_s=jp.vpu_lanes_per_cycle * jp.clock_hz,
+                       exchange_bps=dict.fromkeys(EXCHANGE_MODES, jp.ici_bps),
+                       fitted=True, unfitted=())
     want = J(src, dst, n, fnum)
     got = modeled_costs(src, dst, n, fnum, profile=prof)
     bare = modeled_costs(src, dst, n, fnum)
     assert set(got) == set(want)
     for lay in want:
+        assert "t_compute_s" not in bare[lay]
         for key, v in want[lay].items():
             if key == "t_round_s":
                 assert got[lay][key] == pytest.approx(v, rel=1e-12)
