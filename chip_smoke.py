@@ -250,6 +250,18 @@ the port's own entry points:
      one sssp_vc query at k 2 and 4; on p2p-31 `run_app --vc` pagerank and
      GRAPE_PARTITION=2d sssp, bfs and wcc at fnum 1 and 4 against the
      goldens, and a `--delta_efile` run recording its decline;
+  11i. grape-lint (`[lint]`, analysis/): `lint --json` in a child process
+     (the AST rules over the port's tree: exit 0, the per-rule counts),
+     then `lint --artifact --json` in another (A3: the sssp / bfs x
+     fused / guarded / batched / incremental matrix through
+     `Worker.query`, `query(guard="halt")`, `query_batch` and
+     `query_incremental` on the card, warmed once, then every cell at 0
+     build events -- no kernel library loaded, no strict plan built, no
+     device cache filled; the child's K1 and lane K1 launches
+     counted); then, as a measurement, the host syncs of the async
+     pump's dispatch stage (`_fill`, launches held) on a warmed window of
+     4 over 32 sssp queries on p2p-31 at max_batch 8 (CUDA's sync-debug
+     mode), a batch, the results byte-identical to the warm pass;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -4665,9 +4677,10 @@ GUARD_PUMP_WINDOW = 4
 
 
 def call_syncs(fn, device) -> int:
-    """Host synchronisations inside `fn()`, as CUDA's sync-debug mode
-    reports them."""
+    """Run `fn()` and count its host synchronisations, as CUDA's
+    sync-debug mode reports them (0 off the card: no sync-debug mode)."""
     if torch.device(device).type != "cuda":
+        fn()
         return 0
     sync(device)
     with warnings.catch_warnings(record=True) as caught:
@@ -5186,6 +5199,142 @@ def vc_phases(frag, e_sym, device) -> dict:
 
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
 
+LINT_WINDOW = 4  # the pump's window in the dispatch-stage sync count
+LINT_QUERIES = 32  # sssp queries over p2p-31 a pass: LINT_WINDOW batches
+LINT_BATCH = 8
+
+
+def lint_cli(args) -> tuple:
+    """`lint <args> --json` (cli.py::lint_main) in a child process, its
+    kernel launches counted there: (exit code, its JSON record or None,
+    the child's launch counts, its stderr)."""
+    code = (
+        "import json, sys\n"
+        "from libgrape_lite_tpu_torch.cli import lint_main\n"
+        "from libgrape_lite_tpu_torch.ops import intersect, spmv\n"
+        f"rc = lint_main({list(args) + ['--json']!r})\n"
+        "print('[launches] ' + json.dumps({\n"
+        "    'gather_reduce': spmv.gather_reduce.launches,\n"
+        "    'gather_reduce_lanes': spmv.gather_reduce_lanes.launches,\n"
+        "    'overlay_fold': spmv.overlay_fold.launches,\n"
+        "    'strict_tile': spmv.spmv_strict.launches,\n"
+        "    'intersect': intersect.row_and_popcount_indexed.launches}),\n"
+        "    file=sys.stderr)\n"
+        "sys.exit(rc)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                       capture_output=True, text=True, timeout=300)
+    lines = r.stdout.strip().splitlines()
+    counts = {}
+    for line in r.stderr.splitlines():
+        if line.startswith("[launches] "):
+            counts = json.loads(line[len("[launches] "):])
+    return (r.returncode, json.loads(lines[-1]) if lines else None, counts,
+            r.stderr)
+
+
+def dispatch_syncs_phase(device) -> dict:
+    """Host syncs of the async pump's dispatch stage (`_fill`: pop,
+    `_dispatch_stage`, `Worker.query_batch_prepare`) on a warmed window of
+    LINT_WINDOW over LINT_QUERIES sssp queries on p2p-31, from CUDA's
+    sync-debug mode.  Launches are held for the count (a launched batch's
+    round loop runs in its own thread and reads its votes), then the
+    window drains and every result is byte-identical to the warm pass."""
+    from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.serve import BatchPolicy, ServeSession
+
+    data = os.path.join(HERE, "dataset")
+    frag = LoadGraph(os.path.join(data, "p2p-31.e"),
+                     os.path.join(data, "p2p-31.v"),
+                     CommSpec(fnum=1, device=device),
+                     LoadGraphSpec(weighted=True))
+    stream = [("sssp", {"source": s})
+              for s in serve_sources(frag, LINT_QUERIES)]
+    sess = ServeSession(frag, policy=BatchPolicy(max_batch=LINT_BATCH))
+    pump = sess.async_pump(window=LINT_WINDOW)
+    for app, args in stream:
+        sess.submit(app, args)
+    warm = pump.drain()
+    reset_launch_counts()
+    for app, args in stream:
+        sess.submit(app, args)
+    dispatched = pump.stats["dispatched"]
+    held = pump._launch_next
+    pump._launch_next = lambda: None
+    try:
+        syncs = call_syncs(lambda: pump._fill(force=True), device)
+    finally:
+        pump._launch_next = held
+    batches = pump.stats["dispatched"] - dispatched
+    res = pump.drain()
+    counts = launch_counts()
+    pump.close()
+    check(batches == LINT_WINDOW,
+          f"the measured fill dispatched {batches} batches, want "
+          f"{LINT_WINDOW}")
+    same_results(warm, res, "the pump after the sync count")
+    check(counts["gather_reduce_lanes"] > 0,
+          "the measured window launched no K1 lane call")
+    rec = dict(counts=counts, syncs=syncs, batches=batches,
+               syncs_per_batch=syncs / batches, window=LINT_WINDOW,
+               queries=len(res))
+    print(f"[lint] dispatch stage: p2p-31 sssp, W={LINT_WINDOW}, "
+          f"{len(res)} queries at max_batch {LINT_BATCH}: {syncs} host "
+          f"syncs in _fill over {batches} dispatched batches = "
+          f"{rec['syncs_per_batch']:.2f} a batch (launches held; "
+          f"launches={counts})", flush=True)
+    return rec
+
+
+def lint_phase(device) -> dict:
+    """grape-lint on the card (`[lint]`): `lint --json` (the AST rules over
+    the port's tree: exit 0, the per-rule counts) and `lint --artifact
+    --json` (A3: the warm sssp / bfs matrix through `Worker.query`,
+    `query(guard="halt")`, `query_batch` and `query_incremental` on the
+    card, every warmed cell at 0 build events) in child processes; then
+    the dispatch stage's host syncs a batch (a measurement, not a gate)."""
+    from libgrape_lite_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    out = {"runs": {}}
+    rc, rec, _, err = lint_cli([])
+    check(rc == 0 and rec is not None,
+          f"lint exit {rc}: {err.strip()[-2000:]}")
+    check(analysis.validate_lint_report(rec) == [],
+          f"lint record off its schema: {analysis.validate_lint_report(rec)}")
+    per_rule = {r: rec["counts"].get(r, 0) for r in analysis.RULES
+                if r.startswith("R")}
+    print(f"[lint] ast: exit {rc}, per-rule counts {per_rule}, suppressed "
+          f"{rec['suppressed']}, stale {len(rec['stale'])}", flush=True)
+    rc, rec, counts, err = lint_cli(["--artifact", "--device", str(device)])
+    check(rc == 0 and rec is not None,
+          f"lint --artifact exit {rc}: {err.strip()[-2000:]}")
+    check(analysis.validate_lint_report(rec) == [],
+          f"lint --artifact record off its schema: "
+          f"{analysis.validate_lint_report(rec)}")
+    audit = rec["artifact"]["build_audit"]
+    check(audit["device"].startswith("cuda"),
+          f"A3 ran on {audit['device']}, not the card")
+    check(len(audit["cells"]) == 8, f"A3 ran {len(audit['cells'])} cells")
+    for cell in audit["cells"]:
+        print(f"[lint] A3 {cell['app']} {cell['mode']}: builds "
+              f"{cell['builds']} {cell['events']}", flush=True)
+        check(cell["builds"] == 0,
+              f"A3: warmed {cell['app']} {cell['mode']} built "
+              f"{cell['events']}")
+    check(counts.get("gather_reduce", 0) > 0
+          and counts.get("gather_reduce_lanes", 0) > 0,
+          f"the A3 matrix did not launch K1 and the lane K1: {counts}")
+    print(f"[lint] artifact: exit {rc}, {len(audit['cells'])} cells, "
+          f"unexpected builds {audit['unexpected_builds']}, launches "
+          f"{counts}", flush=True)
+    out["runs"]["lint artifact"] = dict(counts=counts, per_rule=per_rule,
+                                        cells=audit["cells"])
+    out["runs"]["lint dispatch"] = dispatch_syncs_phase(device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def caps_phase():
     """Which primitives this nvcc builds for sm_90a (compiled, never
     launched); any that fails prints the compiler's message.  `main`
@@ -5427,13 +5576,16 @@ def main() -> int:
     vc = vc_phases(frag, e_sym, device)
     print(f"[time] guard serve {gsrv['seconds']:.1f} s, vc "
           f"{vc['seconds']:.1f} s", flush=True)
+    lint = lint_phase(device)
+    print(f"[time] lint {lint['seconds']:.1f} s", flush=True)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
               "sssp": ss, **ldbc, **variants, **more, **cliques,
               "load": load, "spgemm": spgemm, "calib": calib, **dyn["runs"],
               **serve["runs"], **fleet["runs"], **observ["runs"],
-              **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"]}
+              **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"],
+              **lint["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -5489,7 +5641,8 @@ def main() -> int:
                                              **fleet["runs"],
                                              **observ["runs"],
                                              **gsrv["runs"],
-                                             **vc["runs"]}.items()
+                                             **vc["runs"],
+                                             **lint["runs"]}.items()
                               if "gather_reduce_lanes" in r["counts"]},
              max_abs_err_all=max(r["max_abs_err"]
                                  for r in serve["kernel"].values()),
@@ -5578,6 +5731,9 @@ def main() -> int:
         "vc": {"seconds": vc["seconds"], "builds": vc["builds"]}
         | {k: {f: x for f, x in r.items() if f != "counts"}
            for k, r in vc["runs"].items()},
+        "lint": {"seconds": lint["seconds"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in lint["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

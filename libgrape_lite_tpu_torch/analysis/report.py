@@ -1,0 +1,363 @@
+"""Findings, fingerprints, the suppression baseline and the report
+schema of grape-lint (analysis/).
+
+Counterpart of `libgrape_lite_tpu/analysis/report.py`, with its keys and
+schema, so the two packages' `lint --json` records read alike.  A finding
+is (rule id, file:line, enclosing symbol, message, fingerprint); the
+fingerprint leaves out the line number, so a finding survives unrelated
+edits above it.
+
+The baseline (`analysis/baseline.json`, checked in) names intentional
+exceptions: a finding is suppressed by fingerprint WITH a reason, and an
+entry covers at most its `count` findings.  On the default full-tree
+scope an entry that matches nothing is stale and fails the gate.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+# severity is advisory (every unsuppressed finding fails the gate);
+# it orders the human report (the JAX package's order for these rules)
+_SEVERITY = {"R4": 3, "R5": 4, "R7": 1, "A3": 1}
+
+
+@dataclass(frozen=True)
+class Finding:
+    rule: str          # "R4".."R12" (AST) / "A3" (artifact)
+    path: str          # repo-relative, '/'-separated
+    line: int          # 1-indexed; 0 for artifact-level findings
+    symbol: str        # enclosing qualname ("Worker._make_runner.stepper")
+    message: str       # one-sentence defect statement
+
+    @property
+    def fingerprint(self) -> str:
+        """Line-stable identity: rule + path + symbol + message.
+        Unrelated edits that shift line numbers do not invalidate a
+        baseline entry; renaming the symbol or changing the defect
+        does (and should -- the exception must be re-justified)."""
+        h = hashlib.sha256(
+            "\x1f".join(
+                (self.rule, self.path, self.symbol, self.message)
+            ).encode()
+        )
+        return h.hexdigest()[:16]
+
+    def to_dict(self, suppressed: bool = False) -> dict:
+        return {
+            "rule": self.rule,
+            "path": self.path,
+            "line": self.line,
+            "symbol": self.symbol,
+            "message": self.message,
+            "fingerprint": self.fingerprint,
+            "suppressed": suppressed,
+        }
+
+
+def sort_findings(findings: List[Finding]) -> List[Finding]:
+    return sorted(
+        findings,
+        key=lambda f: (_SEVERITY.get(f.rule, 9), f.path, f.line, f.rule),
+    )
+
+
+# ---- suppression baseline -------------------------------------------------
+
+DEFAULT_BASELINE = os.path.join(os.path.dirname(__file__), "baseline.json")
+
+
+@dataclass
+class Baseline:
+    """Named suppressions keyed by finding fingerprint.  Every entry
+    carries a human reason -- `lint --update-baseline` refuses to write
+    entries without one, so "why is this allowed" is always answerable
+    from the file itself."""
+
+    entries: Dict[str, dict] = field(default_factory=dict)
+    path: Optional[str] = None
+
+    @classmethod
+    def load(cls, path: Optional[str] = None) -> "Baseline":
+        path = os.path.abspath(path or DEFAULT_BASELINE)
+        if not os.path.exists(path):
+            return cls(entries={}, path=path)
+        with open(path) as f:
+            doc = json.load(f)
+        if not isinstance(doc, dict) or "suppressions" not in doc:
+            raise ValueError(
+                f"{path}: baseline must be an object with a "
+                "'suppressions' list"
+            )
+        entries = {}
+        for e in doc["suppressions"]:
+            missing = [k for k in ("fingerprint", "rule", "reason")
+                       if k not in e]
+            if missing:
+                raise ValueError(
+                    f"{path}: suppression entry {e!r} is missing "
+                    f"{missing} -- exceptions must be named, not vague"
+                )
+            entries[e["fingerprint"]] = dict(e)
+        return cls(entries=entries, path=path)
+
+    def suppresses(self, finding: Finding) -> bool:
+        """Whether an entry MATCHES this finding (budget-blind; the
+        per-entry `count` budget is enforced by split_by_baseline so
+        one entry cannot silently absorb a SECOND identical-message
+        violation added later to the same function)."""
+        e = self.entries.get(finding.fingerprint)
+        return e is not None and e.get("rule") == finding.rule
+
+    def budget(self, fingerprint: str) -> int:
+        e = self.entries.get(fingerprint)
+        return int(e.get("count", 1)) if e is not None else 0
+
+    def save(self, path: Optional[str] = None) -> str:
+        path = path or self.path or DEFAULT_BASELINE
+        doc = {
+            "version": 1,
+            "suppressions": sorted(
+                self.entries.values(),
+                key=lambda e: (e["rule"], e.get("path", ""),
+                               e["fingerprint"]),
+            ),
+        }
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2, sort_keys=True)
+            f.write("\n")
+        return path
+
+    def add(self, finding: Finding, reason: str) -> None:
+        if not reason:
+            raise ValueError(
+                "a baseline suppression needs a reason -- intentional "
+                "exceptions are named, not invisible"
+            )
+        prev = self.entries.get(finding.fingerprint)
+        if prev is not None and prev.get("rule") == finding.rule:
+            # a second identical-fingerprint finding (same defect
+            # message repeated in one function) costs a second unit
+            # of budget -- it must be suppressed EXPLICITLY, never
+            # absorbed by the first entry; its reason is recorded
+            # too (every instance stays named, not just the first)
+            prev["count"] = int(prev.get("count", 1)) + 1
+            if reason not in prev["reason"]:
+                prev["reason"] += (
+                    f"; instance {prev['count']}: {reason}"
+                )
+            return
+        self.entries[finding.fingerprint] = {
+            "fingerprint": finding.fingerprint,
+            "rule": finding.rule,
+            "path": finding.path,
+            "symbol": finding.symbol,
+            "reason": reason,
+        }
+
+
+# ---- report rendering -----------------------------------------------------
+
+
+def split_by_baseline(findings: List[Finding], baseline: Baseline):
+    """(unsuppressed, suppressed) in stable severity order.  Each
+    baseline entry suppresses at most its `count` (default 1)
+    matching findings: fingerprints exclude the line number for
+    line-stability, so two identical-message violations in one
+    function collide -- the budget keeps a shipped suppression from
+    silently covering a NEW instance of the same defect class."""
+    live, quiet = [], []
+    used: Dict[str, int] = {}
+    for f in sort_findings(findings):
+        fp = f.fingerprint
+        if (
+            baseline.suppresses(f)
+            and used.get(fp, 0) < baseline.budget(fp)
+        ):
+            used[fp] = used.get(fp, 0) + 1
+            quiet.append(f)
+        else:
+            live.append(f)
+    return live, quiet
+
+
+def stale_suppressions(baseline: Baseline, quiet: List[Finding], *,
+                       include_artifact: bool) -> List[dict]:
+    """Baseline entries (or budget units) that matched NO finding in a
+    full-default-scope run.  A fixed finding must retire its entry --
+    a stale entry (or a stale raised `count`) would otherwise silently
+    green-gate a later REINTRODUCTION of the exact defect it names.
+    A-rule entries are only judged when the artifact audits actually
+    ran (an AST-only pass proves nothing about them)."""
+    used: Dict[str, int] = {}
+    for f in quiet:
+        used[f.fingerprint] = used.get(f.fingerprint, 0) + 1
+    stale = []
+    for fp, e in sorted(baseline.entries.items()):
+        if e["rule"].startswith("A") and not include_artifact:
+            continue
+        unused = baseline.budget(fp) - used.get(fp, 0)
+        if unused > 0:
+            stale.append({
+                "fingerprint": fp,
+                "rule": e["rule"],
+                "symbol": e.get("symbol", ""),
+                "unused": unused,
+            })
+    return stale
+
+
+def render_text(live: List[Finding], quiet: List[Finding],
+                stale: Optional[List[dict]] = None) -> str:
+    lines = []
+    for f in live:
+        lines.append(
+            f"{f.path}:{f.line}: [{f.rule}] {f.symbol}: {f.message} "
+            f"(fingerprint {f.fingerprint})"
+        )
+    if quiet:
+        lines.append(
+            f"({len(quiet)} finding(s) suppressed by baseline)"
+        )
+    for s in stale or []:
+        lines.append(
+            f"stale baseline entry [{s['rule']}] {s['symbol']}: "
+            f"{s['unused']} unused suppression unit(s) "
+            f"(fingerprint {s['fingerprint']}) -- the finding is gone; "
+            "retire the entry or lower its count"
+        )
+    if not live and not stale:
+        lines.append("grape-lint: clean")
+    elif not live:
+        lines.append(
+            f"grape-lint: {len(stale)} stale baseline entr(y/ies)"
+        )
+    else:
+        lines.append(
+            f"grape-lint: {len(live)} unsuppressed finding(s)"
+        )
+    return "\n".join(lines)
+
+
+def build_report(live: List[Finding], quiet: List[Finding], *,
+                 root: str, baseline_path: str,
+                 artifact: Optional[dict] = None,
+                 stale: Optional[List[dict]] = None) -> dict:
+    counts: Dict[str, int] = {}
+    for f in live:
+        counts[f.rule] = counts.get(f.rule, 0) + 1
+    rec = {
+        "ok": not live and not stale,
+        "root": root,
+        "baseline": baseline_path,
+        "counts": counts,
+        "suppressed": len(quiet),
+        "stale": list(stale or []),
+        "findings": [f.to_dict(False) for f in live]
+        + [f.to_dict(True) for f in quiet],
+    }
+    if artifact is not None:
+        rec["artifact"] = artifact
+    return rec
+
+
+# ---- report schema ----------------------------------------------------------
+
+_NUM = (int, float)
+
+# field -> (type tuple, required); unknown keys are errors, bool is
+# rejected in numeric fields (bool is an int subclass: the trap R5
+# fossilizes)
+_TOP = {
+    "ok": (bool, True),
+    "root": (str, True),
+    "baseline": (str, True),
+    "counts": (dict, True),
+    "suppressed": (int, True),
+    "stale": (list, True),
+    "findings": (list, True),
+    "artifact": (dict, False),
+}
+
+_STALE = {
+    "fingerprint": (str, True),
+    "rule": (str, True),
+    "symbol": (str, True),
+    "unused": (int, True),
+}
+
+_FINDING = {
+    "rule": (str, True),
+    "path": (str, True),
+    "line": (int, True),
+    "symbol": (str, True),
+    "message": (str, True),
+    "fingerprint": (str, True),
+    "suppressed": (bool, True),
+}
+
+# the artifact block holds A3 only: this package lowers nothing for
+# A1 / A2 to scan
+_ARTIFACT = {
+    "findings": (list, True),
+    "build_audit": (dict, False),
+}
+
+
+def _check_block(block: dict, spec: dict, where: str,
+                 errors: list) -> None:
+    for fld, (types, required) in spec.items():
+        if fld not in block:
+            if required:
+                errors.append(f"{where}: missing required field {fld!r}")
+            continue
+        v = block[fld]
+        accepted = types if isinstance(types, tuple) else (types,)
+        if isinstance(v, bool) and bool not in accepted:
+            errors.append(f"{where}.{fld}: expected number, got bool")
+        elif not isinstance(v, types):
+            errors.append(
+                f"{where}.{fld}: expected "
+                f"{getattr(types, '__name__', types)}, got "
+                f"{type(v).__name__}"
+            )
+    for k in block:
+        if k not in spec:
+            errors.append(
+                f"{where}: unknown field {k!r} -- declare it in "
+                "analysis/report.py or fix the typo"
+            )
+
+
+def validate_lint_report(record) -> list:
+    """Every schema violation in one lint-report record ([] when
+    valid): `lint --json` checks its record before printing it."""
+    errors: list = []
+    if not isinstance(record, dict):
+        return [f"record is {type(record).__name__}, expected object"]
+    _check_block(record, _TOP, "record", errors)
+    for i, f in enumerate(record.get("findings") or []):
+        if not isinstance(f, dict):
+            errors.append(f"findings[{i}]: expected object")
+            continue
+        _check_block(f, _FINDING, f"findings[{i}]", errors)
+    for i, s in enumerate(record.get("stale") or []):
+        if not isinstance(s, dict):
+            errors.append(f"stale[{i}]: expected object")
+            continue
+        _check_block(s, _STALE, f"stale[{i}]", errors)
+    counts = record.get("counts")
+    if isinstance(counts, dict):
+        for k, v in counts.items():
+            if not isinstance(v, int) or isinstance(v, bool):
+                errors.append(
+                    f"counts[{k!r}]: expected int, got {type(v).__name__}"
+                )
+    art = record.get("artifact")
+    if isinstance(art, dict):
+        _check_block(art, _ARTIFACT, "artifact", errors)
+    return errors

@@ -98,6 +98,17 @@ the fit is infeasible, the drift passes 5% or a file is unreadable:
         --samples-out samples.json [--scales 16,18 --ef 4,16] [--json]
     python -m libgrape_lite_tpu_torch.cli calibrate --check \
         --samples samples.json --profile rates.json
+
+The `lint` subcommand runs grape-lint (analysis/) over this package's
+tree: the AST rules R4, R5, R7, R8, R9, R10 and R12, and with
+`--artifact` the A3 audit (the warm query matrix on `--device`, zero
+rebuilds).  Exit 0 clean, 1 on an unsuppressed or stale finding, 2 on a
+missing path or an empty `--update-baseline` reason, 3 when the `--json`
+record fails its schema:
+
+    python -m libgrape_lite_tpu_torch.cli lint [paths ...] [--json] \
+        [--artifact --device cpu] [--baseline b.json] \
+        [--update-baseline REASON]
 """
 
 from __future__ import annotations
@@ -888,6 +899,84 @@ def postmortem_main(argv=None) -> int:
     return 1 if (mismatched or missing) else 0
 
 
+def make_lint_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="libgrape_lite_tpu_torch lint")
+    p.add_argument("paths", nargs="*",
+                   help="files / directories to lint (default: the "
+                        "libgrape_lite_tpu_torch tree)")
+    p.add_argument("--json", action="store_true",
+                   help="print the structured report, checked against "
+                        "its schema (analysis/report.py) first")
+    p.add_argument("--baseline", default="",
+                   help="suppression baseline path (default: "
+                        "analysis/baseline.json)")
+    p.add_argument("--artifact", action="store_true",
+                   help="also run A3: the warm query matrix (sssp / bfs "
+                        "x fused / guarded / batched / incremental) "
+                        "must build no library, plan, worker or device "
+                        "cache")
+    p.add_argument("--update-baseline", default=None, metavar="REASON",
+                   help="suppress every current unsuppressed AST finding "
+                        "into the baseline with this reason")
+    p.add_argument("--device", default="cuda",
+                   help="device of the --artifact audit: cuda (raises "
+                        "without CUDA) or cpu")
+    return p
+
+
+def lint_main(argv=None) -> int:
+    """The `lint` subcommand; returns the exit code (1 on any
+    unsuppressed or stale finding)."""
+    import os
+
+    from libgrape_lite_tpu_torch import analysis
+
+    ns = make_lint_parser().parse_args(argv)
+    if ns.update_baseline is not None:
+        if not ns.update_baseline:
+            # an empty reason (an unset shell variable) is a usage error,
+            # not a plain lint run
+            print("grape-lint: --update-baseline needs a non-empty "
+                  "REASON — exceptions are named, not invisible",
+                  file=sys.stderr)
+            return 2
+        paths = ns.paths or [
+            os.path.join(analysis.repo_root(), "libgrape_lite_tpu_torch")]
+        try:
+            findings = analysis.lint_paths(paths)
+        except FileNotFoundError as e:
+            print(f"grape-lint: {e}", file=sys.stderr)
+            return 2
+        baseline = analysis.Baseline.load(ns.baseline or None)
+        live, _ = analysis.split_by_baseline(findings, baseline)
+        for f in live:
+            baseline.add(f, ns.update_baseline)
+        path = baseline.save()
+        print(f"baseline: {len(live)} suppression(s) added -> {path}")
+        return 0
+
+    try:
+        report, rc = analysis.run_lint(
+            ns.paths, baseline_path=ns.baseline or None,
+            artifact=ns.artifact, device=ns.device)
+    except FileNotFoundError as e:
+        print(f"grape-lint: {e}", file=sys.stderr)
+        return 2
+    if ns.json:
+        errors = analysis.validate_lint_report(report)
+        # the record prints either way: schema drift fails after it
+        print(json.dumps(report), flush=True)
+        for e in errors:
+            print(f"lint-report schema: {e}", file=sys.stderr)
+        return 3 if errors else rc
+    live = [analysis.Finding(**{k: f[k] for k in (
+        "rule", "path", "line", "symbol", "message")})
+        for f in report["findings"] if not f["suppressed"]]
+    quiet = [f for f in report["findings"] if f["suppressed"]]
+    print(analysis.render_text(live, quiet, report.get("stale")))
+    return rc
+
+
 def make_calibrate_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="libgrape_lite_tpu_torch calibrate")
     p.add_argument("--out", default="",
@@ -1050,6 +1139,8 @@ def main(argv=None) -> int:
         return postmortem_main(argv[1:])
     if argv and argv[0] == "calibrate":
         return calibrate_main(argv[1:])
+    if argv and argv[0] == "lint":
+        return lint_main(argv[1:])
     ns = make_parser().parse_args(argv)
     run_app(QueryArgs(**vars(ns)))
     return 0

@@ -41,6 +41,9 @@ _CPU_BUDGET_DEFAULT = default_profile().hbm_capacity_bytes
 #: CSRs, `dest_degree`), each weak-keyed on the fragment: `release_device`
 #: empties a fragment's entries, and fleet/budget.py prices them
 DEVICE_CACHES: list = []
+#: misses of those caches, each one building device tensors
+#: (analysis/artifact.py's `build_events` counts them)
+DEVICE_CACHE_FILLS = 0
 
 
 def device_cache() -> "weakref.WeakKeyDictionary":
@@ -49,6 +52,12 @@ def device_cache() -> "weakref.WeakKeyDictionary":
     cache = weakref.WeakKeyDictionary()
     DEVICE_CACHES.append(cache)
     return cache
+
+
+def device_cache_filled() -> None:
+    """Count one fill of a DEVICE_CACHES entry."""
+    global DEVICE_CACHE_FILLS
+    DEVICE_CACHE_FILLS += 1
 
 
 def device_budget_bytes(device) -> int:

@@ -9,8 +9,8 @@ Counterpart of `libgrape_lite_tpu/fragment/partition.py`.
   * "auto" -- 2-D only when the modeled round wins.
 
 `PARTITION_STATS` records every decision and decline (and, under
-"rebalance", what the loader's `--rebalance` did).  Like the vertex
-cut's VC_TILE_STATS it is a FederatedStats that is not registered.
+"rebalance", what the loader's `--rebalance` did), federated as
+"partition" as in the JAX package.
 
 The cost model is the JAX package's formula, term for term: a round
 costs its most loaded shard's (or tile's) padded edges times the ops an
@@ -54,7 +54,7 @@ PARTITION_STATS = FederatedStats("partition", {
     "resolved_2d": 0,     # decisions that engaged the 2-D path
     "declined": 0,        # 2d / auto requested, ineligible or priced out
     "last_decision": None,
-}, register_=False)
+})
 
 
 def exchange_bytes_1d(fnum: int, vp: int, itemsize: int = 4) -> int:

@@ -27,8 +27,7 @@ directed WCC pull both directions.  K1's [1, k^2 * vc] output viewed as
 [k, k, vc] is the per-tile partials the 2-D StepContext reduces over the
 row or column axis.
 
-`VC_TILE_STATS` is a FederatedStats that is not registered: the port's
-federation namespace set is the five of `obs/federation.py::EXPECTED`.
+`VC_TILE_STATS` is federated as "vc_tiles", as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,7 +53,7 @@ VC_TILE_STATS = FederatedStats("vc_tiles", {
     "mean_fill_frac": 0.0,
     "max_fill_frac": 0.0,
     "tile_skew": 0.0,
-}, register_=False)
+})
 
 
 def _round_up(x: int, m: int) -> int:

@@ -32,7 +32,10 @@ from __future__ import annotations
 import torch
 
 from libgrape_lite_tpu_torch.app.base import AutoAppBase, StepContext
-from libgrape_lite_tpu_torch.fragment.edgecut import device_cache
+from libgrape_lite_tpu_torch.fragment.edgecut import (
+    device_cache,
+    device_cache_filled,
+)
 from libgrape_lite_tpu_torch.models.bfs import BFS, _SENTINEL
 from libgrape_lite_tpu_torch.models.pagerank import PageRank
 from libgrape_lite_tpu_torch.models.sssp import SSSP
@@ -67,6 +70,7 @@ def push_csr(frag, side: str = "oe", dtype: torch.dtype | None = None):
             indptr[f, 1:] = torch.cumsum(
                 torch.bincount(dst.long(), minlength=n), 0)
         per[key] = (indptr, nbr, w)
+        device_cache_filled()
     return per[key]
 
 

@@ -41,7 +41,10 @@ import weakref
 import torch
 
 from libgrape_lite_tpu_torch.app.base import AppBase
-from libgrape_lite_tpu_torch.fragment.edgecut import device_cache
+from libgrape_lite_tpu_torch.fragment.edgecut import (
+    device_cache,
+    device_cache_filled,
+)
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.ops.segment import identity, segment_reduce
 from libgrape_lite_tpu_torch.parallel.message_manager import (
@@ -63,6 +66,7 @@ def dest_degree(frag) -> torch.Tensor:
                            for k in key])
         _DEST_DEGREE[frag] = (deg[:, :vp * fnum].view(fnum, vp, fnum)
                               .to(torch.int32))
+        device_cache_filled()
     return _DEST_DEGREE[frag]
 
 

@@ -12,12 +12,15 @@ library, so any module can register without an import cycle.
 plain ``STATS["k"] += 1`` idiom, and snapshots copy lists and dicts
 under the federation lock.
 
-`EXPECTED` holds the namespaces this package registers: the async pump,
-the fleet, the SLO surface, the flight recorder and the autopilot, each
-also scraped by the live exporter (obs/exporter.py) and copied into
-every postmortem bundle (obs/recorder.py).  The JAX package's other
-namespaces (plan, spgemm, partition, pipeline, vc_tiles, gang) belong to
-modules this package does not have or that keep their counters apart.
+`EXPECTED` holds the namespaces this package registers, each scraped by
+the live exporter (obs/exporter.py) and copied into every postmortem
+bundle (obs/recorder.py): the JAX package's namespaces but `pipeline` and
+`gang` (their owners, `parallel/pipeline.py` and `obs/gang.py`, wait for
+the multi-GPU runtime), its `calibration` (registered by the rate
+profile, not listed in the JAX `EXPECTED`), and `guarded_batch`
+(serve/batch.py's counters, which the JAX package does not keep).
+grape-lint's R8 (analysis/astlint.py) makes a module-level ``*_STATS``
+surface outside the federation a finding.
 """
 
 from __future__ import annotations
@@ -34,11 +37,17 @@ _LOCK = threading.Lock()
 #: every namespace the package must register, and the module whose
 #: import registers it
 EXPECTED: Dict[str, str] = {
+    "plan": "libgrape_lite_tpu_torch.ops.spmv",
+    "spgemm": "libgrape_lite_tpu_torch.ops.spgemm_pack",
+    "partition": "libgrape_lite_tpu_torch.fragment.partition",
     "pump": "libgrape_lite_tpu_torch.serve.pipeline",
     "fleet": "libgrape_lite_tpu_torch.fleet.budget",
     "slo": "libgrape_lite_tpu_torch.obs.slo",
     "recorder": "libgrape_lite_tpu_torch.obs.recorder",
     "autopilot": "libgrape_lite_tpu_torch.autopilot.signals",
+    "vc_tiles": "libgrape_lite_tpu_torch.fragment.vertexcut",
+    "calibration": "libgrape_lite_tpu_torch.ops.calibration",
+    "guarded_batch": "libgrape_lite_tpu_torch.serve.batch",
 }
 
 
@@ -142,16 +151,14 @@ class FederatedStats(dict):
     mutation sites keep ``STATS["k"] += 1``; `snapshot()` copies lists
     and dicts, `reset()` restores the initial state."""
 
-    def __init__(self, namespace: str, initial: Dict[str, Any],
-                 register_: bool = True):
+    def __init__(self, namespace: str, initial: Dict[str, Any]):
         super().__init__(copy.deepcopy(initial))
         self.namespace = namespace
         self._initial = copy.deepcopy(initial)
-        if register_:
-            register(namespace, self.snapshot, self.reset,
-                     module=(self.__class__.__module__
-                             if type(self) is not FederatedStats
-                             else _caller_module()))
+        register(namespace, self.snapshot, self.reset,
+                 module=(self.__class__.__module__
+                         if type(self) is not FederatedStats
+                         else _caller_module()))
 
     def snapshot(self) -> Dict[str, Any]:
         out = {}

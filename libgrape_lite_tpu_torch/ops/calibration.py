@@ -906,3 +906,20 @@ def harvested_samples() -> List[dict]:
 
 def reset_harvest() -> None:
     del _HARVEST[:]
+
+
+# federated as "calibration" (obs/federation.py) with the JAX keys: the
+# harvest's depth, whether it is armed, and the installed profile
+from libgrape_lite_tpu_torch.obs import federation as _federation  # noqa: E402
+
+
+def _calibration_snapshot() -> dict:
+    return {
+        "harvested": len(_HARVEST),
+        "armed": harvest_armed(),
+        "profile": os.environ.get(PROFILE_ENV, "") or _DEFAULT.name,
+    }
+
+
+_federation.register("calibration", _calibration_snapshot, reset_harvest,
+                     module=__name__)

@@ -44,6 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.obs.federation import FederatedStats
 from libgrape_lite_tpu_torch.ops import calibration
 
 _LOG = logging.getLogger(__name__)
@@ -621,12 +622,13 @@ def _load_cached_plan(v, u, frag, thr, cfg) -> SpGemmPlan | None:
 # --------------------------------------------------------------------------
 
 #: resolve counters and the bounded decision / decline records: every
-#: backend request that does not engage spgemm leaves a record here
-SPGEMM_STATS: dict = {
+#: backend request that does not engage spgemm leaves a record here;
+#: federated as "spgemm"
+SPGEMM_STATS = FederatedStats("spgemm", {
     "planned": 0, "frag_cache_hits": 0, "disk_cache_hits": 0,
     "auto_spgemm": 0, "auto_intersect": 0,
     "declines": [], "decisions": [],
-}
+})
 _STATS_CAP = 64
 
 #: the data-sheet rates `auto` prices at when no profile is installed,

@@ -54,6 +54,7 @@ import weakref
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.obs.federation import FederatedStats
 from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops._build import (
     check_cuda_args,
@@ -104,8 +105,12 @@ def strict_worthwhile(rmax: int, tile: int) -> bool:
 
 _PLAN_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 #: strict plans built from the host CSRs, and plans served from the
-#: per-fragment cache (a serving session's "builds no plan" check)
-PLAN_STATS = {"planned": 0, "frag_cache_hits": 0}
+#: per-fragment cache (a serving session's "builds no plan" check);
+#: federated as "plan" with the JAX keys (strict plans have no disk
+#: cache here: `disk_cache_hits` stays 0)
+PLAN_STATS = FederatedStats("plan", {
+    "frag_cache_hits": 0, "disk_cache_hits": 0, "planned": 0,
+})
 
 
 def plan_stats() -> dict:

@@ -43,13 +43,17 @@ import torch
 
 from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.guard.watchdog import carry_digest_lanes
+from libgrape_lite_tpu_torch.obs.federation import FederatedStats
 
 _INT32_MAX = np.iinfo(np.int32).max
 
 #: chunk boundaries probed and the host seconds their probes took,
-#: summed over every guarded batch of the process
-GUARDED_BATCH_STATS = {"batches": 0, "boundaries": 0, "probe_s": 0.0,
-                       "breaches": 0}
+#: summed over every guarded batch of the process; federated as
+#: "guarded_batch" (a namespace of the port's: the JAX package keeps no
+#: such counters)
+GUARDED_BATCH_STATS = FederatedStats("guarded_batch", {
+    "batches": 0, "boundaries": 0, "probe_s": 0.0, "breaches": 0,
+})
 
 
 def lane_slices(carry: Dict, lane: int) -> Dict:

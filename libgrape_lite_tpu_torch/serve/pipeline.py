@@ -56,6 +56,20 @@ INFLIGHT_ENV = "GRAPE_SERVE_INFLIGHT"
 #: env override of how many window batches run at once
 LAUNCH_CAP_ENV = "GRAPE_SERVE_LAUNCH_CAP"
 
+#: the audited harvest contract (grape-lint R7 `sync-in-pump`,
+#: analysis/astlint.py): the only methods of this module that may force a
+#: host sync.  R7 walks every self-call chain rooted at a dispatch-stage
+#: method (`_fill*` / `_dispatch*`) and flags a sync forcer reached
+#: outside these names.  The JAX contract's `harvest` has no counterpart
+#: here
+PUMP_HARVEST_SYNCS = frozenset({
+    "_harvest_head",
+    "_results_from_dispatch",
+    "_run_declined",
+    "drain",
+    "quiesce",
+})
+
 
 class PumpStats:
     """Every engage and decline of the window: a batch that could not

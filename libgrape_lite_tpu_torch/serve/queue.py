@@ -375,8 +375,9 @@ class AdmissionQueue:
             if self.result_cache is not None and res.ok:
                 meta = self.cache_meta(req) if self.cache_meta else None
                 if meta is not None:
+                    compat, source = meta
                     fence = self.cache_epoch() if self.cache_epoch else 0
-                    self.result_cache.store(*meta, fence, res)
+                    self.result_cache.store(compat, source, fence, res)
         self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
         self.completed += len(batch)
         return results

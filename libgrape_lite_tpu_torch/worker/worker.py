@@ -83,10 +83,16 @@ def _to_host(v) -> np.ndarray:
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
+def build_counts() -> Dict[str, int]:
+    """The builds that stand for a jit-cache miss in this package: CUDA
+    libraries built or loaded, and strict plan cache misses."""
+    return {"library_loads": _build.LOAD_EVENTS,
+            "plans": PLAN_STATS["planned"]}
+
+
 def _built_marker() -> int:
-    """Moves when a CUDA library is built or loaded, or the strict plan
-    cache misses: the port's counterpart of a jit-cache miss."""
-    return _build.LOAD_EVENTS + PLAN_STATS["planned"]
+    """Moves when any of `build_counts()` moves."""
+    return sum(build_counts().values())
 
 
 def _place(v, device: torch.device):

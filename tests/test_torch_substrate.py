@@ -195,8 +195,8 @@ def test_port_sources_import_no_jax():
                                                "libgrape_lite_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     # the serving fleet's slice; fault tolerance and the guards; guarded
-    # serving and the vertex cut
-    for sub in ("fleet", "autopilot", "obs", "ft", "guard"):
+    # serving and the vertex cut; grape-lint
+    for sub in ("fleet", "autopilot", "obs", "ft", "guard", "analysis"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for mod in ("serve/batch.py", "fragment/vertexcut.py",
                 "fragment/partition.py", "models/vc2d.py",
@@ -298,6 +298,8 @@ FLEET_MODULES = [
     "libgrape_lite_tpu_torch.models.vc2d",
     "libgrape_lite_tpu_torch.models.pagerank_vc",
     "libgrape_lite_tpu_torch.vertex_map.partitioner",
+    "libgrape_lite_tpu_torch.analysis",
+    "libgrape_lite_tpu_torch.scripts.grape_lint",
 ]
 
 

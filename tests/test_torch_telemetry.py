@@ -154,12 +154,18 @@ def _scrape_names(text: str) -> set:
 def test_serve_scrape_has_every_jax_name_of_the_ported_surfaces(capsys):
     from libgrape_lite_tpu.cli import serve_main as jserve_main
     from libgrape_lite_tpu.obs import exporter as jexporter
+    from libgrape_lite_tpu.obs import federation as jfederation
 
     from libgrape_lite_tpu_torch.cli import serve_main
 
     argv = [*P2P, "--num_queries", "8", "--max_batch", "4", "--inflight",
             "2", "--metrics_port", "0", "--slo", "sssp=0.001"]
     scraped = {}
+    # both scrapes hold this run's records only: a decision record left
+    # by an earlier test in the process (say `partition.last_decision`)
+    # is no name of the serving run
+    jfederation.reset()
+    federation.reset()
     try:
         jobs.configure(in_memory=True)
         jserve_main(argv)
