@@ -81,7 +81,7 @@ the port's own entry points:
      and the garc file's size; PageRank (10 rounds) and SSSP from 0 on
      the deserialized fragment bit-equal to the fresh load; `--rebalance`
      at fnum 4 with PARTITION_STATS' skew before and after and SSSP by
-     oid equal to the load without it; p2p-31 with `--string_id` through
+     oid equal to the fnum 1 load's; p2p-31 with `--string_id` through
      `run_app` (SSSP, WCC, CDLP files identical to the integer load's) and
      every partitioner x idxer at fnum 4 against the SSSP golden;
   9. the spgemm LCC backend (`[spgemm]`) on RMAT-18: the host plan's
@@ -262,6 +262,26 @@ the port's own entry points:
      pump's dispatch stage (`_fill`, launches held) on a warmed window of
      4 over 32 sssp queries on p2p-31 at max_batch 8 (CUDA's sync-debug
      mode), a batch, the results byte-identical to the warm pass;
+  11j. exchange and overlap (`[pipeline]`): RMAT-20's edge list as a
+     1-D edge cut at fnum 4 under the hash partitioner (a random
+     partition); the mirror plan's bytes against the gather's; SSSP,
+     BFS, WCC from vertex 0 and CDLP (10 rounds) under GRAPE_EXCHANGE
+     gather and mirror, each serial (GRAPE_PIPELINE=0) and pipelined
+     (force) after a warm-up, 3 repeats each bit-equal to the serial
+     result with the launch counts zeroed before and read after every
+     run: K1 once a round serial, twice pipelined (CDLP's mode fold
+     launches none), equal host syncs a query (CUDA's sync-debug mode),
+     the median wall of each; the boundary / interior split; the split
+     K1 CSRs and the mirror pull's remapped columns against their plain
+     versions (bit-equal, kernel / plain / library / bound ms); sssp_vc
+     at k 2 and 4 the same way on [vc]'s tiles (run there, reported
+     here), its two phase CSRs against their plain versions; one
+     profiled pipelined SSSP query (the kickoff's device events on a
+     second CUDA stream, their overlap with the K1 passes); the truth
+     meter (`obs/truth.py`) over one armed pipelined SSSP per exchange
+     mode: the modeled hidden µs a round, the measured round, the
+     claim_frac; PageRank under GRAPE_PIPELINE=1 and force, declined
+     with its reason;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -2106,6 +2126,7 @@ def load_phase(device, scale: int = SCALE) -> dict:
                                {"delta": 0.85, "max_round": PR_ROUNDS}),
                               ("sssp", SSSP, {"source": 0})):
             a, counts, secs_a = query_values(fresh, app(), device, **kw)
+            fresh_sssp = by_oid(fresh, a)  # the last: sssp
             add(counts)
             b, counts, secs_b = query_values(cached, app(), device, **kw)
             add(counts)
@@ -2119,34 +2140,29 @@ def load_phase(device, scale: int = SCALE) -> dict:
         out.update(stages=stages, garc_bytes=garc, tsv_bytes=nbytes)
         del cached
 
-        # --rebalance at fnum 4: skew before and after, the same SSSP
-        res = {}
-        for rebalance in (False, True):
-            PARTITION_STATS.pop("rebalance", None)
-            t0 = time.perf_counter()
-            frag4 = loader.LoadGraph(
-                efile, vfile, CommSpec(4, device),
-                loader.LoadGraphSpec(rebalance=rebalance))
-            load_s = time.perf_counter() - t0
-            vals, counts, secs = query_values(frag4, SSSP(), device,
-                                              source=0)
-            add(counts)
-            res[rebalance] = by_oid(frag4, vals)
-            ep = frag4.dev.oe.edge_nbr.shape[1]
-            print(f"[load] fnum 4 rebalance={rebalance}: load s {load_s:.2f} "
-                  f"ep={ep} sssp s {secs:.4f}", flush=True)
-            if rebalance:
-                st = PARTITION_STATS["rebalance"]
-                print(f"[load] PARTITION_STATS rebalance: {json.dumps(st)}",
-                      flush=True)
-                check(st["after"]["skew"] < st["before"]["skew"],
-                      "rebalance did not lower the skew")
-                out["rebalance"] = st
-            del frag4
-        check(res[True] == res[False],
-              "SSSP by oid differs with --rebalance at fnum 4")
-        print("[load] sssp by oid with --rebalance == without: equal",
+        # --rebalance at fnum 4: skew before and after, the same SSSP by
+        # oid as the fnum 1 load of the same file
+        PARTITION_STATS.pop("rebalance", None)
+        t0 = time.perf_counter()
+        frag4 = loader.LoadGraph(efile, vfile, CommSpec(4, device),
+                                 loader.LoadGraphSpec(rebalance=True))
+        load_s = time.perf_counter() - t0
+        vals, counts, secs = query_values(frag4, SSSP(), device, source=0)
+        add(counts)
+        print(f"[load] fnum 4 rebalance=True: load s {load_s:.2f} ep="
+              f"{frag4.dev.oe.edge_nbr.shape[1]} sssp s {secs:.4f}",
               flush=True)
+        st = PARTITION_STATS["rebalance"]
+        print(f"[load] PARTITION_STATS rebalance: {json.dumps(st)}",
+              flush=True)
+        check(st["after"]["skew"] < st["before"]["skew"],
+              "rebalance did not lower the skew")
+        out["rebalance"] = st
+        check(by_oid(frag4, vals) == fresh_sssp,
+              "SSSP by oid differs with --rebalance at fnum 4")
+        print("[load] sssp by oid with --rebalance at fnum 4 == the fnum 1 "
+              "load: equal", flush=True)
+        del frag4
 
         # p2p-31: string ids, and every partitioner x idxer at fnum 4
         data = os.path.join(HERE, "dataset")
@@ -5172,6 +5188,7 @@ def vc_phases(frag, e_sym, device) -> dict:
     src, dst, w = frag.edge_list
     n = frag.dev.total_vnum
     runs, cases, builds = {}, {}, {}
+    pipe = {"runs": {}, "k1": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for fnum in VC_FNUMS:
             fs, s_sym, st = vc_build(fnum, src, dst, w, n, True, device)
@@ -5186,6 +5203,9 @@ def vc_phases(frag, e_sym, device) -> dict:
             cases.update(c)
             if k == 2:
                 runs.update(vc_k2_extras(fs, frag, n, device, tmp))
+            got = pipe_vc_runs(fs, device)  # reported in [pipeline]
+            pipe["runs"].update(got["runs"])
+            pipe["k1"].update(got["k1"])
             from libgrape_lite_tpu_torch.models import SSSPVC2D
 
             runs[f"vc sssp profile k{k}"] = dict(counts={}, **profile_call(
@@ -5194,7 +5214,440 @@ def vc_phases(frag, e_sym, device) -> dict:
             del fs, fr
     vc_cli_phase(device)
     return {"seconds": time.perf_counter() - t_phase, "runs": runs,
-            "k1": cases, "builds": builds}
+            "k1": cases, "builds": builds, "pipeline": pipe}
+
+
+# ---- phase 7j: exchange and overlap (the pipelined superstep) ----------
+
+PIPE_FNUM = 4
+PIPE_REPEATS = 3
+PIPE_APPS = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}),
+             ("cdlp", {"max_round": CDLP_ROUNDS}))
+PIPE_K1 = {"sssp": (1, 2), "bfs": (1, 2), "wcc": (1, 2), "cdlp": (0, 0),
+           "sssp_vc": (1, 2)}  # K1 launches a round: serial, pipelined
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pipe_fragment(frag, device):
+    """RMAT-20's edge list as a 1-D edge cut at fnum 4 under the hash
+    partitioner (a random partition: nearly every vertex with an edge is
+    read by another fragment)."""
+    from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.vertex_map.partitioner import HashPartitioner
+    from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+    src, dst, w = frag.edge_list
+    oids = np.arange(frag.dev.total_vnum, dtype=np.int64)
+    sync(device)
+    t0 = time.perf_counter()
+    f4 = ShardedEdgecutFragment.build(
+        CommSpec(fnum=PIPE_FNUM, device=device),
+        VertexMap.build(oids, HashPartitioner(PIPE_FNUM)), src, dst, w,
+        directed=False)
+    sync(device)
+    return f4, time.perf_counter() - t0
+
+
+def pipe_k1_case(label, indptr, nbr, w, x, device) -> dict:
+    """One split K1 CSR of a pipelined round (stacked [fnum, vp + 1],
+    the other part's rows empty, columns into the splice table) against
+    its plain version on `x`, kind min.  Library: segment_reduce (float)
+    or scatter_reduce_ (int32) over the candidates, gathered outside the
+    timed call."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    got = spmv.gather_reduce(indptr, nbr, w, x, "min")
+    want = spmv.gather_reduce_plain(indptr, nbr, w, x, "min")
+    check(torch.equal(got, want), f"[pipeline] K1 {label} not bit-equal "
+          "to its plain version")
+    fnum, rows = indptr.shape[0], indptr.shape[1] - 1
+    ip = indptr.to(torch.int64)
+    real = (torch.arange(nbr.shape[1], device=x.device).unsqueeze(0)
+            < ip[:, -1:])
+    edges = int(real.sum())
+    per_edge = 2 if w is not None else 1
+    nbytes = (indptr.nbytes + 4 * per_edge * edges
+              + x.numel() * x.element_size() + fnum * rows * x.element_size())
+    b_ms, b_by = bound(nbytes, per_edge * edges)
+    cand = x[nbr[real].to(torch.int64)] + (w[real] if w is not None else 0)
+    deg = (ip[:, 1:] - ip[:, :-1]).reshape(-1)
+    if x.is_floating_point():
+        library = lambda: torch.segment_reduce(  # noqa: E731
+            cand, "min", lengths=deg, unsafe=True, initial=float("inf"))
+    else:
+        seg = torch.repeat_interleave(
+            torch.arange(fnum * rows, device=x.device), deg)
+        acc = torch.empty(fnum * rows, dtype=x.dtype, device=x.device)
+        library = lambda: acc.fill_(INT32_MAX).scatter_reduce_(  # noqa
+            0, seg, cand, "amin")
+    ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, w, x, "min"),
+                 device, 10)
+    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(
+        indptr, nbr, w, x, "min"), device, 3, batch=1)
+    lib_ms = time_ms(library, device, 10)
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, edges=edges,
+               rows=fnum * rows)
+    print(f"[pipeline] K1 {label}: edges={edges} rows={fnum * rows} "
+          f"bit-equal ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    return out
+
+
+def pipe_runs(label, frag, factory, kw, device, k1) -> tuple:
+    """One app on `frag` serial (GRAPE_PIPELINE=0) and pipelined (force)
+    under the ambient GRAPE_EXCHANGE: each after a warm-up, PIPE_REPEATS
+    times with the launch counts zeroed before and read after each run,
+    every repeat bit-equal to the first serial result and its K1
+    launches a round checked; the host syncs of one query each (CUDA's
+    sync-debug mode), equal.  Returns (record, the pipelined app of the
+    last run)."""
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    rec, ref, app = {}, None, None
+    for mode, pipe in (("serial", "0"), ("pipelined", "force")):
+        with env_set(GRAPE_PIPELINE=pipe):
+            run_query(frag, factory(), device, **kw)  # warm: plans, caches
+            walls = []
+            for rep in range(PIPE_REPEATS):
+                app = factory()
+                reset_launch_counts()
+                wk, secs = run_query(frag, app, device, **kw)
+                counts = launch_counts()
+                walls.append(secs)
+                vals = wk.result_values()
+                if ref is None:
+                    ref, rounds = vals, wk.rounds
+                check(np.array_equal(vals, ref) and wk.rounds == rounds,
+                      f"[pipeline] {label} {mode} not bit-equal to serial")
+                check((app._pipeline is not None) == (pipe == "force"),
+                      f"[pipeline] {label}: {mode} run resolved "
+                      f"{app._pipeline!r}")
+                want = k1[pipe == "force"] * rounds
+                check(counts["gather_reduce"] == want,
+                      f"[pipeline] {label} {mode} repeat {rep}: "
+                      f"{counts['gather_reduce']} K1 launches in {rounds} "
+                      f"rounds, want {want}")
+            syncs = call_syncs(lambda: Worker(factory(), frag).query(**kw),
+                               device)
+            rec[mode] = dict(median_s=float(np.median(walls)),
+                             walls_s=walls, syncs=syncs, k1=want)
+    check(rec["serial"]["syncs"] == rec["pipelined"]["syncs"],
+          f"[pipeline] {label}: host syncs {rec['serial']['syncs']} serial "
+          f"vs {rec['pipelined']['syncs']} pipelined")
+    rec.update(counts=counts, rounds=rounds,
+               plan_uid=app._pipeline.uid,
+               hidden_us_per_round=app._pipeline.hidden_us_per_round(),
+               speedup=rec["serial"]["median_s"]
+               / rec["pipelined"]["median_s"])
+    print(f"[pipeline] {label}: rounds={rounds} bit-equal x{PIPE_REPEATS} "
+          f"serial_s={rec['serial']['median_s']:.4f} pipelined_s="
+          f"{rec['pipelined']['median_s']:.4f} (median of {PIPE_REPEATS}) "
+          f"K1/round={k1[0]} vs {k1[1]} host_syncs={rec['serial']['syncs']}"
+          f" vs {rec['pipelined']['syncs']} plan={app._pipeline.uid} "
+          f"modeled_hidden_us_per_round="
+          f"{rec['hidden_us_per_round']}", flush=True)
+    return rec, app
+
+
+def kickoff_overlap(events) -> dict:
+    """A pipelined query's device events by CUDA stream (a torch.profiler
+    Chrome trace): the stream running K1 and the other streams (the
+    kickoff's), the K1 passes and partitions, the kickoff events, the µs
+    they overlap K1 passes, and for each kickoff how long after it ended
+    on the card the host made its next kernel launch, the interior K1's
+    partition (`launch_lags_us`; from the kickoff's own correlation id
+    and the host's launch records, so a trace that drops K1 passes still
+    gives it; empty when the trace holds no launch records)."""
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launches = sorted((e for e in events if e.get("ph") == "X"
+                       and e.get("cat") == "cuda_runtime"
+                       and "correlation" in e.get("args", {})),
+                      key=lambda e: e["ts"])
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in launches}
+    kernel_ts = [e["ts"] for e in launches if "LaunchKernel" in e["name"]]
+    streams = {}
+    for e in dev:
+        streams.setdefault(e.get("args", {}).get("stream", e.get("tid")),
+                           []).append(e)
+    k1_names = ("merge_partition", "merge_gather", "carry_fold")
+    main = [s for s, evs in streams.items()
+            if any(any(n in e["name"] for n in k1_names) for e in evs)]
+    check(len(main) == 1, f"[pipeline] trace: K1 on streams {main}")
+    side = [s for s in streams if s != main[0]]
+    check(len(side) >= 1, "[pipeline] trace: no kickoff on a second stream")
+    k1 = [e for e in streams[main[0]]
+          if any(n in e["name"] for n in k1_names)]
+    kicks = [e for s in side for e in streams[s]]
+    kick = [(e["ts"], e["ts"] + e["dur"]) for e in kicks]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in k1]
+    lags = []
+    for e in kicks:
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        nxt = [k for k in kernel_ts if t is not None and k > t]
+        if nxt:
+            lags.append(nxt[0] - (e["ts"] + e["dur"]))
+    return dict(
+        main=main[0], side=side, k1_passes=len(k1),
+        k1_partitions=sum("merge_partition" in e["name"] for e in k1),
+        kickoff_events=len(kick),
+        overlap_us=sum(max(0.0, min(a1, b1) - max(a0, b0))
+                       for a0, a1 in kick for b0, b1 in spans),
+        overlapping=sum(any(min(a1, b1) > max(a0, b0) for b0, b1 in spans)
+                        for a0, a1 in kick),
+        launch_lags_us=lags,
+        names=sorted({e["name"][:40] for e in kicks}))
+
+
+def pipe_trace_once(frag, device, path: str):
+    """One profiled pipelined SSSP query (device activity only, so the
+    profiler adds no host time to each op), PROFILE_PAD_S of host time
+    kept around it after a warm-up step, as `profile_once` does:
+    (worker, wall s, `kickoff_overlap` of its trace)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from libgrape_lite_tpu_torch.models import SSSP
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "clears events"
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         path)) as prof:
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            wk, secs = run_query(frag, SSSP(), device, source=0)
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+    with open(path) as fh:
+        return wk, secs, kickoff_overlap(json.load(fh)["traceEvents"])
+
+
+def pipe_trace_phase(frag, device) -> dict:
+    """PIPE_REPEATS profiled pipelined SSSP queries (gather exchange),
+    each traced alone: its device events by CUDA stream
+    (`kickoff_overlap`): the kickoff on a second stream (checked), the
+    kickoffs that overlap a K1 pass, and the host's lag in launching the
+    interior K1 after the kickoff.  On one card the kickoff is a copy of
+    a few µs, so it overlaps the interior K1 only when the host has
+    launched both before the boundary K1 ends on the card (a negative
+    lag); the overlap is reported, not required.  Each query reruns, up
+    to PROFILE_ATTEMPTS times, until its trace holds every kickoff and
+    every K1 partition (the profiler drops events, `profile_call`)."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.models import SSSP
+
+    traces = []
+    with env_set(GRAPE_PIPELINE="force", GRAPE_EXCHANGE="gather"), \
+            tempfile.TemporaryDirectory() as t:
+        run_query(frag, SSSP(), device, source=0)  # warm
+        for trace in range(PIPE_REPEATS):
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                wk, secs, got = pipe_trace_once(
+                    frag, device, os.path.join(t, f"trace{trace}.json"))
+                complete = (got["kickoff_events"] == wk.rounds
+                            and got["k1_partitions"] == 2 * wk.rounds)
+                if complete:
+                    break
+            lags = got.pop("launch_lags_us")
+            lag = float(np.median(lags)) if lags else None
+            print(f"[pipeline] trace {trace} sssp fnum={PIPE_FNUM} gather: "
+                  f"rounds={wk.rounds} wall_s={secs:.4f} main_stream="
+                  f"{got['main']} k1_passes={got['k1_passes']} "
+                  f"k1_partitions={got['k1_partitions']} side_streams="
+                  f"{got['side']} kickoff_events={got['kickoff_events']} "
+                  f"({', '.join(got.pop('names'))}) trace "
+                  f"{'complete' if complete else 'INCOMPLETE'} attempts="
+                  f"{attempt} overlapping_k1={got['overlapping']} "
+                  f"overlap_us={got['overlap_us']:.1f}; the host's next "
+                  f"launch (the interior K1's partition) a median "
+                  f"{'missing' if lag is None else f'{lag:.1f}'} us after "
+                  f"the kickoff ended on the card ({len(lags)} of "
+                  f"{got['kickoff_events']} kickoffs; negative: launched "
+                  f"before it ended)", flush=True)
+            traces.append(dict(got, rounds=wk.rounds, wall_s=secs,
+                               trace_complete=complete, attempts=attempt,
+                               interior_launch_after_kickoff_us=lag))
+    kicks = sum(r["kickoff_events"] for r in traces)
+    over = sum(r["overlapping"] for r in traces)
+    print(f"[pipeline] trace: {over} of {kicks} kickoffs overlap a K1 pass "
+          f"in {len(traces)} traces", flush=True)
+    return dict(counts={}, rounds=traces[0]["rounds"], traces=traces,
+                kickoff_events=kicks, overlapping=over)
+
+
+def pipe_truth_phase(frag, device) -> dict:
+    """The overlap truth meter (obs/truth.py) over one armed pipelined
+    SSSP query per exchange mode: the modeled hidden µs a round beside
+    the measured round (median superstep device wait), its claim_frac."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.models import SSSP
+    from libgrape_lite_tpu_torch.obs import truth
+
+    out = {}
+    for exchange in ("gather", "mirror"):
+        with env_set(GRAPE_PIPELINE="force", GRAPE_EXCHANGE=exchange):
+            run_query(frag, SSSP(), device, source=0)  # warm
+            obs_reset()
+            obs.configure(in_memory=True)
+            try:
+                run_query(frag, SSSP(), device, source=0)
+                rep = truth.truth_report(obs.history())
+            finally:
+                obs_reset()
+        check(rep["queries"] == 1 and rep["joined"] == 1,
+              f"[pipeline] truth {exchange}: {rep['queries']} queries, "
+              f"{rep['joined']} joined")
+        row = rep["rows"][0]
+        out[exchange] = dict(truth.block_brief(rep), ok=rep["ok"])
+        print(f"[pipeline] truth sssp {exchange}: plan={row['plan_uid']} "
+              f"modeled_hidden_us_per_round="
+              f"{row['modeled_hidden_us_per_round']} measured_round_us="
+              f"{row['measured_round_us']:.1f} (median of "
+              f"{row['rounds_measured']} superstep device waits) claim_frac="
+              f"{row['claim_frac']} ok={row['ok']}", flush=True)
+    return out
+
+
+def pipe_vc_runs(fs, device) -> dict:
+    """sssp_vc serial against pipelined on the [vc] phase's symmetrised
+    tiles (`pipe_runs`), and its two phase K1 CSRs against their plain
+    versions on a seeded carry; reported in [pipeline]."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    rec, app = pipe_runs(f"sssp_vc k{fs.k}", fs, APP_REGISTRY["sssp_vc"],
+                         {"source": 0}, device, PIPE_K1["sssp_vc"])
+    ent = app._pipeline.host_entries
+    x = torch.rand(fs.k * fs.vc, generator=torch.Generator().manual_seed(5)
+                   ).to(device)
+    cases = {f"sssp_vc k{fs.k} {ph}": pipe_k1_case(
+        f"sssp_vc k{fs.k} phase {ph[1]}", ent[f"pl_{ph}_indptr"],
+        ent[f"pl_{ph}_nbr"], ent[f"pl_{ph}_w"], x, device)
+        for ph in ("p0", "p1")}
+    return {"runs": {f"pipeline sssp_vc k{fs.k}": rec}, "k1": cases}
+
+
+def pipeline_phase(frag, vc_pipe, device) -> dict:
+    """[pipeline]: exchange and overlap on RMAT-20 at fnum 4 -- SSSP, BFS,
+    WCC and CDLP serial against pipelined under GRAPE_EXCHANGE gather and
+    mirror, the split K1 CSRs against their plain versions, one profiled
+    pipelined query, the truth meter, and PageRank's decline; with
+    `vc_pipe`, sssp_vc at k 2 and 4 (`pipe_vc_runs`, run inside [vc] on
+    its tiles)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, PageRank
+    from libgrape_lite_tpu_torch.parallel import mirror
+    from libgrape_lite_tpu_torch.parallel.pipeline import PIPELINE_STATS
+
+    t_phase = time.perf_counter()
+    call_syncs(lambda: None, device)  # the debug mode warns at first use
+    f4, host_s = pipe_fragment(frag, device)
+    plan = mirror.build_mirror_plan(f4, "ie")
+    print(f"[pipeline] rmat{SCALE} fnum={PIPE_FNUM}: build host_s="
+          f"{host_s:.2f} vp={f4.vp} mirror m={plan.m} bytes_mirror="
+          f"{plan.bytes_mirror} bytes_all_gather={plan.bytes_all_gather} "
+          f"(ratio {plan.bytes_mirror / plan.bytes_all_gather:.3f})",
+          flush=True)
+    runs, cases, apps = {}, {}, {}
+    for exchange in ("gather", "mirror"):
+        with env_set(GRAPE_EXCHANGE=exchange):
+            for name, kw in PIPE_APPS:
+                rec, app = pipe_runs(f"{name} {exchange}", f4,
+                                     APP_REGISTRY[name], kw, device,
+                                     PIPE_K1[name])
+                rec["exchange_mode"] = app._pipeline.mode
+                check(rec["exchange_mode"] == (
+                    "gather" if name == "cdlp" else exchange),
+                      f"[pipeline] {name} ran the {app._pipeline.mode} "
+                      "exchange")
+                runs[f"pipeline {name} {exchange}"] = rec
+                apps[(name, exchange)] = app
+    st = apps[("sssp", "gather")]._pipeline.stats["totals"]
+    print(f"[pipeline] split ie: boundary_vertices="
+          f"{st['boundary_vertices']} interior_vertices="
+          f"{st['interior_vertices']} boundary_edges={st['boundary_edges']} "
+          f"interior_edges={st['interior_edges']} modeled_hidden_frac="
+          f"{apps[('sssp', 'gather')]._pipeline.span_brief()['modeled_hidden_frac']}",
+          flush=True)
+    # the split K1 CSRs (and the mirror columns) at the shapes the round
+    # gives them, on a table spliced from the converged distances
+    for exchange in ("gather", "mirror"):
+        app = apps[("sssp", exchange)]
+        with env_set(GRAPE_EXCHANGE=exchange, GRAPE_PIPELINE="force"):
+            st = app.init_state(f4, source=0)
+            wk = run_query(f4, app, device, source=0)[0]
+        from libgrape_lite_tpu_torch.app.base import StepContext
+
+        dist = wk._result_state["dist"]
+        ctx = StepContext(PIPE_FNUM)
+        table = app._pipeline.splice(dist, app._pipeline.exchange(
+            ctx, dist, st))
+        for part in ("b", "i"):
+            cases[f"sssp {exchange} {part}"] = pipe_k1_case(
+                f"sssp {exchange} {'boundary' if part == 'b' else 'interior'}",
+                st[f"pl_{part}_indptr"], st[f"pl_{part}_nbr"],
+                st[f"pl_{part}_w"], table, device)
+        if exchange == "mirror":
+            cases["sssp mirror pull"] = pipe_k1_case(
+                "sssp mirror pull (serial round)", f4.dev.ie.indptr,
+                st["mx_nbr"], st["wf_eff"],
+                ctx.gather_lanes(ctx.exchange_mirrors(dist, st["mx_send"])),
+                device)
+    # the vertex cut's two phase pulls ran inside [vc], on its tiles
+    runs.update(vc_pipe["runs"])
+    cases.update(vc_pipe["k1"])
+    runs["pipeline trace sssp"] = pipe_trace_phase(f4, device)
+    truth_rec = pipe_truth_phase(f4, device)
+    for pipe in ("1", "force"):
+        with env_set(GRAPE_PIPELINE=pipe, GRAPE_PIPELINE_MIN_BYTES="1"):
+            app = PageRank()
+            app.init_state(f4, max_round=PR_ROUNDS)
+        reason = PIPELINE_STATS["last_decision"]["reason"]
+        check(app._pipeline is None and (
+            "sum fold" in reason or "strict-tile" in reason),
+              f"[pipeline] PageRank under GRAPE_PIPELINE={pipe}: {reason!r}")
+        print(f"[pipeline] pagerank GRAPE_PIPELINE={pipe}: declined "
+              f"({reason})", flush=True)
+    # auto on one card: the gather and the serial round, with the reason
+    # (the JAX gates would take both here: 8 MiB of gathered state)
+    for name, kw in PIPE_APPS[:3]:
+        with env_set(GRAPE_EXCHANGE="auto", GRAPE_PIPELINE="auto"):
+            app = APP_REGISTRY[name]()
+            st = app.init_state(f4, **kw)
+        xr = mirror.LAST_EXCHANGE_DECISION["reason"]
+        pr = PIPELINE_STATS["last_decision"]["reason"]
+        check(app._pipeline is None
+              and not any(k.startswith("mx_") for k in st)
+              and xr.startswith("one CUDA device")
+              and pr.startswith("one CUDA device"),
+              f"[pipeline] {name} under auto: exchange {xr!r}, pipeline "
+              f"{pr!r}")
+        print(f"[pipeline] {name} GRAPE_EXCHANGE=auto GRAPE_PIPELINE=auto: "
+              f"gather, serial ({pr})", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[time] pipeline {secs:.1f} s", flush=True)
+    return {"seconds": secs, "runs": runs, "k1": cases, "truth": truth_rec,
+            "bytes": {"mirror": plan.bytes_mirror,
+                      "gather": plan.bytes_all_gather, "m": plan.m}}
 
 
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
@@ -5578,6 +6031,7 @@ def main() -> int:
           f"{vc['seconds']:.1f} s", flush=True)
     lint = lint_phase(device)
     print(f"[time] lint {lint['seconds']:.1f} s", flush=True)
+    pipe = pipeline_phase(frag, vc["pipeline"], device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
@@ -5585,7 +6039,7 @@ def main() -> int:
               "load": load, "spgemm": spgemm, "calib": calib, **dyn["runs"],
               **serve["runs"], **fleet["runs"], **observ["runs"],
               **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"],
-              **lint["runs"]}
+              **lint["runs"], **pipe["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -5618,6 +6072,9 @@ def main() -> int:
                           for app, r in vc["runs"].items()
                           if r["counts"].get("gather_reduce")},
              vc_cases=vc["k1"],
+             pipeline_cases=pipe["k1"],
+             launches_pipeline={app: r["counts"].get("gather_reduce", 0)
+                                for app, r in pipe["runs"].items()},
              max_abs_err_all_kinds=max(
                  kern[f"gather_reduce[{k}]"]["max_abs_err"]
                  for k in ("sum", "min", "max")),
@@ -5734,6 +6191,10 @@ def main() -> int:
         "lint": {"seconds": lint["seconds"]}
         | {k: {f: x for f, x in r.items() if f != "counts"}
            for k, r in lint["runs"].items()},
+        "pipeline": {"seconds": pipe["seconds"], "bytes": pipe["bytes"],
+                     "truth": pipe["truth"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in pipe["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

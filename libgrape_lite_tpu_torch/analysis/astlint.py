@@ -1,5 +1,5 @@
-"""grape-lint's AST checks over this package's source: R4, R5, R7, R8, R9,
-R10 and R12.
+"""grape-lint's AST checks over this package's source: R4, R5, R6, R7, R8,
+R9, R10 and R12.
 
 Counterpart of `libgrape_lite_tpu/analysis/astlint.py`: the same scope
 engine and, for each rule this package carries, the same checker with its
@@ -280,6 +280,192 @@ def _check_r5(module: _Scope, path: str,
                     "int subclass; reject isinstance(x, bool) "
                     "explicitly",
                 ))
+
+
+# ---------------------------------------------------------------------------
+# R6 -- pipelined-window carry reads vs the worker pipeline contract
+# ---------------------------------------------------------------------------
+
+
+def _window_contract():
+    """The shipped pipeline contract (exact names + '*'-suffixed
+    prefixes + audited whole-carry callees).  Imported from the
+    runtime module rather than re-parsed: the contract IS the worker's
+    declaration, and the lint must judge fixtures and the tree against
+    the same set."""
+    try:
+        from libgrape_lite_tpu_torch.parallel.pipeline import (
+            PIPELINE_WINDOW_CALLEES,
+            PIPELINE_WINDOW_READS,
+        )
+    except Exception:  # pragma: no cover -- partial checkouts
+        return frozenset(), (), frozenset()
+    exact = frozenset(c for c in PIPELINE_WINDOW_READS
+                      if not c.endswith("*"))
+    prefixes = tuple(c[:-1] for c in PIPELINE_WINDOW_READS
+                     if c.endswith("*"))
+    return exact, prefixes, frozenset(PIPELINE_WINDOW_CALLEES)
+
+
+def _check_r6(module: _Scope, path: str, findings: List[Finding]) -> None:
+    """R6 pipeline-window-read.  The double-buffered superstep pipeline
+    (parallel/pipeline.py) kicks off the next round's exchange on a side
+    stream mid-round and overlaps the interior pull with it.  Every read of the query carry inside that window is
+    only safe because the kickoff writes a fresh buffer and never
+    aliases live state; each must be audited against the worker
+    pipeline contract.  Audited forms:
+
+    * a constant-keyed subscript of a carry-dict parameter after the
+      kickoff line, or a load of a variable bound from one BEFORE the
+      kickoff — the key must be named in PIPELINE_WINDOW_READS;
+    * the WHOLE carry dict passed as a call argument after the kickoff
+      (R6 cannot see the callee's body) — the callee must be named in
+      PIPELINE_WINDOW_CALLEES;
+    * reads inside a NESTED function that captures the carry dict —
+      audited position-independently (its call time is unknowable
+      statically), same two rules.
+
+    An unnamed read is the aliasing bug class the double buffering
+    exists to prevent, fossilized before it can ship (zero-entry
+    baseline).  "Carry-dict parameter" = a parameter subscripted with
+    a string constant anywhere in the function (frag/ctx params never
+    are, so they don't trip the escape rule)."""
+    exact, prefixes, callees = _window_contract()
+
+    def named(key: str) -> bool:
+        return key in exact or (
+            bool(prefixes) and key.startswith(prefixes)
+        )
+
+    def callee_of(call: ast.Call):
+        f = call.func
+        if isinstance(f, ast.Attribute):
+            return f.attr
+        if isinstance(f, ast.Name):
+            return f.id
+        return None
+
+    for s in _all_scopes(module):
+        if s.kind != "function":
+            continue
+        kick_line = None
+        for n in _shallow(s.node):
+            if (
+                isinstance(n, ast.Call)
+                and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "kickoff"
+            ):
+                kick_line = (
+                    n.lineno if kick_line is None
+                    else min(kick_line, n.lineno)
+                )
+        if kick_line is None:
+            continue
+        # parameters actually USED as carry dicts: subscripted with a
+        # string constant somewhere in the function (incl. nested)
+        dict_params: Set[str] = set()
+        for n in ast.walk(s.node):
+            if (
+                isinstance(n, ast.Subscript)
+                and isinstance(n.value, ast.Name)
+                and n.value.id in s.params
+                and isinstance(n.slice, ast.Constant)
+                and isinstance(n.slice.value, str)
+            ):
+                dict_params.add(n.value.id)
+        # carry aliases bound before the kickoff: x = state["key"]
+        aliases: Dict[str, str] = {}
+        for n in _shallow(s.node):
+            if (
+                isinstance(n, ast.Assign)
+                and getattr(n, "lineno", 0) <= kick_line
+                and isinstance(n.value, ast.Subscript)
+                and isinstance(n.value.value, ast.Name)
+                and n.value.value.id in s.params
+                and isinstance(n.value.slice, ast.Constant)
+                and isinstance(n.value.slice.value, str)
+            ):
+                for t in n.targets:
+                    if isinstance(t, ast.Name):
+                        aliases[t.id] = n.value.slice.value
+        seen: Set[str] = set()
+
+        def flag(key: str, line: int, what: str) -> None:
+            if key in seen:
+                return
+            seen.add(key)
+            findings.append(Finding(
+                "R6", path, line, s.qualname,
+                f"{what} inside the pipelined window (after the "
+                "exchange kickoff) is not named in the worker "
+                "pipeline contract (parallel/pipeline."
+                "PIPELINE_WINDOW_READS / PIPELINE_WINDOW_CALLEES) -- "
+                "audit it as double-buffer-safe and declare it, or "
+                "move the read before the kickoff",
+            ))
+
+        def check_nodes(nodes, in_window, params) -> None:
+            for n in nodes:
+                post = in_window(n)
+                if (
+                    post
+                    and isinstance(n, ast.Subscript)
+                    and isinstance(n.ctx, ast.Load)
+                    and isinstance(n.value, ast.Name)
+                    and n.value.id in params
+                    and isinstance(n.slice, ast.Constant)
+                    and isinstance(n.slice.value, str)
+                    and not named(n.slice.value)
+                ):
+                    flag(n.slice.value, n.lineno,
+                         f"carry read {n.slice.value!r}")
+                elif (
+                    post
+                    and isinstance(n, ast.Name)
+                    and isinstance(n.ctx, ast.Load)
+                    and n.id in aliases
+                    and not named(aliases[n.id])
+                ):
+                    flag(aliases[n.id], n.lineno,
+                         f"carry read {aliases[n.id]!r} (via alias "
+                         f"{n.id!r})")
+                elif post and isinstance(n, ast.Call):
+                    cn = callee_of(n)
+                    if cn in callees:
+                        continue
+                    args = list(n.args) + [k.value for k in n.keywords]
+                    for a in args:
+                        if (
+                            isinstance(a, ast.Name)
+                            and a.id in params
+                            and a.id in dict_params
+                        ):
+                            flag(f"<{a.id} -> {cn}()>", n.lineno,
+                                 f"whole carry dict {a.id!r} passed "
+                                 f"to unaudited callee {cn!r}")
+
+        # (1) the kickoff function's own body, after the kickoff line
+        check_nodes(
+            _shallow(s.node),
+            lambda n: getattr(n, "lineno", 0) > kick_line,
+            s.params,
+        )
+        # (2) nested functions capturing a carry dict: call time is
+        # unknowable, so every read is window-audited (a nested def
+        # re-binding the name as its own param shadows it — own scope)
+        for child in s.children:
+            if child.kind != "function":
+                continue
+            free = dict_params - child.params
+            if not free:
+                continue
+            check_nodes(
+                (n for n in ast.walk(child.node)
+                 if not isinstance(n, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef))),
+                lambda n: True,
+                free,
+            )
 
 
 # ---------------------------------------------------------------------------
@@ -707,8 +893,8 @@ def _check_r12(module: _Scope, path: str,
 # entry points
 # ---------------------------------------------------------------------------
 
-_CHECKS = (_check_r4, _check_r5, _check_r7, _check_r8, _check_r9,
-           _check_r10, _check_r12)
+_CHECKS = (_check_r4, _check_r5, _check_r6, _check_r7, _check_r8,
+           _check_r9, _check_r10, _check_r12)
 
 
 def lint_source(src: str, relpath: str) -> List[Finding]:

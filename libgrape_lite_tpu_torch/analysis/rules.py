@@ -15,9 +15,8 @@ in analysis/astlint.py, A3 in analysis/artifact.py.  Not carried:
   jit, no `torch.compile`, no CUDA-graph capture, no donated buffers);
   `Worker.query` is a Python loop over eager kernels.  A3's build
   events audit what R2 and R3 protected: no cache leaks a rebuild.
-* R6 pipeline-window-read and R11 raw-axis-name -- this package has no
-  pipelined superstep and no device mesh yet; both land with the
-  multi-GPU runtime.
+* R11 raw-axis-name -- this package has no device mesh yet; it lands
+  with the k x k NCCL mesh of the multi-process runtime.
 """
 
 from __future__ import annotations
@@ -60,6 +59,23 @@ RULES: Dict[str, Rule] = {
             "at disabled vlog levels (measurable per round), and the "
             "bench schema checker accepted bools in numeric fields "
             "(bool is an int subclass)",
+        ),
+        Rule(
+            "R6", "pipeline-window-read",
+            "code between the exchange kickoff and the join of a "
+            "pipelined superstep reads a query-carry key (or a carry "
+            "alias bound before the kickoff, or -- position-"
+            "independently -- inside a nested function capturing the "
+            "carry) that is not named in the pipeline window contract "
+            "(parallel/pipeline.PIPELINE_WINDOW_READS), or passes the "
+            "whole carry dict to a callee not named in "
+            "PIPELINE_WINDOW_CALLEES -- a side-stream kickoff aliasing "
+            "the live carry reads torn state",
+            "JAX package (preventive): the double-buffered pipeline "
+            "exists because an in-flight exchange aliasing the live "
+            "carry reads torn state; every window read is audited and "
+            "named.  Here the kickoff runs on a second CUDA stream, so "
+            "the same class is a stream race (zero-entry baseline)",
         ),
         Rule(
             "R7", "sync-in-pump",

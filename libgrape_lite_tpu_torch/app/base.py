@@ -39,6 +39,10 @@ from typing import Dict, FrozenSet
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.parallel.communicator import Communicator
+from libgrape_lite_tpu_torch.parallel.mirror import resolve_mirror_plan
+from libgrape_lite_tpu_torch.parallel.pipeline import resolve_pipeline
 from libgrape_lite_tpu_torch.parallel.message_manager import (
     AutoParallelMessageManager,
 )
@@ -47,10 +51,11 @@ from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 _LOG = logging.getLogger(__name__)
 
 
-class StepContext:
+class StepContext(Communicator):
     """Per-superstep toolkit.  Per-fragment values carry the stacked
-    `[fnum, ...]` axis first; the reductions fold it away (the JAX
-    package's psum/pmin/pmax over the fragment mesh axis)."""
+    `[fnum, ...]` axis first; the collectives of `Communicator` act on it
+    (the JAX package's psum / pmin / pmax / all_gather / all_to_all over
+    the fragment mesh axis)."""
 
     @staticmethod
     def gather_state(x: torch.Tensor) -> torch.Tensor:
@@ -64,16 +69,32 @@ class StepContext:
         return x.reshape(tuple(x.shape[:-2]) + (-1,))
 
     @staticmethod
-    def sum(x: torch.Tensor) -> torch.Tensor:
-        return x.sum(dim=0)
+    def mirror_recv(x_local: torch.Tensor,
+                    send_idx: torch.Tensor) -> torch.Tensor:
+        """The remote half of `exchange_mirrors`: [..., fnum, vp] state
+        and the [fnum (sender), fnum (receiver), m] send table ->
+        [..., fnum, fnum * m], fragment f's received rows in sender
+        order.  One gather x[g][send_idx[g]] and one all-to-all (the
+        transpose of the send block on one card)."""
+        fnum = send_idx.shape[0]
+        sender = torch.arange(fnum, device=x_local.device).view(fnum, 1, 1)
+        vals = x_local[..., sender, send_idx]  # [..., g, f, m]
+        recv = vals.transpose(-3, -2)  # all_to_all: [..., f, g, m]
+        return recv.reshape(tuple(recv.shape[:-2]) + (-1,))
 
     @staticmethod
-    def min(x: torch.Tensor) -> torch.Tensor:
-        return x.amin(dim=0)
-
-    @staticmethod
-    def max(x: torch.Tensor) -> torch.Tensor:
-        return x.amax(dim=0)
+    def exchange_mirrors(x_local: torch.Tensor,
+                         send_idx: torch.Tensor) -> torch.Tensor:
+        """Mirror-compressed form of `gather_state` (JAX
+        `StepContext.exchange_mirrors`, reference
+        `batch_shuffle_message_manager.h:237-264`): fragment f's compact
+        table [vp local | g0 mirrors | g1 mirrors | ...], stacked
+        [..., fnum, vp + fnum * m], addressed by the plan's
+        `nbr_compact` (parallel/mirror.py).  Leading lane axes pass
+        through."""
+        return torch.cat([x_local,
+                          StepContext.mirror_recv(x_local, send_idx)],
+                         dim=-1)
 
 
 class VCStepContext(StepContext):
@@ -87,9 +108,11 @@ class VCStepContext(StepContext):
     chunk they completed, so the master carry's [k * vc] layout needs no
     transpose afterwards; `vc_transpose` swaps a per-tile value's axes
     ((i, j) -> (j, i), JAX's ppermute).  Leading lane axes pass through.
-    On several cards (ROADMAP Queue A item 8) these become collectives."""
+    On several cards these become collectives over the k x k NCCL mesh of
+    the multi-process runtime (ROADMAP Queue A)."""
 
     def __init__(self, k: int):
+        super().__init__(k * k)
         self.k = k
 
     def tiles(self, y: torch.Tensor) -> torch.Tensor:
@@ -128,7 +151,20 @@ def make_context(app, frag) -> StepContext:
     vertex-cut app, else the fragment stack's."""
     if getattr(app, "mesh_kind", "frag") == "vc2d":
         return VCStepContext(frag.k)
-    return StepContext()
+    return StepContext(frag.fnum)
+
+
+def exchange_table(ctx: StepContext, x: torch.Tensor, csr, state: Dict,
+                   mirror, prefix: str = "mx_"):
+    """(table, columns) of a K1 pull over `csr`: the gathered state and
+    the CSR's pid columns, or under a mirror plan (parallel/mirror.py)
+    the flattened compact tables and the plan's remapped columns
+    (`<prefix>send`, `<prefix>nbr` in `state`).  Lane-stacked x gives
+    [k, ...] tables over the same columns."""
+    if mirror is None:
+        return ctx.gather_lanes(x), csr.edge_nbr
+    return (ctx.gather_lanes(ctx.exchange_mirrors(x, state[prefix + "send"])),
+            state[prefix + "nbr"])
 
 
 def resolve_source(frag, source, app_name: str) -> int:
@@ -230,6 +266,96 @@ class AppBase:
         the framework; values are the app's).  Identity by default,
         right for distances and depths; WCC re-addresses its pid labels."""
         return values
+
+    # ---- superstep pipelining (parallel/pipeline.py) ----
+    #
+    # An app whose round is "exchange -> pull -> fold" can run pipelined:
+    # the boundary pull, the kickoff of the next round's exchange on a
+    # side stream, the interior pull overlapping it, the join.
+    # `init_state` resolves the plan (resolve_pipeline: the env gate, the
+    # byte threshold, the app's eligibility) into `self._pipeline` and
+    # merges its split CSRs into the ephemeral state; the worker then
+    # runs `inceval_pipelined` instead of `inceval`.  The serial
+    # `inceval` stays as it is: batched, incremental and dyn queries
+    # keep it, and the two rounds are bit-equal (the tests hold this).
+    pipeline_state_key: str | None = None  # the exchanged carry leaf
+    _pipeline = None                       # the resolved plan or None
+
+    def _exchange_off(self, frag) -> bool:
+        """No exchange plan: an auto twin (no pull) or an attached dyn
+        overlay (its columns index the pid-addressed gather)."""
+        return (self.pipeline_state_key is None
+                or getattr(frag, "dyn_overlay", None) is not None)
+
+    def resolve_exchange(self, frag, state: Dict, direction: str = "ie",
+                         prefix: str = "mx_"):
+        """The mirror plan of one pull (parallel/mirror.py::
+        resolve_mirror_plan), its send table and remapped columns merged
+        into `state` under `prefix`; None for the gather."""
+        if self._exchange_off(frag):
+            return None
+        mx = resolve_mirror_plan(frag, direction)
+        if mx is not None:
+            state.update(mx.state_entries(prefix, frag, direction))
+        return mx
+
+    def attach_pipeline(self, frag, state: Dict, **kw) -> None:
+        """Resolve the pull's pipeline into `self._pipeline`
+        (parallel/pipeline.py::resolve_pipeline, `kw` its arguments, the
+        exchanged leaf `pipeline_state_key`) and merge its split CSRs
+        into `state`."""
+        self._pipeline = None
+        if self._exchange_off(frag):
+            return
+        self._pipeline = resolve_pipeline(
+            frag, key=self.pipeline_state_key, **kw)
+        if self._pipeline is not None:
+            state.update(self._pipeline.host_entries)
+
+    def pipeline_exchange(self, ctx: StepContext, dev, state):
+        """The exchange buffer of the next round's pull, built from the
+        current carry (the worker calls it after PEval and whenever the
+        carry is rewritten: the buffer is a pure function of the
+        carry, so the rebuilt one is bitwise the one in flight)."""
+        return self._pipeline.exchange(ctx, state[self.pipeline_state_key],
+                                       state)
+
+    def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
+        """One pipelined superstep: (state', active, xbuf'), bit-equal to
+        `inceval`.  Called only when `self._pipeline` resolved; the
+        reads after the kickoff are audited against parallel/pipeline.
+        PIPELINE_WINDOW_READS by grape-lint R6."""
+        raise NotImplementedError(
+            f"{type(self).__name__} resolved a pipeline plan but "
+            "implements no inceval_pipelined")
+
+    def pipelined_min_round(self, ctx: StepContext, state, xbuf,
+                            post=None):
+        """The pipelined round of one K1 min pull over the split CSRs
+        (SSSP, BFS, undirected WCC): the boundary rows' relax, the
+        exchange kickoff from the boundary-merged carry, the interior
+        rows' relax overlapping it, the join.  `post` maps a pull's
+        result before the min (BFS's +1).  Each row folds its own edges
+        in their order, so (new, improved = new < old, xbuf') is
+        bit-equal to the serial round's."""
+        pl = self._pipeline
+        x = state[self.pipeline_state_key]
+        bmask = state["pl_bmask"]
+        full = pl.splice(x, xbuf)
+        rel_b = spmv.gather_reduce(
+            state["pl_b_indptr"], state["pl_b_nbr"],
+            state["pl_b_w"] if "pl_b_w" in state else None, full, "min")
+        new_b = torch.minimum(x, rel_b if post is None else post(rel_b))
+        xbuf2 = pl.kickoff(ctx, torch.where(bmask, new_b, x), state)
+        # ---- pipelined window: every carry read below is named in
+        # parallel/pipeline.PIPELINE_WINDOW_READS (grape-lint R6) ----
+        rel_i = spmv.gather_reduce(
+            state["pl_i_indptr"], state["pl_i_nbr"],
+            state["pl_i_w"] if "pl_i_w" in state else None, full, "min")
+        new = torch.where(bmask, new_b, torch.minimum(
+            x, rel_i if post is None else post(rel_i)))
+        pl.join()
+        return new, new < x, xbuf2
 
     # 0 means "run until the termination vote fires"
     max_rounds: int = 0
@@ -372,6 +498,9 @@ class AutoAppBase(AppBase):
     `update` (by default: adopt it, vote the changed inner vertices)."""
 
     sync_buffers: Dict[str, str] = {}
+    # the push has no pull to pipeline or mirror-compress: the pull
+    # apps' exchange plans stay off in their auto twins
+    pipeline_state_key = None
 
     def propose(self, ctx: StepContext, dev, state: Dict) -> Dict:
         raise NotImplementedError

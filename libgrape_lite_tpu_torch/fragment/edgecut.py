@@ -404,6 +404,64 @@ class ShardedEdgecutFragment:
         )
 
 
+# ---- boundary / interior vertex split (parallel/pipeline.py) -------------
+#
+# A vertex of fragment f is *boundary* for a pull direction when some
+# OTHER fragment's edges over that direction read it: its new value must
+# travel in the exchange before the next round can run anywhere.  Every
+# other vertex is *interior*, read only by its own fragment, so its pull
+# can overlap the exchange in flight.  The read sets are the mirror
+# request lists of parallel/mirror.py; the two must agree, or a
+# pipelined kickoff would send stale rows.
+
+_BOUNDARY_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def boundary_split(frag, directions=("ie",)) -> np.ndarray:
+    """[fnum, vp] bool: True where the vertex is boundary for a pull over
+    `directions` (JAX `fragment/edgecut.py::boundary_split`; cached per
+    fragment and direction set).  Pad rows are never boundary."""
+    per_frag = _BOUNDARY_CACHE.setdefault(frag, {})
+    key = tuple(sorted(directions))
+    if key in per_frag:
+        return per_frag[key]
+    fnum, vp = frag.fnum, frag.vp
+    read = np.zeros((fnum, vp), dtype=bool)
+    for d in key:
+        csrs = frag.host_ie if d == "ie" else frag.host_oe
+        for g in range(fnum):
+            h = csrs[g]
+            nbr = h.edge_nbr[h.edge_mask].astype(np.int64)
+            owner = nbr // vp
+            remote = owner != g
+            read[owner[remote], nbr[remote] % vp] = True
+    bmask = read & frag.host_inner_mask()
+    per_frag[key] = bmask
+    return bmask
+
+
+def boundary_stats(frag, bmask: np.ndarray, direction: str = "ie") -> dict:
+    """Per-fragment boundary and interior vertex and edge counts for one
+    pull direction (JAX `boundary_stats`): an edge belongs to the part of
+    its destination row, the row whose fold it feeds."""
+    inner = frag.host_inner_mask()
+    csrs = frag.host_ie if direction == "ie" else frag.host_oe
+    per_frag = []
+    for f in range(frag.fnum):
+        h = csrs[f]
+        is_b = bmask[f][h.edge_src[h.edge_mask]]
+        bv = int(bmask[f].sum())
+        per_frag.append({
+            "boundary_vertices": bv,
+            "interior_vertices": int(inner[f].sum()) - bv,
+            "boundary_edges": int(is_b.sum()),
+            "interior_edges": int(len(is_b) - is_b.sum()),
+        })
+    tot = {k: sum(p[k] for p in per_frag) for k in per_frag[0]} \
+        if per_frag else {}
+    return {"per_fragment": per_frag, "totals": tot, "direction": direction}
+
+
 def check_hbm_budget(device, vp, ep_oe, ep_ie, aliased, need_oe, need_ie,
                      weighted, edata_itemsize, oe_counts=None,
                      ie_counts=None) -> int:

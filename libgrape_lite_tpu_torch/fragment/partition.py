@@ -15,9 +15,11 @@ Counterpart of `libgrape_lite_tpu/fragment/partition.py`.
 The cost model is the JAX package's formula, term for term: a round
 costs its most loaded shard's (or tile's) padded edges times the ops an
 edge takes over the compute rate, plus its exchange bytes over the link
-rate.  Both rates come from the active rate profile
-(`ops/calibration.py`).  Each layout's record holds its terms in their own
-units (`padded_edge_ops`, `exchange_bytes`), the compute term in seconds
+rate.  The exchange bytes and the ops an edge takes come from
+`parallel/mirror.py` and `parallel/pipeline.py`, the one copy of each
+that the exchange and the pipeline read too.  Both rates come from the
+active rate profile (`ops/calibration.py`).  Each layout's record holds
+its terms in their own units (`padded_edge_ops`, `exchange_bytes`), the compute term in seconds
 (`t_compute_s`) when the profile measured `ops_per_s`, and the round in
 seconds (`t_round_s`) only when it measured the exchange rate too.
 Seconds decide `auto` only then: a rate the profile did not measure
@@ -36,6 +38,11 @@ import numpy as np
 from libgrape_lite_tpu_torch.fragment.edgecut import _next_pow2, _round_up
 from libgrape_lite_tpu_torch.obs.federation import FederatedStats
 from libgrape_lite_tpu_torch.ops.calibration import RateProfile, active_profile
+from libgrape_lite_tpu_torch.parallel.mirror import (
+    exchange_bytes_ledger,
+    vc2d_exchange_bytes,
+)
+from libgrape_lite_tpu_torch.parallel.pipeline import DEFAULT_OPS_PER_EDGE
 
 # 1-D app name -> its registered 2-D twin; min folds are bit-equal to
 # the 1-D pull, PageRankVC's sum fold agrees within float eps
@@ -46,33 +53,11 @@ VC2D_APPS = {
     "pagerank": "pagerank_vc",
 }
 
-#: ops an edge takes in a pull round (the JAX package's
-#: `parallel/pipeline.py::DEFAULT_OPS_PER_EDGE`: a count, not a rate)
-DEFAULT_OPS_PER_EDGE = 30.0
-
 PARTITION_STATS = FederatedStats("partition", {
     "resolved_2d": 0,     # decisions that engaged the 2-D path
     "declined": 0,        # 2d / auto requested, ineligible or priced out
     "last_decision": None,
 })
-
-
-def exchange_bytes_1d(fnum: int, vp: int, itemsize: int = 4) -> int:
-    """The 1-D round's exchange: the full-state gather, fnum * vp items
-    (JAX `parallel/mirror.py::exchange_bytes_ledger`'s "gather")."""
-    return fnum * vp * itemsize
-
-
-def exchange_bytes_2d(k: int, vc: int, itemsize: int = 4,
-                      pulls: int = 1) -> int:
-    """The 2-D round's exchange a device (JAX `parallel/mirror.py::
-    vc2d_exchange_bytes`): per pull a ring reduction of the [vc]
-    partials along k row peers, 2 (k - 1) / k * vc items, and one
-    transpose, (1 - 1/k) * vc on average."""
-    if k <= 1:
-        return 0
-    per_pull = (2 * (k - 1) / k + (1 - 1 / k)) * vc * itemsize
-    return int(round(pulls * per_pull))
 
 
 def partition_mode() -> str:
@@ -126,7 +111,8 @@ def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
     max_shard = int(shard_counts.max())
     vp = _next_pow2(max(shard_w, 8))
     # one fragment exchanges nothing in either layout
-    bytes_1d = exchange_bytes_1d(fnum, vp, itemsize) if fnum > 1 else 0
+    bytes_1d = (exchange_bytes_ledger(fnum, vp, itemsize=itemsize)["gather"]
+                if fnum > 1 else 0)
     out = {"1d": _timed({
         "max_shard_edges": max_shard,
         "padded_edges": _round_up(max_shard, 128),
@@ -145,7 +131,7 @@ def modeled_costs(src: np.ndarray, dst: np.ndarray, n_vertices: int,
             "max_tile_edges": max_tile,
             "padded_edges": _round_up(max_tile, 128),
             "padded_edge_ops": _round_up(max_tile, 128) * ope,
-            "exchange_bytes": exchange_bytes_2d(k, vc, itemsize),
+            "exchange_bytes": vc2d_exchange_bytes(k, vc, itemsize),
         }, ope, profile, "vc2d")
     for rec in out.values():
         del rec["padded_edges"]

@@ -14,9 +14,11 @@ Unreached vertices print as the reference's int64 maximum
 (`bfs_context.h:44`, golden `p2p-31-BFS`).  Integer min is exact in any
 order, so depths and round counts equal the JAX package's.  A staged
 delta overlay (dyn/) folds in through one int32 `overlay_fold` pass over
-its slots with the same +1 a slot, and the previous depths can seed an incremental query.  A
-sequence of sources builds k lanes, relaxed together by one
-`gather_reduce_lanes` call a round.
+its slots with the same +1 a slot, and the previous depths can seed an
+incremental query.  A sequence of sources builds k lanes, relaxed
+together by one `gather_reduce_lanes` call a round.  `GRAPE_EXCHANGE`
+and `GRAPE_PIPELINE` pick the mirror exchange and the pipelined round,
+as in models/sssp.py.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
+    exchange_table,
     source_lane_array,
 )
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
@@ -55,14 +58,24 @@ class BFS(ParallelAppBase):
     batch_query_key = "source"  # serve/: k sources, one pull a round
     lane_native = True
     k1_pull = "plain"  # ops/calibration.py: one K1 pull a round
+    # parallel/pipeline.py: integer min folds split bit-stably
+    pipeline_state_key = "depth"
+    _mx = None
 
     def init_state(self, frag, source=0):
         batched, depth = source_lane_array(frag, source, "BFS", _SENTINEL, 0,
                                            torch.int32)
         depth = depth if batched else depth[0]
-        overlay = overlay_state_entries(frag, "ie", None, "dyn_ie_")
-        self.ephemeral_keys = frozenset(overlay)
-        return {"depth": depth, **overlay}
+        state = {"depth": depth,
+                 **overlay_state_entries(frag, "ie", None, "dyn_ie_")}
+        # the exchange and the pipeline (models/sssp.py's rules)
+        self._mx = self.resolve_exchange(frag, state)
+        self._pipeline = None
+        if not batched:
+            self.attach_pipeline(frag, state, app_name="BFS",
+                                 mirror=self._mx, fold="min")
+        self.ephemeral_keys = frozenset(state) - {"depth"}
+        return state
 
     def peval(self, ctx: StepContext, dev, state):
         return state, 1
@@ -70,15 +83,22 @@ class BFS(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         depth = state["depth"]
         ie = dev.ie
-        full = ctx.gather_lanes(depth)
-        relaxed = _plus_one(spmv.pull(ie.indptr, ie.edge_nbr, None, full,
-                                      "min"))
+        full, nbr = exchange_table(ctx, depth, ie, state, self._mx)
+        relaxed = _plus_one(spmv.pull(ie.indptr, nbr, None, full, "min"))
         if "dyn_ie_src" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full,
                                         plus_one=True)
         new = torch.minimum(depth, relaxed)
         changed = (new < depth) & dev.inner_mask
         return dict(state, depth=new), changed.sum(dim=(-2, -1))
+
+    def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
+        """The pipelined round (models/sssp.py's): boundary relax,
+        kickoff, interior relax, join -- bit-equal to `inceval`."""
+        new, improved, xbuf2 = self.pipelined_min_round(ctx, state, xbuf,
+                                                        post=_plus_one)
+        changed = improved & dev.inner_mask
+        return {"depth": new}, changed.sum(dim=(-2, -1)), xbuf2
 
 
     def invariants(self, frag, state):

@@ -21,6 +21,14 @@ its variadic wide sort and its per-round dynamic universe exist only
 because its keys are 32 bits wide) -- so equal (row, label) pairs form
 runs.  The longest run per row wins, ties to the smallest label.  No
 Pallas kernel is involved: the JAX package runs this in XLA.
+
+`GRAPE_PIPELINE` (parallel/pipeline.py) runs the rounds after PEval
+pipelined over the oe pull's boundary / interior split: the boundary
+rows' mode fold, the label exchange kicked off on a side stream, the
+interior rows' fold, the join.  The fold only groups edges of one row,
+so each part's fold equals the whole fold on its rows: bit-equal to the
+serial round.  The exchange is the gather (int64 labels), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ class CDLP(ParallelAppBase):
     result_format = "int"
     ephemeral_keys = frozenset({"lut"})
     replicated_keys = frozenset({"step", "lut"})
+    # parallel/pipeline.py: the mode fold splits by row, bit-stably
+    pipeline_state_key = "labels"
 
     def __init__(self, max_round: int = 10):
         self.max_round = max_round
@@ -54,10 +64,16 @@ class CDLP(ParallelAppBase):
         labels = torch.where(oids >= 0, oids, big)
         # the static sorted label universe, +1 sentinel slot
         lut = torch.sort(torch.cat([labels.reshape(-1), big.view(1)]))[0]
-        return {"labels": labels,
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=frag.device),
-                "lut": lut}
+        state = {"labels": labels,
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=frag.device),
+                 "lut": lut}
+        # the gather exchange over the oe pull; CDLPOpt inherits (its
+        # shortcut replaces PEval only)
+        self.attach_pipeline(frag, state, app_name=type(self).__name__,
+                             direction="oe", fold="min", with_rows=True)
+        self.ephemeral_keys = frozenset(state) - {"labels", "step"}
+        return state
 
     @staticmethod
     def _mode_fold(row, lab, lut, n_rows):
@@ -85,6 +101,43 @@ class CDLP(ParallelAppBase):
         big = torch.tensor(_BIG, dtype=lut.dtype, device=lut.device)
         return segment_reduce(torch.where(best, sorted_lab, big), rows,
                               n_rows, "min")
+
+    def _part_fold(self, dev, full, row, nbr, lut, labels):
+        """The mode fold over one part's edges (rows [fnum, Ep_part],
+        pads on row vp), applied as `_propagate` applies it; rows
+        without edges in the part keep their label.  (Host scalars only:
+        a scalar placed on the card would add a host sync a part.)"""
+        fnum, vp = dev.fnum, dev.vp
+        valid = row < vp
+        lab = torch.where(valid, full[nbr.long()], _BIG)
+        base = torch.arange(fnum, device=labels.device).unsqueeze(1) * vp
+        grow = torch.where(valid, row.long() + base, fnum * vp)
+        new = self._mode_fold(grow.reshape(-1), lab.reshape(-1), lut,
+                              fnum * vp).view(fnum, vp)
+        keep = ~dev.inner_mask | (dev.out_degree == 0) | (new == _BIG)
+        return torch.where(keep, labels, new)
+
+    def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
+        """The pipelined round: the boundary rows' mode fold, the label
+        kickoff on the side stream, the interior rows' fold under it,
+        the join -- bit-equal to `inceval` (the fold groups by row)."""
+        pl = self._pipeline
+        labels = state["labels"]
+        lut = state["lut"]
+        step = state["step"] + 1
+        bmask = state["pl_bmask"]
+        full = pl.splice(labels, xbuf)
+        new_b = self._part_fold(dev, full, state["pl_b_row"],
+                                state["pl_b_nbr"], lut, labels)
+        xbuf2 = pl.kickoff(ctx, torch.where(bmask, new_b, labels), state)
+        # ---- pipelined window: every carry read below is named in
+        # parallel/pipeline.PIPELINE_WINDOW_READS (grape-lint R6) ----
+        new_i = self._part_fold(dev, full, state["pl_i_row"],
+                                state["pl_i_nbr"], lut, labels)
+        new = torch.where(bmask, new_b, new_i)
+        active = (step < self.max_round).to(torch.int32)
+        pl.join()
+        return {"labels": new, "step": step}, active, xbuf2
 
     def _propagate(self, ctx, dev, labels, lut):
         oe = dev.oe

@@ -23,6 +23,13 @@ seed [k, fnum, vp], the scalars [k]) pulled by one `gather_reduce_lanes`
 call a round -- or, under a strict plan, one strict-tile call a lane --
 so each lane is bit-equal to its own query.  Global queries (no source)
 keep the LDBC variant untouched and batch as per-lane states.
+
+`GRAPE_EXCHANGE` (parallel/mirror.py) picks the exchange of the pull;
+under a mirror plan K1 sums the same rows' edges in the same order over
+the remapped columns, so the result is the gather's bit for bit.
+`GRAPE_PIPELINE` declines here: a split moves K1's merge-path cuts and
+regroups the float sums (parallel/pipeline.py), so the rounds stay
+serial and the decline's reason is recorded.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     BatchShuffleAppBase,
     StepContext,
+    exchange_table,
     is_lane_sequence,
     source_lane_array,
 )
@@ -56,6 +64,8 @@ class PageRank(BatchShuffleAppBase):
     batch_query_key = "source"
     lane_native = True
     k1_pull = "plain"  # ops/calibration.py: one K1 pull a round
+    # parallel/pipeline.py: the exchanged leaf (a sum fold: declines)
+    pipeline_state_key = "rank"
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  spmv_mode: str = "auto", dtype: torch.dtype = torch.float32):
@@ -66,6 +76,7 @@ class PageRank(BatchShuffleAppBase):
         self._spmv_tile = self._spmv_rmax = 0
         self._const = {}
         self._personalized = False
+        self._mx = None
 
     def init_state_batch(self, frag, args_list):
         """Seed lanes only when every lane carries a source; all-global
@@ -109,6 +120,18 @@ class PageRank(BatchShuffleAppBase):
         self._spmv_rmax = plan[2] if plan else 0
         if plan:
             state["spmv_row_lo"] = torch.from_numpy(plan[0]).to(dev)
+        self._mx = self.resolve_exchange(frag, state)
+        self._pipeline = None
+        if not batched:
+            # a sum fold: records its decline (the strict tiles' or
+            # K1's), never engages
+            self.attach_pipeline(
+                frag, state, app_name="PageRank", mirror=self._mx,
+                fold="sum", eligible="spmv_row_lo" not in state,
+                reason="strict-tile spmv plan engaged (tile partial "
+                       "sums regroup under a split)")
+        self.ephemeral_keys = type(self).ephemeral_keys | (
+            frozenset() if self._mx is None else {"mx_send", "mx_nbr"})
         self._set_constants(frag.dev, dt)
         return state
 
@@ -203,10 +226,10 @@ class PageRank(BatchShuffleAppBase):
         # pull over incoming edges (pagerank_parallel.h:128-136)
         rank = state["rank"]
         ie = dev.ie
-        full = ctx.gather_lanes(rank)
+        full, nbr = exchange_table(ctx, rank, ie, state, self._mx)
         if "spmv_row_lo" in state:
             def strict(x):
-                contrib = torch.where(ie.edge_mask, x[ie.edge_nbr],
+                contrib = torch.where(ie.edge_mask, x[nbr],
                                       self._const["zero"])
                 return spmv.spmv_strict(contrib, ie.edge_src,
                                         state["spmv_row_lo"], dev.vp,
@@ -216,7 +239,7 @@ class PageRank(BatchShuffleAppBase):
             cur = (strict(full) if full.dim() == 1
                    else torch.stack([strict(x) for x in full]))
         else:
-            cur = spmv.pull(ie.indptr, ie.edge_nbr, None, full, "sum")
+            cur = spmv.pull(ie.indptr, nbr, None, full, "sum")
         return self.round_update(dev, state, cur.to(rank.dtype))
 
 

@@ -20,6 +20,14 @@ and the previous fixed point can seed an incremental query
 A sequence of sources builds k lanes ([k, fnum, vp] distances, the
 weight stream shared); a round then relaxes every lane with one
 `gather_reduce_lanes` call and votes each lane's improved count.
+
+`GRAPE_EXCHANGE` (parallel/mirror.py) picks the exchange of the pull:
+the gathered state, or the mirror tables under the plan's remapped
+columns.  `GRAPE_PIPELINE` (parallel/pipeline.py) runs a single-source
+query's rounds pipelined (`inceval_pipelined`): the boundary K1 pull,
+the exchange kickoff on a side stream, the interior K1 pull, the join.
+min is exact in any grouping, so both are bit-equal to the serial
+gather round.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
+    exchange_table,
+    is_lane_sequence,
     source_lane_array,
 )
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
@@ -51,9 +61,12 @@ class SSSP(ParallelAppBase):
     batch_query_key = "source"  # serve/: k sources, one pull a round
     lane_native = True
     k1_pull = "weighted"  # ops/calibration.py: one K1 pull a round
+    # parallel/pipeline.py: min folds split bit-stably
+    pipeline_state_key = "dist"
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         self.dtype = dtype
+        self._mx = None
 
     def initial_dist(self, frag, source) -> torch.Tensor:
         """[fnum, vp] distances: 0 at the source, +inf elsewhere; a
@@ -80,7 +93,15 @@ class SSSP(ParallelAppBase):
         overlay = overlay_state_entries(
             frag, "ie", torch.empty((), dtype=dt).numpy().dtype, "dyn_ie_")
         state.update(overlay)
-        self.ephemeral_keys = frozenset({"wf_eff", *overlay})
+        # the exchange and the pipeline (a single source); the overlay's
+        # columns are pids, so an attached overlay keeps the gather
+        self._mx = self.resolve_exchange(frag, state)
+        self._pipeline = None
+        if not is_lane_sequence(source):
+            self.attach_pipeline(frag, state, app_name="SSSP",
+                                 mirror=self._mx, fold="min",
+                                 with_weights=True, w_dtype=dt)
+        self.ephemeral_keys = frozenset(state) - {"dist"}
         return state
 
     def peval(self, ctx: StepContext, dev, state):
@@ -91,14 +112,22 @@ class SSSP(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         dist = state["dist"]
         ie = dev.ie
-        full = ctx.gather_lanes(dist)
-        relaxed = spmv.pull(ie.indptr, ie.edge_nbr, state["wf_eff"], full,
-                            "min")
+        full, nbr = exchange_table(ctx, dist, ie, state, self._mx)
+        relaxed = spmv.pull(ie.indptr, nbr, state["wf_eff"], full, "min")
         if "dyn_ie_src" in state:
             relaxed = self.dyn_min_fold(relaxed, state, "dyn_ie_", full)
         new = torch.minimum(dist, relaxed)
         changed = (new < dist) & dev.inner_mask
         return dict(state, dist=new), changed.sum(dim=(-2, -1))
+
+    def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
+        """The pipelined round (parallel/pipeline.py): the boundary rows'
+        relax, the exchange kickoff on the side stream, the interior
+        rows' relax overlapping it, the join (`pipelined_min_round`):
+        bit-equal to `inceval`."""
+        new, improved, xbuf2 = self.pipelined_min_round(ctx, state, xbuf)
+        changed = improved & dev.inner_mask
+        return {"dist": new}, changed.sum(dim=(-2, -1)), xbuf2
 
 
     def invariants(self, frag, state):

@@ -27,10 +27,17 @@ operands the 1-D pull uses, so SSSP, BFS and WCC are bit-equal to the
 min-oid member there too).  A sequence of sources (SSSP, BFS) builds
 [B, k * vc] lanes pulled by one `gather_reduce_lanes` call a round.
 
+`GRAPE_PIPELINE` (parallel/pipeline.py::resolve_vc2d_pipeline) runs the
+pipelined round (`inceval_pipelined`): two K1 calls over a static phase
+split of the concatenated tile CSR, the phase-0 row reduction on a side
+stream while the phase-1 K1 pulls, joined by min(r0, r1) -- bit-equal,
+as min regroups exactly.  Directed WCC's src pull declines (a dependent
+chain), as in the JAX package; pagerank_vc resolves no plan.
+
 Not carried over: the TPU pack plans of the tiles (`_resolve_tile_packs`,
-`GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull) and the
-pipelined round (`inceval_pipelined`, its row reduction overlapped with
-the next fold: a cross-device overlap, ROADMAP Queue A item 8).
+`GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull).  On
+several cards the row reduction becomes a collective over the k x k NCCL
+mesh of the multi-process runtime (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from libgrape_lite_tpu_torch.app.base import (
     is_lane_sequence,
 )
 from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.parallel.pipeline import resolve_vc2d_pipeline
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 _INT_SENT = np.iinfo(np.int32).max
@@ -108,13 +116,24 @@ class VC2DMinAppBase(GatherScatterAppBase):
     state_key = ""  # the carry leaf ("dist" / "depth" / "comp")
 
     def _init_common(self, frag, carry: torch.Tensor, eph=None):
-        """The carry and ephemeral leaves, and the partition record the
-        query span carries (trace_report's tile table)."""
+        """The carry and ephemeral leaves, the pipelined round's plan (a
+        single query's; batched lanes keep the serial round) and the
+        partition record the query span carries (trace_report's tile
+        table)."""
         self._partition = "2d"
         self._mesh_k = frag.k
         self._partition_stats = frag.tile_stats()
         self._src_pull = self._wants_src_pull(frag)
         eph = dict(eph or {})
+        self._pipeline = None
+        if carry.dim() == 1:
+            w = eph.get("w_eff")
+            self._pipeline = resolve_vc2d_pipeline(
+                frag, app_name=type(self).__name__, src_pull=self._src_pull,
+                dtype_bytes=carry.element_size(), weighted=w is not None,
+                w_dtype=None if w is None else w.dtype)
+            if self._pipeline is not None:
+                eph.update(self._pipeline.host_entries)
         self.ephemeral_keys = frozenset(eph)
         return {self.state_key: carry, **eph}
 
@@ -128,9 +147,15 @@ class VC2DMinAppBase(GatherScatterAppBase):
         # reference's source-only PEval
         return state, 1
 
+    def _tile_fold(self, ctx, indptr, nbr, w, val) -> torch.Tensor:
+        """[..., k, k, vc] partials of one K1 call over a tile CSR of the
+        pull into dst (all the tiles' edges, or a phase's)."""
+        return ctx.tiles(spmv.pull(indptr, nbr, w, val, "min"))
+
     def _dst_partial(self, ctx, dev, val, state) -> torch.Tensor:
         """[..., k, k, vc] partials of the pull into dst: one K1 call."""
-        raise NotImplementedError
+        return self._tile_fold(ctx, dev.ie.indptr, dev.ie.nbr,
+                               state.get("w_eff"), val)
 
     def _src_partial(self, ctx, dev, val, state) -> torch.Tensor:
         """[..., k, k, vc] partials of the pull into src (directed WCC)."""
@@ -146,6 +171,31 @@ class VC2DMinAppBase(GatherScatterAppBase):
         new = torch.minimum(val, relax)
         changed = (new < val) & dev.vmask
         return {**state, self.state_key: new}, changed.sum(dim=-1)
+
+    def pipeline_exchange(self, ctx, dev, state):
+        """The vertex-cut round carries no buffer across rounds: the row
+        reduction completes inside the round."""
+        return None
+
+    def inceval_pipelined(self, ctx: VCStepContext, dev, state, xbuf):
+        """The two-phase round: the phase-0 K1 pull, its row reduction
+        kicked off on the side stream, the phase-1 K1 pull under it, the
+        join, min(r0, r1).  min over disjoint edge sets of the same
+        candidates is the serial row_min bit for bit."""
+        pl = self._pipeline
+        val = state[self.state_key]
+        p0 = self._tile_fold(ctx, state["pl_p0_indptr"], state["pl_p0_nbr"],
+                             state.get("pl_p0_w"), val)
+        r0 = pl.kickoff(ctx.row_min, p0)
+        # ---- pipelined window: every carry read below is named in
+        # parallel/pipeline.PIPELINE_WINDOW_READS (grape-lint R6) ----
+        w1 = state["pl_p1_w"] if "pl_p1_w" in state else None
+        r1 = ctx.row_min(self._tile_fold(ctx, state["pl_p1_indptr"],
+                                         state["pl_p1_nbr"], w1, val))
+        pl.join()
+        new = torch.minimum(val, ctx.flat(torch.minimum(r0, r1)))
+        changed = (new < val) & dev.vmask
+        return {self.state_key: new}, changed.sum(dim=-1), xbuf
 
     def finalize(self, frag, state):
         return vc_finalize_rows(frag, state[self.state_key].numpy())
@@ -176,9 +226,6 @@ class SSSPVC2D(VC2DMinAppBase):
         return self._init_common(frag, dist,
                                  {"w_eff": frag.dev.ie.w.to(self.dtype)})
 
-    def _dst_partial(self, ctx, dev, val, state):
-        return tile_pull(ctx, dev.ie, state["w_eff"], val, "min")
-
     def invariants(self, frag, state):
         from libgrape_lite_tpu_torch.guard.invariants import (
             in_range, monotone_non_increasing,
@@ -207,8 +254,8 @@ class BFSVC2D(VC2DMinAppBase):
                                 torch.int32)
         return self._init_common(frag, depth)
 
-    def _dst_partial(self, ctx, dev, val, state):
-        return _plus_one(tile_pull(ctx, dev.ie, None, val, "min"))
+    def _tile_fold(self, ctx, indptr, nbr, w, val):
+        return _plus_one(super()._tile_fold(ctx, indptr, nbr, w, val))
 
     def invariants(self, frag, state):
         from libgrape_lite_tpu_torch.guard.invariants import (
@@ -245,9 +292,6 @@ class WCCVC2D(VC2DMinAppBase):
         comp = torch.where(frag.dev.vmask, gpids,
                            torch.full_like(gpids, _INT_SENT))
         return self._init_common(frag, comp)
-
-    def _dst_partial(self, ctx, dev, val, state):
-        return tile_pull(ctx, dev.ie, None, val, "min")
 
     def _src_partial(self, ctx, dev, val, state):
         return tile_pull(ctx, dev.oe, None, val, "min")

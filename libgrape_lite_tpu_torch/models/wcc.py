@@ -15,6 +15,16 @@ Labels are canonicalised on the host to the representative's oid (the
 LDBC check is partition isomorphism, `misc/wcc_check.cc`).  Integer min
 is exact in any order, so labels and round counts equal the JAX
 package's.
+
+`GRAPE_EXCHANGE` picks each pull's exchange (the oe pull's mirror plan
+only with the ie pull's, as in the JAX package) and `GRAPE_PIPELINE` the
+pipelined round: the single pull's split on undirected graphs, on
+directed ones the double pull of two kickoffs over the joint ie + oe
+boundary mask -- the oe exchange kicked from the ie boundary fold and
+hidden under the ie interior fold, the next round's ie exchange kicked
+from the oe boundary fold (`_inceval_pipelined_directed`).  WCCOpt's
+pointer jumping reads the folded labels again, a third exchange the
+split cannot hide: it declines.
 """
 
 from __future__ import annotations
@@ -22,7 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
+from libgrape_lite_tpu_torch.app.base import (
+    ParallelAppBase,
+    StepContext,
+    exchange_table,
+)
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
@@ -39,6 +53,9 @@ class WCC(ParallelAppBase):
     dyn_overlay_support = True
     inc_mode = "monotone-min"
     inc_seed_keys = {"comp": "min"}
+    # parallel/pipeline.py: integer min folds split bit-stably
+    pipeline_state_key = "comp"
+    _mx_ie = _mx_oe = None
 
     def init_state(self, frag, **_):
         pids = torch.arange(frag.fnum * frag.vp, dtype=torch.int32,
@@ -46,18 +63,33 @@ class WCC(ParallelAppBase):
         comp = torch.where(frag.dev.inner_mask, pids,
                            torch.tensor(_SENTINEL, dtype=torch.int32,
                                         device=frag.device))
-        overlay = overlay_state_entries(frag, "ie", None, "dyn_ie_")
+        state = {"comp": comp,
+                 **overlay_state_entries(frag, "ie", None, "dyn_ie_")}
         if frag.directed:
-            overlay.update(overlay_state_entries(frag, "oe", None, "dyn_oe_"))
-        self.ephemeral_keys = frozenset(overlay)
-        return {"comp": comp, **overlay}
+            state.update(overlay_state_entries(frag, "oe", None, "dyn_oe_"))
+        # the exchange per pull direction and the pipeline
+        # (models/sssp.py's rules)
+        self._mx_ie = self.resolve_exchange(frag, state, "ie", "mx_ie_")
+        self._mx_oe = None
+        if self._mx_ie is not None and frag.directed:
+            self._mx_oe = self.resolve_exchange(frag, state, "oe", "mx_oe_")
+        self.attach_pipeline(
+            frag, state, app_name="WCC", mirror=self._mx_ie,
+            mx_prefix="mx_ie_", fold="min",
+            direction2="oe" if frag.directed else None, mirror2=self._mx_oe,
+            eligible=type(self)._post_pull is WCC._post_pull,
+            reason="_post_pull overrides (WCCOpt pointer jumping) "
+                   "gather the folded labels again \u2014 a dependent "
+                   "third exchange the split cannot hide")
+        self.ephemeral_keys = frozenset(state) - {"comp"}
+        return state
 
     def peval(self, ctx: StepContext, dev, state):
         return state, 1
 
-    def _pull(self, ctx, comp, csr, state, dyn_prefix):
-        full = ctx.gather_state(comp)
-        red = spmv.gather_reduce(csr.indptr, csr.edge_nbr, None, full, "min")
+    def _pull(self, ctx, comp, csr, state, dyn_prefix, mx, mx_prefix):
+        full, nbr = exchange_table(ctx, comp, csr, state, mx, mx_prefix)
+        red = spmv.gather_reduce(csr.indptr, nbr, None, full, "min")
         if dyn_prefix + "src" in state:
             red = self.dyn_min_fold(red, state, dyn_prefix, full)
         return red
@@ -70,13 +102,63 @@ class WCC(ParallelAppBase):
     def inceval(self, ctx: StepContext, dev, state):
         comp = state["comp"]
         new = torch.minimum(comp, self._pull(ctx, comp, dev.ie, state,
-                                             "dyn_ie_"))
+                                             "dyn_ie_", self._mx_ie,
+                                             "mx_ie_"))
         if dev.directed:
             new = torch.minimum(new, self._pull(ctx, new, dev.oe, state,
-                                                "dyn_oe_"))
+                                                "dyn_oe_", self._mx_oe,
+                                                "mx_oe_"))
         new = self._post_pull(ctx, dev, new)
         changed = (new < comp) & dev.inner_mask
         return dict(state, comp=new), ctx.sum(changed.sum(dim=-1))
+
+    def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
+        """The pipelined round of the single pull (models/sssp.py's);
+        directed graphs take `_inceval_pipelined_directed`."""
+        if self._pipeline.mode2 is not None:
+            return self._inceval_pipelined_directed(ctx, dev, state, xbuf)
+        new, improved, xbuf2 = self.pipelined_min_round(ctx, state, xbuf)
+        changed = improved & dev.inner_mask
+        return {"comp": new}, ctx.sum(changed.sum(dim=-1)), xbuf2
+
+    def _inceval_pipelined_directed(self, ctx: StepContext, dev, state,
+                                    xbuf):
+        """The double pull of two kickoffs.  The serial round's oe pull
+        reads the labels the ie pull folded.  Under the joint ie + oe
+        boundary mask the ie boundary fold is complete at every row any
+        other fragment reads, so the oe exchange kicks right after it
+        and hides under the ie interior fold; the next round's ie
+        exchange kicks from the oe boundary fold the same way.  The
+        joins select over disjoint rows: bit-equal to the serial
+        round."""
+        pl = self._pipeline
+        comp = state["comp"]
+        bmask = state["pl_bmask"]
+        # leg 1 (ie): last round kicked its exchange
+        full1 = pl.splice(comp, xbuf)
+        new1_b = torch.minimum(comp, spmv.gather_reduce(
+            state["pl_b_indptr"], state["pl_b_nbr"], None, full1, "min"))
+        x_oe = pl.kickoff(ctx, torch.where(bmask, new1_b, comp), state,
+                          leg=2)
+        # ---- pipelined window: every carry read below is named in
+        # parallel/pipeline.PIPELINE_WINDOW_READS (grape-lint R6) ----
+        new1 = torch.where(bmask, new1_b, torch.minimum(
+            comp, spmv.gather_reduce(state["pl_i_indptr"],
+                                     state["pl_i_nbr"], None, full1,
+                                     "min")))
+        pl.join(leg=2)
+        # leg 2 (oe): remote rows from x_oe, current at every boundary row
+        full2 = pl.splice(new1, x_oe)
+        new2_b = torch.minimum(new1, spmv.gather_reduce(
+            state["pl2_b_indptr"], state["pl2_b_nbr"], None, full2, "min"))
+        xbuf2 = pl.kickoff(ctx, torch.where(bmask, new2_b, new1), state)
+        new = torch.where(bmask, new2_b, torch.minimum(
+            new1, spmv.gather_reduce(state["pl2_i_indptr"],
+                                     state["pl2_i_nbr"], None, full2,
+                                     "min")))
+        changed = (new < comp) & dev.inner_mask
+        pl.join()
+        return {"comp": new}, ctx.sum(changed.sum(dim=-1)), xbuf2
 
     def inc_value_map(self, key, values, old_frag, new_frag):
         """Labels are pids, so a repack (which renumbers the pid space)

@@ -20,8 +20,9 @@ surface), `exporter` (the live OpenMetrics endpoint, GRAPE_METRICS_PORT
 or `serve --metrics_port`), `slo` (latency objectives; a breach is an
 instant and a counter, never an exception) and `recorder` (the flight
 recorder's postmortem bundles, rendered by the `postmortem` subcommand).
-The JAX package's cross-rank `gang` and `truth` modules wait for the
-port's multi-GPU runtime.
+`truth` joins a pipelined query's modeled hidden exchange to its measured
+rounds.  The JAX package's cross-rank `gang` module waits for the port's
+multi-process runtime.
 """
 
 from libgrape_lite_tpu_torch.obs import federation

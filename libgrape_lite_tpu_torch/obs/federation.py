@@ -14,10 +14,10 @@ under the federation lock.
 
 `EXPECTED` holds the namespaces this package registers, each scraped by
 the live exporter (obs/exporter.py) and copied into every postmortem
-bundle (obs/recorder.py): the JAX package's namespaces but `pipeline` and
-`gang` (their owners, `parallel/pipeline.py` and `obs/gang.py`, wait for
-the multi-GPU runtime), its `calibration` (registered by the rate
-profile, not listed in the JAX `EXPECTED`), and `guarded_batch`
+bundle (obs/recorder.py): the JAX package's namespaces but `gang` (its
+owner, `obs/gang.py`, waits for the multi-process runtime), its
+`calibration` (registered by the rate profile, not listed in the JAX
+`EXPECTED`), and `guarded_batch`
 (serve/batch.py's counters, which the JAX package does not keep).
 grape-lint's R8 (analysis/astlint.py) makes a module-level ``*_STATS``
 surface outside the federation a finding.
@@ -48,6 +48,7 @@ EXPECTED: Dict[str, str] = {
     "vc_tiles": "libgrape_lite_tpu_torch.fragment.vertexcut",
     "calibration": "libgrape_lite_tpu_torch.ops.calibration",
     "guarded_batch": "libgrape_lite_tpu_torch.serve.batch",
+    "pipeline": "libgrape_lite_tpu_torch.parallel.pipeline",
 }
 
 

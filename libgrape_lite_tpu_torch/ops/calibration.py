@@ -40,7 +40,9 @@ a query (`autopilot/admission.py`) and the bound column of `chip_smoke.py`.
   the last round's vote read (its ``device_us`` stage is 0: one loop
   enqueues and waits in turns), so the harvest joins that wall to the
   worker's K1 columns a round times its rounds (times the lanes of a
-  batch).
+  batch).  :func:`harvest_overlap` adds the overlap truth meter's rows
+  (obs/truth.py): a pipelined query's measured rounds against its plan's
+  edge and exchange-byte columns.
 * :func:`drift_report` -- modelled against measured seconds per surface;
   `calibrate --check` exits 2 past :data:`DRIFT_TOLERANCE`.
 
@@ -898,6 +900,39 @@ def harvest_from_worker(worker, wall_s: float, rounds: int,
         return None
     cols = k1_columns(worker.fragment, weighted=pull == "weighted")
     return harvest_dispatch(wall_s, cols, rounds * lanes)
+
+
+def harvest_overlap(plan_brief: Optional[dict], measured_round_us: float,
+                    rounds: int) -> Optional[dict]:
+    """The overlap truth meter's row (obs/truth.py, JAX
+    `harvest_overlap`): the measured wall of `rounds` pipelined rounds
+    joined to the plan brief's columns -- the edges of both pulls as ops,
+    the exchange bytes as bytes -- under surface
+    "overlap", with the plan uid and the modeled hidden µs a round it
+    was joined against.  Appended to the harvest buffer and returned;
+    None without a brief, a positive wall and rounds, or columns."""
+    if not plan_brief or rounds <= 0:
+        return None
+    if not measured_round_us or measured_round_us <= 0:
+        return None
+    edges = (int(plan_brief.get("boundary_edges", 0))
+             + int(plan_brief.get("interior_edges", 0)))
+    sample = {
+        "surface": "overlap",
+        "plan_uid": plan_brief.get("plan_uid") or "-",
+        "wall_s": measured_round_us * rounds / 1e6,
+        "ops": edges * rounds,
+        "gather_rows": 0,
+        "hbm_bytes": int(plan_brief.get("exchange_bytes", 0)) * rounds,
+        "modeled_hidden_us_per_round": float(
+            plan_brief.get("hidden_us_per_round") or 0.0),
+    }
+    if sample["ops"] == 0 and sample["hbm_bytes"] == 0:
+        return None
+    _HARVEST.append(sample)
+    if len(_HARVEST) > _HARVEST_MAX:
+        del _HARVEST[: _HARVEST_MAX // 2]
+    return sample
 
 
 def harvested_samples() -> List[dict]:

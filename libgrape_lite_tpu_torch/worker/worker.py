@@ -608,6 +608,12 @@ class Worker:
         state = {k: _place(v, frag.device) for k, v in state.items()}
         # read after init_state: apps set their ephemeral keys there
         eph = frozenset(getattr(app, "ephemeral_keys", ()) or ())
+        mutating = hasattr(app, "collect_mutations")
+        # the pipelined round (parallel/pipeline.py) when the app resolved
+        # a plan; incremental and mutating queries keep the serial round
+        if self._seed_fn is not None or mutating:
+            app._pipeline = None
+        pl = getattr(app, "_pipeline", None)
 
         def carry_of(st):
             return {k: v for k, v in st.items() if k not in eph}
@@ -659,7 +665,6 @@ class Worker:
                 fault_plan.on_superstep(rounds, ckpt)
             return state, guard_prev, None
 
-        mutating = hasattr(app, "collect_mutations")
         ctx = make_context(app, frag)
         limit = mr if mr > 0 else _INT32_MAX
         try:
@@ -703,11 +708,21 @@ class Worker:
                             guard_prev = carry_of(state)
                         if active >= 0:
                             active = 1
+            # the pipelined round's exchange buffer: a pure function of
+            # the carry, rebuilt whenever the carry is rewritten, never
+            # part of the carry, a snapshot, a digest or a probe
+            xbuf = (app.pipeline_exchange(ctx, frag.dev, state)
+                    if pl is not None else None)
             while active > 0 and rounds < limit:
                 t0 = time.perf_counter()
                 built = _built_marker() if tr.enabled else 0
                 with tr.span("superstep", round=rounds + 1) as sp:
-                    state, active = app.inceval(ctx, frag.dev, state)
+                    if pl is not None:
+                        new, active, xbuf = app.inceval_pipelined(
+                            ctx, frag.dev, state, xbuf)
+                        state = {**state, **new}
+                    else:
+                        state, active = app.inceval(ctx, frag.dev, state)
                     if tr.enabled:
                         self._mark_dispatched(sp, built)
                     active = int(active)  # the termination vote, read back
@@ -718,6 +733,7 @@ class Worker:
                 if tr.enabled:
                     self._round_obs(tr, sp, rounds, "superstep", active)
                 if hooked:
+                    hooked_in = state
                     state, guard_prev, rolled = round_hooks(
                         state, rounds, active, guard_prev)
                     if rolled is not None:
@@ -726,6 +742,10 @@ class Worker:
                         rounds = int(rmeta["rounds"])
                         active = int(rmeta["active"])
                         guard_prev = carry_of(state)
+                    if pl is not None and state is not hooked_in:
+                        # a corruption or a rollback rewrote the carry
+                        xbuf = app.pipeline_exchange(ctx, frag.dev, state)
+                    if rolled is not None:
                         continue
                 if mutating:
                     state, frag, changed = self._apply_mutations(
@@ -835,6 +855,14 @@ class Worker:
                 "tile_skew": part["tile_skew"],
                 "per_tile": part["per_tile"],
             })
+        # a pipelined query carries its plan's brief and the modeled
+        # exchange time it hid (trace_report's overlap column and the
+        # truth meter, obs/truth.py, read them)
+        pl = getattr(self.app, "_pipeline", None)
+        if pl is not None:
+            sp.set(pipeline=pl.span_brief(),
+                   overlap_hidden_us=round(
+                       pl.hidden_us_per_round() * self.rounds, 1))
         m = obs.metrics()
         m.counter("grape_queries_total").inc()
         m.gauge("grape_query_rounds").set(self.rounds)
@@ -998,6 +1026,7 @@ class Worker:
         frag = self.fragment
         mr = app.max_rounds if max_rounds is None else max_rounds
         state = app.init_state_batch(frag, list(args_list))
+        app._pipeline = None  # a batch keeps the serial round
         if isinstance(state, list):
             state = [{k: _place(v, frag.device) for k, v in st.items()}
                      for st in state]
@@ -1079,6 +1108,27 @@ class Worker:
         if self._batch is None:
             raise RuntimeError("query_batch() first")
         return self._batch.lane_values(lane)
+
+    def pack_ledger(self):
+        """The app's per-round pull bill (JAX `Worker.pack_ledger`): the
+        K1 columns of its pull (`AppBase.k1_pull`, ops/calibration.py)
+        under "totals", and with a pipeline resolved its split under
+        "pipeline" (boundary and interior vertex and edge totals, the
+        exchange mode and its modeled bytes).  None when it has
+        neither."""
+        from libgrape_lite_tpu_torch.ops.calibration import k1_columns
+
+        led = {}
+        pull = getattr(self.app, "k1_pull", None)
+        if pull is not None:
+            cols = k1_columns(self.fragment, weighted=pull == "weighted")
+            if cols:
+                led["totals"] = cols
+        pl = getattr(self.app, "_pipeline", None)
+        if pl is not None:
+            led["pipeline"] = {**pl.stats.get("totals", {}), "mode": pl.mode,
+                               "exchange_bytes": pl.exchange_bytes}
+        return led or None
 
     def release_buffers(self) -> None:
         """Drop the device references of the last results (a serving

@@ -1,12 +1,15 @@
 """grape-lint over the port (`libgrape_lite_tpu_torch/analysis/`) against
 the JAX package's `analysis/`, on the CPU.
 
-* Parity per carried rule (R4, R5, R7, R8, R9, R10, R12): each trip and
-  pass fixture of the JAX tests goes through the JAX `lint_source` and,
-  with the package name in its text and path rewritten, the port's; the
-  sets of (rule, line, symbol) are equal, and the rule trips where the
-  fixture says.  The port alone: R7's PyTorch forcers, and a
-  `FederatedStats` that always registers.
+* Parity per carried rule (R4, R5, R6, R7, R8, R9, R10, R12): each trip
+  and pass fixture of the JAX tests goes through the JAX `lint_source`
+  and, with the package name in its text and path rewritten, the port's;
+  the sets of (rule, line, symbol) are equal, and the rule trips where
+  the fixture says.  R6 judges each package against its own window
+  contract: the JAX pass fixtures that name JAX-only reads (the pack
+  sub-plan streams, PageRank's `round_update`) pass in the port with the
+  port's names in their place.  The port alone: R7's PyTorch forcers,
+  and a `FederatedStats` that always registers.
 * The baseline (round trip, budget, stale entry, no entry without a
   reason), the report schema (valid, drift caught, the JAX record's
   keys), the self-lint gate over `libgrape_lite_tpu_torch`, and the `lint`
@@ -15,7 +18,7 @@ the JAX package's `analysis/`, on the CPU.
   cache caught; `build_events()` counting one real strict-plan build and
   each device-cache fill, a refill under the same key too.
 * The federation: with every owner imported, the port registers the JAX
-  namespaces but `pipeline` and `gang`, and `self_check()` passes.
+  namespaces but `gang`, and `self_check()` passes.
 """
 
 import json
@@ -34,7 +37,7 @@ from libgrape_lite_tpu_torch.cli import lint_main
 
 torch.set_num_threads(1)
 
-CARRIED = ("R4", "R5", "R7", "R8", "R9", "R10", "R12")
+CARRIED = ("R4", "R5", "R6", "R7", "R8", "R9", "R10", "R12")
 
 _PUMP = "libgrape_lite_tpu/serve/pipeline.py"
 _SESSION = "libgrape_lite_tpu/serve/session.py"
@@ -120,6 +123,50 @@ FIXTURES = [
             if isinstance(v, bool) or not isinstance(v, (int, float)):
                 errors.append(k)
         return errors
+    """, False),
+    ("r6_unnamed_window_read", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        new_b = state["dist"] + 1
+        xbuf2 = self._pipeline.kickoff(ctx, new_b, state)
+        fr = state["frontier"]
+        return {"dist": new_b + fr}, 1, xbuf2
+    """, True),
+    ("r6_pre_kickoff_alias_read", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        shadow = state["scratch"]
+        xbuf2 = self._pipeline.kickoff(ctx, state["dist"], state)
+        return {"dist": shadow}, 1, xbuf2
+    """, True),
+    ("r6_nested_closure_read", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        def helper():
+            return state["frontier"]
+        pre = state["dist"]
+        xbuf2 = self._pipeline.kickoff(ctx, pre, state)
+        return {"dist": helper()}, 1, xbuf2
+    """, True),
+    ("r6_whole_carry_escape", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        new_b = state["dist"] + 1
+        xbuf2 = self._pipeline.kickoff(ctx, new_b, state)
+        out = self.mystery_fold(frag, state)
+        return {"dist": out}, 1, xbuf2
+    """, True),
+    ("r6_non_dict_params", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        xbuf2 = self._pipeline.kickoff(ctx, state["dist"], state)
+        deg = self.degree_of(frag, ctx)
+        return {"dist": state["dist"] + deg}, 1, xbuf2
+    """, False),
+    ("r6_reads_before_kickoff_are_free", "R6", "fixture.py", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        pre = state["unnamed_leaf"] + state["another_one"]
+        xbuf2 = self._pipeline.kickoff(ctx, pre, state)
+        return {"dist": pre}, 1, xbuf2
+    """, False),
+    ("r6_no_kickoff", "R6", "fixture.py", """
+    def inceval(self, ctx, frag, state):
+        return {"dist": state["dist"] + state["frontier"]}, 1
     """, False),
     ("r7_asarray_in_dispatch", "R7", _PUMP, """
     import numpy as np
@@ -342,8 +389,71 @@ def test_catalogue_carries_the_named_rules():
     assert set(analysis.RULES) == set(CARRIED) | {"A3"}
     for rid, rule in analysis.RULES.items():
         assert rule.slug == JRULES[rid].slug and rule.history
-    for gone in ("R1", "R2", "R3", "R6", "R11", "A1", "A2"):
+    for gone in ("R1", "R2", "R3", "R11", "A1", "A2"):
         assert gone not in analysis.RULES
+
+
+# R6's JAX pass fixtures that name JAX-only reads, and their port form:
+# the same window with the port's contract names in place of the pack
+# sub-plan stream (pki_*) and of the pack / PageRank callees
+R6_RENAMED = [
+    ("r6_contract_named_reads", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        dist = state["dist"]
+        xbuf2 = self._pipeline.kickoff(ctx, dist, state)
+        cand = state["pl_i_nbr"] + state["pki_l0_rows"]
+        new = cand * state["pl_bmask"] + dist
+        return {"dist": new}, 1, xbuf2
+    """, {"pki_l0_rows": "pl_i_indptr"}),
+    ("r6_audited_callees", """
+    def inceval_pipelined(self, ctx, frag, state, xbuf):
+        def pack_fold(dispatch, table):
+            return dispatch.reduce(table, state, "min")
+        full = self._pipeline.splice(ctx, state["rank"], state, xbuf)
+        xbuf2 = self._pipeline.kickoff(ctx, state["rank"], state)
+        cur = pack_fold(self._pipeline.pack_i, full)
+        st2, active = self.round_update(frag, state, cur)
+        return st2, active, xbuf2
+    """, {"dispatch.reduce(table, state":
+          "self._pipeline.kickoff(ctx, table, state",
+          "self.round_update(frag, state, cur)":
+          "self._pipeline.kickoff(ctx, cur, state, leg=2), 1",
+          '"rank"': '"comp"'}),
+]
+
+
+@pytest.mark.parametrize("fid,src,renames", R6_RENAMED,
+                         ids=[r[0] for r in R6_RENAMED])
+def test_r6_pass_fixtures_in_the_port_contract(fid, src, renames):
+    src = textwrap.dedent(src)
+    assert not [f for f in jlint_source(src, "fixture.py")
+                if f.rule == "R6"]
+    port = src
+    for old, new in renames.items():
+        port = port.replace(old, new)
+    assert port != src
+    assert not [f for f in lint_source(port, "fixture.py")
+                if f.rule == "R6"]
+    # the JAX names are not in the port's contract: the JAX text trips
+    assert [f for f in lint_source(src, "fixture.py") if f.rule == "R6"]
+
+
+def test_r6_trips_on_an_unnamed_read_in_a_port_round():
+    """A read the port's contract does not name, added after the kickoff
+    of the port's pipelined min round (SSSP's, BFS's and WCC's,
+    `AppBase.pipelined_min_round`), trips R6 there."""
+    import inspect
+
+    from libgrape_lite_tpu_torch.app import base
+
+    src = inspect.getsource(base)
+    assert not [f for f in lint_source(src, "app/base.py")
+                if f.rule == "R6"]
+    bad = src.replace('state["pl_i_indptr"], state["pl_i_nbr"]',
+                      'state["wf_eff"], state["pl_i_nbr"]')
+    assert bad != src
+    found = [f for f in lint_source(bad, "app/base.py") if f.rule == "R6"]
+    assert [f.symbol for f in found] == ["AppBase.pipelined_min_round"]
 
 
 # ---- the port alone --------------------------------------------------------
@@ -683,9 +793,9 @@ def test_federation_holds_the_jax_namespaces_and_self_checks():
 
     assert jfederation.self_check() == []
     assert federation.self_check() == []
-    wanted = set(jfederation.registered()) - {"pipeline", "gang"}
-    assert {"plan", "spgemm", "partition", "vc_tiles",
-            "calibration"} <= wanted
+    wanted = set(jfederation.registered()) - {"gang"}
+    assert {"plan", "spgemm", "partition", "vc_tiles", "calibration",
+            "pipeline"} <= wanted
     assert wanted <= set(federation.registered())
     for ns in wanted:
         assert set(federation.snapshot(ns)) <= set(

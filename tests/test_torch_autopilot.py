@@ -299,10 +299,11 @@ def test_federation_namespaces_and_self_check():
     import libgrape_lite_tpu_torch.fleet  # noqa: F401
     import libgrape_lite_tpu_torch.serve  # noqa: F401
 
-    # the JAX namespaces but the multi-GPU runtime's, plus the rate
-    # profile's (registered, not listed, in JAX) and the guarded batch's
+    # the JAX namespaces but the multi-process runtime's (gang), plus
+    # the rate profile's (registered, not listed, in JAX) and the guarded
+    # batch's
     assert set(federation.EXPECTED) == (
-        set(jfederation.EXPECTED) - {"pipeline", "gang"}
+        set(jfederation.EXPECTED) - {"gang"}
         | {"calibration", "guarded_batch"})
     for ns, owner in federation.EXPECTED.items():
         if ns in ("calibration", "guarded_batch"):

@@ -336,19 +336,52 @@ def test_chrome_trace_schema_and_jsonl_twin(tmp_path):
 
 
 def test_disabled_span_overhead_budget():
-    """The disarmed span stays under a microsecond: the round loop calls
-    it every round, so this is the tax on every untraced query."""
+    """The disarmed span is the shared no-op and costs about what a bare
+    no-op context manager costs: the round loop calls it every round, so
+    this is the tax on every untraced query.  Timed in batches
+    interleaved with the bare context manager in this process, and
+    bounded by the ratio of the two best batches, so a loaded host slows
+    both alike."""
+    from libgrape_lite_tpu_torch.obs.tracer import NULL_SPAN
+
     tr = obs.tracer()
     assert not tr.enabled
-    n = 50_000
-    best = float("inf")
-    for _ in range(5):
+    assert tr.span("superstep") is NULL_SPAN
+
+    class Bare:
+        __slots__ = ()
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    bare = Bare()
+    n = 20_000
+
+    def span_batch():
         t0 = time.perf_counter()
         for _ in range(n):
             with tr.span("superstep"):
                 pass
-        best = min(best, (time.perf_counter() - t0) / n)
-    assert best < 1e-6, f"disabled span costs {best * 1e9:.0f}ns > 1us"
+        return time.perf_counter() - t0
+
+    def bare_batch():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with bare:
+                pass
+        return time.perf_counter() - t0
+
+    best_span = best_bare = float("inf")
+    for _ in range(7):
+        best_span = min(best_span, span_batch())
+        best_bare = min(best_bare, bare_batch())
+    ratio = best_span / best_bare
+    assert ratio < 3.0, (
+        f"disabled span costs {ratio:.2f}x a bare no-op context manager "
+        f"({best_span / n * 1e9:.0f}ns vs {best_bare / n * 1e9:.0f}ns)")
 
 
 def test_disabled_surface_is_inert():
