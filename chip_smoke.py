@@ -282,6 +282,25 @@ the port's own entry points:
      mode: the modeled hidden µs a round, the measured round, the
      claim_frac; PageRank under GRAPE_PIPELINE=1 and force, declined
      with its reason;
+  11k. the multi-process runtime (`[dist]`): (a) a one-rank NCCL group
+     in this process (`CommSpec.init_distributed`) over [pipeline]'s
+     RMAT-20 fnum-4 fragment: sssp, bfs, wcc (each bit-equal) and
+     pagerank (within 1e-4) through the distributed StepContext against
+     the same queries single-process, with equal rounds, K1 launches and
+     host syncs (CUDA's sync-debug mode), the collectives and all_gather
+     bytes a round, the NCCL activity of one profiled query, walls
+     (median of 3); K1 on rank 1's [2, vp + 1] slab of that stack (min+w
+     bit-equal, sum within 1e-5 of each row's sum of |terms|) reading a
+     gathered x, with kernel, plain, library and bound ms; (b) gangs of
+     two CLI children on the one card under GRAPE_DIST_BACKEND=gloo
+     (`--coordinator --num_processes 2 --process_id`): p2p-31 at fnum 2
+     and 4 for the four apps, their files equal to the one-process CLI's
+     (PageRank within 1e-4) and the goldens, rank 1 writing none; then
+     RMAT-20 SSSP and PageRank at fnum 4 (hash partitioner) beside a
+     one-process child of each, with their query walls and host syncs a
+     round; every child loads the parent's kernel libraries (a build
+     fails the phase) and launches K1; (c) NCCL across two cards, run
+     only where this run sees two (never under the one card it keeps);
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -1938,6 +1957,39 @@ def profile_phases(frag, frag18, device) -> None:
 
 # ---- phase 7: goldens through run_app ----------------------------------
 
+GOLDENS = {"sssp": ("p2p-31-SSSP", {"sssp_source": 6}),
+           "bfs": ("p2p-31-BFS", {"bfs_source": 6}),
+           "wcc": ("p2p-31-WCC", {}), "pagerank": ("p2p-31-PR", {}),
+           "cdlp": ("p2p-31-CDLP", {"cdlp_mr": CDLP_ROUNDS}),
+           "lcc": ("p2p-31-LCC", {})}
+
+
+def result_dict(text: str) -> dict:
+    """`oid value` lines -> {oid: value text}."""
+    return dict(line.split() for line in text.strip().splitlines())
+
+
+def check_golden(app: str, got: dict, want: dict, what: str) -> None:
+    """`got` against a golden file's `want` by the repo's rules: WCC the
+    same partition under some relabelling (wcc_check.cc), PageRank and
+    the LCCs 1e-4 relative (eps_check.cc; a zero stays zero), the rest
+    exact."""
+    check(got.keys() == want.keys(), f"{what}: vertex sets")
+    g = np.array([float(want[k]) for k in want])
+    r = np.array([float(got[k]) for k in want])
+    if app.startswith("wcc"):
+        pairs = {(want[k], got[k]) for k in want}
+        ok = np.array([len(pairs) == len({w for w, _ in pairs})
+                       == len({x for _, x in pairs})])
+    elif app.startswith(("pagerank", "lcc")):
+        ok = np.where(g == 0, np.abs(r) < 1e-12,
+                      np.abs(r - g) <= 1e-4 * np.abs(g))
+    else:  # exact
+        ok = (r == g) | (np.isinf(r) & np.isinf(g))
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} vertices off the "
+          "golden file")
+
+
 def golden_phase(device, names=None, efile: str = "p2p-31.e",
                  delta_efile: str = "", tag: str = "golden",
                  extra_args: dict | None = None) -> None:
@@ -1950,20 +2002,8 @@ def golden_phase(device, names=None, efile: str = "p2p-31.e",
 
     data = os.path.join(HERE, "dataset")
 
-    def load(text):
-        return dict(line.split() for line in text.strip().splitlines())
-
-    def isomorphic(got, want):
-        """WCC: the same partition under some relabelling (wcc_check.cc)."""
-        pairs = {(want[k], got[k]) for k in want}
-        return (len(pairs) == len({w for w, _ in pairs})
-                == len({g for _, g in pairs}))
-
-    goldens = {"sssp": ("p2p-31-SSSP", {"sssp_source": 6}),
-               "bfs": ("p2p-31-BFS", {"bfs_source": 6}),
-               "wcc": ("p2p-31-WCC", {}), "pagerank": ("p2p-31-PR", {}),
-               "cdlp": ("p2p-31-CDLP", {"cdlp_mr": CDLP_ROUNDS}),
-               "lcc": ("p2p-31-LCC", {})}
+    load = result_dict
+    goldens = GOLDENS
     if names is None:
         apps = [(app, *goldens[app.split("_")[0]])
                 for app in ("pagerank", "sssp", "bfs", "wcc", "cdlp", "lcc",
@@ -1990,19 +2030,7 @@ def golden_phase(device, names=None, efile: str = "p2p-31.e",
                                     vals[f, :frag.inner_vertices_num(f)],
                                     wk.app.result_format)
                 for f in range(frag.fnum)))
-            check(got.keys() == want.keys(), f"{app} fnum {fnum}: vertex sets")
-            g = np.array([float(want[k]) for k in want])
-            r = np.array([float(got[k]) for k in want])
-            if app.startswith("wcc"):
-                ok = np.array([isomorphic(got, want)])
-            elif app.startswith(("pagerank", "lcc")):
-                # eps_check.cc: 1e-4 relative; a zero must stay zero
-                ok = np.where(g == 0, np.abs(r) < 1e-12,
-                              np.abs(r - g) <= 1e-4 * np.abs(g))
-            else:  # exact
-                ok = (r == g) | (np.isinf(r) & np.isinf(g))
-            check(bool(ok.all()), f"{app} fnum {fnum}: "
-                  f"{int((~ok).sum())} vertices off the golden file")
+            check_golden(app, got, want, f"{app} fnum {fnum}")
             print(f"[{tag}] {app}{' directed' if extra.get('directed') else ''}"
                   f" fnum={fnum} rounds={wk.rounds} ok", flush=True)
 
@@ -2064,6 +2092,26 @@ def rmat_tsv(scale: int, directory: str):
     return efile, vfile, len(src), nbytes
 
 
+_SHARED_TSV: dict = {}
+
+
+def shared_rmat_tsv(scale: int) -> tuple:
+    """`rmat_tsv(scale, ...)` written once a run into a temp directory
+    removed at exit (the [load] and [dist] phases read the same file):
+    (efile, vfile, lines, bytes, seconds the first write took)."""
+    if scale not in _SHARED_TSV:
+        import atexit
+        import shutil
+        import tempfile
+
+        d = tempfile.mkdtemp(prefix="grape-rmat-tsv-")
+        atexit.register(shutil.rmtree, d, True)
+        t0 = time.perf_counter()
+        out = rmat_tsv(scale, d)
+        _SHARED_TSV[scale] = (*out, time.perf_counter() - t0)
+    return _SHARED_TSV[scale]
+
+
 def query_values(frag, app, device, **kw):
     """(values [fnum, vp] numpy, launch counts, seconds) of one query."""
     reset_launch_counts()
@@ -2096,10 +2144,9 @@ def load_phase(device, scale: int = SCALE) -> dict:
             out["counts"][k] += v
 
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        efile, vfile, edges, nbytes = rmat_tsv(scale, tmp)
+        efile, vfile, edges, nbytes, tsv_s = shared_rmat_tsv(scale)
         print(f"[load] rmat{scale} tsv: {edges} lines, {nbytes} bytes, "
-              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+              f"written in {tsv_s:.2f} s", flush=True)
         check(native.available(),
               f"native loader did not build: {native.UNAVAILABLE_REASON}")
         spec = loader.LoadGraphSpec(serialize=True,
@@ -5647,7 +5694,547 @@ def pipeline_phase(frag, vc_pipe, device) -> dict:
     print(f"[time] pipeline {secs:.1f} s", flush=True)
     return {"seconds": secs, "runs": runs, "k1": cases, "truth": truth_rec,
             "bytes": {"mirror": plan.bytes_mirror,
-                      "gather": plan.bytes_all_gather, "m": plan.m}}
+                      "gather": plan.bytes_all_gather, "m": plan.m},
+            "frag": f4}
+
+
+# ---- phase 11k: the multi-process runtime ([dist]) ------------------------
+
+DIST_APPS = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}),
+             ("pagerank", {"max_round": PR_ROUNDS}))
+DIST_CLI = {"sssp": ["--sssp_source", "6"], "bfs": ["--bfs_source", "6"],
+            "wcc": [], "pagerank": ["--pr_mr", str(PR_ROUNDS)]}
+DIST_FNUMS = (2, 4)  # p2p-31 gangs of two ranks
+DIST_REPEATS = 3
+DIST_PR_RTOL = 1e-4
+DIST_CHILD_TIMEOUT_S = 300
+DIST_TIMEOUT_S = "120"  # GRAPE_DIST_TIMEOUT_S of every group of the phase
+
+# A child of the port's CLI: `cli.main` with the given flags, its one
+# query timed (synchronised) and its host syncs counted (CUDA's sync-debug
+# mode) with the launch and collective counts zeroed before it; the record
+# is printed as one `[dist-child]` JSON line, with the kernel libraries
+# this process had to build (none: the parent built them).
+DIST_CHILD = r"""
+import json, sys, time, warnings
+import torch
+from libgrape_lite_tpu_torch import cli
+from libgrape_lite_tpu_torch.fragment import loader
+from libgrape_lite_tpu_torch.ops import _build, spmv
+from libgrape_lite_tpu_torch.worker import worker as W
+
+rec = {}
+query = W.Worker.query
+CUDA = torch.cuda.is_available()
+
+
+def sync():
+    if CUDA:
+        torch.cuda.synchronize()
+
+
+def debug_mode(mode):
+    if CUDA:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+debug_mode("warn")  # warns once at first use
+debug_mode("default")
+
+
+def timed_query(self, *a, **kw):
+    sync()
+    spmv.reset_launch_counts()
+    spec = self.fragment.comm_spec
+    spec.reset_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = query(self, *a, **kw)
+        finally:
+            debug_mode("default")
+        sync()
+        rec["query_s"] = time.perf_counter() - t0
+    rec.update(rounds=self.rounds, k1=spmv.gather_reduce.launches,
+               syncs=sum("synchroniz" in str(w.message) for w in caught),
+               dist=dict(spec.stats), transport=spec.transport)
+    return out
+
+
+W.Worker.query = timed_query
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+rec.update(rc=rc, main_s=time.perf_counter() - t0,
+           built=sorted(_build.BUILD_LOG), load=sorted(loader.LOAD_SECONDS))
+print("[dist-child] " + json.dumps(rec), flush=True)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_fragment(f4, spec):
+    """`f4`'s host fragment placed under `spec` (every rank's load builds
+    the same host arrays; this process places its slab)."""
+    from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+
+    return ShardedEdgecutFragment(
+        spec, f4.host_oe, f4.host_ie, f4.host_oids, f4.host_ivnum,
+        f4.directed, f4.dev.total_vnum, f4.dev.total_enum)
+
+
+def same_or_close(got: np.ndarray, want: np.ndarray, rtol: float,
+                  what: str) -> float:
+    """Bit-equal for rtol 0, else within rtol of |want| (a zero stays a
+    zero); returns the max relative error."""
+    if rtol == 0:
+        check(got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+              f"{what}: not bit-equal to one process")
+        return 0.0
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    rel = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
+    ok = np.where(w == 0, np.abs(g) < 1e-12, rel <= rtol)
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} values off one "
+          f"process by more than {rtol:g}")
+    return float(np.where(w == 0, 0.0, rel).max())
+
+
+def nccl_trace(fn, device) -> dict:
+    """NCCL activity in one profiled call of `fn`: host-side process-group
+    ops and device kernels / copies whose name holds `nccl`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        sync(device)
+    host = dev = 0
+    names = set()
+    for ev in prof.events():
+        if "nccl" not in ev.name.lower():
+            continue
+        names.add(ev.name.split("(")[0][:60])
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev += 1
+        else:
+            host += 1
+    return {"host_ops": host, "device_events": dev, "names": sorted(names)}
+
+
+def dist_world1_phase(f4, device) -> dict:
+    """(a) A one-rank NCCL group in this process over RMAT-20 at fnum 4
+    (the [pipeline] cell): sssp, bfs, wcc and pagerank through the
+    distributed StepContext against the same queries single-process --
+    bit-equal (PageRank within 1e-4), the same rounds, K1 launches and
+    host syncs; the collectives a round, the all_gather bytes a round,
+    the NCCL activity of one traced query, walls (median of 3)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+    from libgrape_lite_tpu_torch.parallel import comm_spec as cs
+
+    with env_set(GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S):
+        spec = cs.CommSpec.init_distributed(
+            f"127.0.0.1:{free_port()}", 1, 0, fnum=PIPE_FNUM,
+            device=device)
+    want = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    check(spec.transport == want, f"[dist] world 1 came up as {spec!r}")
+    print(f"[dist] world 1: {spec!r}", flush=True)
+    runs = {}
+    try:
+        f4d = dist_fragment(f4, spec)
+        call_syncs(lambda: None, device)  # the debug mode warns at first use
+        for name, kw in DIST_APPS:
+            factory = APP_REGISTRY[name]
+            one, _ = run_query(f4, factory(), device, **kw)  # warm-ups
+            run_query(f4d, factory(), device, **kw)
+            reset_launch_counts()
+            one, _ = run_query(f4, factory(), device, **kw)
+            k1_one = launch_counts()["gather_reduce"]
+            reset_launch_counts()
+            spec.reset_stats()
+            wk, _ = run_query(f4d, factory(), device, **kw)
+            counts = launch_counts()
+            stats = dict(spec.stats)
+            rounds = wk.rounds
+            check(rounds == one.rounds, f"[dist] {name}: {rounds} rounds "
+                  f"against {one.rounds} single-process")
+            check(counts["gather_reduce"] == k1_one > 0,
+                  f"[dist] {name}: K1 launched {counts['gather_reduce']} "
+                  f"times against {k1_one} single-process")
+            rtol = DIST_PR_RTOL if name == "pagerank" else 0
+            got, want = wk.result_values(), one.result_values()
+            err = same_or_close(got, want, rtol, f"[dist] {name} world 1")
+            bit_equal = got.tobytes() == want.tobytes()
+            syncs = host_syncs(f4d, factory, device, kw)
+            syncs_one = host_syncs(f4, factory, device, kw)
+            check(syncs == syncs_one, f"[dist] {name}: {syncs} host syncs "
+                  f"in a query against {syncs_one} single-process")
+            walls = [run_query(f4d, factory(), device, **kw)[1]
+                     for _ in range(DIST_REPEATS)]
+            walls_one = [run_query(f4, factory(), device, **kw)[1]
+                         for _ in range(DIST_REPEATS)]
+            trace = nccl_trace(lambda: run_query(f4d, factory(), device,
+                                                 **kw), device)
+            per = max(rounds, 1)
+            rec = dict(
+                counts=counts, rounds=rounds, bit_equal=bit_equal,
+                max_rel_err=err, syncs=syncs, syncs_single=syncs_one,
+                syncs_per_round=syncs / per,
+                collectives_per_round=stats["calls"] / per,
+                all_gather_bytes_per_round=stats["all_gather_bytes"] / per,
+                all_reduce_per_round=stats["all_reduce"] / per,
+                wall_s=float(np.median(walls)),
+                wall_single_s=float(np.median(walls_one)),
+                nccl_host_ops_per_round=trace["host_ops"] / per,
+                nccl_device_events_per_round=trace["device_events"] / per,
+                nccl_names=trace["names"])
+            runs[f"dist world1 {name}"] = rec
+            print(f"[dist] world 1 {spec.transport} {name}: rounds={rounds} "
+                  f"{'bit-equal' if bit_equal else f'max_rel_err={err:.3e}'}"
+                  f" K1={counts['gather_reduce']} syncs={syncs} "
+                  f"(single {syncs_one}) collectives/round="
+                  f"{rec['collectives_per_round']:.2f} all_gather "
+                  f"B/round={rec['all_gather_bytes_per_round']:.0f} nccl "
+                  f"host ops/round={rec['nccl_host_ops_per_round']:.2f} "
+                  f"device events/round="
+                  f"{rec['nccl_device_events_per_round']:.2f} "
+                  f"{trace['names']} wall_s={rec['wall_s']:.4f} "
+                  f"single_s={rec['wall_single_s']:.4f}", flush=True)
+        k1 = dist_k1_phase(f4, f4d, device)
+    finally:
+        spec.close()
+    return {"runs": runs, "k1": k1}
+
+
+def dist_k1_case(label, indptr, nbr, w, x, kind, device) -> dict:
+    """K1 on a rank's slab CSR ([fl, vp + 1], global pid columns) reading
+    the gathered x, against its plain version: min bit-equal, sum within
+    1e-5 of each row's sum of |terms|; bound: indptr, the edges' columns
+    (and weights), x and y each once.  Library: `sparse_csr_tensor @ x`
+    for the sum, segment_reduce over the candidates (gathered outside the
+    timed call) for min."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    got = spmv.gather_reduce(indptr, nbr, w, x, kind)
+    if kind == "sum":
+        err = check_sum(
+            got, spmv.gather_reduce_plain(indptr, nbr, w, x.double(), "sum"),
+            spmv.gather_reduce_plain(indptr, nbr, w, x.double().abs(),
+                                     "sum"), f"[dist] K1 {label}")
+    else:
+        check(torch.equal(got, spmv.gather_reduce_plain(indptr, nbr, w, x,
+                                                        kind)),
+              f"[dist] K1 {label} not bit-equal to its plain version")
+        err = 0.0
+    fl, rows = indptr.shape[0], indptr.shape[1] - 1
+    ip = indptr.to(torch.int64)
+    real = (torch.arange(nbr.shape[1], device=x.device).unsqueeze(0)
+            < ip[:, -1:])
+    edges = int(real.sum())
+    per_edge = 2 if w is not None else 1
+    nbytes = (indptr.nbytes + 4 * per_edge * edges
+              + x.numel() * x.element_size() + fl * rows * x.element_size())
+    b_ms, b_by = bound(nbytes, per_edge * edges)
+    cols = nbr[real].to(torch.int64)
+    deg = (ip[:, 1:] - ip[:, :-1]).reshape(-1)
+    if kind == "sum":
+        flat_ip = torch.cat([deg.new_zeros(1), deg.cumsum(0)])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # "beta state"
+            csr = torch.sparse_csr_tensor(
+                flat_ip, cols, torch.ones(edges, device=x.device),
+                size=(fl * rows, x.numel()), check_invariants=False)
+        library = lambda: csr @ x  # noqa: E731
+    else:
+        cand = x[cols] + (w[real] if w is not None else 0)
+        library = lambda: torch.segment_reduce(  # noqa: E731
+            cand, "min", lengths=deg, unsafe=True, initial=float("inf"))
+    ms = time_ms(lambda: spmv.gather_reduce(indptr, nbr, w, x, kind),
+                 device, 10)
+    plain_ms = time_ms(lambda: spmv.gather_reduce_plain(
+        indptr, nbr, w, x, kind), device, 3, batch=1)
+    lib_ms = time_ms(library, device, 10)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, edges=edges,
+               rows=fl * rows)
+    print(f"[kernel] gather_reduce {label}: kernel_ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) edges={edges} rows={fl * rows} max_abs_err={err:.3e}",
+          flush=True)
+    return out
+
+
+def dist_k1_phase(f4, f4d, device) -> dict:
+    """K1 on rank 1's [2, vp + 1] slab of the RMAT-20 fnum-4 stack (a
+    two-rank group's), min+w and sum, reading a gathered [fnum * vp]
+    x."""
+    lo, hi = PIPE_FNUM // 2, PIPE_FNUM
+    ie = f4.dev.ie
+    indptr = ie.indptr[lo:hi].contiguous()
+    nbr = ie.edge_nbr[lo:hi].contiguous()
+    w = torch.where(ie.edge_mask[lo:hi], ie.edge_w[lo:hi].float(),
+                    torch.tensor(float("inf"), device=ie.edge_w.device))
+    n = f4.fnum * f4.vp
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.rand(n, generator=gen).to(device)
+    dist = torch.where(torch.rand(n, generator=gen) < 0.3,
+                       torch.tensor(float("inf")),
+                       torch.rand(n, generator=gen) * 50).to(device)
+    return {"rank1 slab min+w": dist_k1_case(
+                "rank-1 slab [2, vp+1] min+w", indptr, nbr, w.contiguous(),
+                dist, "min", device),
+            "rank1 slab sum": dist_k1_case(
+                "rank-1 slab [2, vp+1] sum", indptr, nbr, None, x, "sum",
+                device)}
+
+
+def dist_children(jobs: dict, env_extra: dict, device) -> dict:
+    """Run every job (name -> argv list of CLI flags per rank) at once as
+    children of the port's CLI (`DIST_CHILD`), each under the subprocess
+    timeout; returns name -> the ranks' `[dist-child]` records.  A child
+    that fails, builds a kernel library or launches no K1 fails the
+    phase."""
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1",
+               GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S, **env_extra)
+    procs = {name: [subprocess.Popen(
+        [sys.executable, "-c", DIST_CHILD, *argv], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in ranks] for name, ranks in jobs.items()}
+    out, failed = {}, []
+    deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
+    try:
+        for name, ranks in procs.items():
+            recs = []
+            for r, p in enumerate(ranks):
+                try:
+                    so, se = p.communicate(
+                        timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    failed.append(f"{name} rank {r}: past "
+                                  f"{DIST_CHILD_TIMEOUT_S} s")
+                    continue
+                line = [ln for ln in so.splitlines()
+                        if ln.startswith("[dist-child] ")]
+                if p.returncode != 0 or not line:
+                    failed.append(f"{name} rank {r}: exit {p.returncode}: "
+                                  f"{se[-2000:]}")
+                    continue
+                recs.append(json.loads(line[-1][len("[dist-child] "):]))
+            out[name] = recs
+    finally:
+        for ranks in procs.values():
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    check(not failed, "[dist] children failed: " + " | ".join(failed))
+    for name, recs in out.items():
+        for r, rec in enumerate(recs):
+            check(not rec["built"], f"[dist] {name} rank {r} built "
+                  f"{rec['built']}: the children use the parent's kernels")
+            # (off the card the children run the plain versions)
+            check(rec["k1"] > 0 or torch.device(device).type != "cuda",
+                  f"[dist] {name} rank {r} launched no K1")
+    return out
+
+
+def read_results(prefix: str, fnum: int) -> str:
+    return "".join(open(os.path.join(prefix, f"result_frag_{f}")).read()
+                   for f in range(fnum))
+
+
+def compare_files(app: str, got: str, want: str, what: str) -> float:
+    """A gang's result text against one process's: byte for byte, or for
+    PageRank within 1e-4 relative by oid."""
+    if app != "pagerank":
+        check(got == want, f"{what}: result files differ from one "
+              "process's")
+        return 0.0
+    g, w = result_dict(got), result_dict(want)
+    check(g.keys() == w.keys(), f"{what}: vertex sets")
+    keys = list(w)
+    return same_or_close(np.array([float(g[k]) for k in keys]),
+                         np.array([float(w[k]) for k in keys]),
+                         DIST_PR_RTOL, what)
+
+
+def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
+                    rmat: bool, device) -> dict:
+    """CLI gangs of two ranks (`env_extra` picks the transport): on
+    p2p-31 at fnum 2 and 4 for the four apps, then (`rmat`) RMAT-20 SSSP
+    and PageRank at fnum 4 (hash partitioner) beside a one-process CLI
+    child of each; every gang's files equal one process's (PageRank
+    within 1e-4), the p2p-31 ones the goldens, and only rank 0 writes."""
+    from libgrape_lite_tpu_torch import cli
+
+    data = os.path.join(HERE, "dataset")
+    p2p = ["--efile", os.path.join(data, "p2p-31.e"),
+           "--vfile", os.path.join(data, "p2p-31.v"),
+           "--device", torch.device(device).type]
+
+    def gang(flags, prefix, world=2):
+        port = free_port()
+        return [flags + ["--out_prefix", prefix if r == 0
+                         else f"{prefix}_r{r}",
+                         "--coordinator", f"127.0.0.1:{port}",
+                         "--num_processes", str(world), "--process_id",
+                         str(r)] for r in range(world)]
+
+    def err_text(app, err):
+        return "byte-equal" if app != "pagerank" else f"max_rel_err={err:.3e}"
+
+    jobs = {}
+    for app in DIST_CLI:
+        for fnum in DIST_FNUMS:
+            flags = ["--application", app, *DIST_CLI[app], *p2p, "--fnum",
+                     str(fnum)]
+            jobs[f"p2p {app} fnum {fnum}"] = gang(
+                flags, os.path.join(tmp, f"{tag}_{app}_{fnum}"))
+    rmat_apps = {"sssp": ["--application", "sssp", "--sssp_source", "0"],
+                 "pagerank": ["--application", "pagerank", "--pr_mr",
+                              str(PR_ROUNDS)]}
+    if rmat:
+        # the one-process RMAT children load the TSV and write the garc
+        # cache beside the p2p-31 gangs; the RMAT gangs then read it
+        efile, vfile, _, _, tsv_s = shared_rmat_tsv(SCALE)
+        flags_r = ["--efile", efile, "--vfile", vfile, "--fnum",
+                   str(PIPE_FNUM), "--partitioner_type", "hash",
+                   "--serialization_prefix", os.path.join(tmp, "garc"),
+                   "--device", torch.device(device).type]
+        for app, flags in rmat_apps.items():
+            jobs[f"rmat{SCALE} {app} one process"] = [
+                flags + flags_r + ["--serialize", "--out_prefix",
+                                   os.path.join(tmp, f"one_rmat_{app}")]]
+    t0 = time.perf_counter()
+    recs = dist_children(jobs, env_extra, device)
+    children_s = time.perf_counter() - t0
+    nproc = sum(len(v) for v in jobs.values())
+    runs = {}
+    for app in DIST_CLI:
+        want_g = result_dict(open(os.path.join(data, GOLDENS[app][0])).read())
+        for fnum in DIST_FNUMS:
+            name = f"p2p {app} fnum {fnum}"
+            one = os.path.join(tmp, f"one_{app}_{fnum}")
+            if not os.path.exists(one):
+                cli.main(["--application", app, *DIST_CLI[app], *p2p,
+                          "--fnum", str(fnum), "--out_prefix", one])
+            prefix = os.path.join(tmp, f"{tag}_{app}_{fnum}")
+            check(not os.path.exists(prefix + "_r1"),
+                  f"[dist] {tag} {name}: rank 1 wrote result files")
+            got = read_results(prefix, fnum)
+            err = compare_files(app, got, read_results(one, fnum),
+                                f"[dist] {tag} {name}")
+            check_golden(app, result_dict(got), want_g,
+                         f"[dist] {tag} {name}")
+            rs = recs[name]
+            check(all(r["transport"] == transport for r in rs),
+                  f"[dist] {name}: transport {[r['transport'] for r in rs]}")
+            check(len({r["rounds"] for r in rs}) == 1,
+                  f"[dist] {name}: ranks ran different rounds")
+            runs[f"dist {tag} {name}"] = dict(
+                counts={"gather_reduce": sum(r["k1"] for r in rs)},
+                rounds=rs[0]["rounds"], max_rel_err=err,
+                k1_per_rank=[r["k1"] for r in rs],
+                query_s=[r["query_s"] for r in rs],
+                syncs=[r["syncs"] for r in rs],
+                collectives=rs[0]["dist"]["calls"],
+                staged=rs[0]["dist"]["staged"])
+            print(f"[dist] {tag} 2 ranks {name}: rounds={rs[0]['rounds']} "
+                  f"{err_text(app, err)} goldens ok K1/rank="
+                  f"{[r['k1'] for r in rs]} query_s="
+                  f"{[round(r['query_s'], 4) for r in rs]} syncs="
+                  f"{[r['syncs'] for r in rs]} collectives="
+                  f"{rs[0]['dist']['calls']} (staged "
+                  f"{rs[0]['dist']['staged']})", flush=True)
+    if rmat:
+        jobs = {f"rmat{SCALE} {app}": gang(
+            flags + flags_r + ["--deserialize"],
+            os.path.join(tmp, f"{tag}_rmat_{app}"))
+            for app, flags in rmat_apps.items()}
+        t0 = time.perf_counter()
+        recs.update(dist_children(jobs, env_extra, device))
+        children_s += time.perf_counter() - t0
+        nproc += sum(len(v) for v in jobs.values())
+        for app in rmat_apps:
+            name = f"rmat{SCALE} {app}"
+            rs, (one,) = recs[name], recs[f"{name} one process"]
+            got = read_results(os.path.join(tmp, f"{tag}_rmat_{app}"),
+                               PIPE_FNUM)
+            err = compare_files(app, got, read_results(
+                os.path.join(tmp, f"one_rmat_{app}"), PIPE_FNUM),
+                f"[dist] {tag} {name}")
+            check(all(r["rounds"] == one["rounds"] for r in rs),
+                  f"[dist] {name}: rounds {[r['rounds'] for r in rs]} "
+                  f"against {one['rounds']} one process")
+            check("serialize" in one["load"]
+                  and all("deserialize" in r["load"] for r in rs),
+                  f"[dist] {name}: the one process's load "
+                  f"{one['load']}, the gang's {[r['load'] for r in rs]}")
+            per = max(one["rounds"], 1)
+            r = runs[f"dist {tag} {name}"] = dict(
+                counts={"gather_reduce": sum(x["k1"] for x in rs)},
+                rounds=one["rounds"], max_rel_err=err,
+                query_s=[x["query_s"] for x in rs],
+                query_one_s=one["query_s"],
+                syncs_per_round=[x["syncs"] / per for x in rs],
+                syncs_per_round_one=one["syncs"] / per,
+                collectives_per_round=rs[0]["dist"]["calls"] / per,
+                staged_per_round=rs[0]["dist"]["staged"] / per,
+                all_gather_bytes_per_round=rs[0]["dist"]["all_gather_bytes"]
+                / per, main_s=[x["main_s"] for x in rs],
+                main_one_s=one["main_s"])
+            print(f"[dist] {tag} 2 ranks {name} fnum {PIPE_FNUM}: rounds="
+                  f"{one['rounds']} {err_text(app, err)} query_s="
+                  f"{[round(x, 4) for x in r['query_s']]} (one process "
+                  f"{one['query_s']:.4f}) syncs/round="
+                  f"{[round(x, 2) for x in r['syncs_per_round']]} (one "
+                  f"process {r['syncs_per_round_one']:.2f}) collectives/"
+                  f"round={r['collectives_per_round']:.2f} all_gather "
+                  f"B/round={r['all_gather_bytes_per_round']:.0f} main_s="
+                  f"{[round(x, 1) for x in r['main_s']]} (one process "
+                  f"{one['main_s']:.1f}; rmat{SCALE} TSV written in "
+                  f"{tsv_s:.1f} s)", flush=True)
+    print(f"[dist] {tag} children: {nproc} processes in {children_s:.1f} s",
+          flush=True)
+    return {"runs": runs, "children_s": children_s}
+
+
+def dist_phases(f4, device) -> dict:
+    """[dist]: the multi-process runtime on the card -- (a) NCCL at world
+    1 in this process with K1 on a rank's slab CSR, (b) two ranks over
+    gloo on one card, (c) NCCL across two cards where this run sees
+    them."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    w1 = dist_world1_phase(f4, device)
+    with tempfile.TemporaryDirectory(prefix="grape-dist-") as tmp:
+        staged = torch.device(device).type == "cuda"
+        gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
+                             "gloo-staged" if staged else "gloo", tmp,
+                             rmat=True, device=device)
+        nccl = {"runs": {}}
+        if staged and torch.cuda.device_count() >= 2:
+            nccl = dist_gang_phase("nccl", {}, "nccl", tmp, rmat=False,
+                                   device=device)
+        else:
+            print("[dist] nccl world 2: not run, 1 card", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[time] dist {secs:.1f} s", flush=True)
+    return {"seconds": secs,
+            "runs": {**w1["runs"], **gl["runs"], **nccl["runs"]},
+            "k1": w1["k1"],
+            "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}
 
 
 # ---- phase 8: the rate probe (and the capability probe, run first) ----
@@ -6032,6 +6619,7 @@ def main() -> int:
     lint = lint_phase(device)
     print(f"[time] lint {lint['seconds']:.1f} s", flush=True)
     pipe = pipeline_phase(frag, vc["pipeline"], device)
+    dist = dist_phases(pipe.pop("frag"), device)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,
@@ -6039,7 +6627,7 @@ def main() -> int:
               "load": load, "spgemm": spgemm, "calib": calib, **dyn["runs"],
               **serve["runs"], **fleet["runs"], **observ["runs"],
               **ft["runs"], **grd["runs"], **gsrv["runs"], **vc["runs"],
-              **lint["runs"], **pipe["runs"]}
+              **lint["runs"], **pipe["runs"], **dist["runs"]}
     runs = list(by_app.values())
     launches = {k: sum(r["counts"].get(k, 0) for r in runs)
                 for k in ("gather_reduce", "gather_reduce_lanes",
@@ -6075,6 +6663,9 @@ def main() -> int:
              pipeline_cases=pipe["k1"],
              launches_pipeline={app: r["counts"].get("gather_reduce", 0)
                                 for app, r in pipe["runs"].items()},
+             dist_cases=dist["k1"],
+             launches_dist={app: r["counts"].get("gather_reduce", 0)
+                            for app, r in dist["runs"].items()},
              max_abs_err_all_kinds=max(
                  kern[f"gather_reduce[{k}]"]["max_abs_err"]
                  for k in ("sum", "min", "max")),
@@ -6195,6 +6786,10 @@ def main() -> int:
                      "truth": pipe["truth"]}
         | {k: {f: x for f, x in r.items() if f != "counts"}
            for k, r in pipe["runs"].items()},
+        "dist": {"seconds": dist["seconds"],
+                 "nccl_world2": dist["nccl_world2"]}
+        | {k: {f: x for f, x in r.items() if f != "counts"}
+           for k, r in dist["runs"].items()},
     }), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

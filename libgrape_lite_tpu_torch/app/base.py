@@ -51,39 +51,84 @@ from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 _LOG = logging.getLogger(__name__)
 
 
+class _ctxmethod:
+    """A StepContext method that reads the context's process group.  Read
+    off the class (`StepContext.gather_state(x)`), it binds to the
+    single-process context, whose collectives fold the stacked axis on
+    one device."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__doc__ = fn.__doc__
+
+    def __get__(self, obj, cls=None):
+        if obj is None:
+            obj = _local_context()
+        return self.fn.__get__(obj, type(obj))
+
+
+_LOCAL_CTX = None
+
+
+def _local_context() -> "StepContext":
+    global _LOCAL_CTX
+    if _LOCAL_CTX is None:
+        _LOCAL_CTX = StepContext()
+    return _LOCAL_CTX
+
+
 class StepContext(Communicator):
     """Per-superstep toolkit.  Per-fragment values carry the stacked
-    `[fnum, ...]` axis first; the collectives of `Communicator` act on it
-    (the JAX package's psum / pmin / pmax / all_gather / all_to_all over
-    the fragment mesh axis)."""
+    `[fnum, ...]` axis first (a rank's `[fl, ...]` slab under a process
+    group); the collectives of `Communicator` act on it (the JAX
+    package's psum / pmin / pmax / all_gather / all_to_all over the
+    fragment mesh axis)."""
 
-    @staticmethod
-    def gather_state(x: torch.Tensor) -> torch.Tensor:
-        """[fnum, vp, ...] -> the full pid-indexed [fnum * vp, ...]."""
+    @_ctxmethod
+    def gather_state(self, x: torch.Tensor) -> torch.Tensor:
+        """[fnum, vp, ...] -> the full pid-indexed [fnum * vp, ...]; a
+        rank's [fl, vp, ...] slab joins the others' in one all_gather."""
+        if self.spec is not None:
+            x = self._gather_frags(x)
         return x.reshape((-1,) + tuple(x.shape[2:]))
 
-    @staticmethod
-    def gather_lanes(x: torch.Tensor) -> torch.Tensor:
+    @_ctxmethod
+    def gather_lanes(self, x: torch.Tensor) -> torch.Tensor:
         """[fnum, vp] -> [fnum * vp]; lane-stacked [k, fnum, vp] -> the
         lanes' full vectors [k, fnum * vp]."""
+        if self.spec is not None:
+            if x.dim() == 2:
+                x = self._gather_frags(x)
+            else:  # the fragment axis first for the gather, then back
+                x = self._gather_frags(x.movedim(-2, 0)).movedim(0, -2)
         return x.reshape(tuple(x.shape[:-2]) + (-1,))
 
-    @staticmethod
-    def mirror_recv(x_local: torch.Tensor,
+    @_ctxmethod
+    def mirror_recv(self, x_local: torch.Tensor,
                     send_idx: torch.Tensor) -> torch.Tensor:
         """The remote half of `exchange_mirrors`: [..., fnum, vp] state
         and the [fnum (sender), fnum (receiver), m] send table ->
         [..., fnum, fnum * m], fragment f's received rows in sender
         order.  One gather x[g][send_idx[g]] and one all-to-all (the
-        transpose of the send block on one card)."""
-        fnum = send_idx.shape[0]
-        sender = torch.arange(fnum, device=x_local.device).view(fnum, 1, 1)
+        transpose of the send block on one card).  Under a process group
+        the state and the table's sender rows are the rank's slab, and
+        the all-to-all crosses ranks."""
+        nsend = send_idx.shape[0]
+        sender = torch.arange(nsend, device=x_local.device).view(nsend, 1, 1)
         vals = x_local[..., sender, send_idx]  # [..., g, f, m]
-        recv = vals.transpose(-3, -2)  # all_to_all: [..., f, g, m]
+        if self.spec is None:
+            recv = vals.transpose(-3, -2)  # all_to_all: [..., f, g, m]
+        else:
+            # receivers first, grouped by rank: [world, fl (f), ..., fl
+            # (g), m]; back come the sender ranks' blocks, which join
+            # the local sender axis in fragment order
+            v = vals.movedim(-2, 0).unflatten(0, (self.spec.world, -1))
+            recv = self.spec.all_to_all_single(v)  # [p, f, ..., g, m]
+            recv = recv.movedim(0, -3).flatten(-3, -2).movedim(0, -3)
         return recv.reshape(tuple(recv.shape[:-2]) + (-1,))
 
-    @staticmethod
-    def exchange_mirrors(x_local: torch.Tensor,
+    @_ctxmethod
+    def exchange_mirrors(self, x_local: torch.Tensor,
                          send_idx: torch.Tensor) -> torch.Tensor:
         """Mirror-compressed form of `gather_state` (JAX
         `StepContext.exchange_mirrors`, reference
@@ -92,9 +137,20 @@ class StepContext(Communicator):
         [..., fnum, vp + fnum * m], addressed by the plan's
         `nbr_compact` (parallel/mirror.py).  Leading lane axes pass
         through."""
-        return torch.cat([x_local,
-                          StepContext.mirror_recv(x_local, send_idx)],
+        return torch.cat([x_local, self.mirror_recv(x_local, send_idx)],
                          dim=-1)
+
+    def vote(self, active, replicated: bool = False):
+        """The round's termination vote across ranks: a rank's active
+        count all-reduced as an exact int64 SUM, or a `replicated` vote
+        (the same on every rank) as MAX.  A vote given as a Python int
+        is a constant of the query, the same on every rank, and stays on
+        the host.  Single-process the vote is returned as it is; the
+        worker's read of it is the round's one host sync."""
+        if self.spec is None or not isinstance(active, torch.Tensor):
+            return active
+        t = active.to(torch.int64).reshape(1)
+        return self.spec.all_reduce(t, "max" if replicated else "sum")[0]
 
 
 class VCStepContext(StepContext):
@@ -109,7 +165,7 @@ class VCStepContext(StepContext):
     transpose afterwards; `vc_transpose` swaps a per-tile value's axes
     ((i, j) -> (j, i), JAX's ppermute).  Leading lane axes pass through.
     On several cards these become collectives over the k x k NCCL mesh of
-    the multi-process runtime (ROADMAP Queue A)."""
+    the multi-process runtime (ROADMAP Queue A item 8c)."""
 
     def __init__(self, k: int):
         super().__init__(k * k)
@@ -148,10 +204,11 @@ class VCStepContext(StepContext):
 
 def make_context(app, frag) -> StepContext:
     """The superstep context of `app` on `frag`: the 2-D one for a
-    vertex-cut app, else the fragment stack's."""
+    vertex-cut app, else the fragment stack's, over the process group of
+    the fragment's CommSpec when it has one."""
     if getattr(app, "mesh_kind", "frag") == "vc2d":
         return VCStepContext(frag.k)
-    return StepContext(frag.fnum)
+    return StepContext(frag.fnum, spec=getattr(frag, "comm_spec", None))
 
 
 def exchange_table(ctx: StepContext, x: torch.Tensor, csr, state: Dict,
@@ -163,7 +220,10 @@ def exchange_table(ctx: StepContext, x: torch.Tensor, csr, state: Dict,
     [k, ...] tables over the same columns."""
     if mirror is None:
         return ctx.gather_lanes(x), csr.edge_nbr
-    return (ctx.gather_lanes(ctx.exchange_mirrors(x, state[prefix + "send"])),
+    # the compact tables stay where they are: each fragment's own table
+    # already holds every row its edges read (a local flatten, no gather)
+    table = ctx.exchange_mirrors(x, state[prefix + "send"])
+    return (table.reshape(tuple(table.shape[:-2]) + (-1,)),
             state[prefix + "nbr"])
 
 
@@ -174,6 +234,12 @@ def resolve_source(frag, source, app_name: str) -> int:
         _LOG.warning("%s: source %r is not in the vertex map; all "
                      "vertices will be unreachable", app_name, source)
     return pid
+
+
+def local_frags(frag) -> tuple:
+    """(fl, fid_lo): the fragments whose state this process holds --
+    every fragment single-process, the rank's slab under a group."""
+    return getattr(frag, "fl", frag.fnum), getattr(frag, "fid_lo", 0)
 
 
 def is_lane_sequence(source) -> bool:
@@ -189,17 +255,21 @@ def source_lane_array(frag, source, app_name: str, fill, hit,
     device, `hit` at each resolved source and `fill` elsewhere -- SSSP's
     distances (inf / 0), BFS's depths (sentinel / 0), personalized
     PageRank's teleport vector (0 / 1).  An absent or None source leaves
-    its lane all `fill`."""
+    its lane all `fill`.  Under a process group the array is the rank's
+    [k, fl, vp] slab: every rank resolves the source on its host twins,
+    and only the rank that owns its fragment sets the hit."""
     batched = is_lane_sequence(source)
     sources = list(source) if batched else [source]
-    arr = torch.full((len(sources), frag.fnum, frag.vp), fill, dtype=dtype,
+    fl, lo = local_frags(frag)
+    arr = torch.full((len(sources), fl, frag.vp), fill, dtype=dtype,
                      device=frag.device)
     pids = [resolve_source(frag, s, app_name) if s is not None else -1
             for s in sources]
-    lanes = [b for b, pid in enumerate(pids) if pid >= 0]
+    lanes = [b for b, pid in enumerate(pids)
+             if pid >= 0 and lo <= pid // frag.vp < lo + fl]
     if lanes:
         hits = np.array([pids[b] for b in lanes], dtype=np.int64)
-        idx = (torch.tensor(lanes), torch.from_numpy(hits // frag.vp),
+        idx = (torch.tensor(lanes), torch.from_numpy(hits // frag.vp - lo),
                torch.from_numpy(hits % frag.vp))
         arr[tuple(i.to(frag.device) for i in idx)] = hit
     return batched, arr

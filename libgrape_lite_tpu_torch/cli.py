@@ -47,6 +47,17 @@ per-superstep table) with a JSONL twin `t.jsonl`, `--metrics m` writes
 `m.json` and `m.prom`, and `--profile` logs each round's seconds and
 active count; GRAPE_TRACE and GRAPE_METRICS arm the same sinks.
 
+Several processes (the multi-process runtime): `--coordinator host:port
+--num_processes N --process_id i`, one command a process, start a
+torch.distributed group (gloo on `--device cpu`; NCCL on CUDA, one card
+a local rank; GRAPE_DIST_BACKEND=gloo lets ranks share a card, each
+collective staged through host memory; GRAPE_DIST_TIMEOUT_S bounds the
+rendezvous and every collective).  fnum must be a multiple of N; each
+rank holds fnum / N fragments and only process 0 writes --out_prefix.
+Across processes sssp, bfs, wcc and pagerank run; other apps,
+checkpoints, guards, fault injection, delta files, --vc and
+GRAPE_PIPELINE=force raise before the load.
+
 Fault tolerance (ft/, guard/): `--checkpoint_every K --checkpoint_dir D`
 snapshots the query's carry every K supersteps, `--resume
 --checkpoint_dir D` continues the newest usable snapshot (the lineage's
@@ -150,7 +161,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="LCC hub cap: skip neighbour lists of vertices "
                         "above this degree (0 disables)")
     p.add_argument("--fnum", type=int, default=None,
-                   help="fragment count, stacked on the one device")
+                   help="fragment count, stacked on the device (each "
+                        "process's share of them across processes)")
     p.add_argument("--partitioner_type", default="map",
                    choices=["hash", "map", "segment"])
     p.add_argument("--idxer_type", default="hashmap",
@@ -196,6 +208,15 @@ def make_parser() -> argparse.ArgumentParser:
                         "bundle, rollback self-heals from the last "
                         "checkpoint (needs --checkpoint_every); default "
                         "reads GRAPE_GUARD")
+    p.add_argument("--coordinator", default="",
+                   help="torch.distributed rendezvous address (host:port, "
+                        "served by process 0); arms the multi-process "
+                        "runtime with --num_processes/--process_id")
+    p.add_argument("--num_processes", type=int, default=0,
+                   help="total process count (0 = single-process); fnum "
+                        "must be a multiple of it")
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="this process's rank in [0, num_processes)")
     return p
 
 
@@ -1142,7 +1163,14 @@ def main(argv=None) -> int:
     if argv and argv[0] == "lint":
         return lint_main(argv[1:])
     ns = make_parser().parse_args(argv)
-    run_app(QueryArgs(**vars(ns)))
+    try:
+        run_app(QueryArgs(**vars(ns)))
+    finally:
+        # a gang member leaves its process group on the error path too
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -7,6 +7,14 @@ object describes all `fnum` fragments; device tensors are stacked
 is a power of two and the padded global id is `pid = fid * vp + lid`,
 so the state of every fragment flattens to one pid-indexed vector.
 
+Under a process group (`CommSpec.init_distributed`) every rank builds
+the same host fragment -- the host CSRs, oids and vertex map stay whole
+-- and places only its slab `[fid_lo, fid_lo + fl)` of every stacked
+array on its device (`DeviceFragment.fl`, `fid_lo`; the JAX package's
+`put_global` contract).  The padded edge width `Ep` stays the global
+one, so every rank's shapes agree, and CSR columns stay global pids
+into the gathered `[fnum * vp]` vector.
+
 Undirected graphs store one symmetrised CSR and alias it as both the
 in- and the out-CSR, as the JAX package does.  On `--string_id` graphs
 the host keeps the `str` oids and the device's `oids` hold each vertex's
@@ -107,6 +115,10 @@ class DeviceFragment:
     directed: bool
     total_vnum: int
     total_enum: int
+    # the stacked fragments this device holds: [fid_lo, fid_lo + fl)
+    # (all of them single-process)
+    fl: int
+    fid_lo: int
 
     @property
     def n_pad(self) -> int:
@@ -167,6 +179,8 @@ class ShardedEdgecutFragment:
         self.directed = directed
         self.weighted = host_ie[0].edge_w is not None
         self.fnum = comm_spec.fnum
+        # the slab this process places: every fragment single-process
+        self.fl, self.fid_lo = comm_spec.fl, comm_spec.fid_lo
         self.vp = self.host_oids.shape[1]
         self._oid_index = None
         self.edge_list = None  # the oid edge list, when retained
@@ -367,27 +381,33 @@ class ShardedEdgecutFragment:
         return np.where(self.host_inner_mask(), pid, -1)
 
     def _to_device(self, total_vnum: int, total_enum: int) -> DeviceFragment:
+        """Place the stacked arrays of this process's slab (every
+        fragment single-process) on the device."""
         dev = self.device
+        lo, hi = self.fid_lo, self.fid_lo + self.fl
 
-        def put(x):
+        def put(x, sliced=False):
+            """One [fnum, ...] host array's slab on the device (`sliced`:
+            already the slab)."""
             if x is None:
                 return None
-            x = np.ascontiguousarray(x)
+            x = np.ascontiguousarray(x if sliced else x[lo:hi])
             if not x.flags.writeable:  # e.g. a view of another framework's
                 x = x.copy()           # buffer: torch wants writable memory
             return torch.from_numpy(x).to(dev)
 
         def put_csr(csrs):
-            st = _stack_csrs(csrs)
-            return DeviceCSR(*(put(st[k]) for k in _CSR_FIELDS))
+            st = _stack_csrs(csrs[lo:hi])
+            return DeviceCSR(*(put(st[k], True) for k in _CSR_FIELDS))
 
         aliased = self.host_ie is self.host_oe
         oe = put_csr(self.host_oe)
         ie = oe if aliased else put_csr(self.host_ie)
-        out_degree = put(np.stack([c.degree for c in self.host_oe])
-                         .astype(np.int32))
+        out_degree = put(np.stack([c.degree for c in self.host_oe[lo:hi]])
+                         .astype(np.int32), True)
         in_degree = out_degree if aliased else put(
-            np.stack([c.degree for c in self.host_ie]).astype(np.int32))
+            np.stack([c.degree for c in self.host_ie[lo:hi]])
+            .astype(np.int32), True)
         return DeviceFragment(
             ivnum=put(self.host_ivnum),
             inner_mask=put(self.host_inner_mask()),
@@ -401,6 +421,8 @@ class ShardedEdgecutFragment:
             directed=self.directed,
             total_vnum=int(total_vnum),
             total_enum=int(total_enum),
+            fl=self.fl,
+            fid_lo=self.fid_lo,
         )
 
 

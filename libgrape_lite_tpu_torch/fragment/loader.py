@@ -42,7 +42,10 @@ from libgrape_lite_tpu_torch.io.line_parser import (
     read_vertex_file,
 )
 from libgrape_lite_tpu_torch.io.native import byte_join, byte_split
-from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+from libgrape_lite_tpu_torch.parallel.comm_spec import (
+    CommSpec,
+    host_allgather,
+)
 from libgrape_lite_tpu_torch.utils.archive import (
     InArchive,
     OutArchive,
@@ -162,7 +165,11 @@ def LoadGraph(
     spec: LoadGraphSpec | None = None,
 ) -> ShardedEdgecutFragment:
     """Entry point, mirroring `LoadGraph<FRAG_T>` (`loader.h:42-53`).
-    The device is `comm_spec.device`.
+    The device is `comm_spec.device`.  Under a process group every rank
+    parses and builds the same host fragment and places its slab; with
+    the serialization cache the coordinator alone writes it (the cache
+    key does not depend on the world size: the host fragment is the
+    same at any).
 
     With obs/ armed the load is a `load_graph` span with `read_edges`,
     `partition`, `build_fragment`, `deserialize` and `serialize`
@@ -177,8 +184,13 @@ def LoadGraph(
         cache = sig = None
         if (spec.serialize or spec.deserialize) and spec.serialization_prefix:
             cache, sig = _cache_dir(efile, vfile or "", spec, comm_spec.fnum)
-        if spec.deserialize and cache and os.path.exists(
-                os.path.join(cache, "sig")):
+        gang = getattr(comm_spec, "group", None) is not None
+        cached = bool(cache) and os.path.exists(os.path.join(cache, "sig"))
+        if gang and cache:
+            # every rank of a group takes the coordinator's view of the
+            # cache, so all of them read it or all build from source
+            cached = bool(host_allgather(np.array([int(cached)]))[0][0])
+        if spec.deserialize and cached:
             t0 = time.perf_counter()
             with tr.span("deserialize", cache=cache):
                 frag = _deserialize_fragment(cache, comm_spec, spec)
@@ -248,8 +260,13 @@ def LoadGraph(
 
         if spec.serialize and cache:
             t0 = time.perf_counter()
-            with tr.span("serialize", cache=cache):
-                _serialize_fragment(frag, cache, sig)
+            # under a group the coordinator writes the cache and the
+            # others wait until it is whole
+            if not gang or comm_spec.is_coordinator:
+                with tr.span("serialize", cache=cache):
+                    _serialize_fragment(frag, cache, sig)
+            if gang:
+                comm_spec.barrier()
             LOAD_SECONDS["serialize"] = time.perf_counter() - t0
         if tr.enabled:
             obs.metrics().gauge("grape_graph_edges").set(int(len(src)))

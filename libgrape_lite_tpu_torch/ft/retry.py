@@ -124,6 +124,8 @@ LATE_INIT_PHRASES = (
     "before any JAX",
     "already initialized",
     "Distributed initialization should be called before",
+    # torch.distributed.init_process_group's double init (a ValueError)
+    "initialize the default process group twice",
 )
 
 #: phrases a coordinator client surfaces for transient transport faults
@@ -136,24 +138,32 @@ _TRANSIENT_DIST_PHRASES = (
     "connection reset",
     "failed to connect",
     "temporarily unavailable",
+    # torch.distributed's TCPStore rendezvous: a port another process
+    # holds, and a peer that has not come up yet
+    "address already in use",
+    "waiting for clients",
 )
 
 
 def is_late_init_error(exc: BaseException) -> bool:
-    """The caller violated the initialize-before-backend contract."""
+    """The caller violated the initialize-once contract (torch raises a
+    ValueError for a second `init_process_group`)."""
     msg = str(exc)
-    return isinstance(exc, RuntimeError) and any(
+    return isinstance(exc, (RuntimeError, ValueError)) and any(
         p.lower() in msg.lower() for p in LATE_INIT_PHRASES
     )
 
 
 def is_transient_distributed_error(exc: BaseException) -> bool:
-    """A coordinator handshake failure worth retrying."""
+    """A coordinator handshake failure worth retrying: a transport
+    phrase, or torch's `DistNetworkError` (a rendezvous socket that could
+    not connect or listen)."""
     if is_late_init_error(exc):
         return False
     msg = str(exc).lower()
     return isinstance(exc, (RuntimeError, ConnectionError, TimeoutError)) and (
         isinstance(exc, (ConnectionError, TimeoutError))
+        or type(exc).__name__ == "DistNetworkError"
         or any(p.lower() in msg for p in _TRANSIENT_DIST_PHRASES)
     )
 

@@ -14,7 +14,9 @@ and the last round multiplies the degree back in.
 The pull is one SpMV over the in-edge CSR: the strict-tile kernel when
 `plan_for_app` accepts a strict plan (or `spmv_mode="strict"`), the
 gather-reduce kernel otherwise.  Both regroup the float sums relative to
-the JAX package, so results agree to a tolerance, not bitwise.
+the JAX package, so results agree to a tolerance, not bitwise.  Across
+processes (world > 1) every pull is K1 over the rank's slab, and the
+dangling mass folds through `ctx.sum`, bit-equal to one process's fold.
 
 Personalized PageRank (`source` given): the teleport and the dangling
 mass land on the one-hot seed instead of spreading 1/n, as in the JAX
@@ -42,9 +44,11 @@ from libgrape_lite_tpu_torch.app.base import (
     StepContext,
     exchange_table,
     is_lane_sequence,
+    local_frags,
     source_lane_array,
 )
 from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
@@ -66,6 +70,8 @@ class PageRank(BatchShuffleAppBase):
     k1_pull = "plain"  # ops/calibration.py: one K1 pull a round
     # parallel/pipeline.py: the exchanged leaf (a sum fold: declines)
     pipeline_state_key = "rank"
+    # the round vote is the step counter's, the same on every rank
+    replicated_vote = True
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  spmv_mode: str = "auto", dtype: torch.dtype = torch.float32):
@@ -104,8 +110,9 @@ class PageRank(BatchShuffleAppBase):
         sources = list(source) if batched else [source]
         self._personalized = any(s is not None for s in sources)
         lead = (len(sources),) if batched else ()
+        fl, _ = local_frags(frag)
         state = {
-            "rank": torch.zeros(lead + (frag.fnum, frag.vp), dtype=dt,
+            "rank": torch.zeros(lead + (fl, frag.vp), dtype=dt,
                                 device=dev),
             "step": torch.zeros(lead, dtype=torch.int32, device=dev),
             "dangling_sum": torch.zeros(lead, dtype=dt, device=dev),
@@ -115,7 +122,17 @@ class PageRank(BatchShuffleAppBase):
             _, seed = source_lane_array(frag, sources, "PageRank", 0.0, 1.0,
                                         dt)
             state["seed"] = seed if batched else seed[0]
-        plan = spmv.plan_for_app(frag, frag.vp, dt, mode=self.spmv_mode)
+        world = getattr(getattr(frag, "comm_spec", None), "world", 1)
+        if world > 1:
+            # the strict tiles' plan covers the whole stack; across
+            # ranks every pull is K1 over the rank's slab
+            decline_across_ranks(
+                world, "PageRank spmv_mode='strict' (the K2 strict tiles; "
+                "use 'auto')", "8c", ok=self.spmv_mode != "strict")
+            plan = None
+        else:
+            plan = spmv.plan_for_app(frag, frag.vp, dt,
+                                     mode=self.spmv_mode)
         self._spmv_tile = plan[1] if plan else 0
         self._spmv_rmax = plan[2] if plan else 0
         if plan:

@@ -37,7 +37,7 @@ chain), as in the JAX package; pagerank_vc resolves no plan.
 Not carried over: the TPU pack plans of the tiles (`_resolve_tile_packs`,
 `GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull).  On
 several cards the row reduction becomes a collective over the k x k NCCL
-mesh of the multi-process runtime (ROADMAP Queue A).
+mesh of the multi-process runtime (ROADMAP Queue A item 8c).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ staged delta overlay (dyn/) folds into each pull through one int32
 `overlay_fold` pass over its slots, and the previous labels can seed an incremental query
 (`inc_value_map` re-addresses them across a repack).
 Labels are canonicalised on the host to the representative's oid (the
-LDBC check is partition isomorphism, `misc/wcc_check.cc`).  Integer min
+LDBC check is partition isomorphism, `misc/wcc_check.cc`).  A round
+votes its local count of changed labels; the worker's `ctx.vote` sums it
+across ranks under a process group.  Integer min
 is exact in any order, so labels and round counts equal the JAX
 package's.
 
@@ -36,6 +38,7 @@ from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
     exchange_table,
+    local_frags,
 )
 from libgrape_lite_tpu_torch.dyn.ingest import overlay_state_entries
 from libgrape_lite_tpu_torch.ops import spmv
@@ -58,8 +61,12 @@ class WCC(ParallelAppBase):
     _mx_ie = _mx_oe = None
 
     def init_state(self, frag, **_):
-        pids = torch.arange(frag.fnum * frag.vp, dtype=torch.int32,
-                            device=frag.device).view(frag.fnum, frag.vp)
+        # the labels of this process's fragments (all single-process,
+        # the rank's slab under a process group)
+        fl, lo = local_frags(frag)
+        pids = torch.arange(lo * frag.vp, (lo + fl) * frag.vp,
+                            dtype=torch.int32,
+                            device=frag.device).view(fl, frag.vp)
         comp = torch.where(frag.dev.inner_mask, pids,
                            torch.tensor(_SENTINEL, dtype=torch.int32,
                                         device=frag.device))
@@ -110,7 +117,7 @@ class WCC(ParallelAppBase):
                                                 "mx_oe_"))
         new = self._post_pull(ctx, dev, new)
         changed = (new < comp) & dev.inner_mask
-        return dict(state, comp=new), ctx.sum(changed.sum(dim=-1))
+        return dict(state, comp=new), changed.sum(dim=(-2, -1))
 
     def inceval_pipelined(self, ctx: StepContext, dev, state, xbuf):
         """The pipelined round of the single pull (models/sssp.py's);
@@ -119,7 +126,7 @@ class WCC(ParallelAppBase):
             return self._inceval_pipelined_directed(ctx, dev, state, xbuf)
         new, improved, xbuf2 = self.pipelined_min_round(ctx, state, xbuf)
         changed = improved & dev.inner_mask
-        return {"comp": new}, ctx.sum(changed.sum(dim=-1)), xbuf2
+        return {"comp": new}, changed.sum(dim=(-2, -1)), xbuf2
 
     def _inceval_pipelined_directed(self, ctx: StepContext, dev, state,
                                     xbuf):
@@ -158,7 +165,7 @@ class WCC(ParallelAppBase):
                                      "min")))
         changed = (new < comp) & dev.inner_mask
         pl.join()
-        return {"comp": new}, ctx.sum(changed.sum(dim=-1)), xbuf2
+        return {"comp": new}, changed.sum(dim=(-2, -1)), xbuf2
 
     def inc_value_map(self, key, values, old_frag, new_frag):
         """Labels are pids, so a repack (which renumbers the pid space)

@@ -121,29 +121,37 @@ class MirrorPlan:
         """Bytes a round of the mirror all-to-all."""
         return exchange_bytes_ledger(self.fnum, self.vp, self.m)["mirror"]
 
-    def pull_columns(self, edge_mask: np.ndarray) -> np.ndarray:
+    def pull_columns(self, edge_mask: np.ndarray, lo: int = 0,
+                     fl: int | None = None) -> np.ndarray:
         """[fnum, Ep] int32: fragment f's compact columns shifted to f's
         block of the flattened [fnum * n_compact] table; pad edges on
-        column 0 (K1 reads no edge past its row ends)."""
-        base = (np.arange(self.fnum, dtype=np.int64) * self.n_compact)[:, None]
-        cols = np.where(edge_mask, self.nbr_compact + base, 0)
+        column 0 (K1 reads no edge past its row ends).  A rank's slab
+        (`lo`, `fl`) gives those fragments' rows, each shifted to its
+        block of the slab's [fl * n_compact] table."""
+        hi = self.fnum if fl is None else lo + fl
+        base = (np.arange(hi - lo, dtype=np.int64) * self.n_compact)[:, None]
+        cols = np.where(edge_mask[lo:hi], self.nbr_compact[lo:hi] + base, 0)
         return cols.astype(np.int32)
 
     def state_entries(self, prefix: str, frag, direction: str = "ie") -> dict:
         """The ephemeral state leaves of a pull under this plan, on the
         fragment's device: the send table (`<prefix>send`, int64 for
-        indexing) and the remapped pull columns (`<prefix>nbr`).  Placed
-        once per fragment and plan (a DEVICE_CACHES entry)."""
+        indexing) and the remapped pull columns (`<prefix>nbr`).  Under a
+        process group both are the rank's slab: its senders' rows of the
+        send table and its receivers' columns.  Placed once per fragment
+        and plan (a DEVICE_CACHES entry)."""
         per = _PLACED.setdefault(frag, {})
         key = (self.uid, prefix)
         if key not in per:
             csrs = frag.host_ie if direction == "ie" else frag.host_oe
             mask = np.stack([h.edge_mask for h in csrs])
+            lo, fl = frag.fid_lo, frag.fl
             per[key] = {
                 prefix + "send": torch.from_numpy(
-                    self.send_idx.astype(np.int64)).to(frag.device),
+                    self.send_idx[lo:lo + fl].astype(np.int64)).to(
+                        frag.device),
                 prefix + "nbr": torch.from_numpy(
-                    self.pull_columns(mask)).to(frag.device),
+                    self.pull_columns(mask, lo, fl)).to(frag.device),
             }
             device_cache_filled()
         return dict(per[key])

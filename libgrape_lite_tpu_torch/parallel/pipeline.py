@@ -481,6 +481,9 @@ def resolve_pipeline(frag, *, app_name: str, key: str,
         return declined(reason or "app declared ineligible")
     if frag.fnum <= 1:
         return declined("fnum==1: no exchange to overlap")
+    if getattr(getattr(frag, "comm_spec", None), "world", 1) > 1:
+        return declined("world > 1: the pipelined round across processes "
+                        "is ROADMAP item 8c")
     if getattr(frag, "dyn_overlay", None) is not None:
         return declined("dyn overlay attached (pid-addressed reads)")
     if fold == "sum":

@@ -19,6 +19,15 @@ builds the vertex-cut fragment from the probe's arrays.  Every declined
 request is recorded with its reason -- the cheap ones (another app, a
 non-square fnum, string ids, a delta load, the serialization cache)
 without reading the edge file.
+
+Several processes (JAX `runner.py:114-140`): `coordinator`,
+`num_processes` and `process_id` start a `torch.distributed` group
+(`CommSpec.init_distributed`) before the partition probe and the load;
+every rank loads the same graph and places its slab of fragments, the
+query's collectives cross ranks, and only the coordinator writes the
+result files.  Across processes (world > 1) this runs the edge-cut
+superstep of sssp, bfs, wcc and pagerank; every other app and mode
+raises before the load, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -30,7 +39,11 @@ import numpy as np
 
 from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.models import APP_REGISTRY
-from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+from libgrape_lite_tpu_torch.parallel.comm_spec import (
+    CommSpec,
+    decline_across_ranks,
+    host_allgather,
+)
 from libgrape_lite_tpu_torch.utils.memory import get_memory_stats
 from libgrape_lite_tpu_torch.worker.worker import Worker
 
@@ -84,6 +97,11 @@ class QueryArgs:
     guard: str = ""
     # vertex-cut (2-D) storage; fnum must be k^2
     vc: bool = False
+    # the multi-process runtime: the rendezvous address (host:port), the
+    # process count (0 or 1 = one process) and this process's rank
+    coordinator: str = ""
+    num_processes: int = 0
+    process_id: int = -1
 
 
 def _coerce_source(v, string_id: bool = False):
@@ -144,7 +162,12 @@ def _resolve_partition(args: QueryArgs, name: str, app, comm_spec,
         return name, app, None
     empty = np.zeros(0, dtype=np.int64)
     kw = dict(directed=args.directed, string_id=args.string_id)
-    if args.delta_efile or args.delta_vfile:
+    if comm_spec.world > 1:
+        resolve_partition(name, comm_spec.fnum, empty, empty, empty,
+                          eligible=False,
+                          reason="world > 1: the vertex cut across "
+                                 "processes is ROADMAP item 8c", **kw)
+    elif args.delta_efile or args.delta_vfile:
         resolve_partition(name, comm_spec.fnum, empty, empty, empty,
                           eligible=False,
                           reason="delta-mutation load has no vertex-cut "
@@ -213,6 +236,40 @@ def _load_vertexcut(args: QueryArgs, name: str, comm_spec, weighted: bool,
             directed=directed, symmetrize=sym)
 
 
+#: the apps whose superstep runs across processes (world > 1)
+DIST_APP_NAMES = ("sssp", "bfs", "wcc", "pagerank")
+
+
+def check_across_processes(args: QueryArgs) -> None:
+    """What a run across processes declines, before any load: each
+    raises a ValueError naming ROADMAP item 8b or 8c (never a silent
+    single-process run)."""
+    from libgrape_lite_tpu_torch.ft.faults import active_plan
+    from libgrape_lite_tpu_torch.fragment.partition import partition_mode
+    from libgrape_lite_tpu_torch.guard.config import GuardConfig
+    from libgrape_lite_tpu_torch.parallel.pipeline import pipeline_mode
+
+    world = args.num_processes
+    name = "pagerank_vc" if args.vc and args.application == "pagerank" \
+        else args.application
+    for what, item, ok in (
+            (f"the app {name!r} (across processes: "
+             f"{', '.join(DIST_APP_NAMES)})", "8c", name in DIST_APP_NAMES),
+            ("--checkpoint_every / --resume", "8b",
+             not (args.checkpoint_every or args.resume)),
+            ("the runtime guard (--guard, GRAPE_GUARD)", "8b",
+             not GuardConfig.resolve(args.guard or None).enabled),
+            ("fault injection (GRAPE_FT_FAULTS)", "8b",
+             active_plan().is_noop()),
+            ("--delta_efile / --delta_vfile", "8b",
+             not (args.delta_efile or args.delta_vfile)),
+            ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",
+             not (args.vc or partition_mode() == "2d")),
+            ("GRAPE_PIPELINE=force (the pipelined round)", "8c",
+             pipeline_mode() != "force")):
+        decline_across_ranks(world, what, item, ok)
+
+
 def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     from libgrape_lite_tpu_torch import obs
     from libgrape_lite_tpu_torch.utils import logging as glog
@@ -224,6 +281,25 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
     if args.checkpoint_dir and not (args.checkpoint_every or args.resume):
         raise ValueError(
             "--checkpoint_dir requires --checkpoint_every (or --resume)")
+    if args.num_processes and args.num_processes > 1:
+        if args.process_id < 0 or not args.coordinator:
+            raise ValueError(
+                "--num_processes > 1 requires --coordinator and "
+                "--process_id (every member of the gang names itself)"
+            )
+        if comm_spec is not None:
+            raise ValueError(
+                "pass EITHER a prebuilt comm_spec or the "
+                "--coordinator/--num_processes/--process_id flags, "
+                "not both"
+            )
+        check_across_processes(args)
+        # before the partition probe and the load
+        comm_spec = CommSpec.init_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            fnum=args.fnum, device=args.device)
     if args.trace or args.metrics:
         # armed before the load, so the load_graph span is in the trace;
         # the flags win over GRAPE_TRACE / GRAPE_METRICS
@@ -320,8 +396,15 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
         worker.query(guard=guard, **build_query_kwargs(name, args))
     if args.memory_stats:
         print(f"[memory] after query: {get_memory_stats(comm_spec.device)}")
-    if args.out_prefix:
+    write = bool(args.out_prefix)
+    if comm_spec.group is not None:
+        # the result gather is a collective: every rank joins it when any
+        # rank was given --out_prefix (only the coordinator writes)
+        write = bool(host_allgather(np.array([int(write)])).max())
+    if write and args.out_prefix:
         worker.output(args.out_prefix)
+    elif write:
+        worker.result_values()
     if obs.armed():
         # the worker flushes each query; this lands what came after
         flushed = obs.flush()

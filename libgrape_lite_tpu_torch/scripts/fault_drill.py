@@ -35,8 +35,8 @@ bundle must carry the guard forensics and `serve_query` rows, and `cli
 postmortem <bundle> --trace <trace.json>` must find every row byte for
 byte in the trace.
 
-`--kill_rank` (the multi-process reshard drill) exits 2: it waits for the
-multi-GPU runtime (ROADMAP Queue A item 8).
+`--kill_rank` (the multi-process reshard drill) exits 2: it waits for
+sharded checkpoints across processes (ROADMAP Queue A item 8b).
 
 Exit code 0 iff every app passes.  `--device` defaults to cuda.
 """
@@ -316,7 +316,7 @@ def main(argv=None) -> int:
 
     if args.kill_rank:
         print("fault_drill: --kill_rank needs sharded checkpoints across "
-              "processes (ft/distributed.py): ROADMAP Queue A item 8",
+              "processes (ft/distributed.py): ROADMAP Queue A item 8b",
               file=sys.stderr)
         return 2
     if not args.apps:

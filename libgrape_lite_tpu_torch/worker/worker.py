@@ -73,6 +73,7 @@ from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
 from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops.spmv import PLAN_STATS
+from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils import logging as glog
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -520,6 +521,7 @@ class Worker:
         guard_cfg = GuardConfig.resolve(guard)
         self._guard_monitor = None
         mr = app.max_rounds if max_rounds is None else max_rounds
+        self._check_across_ranks(checkpointing, guard_cfg)
         if getattr(app, "host_only", False):
             return self._query_host(mr, initial_state, query_args, guard_cfg)
         if fault_plan is None:
@@ -528,6 +530,9 @@ class Worker:
             fault_plan = active_plan()
         if fault_plan.is_noop():
             fault_plan = None
+        if fault_plan is not None:
+            decline_across_ranks(_world(self.fragment), "fault injection "
+                                 "(GRAPE_FT_FAULTS)", "8b")
         tr = obs.tracer()
         try:
             with tr.span("query", mode="host", app=type(app).__name__) as sp:
@@ -543,6 +548,26 @@ class Worker:
             if tr.enabled:
                 obs.flush()
         return out
+
+    def _check_across_ranks(self, checkpointing: bool, guard_cfg) -> None:
+        """What a query across processes (world > 1) runs in this slice:
+        the edge-cut superstep of SSSP, BFS, WCC and PageRank, with no
+        checkpoint, guard or staged delta.  Anything else raises, naming
+        the ROADMAP item that brings it (never a silent single-process
+        run)."""
+        frag = self.fragment
+        world = _world(frag)
+        if world <= 1:
+            return
+        decline_across_ranks(world, f"the app {type(self.app).__name__}",
+                             "8c", ok=type(self.app) in dist_apps())
+        decline_across_ranks(world, "checkpoint_every / resume", "8b",
+                             ok=not checkpointing)
+        decline_across_ranks(world, "the runtime guard (--guard, "
+                             "GRAPE_GUARD)", "8b",
+                             ok=guard_cfg is None or not guard_cfg.enabled)
+        decline_across_ranks(world, "a staged dyn overlay", "8b",
+                             ok=getattr(frag, "dyn_overlay", None) is None)
 
     def _open_lineage(self, state: Dict, carry: Dict, query_args: Dict, *,
                       checkpoint_every, checkpoint_dir: str, resume: bool):
@@ -666,6 +691,7 @@ class Worker:
             return state, guard_prev, None
 
         ctx = make_context(app, frag)
+        replicated = getattr(app, "replicated_vote", False)
         limit = mr if mr > 0 else _INT32_MAX
         try:
             if meta is not None:  # resumed: PEval ran before the kill
@@ -682,7 +708,8 @@ class Worker:
                     state, active = app.peval(ctx, frag.dev, state)
                     if tr.enabled:
                         self._mark_dispatched(sp, built)
-                    active = int(active)  # the vote, read back: the sync
+                    # the vote across ranks, read back: the sync
+                    active = int(ctx.vote(active, replicated))
                     sp.set(active=active)
                 glog.vlog(1, "PEval: %.6fs active=%d",
                           time.perf_counter() - t0, active)
@@ -725,7 +752,9 @@ class Worker:
                         state, active = app.inceval(ctx, frag.dev, state)
                     if tr.enabled:
                         self._mark_dispatched(sp, built)
-                    active = int(active)  # the termination vote, read back
+                    # the termination vote across ranks, read back: every
+                    # rank runs the same rounds
+                    active = int(ctx.vote(active, replicated))
                     sp.set(active=active)
                 rounds += 1
                 glog.vlog(1, "IncEval round %d: %.6fs active=%d", rounds,
@@ -921,6 +950,9 @@ class Worker:
             reseed_fold,
         )
 
+        decline_across_ranks(_world(self.fragment), "incremental IncEval "
+                             "(query_incremental)", "8b")
+
         app = self.app
         mode, reason = incremental_plan(app, delta)
         self.inc_report = {"mode": mode, "reason": reason}
@@ -1015,6 +1047,8 @@ class Worker:
         chunk loop; `chunk_hook` is its test seam (serve/batch.py)."""
         from libgrape_lite_tpu_torch.guard.config import GuardConfig
 
+        decline_across_ranks(_world(self.fragment), "batched queries "
+                             "(query_batch, serve)", "8b")
         self._check_batchable()
         # before the guard routing: a guarded batch refuses a stale dyn
         # view as the plain one does
@@ -1143,16 +1177,33 @@ class Worker:
     # ---- Output / Assemble (reference worker.h:148-154, ctx.Output) ----
 
     def result_values(self) -> np.ndarray:
-        """Per-vertex assembled values, [fnum, vp] numpy."""
+        """Per-vertex assembled values, [fnum, vp] numpy.  Under a process
+        group each rank's [fl, vp] state leaves are all-gathered into
+        [fnum, vp] first (JAX `worker.py:2439-2456`): a collective every
+        rank joins, in the state's key order; replicated leaves (scalars
+        and tables) pass as they are."""
         if self._result_state is None:
             raise RuntimeError("query() first")
-        host = {k: v.cpu() for k, v in self._result_state.items()}
+        spec = getattr(self.fragment, "comm_spec", None)
+        state = self._result_state
+        if getattr(spec, "group", None) is not None:
+            rep = getattr(self.app, "replicated_keys", frozenset())
+            state = {k: (v if k in rep or v.dim() < 2
+                         or v.shape[0] != spec.fl
+                         else _gather_leaf(spec, v))
+                     for k, v in state.items()}
+        host = {k: v.cpu() for k, v in state.items()}
         return self.app.finalize(self.fragment, host)
 
     def output(self, prefix: str) -> None:
         """Write per-fragment result files `result_frag_<fid>` with
-        `oid value` lines (reference `GetResultFilename` + ctx Output)."""
+        `oid value` lines (reference `GetResultFilename` + ctx Output).
+        Under a process group every rank joins the result gather and
+        only the coordinator writes (JAX `worker.py:2463-2469`)."""
         values = self.result_values()
+        spec = getattr(self.fragment, "comm_spec", None)
+        if spec is not None and not spec.is_coordinator:
+            return
         os.makedirs(prefix, exist_ok=True)
         fmt = self.app.result_format
         for f in range(self.fragment.fnum):
@@ -1161,6 +1212,29 @@ class Worker:
             path = os.path.join(prefix, f"result_frag_{f}")
             with open(path, "w") as out:
                 out.write(format_result_lines(oids, values[f, :n], fmt))
+
+
+def _world(frag) -> int:
+    """The process count of `frag`'s CommSpec (1 without one)."""
+    return getattr(getattr(frag, "comm_spec", None), "world", 1)
+
+
+def _gather_leaf(spec, v: torch.Tensor) -> torch.Tensor:
+    """A rank's [fl, ...] state leaf -> every rank's, [fnum, ...]."""
+    if v.dtype == torch.bool:
+        return spec.all_gather_into(v.to(torch.uint8)).bool()
+    return spec.all_gather_into(v)
+
+
+def dist_apps() -> tuple:
+    """The app classes whose superstep runs across processes (world >
+    1): the edge-cut pulls of SSSP, BFS, WCC and PageRank."""
+    from libgrape_lite_tpu_torch.models.bfs import BFS
+    from libgrape_lite_tpu_torch.models.pagerank import PageRank
+    from libgrape_lite_tpu_torch.models.sssp import SSSP
+    from libgrape_lite_tpu_torch.models.wcc import WCC
+
+    return (SSSP, BFS, WCC, PageRank)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:
