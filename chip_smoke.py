@@ -80,8 +80,8 @@ the port's own entry points:
      (parse, vertex map, CSR build, placement, serialize, deserialize)
      and the garc file's size; PageRank (10 rounds) and SSSP from 0 on
      the deserialized fragment bit-equal to the fresh load; `--rebalance`
-     at fnum 4 with PARTITION_STATS' skew before and after and SSSP by
-     oid equal to the fnum 1 load's; p2p-31 with `--string_id` through
+     at fnum 4 of an RMAT-18 TSV with PARTITION_STATS' skew before and
+     after and SSSP by oid equal to the fnum 1 load's; p2p-31 with `--string_id` through
      `run_app` (SSSP, WCC, CDLP files identical to the integer load's) and
      every partitioner x idxer at fnum 4 against the SSSP golden;
   9. the spgemm LCC backend (`[spgemm]`) on RMAT-18: the host plan's
@@ -293,14 +293,30 @@ the port's own entry points:
      bit-equal, sum within 1e-5 of each row's sum of |terms|) reading a
      gathered x, with kernel, plain, library and bound ms; (b) gangs of
      two CLI children on the one card under GRAPE_DIST_BACKEND=gloo
-     (`--coordinator --num_processes 2 --process_id`): p2p-31 at fnum 2
-     and 4 for the four apps, their files equal to the one-process CLI's
+     (`--coordinator --num_processes 2 --process_id`): p2p-31 at fnum 4
+     for the four apps, their files equal to the one-process CLI's
      (PageRank within 1e-4) and the goldens, rank 1 writing none; then
      RMAT-20 SSSP and PageRank at fnum 4 (hash partitioner) beside a
      one-process child of each, with their query walls and host syncs a
      round; every child loads the parent's kernel libraries (a build
-     fails the phase) and launches K1; (c) NCCL across two cards, run
-     only where this run sees two (never under the one card it keeps);
+     fails the phase) and launches K1; NCCL across two cards, run only
+     where this run sees two (never under the one card it keeps);
+     (c) under a one-rank NCCL group again: SSSP and PageRank
+     checkpointed every 2 rounds through ShardedCheckpointManager and a
+     kill@4 under the breach vote resumed, each bit-equal (PageRank within
+     1e-4) with equal rounds and K1 launches; a save's ms against the
+     single-file CheckpointManager's and the bytes a snapshot;
+     `guard="halt"` with the vote armed against the unvoted one-process
+     guarded query (the vote's host µs a round, equal host syncs, walls);
+     the kill@4 lineage resharded onto an RMAT-20 fnum-2 hash cut (built
+     beside (b)'s children) bit-equal to a cold fnum-2 query; (d) at once
+     as children: `fault_drill.py --kill_rank --apps sssp --device cuda`
+     on p2p-31 (exit 0, its `ft_drill` line: byte-identical, a complete
+     merged trace, cross-rank flows, a verified incident bundle), RMAT-20
+     SSSP at fnum 4 over two gloo ranks (the garc cache of (b)) with
+     kill_rank@4:1, and a cold one-process fnum-2 child; then this
+     process resumes the two-rank lineage onto fnum 2, its files equal to
+     the cold child's, with the restore's ms;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -350,6 +366,9 @@ HBM_BYTES_PER_S = default_profile().hbm_bps
 FP32_OPS_PER_S = default_profile().ops_per_s
 SCALE, EDGE_FACTOR = 20, 16
 BITMAP_SCALE = 18  # lcc_bitmap: two (2^18)^2-bit bitmaps, 8 GiB each
+# [load]'s `--rebalance` at fnum 4 reads an RMAT-18 TSV: at RMAT-20 the
+# rebalanced load alone took 57.8-87.0 host s of the script's limit
+REBALANCE_SCALE = 18
 DIRECTED_SCALE = 16  # lcc_directed, the secondary path
 PR_ROUNDS = 10
 CDLP_ROUNDS = 10
@@ -2173,7 +2192,6 @@ def load_phase(device, scale: int = SCALE) -> dict:
                                {"delta": 0.85, "max_round": PR_ROUNDS}),
                               ("sssp", SSSP, {"source": 0})):
             a, counts, secs_a = query_values(fresh, app(), device, **kw)
-            fresh_sssp = by_oid(fresh, a)  # the last: sssp
             add(counts)
             b, counts, secs_b = query_values(cached, app(), device, **kw)
             add(counts)
@@ -2187,18 +2205,27 @@ def load_phase(device, scale: int = SCALE) -> dict:
         out.update(stages=stages, garc_bytes=garc, tsv_bytes=nbytes)
         del cached
 
-        # --rebalance at fnum 4: skew before and after, the same SSSP by
-        # oid as the fnum 1 load of the same file
+        # --rebalance at fnum 4 (an RMAT-REBALANCE_SCALE TSV): skew before
+        # and after, the same SSSP by oid as the fnum 1 load of the same
+        # file
+        del fresh
+        efile_r, vfile_r, _, _ = rmat_tsv(REBALANCE_SCALE, tmp)
+        one = loader.LoadGraph(efile_r, vfile_r, CommSpec(1, device),
+                               loader.LoadGraphSpec())
+        vals1, counts, _ = query_values(one, SSSP(), device, source=0)
+        add(counts)
+        fresh_sssp = by_oid(one, vals1)
+        del one
         PARTITION_STATS.pop("rebalance", None)
         t0 = time.perf_counter()
-        frag4 = loader.LoadGraph(efile, vfile, CommSpec(4, device),
+        frag4 = loader.LoadGraph(efile_r, vfile_r, CommSpec(4, device),
                                  loader.LoadGraphSpec(rebalance=True))
         load_s = time.perf_counter() - t0
         vals, counts, secs = query_values(frag4, SSSP(), device, source=0)
         add(counts)
-        print(f"[load] fnum 4 rebalance=True: load s {load_s:.2f} ep="
-              f"{frag4.dev.oe.edge_nbr.shape[1]} sssp s {secs:.4f}",
-              flush=True)
+        print(f"[load] rmat{REBALANCE_SCALE} fnum 4 rebalance=True: load s "
+              f"{load_s:.2f} ep={frag4.dev.oe.edge_nbr.shape[1]} sssp s "
+              f"{secs:.4f}", flush=True)
         st = PARTITION_STATS["rebalance"]
         print(f"[load] PARTITION_STATS rebalance: {json.dumps(st)}",
               flush=True)
@@ -2207,8 +2234,8 @@ def load_phase(device, scale: int = SCALE) -> dict:
         out["rebalance"] = st
         check(by_oid(frag4, vals) == fresh_sssp,
               "SSSP by oid differs with --rebalance at fnum 4")
-        print("[load] sssp by oid with --rebalance at fnum 4 == the fnum 1 "
-              "load: equal", flush=True)
+        print(f"[load] rmat{REBALANCE_SCALE} sssp by oid with --rebalance "
+              "at fnum 4 == the fnum 1 load: equal", flush=True)
         del frag4
 
         # p2p-31: string ids, and every partitioner x idxer at fnum 4
@@ -5289,10 +5316,10 @@ def env_set(**kv):
                 os.environ[k] = v
 
 
-def pipe_fragment(frag, device):
-    """RMAT-20's edge list as a 1-D edge cut at fnum 4 under the hash
-    partitioner (a random partition: nearly every vertex with an edge is
-    read by another fragment)."""
+def pipe_fragment(frag, device, fnum: int = PIPE_FNUM):
+    """RMAT-20's edge list as a 1-D edge cut at fnum 4 (or `fnum`) under
+    the hash partitioner (a random partition: nearly every vertex with an
+    edge is read by another fragment)."""
     from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.vertex_map.partitioner import HashPartitioner
@@ -5303,8 +5330,8 @@ def pipe_fragment(frag, device):
     sync(device)
     t0 = time.perf_counter()
     f4 = ShardedEdgecutFragment.build(
-        CommSpec(fnum=PIPE_FNUM, device=device),
-        VertexMap.build(oids, HashPartitioner(PIPE_FNUM)), src, dst, w,
+        CommSpec(fnum=fnum, device=device),
+        VertexMap.build(oids, HashPartitioner(fnum)), src, dst, w,
         directed=False)
     sync(device)
     return f4, time.perf_counter() - t0
@@ -5704,7 +5731,7 @@ DIST_APPS = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}),
              ("pagerank", {"max_round": PR_ROUNDS}))
 DIST_CLI = {"sssp": ["--sssp_source", "6"], "bfs": ["--bfs_source", "6"],
             "wcc": [], "pagerank": ["--pr_mr", str(PR_ROUNDS)]}
-DIST_FNUMS = (2, 4)  # p2p-31 gangs of two ranks
+DIST_FNUMS = (4,)  # p2p-31 gangs of two ranks (fnum 2: the CPU tests)
 DIST_REPEATS = 3
 DIST_PR_RTOL = 1e-4
 DIST_CHILD_TIMEOUT_S = 300
@@ -6209,30 +6236,393 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
     return {"runs": runs, "children_s": children_s}
 
 
-def dist_phases(f4, device) -> dict:
+# [dist] (c) and (d): state and control across ranks -- sharded two-phase
+# checkpoints, the reshard restore, the breach vote, the gang's telemetry
+DIST_FT_EVERY = 2  # checkpoint_every of the phase's lineages
+DIST_KILL_AT = 4  # the superstep a kill fires after
+DIST_FT_APPS = (("sssp", {"source": 0}), ("pagerank", {"max_round": PR_ROUNDS}))
+
+
+@contextlib.contextmanager
+def timed_votes():
+    """Count and time every `BreachVote.round_vote` of the block on the
+    host clock (the vote's share of a round)."""
+    from libgrape_lite_tpu_torch.guard import vote
+
+    orig = vote.BreachVote.round_vote
+    rec = {"calls": 0, "s": 0.0}
+
+    def timed(self, rounds, err=None):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, rounds, err)
+        finally:
+            rec["calls"] += 1
+            rec["s"] += time.perf_counter() - t0
+
+    vote.BreachVote.round_vote = timed
+    try:
+        yield rec
+    finally:
+        vote.BreachVote.round_vote = orig
+
+
+def newest_meta(ckdir: str) -> tuple:
+    from libgrape_lite_tpu_torch.ft.checkpoint import (
+        list_checkpoints,
+        read_meta,
+    )
+
+    steps = list_checkpoints(ckdir)
+    check(bool(steps), f"[dist] no complete checkpoint under {ckdir}")
+    return steps[-1][1], read_meta(steps[-1][1])
+
+
+def dist_ft_app(name, kw, f4, f4d, factory, device, tmp) -> dict:
+    """(c) for one app: the sharded lineage of a checkpointed query on the
+    one-rank group, its resume, the save against the single-file
+    manager's, and the guarded query with the vote armed against the
+    unvoted one (one process)."""
+    import shutil
+
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.ft.faults import FaultPlan, InjectedFault
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    rtol = DIST_PR_RTOL if name == "pagerank" else 0
+    reset_launch_counts()
+    one = run_query(f4, factory(), device, **kw)[0]
+    k1_one = launch_counts()["gather_reduce"]
+    want = one.result_values()
+    ck_kw = dict(kw, checkpoint_every=DIST_FT_EVERY)
+    ck_s = os.path.join(tmp, f"c_{name}")
+    reset_launch_counts()
+    wk = run_query(f4d, factory(), device, checkpoint_dir=ck_s, **ck_kw)[0]
+    counts = launch_counts()
+    check(wk.rounds == one.rounds and counts["gather_reduce"] == k1_one > 0,
+          f"[dist] (c) {name} sharded: rounds {wk.rounds} / "
+          f"{one.rounds}, K1 {counts['gather_reduce']} / {k1_one}")
+    err = same_or_close(wk.result_values(), want, rtol,
+                        f"[dist] (c) {name} checkpointed")
+    path, meta = newest_meta(ck_s)
+    check(meta.get("layout") == "sharded" and meta.get("ranks") == 1,
+          f"[dist] (c) {name}: lineage {meta.get('layout')} ranks "
+          f"{meta.get('ranks')}")
+    snap = os.path.getsize(os.path.join(path, "rank_0.npz"))
+    # killed at superstep 4 under the vote (raise mode), then resumed
+    ck_k = os.path.join(tmp, f"c_{name}_kill")
+    try:
+        Worker(factory(), f4d).query(
+            checkpoint_dir=ck_k, fault_plan=FaultPlan(
+                kill_at_superstep=DIST_KILL_AT, mode="raise"), **ck_kw)
+        check(False, f"[dist] (c) {name}: kill@{DIST_KILL_AT} under the "
+              "vote did not raise")
+    except InjectedFault as e:
+        incident = getattr(e, "gang_incident", None)
+    check(bool(incident) and newest_meta(ck_k)[1]["rounds"] == DIST_KILL_AT,
+          f"[dist] (c) {name} kill@{DIST_KILL_AT}: incident {incident}")
+    # the reshard's copy, as the kill left it (the resume below extends
+    # the lineage)
+    shutil.copytree(ck_k, ck_k + "_at_kill")
+    reset_launch_counts()
+    rs = Worker(factory(), f4d)
+    rs.resume(ck_k)
+    sync(device)
+    r_counts = launch_counts()
+    err_r = same_or_close(rs.result_values(), want, rtol,
+                          f"[dist] (c) {name} resume")
+    check(rs.rounds == one.rounds and r_counts["gather_reduce"] > 0,
+          f"[dist] (c) {name} resume: rounds {rs.rounds}, K1 {r_counts}")
+    # a save: the sharded manager (stage, vote, commit, vote) against the
+    # single-file one (the copies' enqueue; its write in a thread)
+    obs.configure(in_memory=True)
+    run_query(f4d, factory(), device, checkpoint_dir=ck_s + "_t", **ck_kw)
+    run_query(f4, factory(), device, checkpoint_dir=ck_s + "_1", **ck_kw)
+    ev = obs.history()
+    obs_reset()
+    save_sh = span_ms(ev, "checkpoint_save_sharded")
+    save_1, write_1 = span_ms(ev, "checkpoint_save"), span_ms(
+        ev, "checkpoint_write")
+    check(len(save_sh) == len(save_1) == len(write_1) > 0,
+          f"[dist] (c) {name}: {len(save_sh)} sharded saves, "
+          f"{len(save_1)} single-file")
+    snap_1 = os.path.getsize(os.path.join(newest_meta(ck_s + "_1")[0],
+                                          "state.npz"))
+    # the guard with the vote armed (the group) against without (one
+    # process): the vote's host time and host syncs a round
+    g_kw = dict(kw, guard="halt")
+    run_query(f4d, factory(), device, **g_kw)  # warm-up
+    reset_launch_counts()
+    with timed_votes() as vt:
+        gv = run_query(f4d, factory(), device, **g_kw)[0]
+    g_counts = launch_counts()
+    check(vt["calls"] == gv.rounds + 1 and not gv.guard_report["breaches"],
+          f"[dist] (c) {name} guarded: {vt['calls']} votes in "
+          f"{gv.rounds} rounds, breaches {gv.guard_report['breaches']}")
+    err_g = same_or_close(gv.result_values(), want, rtol,
+                          f"[dist] (c) {name} guarded")
+    walls = {"voted": [], "unvoted": []}
+    for _ in range(DIST_REPEATS):
+        walls["voted"].append(run_query(f4d, factory(), device, **g_kw)[1])
+        walls["unvoted"].append(run_query(f4, factory(), device, **g_kw)[1])
+    med = {k: float(np.median(v)) * 1e3 for k, v in walls.items()}
+    syncs_v = host_syncs(f4d, factory, device, g_kw)
+    syncs_u = host_syncs(f4, factory, device, g_kw)
+    check(syncs_v == syncs_u, f"[dist] (c) {name}: {syncs_v} host syncs "
+          f"voted against {syncs_u} unvoted")
+    per = gv.rounds + 1
+    rec = dict(counts={"gather_reduce": counts["gather_reduce"]
+                       + r_counts["gather_reduce"]
+                       + g_counts["gather_reduce"]},
+               rounds=wk.rounds, k1=counts["gather_reduce"], k1_single=k1_one,
+               max_rel_err=max(err, err_r, err_g),
+               save_sharded_ms=float(np.mean(save_sh)),
+               save_single_ms=float(np.mean(save_1)),
+               write_single_ms=float(np.mean(write_1)),
+               bytes_sharded=snap, bytes_single=snap_1,
+               vote_us_per_round=vt["s"] / vt["calls"] * 1e6,
+               wall_voted_ms=med["voted"], wall_unvoted_ms=med["unvoted"],
+               syncs_per_round=syncs_v / per,
+               syncs_unvoted_per_round=syncs_u / per)
+    print(f"[dist] (c) world 1 {name}: rounds={wk.rounds} K1={k1_one} "
+          f"(single {k1_one}) sharded checkpoint_every {DIST_FT_EVERY}, "
+          f"kill@{DIST_KILL_AT} under the vote (incident {incident}) and "
+          f"resume {'bit-equal' if rtol == 0 else f'max_rel_err={err:.3e}'}"
+          f"; save ms sharded={rec['save_sharded_ms']:.3f} single-file="
+          f"{rec['save_single_ms']:.3f} (write "
+          f"{rec['write_single_ms']:.3f}) bytes a snapshot {snap} "
+          f"({snap_1}); guard halt voted: vote_us/round="
+          f"{rec['vote_us_per_round']:.1f} ({vt['calls']} votes) wall_ms "
+          f"voted={med['voted']:.3f} unvoted={med['unvoted']:.3f} "
+          f"syncs/round={rec['syncs_per_round']:.2f} (unvoted "
+          f"{rec['syncs_unvoted_per_round']:.2f})", flush=True)
+    return rec
+
+
+def dist_ft_world1_phase(f4, f2, device, tmp) -> dict:
+    """(c) NCCL at world 1 in this process over [pipeline]'s RMAT-20
+    fnum-4 fragment: SSSP and PageRank checkpointed through
+    ShardedCheckpointManager, resumed, guarded under the vote; then a
+    kill@4 under the vote and its lineage resharded onto the fnum-2
+    fragment `f2`, bit-equal to a cold fnum-2 query."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY, SSSP
+    from libgrape_lite_tpu_torch.parallel import comm_spec as cs
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    with env_set(GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S):
+        spec = cs.CommSpec.init_distributed(
+            f"127.0.0.1:{free_port()}", 1, 0, fnum=PIPE_FNUM, device=device)
+    runs = {}
+    try:
+        f4d = dist_fragment(f4, spec)
+        for name, kw in DIST_FT_APPS:
+            runs[f"dist ft world1 {name}"] = dist_ft_app(
+                name, kw, f4, f4d, APP_REGISTRY[name], device, tmp)
+        ck = os.path.join(tmp, "c_sssp_kill_at_kill")  # dist_ft_app's
+        run_query(f2, SSSP(), device, source=0)  # warm-up
+        cold = run_query(f2, SSSP(), device, source=0)[0]
+        obs.configure(in_memory=True)
+        reset_launch_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        rw = Worker(SSSP(), f2)
+        rw.resume(ck)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        restore = span_ms(obs.history(), "checkpoint_restore_resharded")
+        obs_reset()
+        check(len(restore) == 1 and counts["gather_reduce"] > 0,
+              f"[dist] (c) reshard: {len(restore)} restores, K1 {counts}")
+        same_or_close(rw.result_values(), cold.result_values(), 0,
+                      "[dist] (c) reshard fnum 4 -> 2")
+        runs["dist ft world1 reshard sssp"] = dict(
+            counts=counts, rounds=rw.rounds, cold_rounds=cold.rounds,
+            restore_ms=restore[0], resume_wall_s=wall)
+        print(f"[dist] (c) the kill@{DIST_KILL_AT} lineage resharded fnum "
+              f"{PIPE_FNUM} -> "
+              f"{f2.fnum}: restore_ms={restore[0]:.3f} resume_wall_s="
+              f"{wall:.4f} rounds={rw.rounds} (cold {cold.rounds}) K1="
+              f"{counts['gather_reduce']} bit-equal to the cold fnum-2 "
+              "query", flush=True)
+    finally:
+        spec.close()
+    return runs
+
+
+def start_children(argvs, env_extra) -> list:
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1",
+               GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S, **env_extra)
+    return [subprocess.Popen(argv, cwd=HERE, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for argv in argvs]
+
+
+def wait_children(procs, deadline) -> list:
+    """Every child's (rc, stdout, stderr); a child past `deadline` (the
+    host clock) is killed with the rest, rc None."""
+    out = []
+    try:
+        for p in procs:
+            try:
+                so, se = p.communicate(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+                out.append((p.returncode, so, se))
+            except subprocess.TimeoutExpired:
+                out.append((None, "", "past the phase's deadline"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def dist_ft_gang_phase(tmp, device) -> dict:
+    """(d) two gloo ranks on the card, at once: `fault_drill.py
+    --kill_rank --apps sssp` on p2p-31 as children; RMAT-20 SSSP at fnum
+    4 (hash partitioner, the garc cache of (b)) with kill_rank@4:1; a
+    cold one-process fnum-2 child writing the fnum-2 cache.  Then one
+    process (this one) resumes the two-rank lineage onto fnum 2,
+    bit-equal to the cold query."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.ft.faults import DEFAULT_KILL_EXIT_CODE
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+    dev = torch.device(device).type
+    efile, vfile = shared_rmat_tsv(SCALE)[:2]
+    garc = os.path.join(tmp, "garc")
+    load = ["--efile", efile, "--vfile", vfile, "--partitioner_type",
+            "hash", "--serialization_prefix", garc, "--device", dev,
+            "--application", "sssp", "--sssp_source", "0"]
+    ck = os.path.join(tmp, "d_ck")
+    port = free_port()
+    t0 = time.perf_counter()
+    gang = start_children([
+        [sys.executable, "-c", DIST_CHILD, *load, "--fnum", str(PIPE_FNUM),
+         "--deserialize", "--checkpoint_every", str(DIST_FT_EVERY),
+         "--checkpoint_dir", ck, "--out_prefix",
+         os.path.join(tmp, "d_gang"), "--coordinator", f"127.0.0.1:{port}",
+         "--num_processes", "2", "--process_id", str(r)]
+        for r in range(2)], {"GRAPE_DIST_BACKEND": "gloo",
+                             "GRAPE_FT_FAULTS": f"kill_rank@{DIST_KILL_AT}:1"})
+    cold = start_children([[sys.executable, "-c", DIST_CHILD, *load,
+                            "--fnum", "2", "--serialize", "--out_prefix",
+                            os.path.join(tmp, "d_cold")]], {})
+    drill = start_children([[
+        sys.executable, "-m", "libgrape_lite_tpu_torch.scripts.fault_drill",
+        "--kill_rank", "--apps", "sssp", "--device", dev, "--workdir",
+        os.path.join(tmp, "d_drill")]], {})
+    deadline = t0 + DIST_CHILD_TIMEOUT_S
+    g = wait_children(gang, deadline)
+    gang_s = time.perf_counter() - t0
+    c = wait_children(cold, deadline)
+    (rc, so, se), = wait_children(drill, deadline)
+    children_s = time.perf_counter() - t0
+    check(g[1][0] == DEFAULT_KILL_EXIT_CODE and g[0][0] not in (0, None),
+          f"[dist] (d) rmat{SCALE} kill_rank@{DIST_KILL_AT}:1: rank rcs "
+          f"{[x[0] for x in g]}\n{g[0][2][-2000:]}\n{g[1][2][-2000:]}")
+    _, meta = newest_meta(ck)
+    check(meta["rounds"] == DIST_KILL_AT and meta["ranks"] == 2
+          and meta["layout"] == "sharded",
+          f"[dist] (d) lineage: rounds {meta['rounds']} ranks "
+          f"{meta.get('ranks')} {meta.get('layout')}")
+    check(c[0][0] == 0, f"[dist] (d) cold fnum-2 child: rc {c[0][0]}\n"
+          f"{c[0][2][-2000:]}")
+    cold_rec = json.loads([ln for ln in c[0][1].splitlines()
+                           if ln.startswith("[dist-child] ")][-1][13:])
+    check(rc == 0 and "fault_drill: PASS" in so,
+          f"[dist] (d) fault_drill --kill_rank: rc {rc}\n{so[-3000:]}"
+          f"\n{se[-2000:]}")
+    ft_line = [ln for ln in so.splitlines() if '"ft_drill"' in ln][-1]
+    fd = json.loads(ft_line)["ft_drill"]
+    check(fd["byte_identical"] and fd["gang_trace_complete"]
+          and fd["gang_cross_rank_flows"] >= 1 and fd["gang_bundle_verified"],
+          f"[dist] (d) ft_drill record {fd}")
+    print(f"[dist] (d) fault_drill --kill_rank --apps sssp --device {dev} "
+          f"(p2p-31, gloo on one card): {ft_line}", flush=True)
+    # one process resumes the two-rank lineage onto fnum 2
+    obs.configure(in_memory=True)
+    reset_launch_counts()
+    sync(device)
+    t1 = time.perf_counter()
+    wk = run_app(QueryArgs(
+        application="sssp", efile=efile, vfile=vfile, fnum=2,
+        partitioner_type="hash", serialization_prefix=garc,
+        deserialize=True, resume=True, checkpoint_dir=ck,
+        out_prefix=os.path.join(tmp, "d_res"), device=device))
+    sync(device)
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    restore = span_ms(obs.history(), "checkpoint_restore_resharded")
+    obs_reset()
+    check(len(restore) == 1 and counts["gather_reduce"] > 0,
+          f"[dist] (d) resume: {len(restore)} reshards, K1 {counts}")
+    check(read_results(os.path.join(tmp, "d_res"), 2)
+          == read_results(os.path.join(tmp, "d_cold"), 2),
+          "[dist] (d) the resharded resume's files differ from the cold "
+          "fnum-2 query's")
+    print(f"[dist] (d) rmat{SCALE} sssp fnum {PIPE_FNUM} 2 gloo ranks "
+          f"kill_rank@{DIST_KILL_AT}:1 (rank rcs {[x[0] for x in g]}, gang "
+          f"{gang_s:.1f} s): one process resumed the 2-rank lineage onto "
+          f"fnum 2 byte-equal to the cold query (rounds {wk.rounds}, cold "
+          f"{cold_rec['rounds']}, K1 {counts['gather_reduce']}); "
+          f"restore_ms={restore[0]:.3f} run_app_s={wall:.3f} (the garc "
+          f"load included); children {children_s:.1f} s", flush=True)
+    return {"dist ft gang rmat sssp resume": dict(
+                counts=counts, rounds=wk.rounds,
+                cold_rounds=cold_rec["rounds"], restore_ms=restore[0],
+                run_app_s=wall, gang_s=gang_s, children_s=children_s),
+            "dist ft drill": dict(counts={}, ft_drill=fd)}
+
+
+def dist_phases(f4, device, frag=None) -> dict:
     """[dist]: the multi-process runtime on the card -- (a) NCCL at world
     1 in this process with K1 on a rank's slab CSR, (b) two ranks over
-    gloo on one card, (c) NCCL across two cards where this run sees
-    them."""
+    gloo on one card, NCCL across two cards where this run sees them;
+    (c) sharded checkpoints, resume, the vote and the reshard under the
+    world-1 group, (d) the kill-rank drill and an RMAT-20 kill and
+    reshard with two gloo ranks (`frag`: RMAT-20 with its edge list, for
+    (c)'s fnum-2 target)."""
     import tempfile
+    import threading
 
     t_phase = time.perf_counter()
     w1 = dist_world1_phase(f4, device)
+    # (c)'s fnum-2 target is built while (b)'s children run
+    built = {}
+
+    def build_f2():
+        built["f2"] = pipe_fragment(frag, device, fnum=2)
+
+    f2_thread = threading.Thread(target=build_f2, name="grape-f2-build")
+    f2_thread.start()
     with tempfile.TemporaryDirectory(prefix="grape-dist-") as tmp:
         staged = torch.device(device).type == "cuda"
         gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
                              "gloo-staged" if staged else "gloo", tmp,
                              rmat=True, device=device)
+        f2_thread.join()
         nccl = {"runs": {}}
         if staged and torch.cuda.device_count() >= 2:
             nccl = dist_gang_phase("nccl", {}, "nccl", tmp, rmat=False,
                                    device=device)
         else:
             print("[dist] nccl world 2: not run, 1 card", flush=True)
+        t_ft = time.perf_counter()
+        f2, f2_s = built.pop("f2")
+        print(f"[dist] (c) RMAT-{SCALE} fnum 2 hash cut built in "
+              f"{f2_s:.2f} s (beside (b)'s children)", flush=True)
+        c = dist_ft_world1_phase(f4, f2, device, tmp)
+        del f2
+        d = dist_ft_gang_phase(tmp, device)
+        ft_s = time.perf_counter() - t_ft
     secs = time.perf_counter() - t_phase
-    print(f"[time] dist {secs:.1f} s", flush=True)
-    return {"seconds": secs,
-            "runs": {**w1["runs"], **gl["runs"], **nccl["runs"]},
+    print(f"[time] dist {secs:.1f} s (state and control across ranks "
+          f"{ft_s:.1f} s)", flush=True)
+    return {"seconds": secs, "ft_seconds": ft_s,
+            "runs": {**w1["runs"], **gl["runs"], **nccl["runs"], **c, **d},
             "k1": w1["k1"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}
 
@@ -6619,7 +7009,7 @@ def main() -> int:
     lint = lint_phase(device)
     print(f"[time] lint {lint['seconds']:.1f} s", flush=True)
     pipe = pipeline_phase(frag, vc["pipeline"], device)
-    dist = dist_phases(pipe.pop("frag"), device)
+    dist = dist_phases(pipe.pop("frag"), device, frag)
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,

@@ -1167,10 +1167,9 @@ def main(argv=None) -> int:
         run_app(QueryArgs(**vars(ns)))
     finally:
         # a gang member leaves its process group on the error path too
-        import torch.distributed as dist
+        from libgrape_lite_tpu_torch.parallel.comm_spec import leave_group
 
-        if dist.is_available() and dist.is_initialized():
-            dist.destroy_process_group()
+        leave_group()
     return 0
 
 

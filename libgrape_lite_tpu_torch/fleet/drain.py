@@ -16,10 +16,12 @@ siblings serve:
      `FenceViolationError`.
 
 With obs/ armed the drain and the rejoin are `fleet_drain_begin` and
-`fleet_rejoin` trace instants.  Rejoining a replica lost with its
-process (`rejoin_lost`) reads a sharded checkpoint lineage, which only
-the multi-GPU runtime writes (ROADMAP Queue A item 8); a single-process
-loss resumes through `Worker.resume`.
+`fleet_rejoin` trace instants.  A replica lost with its process
+(`rejoin_lost`) cannot drain: a replacement built from a live sibling's
+fragment joins at the fence, and the newest sharded checkpoint's
+metadata names what to resume (`Worker.resume` reshards it onto the
+replacement's mesh); a single-process loss resumes through
+`Worker.resume` alone.
 """
 
 from __future__ import annotations
@@ -94,12 +96,15 @@ def rejoin(router, idx: int) -> dict:
 def rejoin_lost(router, checkpoint_dir: str, *, session_factory):
     """Process-loss rejoin (JAX `fleet/drain.py::rejoin_lost`): a replica
     lost with a dead rank cannot drain or replay a catch-up log; what
-    survives is the last committed sharded checkpoint, from which a
-    replacement replica resumes the interrupted queries.  Reads the
-    lineage's newest metadata (`ft.checkpoint.latest_meta`).  A
-    single-file lineage is a single-process loss: the ordinary
-    `Worker.resume` path, a ValueError here.  A sharded lineage needs the
-    multi-GPU runtime that writes one (ROADMAP Queue A item 8)."""
+    survives is the last committed sharded checkpoint.  A replacement
+    replica is built from a live sibling's fragment (`replicate_fragment`,
+    the autoscaler's copy) by `session_factory` and joins rotation at the
+    current fence.  Returns `(replica, meta)`, `meta` the newest sharded
+    snapshot's metadata: the caller resumes the interrupted query through
+    `Worker.resume`, which reshards the lineage onto the replacement's
+    mesh.  A single-file lineage is a single-process loss: the ordinary
+    resume path, a ValueError here."""
+    from libgrape_lite_tpu_torch.fragment.mutation import replicate_fragment
     from libgrape_lite_tpu_torch.ft.checkpoint import latest_meta
 
     meta = latest_meta(checkpoint_dir)
@@ -109,10 +114,19 @@ def rejoin_lost(router, checkpoint_dir: str, *, session_factory):
             f"lineage; {checkpoint_dir!r} holds a "
             f"{meta.get('layout', 'single-file')!r} layout -- use the "
             f"ordinary resume path for single-process loss")
-    raise NotImplementedError(
-        f"rejoin_lost: {checkpoint_dir!r} is a sharded lineage; the port "
-        "restores one with its multi-GPU runtime (ft/distributed.py, "
-        "restore_resharded): ROADMAP Queue A item 8")
+    live = [x for x in router.replicas if x.routable]
+    if not live:
+        raise ValueError(
+            "rejoin_lost: no live replica to replicate a fragment from")
+    r = router.add_replica(session_factory(
+        replicate_fragment(live[0].session.fragment)))
+    obs.tracer().instant("fleet_rejoin_lost", replica=r.idx,
+                         ckpt_rounds=int(meta["rounds"]),
+                         ckpt_ranks=int(meta.get("ranks", 0)))
+    FLEET_STATS.record("rejoin", replica=r.idx, lost_process=True,
+                       ckpt_rounds=int(meta["rounds"]),
+                       ckpt_ranks=int(meta.get("ranks", 0)))
+    return r, meta
 
 
 def drain_replica(router, idx: int, *, offline=None) -> dict:

@@ -1,5 +1,5 @@
 """Fault tolerance: superstep checkpoint/restore, fault injection, and
-retry/backoff, for one process.
+retry/backoff.
 
 Counterpart of `libgrape_lite_tpu/ft/`.  A superstep boundary is a
 consistent cut of the whole computation, so durable fault tolerance costs
@@ -19,9 +19,9 @@ one host snapshot of the query carry a cadence interval:
 * `retry` -- `with_retries`, the shared exponential-backoff policy, around
   the garc cache read (fragment/loader.py).
 
-The JAX package's multi-process layer (`ft/distributed.py`: sharded
-checkpoints, `restore_resharded`) comes with the port's multi-GPU
-runtime (ROADMAP Queue A item 8).
+* `distributed` -- across ranks: `ShardedCheckpointManager` (a shard
+  file a rank under a two-phase commit over the host control plane) and
+  `restore_resharded` (a lineage restored onto another fnum or world).
 """
 
 from libgrape_lite_tpu_torch.ft.checkpoint import (
@@ -29,6 +29,10 @@ from libgrape_lite_tpu_torch.ft.checkpoint import (
     CheckpointMismatchError,
     CorruptCheckpointError,
     restore_latest,
+)
+from libgrape_lite_tpu_torch.ft.distributed import (
+    ShardedCheckpointManager,
+    restore_resharded,
 )
 from libgrape_lite_tpu_torch.ft.faults import (
     FaultPlan,
@@ -52,10 +56,12 @@ __all__ = [
     "InjectedFault",
     "RetryPolicy",
     "RetryableError",
+    "ShardedCheckpointManager",
     "active_plan",
     "compute_fingerprint",
     "is_transient_distributed_error",
     "is_transient_io_error",
     "restore_latest",
+    "restore_resharded",
     "with_retries",
 ]

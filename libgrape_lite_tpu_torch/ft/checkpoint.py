@@ -25,7 +25,9 @@ at a cadence:
   (default 2).
 
 Layout: `<dir>/ckpt_<rounds:08d>/{state.npz, meta.json}`.  A write that
-fails raises into the superstep loop at the next `wait()`.
+fails raises into the superstep loop at the next `wait()`.  Across ranks
+the lineage is sharded (`ft/distributed.py`: a file a rank, a two-phase
+commit); `restore_latest` reads both layouts.
 """
 
 from __future__ import annotations
@@ -193,13 +195,18 @@ def _restore_latest(directory: str, expected_fingerprint: Dict[str, Any]):
                 f"checkpoint {path} does not match this query: "
                 + "; ".join(diffs)
             )
-        if meta.get("layout") == "sharded":
-            raise NotImplementedError(
-                f"checkpoint {path} is a sharded (multi-process) lineage; "
-                "the port reads it with its multi-GPU runtime: ROADMAP "
-                "Queue A item 8")
         try:
-            state = load_state(path, meta)
+            if meta.get("layout") == "sharded":
+                # a lineage across ranks (ft/distributed.py): the whole
+                # carry gathered from the rank shard files; the
+                # fingerprint check above proved the same mesh
+                from libgrape_lite_tpu_torch.ft.distributed import (
+                    load_sharded_state,
+                )
+
+                state = load_sharded_state(path, meta)
+            else:
+                state = load_state(path, meta)
         except CorruptCheckpointError as e:
             glog.log_info(f"skipping corrupt checkpoint {path}: {e}")
             last_err = e

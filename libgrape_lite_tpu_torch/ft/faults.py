@@ -27,6 +27,11 @@ Spec grammar -- comma-separated tokens:
 
 An unknown or malformed token raises `FaultSpecError` naming the
 grammar: a typo like `kil@3` never parses to a silent no-op plan.
+
+`GRAPE_FT_2PC_KILL=K:R` (JAX `ft/distributed.py`'s test hook) kills rank
+R between the two phases of superstep K's sharded checkpoint: its shard
+is staged, the commit never happens (`maybe_kill_between_phases`, read
+by ft/distributed.py).
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ from libgrape_lite_tpu_torch.utils import logging as glog
 
 FAULTS_ENV = "GRAPE_FT_FAULTS"
 DEFAULT_KILL_EXIT_CODE = 17
+#: "K:R" kills rank R between the stage barrier and the commit of
+#: superstep K's sharded checkpoint (the window the two-phase commit is
+#: about)
+TWO_PHASE_KILL_ENV = "GRAPE_FT_2PC_KILL"
 
 
 class InjectedFault(RuntimeError):
@@ -239,7 +248,11 @@ class FaultPlan:
             manager.wait()  # the shard must exist before it is mauled
             steps = list_checkpoints(manager.directory)
             if steps:
+                # a sharded lineage: each rank mauls its own shard file
                 shard = os.path.join(steps[-1][1], "state.npz")
+                if not os.path.exists(shard):
+                    shard = os.path.join(steps[-1][1],
+                                         f"rank_{self._this_rank()}.npz")
                 corrupt_file(shard)
                 glog.log_info(
                     f"fault injection: corrupted checkpoint shard {shard}")
@@ -280,6 +293,25 @@ class FaultPlan:
         except Exception:
             pass
         return 0
+
+
+def maybe_kill_between_phases(rounds: int, rank: int) -> None:
+    """GRAPE_FT_2PC_KILL=K:R: exit rank R at superstep K after its shard
+    is staged and voted, before the coordinator commits."""
+    spec = os.environ.get(TWO_PHASE_KILL_ENV, "")
+    if not spec:
+        return
+    k, _, r = spec.partition(":")
+    try:
+        k, r = int(k), int(r)
+    except ValueError:
+        raise ValueError(f"{TWO_PHASE_KILL_ENV}={spec!r} is not K:R") from None
+    if k == rounds and r == rank:
+        glog.log_info(
+            f"fault injection: killing rank {rank} between checkpoint "
+            f"phases at superstep {rounds} (stage is durable, commit "
+            "never happens)")
+        os._exit(DEFAULT_KILL_EXIT_CODE)
 
 
 _NOOP = FaultPlan()

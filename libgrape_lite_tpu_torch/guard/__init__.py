@@ -22,9 +22,10 @@ Guards are off by default and cost nothing then: the worker's loop
 checks one flag.  On, `Worker.query` probes every round (GRAPE_GUARD_EVERY
 thins the cadence), on the carry's device; a guarded batch
 (`Worker.query_batch(guard=)`, serve/batch.py) probes all its lanes in
-one read a chunk and isolates a breached lane.  The JAX package's cross-rank
-breach vote (`vote.py`) comes with the port's multi-GPU runtime (ROADMAP
-Queue A item 8).
+one read a chunk and isolates a breached lane.  Under a process group the
+probe's partial sums cross the ranks in one exchange (a global verdict
+and digest), and the breach vote (`vote.py`) makes one rank's halt every
+rank's halt at the same cut.
 """
 
 from libgrape_lite_tpu_torch.guard.config import (
@@ -47,6 +48,11 @@ from libgrape_lite_tpu_torch.guard.monitor import (
     GuardMonitor,
     InvariantBreachError,
 )
+from libgrape_lite_tpu_torch.guard.vote import (
+    BreachVote,
+    RemoteBreachError,
+    classify_breach_error,
+)
 from libgrape_lite_tpu_torch.guard.watchdog import (
     DivergenceWatchdog,
     carry_digest,
@@ -67,6 +73,9 @@ __all__ = [
     "InvariantBreachError",
     "DivergenceError",
     "GuardMonitor",
+    "BreachVote",
+    "RemoteBreachError",
+    "classify_breach_error",
     "DivergenceWatchdog",
     "carry_digest",
 ]

@@ -11,6 +11,12 @@ in one transfer.
 `requires` names the carry keys the predicate reads; the monitor drops
 an invariant whose keys are absent from the carry.
 
+Across ranks each rank holds a slab of the carry, and a verdict must be
+the one-process verdict over the whole carry: `check_partial` gives a
+rank's additive partial sums (a counting invariant's count of violating
+elements, or its own `partial`), the monitor sums them over the ranks in
+one exchange, and `judge` turns the sums into (ok, measure).
+
 Soundness notes baked into the builders:
 
 * `in_range(lo=0)` catches NaN (NaN >= 0 is False) while
@@ -41,11 +47,36 @@ class Invariant:
     # invariant, or None: lets a guarded batch count every lane of a
     # lane-stacked carry in one pass (serve/batch.py)
     bad: Optional[Callable] = field(default=None, compare=False)
+    # across ranks: (dev, prev, cur) -> this slab's additive partial sums,
+    # and [sum over ranks] -> (ok, measure); a counting invariant needs
+    # neither (its partial is the count of `bad`)
+    partial: Optional[Callable] = field(default=None, compare=False)
+    judge: Optional[Callable] = field(default=None, compare=False)
 
     def check(self, dev, prev, cur):
         ok, measure = self.fn(dev, prev, cur)
         return (torch.as_tensor(ok).to(torch.bool),
                 torch.as_tensor(measure).to(torch.float32))
+
+    def check_partial(self, dev, prev, cur) -> torch.Tensor:
+        """This slab's partial sums, a 1-D float64 tensor on the carry's
+        device; raises for an invariant with no partial form (it cannot
+        be judged across ranks)."""
+        if self.partial is not None:
+            return torch.as_tensor(self.partial(dev, prev, cur)).to(
+                torch.float64).reshape(-1)
+        if self.bad is None:
+            raise ValueError(
+                f"invariant {self.name!r} has no partial form: it cannot "
+                "be probed across ranks")
+        return self.bad(prev, cur).sum().to(torch.float64).reshape(1)
+
+    def judge_sums(self, sums) -> tuple:
+        """(ok, measure) from the partial sums added over the ranks."""
+        if self.judge is not None:
+            ok, measure = self.judge(sums)
+            return bool(ok), float(measure)
+        return sums[0] == 0, float(sums[0])
 
 
 def _count_invariant(name, key, bad_fn, description):

@@ -17,6 +17,14 @@ state and rewinds its loop counters).  A probe:
      (it needs a CheckpointManager) and turns paranoid (a probe every
      round), so a deterministic fault is localized on replay.
 
+Across ranks (a fragment whose CommSpec has world > 1) each rank holds a
+slab of the carry: a probe reads back its slab's partial sums (each
+invariant's, the digest's words weighted at the slab's global positions,
+the residual) and exchanges them over the control plane in one
+allgather; the summed invariants, the digest mod 2^32 and the maximum
+residual are the one-process verdict, digest and residual over the whole
+carry, the same on every rank.
+
 Watchdog verdicts never roll back: a cycle or stagnation is a property
 of the healthy deterministic loop, and a replay would diverge the same
 way; they halt (or warn) instead.
@@ -27,6 +35,7 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch import obs
@@ -35,6 +44,7 @@ from libgrape_lite_tpu_torch.guard.watchdog import (
     DivergenceWatchdog,
     carry_digest,
     digest_hex,
+    words_per_element,
 )
 from libgrape_lite_tpu_torch.utils import logging as glog
 
@@ -73,8 +83,12 @@ def _float_keys(carry: Dict) -> List[str]:
 
 
 class GuardMonitor:
-    def __init__(self, app, frag, config: GuardConfig, *, ckpt=None):
+    def __init__(self, app, frag, config: GuardConfig, *, ckpt=None,
+                 allgather=None):
         self.app = app
+        # across ranks: the exchange of a probe's partial sums (default
+        # parallel.comm_spec.host_allgather; injectable for tests)
+        self._allgather = allgather
         self.frag = frag
         self.config = config
         self.ckpt = ckpt
@@ -135,9 +149,26 @@ class GuardMonitor:
                 + ", ".join(i.name for i in dropped))
         self._invariants = kept
 
+    def _residual(self, prev: Dict, cur: Dict):
+        """max |cur - prev| over the float leaves (0-d, float64), or None
+        with no float leaf."""
+        keys = _float_keys(cur)
+        if not keys:
+            return None
+        d = (torch.cat([cur[k].reshape(-1).to(torch.float32) for k in keys])
+             - torch.cat([prev[k].reshape(-1).to(torch.float32)
+                          for k in keys])).abs()
+        # a non-finite delta (inf sentinels in both carries, inf ->
+        # finite) has no usable magnitude
+        d = torch.where(torch.isfinite(d), d, 0.0)
+        return (d.max() if d.numel() else d.sum()).to(torch.float64)
+
     def _probe(self, prev: Dict, cur: Dict):
         """Every invariant's (ok, measure), the digest and the residual,
         computed on the carry's device and read back in one transfer."""
+        spec = getattr(self.frag, "comm_spec", None)
+        if getattr(spec, "world", 1) > 1:
+            return self._probe_across(prev, cur, spec)
         parts = []
         if self._invariants:
             checks = [inv.check(self.frag.dev, prev, cur)
@@ -146,23 +177,66 @@ class GuardMonitor:
                 [t for pair in checks for t in pair]).to(torch.float64))
         dig = carry_digest(cur)
         parts.append(dig.to(torch.float64))  # words < 2^32: exact
-        keys = _float_keys(cur)
-        if keys:
-            d = (torch.cat([cur[k].reshape(-1).to(torch.float32)
-                            for k in keys])
-                 - torch.cat([prev[k].reshape(-1).to(torch.float32)
-                              for k in keys])).abs()
-            # a non-finite delta (inf sentinels in both carries, inf ->
-            # finite) has no usable magnitude
-            d = torch.where(torch.isfinite(d), d, 0.0)
-            parts.append((d.max() if d.numel() else d.sum()).to(
-                torch.float64).reshape(1))
+        res = self._residual(prev, cur)
+        if res is not None:
+            parts.append(res.reshape(1))
         host = torch.cat([p.to(dig.device) for p in parts]).tolist()
         n_inv, n_dig = len(self._invariants), dig.numel()
         oks = [bool(host[2 * i]) for i in range(n_inv)]
         vals = [host[2 * i + 1] for i in range(n_inv)]
         digest = tuple(int(x) for x in host[2 * n_inv:2 * n_inv + n_dig])
-        residual = host[2 * n_inv + n_dig] if keys else None
+        residual = host[2 * n_inv + n_dig] if res is not None else None
+        return oks, vals, digest, residual
+
+    def _probe_across(self, prev: Dict, cur: Dict, spec):
+        """`_probe` of a rank's slab: its partial sums read back in one
+        transfer and exchanged in one allgather; returns the whole
+        carry's (oks, measures, digest, residual), the same on every
+        rank."""
+        from libgrape_lite_tpu_torch.parallel.comm_spec import is_slab
+
+        rep = frozenset(getattr(self.app, "replicated_keys", ()) or ())
+        first = spec.rank == 0
+
+        def slab(k) -> bool:
+            return is_slab(cur[k], spec.fl, k in rep)
+
+        parts, sizes = [], []
+        for inv in self._invariants:
+            p = inv.check_partial(self.frag.dev, prev, cur)
+            if not first and not any(slab(k) for k in inv.requires):
+                p = torch.zeros_like(p)  # a replicated leaf counts once
+            parts.append(p)
+            sizes.append(p.numel())
+        pos0 = {k: spec.fid_lo * (cur[k].numel() // spec.fl)
+                * words_per_element(cur[k]) for k in cur if slab(k)}
+        skip = () if first else {k for k in cur if not slab(k)}
+        dig = carry_digest(cur, pos0=pos0, skip=skip)
+        parts.append(dig.to(torch.float64))  # words < 2^32: exact
+        res = self._residual(prev, cur)
+        parts.append(torch.zeros(1, dtype=torch.float64, device=dig.device)
+                     if res is None else res.reshape(1))
+        local = torch.cat([p.to(dig.device) for p in parts]).cpu().numpy()
+        allgather = self._allgather
+        if allgather is None:
+            from libgrape_lite_tpu_torch.parallel.comm_spec import (
+                host_allgather,
+            )
+
+            allgather = host_allgather
+        rows = np.asarray(allgather(local), dtype=np.float64)
+        if rows.shape[0] != spec.world:
+            raise RuntimeError(f"guard probe exchange returned "
+                               f"{rows.shape[0]} rows for {spec.world} ranks")
+        sums = rows[:, :-1].sum(axis=0).tolist()
+        oks, vals, at = [], [], 0
+        for inv, n in zip(self._invariants, sizes):
+            ok, val = inv.judge_sums(sums[at:at + n])
+            oks.append(ok)
+            vals.append(val)
+            at += n
+        digest = tuple(int(x) & 0xFFFFFFFF for x in sums[at:])
+        residual = float(rows[:, -1].max()) if res is not None else None
         return oks, vals, digest, residual
 
     # ---- per-probe entry point ------------------------------------------

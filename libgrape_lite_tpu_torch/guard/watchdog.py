@@ -46,14 +46,20 @@ def _mul32(a: torch.Tensor, b) -> torch.Tensor:
     return (a * (b & _M16) + (((a * (b >> 16)) & _M16) << 16)) & _M32
 
 
-def carry_digest(carry: Dict) -> torch.Tensor:
+def carry_digest(carry: Dict, pos0: Optional[Dict[str, int]] = None,
+                 skip=()) -> torch.Tensor:
     """[2 * nleaves] int64 digest words, each in [0, 2^32), on the carry's
     device: per leaf in sorted-key order, sum(bits * w1) and
     sum((bits ^ bits >> 16) * w2) mod 2^32 with w1 = pos * 2654435761 + 1
     and w2 = pos * 0x85EBCA77 + 0x9E3779B1, pos a word's position in its
     leaf (the JAX package's).  The weighting runs once over the leaves'
     concatenated words; each leaf's two sums are then reductions over its
-    slice (integer sums: exact in any order)."""
+    slice (integer sums: exact in any order).
+
+    Across ranks a rank digests its slab as a part of the whole leaf:
+    `pos0[k]` is the position of the slab's first word in leaf k, and the
+    leaves in `skip` (a replicated leaf on every rank but one) sum to 0,
+    so the ranks' words added mod 2^32 are the one-process digest."""
     keys = sorted(carry)
     if not keys:
         return torch.zeros((0,), dtype=torch.int64)
@@ -61,15 +67,23 @@ def carry_digest(carry: Dict) -> torch.Tensor:
     device = words[0].device
     lens = [w.numel() for w in words]
     bits = torch.cat(words)
+    pos0 = pos0 or {}
     pos = torch.cat([torch.arange(n, dtype=torch.int64, device=device)
-                     for n in lens])
+                     + int(pos0.get(k, 0)) for k, n in zip(keys, lens)])
     w1 = (_mul32(pos, 2654435761) + 1) & _M32
     w2 = (_mul32(pos, 0x85EBCA77) + 0x9E3779B1) & _M32
     mixed = bits ^ (bits >> 16)
     terms = torch.stack([_mul32(bits, w1), _mul32(mixed, w2)])
-    sums = torch.stack([part.sum(dim=1)
-                        for part in torch.split(terms, lens, dim=1)])
+    sums = torch.stack([part.sum(dim=1) if k not in skip
+                        else part.new_zeros(2)
+                        for k, part in zip(keys, torch.split(terms, lens,
+                                                             dim=1))])
     return (sums & _M32).reshape(-1)
+
+
+def words_per_element(v: torch.Tensor) -> int:
+    """The uint32 words a carry element digests as (`_u32_words`)."""
+    return max(1, torch.as_tensor(v).element_size() // 4)
 
 
 def carry_digest_lanes(carry: Dict, lanes: int) -> torch.Tensor:

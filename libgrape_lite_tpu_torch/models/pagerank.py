@@ -276,7 +276,9 @@ class PageRank(BatchShuffleAppBase):
         rtol = self.mass_rtol
         personalized = self._personalized
 
-        def mass_fn(dev, prev, cur):
+        def mass_parts(dev, prev, cur):
+            """The slab's mass and seed mass (the whole carry's with one
+            process)."""
             rank = cur["rank"]
             dt = rank.dtype
             deg = dev.out_degree.to(dt)
@@ -286,8 +288,18 @@ class PageRank(BatchShuffleAppBase):
             # PPR conserves the seed mass (1 when the source resolves, 0
             # for an absent seed) instead of the global unit mass
             target = (cur["seed"].sum() if personalized
-                      else torch.ones((), dtype=dt, device=rank.device))
+                      else torch.zeros((), dtype=dt, device=rank.device))
+            return mass, target
+
+        def mass_fn(dev, prev, cur):
+            mass, target = mass_parts(dev, prev, cur)
+            if not personalized:
+                target = target + 1
             err = (mass - target).abs()
+            return err <= rtol, err
+
+        def mass_judge(sums):
+            err = abs(sums[0] - (sums[1] if personalized else 1.0))
             return err <= rtol, err
 
         out = [finite("rank"), in_range("rank", lo=0.0)]
@@ -297,6 +309,9 @@ class PageRank(BatchShuffleAppBase):
             out.append(Invariant(
                 "pagerank_mass", mass_fn, requires,
                 f"total probability mass conserved within {rtol:g}",
+                partial=lambda dev, prev, cur: torch.stack(
+                    mass_parts(dev, prev, cur)),
+                judge=mass_judge,
             ))
         return out
 

@@ -21,11 +21,13 @@ or `serve --metrics_port`), `slo` (latency objectives; a breach is an
 instant and a counter, never an exception) and `recorder` (the flight
 recorder's postmortem bundles, rendered by the `postmortem` subcommand).
 `truth` joins a pipelined query's modeled hidden exchange to its measured
-rounds.  The JAX package's cross-rank `gang` module waits for the port's
-multi-process runtime.
+rounds.  `gang` is the plane across ranks: the clock handshake, per-rank
+trace sidecars and their assembler (`trace_report --gang`), and the
+distributed flight recorder under a shared incident id.
 """
 
 from libgrape_lite_tpu_torch.obs import federation
+from libgrape_lite_tpu_torch.obs import gang
 from libgrape_lite_tpu_torch.obs.config import (
     METRICS_ENV,
     TRACE_ENV,
@@ -59,6 +61,7 @@ from libgrape_lite_tpu_torch.obs.tracer import NULL_SPAN, Span, Tracer
 
 __all__ = [
     "federation",
+    "gang",
     "slo",
     "FederatedStats",
     "SLO_STATS",

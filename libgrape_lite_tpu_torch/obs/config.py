@@ -121,6 +121,9 @@ def reset() -> None:
         _state["metrics_path"] = None
         _state["in_memory"] = False
         _state["chrome_history"] = []
+    from libgrape_lite_tpu_torch.obs import gang
+
+    gang.reset()  # the cached clock handshake goes with the rest
 
 
 def tracer() -> Tracer:
@@ -172,6 +175,13 @@ def flush() -> dict:
         _state["metrics"].write(json_path=mp + ".json",
                                 prom_path=mp + ".prom")
         out["metrics"] = mp
+    if _state["trace_path"] and tr.nprocs > 1:
+        # a gang rank also rewrites its sidecar, so the assembler
+        # (trace_report --gang) sees everything flushed so far; one
+        # process never touches the gang directory
+        from libgrape_lite_tpu_torch.obs import gang
+
+        gang.write_sidecar()
     return out
 
 

@@ -135,10 +135,15 @@ class FlightRecorder:
 
     def trigger(self, reason: str,
                 extra: Optional[Dict[str, Any]] = None,
-                guard: Optional[Dict[str, Any]] = None) -> Optional[str]:
+                guard: Optional[Dict[str, Any]] = None,
+                incident: Optional[str] = None,
+                filename: Optional[str] = None) -> Optional[str]:
         """Count the moment; dump `postmortem_<reason>_<seq>.json` into
         the sink when one is set.  Returns the bundle's path or None;
-        never raises."""
+        never raises.  `incident` stamps a gang-shared incident id into
+        the bundle; `filename` (relative to the sink) replaces the
+        default name: obs/gang.py writes `incident_<id>/rank_<r>.json`,
+        so every rank's shard of one incident lands in one directory."""
         try:
             REC_STATS["triggers"] += 1
             REC_STATS["last_reason"] = reason
@@ -146,13 +151,20 @@ class FlightRecorder:
             if not sink:
                 return None
             bundle = self.build_bundle(reason, extra=extra, guard=guard)
+            if incident:
+                bundle["incident"] = incident
             with self._lock:
                 self._seq += 1
                 seq = self._seq
             os.makedirs(sink, exist_ok=True)
-            safe = "".join(c if c.isalnum() or c in "-_" else "_"
-                           for c in reason)
-            path = os.path.join(sink, f"postmortem_{safe}_{seq:03d}.json")
+            if filename:
+                path = os.path.join(sink, filename)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+            else:
+                safe = "".join(c if c.isalnum() or c in "-_" else "_"
+                               for c in reason)
+                path = os.path.join(sink,
+                                    f"postmortem_{safe}_{seq:03d}.json")
             tmp = path + ".tmp"
             with open(tmp, "w") as fh:
                 json.dump(bundle, fh, indent=1, sort_keys=False, default=str)

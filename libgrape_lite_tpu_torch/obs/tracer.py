@@ -41,6 +41,7 @@ from libgrape_lite_tpu_torch.obs.events import (
     LANE_TID_BASE,
     REPLICA_TID_BASE,
     counter_event,
+    flow_event,
     instant_event,
     metadata_event,
     span_event,
@@ -130,8 +131,13 @@ class Tracer:
     (`obs.configure`) swaps in a fresh enabled one; call sites read the
     global through `obs.tracer()` each query."""
 
-    def __init__(self, enabled: bool = True):
+    def __init__(self, enabled: bool = True, *, rank: int | None = None,
+                 nprocs: int | None = None):
         self.enabled = enabled
+        # the identity with no process group up (tests build a fake
+        # rank-r-of-n tracer this way); a live group always wins
+        self._rank_fallback = int(rank or 0)
+        self._nprocs_fallback = int(nprocs or 1)
         self.trace_id = uuid.uuid4().hex if enabled else None
         self._buf = deque()  # append is atomic under the interpreter lock
         self._meta_rows: list = []  # (tid, name) thread rows
@@ -141,17 +147,23 @@ class Tracer:
         self._t_anchor_ns = time.perf_counter_ns()
         self._wall_anchor = time.time()
 
+    def _identity(self) -> tuple:
+        rank, n = gang_identity()
+        if (rank, n) == (0, 1):  # no group: the constructor's identity
+            return self._rank_fallback, self._nprocs_fallback
+        return rank, n
+
     @property
     def pid(self) -> int:
         """The process rank, read live: `torch.distributed`'s rank once
         a process group is initialized (it may start after arming),
-        else 0."""
-        return gang_identity()[0]
+        else the constructor's `rank` (0)."""
+        return self._identity()[0]
 
     @property
     def nprocs(self) -> int:
         """The world size, read live like `pid`."""
-        return gang_identity()[1]
+        return self._identity()[1]
 
     # ---- track bookkeeping ----
 
@@ -233,6 +245,20 @@ class Tracer:
         self._push(counter_event(
             name, ts_ns=time.perf_counter_ns(), pid=self.pid,
             tid=self._tid(), values=values))
+
+    def flow(self, name: str, *, flow_id: int, phase: str,
+             cat: str = "gang", **args) -> None:
+        """One leg of a cross-rank flow arrow (ph s / t / f).  Every rank
+        taking part in one logical edge (a breach vote, a two-phase
+        commit) emits its own leg with the same `(cat, flow_id)`; the
+        gang assembler (obs/gang.py) merges them and Perfetto draws the
+        arrow across the rank tracks."""
+        if not self.enabled:
+            return
+        self._push(flow_event(
+            name, ts_ns=time.perf_counter_ns(), pid=self.pid,
+            tid=self._tid(), flow_id=flow_id, phase=phase, cat=cat,
+            args=args or None))
 
     # ---- draining ----
 

@@ -26,8 +26,10 @@ The spec's collective primitives (`all_gather_into`, `all_reduce`,
 `all_to_all_single`) do that staging and count every call and its bytes
 in the spec's `stats` (the group's traffic); `Communicator`
 (parallel/communicator.py) builds the apps' collectives on them.
-`host_allgather` is the control plane (breach votes, checkpoint commits)
-over the same group.
+`host_allgather` is the control plane (breach votes, checkpoint commits,
+the gang handshake): host-side and synchronous, over a gloo group of its
+own when the data plane is NCCL, so no vote or commit barrier enters a
+card's NCCL stream.
 """
 
 from __future__ import annotations
@@ -67,20 +69,47 @@ def dist_timeout_s() -> float:
     return float(os.environ.get(DIST_TIMEOUT_ENV, "") or _DEFAULT_TIMEOUT_S)
 
 
+#: the control plane's group: gloo beside an NCCL data plane, else None
+#: (the default group, which is gloo already)
+_CONTROL = {"group": None}
+
+
 def host_allgather(vec: np.ndarray) -> np.ndarray:
     """Host-side allgather of a small vector, stacked `[nprocs, ...]`
-    (JAX `host_allgather`): the control plane of breach votes and
-    checkpoint commits.  Single-process it stacks the input alone and
-    touches no backend, so a caller's quorum logic is the same at every
-    process count; under a group every rank contributes its vector."""
+    (JAX `host_allgather`): the control plane of breach votes, checkpoint
+    commits and the gang handshake.  Every rank passes the same shape and
+    dtype.  Single-process it stacks the input alone and touches no
+    backend, so a caller's quorum logic is the same at every process
+    count; under a group every rank contributes its vector, over host
+    memory (the control group, never NCCL)."""
     v = np.asarray(vec)
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
         return v[None]
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, v)
-    return np.stack([np.asarray(o) for o in out])
+    t = torch.from_numpy(np.ascontiguousarray(v).reshape(-1).copy())
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t, group=_CONTROL["group"])
+    return np.stack([o.numpy().reshape(v.shape) for o in out])
+
+
+def is_slab(v, fl: int, replicated: bool = False) -> bool:
+    """Whether a state leaf is a rank's slab of the fragment stack (its
+    rows `fid_lo .. fid_lo + fl - 1`): not replicated, two or more
+    dimensions, `fl` rows.  Every other leaf is held whole by every rank.
+    The result gather, the sharded checkpoint, the resume and the guard's
+    probe across ranks all split a carry by this rule."""
+    return not replicated and getattr(v, "ndim", 0) >= 2 and v.shape[0] == fl
+
+
+def leave_group() -> None:
+    """Destroy this process's groups, the control group's handle with
+    them (the CLI's `main` calls it, on the error path too)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _CONTROL["group"] = None
 
 
 def decline_across_ranks(world: int, what: str, item: str,
@@ -258,6 +287,10 @@ class CommSpec:
                 "CommSpec.init_distributed: this process already joined a "
                 "process group (torch.distributed.init_process_group runs "
                 "once a process)") from e
+        # the control plane (host_allgather) stays on the host: a gloo
+        # group beside NCCL, made by every rank in the same order
+        _CONTROL["group"] = (dist.new_group(backend="gloo", timeout=timeout)
+                             if backend == "nccl" else None)
         spec = cls(fnum, dev, rank=rank, world=world,
                    group=dist.group.WORLD, backend=backend, staged=staged)
         _LOG.info("process group up: %r (%s)", spec,
@@ -281,10 +314,7 @@ class CommSpec:
         error path too)."""
         if self.group is None:
             return
-        import torch.distributed as dist
-
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        leave_group()
         self.group = None
 
     # ---- collective primitives (staged through the host under gloo on

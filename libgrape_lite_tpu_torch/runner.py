@@ -242,11 +242,10 @@ DIST_APP_NAMES = ("sssp", "bfs", "wcc", "pagerank")
 
 def check_across_processes(args: QueryArgs) -> None:
     """What a run across processes declines, before any load: each
-    raises a ValueError naming ROADMAP item 8b or 8c (never a silent
-    single-process run)."""
-    from libgrape_lite_tpu_torch.ft.faults import active_plan
+    raises a ValueError naming ROADMAP item 8b.4 or 8c (never a silent
+    single-process run).  Checkpoints, resumes, guards and fault plans
+    run across processes (ft/distributed.py, guard/vote.py)."""
     from libgrape_lite_tpu_torch.fragment.partition import partition_mode
-    from libgrape_lite_tpu_torch.guard.config import GuardConfig
     from libgrape_lite_tpu_torch.parallel.pipeline import pipeline_mode
 
     world = args.num_processes
@@ -255,13 +254,7 @@ def check_across_processes(args: QueryArgs) -> None:
     for what, item, ok in (
             (f"the app {name!r} (across processes: "
              f"{', '.join(DIST_APP_NAMES)})", "8c", name in DIST_APP_NAMES),
-            ("--checkpoint_every / --resume", "8b",
-             not (args.checkpoint_every or args.resume)),
-            ("the runtime guard (--guard, GRAPE_GUARD)", "8b",
-             not GuardConfig.resolve(args.guard or None).enabled),
-            ("fault injection (GRAPE_FT_FAULTS)", "8b",
-             active_plan().is_noop()),
-            ("--delta_efile / --delta_vfile", "8b",
+            ("--delta_efile / --delta_vfile", "8b.4",
              not (args.delta_efile or args.delta_vfile)),
             ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",
              not (args.vc or partition_mode() == "2d")),

@@ -35,8 +35,31 @@ bundle must carry the guard forensics and `serve_query` rows, and `cli
 postmortem <bundle> --trace <trace.json>` must find every row byte for
 byte in the trace.
 
-`--kill_rank` (the multi-process reshard drill) exits 2: it waits for
-sharded checkpoints across processes (ROADMAP Queue A item 8b).
+**kill_rank** (`--kill_rank`, default app sssp; sssp, bfs, wcc or
+pagerank): the resilience drill across ranks.
+
+  1. **reference** -- a fault-free one-process run on the reduced fnum-2
+     mesh the survivor restores onto (legs 1-3 run at once);
+  2. **gang** -- two CLI ranks at fnum 4 with sharded two-phase
+     checkpoints (`ckpt_<K>/rank_<r>.npz`); `GRAPE_FT_FAULTS=
+     kill_rank@K:1` kills rank 1 right after superstep K's commit is
+     durable (exit 17), stranding rank 0 in the next collective, which
+     fails it (at the latest after the gang's GRAPE_DIST_TIMEOUT_S, 60);
+  3. **gang telemetry** -- the same gang with GRAPE_TRACE and
+     GRAPE_POSTMORTEM armed and a raise-mode kill: the fault travels the
+     breach vote, both ranks halt, their trace sidecars merge into one
+     timeline (both ranks' superstep spans, a vote flow across the rank
+     tracks, monotonic aligned timestamps), and both postmortem shards
+     land under one `incident_<id>/` with a byte-verified `gang.json`;
+  4. **reshard restore** -- one survivor process resumes the two-rank
+     snapshot onto fnum 2 (`restore_resharded`);
+  5. **verify** -- the resumed files equal the fault-free run's byte for
+     byte (PageRank within 1e-4: its carry at K came from fnum-4 sums);
+     an `ft_drill` JSON record is printed.  Exit 2 iff they diverge.
+
+With `--device cuda` the two ranks share the card, so the drill names
+gloo for them (GRAPE_DIST_BACKEND=gloo: each collective staged through
+host memory; NCCL refuses two ranks on one card).
 
 Exit code 0 iff every app passes.  `--device` defaults to cuda.
 """
@@ -57,24 +80,33 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 APP_FLAGS = {
     "sssp": ["--sssp_source", "6"],
+    "bfs": ["--bfs_source", "6"],
     "pagerank": ["--pr_mr", "10"],
     "cdlp": ["--cdlp_mr", "10"],
 }
 
 
-def run_cli(extra, env_overrides=None, timeout=600):
-    """(exit code, merged stdout and stderr) of the port's CLI in a child
-    process, with no ambient fault, guard or bundle sink."""
+def cli_env(env_overrides=None) -> dict:
+    """A CLI child's environment: no ambient fault, guard, bundle sink or
+    trace, the repository on the path."""
     env = dict(os.environ)
-    for k in ("GRAPE_FT_FAULTS", "GRAPE_GUARD", "GRAPE_POSTMORTEM"):
+    for k in ("GRAPE_FT_FAULTS", "GRAPE_GUARD", "GRAPE_POSTMORTEM",
+              "GRAPE_TRACE"):
         env.pop(k, None)
     env.update(env_overrides or {})
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
+    return env
+
+
+def run_cli(extra, env_overrides=None, timeout=600):
+    """(exit code, merged stdout and stderr) of the port's CLI in a child
+    process (`cli_env`)."""
     cmd = [sys.executable, "-m", "libgrape_lite_tpu_torch.cli"] + extra
-    proc = subprocess.run(cmd, cwd=REPO, env=env, timeout=timeout,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    proc = subprocess.run(cmd, cwd=REPO, env=cli_env(env_overrides),
+                          timeout=timeout, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT)
     return proc.returncode, proc.stdout.decode(errors="replace")
 
 
@@ -279,6 +311,292 @@ def postmortem_drill(args, workdir: str) -> bool:
     return True
 
 
+#: the apps a gang runs (runner.DIST_APP_NAMES)
+KILL_RANK_APPS = ("sssp", "bfs", "wcc", "pagerank")
+PR_RTOL = 1e-4  # the verifier's relative tolerance for PageRank
+GANG_DIST_TIMEOUT_S = 60  # a gang's GRAPE_DIST_TIMEOUT_S
+GANG_TIMEOUT_S = 300  # seconds a gang's ranks may run
+
+
+def _free_coordinator() -> str:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def gang_env(args, extra) -> dict:
+    """The environment of a gang's ranks (`cli_env`): the drill's group
+    timeout, gloo named on a card."""
+    env = {"GRAPE_DIST_TIMEOUT_S": str(GANG_DIST_TIMEOUT_S), **extra}
+    if args.device == "cuda":
+        env["GRAPE_DIST_BACKEND"] = "gloo"
+    return cli_env(env)
+
+
+def start_cli(flags, env):
+    return subprocess.Popen(
+        [sys.executable, "-m", "libgrape_lite_tpu_torch.cli", *flags],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def start_gang(flags, env, world=2):
+    coord = _free_coordinator()
+    return [start_cli(flags + ["--coordinator", coord, "--num_processes",
+                               str(world), "--process_id", str(r)], env)
+            for r in range(world)]
+
+
+def finish(procs, timeout):
+    """Every rank's (exit code, output); a rank past `timeout` seconds is
+    killed with the rest (rc None)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    outs = []
+    for q in procs:
+        try:
+            out, _ = q.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((q.returncode, out.decode(errors="replace")))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            out, _ = q.communicate()
+            outs.append((None, out.decode(errors="replace")))
+    return outs
+
+
+def _ranks_log(outs) -> str:
+    return "".join(f"\n--- rank {r} (rc {rc}) ---\n{log}"
+                   for r, (rc, log) in enumerate(outs))
+
+
+def compare_within(ref_dir: str, res_dir: str, rtol: float) -> tuple:
+    """(problems, max relative error) of PageRank files compared by oid
+    within `rtol` (the verifier's rule)."""
+    def values(d):
+        out = {}
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name)) as fh:
+                for line in fh:
+                    if line.strip():
+                        oid, v = line.split()
+                        out[oid] = float(v)
+        return out
+
+    ref, res = values(ref_dir), values(res_dir)
+    if ref.keys() != res.keys():
+        return ["vertex sets differ"], float("inf")
+    worst = max((abs(res[k] - v) / max(abs(v), 1e-300)
+                 for k, v in ref.items() if v != 0), default=0.0)
+    return ([] if worst <= rtol else
+            [f"max relative error {worst:.3e} > {rtol:g}"]), worst
+
+
+def start_telemetry_gang(args, wd: str, common):
+    """The raise-mode gang, GRAPE_TRACE and GRAPE_POSTMORTEM armed."""
+    return start_gang(common + [
+        "--fnum", "4", "--checkpoint_dir", os.path.join(wd, "ck_gangtrace"),
+        "--out_prefix", os.path.join(wd, "out_gangtrace")], gang_env(args, {
+            "GRAPE_FT_FAULTS": f"kill_rank@{args.kill_at}:1,mode=raise",
+            "GRAPE_TRACE": os.path.join(wd, "gang_trace.json"),
+            "GRAPE_POSTMORTEM": os.path.join(wd, "gang_pm")}))
+
+
+def _gang_telemetry_leg(app: str, wd: str, outs):
+    """The raise-mode gang's checks (`outs`: its ranks' exit codes and
+    logs): the kill travelled the breach vote, both ranks halted and
+    landed their telemetry -- sidecars merged by `obs.gang.assemble` (both
+    ranks' superstep spans, a vote flow across the rank tracks, monotonic
+    timestamps) and one `incident_<id>/` with every rank's shard and rank
+    0's byte-verified `gang.json`.  Returns the gang fields of the
+    ft_drill record, or None on a failed check."""
+    import glob
+    import json
+
+    from libgrape_lite_tpu_torch.obs import gang
+
+    trace = os.path.join(wd, "gang_trace.json")
+    pm = os.path.join(wd, "gang_pm")
+    if any(rc in (0, None) for rc, _ in outs):
+        print(f"[{app}] FAIL: the raise-mode gang must halt both ranks "
+              f"through the vote (rcs {[rc for rc, _ in outs]})"
+              + _ranks_log(outs))
+        return None
+    problems = []
+    if "RemoteBreachError" not in outs[0][1] or "rank 1" not in outs[0][1]:
+        problems.append("rank 0 did not halt on a RemoteBreachError "
+                        "naming rank 1")
+    summary = gang.assemble(os.path.splitext(trace)[0] + ".gang",
+                            out_path=os.path.join(wd, "gang_merged.json"))
+    if not summary["complete"]:
+        problems.append(f"merged gang trace incomplete: ranks="
+                        f"{summary['ranks']} missing={summary['missing']} "
+                        f"aligned={summary['aligned']}")
+    if any(int(summary["supersteps_by_rank"].get(str(r), 0)) < 1
+           for r in range(2)):
+        problems.append("a rank contributed no superstep spans: "
+                        f"{summary['supersteps_by_rank']}")
+    if summary["cross_rank_flows"] < 1:
+        problems.append(f"no vote flow crosses the rank tracks "
+                        f"({summary['flow_events']} leg(s))")
+    if not summary["monotonic"]:
+        problems.append("post-alignment timestamps are not monotonic")
+    incident_dirs = sorted(glob.glob(os.path.join(pm, "incident_*")))
+    manifest = {}
+    if len(incident_dirs) != 1:
+        problems.append("expected one shared incident dir, found "
+                        f"{[os.path.basename(d) for d in incident_dirs]}")
+    else:
+        inc = incident_dirs[0]
+        problems += [f"incident lacks rank_{r}.json" for r in range(2)
+                     if not os.path.exists(os.path.join(inc,
+                                                        f"rank_{r}.json"))]
+        mpath = os.path.join(inc, "gang.json")
+        if not os.path.exists(mpath):
+            problems.append("rank 0 wrote no gang.json manifest")
+        else:
+            with open(mpath) as fh:
+                manifest = json.load(fh)
+            if not manifest.get("complete"):
+                problems.append("gang manifest not byte-verified: "
+                                f"{manifest.get('shards')}")
+    if problems:
+        print(f"[{app}] FAIL (gang telemetry): " + "; ".join(problems)
+              + _ranks_log(outs))
+        return None
+    print(f"[{app}] gang telemetry: merged trace complete "
+          f"({summary['events']} events, supersteps "
+          f"{summary['supersteps_by_rank']}, {summary['cross_rank_flows']} "
+          f"cross-rank flow(s)); incident {manifest.get('incident')} "
+          f"byte-verified across {manifest.get('nprocs')} rank(s)")
+    return {"gang_trace_events": int(summary["events"]),
+            "gang_trace_complete": bool(summary["complete"]),
+            "gang_cross_rank_flows": int(summary["cross_rank_flows"]),
+            "gang_incident": str(manifest.get("incident", "")),
+            "gang_bundle_verified": bool(manifest.get("complete", False))}
+
+
+def kill_rank_drill(app: str, args, workdir: str) -> int:
+    """Two CLI ranks at fnum 4 with sharded two-phase checkpoints; rank 1
+    killed at superstep K; the snapshot restored by one process onto
+    fnum 2 must equal a fault-free fnum-2 run.  0 on a pass, 2 on
+    diverging files, 1 on any other failure."""
+    import json
+    import time
+
+    from libgrape_lite_tpu_torch.ft.checkpoint import (
+        list_checkpoints,
+        read_meta,
+    )
+    from libgrape_lite_tpu_torch.ft.faults import DEFAULT_KILL_EXIT_CODE
+
+    wd = os.path.join(workdir, f"killrank_{app}")
+    os.makedirs(wd, exist_ok=True)
+    common = ["--application", app, "--efile", args.efile, "--vfile",
+              args.vfile, "--device", args.device, "--checkpoint_every",
+              str(args.checkpoint_every)] + APP_FLAGS.get(app, [])
+    # three independent legs at once: the fault-free reference on the
+    # reduced mesh (fnum 2, one process); the gang at fnum 4 whose rank 1
+    # is killed after superstep K's commit; the raise-mode gang (its
+    # telemetry)
+    out_ref = os.path.join(wd, "out_ref")
+    ck = os.path.join(wd, "ck")
+    ref = start_cli(common + ["--fnum", "2", "--checkpoint_dir",
+                              os.path.join(wd, "ck_ref"), "--out_prefix",
+                              out_ref], cli_env())
+    procs = start_gang(common + ["--fnum", "4", "--checkpoint_dir", ck,
+                                 "--out_prefix", os.path.join(wd,
+                                                              "out_gang")],
+                       gang_env(args, {"GRAPE_FT_FAULTS":
+                                       f"kill_rank@{args.kill_at}:1"}))
+    tele = start_telemetry_gang(args, wd, common)
+    try:
+        (rc, log), = finish([ref], GANG_TIMEOUT_S)
+        outs = finish(procs[1:], GANG_TIMEOUT_S)
+        # rank 0 is stranded in the next collective once rank 1 is gone:
+        # that is the loss; the group's error (or its timeout) ends it
+        outs = finish(procs[:1], GANG_DIST_TIMEOUT_S + 30) + outs
+        tele_outs = finish(tele, GANG_TIMEOUT_S)
+    finally:
+        for q in [ref, *procs, *tele]:
+            if q.poll() is None:
+                q.kill()
+                q.communicate()
+    if rc != 0:
+        print(f"[{app}] FAIL: fnum-2 reference run rc={rc}\n{log}")
+        return 1
+    if outs[1][0] != DEFAULT_KILL_EXIT_CODE or outs[0][0] == 0:
+        print(f"[{app}] FAIL: killed rank rc={outs[1][0]} (expected "
+              f"{DEFAULT_KILL_EXIT_CODE}), rank 0 rc={outs[0][0]} "
+              "(expected a failure)" + _ranks_log(outs))
+        return 1
+    steps = list_checkpoints(ck)
+    if not steps:
+        print(f"[{app}] FAIL: the gang left no complete sharded "
+              "checkpoint" + _ranks_log(outs))
+        return 1
+    meta = read_meta(steps[-1][1])
+    if meta.get("layout") != "sharded" or meta.get("ranks") != 2:
+        print(f"[{app}] FAIL: the newest checkpoint is not a 2-rank "
+              f"sharded snapshot: layout={meta.get('layout')!r} "
+              f"ranks={meta.get('ranks')!r}")
+        return 1
+    if int(meta["rounds"]) != args.kill_at:
+        print(f"[{app}] FAIL: the newest durable snapshot is superstep "
+              f"{meta['rounds']}, not the kill round {args.kill_at} (the "
+              "kill fires after the commit)")
+        return 1
+    gang_fields = _gang_telemetry_leg(app, wd, tele_outs)
+    if gang_fields is None:
+        return 1
+    # 4. one survivor process reshards the snapshot onto fnum 2
+    out_res = os.path.join(wd, "out_res")
+    t0 = time.monotonic()
+    rc, log = run_cli(common + ["--fnum", "2", "--resume",
+                                "--checkpoint_dir", ck,
+                                "--out_prefix", out_res])
+    wall = time.monotonic() - t0
+    if rc != 0:
+        print(f"[{app}] FAIL: reshard resume rc={rc}\n{log}")
+        return 1
+    if "resharded checkpoint" not in log:
+        print(f"[{app}] FAIL: the resume did not reshard\n{log}")
+        return 1
+    # 5. verify and print the ft_drill record
+    problems = compare_outputs(out_ref, out_res)
+    identical = not problems
+    err = 0.0
+    if app == "pagerank" and problems:
+        problems, err = compare_within(out_ref, out_res, PR_RTOL)
+    rec = {
+        "metric": "ft_drill_restore_wall",
+        "value": round(wall, 3), "unit": "s", "vs_baseline": 1.0,
+        "ft_drill": {
+            "ranks": 2, "kill_round": args.kill_at, "kill_rank": 1,
+            "old_fnum": 4, "new_fnum": 2,
+            "checkpoint_rounds": int(meta["rounds"]),
+            "restore_wall_s": round(wall, 3),
+            "byte_identical": identical,
+            **({"max_rel_err": err} if app == "pagerank" else {}),
+            **gang_fields,
+        },
+    }
+    print(json.dumps(rec))
+    if problems:
+        print(f"[{app}] FAIL: " + "; ".join(problems))
+        return 2
+    print(f"[{app}] PASS: rank 1 of 2 killed at superstep {args.kill_at}; "
+          f"the {meta['fnum']}-fragment snapshot resharded onto fnum 2 and "
+          + ("resumed byte-identical to" if identical else
+             f"resumed within {PR_RTOL:g} (max {err:.3e}) of")
+          + f" the fault-free run ({wall:.1f}s restore wall)")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--apps", default="",
@@ -307,25 +625,35 @@ def main(argv=None) -> int:
                    help="the guarded fleet's flight-recorder drill: "
                         "breach bundles joined to the trace")
     p.add_argument("--kill_rank", action="store_true",
-                   help="the multi-process reshard drill: not ported "
-                        "(exit 2)")
+                   help="the resilience drill across ranks: a 2-rank gang "
+                        "at fnum 4 with sharded checkpoints, rank 1 killed "
+                        "at --kill_at, the snapshot resharded onto one "
+                        "fnum-2 process (default app sssp; exit 2 iff the "
+                        "files diverge)")
     p.add_argument("--workdir", default="",
                    help="working directory (default: a fresh temp dir, "
                         "removed on success)")
     args = p.parse_args(argv)
 
-    if args.kill_rank:
-        print("fault_drill: --kill_rank needs sharded checkpoints across "
-              "processes (ft/distributed.py): ROADMAP Queue A item 8b",
-              file=sys.stderr)
-        return 2
     if not args.apps:
-        args.apps = "sssp,pagerank,wcc" if args.self_heal else (
-            "sssp,pagerank,cdlp")
+        args.apps = ("sssp" if args.kill_rank else "sssp,pagerank,wcc"
+                     if args.self_heal else "sssp,pagerank,cdlp")
+    apps = [a.strip() for a in args.apps.split(",") if a.strip()]
+    if args.kill_rank:
+        off = [a for a in apps if a not in KILL_RANK_APPS]
+        if off:
+            print(f"fault_drill: --kill_rank runs its apps across "
+                  f"processes, which {off} do not yet (they run "
+                  f"{', '.join(KILL_RANK_APPS)}): ROADMAP Queue A item 8c",
+                  file=sys.stderr)
+            return 2
     workdir = args.workdir or tempfile.mkdtemp(prefix="grape-fault-drill-")
     rc = 0
     if args.postmortem:
         rc = 0 if postmortem_drill(args, workdir) else 1
+    elif args.kill_rank:
+        for app in apps:
+            rc = max(rc, kill_rank_drill(app, args, workdir))
     else:
         run_one = self_heal_drill if args.self_heal else drill
         for app in filter(None, args.apps.split(",")):

@@ -1,9 +1,7 @@
 #!/usr/bin/env python
 """Render a per-superstep table from an obs/ trace.
 
-Counterpart of the JAX package's `scripts/trace_report.py` (without its
-`--gang` mode, which merges per-rank sidecars of a multi-process run).
-Reads a Chrome trace_event JSON or its JSONL twin -- written by
+Counterpart of the JAX package's `scripts/trace_report.py`.  Reads a Chrome trace_event JSON or its JSONL twin -- written by
 GRAPE_TRACE, `--trace` or `obs.configure`, by either package -- and
 prints:
 
@@ -22,13 +20,20 @@ prints:
 * a drift flag on a round more than DRIFT_X (2x) off the median wall;
 * a phase rollup (obs.rollup) of every span name.
 
+`--gang` first merges the per-rank sidecars of a multi-process run
+(`<trace base>.gang/rank_<r>.json`, obs/gang.py) into one timeline on
+rank 0's clock, prints who contributed, the alignment and the flows
+crossing the rank tracks, then renders the merged trace; it exits 1 when
+the merge is incomplete (a rank missing, unaligned or without spans).
+
 Usage: python -m libgrape_lite_tpu_torch.scripts.trace_report TRACE
-       [--drift-x 2.0]
+       [--drift-x 2.0] [--gang [--out MERGED]]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from libgrape_lite_tpu_torch.obs.events import FRAG_TID_BASE
@@ -456,12 +461,68 @@ def render(events, drift_x: float = DRIFT_X, out=None):
     return flagged + pipe_flagged + pump_flagged
 
 
+def render_gang_summary(summary, out=None):
+    """The header of a --gang report: who contributed, how the clocks were
+    aligned, and whether the merge is complete (every rank present,
+    aligned and with spans)."""
+    out = out if out is not None else sys.stdout
+    print("gang trace federation (obs/gang.py):", file=out)
+    print(f"  ranks {summary['ranks']} of nprocs={summary['nprocs']}"
+          + (f", MISSING {summary['missing']}" if summary["missing"]
+             else ""), file=out)
+    for r in sorted(summary["spans_by_rank"]):
+        print(f"  rank {r}: {summary['spans_by_rank'][r]} span(s), "
+              f"{summary['supersteps_by_rank'].get(r, 0)} superstep(s)",
+              file=out)
+    print(f"  flows: {summary['flow_ids']} id(s), "
+          f"{summary['flow_events']} leg event(s), "
+          f"{summary['cross_rank_flows']} crossing rank tracks", file=out)
+    print(f"  aligned={summary['aligned']} monotonic={summary['monotonic']} "
+          f"complete={summary['complete']}"
+          + (f"\n  merged trace -> {summary['out']}" if summary["out"]
+             else ""), file=out)
+
+
+def _gang_dir_of(trace: str) -> str:
+    """The sidecar directory a --gang TRACE names: the directory itself,
+    or the `<base>.gang` twin of a trace path."""
+    if os.path.isdir(trace):
+        return trace
+    for twin in (trace + ".gang", os.path.splitext(trace)[0] + ".gang"):
+        if os.path.isdir(twin):
+            return twin
+    raise FileNotFoundError(
+        f"--gang: no sidecar directory at {trace!r} (or its .gang twin); "
+        "expected the directory a gang's GRAPE_TRACE wrote rank_<r>.json "
+        "files into")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trace", help="Chrome trace JSON or JSONL path")
+    ap.add_argument("trace", help="Chrome trace JSON or JSONL path (with "
+                                  "--gang: the sidecar directory or the "
+                                  "trace path of a gang)")
     ap.add_argument("--drift-x", type=float, default=DRIFT_X,
                     help="ratio-vs-median threshold to flag (default 2)")
+    ap.add_argument("--gang", action="store_true",
+                    help="merge every rank sidecar into one timeline "
+                         "first, then render it")
+    ap.add_argument("--out", default="",
+                    help="with --gang: where the merged Chrome trace goes "
+                         "(default <dir>/merged.json)")
     ns = ap.parse_args(argv)
+    if ns.gang:
+        from libgrape_lite_tpu_torch.obs import gang
+
+        dirpath = _gang_dir_of(ns.trace)
+        out_path = ns.out or os.path.join(dirpath, "merged.json")
+        summary = gang.assemble(dirpath, out_path=out_path)
+        render_gang_summary(summary)
+        if summary["events"]:
+            print()
+            render(load_trace(out_path), ns.drift_x)
+        # an incomplete merge is the federation's drift flag
+        return 0 if summary["complete"] else 1
     render(load_trace(ns.trace), ns.drift_x)
     return 0
 

@@ -49,6 +49,16 @@ rollback to the last snapshot); `Worker.resume` continues a lineage
 byte-identically.  Off, they cost one flag test a round.  The JAX
 package's fused path and its degrade to stepwise have no counterpart
 here: this loop is its stepwise loop.
+
+Under a process group (the JAX worker's `jax.distributed` block) the
+same hooks run across ranks: the lineage is sharded (ft/distributed.py:
+a shard a rank, a two-phase commit) and a resume whose geometry differs
+(another fnum or world) reshards it onto this mesh (`restore_resharded`);
+the guard's probe is global (guard/monitor.py); and each round's hooks
+run under the breach vote (guard/vote.py), so one rank's halt -- a
+breach, an injected fault, an IO error -- halts every rank at the same
+cut, with the gang's sidecars and postmortem under one incident id
+(obs/gang.py).
 """
 
 from __future__ import annotations
@@ -73,7 +83,10 @@ from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
 from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops.spmv import PLAN_STATS
-from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
+from libgrape_lite_tpu_torch.parallel.comm_spec import (
+    decline_across_ranks,
+    is_slab,
+)
 from libgrape_lite_tpu_torch.utils import logging as glog
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -521,7 +534,7 @@ class Worker:
         guard_cfg = GuardConfig.resolve(guard)
         self._guard_monitor = None
         mr = app.max_rounds if max_rounds is None else max_rounds
-        self._check_across_ranks(checkpointing, guard_cfg)
+        self._check_across_ranks()
         if getattr(app, "host_only", False):
             return self._query_host(mr, initial_state, query_args, guard_cfg)
         if fault_plan is None:
@@ -530,9 +543,6 @@ class Worker:
             fault_plan = active_plan()
         if fault_plan.is_noop():
             fault_plan = None
-        if fault_plan is not None:
-            decline_across_ranks(_world(self.fragment), "fault injection "
-                                 "(GRAPE_FT_FAULTS)", "8b")
         tr = obs.tracer()
         try:
             with tr.span("query", mode="host", app=type(app).__name__) as sp:
@@ -549,66 +559,123 @@ class Worker:
                 obs.flush()
         return out
 
-    def _check_across_ranks(self, checkpointing: bool, guard_cfg) -> None:
-        """What a query across processes (world > 1) runs in this slice:
-        the edge-cut superstep of SSSP, BFS, WCC and PageRank, with no
-        checkpoint, guard or staged delta.  Anything else raises, naming
-        the ROADMAP item that brings it (never a silent single-process
-        run)."""
+    def _check_across_ranks(self) -> None:
+        """What a query across processes (world > 1) runs: the edge-cut
+        superstep of SSSP, BFS, WCC and PageRank, with its checkpoints,
+        guards and fault plans, and no staged delta.  Anything else
+        raises, naming the ROADMAP item that brings it (never a silent
+        single-process run)."""
         frag = self.fragment
         world = _world(frag)
         if world <= 1:
             return
         decline_across_ranks(world, f"the app {type(self.app).__name__}",
                              "8c", ok=type(self.app) in dist_apps())
-        decline_across_ranks(world, "checkpoint_every / resume", "8b",
-                             ok=not checkpointing)
-        decline_across_ranks(world, "the runtime guard (--guard, "
-                             "GRAPE_GUARD)", "8b",
-                             ok=guard_cfg is None or not guard_cfg.enabled)
-        decline_across_ranks(world, "a staged dyn overlay", "8b",
+        decline_across_ranks(world, "a staged dyn overlay", "8b.4",
                              ok=getattr(frag, "dyn_overlay", None) is None)
+
+    def _slab_leaf(self, k: str, v) -> bool:
+        """Whether carry leaf `k` (this rank's value `v`) is a slab of the
+        fragment stack (`comm_spec.is_slab`)."""
+        rep = getattr(self.app, "replicated_keys", frozenset())
+        return is_slab(v, self.fragment.comm_spec.fl, k in rep)
+
+    def _slab_of(self, full: Dict, like: Dict) -> Dict:
+        """A restored whole-stack carry cut to this rank's rows
+        `fid_lo .. fid_lo + fl - 1` (the leaves that are slabs in
+        `like`); unchanged with one process."""
+        spec = getattr(self.fragment, "comm_spec", None)
+        if getattr(spec, "world", 1) <= 1:
+            return full
+        lo, hi = spec.fid_lo, spec.fid_lo + spec.fl
+        return {k: (v[lo:hi] if k in like and self._slab_leaf(k, like[k])
+                    else v) for k, v in full.items()}
+
+    def _whole_of(self, carry: Dict) -> Dict:
+        """This rank's carry with every slab leaf gathered to the whole
+        stack (a collective every rank joins, in key order); unchanged
+        with one process."""
+        spec = getattr(self.fragment, "comm_spec", None)
+        if getattr(spec, "world", 1) <= 1:
+            return carry
+        return {k: (_gather_leaf(spec, v) if self._slab_leaf(k, v) else v)
+                for k, v in sorted(carry.items())}
 
     def _open_lineage(self, state: Dict, carry: Dict, query_args: Dict, *,
                       checkpoint_every, checkpoint_dir: str, resume: bool):
         """The checkpoint side of a query (JAX `_query_stepwise_impl`):
-        on a resume, the newest usable snapshot restored into `state`;
-        then the manager that writes this run's snapshots, if a cadence
-        is set.  Returns (state, resume meta or None, manager or None,
-        cadence)."""
+        on a resume, the newest usable snapshot restored into `state` --
+        resharded onto this mesh when a sharded lineage's geometry
+        differs (a lost rank, another fnum or cut); then the manager that
+        writes this run's snapshots, if a cadence is set: sharded under a
+        process group.  Returns (state, resume meta or None, manager or
+        None, cadence)."""
         from libgrape_lite_tpu_torch.ft.checkpoint import (
             CheckpointManager,
             CheckpointMismatchError,
+            latest_meta,
             restore_latest,
+        )
+        from libgrape_lite_tpu_torch.ft.distributed import (
+            GEOMETRY_KEYS,
+            ShardedCheckpointManager,
+            restore_resharded,
         )
         from libgrape_lite_tpu_torch.ft.fingerprint import (
             canonical_query_args,
             compute_fingerprint,
         )
 
-        fingerprint = compute_fingerprint(self.app, self.fragment,
-                                          query_args, carry=carry)
+        frag = self.fragment
+        fingerprint = compute_fingerprint(self.app, frag, query_args,
+                                          carry=carry)
         meta = None
         if resume:
-            restored, meta = restore_latest(checkpoint_dir, fingerprint)
+            meta0 = latest_meta(checkpoint_dir)
+            fp0 = meta0.get("fingerprint", {})
+            if meta0.get("layout") == "sharded" and any(
+                    fp0.get(k) != fingerprint.get(k) for k in GEOMETRY_KEYS):
+                # the snapshot was written by another mesh: gather the
+                # shard files and scatter the carry onto this layout.
+                # Pid-valued leaves (WCC's labels) are re-addressed by the
+                # app; a min-folded leaf takes the fresh init's minimum
+                # too, so its fixed point is this mesh's (the incremental
+                # seed's rule)
+                app = self.app
+                base = {k: _to_host(v)
+                        for k, v in self._whole_of(carry).items()}
+                restored, meta = restore_resharded(
+                    checkpoint_dir, frag, fingerprint, base_state=base,
+                    value_map=app.inc_value_map)
+                for k, fold in getattr(app, "inc_seed_keys", {}).items():
+                    if fold == "min" and k in restored:
+                        restored[k] = np.minimum(base[k], restored[k])
+            else:
+                restored, meta = restore_latest(checkpoint_dir, fingerprint)
             if set(restored) != set(carry):
                 raise CheckpointMismatchError(
                     f"checkpoint carry keys {sorted(restored)} != this "
                     f"query's carry keys {sorted(carry)}")
-            device = self.fragment.device
-            state = {**state, **{k: _place(v, device)
+            restored = self._slab_of(restored, carry)
+            state = {**state, **{k: _place(v, frag.device)
                                  for k, v in restored.items()}}
             if checkpoint_every is None:
                 checkpoint_every = meta.get("checkpoint_every") or None
         ckpt = None
         if checkpoint_every is not None:
-            ckpt = CheckpointManager(
-                checkpoint_dir, fingerprint=fingerprint,
-                query_args=canonical_query_args(query_args),
-                checkpoint_every=checkpoint_every,
-                # a new query starts a new lineage: stale checkpoints
-                # in a reused dir must not shadow it
-                fresh_start=not resume)
+            kw = dict(fingerprint=fingerprint,
+                      query_args=canonical_query_args(query_args),
+                      checkpoint_every=checkpoint_every,
+                      # a new query starts a new lineage: stale
+                      # checkpoints in a reused dir must not shadow it
+                      fresh_start=not resume)
+            if _gang(frag):
+                # a shard a rank, committed under the two-phase barrier
+                ckpt = ShardedCheckpointManager(
+                    checkpoint_dir, frag=frag, replicated_keys=getattr(
+                        self.app, "replicated_keys", frozenset()), **kw)
+            else:
+                ckpt = CheckpointManager(checkpoint_dir, **kw)
         return state, meta, ckpt, checkpoint_every
 
     def _query_rounds(self, mr: int, initial_state, query_args: Dict, tr, *,
@@ -660,15 +727,53 @@ class Worker:
                       guard_cfg.every, guard_cfg.policy)
         hooked = ckpt is not None or monitor is not None or (
             fault_plan is not None)
+        # the breach vote (guard/vote.py): armed under a process group
+        # when a hazard hook exists (each the same on every rank)
+        vote = None
+        if hooked and _gang(frag):
+            from libgrape_lite_tpu_torch.guard.vote import BreachVote
+
+            vote = BreachVote.for_current_process()
+        # the gang's trace sidecars (obs/gang.py): the clock handshake and
+        # a first sidecar before the first vote, so even a round-0 halt
+        # leaves a file for the assembler
+        gang_armed = vote is not None and tr.enabled
+        if gang_armed:
+            obs.gang.ensure_handshake()
+            obs.gang.write_sidecar()
+        # corrupt_carry poisons global fragment row 0: the rank holding it
+        corrupts = (fault_plan is not None
+                    and getattr(frag, "fid_lo", 0) == 0)
 
         def place(host: Dict) -> Dict:
             return {k: _place(v, frag.device) for k, v in host.items()}
+
+        def voted_hooks(rounds: int, hooks):
+            """Run one superstep boundary's hooks under the breach vote:
+            every rank exchanges a verdict at this cut, so a one-rank halt
+            halts every rank instead of stranding its siblings in the next
+            collective; a halt first dumps the gang's postmortem under the
+            vote's incident id."""
+            if vote is None:
+                return hooks()
+            err = out = None
+            try:
+                out = hooks()
+            except Exception as e:
+                err = e
+            try:
+                vote.round_vote(rounds, err)  # re-raises err
+            except BaseException as halt:
+                if gang_armed:
+                    obs.gang.on_breach_halt(halt, rounds)
+                raise
+            return out
 
         def round_hooks(state, rounds: int, active: int, guard_prev):
             """Probe, snapshot and inject after superstep `rounds`.
             Returns (state, guard_prev, rollback (restored, meta) or
             None)."""
-            if fault_plan is not None:
+            if corrupts:
                 corrupted = fault_plan.maybe_corrupt_carry(carry_of(state),
                                                            rounds)
                 if corrupted is not None:
@@ -720,8 +825,11 @@ class Worker:
                     # a PEval breach has no snapshot to restore: any
                     # verdict but warn halts (round_hooks never rolls
                     # back round 0)
-                    state, guard_prev, _ = round_hooks(state, 0, active,
-                                                       guard_prev)
+                    state, guard_prev, _ = voted_hooks(
+                        0, lambda: round_hooks(state, 0, active, guard_prev))
+                    if gang_armed:
+                        # this rank's spans so far survive a later kill
+                        obs.gang.write_sidecar()
                 if mutating:
                     # edits staged during PEval apply even when the query
                     # would converge at once (worker.h:211-222); a
@@ -763,11 +871,15 @@ class Worker:
                     self._round_obs(tr, sp, rounds, "superstep", active)
                 if hooked:
                     hooked_in = state
-                    state, guard_prev, rolled = round_hooks(
-                        state, rounds, active, guard_prev)
+                    state, guard_prev, rolled = voted_hooks(
+                        rounds, lambda: round_hooks(state, rounds, active,
+                                                    guard_prev))
+                    if gang_armed:
+                        obs.gang.write_sidecar()
                     if rolled is not None:
                         restored, rmeta = rolled
-                        state = {**state, **place(restored)}
+                        state = {**state, **place(self._slab_of(
+                            restored, carry_of(state)))}
                         rounds = int(rmeta["rounds"])
                         active = int(rmeta["active"])
                         guard_prev = carry_of(state)
@@ -951,7 +1063,7 @@ class Worker:
         )
 
         decline_across_ranks(_world(self.fragment), "incremental IncEval "
-                             "(query_incremental)", "8b")
+                             "(query_incremental)", "8b.4")
 
         app = self.app
         mode, reason = incremental_plan(app, delta)
@@ -1048,7 +1160,7 @@ class Worker:
         from libgrape_lite_tpu_torch.guard.config import GuardConfig
 
         decline_across_ranks(_world(self.fragment), "batched queries "
-                             "(query_batch, serve)", "8b")
+                             "(query_batch, serve)", "8b.4")
         self._check_batchable()
         # before the guard routing: a guarded batch refuses a stale dyn
         # view as the plain one does
@@ -1187,11 +1299,8 @@ class Worker:
         spec = getattr(self.fragment, "comm_spec", None)
         state = self._result_state
         if getattr(spec, "group", None) is not None:
-            rep = getattr(self.app, "replicated_keys", frozenset())
-            state = {k: (v if k in rep or v.dim() < 2
-                         or v.shape[0] != spec.fl
-                         else _gather_leaf(spec, v))
-                     for k, v in state.items()}
+            state = {k: (_gather_leaf(spec, v) if self._slab_leaf(k, v)
+                         else v) for k, v in state.items()}
         host = {k: v.cpu() for k, v in state.items()}
         return self.app.finalize(self.fragment, host)
 
@@ -1217,6 +1326,12 @@ class Worker:
 def _world(frag) -> int:
     """The process count of `frag`'s CommSpec (1 without one)."""
     return getattr(getattr(frag, "comm_spec", None), "world", 1)
+
+
+def _gang(frag) -> bool:
+    """Whether `frag` lives under a process group (any world size): its
+    lineage is sharded and its hooks run under the breach vote."""
+    return getattr(getattr(frag, "comm_spec", None), "group", None) is not None
 
 
 def _gather_leaf(spec, v: torch.Tensor) -> torch.Tensor:

@@ -793,7 +793,7 @@ def test_federation_holds_the_jax_namespaces_and_self_checks():
 
     assert jfederation.self_check() == []
     assert federation.self_check() == []
-    wanted = set(jfederation.registered()) - {"gang"}
+    wanted = set(jfederation.registered())
     assert {"plan", "spgemm", "partition", "vc_tiles", "calibration",
             "pipeline"} <= wanted
     assert wanted <= set(federation.registered())

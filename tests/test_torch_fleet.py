@@ -516,8 +516,8 @@ def test_fence_violation_and_drain_guards_are_loud():
     with pytest.raises(FenceViolationError, match="catch-up log"):
         router.rejoin(0)
     # a process loss rejoins from a checkpoint lineage: none there, a
-    # single-file one resumes through Worker.resume, a sharded one needs
-    # the multi-GPU runtime (ROADMAP item 8)
+    # single-file one resumes through Worker.resume, a sharded one brings
+    # a replacement replica at the fence and the lineage's newest meta
     with pytest.raises(FileNotFoundError):
         rejoin_lost(router, "/nonexistent", session_factory=None)
     import os
@@ -536,8 +536,16 @@ def test_fence_violation_and_drain_guards_are_loud():
     meta = json.load(open(meta_path))
     meta["layout"] = "sharded"
     json.dump(meta, open(meta_path, "w"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rejoin_lost(router, d, session_factory=None)
+    for r in router.replicas:
+        r.routable = True
+    n = len(router.replicas)
+    replica, got = rejoin_lost(
+        router, d, session_factory=lambda f: ServeSession(
+            f, policy=BatchPolicy(max_batch=4), dyn=_policy(False)))
+    assert got["layout"] == "sharded" and got["rounds"] == 2
+    assert replica.idx == n and replica.routable
+    assert replica.version == router.fence
+    assert FLEET_STATS.events[-1]["lost_process"] is True
 
 
 def test_drain_catchup_applies_missed_deltas():
