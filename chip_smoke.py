@@ -316,7 +316,18 @@ the port's own entry points:
      SSSP at fnum 4 over two gloo ranks (the garc cache of (b)) with
      kill_rank@4:1, and a cold one-process fnum-2 child; then this
      process resumes the two-rank lineage onto fnum 2, its files equal to
-     the cold child's, with the restore's ms;
+     the cold child's, with the restore's ms; (e) the rest of the LDBC six
+     across ranks: (e1) under (a)'s group CDLP (10 rounds), lcc and
+     PageRank strict on its fragment and lcc_bitmap on RMAT-18 at fnum 4
+     (segmented cut), each bit-equal to the one-process query with equal
+     rounds and K1 / K2 / K3 launches, the ring shifts and collectives a
+     query; (e2) beside (b)'s gangs: cdlp, lcc and lcc_bitmap gangs on
+     p2p-31 at fnum 4 (lcc_bitmap's K3 ring crossing ranks, two K3 passes
+     a ring step), files equal to one process's and the goldens, and
+     RMAT-20 cdlp and lcc gangs reading (b)'s garc cache beside a
+     one-process child; (e3) K2 on rank 1's [2, Ep] slab (within 1e-5 of
+     each row's sum of |terms|, rerun bit-identical) and K3 at ring step 1
+     on rank 1 (integer-equal), with kernel, plain, library and bound ms;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -5736,6 +5747,23 @@ DIST_REPEATS = 3
 DIST_PR_RTOL = 1e-4
 DIST_CHILD_TIMEOUT_S = 300
 DIST_TIMEOUT_S = "120"  # GRAPE_DIST_TIMEOUT_S of every group of the phase
+# [dist] (e): the rest of the LDBC six across ranks.  (e1) at world 1 on
+# the RMAT-20 fnum-4 fragment, and lcc_bitmap on RMAT-18 at fnum 4 cut by
+# the segmented partitioner: a hash cut's fragments pass 2^16 vertices,
+# so vp doubles and each (fnum vp)^2 / 8-byte bitmap would be 32 GiB;
+# (e2) two-rank gloo CLI gangs of these apps (p2p-31 and RMAT-20)
+# (e1) on the RMAT-20 fnum-4 fragment: (label, registry name, app
+# constructor arguments, query arguments)
+DIST_E_APPS = (("cdlp", "cdlp", {}, {"max_round": CDLP_ROUNDS}),
+               ("lcc", "lcc", {}, {}),
+               ("pagerank strict", "pagerank", {"spmv_mode": "strict"},
+                {"max_round": PR_ROUNDS}))
+DIST_E_CLI = {"cdlp": ["--cdlp_mr", str(CDLP_ROUNDS)], "lcc": [],
+              "lcc_bitmap": []}
+DIST_E_RMAT = ("cdlp", "lcc")  # RMAT-20 gangs of (e2)
+# the apps that launch no kernel of the port: CDLP's mode fold and
+# LCCBeta's merge pass run in PyTorch (the JAX package runs them in XLA)
+DIST_KERNEL_FREE = ("cdlp", "lcc")
 
 # A child of the port's CLI: `cli.main` with the given flags, its one
 # query timed (synchronised) and its host syncs counted (CUDA's sync-debug
@@ -5747,7 +5775,7 @@ import json, sys, time, warnings
 import torch
 from libgrape_lite_tpu_torch import cli
 from libgrape_lite_tpu_torch.fragment import loader
-from libgrape_lite_tpu_torch.ops import _build, spmv
+from libgrape_lite_tpu_torch.ops import _build, intersect, spmv
 from libgrape_lite_tpu_torch.worker import worker as W
 
 rec = {}
@@ -5772,6 +5800,7 @@ debug_mode("default")
 def timed_query(self, *a, **kw):
     sync()
     spmv.reset_launch_counts()
+    intersect.reset_launch_counts()
     spec = self.fragment.comm_spec
     spec.reset_stats()
     with warnings.catch_warnings(record=True) as caught:
@@ -5785,6 +5814,8 @@ def timed_query(self, *a, **kw):
         sync()
         rec["query_s"] = time.perf_counter() - t0
     rec.update(rounds=self.rounds, k1=spmv.gather_reduce.launches,
+               k2=spmv.spmv_strict.launches,
+               k3=intersect.row_and_popcount_indexed.launches,
                syncs=sum("synchroniz" in str(w.message) for w in caught),
                dist=dict(spec.stats), transport=spec.transport)
     return out
@@ -5936,10 +5967,220 @@ def dist_world1_phase(f4, device) -> dict:
                   f"{rec['nccl_device_events_per_round']:.2f} "
                   f"{trace['names']} wall_s={rec['wall_s']:.4f} "
                   f"single_s={rec['wall_single_s']:.4f}", flush=True)
+        e = dist_e1_phase(f4, f4d, spec, device)
+        runs.update(e["runs"])
         k1 = dist_k1_phase(f4, f4d, device)
     finally:
         spec.close()
-    return {"runs": runs, "k1": k1}
+    return {"runs": runs, "k1": k1, "k2": e["k2"], "k3": e["k3"]}
+
+
+def bitmap_fragment4(device):
+    """RMAT-18 (lcc_bitmap's scale; the [kernel] phase's generator and
+    weights) at fnum 4 under the segmented partitioner: four fragments of
+    2^16 vertices, vp 2^16, so each bitmap is (2^18)^2 / 8 bytes = 8 GiB
+    as at fnum 1."""
+    from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+    from libgrape_lite_tpu_torch.vertex_map.partitioner import (
+        SegmentedPartitioner,
+    )
+    from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
+
+    n, src, dst = rmat_edges(BITMAP_SCALE, EDGE_FACTOR)
+    oids = np.arange(n, dtype=np.int64)
+    w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    f = ShardedEdgecutFragment.build(
+        CommSpec(fnum=PIPE_FNUM, device=device),
+        VertexMap.build(oids, SegmentedPartitioner(PIPE_FNUM, oids)), src,
+        dst, w, directed=False)
+    sync(device)
+    return f, time.perf_counter() - t0
+
+
+def dist_e1_case(label, frag, fragd, spec, factory, kw, device) -> dict:
+    """One (e1) query under the world-1 group against the same query in
+    one process: bit-equal, the same rounds and the same K1 / K2 / K3
+    launches; the ring shifts and collectives of the query from
+    `CommSpec.stats`."""
+    run_query(frag, factory(), device, **kw)  # warm-up
+    reset_launch_counts()
+    one, wall_one = run_query(frag, factory(), device, **kw)
+    counts_one = launch_counts()
+    reset_launch_counts()
+    spec.reset_stats()
+    wk, wall = run_query(fragd, factory(), device, **kw)
+    counts = launch_counts()
+    stats = dict(spec.stats)
+    check(wk.rounds == one.rounds, f"[dist] (e1) {label}: {wk.rounds} "
+          f"rounds against {one.rounds} single-process")
+    check(counts == counts_one, f"[dist] (e1) {label}: launches {counts} "
+          f"against {counts_one} single-process")
+    same_or_close(wk.result_values(), one.result_values(), 0,
+                  f"[dist] (e1) {label} world 1")
+    per = max(wk.rounds, 1)
+    rec = dict(counts=counts, rounds=wk.rounds, bit_equal=True,
+               wall_s=wall, wall_single_s=wall_one,
+               ring_shifts=stats["ring"], ring_bytes=stats["ring_bytes"],
+               collectives_per_round=stats["calls"] / per,
+               all_gather_bytes_per_round=stats["all_gather_bytes"] / per)
+    print(f"[dist] (e1) world 1 {spec.transport} {label}: rounds="
+          f"{wk.rounds} bit-equal launches={counts} (single-process "
+          f"equal) ring shifts={stats['ring']} collectives/round="
+          f"{rec['collectives_per_round']:.2f} all_gather B/round="
+          f"{rec['all_gather_bytes_per_round']:.0f} wall_s={wall:.4f} "
+          f"single_s={wall_one:.4f}", flush=True)
+    return rec
+
+
+def dist_e1_phase(f4, f4d, spec, device) -> dict:
+    """(e1) the rest of the LDBC six under the one-rank group: CDLP, lcc
+    and PageRank strict on the RMAT-20 fnum-4 fragment, lcc_bitmap on
+    RMAT-18 at fnum 4; then (e3) K2 and K3 on rank 1's slab of a
+    two-rank group against their plain versions."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    runs = {}
+    for label, name, ctor, kw in DIST_E_APPS:
+        cls = APP_REGISTRY[name]
+        runs[f"dist world1 {label}"] = dist_e1_case(
+            label, f4, f4d, spec, lambda: cls(**ctor), kw, device)
+    check(runs["dist world1 pagerank strict"]["counts"]["strict_tile"] > 0,
+          "[dist] (e1) PageRank strict launched no K2")
+    f18, f18_s = bitmap_fragment4(device)
+    print(f"[dist] (e1) RMAT-{BITMAP_SCALE} fnum {PIPE_FNUM} segmented cut "
+          f"built in {f18_s:.2f} s (vp {f18.vp})", flush=True)
+    f18d = dist_fragment(f18, spec)
+    rec = runs["dist world1 lcc_bitmap"] = dist_e1_case(
+        "lcc_bitmap", f18, f18d, spec, APP_REGISTRY["lcc_bitmap"], {},
+        device)
+    check(rec["counts"]["intersect"] > 0,
+          "[dist] (e1) lcc_bitmap launched no K3")
+    del f18d
+    k2 = dist_k2_slab_case(f4, device)
+    k3 = dist_k3_slab_cases(f18, device)
+    del f18
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the gangs' children share the card
+    return {"runs": runs, "k2": k2, "k3": k3}
+
+
+def dist_k2_slab_case(f4, device) -> dict:
+    """(e3) K2 on rank 1's [2, Ep] slab of the RMAT-20 fnum-4 stack with
+    the slab's rows of the strict plan (PageRank's pull across two
+    ranks), against its plain version: within SUM_TOL of each row's sum
+    of |terms|, rerun bit-identical.  Bound: values, rows and y once, an
+    add an edge slot.  Library: the faster of index_add_ and
+    segment_reduce over the slab's edges."""
+    from libgrape_lite_tpu_torch.ops import spmv
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    lo, hi = PIPE_FNUM // 2, PIPE_FNUM
+    fl, vp = hi - lo, f4.vp
+    plan = spmv.plan_for_app(f4, vp, torch.float32, mode="strict")
+    check(plan is not None, "[dist] K2: no strict plan for RMAT-20 fnum 4")
+    row_lo = torch.from_numpy(np.ascontiguousarray(plan[0][lo:hi])).to(
+        device)
+    tile, rmax = plan[1], plan[2]
+    ie = f4.dev.ie
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.rand(f4.fnum * vp, generator=gen).to(device)
+    src = ie.edge_src[lo:hi].contiguous()
+    values = torch.where(ie.edge_mask[lo:hi], x[ie.edge_nbr[lo:hi]],
+                         torch.zeros((), device=x.device)).contiguous()
+
+    def call():
+        return spmv.spmv_strict(values, src, row_lo, vp, tile, rmax)
+
+    got = call()
+    err = check_sum(got, spmv.spmv_strict_plain(values.double(), src, row_lo,
+                                                vp, tile, rmax),
+                    spmv.spmv_strict_plain(values.double().abs(), src,
+                                           row_lo, vp, tile, rmax),
+                    "[dist] K2 rank-1 slab")
+    check(torch.equal(got, call()),
+          "[dist] K2 rank-1 slab rerun not bit-identical")
+    ep = values.shape[1]
+    src_long = src.reshape(-1).to(torch.int64)
+    flat = values.reshape(-1)
+    acc = torch.zeros(fl * (vp + 1), device=x.device)
+    rows = src_long + torch.arange(fl, device=x.device).repeat_interleave(
+        ep) * (vp + 1)  # each fragment's rows, pads on its row vp
+    offsets = torch.cat([rows.new_zeros(1), torch.bincount(
+        rows, minlength=fl * (vp + 1)).cumsum(0)])
+    libraries = {
+        "index_add_": lambda: acc.zero_().index_add_(0, rows, flat),
+        "segment_reduce": lambda: torch.segment_reduce(
+            flat, "sum", offsets=offsets, unsafe=True),
+    }
+    ms = time_ms(call, device, 10)
+    plain_ms = time_ms(lambda: spmv.spmv_strict_plain(
+        values, src, row_lo, vp, tile, rmax), device, 3, warmup=1, batch=1)
+    lib_all = {k: time_ms(fn, device, 10) for k, fn in libraries.items()}
+    lib_name = min(lib_all, key=lib_all.get)
+    b_ms, b_by = bound(8 * fl * ep + 4 * row_lo.numel() + 4 * fl * vp,
+                       fl * ep)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_all[lib_name], library=lib_name,
+               library_all_ms=lib_all, bound_ms=b_ms, bound_by=b_by,
+               edges=fl * ep, tiles=row_lo.shape[1], rows=fl * vp)
+    print(f"[kernel] strict_tile rank-1 slab [{fl}, {ep}]: kernel_ms="
+          f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_all[lib_name]:.4f} ({lib_name}; "
+          + " ".join(f"{k}={v:.4f}" for k, v in lib_all.items())
+          + f") bound_ms={b_ms:.4f} ({b_by}) tiles={row_lo.shape[1]} "
+          f"max_abs_err={err:.3e} rerun bit-identical", flush=True)
+    return {"rank1 slab": out}
+
+
+def dist_k3_slab_cases(f18, device) -> dict:
+    """(e3) K3 at ring step 1 on rank 1 of a two-rank group over the
+    RMAT-18 fnum-4 cut: its slab's N+ / N- rows against rank 0's visiting
+    N+ block, the pairs whose row is rank 1's and whose neighbour is rank
+    0's -- each pass integer-equal to its plain version.  Bound: each
+    distinct row read once, the indices and the counts; an AND, a
+    popcount and an add a word and pair.  No PyTorch call counts
+    popcounts (library none)."""
+    from libgrape_lite_tpu_torch.models import LCC
+    from libgrape_lite_tpu_torch.ops import intersect
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    bplus, bminus, (v, u), (w, t) = LCC().pair_operands(f18.dev)
+    rows = (PIPE_FNUM // 2) * f18.vp
+    visiting = bplus[:rows]  # rank 0's block, after one shift
+    oe = (v >= rows) & (u < rows)
+    ie = (w >= rows) & (t < rows)
+    calls = {"oe": (visiting, u[oe], bplus[rows:], v[oe] - rows),
+             "ie": (visiting, t[ie], bminus[rows:], w[ie] - rows)}
+    words = bplus.shape[1]
+    out = {}
+    for name, (a, ia, b, ib) in calls.items():
+        got = intersect.row_and_popcount_indexed(a, ia, b, ib)
+        want = intersect.row_and_popcount_plain(a, ia, b, ib)
+        sync(device)
+        check(torch.equal(got, want), f"[dist] K3 rank-1 slab {name} not "
+              "integer-equal to its plain version")
+        pairs = got.numel()
+        ms = time_ms(lambda: intersect.row_and_popcount_indexed(a, ia, b, ib),
+                     device, 5, warmup=1, batch=2)
+        plain_ms = time_ms(lambda: intersect.row_and_popcount_plain(
+            a, ia, b, ib), device, 1, warmup=0, batch=1)
+        distinct = (int(torch.unique(ia).numel())
+                    + int(torch.unique(ib).numel()))
+        b_ms, b_by = bound(distinct * 4 * words + 12 * pairs,
+                           3 * pairs * words)
+        out[f"rank1 ring step 1 {name}"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, pairs=pairs, words=words,
+            distinct_rows=distinct, total=int(got.sum()))
+        print(f"[kernel] intersect rank-1 ring step 1 {name}: kernel_ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms=none bound_ms="
+              f"{b_ms:.4f} ({b_by}) pairs={pairs} words={words} "
+              f"distinct_rows={distinct} popcount_total={int(got.sum())} "
+              "integer-equal", flush=True)
+    return out
 
 
 def dist_k1_case(label, indptr, nbr, w, x, kind, device) -> dict:
@@ -6025,12 +6266,13 @@ def dist_k1_phase(f4, f4d, device) -> dict:
                 device)}
 
 
-def dist_children(jobs: dict, env_extra: dict, device) -> dict:
+def dist_children(jobs: dict, env_extra: dict, device,
+                  kernel_free=()) -> dict:
     """Run every job (name -> argv list of CLI flags per rank) at once as
     children of the port's CLI (`DIST_CHILD`), each under the subprocess
     timeout; returns name -> the ranks' `[dist-child]` records.  A child
-    that fails, builds a kernel library or launches no K1 fails the
-    phase."""
+    that fails, builds a kernel library or launches no kernel (K1, K2 or
+    K3; jobs named in `kernel_free` launch none) fails the phase."""
     env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1",
                GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S, **env_extra)
     procs = {name: [subprocess.Popen(
@@ -6070,8 +6312,10 @@ def dist_children(jobs: dict, env_extra: dict, device) -> dict:
             check(not rec["built"], f"[dist] {name} rank {r} built "
                   f"{rec['built']}: the children use the parent's kernels")
             # (off the card the children run the plain versions)
-            check(rec["k1"] > 0 or torch.device(device).type != "cuda",
-                  f"[dist] {name} rank {r} launched no K1")
+            check(rec["k1"] + rec["k2"] + rec["k3"] > 0
+                  or name in kernel_free
+                  or torch.device(device).type != "cuda",
+                  f"[dist] {name} rank {r} launched no kernel")
     return out
 
 
@@ -6098,10 +6342,15 @@ def compare_files(app: str, got: str, want: str, what: str) -> float:
 def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                     rmat: bool, device) -> dict:
     """CLI gangs of two ranks (`env_extra` picks the transport): on
-    p2p-31 at fnum 2 and 4 for the four apps, then (`rmat`) RMAT-20 SSSP
+    p2p-31 at fnum 4 for the four apps, then (`rmat`) RMAT-20 SSSP
     and PageRank at fnum 4 (hash partitioner) beside a one-process CLI
     child of each; every gang's files equal one process's (PageRank
-    within 1e-4), the p2p-31 ones the goldens, and only rank 0 writes."""
+    within 1e-4), the p2p-31 ones the goldens, and only rank 0 writes.
+    With `rmat`, (e2) too: cdlp, lcc and lcc_bitmap on p2p-31 at fnum 4
+    (lcc_bitmap's K3 ring crossing ranks), and RMAT-20 cdlp and lcc
+    reading the garc cache the PageRank child wrote, beside a
+    one-process child of each; the ring shifts a query from the
+    children's `CommSpec.stats`."""
     from libgrape_lite_tpu_torch import cli
 
     data = os.path.join(HERE, "dataset")
@@ -6130,6 +6379,15 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
     rmat_apps = {"sssp": ["--application", "sssp", "--sssp_source", "0"],
                  "pagerank": ["--application", "pagerank", "--pr_mr",
                               str(PR_ROUNDS)]}
+    e_apps = DIST_E_CLI if rmat else {}
+    free = set()  # jobs that launch no kernel
+    for app in e_apps:
+        name = f"p2p {app} fnum {PIPE_FNUM}"
+        jobs[name] = gang(["--application", app, *DIST_E_CLI[app], *p2p,
+                           "--fnum", str(PIPE_FNUM)],
+                          os.path.join(tmp, f"{tag}_{app}_{PIPE_FNUM}"))
+        if app in DIST_KERNEL_FREE:
+            free.add(name)
     if rmat:
         # the one-process RMAT children load the TSV and write the garc
         # cache beside the p2p-31 gangs; the RMAT gangs then read it
@@ -6143,7 +6401,7 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                 flags + flags_r + ["--serialize", "--out_prefix",
                                    os.path.join(tmp, f"one_rmat_{app}")]]
     t0 = time.perf_counter()
-    recs = dist_children(jobs, env_extra, device)
+    recs = dist_children(jobs, env_extra, device, free)
     children_s = time.perf_counter() - t0
     nproc = sum(len(v) for v in jobs.values())
     runs = {}
@@ -6183,16 +6441,26 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                   f"{[r['syncs'] for r in rs]} collectives="
                   f"{rs[0]['dist']['calls']} (staged "
                   f"{rs[0]['dist']['staged']})", flush=True)
+    runs.update(e2_p2p_checks(tag, e_apps, recs, tmp, p2p, device))
     if rmat:
         jobs = {f"rmat{SCALE} {app}": gang(
             flags + flags_r + ["--deserialize"],
             os.path.join(tmp, f"{tag}_rmat_{app}"))
             for app, flags in rmat_apps.items()}
+        for app in DIST_E_RMAT:  # (e2): read the PageRank child's cache
+            flags = ["--application", app, *DIST_E_CLI[app]] + flags_r + [
+                "--deserialize"]
+            jobs[f"rmat{SCALE} {app}"] = gang(
+                flags, os.path.join(tmp, f"{tag}_rmat_{app}"))
+            jobs[f"rmat{SCALE} {app} one process"] = [flags + [
+                "--out_prefix", os.path.join(tmp, f"one_rmat_{app}")]]
+            free.update({f"rmat{SCALE} {app}",
+                         f"rmat{SCALE} {app} one process"})
         t0 = time.perf_counter()
-        recs.update(dist_children(jobs, env_extra, device))
+        recs.update(dist_children(jobs, env_extra, device, free))
         children_s += time.perf_counter() - t0
         nproc += sum(len(v) for v in jobs.values())
-        for app in rmat_apps:
+        for app in (*rmat_apps, *DIST_E_RMAT):
             name = f"rmat{SCALE} {app}"
             rs, (one,) = recs[name], recs[f"{name} one process"]
             got = read_results(os.path.join(tmp, f"{tag}_rmat_{app}"),
@@ -6203,7 +6471,8 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
             check(all(r["rounds"] == one["rounds"] for r in rs),
                   f"[dist] {name}: rounds {[r['rounds'] for r in rs]} "
                   f"against {one['rounds']} one process")
-            check("serialize" in one["load"]
+            check(("deserialize" if app in DIST_E_RMAT else "serialize")
+                  in one["load"]
                   and all("deserialize" in r["load"] for r in rs),
                   f"[dist] {name}: the one process's load "
                   f"{one['load']}, the gang's {[r['load'] for r in rs]}")
@@ -6218,7 +6487,9 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                 collectives_per_round=rs[0]["dist"]["calls"] / per,
                 staged_per_round=rs[0]["dist"]["staged"] / per,
                 all_gather_bytes_per_round=rs[0]["dist"]["all_gather_bytes"]
-                / per, main_s=[x["main_s"] for x in rs],
+                / per, ring_shifts=rs[0]["dist"]["ring"],
+                ring_bytes=rs[0]["dist"]["ring_bytes"],
+                main_s=[x["main_s"] for x in rs],
                 main_one_s=one["main_s"])
             print(f"[dist] {tag} 2 ranks {name} fnum {PIPE_FNUM}: rounds="
                   f"{one['rounds']} {err_text(app, err)} query_s="
@@ -6227,13 +6498,74 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                   f"{[round(x, 2) for x in r['syncs_per_round']]} (one "
                   f"process {r['syncs_per_round_one']:.2f}) collectives/"
                   f"round={r['collectives_per_round']:.2f} all_gather "
-                  f"B/round={r['all_gather_bytes_per_round']:.0f} main_s="
+                  f"B/round={r['all_gather_bytes_per_round']:.0f} ring "
+                  f"shifts={r['ring_shifts']} ({r['ring_bytes']} B) main_s="
                   f"{[round(x, 1) for x in r['main_s']]} (one process "
                   f"{one['main_s']:.1f}; rmat{SCALE} TSV written in "
                   f"{tsv_s:.1f} s)", flush=True)
     print(f"[dist] {tag} children: {nproc} processes in {children_s:.1f} s",
           flush=True)
     return {"runs": runs, "children_s": children_s}
+
+
+#: ring shifts of a two-rank query: lcc_bitmap shifts its N+ block once,
+#: lcc its ELL block and row lengths once each, cdlp has no ring
+E_RING_SHIFTS = {"cdlp": 0, "lcc": 2, "lcc_bitmap": 1}
+
+
+def e2_p2p_checks(tag, apps, recs, tmp, p2p, device) -> dict:
+    """(e2)'s p2p-31 gangs against one process's CLI files (byte-equal)
+    and the goldens, with equal rounds on both ranks, the ring shifts
+    and bytes of a query and, for lcc_bitmap on the card, K3's two
+    passes a ring step on each rank."""
+    from libgrape_lite_tpu_torch import cli
+
+    data = os.path.join(HERE, "dataset")
+    runs = {}
+    for app in apps:
+        name = f"p2p {app} fnum {PIPE_FNUM}"
+        one = os.path.join(tmp, f"one_{app}_{PIPE_FNUM}")
+        cli.main(["--application", app, *DIST_E_CLI[app], *p2p, "--fnum",
+                  str(PIPE_FNUM), "--out_prefix", one])
+        prefix = os.path.join(tmp, f"{tag}_{app}_{PIPE_FNUM}")
+        check(not os.path.exists(prefix + "_r1"),
+              f"[dist] {tag} {name}: rank 1 wrote result files")
+        got = read_results(prefix, PIPE_FNUM)
+        compare_files(app, got, read_results(one, PIPE_FNUM),
+                      f"[dist] {tag} {name}")
+        golden = "lcc" if app == "lcc_bitmap" else app
+        check_golden(golden, result_dict(got), result_dict(open(
+            os.path.join(data, GOLDENS[golden][0])).read()),
+            f"[dist] {tag} {name}")
+        rs = recs[name]
+        check(len({r["rounds"] for r in rs}) == 1,
+              f"[dist] {name}: ranks ran different rounds")
+        rings = [r["dist"]["ring"] for r in rs]
+        check(rings == [E_RING_SHIFTS[app]] * len(rs),
+              f"[dist] {name}: ring shifts {rings}")
+        k3 = [r["k3"] for r in rs]
+        check(app != "lcc_bitmap" or torch.device(device).type != "cuda"
+              or k3 == [4] * len(rs),
+              f"[dist] {name}: K3 launched {k3} times a rank, not twice "
+              "a ring step")
+        runs[f"dist {tag} {name}"] = dict(
+            counts={"gather_reduce": sum(r["k1"] for r in rs),
+                    "strict_tile": sum(r["k2"] for r in rs),
+                    "intersect": sum(k3)},
+            rounds=rs[0]["rounds"], k3_per_rank=k3,
+            query_s=[r["query_s"] for r in rs],
+            syncs=[r["syncs"] for r in rs],
+            collectives=rs[0]["dist"]["calls"],
+            staged=rs[0]["dist"]["staged"], ring_shifts=rings[0],
+            ring_bytes=rs[0]["dist"]["ring_bytes"])
+        print(f"[dist] (e2) {tag} 2 ranks {name}: rounds={rs[0]['rounds']} "
+              f"byte-equal to one process, goldens ok K3/rank={k3} "
+              f"ring shifts={rings[0]} ({rs[0]['dist']['ring_bytes']} B) "
+              f"query_s={[round(r['query_s'], 4) for r in rs]} syncs="
+              f"{[r['syncs'] for r in rs]} collectives="
+              f"{rs[0]['dist']['calls']} (staged {rs[0]['dist']['staged']})",
+              flush=True)
+    return runs
 
 
 # [dist] (c) and (d): state and control across ranks -- sharded two-phase
@@ -6579,8 +6911,11 @@ def dist_ft_gang_phase(tmp, device) -> dict:
 
 def dist_phases(f4, device, frag=None) -> dict:
     """[dist]: the multi-process runtime on the card -- (a) NCCL at world
-    1 in this process with K1 on a rank's slab CSR, (b) two ranks over
-    gloo on one card, NCCL across two cards where this run sees them;
+    1 in this process with K1 on a rank's slab CSR, (e1) CDLP, lcc,
+    PageRank strict and lcc_bitmap under the same group and (e3) K2 and
+    K3 on rank 1's slab, (b) two ranks over gloo on one card with (e2)'s
+    gangs of cdlp, lcc and lcc_bitmap, NCCL across two cards where this
+    run sees them;
     (c) sharded checkpoints, resume, the vote and the reshard under the
     world-1 group, (d) the kill-rank drill and an RMAT-20 kill and
     reshard with two gloo ranks (`frag`: RMAT-20 with its edge list, for
@@ -6623,7 +6958,7 @@ def dist_phases(f4, device, frag=None) -> dict:
           f"{ft_s:.1f} s)", flush=True)
     return {"seconds": secs, "ft_seconds": ft_s,
             "runs": {**w1["runs"], **gl["runs"], **nccl["runs"], **c, **d},
-            "k1": w1["k1"],
+            "k1": w1["k1"], "k2": w1["k2"], "k3": w1["k3"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}
 
 
@@ -7106,7 +7441,11 @@ def main() -> int:
              launches=launches["strict_tile"], **{k: st[k] for k in keys},
              device_passes_per_call=len(st["passes_ms"]),
              library=st["library"], library_all_ms=st["library_all_ms"],
-             passes_ms=st["passes_ms"], shapes=k2_shapes),
+             passes_ms=st["passes_ms"], shapes=k2_shapes,
+             dist_cases=dist["k2"],
+             launches_dist={app: r["counts"].get("strict_tile", 0)
+                            for app, r in dist["runs"].items()
+                            if r["counts"].get("strict_tile")}),
         dict(name="intersect", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/intersect.cu",
              replaces="libgrape_lite_tpu/ops/pallas_kernels.py:48",
@@ -7114,7 +7453,11 @@ def main() -> int:
              **{k: k3["oe"][k] for k in keys},
              **{f"{k}_{name}": k3[name][k] for name in ("ie", "dense")
                 for k in ("ms", "plain_ms", "bound_ms")},
-             passes_ms={name: k3[name]["passes_ms"] for name in k3}),
+             passes_ms={name: k3[name]["passes_ms"] for name in k3},
+             dist_cases=dist["k3"],
+             launches_dist={app: r["counts"].get("intersect", 0)
+                            for app, r in dist["runs"].items()
+                            if r["counts"].get("intersect")}),
     ]
     kernels += probe_entries(probes)
     kernels.append(dict(

@@ -12,9 +12,13 @@ pipeline on one int64 key per edge,
 
     key = (row << rank_bits) | rank(label),
 
-where `row` is the edge's global row (fid * vp + src, or fnum * vp for a
-pad edge) and `rank` the label's position in the static sorted label
-universe `lut` (labels only ever move between existing ids).  One
+where `row` is the edge's row on the slab (f * vp + src for the slab's
+fragment f, or fl * vp for a pad edge; fl = fnum in one process) and
+`rank` the label's position in the static sorted label universe `lut`
+(labels only ever move between existing ids).  The universe is the
+whole graph's: under a process group it is built once from an
+all_gather of every rank's initial labels, so a label that arrives from
+another rank ranks as it does in one process.  One
 `torch.sort` of the keys orders the edges by (row, label) -- the total
 order all three branches of the JAX fold sort by (its packed 32-bit key,
 its variadic wide sort and its per-round dynamic universe exist only
@@ -62,8 +66,13 @@ class CDLP(ParallelAppBase):
         oids = frag.dev.oids
         big = torch.tensor(_BIG, dtype=torch.int64, device=frag.device)
         labels = torch.where(oids >= 0, oids, big)
-        # the static sorted label universe, +1 sentinel slot
-        lut = torch.sort(torch.cat([labels.reshape(-1), big.view(1)]))[0]
+        # the static sorted label universe of the whole graph (every
+        # rank's labels), +1 sentinel slot
+        every = StepContext(frag.fnum, spec=getattr(frag, "comm_spec", None)
+                            ).gather_state(labels)
+        lut = torch.sort(torch.cat([every, big.view(1)]))[0]
+        # the largest id of the universe (the guard's bound; pads hold big)
+        self._label_max = torch.where(lut < big, lut, -1).max()
         state = {"labels": labels,
                  "step": torch.zeros((), dtype=torch.int32,
                                      device=frag.device),
@@ -103,17 +112,17 @@ class CDLP(ParallelAppBase):
                               n_rows, "min")
 
     def _part_fold(self, dev, full, row, nbr, lut, labels):
-        """The mode fold over one part's edges (rows [fnum, Ep_part],
+        """The mode fold over one part's edges (rows [fl, Ep_part],
         pads on row vp), applied as `_propagate` applies it; rows
         without edges in the part keep their label.  (Host scalars only:
         a scalar placed on the card would add a host sync a part.)"""
-        fnum, vp = dev.fnum, dev.vp
+        fl, vp = labels.shape
         valid = row < vp
         lab = torch.where(valid, full[nbr.long()], _BIG)
-        base = torch.arange(fnum, device=labels.device).unsqueeze(1) * vp
-        grow = torch.where(valid, row.long() + base, fnum * vp)
+        base = torch.arange(fl, device=labels.device).unsqueeze(1) * vp
+        grow = torch.where(valid, row.long() + base, fl * vp)
         new = self._mode_fold(grow.reshape(-1), lab.reshape(-1), lut,
-                              fnum * vp).view(fnum, vp)
+                              fl * vp).view(fl, vp)
         keep = ~dev.inner_mask | (dev.out_degree == 0) | (new == _BIG)
         return torch.where(keep, labels, new)
 
@@ -141,15 +150,14 @@ class CDLP(ParallelAppBase):
 
     def _propagate(self, ctx, dev, labels, lut):
         oe = dev.oe
-        fnum, vp = dev.fnum, dev.vp
+        fl, vp = labels.shape  # the slab's rows (every fragment's alone)
         big = torch.tensor(_BIG, dtype=labels.dtype, device=labels.device)
         full = ctx.gather_state(labels)
         lab = torch.where(oe.edge_mask, full[oe.edge_nbr], big)
-        base = torch.arange(fnum, device=labels.device).unsqueeze(1) * vp
-        row = torch.where(oe.edge_mask, oe.edge_src.long() + base,
-                          fnum * vp)
+        base = torch.arange(fl, device=labels.device).unsqueeze(1) * vp
+        row = torch.where(oe.edge_mask, oe.edge_src.long() + base, fl * vp)
         new = self._mode_fold(row.reshape(-1), lab.reshape(-1), lut,
-                              fnum * vp).view(fnum, vp)
+                              fl * vp).view(fl, vp)
         keep = ~dev.inner_mask | (dev.out_degree == 0) | (new == big)
         return torch.where(keep, labels, new)
 
@@ -171,23 +179,28 @@ class CDLP(ParallelAppBase):
         # labels are NOT monotone under mode adoption (the most frequent
         # neighbour label can exceed the current one), so the invariant
         # is universe membership: every label is an id that existed at
-        # init (at most the largest oid) or the pad sentinel.  The JAX
-        # package reads that id off its carried `lut`; here the lut is
-        # an ephemeral leaf, so the largest oid comes off the fragment.
+        # init (at most the universe's largest id) or the pad sentinel.
+        # The JAX package reads that id off its carried `lut`; here the
+        # lut is an ephemeral leaf, so init_state keeps its largest id.
+        # Across ranks a probe sums the slabs' counts of bad labels.
         from libgrape_lite_tpu_torch.guard.invariants import Invariant
 
-        def in_universe(dev, prev, cur):
+        app = self
+
+        def bad(prev, cur):
             lab = cur["labels"]
             big = torch.iinfo(lab.dtype).max
-            max_id = dev.oids.max().to(lab.dtype)  # pad rows hold -1
-            ok = (lab >= 0) & ((lab <= max_id) | (lab == big))
-            nbad = (~ok).sum()
+            max_id = app._label_max.to(lab.dtype)
+            return ~((lab >= 0) & ((lab <= max_id) | (lab == big)))
+
+        def in_universe(dev, prev, cur):
+            nbad = bad(prev, cur).sum()
             return nbad == 0, nbad.to(torch.float32)
 
         return [Invariant(
             "cdlp_label_universe", in_universe, ("labels",),
             "labels stay within the initial id universe (or the pad "
-            "sentinel)",
+            "sentinel)", bad=bad,
         )]
 
     def finalize(self, frag, state):

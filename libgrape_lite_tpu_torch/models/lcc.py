@@ -16,15 +16,20 @@ credit:
 lcc(v) = 2 T(v) / (deg(v) (deg(v) - 1)), deg the raw out-degree with
 multiplicity (`lcc_context.h:52-68`).
 
-N+ and N- are packed bitmaps `[fnum * vp, words]` (`utils/bitset.py`)
-and the intersections run in the row AND-popcount kernel
-(`ops/intersect.py`, indexed form).  All fragments sit on one device, so
-the JAX package's ring of bitmap blocks (`ppermute` between shards)
-becomes a pid index: each edge reads the row of its neighbour's pid
-directly, and the far-end credits land in one pid-indexed vector.  The
+N+ and N- are packed bitmaps `[fl * vp, words]` over a rank's slab of
+fragments (`utils/bitset.py`; every fragment, `fl = fnum`, in one
+process), with `words` covering all `fnum * vp` pids, and the
+intersections run in the row AND-popcount kernel (`ops/intersect.py`,
+indexed form).  The JAX package rings bitmap blocks between shards
+(`ppermute`); here the ring runs between ranks (`Communicator.
+ring_shift`): at step s a rank holds rank (r + s)'s N+ block and
+intersects the kept pairs whose neighbour lies in it, so one process's
+single step reads every row by pid directly.  Apex and far-end credits
+land on the slab's rows, middle credits on the visiting block's; one
+pid-indexed vector folded across ranks (`ctx.sum`) holds them all.  The
 kernel runs over the kept (oriented, deduplicated) edges only, compacted
 once.  Triangle counts are int32 sums, exact in any order, so counts and
-lcc values equal the JAX package's bit for bit.
+lcc values equal the JAX package's bit for bit at every process count.
 
 Bitmaps cost (fnum * vp)^2 / 8 bytes each: 8 GiB at 2^18 vertices, which
 is why `lcc` (LCCBeta, sorted neighbour lists) is the registry default.
@@ -34,7 +39,9 @@ credits are counted (`ops/spgemm_pack.py`): `spgemm` resolves a host plan
 of pruned [128, 128]-bit tile products at `init_state`, ships its streams
 as ephemeral state, and takes the credits from the device pass over them.
 Both backends give the same int32 per-vertex counts and feed the same
-emit tail, so every output bit is backend-independent.
+emit tail, so every output bit is backend-independent.  The spgemm plan
+covers the whole stack on the host, so that backend runs in one process
+only (ROADMAP item 8c).
 """
 
 from __future__ import annotations
@@ -44,16 +51,31 @@ import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
 from libgrape_lite_tpu_torch.ops import intersect, spgemm_pack
+from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils.bitset import pack_bits
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
 def row_pids(dev, csr) -> torch.Tensor:
-    """[fnum, Ep] int32 pid of each edge's row (pad edges clamp to the
-    last row of their fragment; callers mask them out)."""
-    base = torch.arange(dev.fnum, dtype=torch.int32,
-                        device=csr.edge_src.device).unsqueeze(1) * dev.vp
+    """[fl, Ep] int32 global pid of each edge's row on the slab's
+    fragments `fid_lo ..` (pad edges clamp to the last row of their
+    fragment; callers mask them out)."""
+    fl = csr.edge_src.shape[0]
+    base = (torch.arange(fl, dtype=torch.int32, device=csr.edge_src.device)
+            + getattr(dev, "fid_lo", 0)).unsqueeze(1) * dev.vp
     return base + csr.edge_src.clamp(max=dev.vp - 1)
+
+
+def pairs_by_block(a, b, rows: int, blocks: int) -> list:
+    """The pairs (a, b) cut by the ring block of `b` (block q holds pids
+    `[q * rows, (q + 1) * rows)`): a list of `blocks` (a, b) pairs, each
+    in the input's order.  One block is the input itself."""
+    if blocks == 1:
+        return [(a, b)]
+    blk = b.div(rows, rounding_mode="floor")
+    order = torch.argsort(blk, stable=True)
+    sizes = torch.bincount(blk, minlength=blocks).tolist()
+    return list(zip(a[order].split(sizes), b[order].split(sizes)))
 
 
 def dedup_mask(csr) -> torch.Tensor:
@@ -85,8 +107,14 @@ class LCC(ParallelAppBase):
         # degree_threshold > 0 drops hub vertices' neighbour lists (the
         # reference's cost cap, `lcc.h:234-243`); 0 disables it
         self.degree_threshold = int(degree_threshold)
-        state = {"lcc": torch.zeros((frag.fnum, frag.vp),
+        fl = getattr(frag, "fl", frag.fnum)
+        state = {"lcc": torch.zeros((fl, frag.vp),
                                     dtype=torch.float64, device=frag.device)}
+        world = getattr(getattr(frag, "comm_spec", None), "world", 1)
+        decline_across_ranks(
+            world, f"GRAPE_LCC_BACKEND={spgemm_pack.lcc_backend_mode()} "
+            "(the spgemm plan covers the whole stack)", "8c",
+            ok=spgemm_pack.lcc_backend_mode() == "intersect")
         self.lcc_backend = spgemm_pack.resolve_lcc_backend(
             type(self).__name__, frag,
             degree_threshold=self.degree_threshold)
@@ -104,7 +132,7 @@ class LCC(ParallelAppBase):
         if self.lcc_backend == "spgemm":
             tri = self._spgemm.credits(state).view(dev.fnum, dev.vp)
         else:
-            tri = self.triangles(dev, state)
+            tri = self.triangles(dev, state, ctx)
         return self._emit(dev, state, tri), 0
 
     def inceval(self, ctx: StepContext, dev, state):
@@ -123,8 +151,9 @@ class LCC(ParallelAppBase):
         return dict(state, lcc=lcc.to(state["lcc"].dtype))
 
     def _oriented(self, dev, csr, deg, toward_nbr: bool):
-        """(keep [fnum, Ep] bool, row pid [fnum, Ep]): toward_nbr keeps
-        edges oriented row -> nbr, otherwise nbr -> row."""
+        """(keep [fl, Ep] bool, row pid [fl, Ep]): toward_nbr keeps
+        edges oriented row -> nbr, otherwise nbr -> row; `deg` is the
+        whole graph's [fnum * vp] degree."""
         row = row_pids(dev, csr)
         nbr = csr.edge_nbr
         d_row, d_nbr = deg[row.long()], deg[nbr.long()]
@@ -139,34 +168,59 @@ class LCC(ParallelAppBase):
             k &= owner <= self.degree_threshold
         return dedup_mask(csr) & k, row
 
-    def pair_operands(self, dev):
-        """The bitmaps N+ and N- and the kept pairs of the two passes:
+    def pair_operands(self, dev, ctx=None):
+        """The slab's bitmaps N+ and N- (rows `fid_lo * vp ..`, the whole
+        stack in one process) and the kept pairs of the two passes:
         (bplus, bminus, (v, u) oriented oe edges v -> u, (w, t) oriented
-        ie edges t -> w), pairs as int32 pids."""
+        ie edges t -> w), pairs as int32 global pids.  `ctx` gathers the
+        degrees across ranks (the single-process context by default)."""
+        ctx = StepContext(dev.fnum) if ctx is None else ctx
         n_pad = dev.fnum * dev.vp
-        deg = dev.out_degree.reshape(-1)
+        deg = ctx.gather_state(dev.out_degree)
         oe, ie = dev.oe, dev.ie
+        rows = oe.edge_src.shape[0] * dev.vp
+        base = getattr(dev, "fid_lo", 0) * dev.vp
         keep_oe, row_oe = self._oriented(dev, oe, deg, True)
         keep_ie, row_ie = self._oriented(dev, ie, deg, False)
-        bplus = pack_bits(oe.edge_nbr, keep_oe, n_pad, row_oe, n_pad)
-        bminus = pack_bits(ie.edge_nbr, keep_ie, n_pad, row_ie, n_pad)
+        bplus = pack_bits(oe.edge_nbr, keep_oe, rows, row_oe - base, n_pad)
+        bminus = pack_bits(ie.edge_nbr, keep_ie, rows, row_ie - base, n_pad)
         return (bplus, bminus, (row_oe[keep_oe], oe.edge_nbr[keep_oe]),
                 (row_ie[keep_ie], ie.edge_nbr[keep_ie]))
 
-    def triangles(self, dev, state) -> torch.Tensor:
-        """[fnum, vp] int32 triangle credits per vertex (the JAX
-        package's `_tri_intersect`).  AND commutes, so the lower endpoint
-        of each pair indexes the first operand: the one whose non-zero
-        words the plain version expands."""
-        bplus, bminus, (v, u), (w, t) = self.pair_operands(dev)
-        tri = torch.zeros(dev.fnum * dev.vp, dtype=torch.int32,
-                          device=bplus.device)
-        cnt = intersect.row_and_popcount_indexed(bplus, u, bplus, v)
-        tri.index_add_(0, v.long(), cnt)  # apex
-        tri.index_add_(0, u.long(), cnt)  # middle
-        cnt = intersect.row_and_popcount_indexed(bplus, t, bminus, w)
-        tri.index_add_(0, w.long(), cnt)  # far end
-        return tri.view(dev.fnum, dev.vp)
+    def triangles(self, dev, state, ctx=None) -> torch.Tensor:
+        """[fl, vp] int32 triangle credits per vertex of the slab (the
+        JAX package's `_tri_intersect`), over a ring of the ranks' N+
+        blocks: step s intersects the pairs whose neighbour lies in the
+        block held (rank r + s's), then shifts it on -- `world` steps,
+        `world - 1` shifts, one step in one process.  AND commutes, so
+        the visiting block, indexed by the neighbour, is the first
+        operand: the one whose non-zero words the plain version
+        expands (the lower endpoint of each oe pair)."""
+        ctx = StepContext(dev.fnum) if ctx is None else ctx
+        bplus, bminus, (v, u), (w, t) = self.pair_operands(dev, ctx)
+        rows = bplus.shape[0]
+        base = getattr(dev, "fid_lo", 0) * dev.vp
+        steps = ctx.ring_size()
+        oe_parts = pairs_by_block(v, u, rows, steps)
+        ie_parts = pairs_by_block(w, t, rows, steps)
+        cred = torch.zeros(dev.fnum * dev.vp, dtype=torch.int32,
+                           device=bplus.device)
+        block = bplus
+        for s in range(steps):
+            if s:
+                block = ctx.ring_shift(block)
+            q = ctx.ring_block(s)
+            (vq, uq), (wq, tq) = oe_parts[q], ie_parts[q]
+            cnt = intersect.row_and_popcount_indexed(block, uq - q * rows,
+                                                     bplus, vq - base)
+            cred.index_add_(0, vq.long(), cnt)  # apex
+            cred.index_add_(0, uq.long(), cnt)  # middle
+            cnt = intersect.row_and_popcount_indexed(block, tq - q * rows,
+                                                     bminus, wq - base)
+            cred.index_add_(0, wq.long(), cnt)  # far end
+        # every rank's credits, cut to the slab's rows
+        tri = ctx.sum(cred.unsqueeze(0))[base:base + rows]
+        return tri.to(torch.int32).view(-1, dev.vp)
 
 
     def invariants(self, frag, state):

@@ -15,8 +15,11 @@ The pull is one SpMV over the in-edge CSR: the strict-tile kernel when
 `plan_for_app` accepts a strict plan (or `spmv_mode="strict"`), the
 gather-reduce kernel otherwise.  Both regroup the float sums relative to
 the JAX package, so results agree to a tolerance, not bitwise.  Across
-processes (world > 1) every pull is K1 over the rank's slab, and the
-dangling mass folds through `ctx.sum`, bit-equal to one process's fold.
+processes (world > 1) every pull runs over the rank's slab: K1 on its
+[fl, vp + 1] CSR, or the strict tiles on its [fl, Ep] edges with the
+slab's rows of the plan (tiles never cross a fragment, so each
+fragment's sums are the one-process ones); the dangling mass folds
+through `ctx.sum`, bit-equal to one process's fold.
 
 Personalized PageRank (`source` given): the teleport and the dangling
 mass land on the one-hot seed instead of spreading 1/n, as in the JAX
@@ -48,7 +51,6 @@ from libgrape_lite_tpu_torch.app.base import (
     source_lane_array,
 )
 from libgrape_lite_tpu_torch.ops import spmv
-from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
@@ -122,21 +124,15 @@ class PageRank(BatchShuffleAppBase):
             _, seed = source_lane_array(frag, sources, "PageRank", 0.0, 1.0,
                                         dt)
             state["seed"] = seed if batched else seed[0]
-        world = getattr(getattr(frag, "comm_spec", None), "world", 1)
-        if world > 1:
-            # the strict tiles' plan covers the whole stack; across
-            # ranks every pull is K1 over the rank's slab
-            decline_across_ranks(
-                world, "PageRank spmv_mode='strict' (the K2 strict tiles; "
-                "use 'auto')", "8c", ok=self.spmv_mode != "strict")
-            plan = None
-        else:
-            plan = spmv.plan_for_app(frag, frag.vp, dt,
-                                     mode=self.spmv_mode)
+        # the plan covers the stack, tile rows per fragment: a rank
+        # keeps its slab's rows
+        plan = spmv.plan_for_app(frag, frag.vp, dt, mode=self.spmv_mode)
         self._spmv_tile = plan[1] if plan else 0
         self._spmv_rmax = plan[2] if plan else 0
         if plan:
-            state["spmv_row_lo"] = torch.from_numpy(plan[0]).to(dev)
+            lo = local_frags(frag)[1]
+            state["spmv_row_lo"] = torch.from_numpy(
+                np.ascontiguousarray(plan[0][lo:lo + fl])).to(dev)
         self._mx = self.resolve_exchange(frag, state)
         self._pipeline = None
         if not batched:

@@ -23,8 +23,9 @@ its device.  The backend follows the device:
     the gloo call, host to device), a host sync per collective.
 
 The spec's collective primitives (`all_gather_into`, `all_reduce`,
-`all_to_all_single`) do that staging and count every call and its bytes
-in the spec's `stats` (the group's traffic); `Communicator`
+`all_to_all_single`, and `ring_shift`, the point-to-point step of a ring
+of rank blocks) do that staging and count every call and its bytes in
+the spec's `stats` (the group's traffic); `Communicator`
 (parallel/communicator.py) builds the apps' collectives on them.
 `host_allgather` is the control plane (breach votes, checkpoint commits,
 the gang handshake): host-side and synchronous, over a gloo group of its
@@ -182,7 +183,8 @@ class CommSpec:
 
     def reset_stats(self) -> None:
         self.stats.update(calls=0, bytes=0, staged=0, all_gather=0,
-                          all_gather_bytes=0, all_reduce=0, all_to_all=0)
+                          all_gather_bytes=0, all_reduce=0, all_to_all=0,
+                          ring=0, ring_bytes=0)
 
     # ---- topology (comm_spec.h:128-150) ----
 
@@ -388,4 +390,29 @@ class CommSpec:
                                                             inp.dtype)
         dist.all_to_all_single(wire_out, self._wire(inp), group=self.group)
         self._count("all_to_all", inp.numel() * inp.element_size())
+        return self._land(out, wire_out)
+
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """One step of a ring of rank blocks: this rank's block goes to
+        rank r - 1 and rank r + 1's comes back (the JAX package's
+        `ppermute` with perm i -> i - 1), as one `batch_isend_irecv` pair.
+        Every rank passes a block of the same shape and dtype.  One rank
+        is the identity (nothing crosses and nothing is counted)."""
+        if self.group is None or self.world == 1:
+            return t
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        wire_out = out if not self.staged else self._buffer(t.shape, t.dtype)
+        r, w = self.rank, self.world
+        ops = [dist.P2POp(dist.isend, self._wire(t), (r - 1) % w,
+                          group=self.group),
+               dist.P2POp(dist.irecv, wire_out, (r + 1) % w,
+                          group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        nbytes = t.numel() * t.element_size()
+        self._count("ring", nbytes)
+        self.stats["ring_bytes"] += nbytes
         return self._land(out, wire_out)

@@ -24,6 +24,8 @@ ranks through the spec's primitives (NCCL, or gloo):
   * `all_to_all` -- all_to_all_single over `[world]` blocks;
   * `ppermute` -- an all_to_all_single whose blocks carry the moved rows;
     a row no pair writes is zero, as in `lax.ppermute`;
+  * `ring_shift` -- a rank's whole block to rank r - 1, rank r + 1's
+    back, point to point (the ring of rank blocks the LCCs run);
   * `axis_index` -- this rank's `fid_lo + arange(fl)`; `axis_size` fnum.
 """
 
@@ -122,6 +124,25 @@ class Communicator:
             if lo <= d < lo + fl:  # a row this rank receives
                 out[d - lo] = recv[s // fl, d - lo]
         return out
+
+    def ring_shift(self, x: torch.Tensor) -> torch.Tensor:
+        """The block of the next rank in the ring (`CommSpec.ring_shift`);
+        single-process the whole stack is one rank's block, and the shift
+        is the identity."""
+        if self.spec is None:
+            return x
+        return self.spec.ring_shift(x)
+
+    def ring_block(self, step: int) -> int:
+        """The rank whose block this rank holds after `step` ring shifts
+        (0 single-process)."""
+        if self.spec is None:
+            return 0
+        return (self.spec.rank + step) % self.spec.world
+
+    def ring_size(self) -> int:
+        """Steps of a full ring: the world size (1 single-process)."""
+        return 1 if self.spec is None else self.spec.world
 
     def axis_index(self) -> torch.Tensor:
         """Each local shard's index on the fragment axis: [fl]."""

@@ -25,9 +25,10 @@ Several processes (JAX `runner.py:114-140`): `coordinator`,
 (`CommSpec.init_distributed`) before the partition probe and the load;
 every rank loads the same graph and places its slab of fragments, the
 query's collectives cross ranks, and only the coordinator writes the
-result files.  Across processes (world > 1) this runs the edge-cut
-superstep of sssp, bfs, wcc and pagerank; every other app and mode
-raises before the load, naming the ROADMAP item that brings it.
+result files.  Across processes (world > 1) this runs the apps of
+`DIST_APP_NAMES` (sssp, bfs, wcc, pagerank, cdlp and the two LCCs, with
+their aliases); every other app and mode raises before the load, naming
+the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from libgrape_lite_tpu_torch.parallel.comm_spec import (
     host_allgather,
 )
 from libgrape_lite_tpu_torch.utils.memory import get_memory_stats
-from libgrape_lite_tpu_torch.worker.worker import Worker
+from libgrape_lite_tpu_torch.worker.worker import Worker, dist_apps
 
 _LOG = logging.getLogger(__name__)
 
@@ -236,8 +237,10 @@ def _load_vertexcut(args: QueryArgs, name: str, comm_spec, weighted: bool,
             directed=directed, symmetrize=sym)
 
 
-#: the apps whose superstep runs across processes (world > 1)
-DIST_APP_NAMES = ("sssp", "bfs", "wcc", "pagerank")
+#: the registry names whose superstep runs across processes (world > 1):
+#: every name of a class in `worker.dist_apps()`
+DIST_APP_NAMES = tuple(sorted(name for name, cls in APP_REGISTRY.items()
+                              if cls in dist_apps()))
 
 
 def check_across_processes(args: QueryArgs) -> None:
@@ -246,14 +249,20 @@ def check_across_processes(args: QueryArgs) -> None:
     single-process run).  Checkpoints, resumes, guards and fault plans
     run across processes (ft/distributed.py, guard/vote.py)."""
     from libgrape_lite_tpu_torch.fragment.partition import partition_mode
+    from libgrape_lite_tpu_torch.models.lcc import LCC
+    from libgrape_lite_tpu_torch.ops.spgemm_pack import lcc_backend_mode
     from libgrape_lite_tpu_torch.parallel.pipeline import pipeline_mode
 
     world = args.num_processes
     name = "pagerank_vc" if args.vc and args.application == "pagerank" \
         else args.application
+    backend = lcc_backend_mode()
     for what, item, ok in (
             (f"the app {name!r} (across processes: "
              f"{', '.join(DIST_APP_NAMES)})", "8c", name in DIST_APP_NAMES),
+            (f"GRAPE_LCC_BACKEND={backend} (the spgemm plan covers the "
+             "whole stack)", "8c",
+             backend == "intersect" or APP_REGISTRY.get(name) is not LCC),
             ("--delta_efile / --delta_vfile", "8b.4",
              not (args.delta_efile or args.delta_vfile)),
             ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",

@@ -35,8 +35,8 @@ bundle must carry the guard forensics and `serve_query` rows, and `cli
 postmortem <bundle> --trace <trace.json>` must find every row byte for
 byte in the trace.
 
-**kill_rank** (`--kill_rank`, default app sssp; sssp, bfs, wcc or
-pagerank): the resilience drill across ranks.
+**kill_rank** (`--kill_rank`, default app sssp; sssp, bfs, wcc,
+pagerank or cdlp): the resilience drill across ranks.
 
   1. **reference** -- a fault-free one-process run on the reduced fnum-2
      mesh the survivor restores onto (legs 1-3 run at once);
@@ -311,8 +311,9 @@ def postmortem_drill(args, workdir: str) -> bool:
     return True
 
 
-#: the apps a gang runs (runner.DIST_APP_NAMES)
-KILL_RANK_APPS = ("sssp", "bfs", "wcc", "pagerank")
+#: the apps of runner.DIST_APP_NAMES with IncEval rounds to kill a rank in
+#: (the LCCs finish in PEval)
+KILL_RANK_APPS = ("sssp", "bfs", "wcc", "pagerank", "cdlp")
 PR_RTOL = 1e-4  # the verifier's relative tolerance for PageRank
 GANG_DIST_TIMEOUT_S = 60  # a gang's GRAPE_DIST_TIMEOUT_S
 GANG_TIMEOUT_S = 300  # seconds a gang's ranks may run

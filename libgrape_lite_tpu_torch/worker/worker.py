@@ -560,8 +560,9 @@ class Worker:
         return out
 
     def _check_across_ranks(self) -> None:
-        """What a query across processes (world > 1) runs: the edge-cut
-        superstep of SSSP, BFS, WCC and PageRank, with its checkpoints,
+        """What a query across processes (world > 1) runs: the superstep
+        of the `dist_apps` (SSSP, BFS, WCC, PageRank, CDLP, the LCCs),
+        with its checkpoints,
         guards and fault plans, and no staged delta.  Anything else
         raises, naming the ROADMAP item that brings it (never a silent
         single-process run)."""
@@ -1343,13 +1344,19 @@ def _gather_leaf(spec, v: torch.Tensor) -> torch.Tensor:
 
 def dist_apps() -> tuple:
     """The app classes whose superstep runs across processes (world >
-    1): the edge-cut pulls of SSSP, BFS, WCC and PageRank."""
+    1), by exact class (a subclass declines): the edge-cut pulls of SSSP,
+    BFS, WCC and PageRank (K1 or the strict tiles), CDLP's mode fold over
+    the global label universe, and the two LCCs' rings of rank blocks
+    (K3 over bitmaps, the merge pass over ELL rows)."""
     from libgrape_lite_tpu_torch.models.bfs import BFS
+    from libgrape_lite_tpu_torch.models.cdlp import CDLP
+    from libgrape_lite_tpu_torch.models.lcc import LCC
+    from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
     from libgrape_lite_tpu_torch.models.pagerank import PageRank
     from libgrape_lite_tpu_torch.models.sssp import SSSP
     from libgrape_lite_tpu_torch.models.wcc import WCC
 
-    return (SSSP, BFS, WCC, PageRank)
+    return (SSSP, BFS, WCC, PageRank, CDLP, LCC, LCCBeta)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:

@@ -45,7 +45,7 @@ from libgrape_lite_tpu_torch.app.base import StepContext
 from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.ft import retry
 from libgrape_lite_tpu_torch.io import LocalIOAdaptor
-from libgrape_lite_tpu_torch.models import CDLP, SSSP, PageRank
+from libgrape_lite_tpu_torch.models import SSSP, CDLPOpt, KCore
 from libgrape_lite_tpu_torch.parallel import comm_spec as cs
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
@@ -455,8 +455,8 @@ def test_gang_serialization_cache_written_once(tmp_path, graph_cache):
 # ---- what a gang declines --------------------------------------------------
 
 DECLINES = [
-    (dict(application="cdlp"), {}, "8c"),
-    (dict(application="lcc"), {}, "8c"),
+    (dict(application="cdlp_opt"), {}, "8c"),
+    (dict(application="lcc_directed"), {}, "8c"),
     (dict(delta_efile="d.e"), {}, "8b.4"),
     (dict(vc=True, application="pagerank"), {}, "8c"),
     ({}, {"GRAPE_PARTITION": "2d"}, "8c"),
@@ -490,9 +490,8 @@ def slab_frag():
 def test_worker_declines_across_ranks(slab_frag):
     assert slab_frag.dev.ie.indptr.shape[0] == 2 and slab_frag.fl == 2
     for call, item in [
-        (lambda: Worker(CDLP(), slab_frag).query(max_round=3), "8c"),
-        (lambda: Worker(PageRank(spmv_mode="strict"), slab_frag).query(),
-         "8c"),
+        (lambda: Worker(CDLPOpt(), slab_frag).query(max_round=3), "8c"),
+        (lambda: Worker(KCore(), slab_frag).query(), "8c"),
         (lambda: Worker(SSSP(), slab_frag).query_batch(
             [{"source": 6}, {"source": 7}]), "8b.4"),
         (lambda: Worker(SSSP(), slab_frag).query_incremental({}), "8b.4"),
