@@ -323,11 +323,28 @@ the port's own entry points:
      rounds and K1 / K2 / K3 launches, the ring shifts and collectives a
      query; (e2) beside (b)'s gangs: cdlp, lcc and lcc_bitmap gangs on
      p2p-31 at fnum 4 (lcc_bitmap's K3 ring crossing ranks, two K3 passes
-     a ring step), files equal to one process's and the goldens, and
-     RMAT-20 cdlp and lcc gangs reading (b)'s garc cache beside a
-     one-process child; (e3) K2 on rank 1's [2, Ep] slab (within 1e-5 of
-     each row's sum of |terms|, rerun bit-identical) and K3 at ring step 1
-     on rank 1 (integer-equal), with kernel, plain, library and bound ms;
+     a ring step), files equal to one process's and the goldens (cdlp
+     and lcc run at RMAT-20 in (e1) only); (e3) K2 on rank 1's [2, Ep]
+     slab (within 1e-5 of each row's sum of |terms|, rerun bit-identical)
+     and K3 at ring step 1 on rank 1 (integer-equal), with kernel, plain,
+     library and bound ms; (f) the dynamic graph and the K1 library apps
+     across ranks: (f1) under (a)'s group on its fragment, [dyn]'s 2,048
+     seed-13 adds ingested on the one-process and the group's fragment
+     (the ranks' digest exchange), SSSP, BFS and WCC over the overlay
+     bit-equal to one process with equal rounds, K1 and overlay_fold
+     launches, then `query_incremental` seeded from the base results,
+     equal to the cold overlay query in fewer rounds; kcore (k 16),
+     core_decomposition, pagerank_local (10 rounds), khop (k 2),
+     common_neighbors and bc from 0, each bit-equal with equal rounds and
+     launches, walls beside one process's; (f2) beside (b)'s children:
+     two gloo ranks and a one-process child, each running `run_app` on
+     p2p-31 at fnum 4 for the --delta_efile loads of sssp, bfs, wcc and
+     pagerank (the goldens: base and delta make p2p-31) and the six apps,
+     files byte-equal (PageRank within 1e-4), equal rounds, K1 on every
+     rank; (f3) `overlay_fold` on rank 1's [2, capacity] slot planes of
+     the (f1) overlay reading the gathered x, bit-equal to its plain
+     version, the former K1 path and `scatter_reduce_`, rerun
+     bit-identical, with kernel, plain, library and bound ms;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -5751,7 +5768,8 @@ DIST_TIMEOUT_S = "120"  # GRAPE_DIST_TIMEOUT_S of every group of the phase
 # the RMAT-20 fnum-4 fragment, and lcc_bitmap on RMAT-18 at fnum 4 cut by
 # the segmented partitioner: a hash cut's fragments pass 2^16 vertices,
 # so vp doubles and each (fnum vp)^2 / 8-byte bitmap would be 32 GiB;
-# (e2) two-rank gloo CLI gangs of these apps (p2p-31 and RMAT-20)
+# (e2) two-rank gloo CLI gangs of these apps on p2p-31 (the RMAT-20 cdlp
+# and lcc gangs were cut for time: (e1) runs both at RMAT-20)
 # (e1) on the RMAT-20 fnum-4 fragment: (label, registry name, app
 # constructor arguments, query arguments)
 DIST_E_APPS = (("cdlp", "cdlp", {}, {"max_round": CDLP_ROUNDS}),
@@ -5760,10 +5778,34 @@ DIST_E_APPS = (("cdlp", "cdlp", {}, {"max_round": CDLP_ROUNDS}),
                 {"max_round": PR_ROUNDS}))
 DIST_E_CLI = {"cdlp": ["--cdlp_mr", str(CDLP_ROUNDS)], "lcc": [],
               "lcc_bitmap": []}
-DIST_E_RMAT = ("cdlp", "lcc")  # RMAT-20 gangs of (e2)
 # the apps that launch no kernel of the port: CDLP's mode fold and
 # LCCBeta's merge pass run in PyTorch (the JAX package runs them in XLA)
 DIST_KERNEL_FREE = ("cdlp", "lcc")
+# [dist] (f): the dynamic graph and the K1 library apps across ranks.
+# (f1) under (a)'s one-rank group on the RMAT-20 fnum-4 fragment: the
+# overlay apps over [dyn]'s 2,048 seed-13 adds and their seeded
+# incremental queries, then the six K1 library apps: (label, registry
+# name, app constructor arguments, query arguments)
+DIST_F_DYN = (("sssp", {"source": 0}), ("bfs", {"source": 0}), ("wcc", {}))
+DIST_F_APPS = (("kcore", "kcore", {}, {"k": KCORE_K}),
+               ("core_decomposition", "core_decomposition", {}, {}),
+               ("pagerank_local", "pagerank_local", {},
+                {"delta": 0.85, "max_round": PR_ROUNDS}),
+               ("khop k=2", "khop", {"k": 2}, {"source": 0}),
+               ("common_neighbors", "common_neighbors", {}, {"source": 0}),
+               ("bc", "bc", {}, {"source": 0}))
+# (f2) two gloo ranks on the card and a one-process reference, each one
+# child running these `run_app` calls on p2p-31 at fnum 4: the delta
+# loads of the LDBC four and the six apps (QueryArgs fields a job)
+DIST_F_DELTA = ("sssp", "bfs", "wcc", "pagerank")
+DIST_F_JOB_ARGS = {"sssp": {"sssp_source": 6}, "bfs": {"bfs_source": 6},
+                   "wcc": {}, "pagerank": {"pr_mr": PR_ROUNDS},
+                   "kcore": {"kcore_k": 4}, "core_decomposition": {},
+                   "pagerank_local": {"pr_mr": PR_ROUNDS},
+                   "khop": {"khop_k": 2, "bfs_source": 6},
+                   "common_neighbors": {"cn_source": CN_SOURCE},
+                   "bc": {"bc_source": 6}}
+DIST_F_SLAB_RANK = 1  # (f3): the overlay fold on this rank's slab
 
 # A child of the port's CLI: `cli.main` with the given flags, its one
 # query timed (synchronised) and its host syncs counted (CUDA's sync-debug
@@ -5828,6 +5870,42 @@ rec.update(rc=rc, main_s=time.perf_counter() - t0,
            built=sorted(_build.BUILD_LOG), load=sorted(loader.LOAD_SECONDS))
 print("[dist-child] " + json.dumps(rec), flush=True)
 sys.exit(rc)
+"""
+
+
+# A (f2) child: `run_app` for each job (name -> QueryArgs fields) on one
+# CommSpec -- a process group when the world is above 1, else one
+# process -- with the launch counts zeroed before each call and read
+# after; one `[dist-f-child]` JSON line with every job's rounds, K1
+# launches and seconds, and the kernel libraries this process built.
+DIST_F_CHILD = r"""
+import json, sys, time
+import torch
+from libgrape_lite_tpu_torch.ops import _build, spmv
+from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
+from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+jobs, coordinator = json.loads(sys.argv[1]), sys.argv[2]
+world, rank, fnum, device = (int(sys.argv[3]), int(sys.argv[4]),
+                             int(sys.argv[5]), sys.argv[6])
+spec = (CommSpec.init_distributed(coordinator, world, rank, fnum=fnum,
+                                  device=device)
+        if world > 1 else CommSpec(fnum=fnum, device=device))
+recs = {}
+for name, kw in jobs.items():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    spmv.reset_launch_counts()
+    t0 = time.perf_counter()
+    wk = run_app(QueryArgs(**kw), comm_spec=spec)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    recs[name] = dict(rounds=wk.rounds, k1=spmv.gather_reduce.launches,
+                      seconds=time.perf_counter() - t0)
+print("[dist-f-child] " + json.dumps(dict(
+    recs=recs, built=sorted(_build.BUILD_LOG), transport=spec.transport)),
+    flush=True)
+spec.close()
 """
 
 
@@ -5969,10 +6047,15 @@ def dist_world1_phase(f4, device) -> dict:
                   f"single_s={rec['wall_single_s']:.4f}", flush=True)
         e = dist_e1_phase(f4, f4d, spec, device)
         runs.update(e["runs"])
+        t_f = time.perf_counter()
+        f = dist_f1_phase(f4, f4d, spec, device)
+        runs.update(f["runs"])
+        f_s = time.perf_counter() - t_f
         k1 = dist_k1_phase(f4, f4d, device)
     finally:
         spec.close()
-    return {"runs": runs, "k1": k1, "k2": e["k2"], "k3": e["k3"]}
+    return {"runs": runs, "k1": k1, "k2": e["k2"], "k3": e["k3"],
+            "overlay_fold": f["overlay_fold"], "f1_seconds": f_s}
 
 
 def bitmap_fragment4(device):
@@ -6000,12 +6083,16 @@ def bitmap_fragment4(device):
     return f, time.perf_counter() - t0
 
 
-def dist_e1_case(label, frag, fragd, spec, factory, kw, device) -> dict:
-    """One (e1) query under the world-1 group against the same query in
-    one process: bit-equal, the same rounds and the same K1 / K2 / K3
-    launches; the ring shifts and collectives of the query from
-    `CommSpec.stats`."""
+def dist_e1_case(label, frag, fragd, spec, factory, kw, device,
+                 tag: str = "(e1)", warm_dist: bool = False) -> dict:
+    """One (e1) (or `tag`) query under the world-1 group against the same
+    query in one process: bit-equal, the same rounds and the same K1 /
+    overlay fold / K2 / K3 launches; the ring shifts and collectives of
+    the query from `CommSpec.stats`.  `warm_dist` warms the group's
+    fragment too (its per-fragment caches: common_neighbors' CSR)."""
     run_query(frag, factory(), device, **kw)  # warm-up
+    if warm_dist:
+        run_query(fragd, factory(), device, **kw)
     reset_launch_counts()
     one, wall_one = run_query(frag, factory(), device, **kw)
     counts_one = launch_counts()
@@ -6014,19 +6101,19 @@ def dist_e1_case(label, frag, fragd, spec, factory, kw, device) -> dict:
     wk, wall = run_query(fragd, factory(), device, **kw)
     counts = launch_counts()
     stats = dict(spec.stats)
-    check(wk.rounds == one.rounds, f"[dist] (e1) {label}: {wk.rounds} "
+    check(wk.rounds == one.rounds, f"[dist] {tag} {label}: {wk.rounds} "
           f"rounds against {one.rounds} single-process")
-    check(counts == counts_one, f"[dist] (e1) {label}: launches {counts} "
+    check(counts == counts_one, f"[dist] {tag} {label}: launches {counts} "
           f"against {counts_one} single-process")
     same_or_close(wk.result_values(), one.result_values(), 0,
-                  f"[dist] (e1) {label} world 1")
+                  f"[dist] {tag} {label} world 1")
     per = max(wk.rounds, 1)
     rec = dict(counts=counts, rounds=wk.rounds, bit_equal=True,
                wall_s=wall, wall_single_s=wall_one,
                ring_shifts=stats["ring"], ring_bytes=stats["ring_bytes"],
                collectives_per_round=stats["calls"] / per,
                all_gather_bytes_per_round=stats["all_gather_bytes"] / per)
-    print(f"[dist] (e1) world 1 {spec.transport} {label}: rounds="
+    print(f"[dist] {tag} world 1 {spec.transport} {label}: rounds="
           f"{wk.rounds} bit-equal launches={counts} (single-process "
           f"equal) ring shifts={stats['ring']} collectives/round="
           f"{rec['collectives_per_round']:.2f} all_gather B/round="
@@ -6266,13 +6353,238 @@ def dist_k1_phase(f4, f4d, device) -> dict:
                 device)}
 
 
+def dist_f1_phase(f4, f4d, spec, device) -> dict:
+    """(f1) under the world-1 group on the RMAT-20 fnum-4 fragment:
+    [dyn]'s 2,048 seed-13 adds staged through `DynGraph.ingest` on the
+    one-process fragment and on the group's (the apply's digest exchange
+    at world 1), SSSP, BFS and WCC over the overlay bit-equal to one
+    process with equal rounds, K1 and overlay_fold launches (one each a
+    round), then `query_incremental` seeded from each one's base result,
+    equal to the cold overlay query in fewer rounds; then the six K1
+    library apps, each bit-equal to one process with equal rounds and
+    launches.  The overlays are detached at the end; (f3) reads the
+    one-process overlay first."""
+    from libgrape_lite_tpu_torch.dyn import DynGraph, RepackPolicy
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+    from libgrape_lite_tpu_torch.worker.worker import Worker
+
+    runs = {}
+    adds, _ = dyn_adds(f4)
+    prev = {name: tuple(run_query(f, dyn_factory(name)(), device, **kw)[0]
+                        ._result_state for f in (f4, f4d))
+            for name, kw in DIST_F_DYN}  # the base fixed points
+    t0 = time.perf_counter()
+    reps = [DynGraph(f, RepackPolicy()).ingest(adds) for f in (f4, f4d)]
+    ingest_s = time.perf_counter() - t0
+    check(all(r["mode"] == "overlay" for r in reps),
+          f"[dist] (f1) ingest: {[(r['mode'], r['reason']) for r in reps]}")
+    slots = f4.dyn_overlay.placed("ie", np.float32, "", device,
+                                  slab=(0, f4.fnum))["mask"].sum(dim=1)
+    print(f"[dist] (f1) rmat{SCALE} fnum {PIPE_FNUM}: {DYN_ADDS} adds "
+          f"ingested as overlays on one process and on the world-1 group in "
+          f"{ingest_s:.3f} host s (slots a fragment {slots.tolist()} of "
+          f"{f4.dyn_overlay.capacity})", flush=True)
+    try:
+        f3 = dist_f3_case(f4, device)
+        for name, kw in DIST_F_DYN:
+            rec = runs[f"dist world1 overlay {name}"] = dist_e1_case(
+                f"overlay {name}", f4, f4d, spec, dyn_factory(name), kw,
+                device, tag="(f1)")
+            c = rec["counts"]
+            check(c["gather_reduce"] == c["overlay_fold"] == rec["rounds"]
+                  > 0, f"[dist] (f1) overlay {name}: launches {c} in "
+                  f"{rec['rounds']} rounds (one K1 and one fold a round)")
+            cold = run_query(f4d, dyn_factory(name)(), device, **kw)[0]
+            got = {}
+            for label, f, p in (("one process", f4, prev[name][0]),
+                                ("world 1", f4d, prev[name][1])):
+                sync(device)
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                wk = Worker(dyn_factory(name)(), f)
+                wk.query_incremental(p, reps[0]["delta"], **kw)
+                sync(device)
+                got[label] = (wk, time.perf_counter() - t1, launch_counts())
+            (w1, s1, _), (wd, sd, cd) = got["one process"], got["world 1"]
+            check(wd.inc_report["mode"] == "seeded"
+                  and wd.rounds == w1.rounds < cold.rounds,
+                  f"[dist] (f1) {name} incremental: {wd.inc_report}, "
+                  f"rounds {wd.rounds} (one process {w1.rounds}, cold "
+                  f"{cold.rounds})")
+            same_or_close(wd.result_values(), cold.result_values(), 0,
+                          f"[dist] (f1) {name} incremental against cold")
+            same_or_close(wd.result_values(), w1.result_values(), 0,
+                          f"[dist] (f1) {name} incremental world 1")
+            check(cd["overlay_fold"] == wd.rounds,
+                  f"[dist] (f1) {name} incremental: launches {cd}")
+            runs[f"dist world1 incremental {name}"] = dict(
+                counts=cd, rounds=wd.rounds, cold_rounds=cold.rounds,
+                wall_s=sd, wall_single_s=s1)
+            print(f"[dist] (f1) world 1 {spec.transport} {name} "
+                  f"query_incremental over the overlay: seeded rounds="
+                  f"{wd.rounds} (one process {w1.rounds}, cold "
+                  f"{cold.rounds}) bit-equal to cold launches={cd} "
+                  f"wall_s={sd:.4f} single_s={s1:.4f}", flush=True)
+    finally:
+        f4.dyn_overlay = f4d.dyn_overlay = None  # back to the plain graph
+    for label, name, ctor, kw in DIST_F_APPS:
+        cls = APP_REGISTRY[name]
+        rec = runs[f"dist world1 {label}"] = dist_e1_case(
+            label, f4, f4d, spec, lambda cls=cls, ctor=ctor: cls(**ctor), kw,
+            device, tag="(f1)", warm_dist=name == "common_neighbors")
+        check(rec["counts"]["gather_reduce"] > 0,
+              f"[dist] (f1) {label} launched no K1")
+    return {"runs": runs, "overlay_fold": f3}
+
+
+def dist_f3_case(f4, device) -> dict:
+    """(f3) the overlay fold on rank DIST_F_SLAB_RANK's [2, capacity]
+    slot planes of the RMAT-20 fnum-4 stack's overlay (the planes a rank
+    of a two-rank group places, `DeltaOverlay.placed(slab=...)`), folding
+    a gathered [fnum * vp] x into a [2, vp] pull result: bit-equal to its
+    plain version, the former K1 path and `scatter_reduce_` amin, and to
+    itself on a rerun; timed beside its bound, plain and library ms."""
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    fl = f4.fnum // 2
+    lo = DIST_F_SLAB_RANK * fl
+    pl = f4.dyn_overlay.placed("ie", np.float32, "", device, slab=(lo, fl))
+    n = f4.fnum * f4.vp
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def floats(*shape):
+        return torch.where(torch.rand(*shape, generator=gen) < 0.3,
+                           torch.tensor(float("inf")),
+                           torch.rand(*shape, generator=gen) * 50).to(device)
+
+    x, relaxed = floats(n), floats(fl, f4.vp)
+    out = overlay_fold_case(f"rank-{DIST_F_SLAB_RANK} slab [{fl}, "
+                            f"{pl['src'].shape[1]}] min+w", pl, x, relaxed,
+                            device, reps=30)
+    runs = [spmv.overlay_fold(relaxed.clone(), pl["src"], pl["nbr"],
+                              pl["w"], pl["mask"], x) for _ in range(2)]
+    sync(device)
+    check(torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32)),
+          "[dist] (f3) overlay_fold on the slab: a rerun differs")
+    print(f"[kernel] overlay_fold rank-{DIST_F_SLAB_RANK} slab [{fl}, "
+          f"{pl['src'].shape[1]}] (fid_lo {lo}, x [{n}] gathered): "
+          f"kernel_ms={out['ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+          f"library_ms={out['library_ms']:.4f} (scatter_reduce_ amin) "
+          f"bound_ms={out['bound_ms']:.6f} ({out['bound_by']}) slots="
+          f"{out['slots']} rows={out['rows']} max_abs_err=0 (bit-equal to "
+          f"{', '.join(out['bit_equal_to'])}; rerun bit-identical)",
+          flush=True)
+    return {f"rank{DIST_F_SLAB_RANK} slab min+w": out}
+
+
+def dist_f2_start(tmp, device) -> dict:
+    """(f2) started: two gloo ranks on the card and a one-process
+    reference, each a child running DIST_F_CHILD's `run_app` calls on
+    p2p-31 at fnum 4 (the delta loads of DIST_F_DELTA, then the six
+    apps); `dist_f2_finish` waits for them and checks."""
+    data = os.path.join(HERE, "dataset")
+    dev = torch.device(device).type
+    plain = dict(efile=os.path.join(data, "p2p-31.e"),
+                 vfile=os.path.join(data, "p2p-31.v"), fnum=PIPE_FNUM,
+                 device=dev)
+    delta = dict(plain, efile=os.path.join(data, "p2p-31.e.mutable_base"),
+                 delta_efile=os.path.join(data, "p2p-31.e.mutable_delta"))
+
+    def jobs(prefix):
+        out = {f"delta {app}": dict(delta, application=app,
+                                    out_prefix=f"{prefix}_delta_{app}",
+                                    **DIST_F_JOB_ARGS[app])
+               for app in DIST_F_DELTA}
+        out.update({app: dict(plain, application=app,
+                              out_prefix=f"{prefix}_{app}", **args)
+                    for app, args in DIST_F_JOB_ARGS.items()
+                    if app not in DIST_F_DELTA})
+        return out
+
+    port = free_port()
+    argv = [[sys.executable, "-c", DIST_F_CHILD, json.dumps(jobs(
+        os.path.join(tmp, "f2_gang" + (f"_r{r}" if r else "")))),
+        f"127.0.0.1:{port}", "2", str(r), str(PIPE_FNUM), dev]
+        for r in range(2)]
+    argv.append([sys.executable, "-c", DIST_F_CHILD,
+                 json.dumps(jobs(os.path.join(tmp, "f2_one"))), "", "1", "0",
+                 str(PIPE_FNUM), dev])
+    return {"procs": start_children(argv, {"GRAPE_DIST_BACKEND": "gloo"}),
+            "t0": time.perf_counter(), "jobs": jobs(""), "tmp": tmp}
+
+
+def dist_f2_finish(started, device) -> dict:
+    """(f2) checked: every gang job's files equal the one-process
+    child's (PageRank within 1e-4), the delta loads the p2p-31 goldens
+    (the mutable base and delta make p2p-31), rank 1 wrote nothing, both
+    ranks ran one process's rounds, every rank launched K1 in every job
+    (on the card) and no child built a kernel library."""
+    outs = wait_children(started["procs"],
+                         started["t0"] + DIST_CHILD_TIMEOUT_S)
+    children_s = time.perf_counter() - started["t0"]
+    recs = []
+    for r, (rc, so, se) in enumerate(outs):
+        line = [ln for ln in so.splitlines()
+                if ln.startswith("[dist-f-child] ")]
+        check(rc == 0 and line, f"[dist] (f2) child {r}: exit {rc}: "
+              f"{se[-3000:]}")
+        recs.append(json.loads(line[-1][len("[dist-f-child] "):]))
+    gang, one = recs[:2], recs[2]
+    check(all(not rec["built"] for rec in recs),
+          f"[dist] (f2) children built {[rec['built'] for rec in recs]}")
+    check([rec["transport"] for rec in recs]
+          == ["gloo-staged" if torch.device(device).type == "cuda"
+              else "gloo"] * 2 + ["local"],
+          f"[dist] (f2) transports {[rec['transport'] for rec in recs]}")
+    tmp, data = started["tmp"], os.path.join(HERE, "dataset")
+    runs = {}
+    for name in started["jobs"]:
+        app = name.removeprefix("delta ")
+        sfx = name.replace(" ", "_")
+        check(not os.path.exists(os.path.join(tmp, f"f2_gang_r1_{sfx}")),
+              f"[dist] (f2) {name}: rank 1 wrote result files")
+        got = read_results(os.path.join(tmp, f"f2_gang_{sfx}"), PIPE_FNUM)
+        err = compare_files(app, got, read_results(
+            os.path.join(tmp, f"f2_one_{sfx}"), PIPE_FNUM),
+            f"[dist] (f2) {name}")
+        if name.startswith("delta "):
+            check_golden(app, result_dict(got), result_dict(open(
+                os.path.join(data, GOLDENS[app][0])).read()),
+                f"[dist] (f2) {name}")
+        rs = [rec["recs"][name] for rec in gang]
+        rounds = {x["rounds"] for x in rs} | {one["recs"][name]["rounds"]}
+        check(len(rounds) == 1, f"[dist] (f2) {name}: rounds {rs} against "
+              f"{one['recs'][name]} one process")
+        k1 = [x["k1"] for x in rs]
+        check(min(k1) > 0 or torch.device(device).type != "cuda",
+              f"[dist] (f2) {name}: K1 launches {k1} a rank")
+        runs[f"dist gloo (f2) {name}"] = dict(
+            counts={"gather_reduce": sum(k1)}, rounds=rs[0]["rounds"],
+            max_rel_err=err, k1_per_rank=k1,
+            seconds=[x["seconds"] for x in rs],
+            seconds_one=one["recs"][name]["seconds"])
+        same = ("byte-equal" if app != "pagerank"
+                else f"max_rel_err={err:.3e}")
+        print(f"[dist] (f2) gloo 2 ranks p2p-31 fnum {PIPE_FNUM} {name}: "
+              f"rounds={rs[0]['rounds']} {same} to one process"
+              f"{', goldens ok' if name != app else ''} "
+              f"K1/rank={k1} run_app_s="
+              f"{[round(x['seconds'], 3) for x in rs]} (one process "
+              f"{one['recs'][name]['seconds']:.3f})", flush=True)
+    print(f"[dist] (f2) children: 3 processes, {len(started['jobs'])} "
+          f"run_app calls each, in {children_s:.1f} s (beside (b)'s)",
+          flush=True)
+    return {"runs": runs, "children_s": children_s}
+
+
 def dist_children(jobs: dict, env_extra: dict, device,
-                  kernel_free=()) -> dict:
+                  kernel_free=(), during=None) -> dict:
     """Run every job (name -> argv list of CLI flags per rank) at once as
     children of the port's CLI (`DIST_CHILD`), each under the subprocess
-    timeout; returns name -> the ranks' `[dist-child]` records.  A child
-    that fails, builds a kernel library or launches no kernel (K1, K2 or
-    K3; jobs named in `kernel_free` launch none) fails the phase."""
+    timeout; `during()`, when given, runs in this process meanwhile;
+    returns name -> the ranks' `[dist-child]` records.  A child that
+    fails, builds a kernel library or launches no kernel (K1, K2 or K3;
+    jobs named in `kernel_free` launch none) fails the phase."""
     env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1",
                GRAPE_DIST_TIMEOUT_S=DIST_TIMEOUT_S, **env_extra)
     procs = {name: [subprocess.Popen(
@@ -6280,6 +6592,15 @@ def dist_children(jobs: dict, env_extra: dict, device,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for argv in ranks] for name, ranks in jobs.items()}
     out, failed = {}, []
+    if during is not None:
+        try:
+            during()
+        except BaseException:
+            for ranks in procs.values():
+                for p in ranks:
+                    p.kill()
+                    p.communicate()
+            raise
     deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
     try:
         for name, ranks in procs.items():
@@ -6340,17 +6661,18 @@ def compare_files(app: str, got: str, want: str, what: str) -> float:
 
 
 def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
-                    rmat: bool, device) -> dict:
+                    rmat: bool, device, beside_rmat=None) -> dict:
     """CLI gangs of two ranks (`env_extra` picks the transport): on
     p2p-31 at fnum 4 for the four apps, then (`rmat`) RMAT-20 SSSP
     and PageRank at fnum 4 (hash partitioner) beside a one-process CLI
     child of each; every gang's files equal one process's (PageRank
     within 1e-4), the p2p-31 ones the goldens, and only rank 0 writes.
     With `rmat`, (e2) too: cdlp, lcc and lcc_bitmap on p2p-31 at fnum 4
-    (lcc_bitmap's K3 ring crossing ranks), and RMAT-20 cdlp and lcc
-    reading the garc cache the PageRank child wrote, beside a
-    one-process child of each; the ring shifts a query from the
-    children's `CommSpec.stats`."""
+    (lcc_bitmap's K3 ring crossing ranks), the ring shifts a query from
+    the children's `CommSpec.stats`.  The one-process references of the
+    p2p-31 gangs run in this process while the children do;
+    `beside_rmat()`, when given, starts more children beside the RMAT-20
+    gangs (its result returns under "beside")."""
     from libgrape_lite_tpu_torch import cli
 
     data = os.path.join(HERE, "dataset")
@@ -6400,8 +6722,21 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
             jobs[f"rmat{SCALE} {app} one process"] = [
                 flags + flags_r + ["--serialize", "--out_prefix",
                                    os.path.join(tmp, f"one_rmat_{app}")]]
+    def references():
+        """The one-process CLI files the p2p-31 gangs are held to."""
+        for app in DIST_CLI:
+            for fnum in DIST_FNUMS:
+                one = os.path.join(tmp, f"one_{app}_{fnum}")
+                if not os.path.exists(one):
+                    cli.main(["--application", app, *DIST_CLI[app], *p2p,
+                              "--fnum", str(fnum), "--out_prefix", one])
+        for app in e_apps:
+            cli.main(["--application", app, *DIST_E_CLI[app], *p2p,
+                      "--fnum", str(PIPE_FNUM), "--out_prefix",
+                      os.path.join(tmp, f"one_{app}_{PIPE_FNUM}")])
+
     t0 = time.perf_counter()
-    recs = dist_children(jobs, env_extra, device, free)
+    recs = dist_children(jobs, env_extra, device, free, during=references)
     children_s = time.perf_counter() - t0
     nproc = sum(len(v) for v in jobs.values())
     runs = {}
@@ -6410,9 +6745,6 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
         for fnum in DIST_FNUMS:
             name = f"p2p {app} fnum {fnum}"
             one = os.path.join(tmp, f"one_{app}_{fnum}")
-            if not os.path.exists(one):
-                cli.main(["--application", app, *DIST_CLI[app], *p2p,
-                          "--fnum", str(fnum), "--out_prefix", one])
             prefix = os.path.join(tmp, f"{tag}_{app}_{fnum}")
             check(not os.path.exists(prefix + "_r1"),
                   f"[dist] {tag} {name}: rank 1 wrote result files")
@@ -6441,26 +6773,20 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                   f"{[r['syncs'] for r in rs]} collectives="
                   f"{rs[0]['dist']['calls']} (staged "
                   f"{rs[0]['dist']['staged']})", flush=True)
-    runs.update(e2_p2p_checks(tag, e_apps, recs, tmp, p2p, device))
+    runs.update(e2_p2p_checks(tag, e_apps, recs, tmp, device))
+    beside = None
     if rmat:
         jobs = {f"rmat{SCALE} {app}": gang(
             flags + flags_r + ["--deserialize"],
             os.path.join(tmp, f"{tag}_rmat_{app}"))
             for app, flags in rmat_apps.items()}
-        for app in DIST_E_RMAT:  # (e2): read the PageRank child's cache
-            flags = ["--application", app, *DIST_E_CLI[app]] + flags_r + [
-                "--deserialize"]
-            jobs[f"rmat{SCALE} {app}"] = gang(
-                flags, os.path.join(tmp, f"{tag}_rmat_{app}"))
-            jobs[f"rmat{SCALE} {app} one process"] = [flags + [
-                "--out_prefix", os.path.join(tmp, f"one_rmat_{app}")]]
-            free.update({f"rmat{SCALE} {app}",
-                         f"rmat{SCALE} {app} one process"})
+        if beside_rmat is not None:
+            beside = beside_rmat()
         t0 = time.perf_counter()
         recs.update(dist_children(jobs, env_extra, device, free))
         children_s += time.perf_counter() - t0
         nproc += sum(len(v) for v in jobs.values())
-        for app in (*rmat_apps, *DIST_E_RMAT):
+        for app in rmat_apps:
             name = f"rmat{SCALE} {app}"
             rs, (one,) = recs[name], recs[f"{name} one process"]
             got = read_results(os.path.join(tmp, f"{tag}_rmat_{app}"),
@@ -6471,8 +6797,7 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
             check(all(r["rounds"] == one["rounds"] for r in rs),
                   f"[dist] {name}: rounds {[r['rounds'] for r in rs]} "
                   f"against {one['rounds']} one process")
-            check(("deserialize" if app in DIST_E_RMAT else "serialize")
-                  in one["load"]
+            check("serialize" in one["load"]
                   and all("deserialize" in r["load"] for r in rs),
                   f"[dist] {name}: the one process's load "
                   f"{one['load']}, the gang's {[r['load'] for r in rs]}")
@@ -6505,7 +6830,7 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
                   f"{tsv_s:.1f} s)", flush=True)
     print(f"[dist] {tag} children: {nproc} processes in {children_s:.1f} s",
           flush=True)
-    return {"runs": runs, "children_s": children_s}
+    return {"runs": runs, "children_s": children_s, "beside": beside}
 
 
 #: ring shifts of a two-rank query: lcc_bitmap shifts its N+ block once,
@@ -6513,20 +6838,16 @@ def dist_gang_phase(tag: str, env_extra: dict, transport: str, tmp: str,
 E_RING_SHIFTS = {"cdlp": 0, "lcc": 2, "lcc_bitmap": 1}
 
 
-def e2_p2p_checks(tag, apps, recs, tmp, p2p, device) -> dict:
-    """(e2)'s p2p-31 gangs against one process's CLI files (byte-equal)
-    and the goldens, with equal rounds on both ranks, the ring shifts
-    and bytes of a query and, for lcc_bitmap on the card, K3's two
-    passes a ring step on each rank."""
-    from libgrape_lite_tpu_torch import cli
-
+def e2_p2p_checks(tag, apps, recs, tmp, device) -> dict:
+    """(e2)'s p2p-31 gangs against one process's CLI files (byte-equal;
+    written meanwhile, `dist_gang_phase`) and the goldens, with equal
+    rounds on both ranks, the ring shifts and bytes of a query and, for
+    lcc_bitmap on the card, K3's two passes a ring step on each rank."""
     data = os.path.join(HERE, "dataset")
     runs = {}
     for app in apps:
         name = f"p2p {app} fnum {PIPE_FNUM}"
         one = os.path.join(tmp, f"one_{app}_{PIPE_FNUM}")
-        cli.main(["--application", app, *DIST_E_CLI[app], *p2p, "--fnum",
-                  str(PIPE_FNUM), "--out_prefix", one])
         prefix = os.path.join(tmp, f"{tag}_{app}_{PIPE_FNUM}")
         check(not os.path.exists(prefix + "_r1"),
               f"[dist] {tag} {name}: rank 1 wrote result files")
@@ -6811,47 +7132,73 @@ def wait_children(procs, deadline) -> list:
     return out
 
 
-def dist_ft_gang_phase(tmp, device) -> dict:
-    """(d) two gloo ranks on the card, at once: `fault_drill.py
-    --kill_rank --apps sssp` on p2p-31 as children; RMAT-20 SSSP at fnum
-    4 (hash partitioner, the garc cache of (b)) with kill_rank@4:1; a
-    cold one-process fnum-2 child writing the fnum-2 cache.  Then one
-    process (this one) resumes the two-rank lineage onto fnum 2,
-    bit-equal to the cold query."""
-    from libgrape_lite_tpu_torch import obs
-    from libgrape_lite_tpu_torch.ft.faults import DEFAULT_KILL_EXIT_CODE
-    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
-
-    dev = torch.device(device).type
+def dist_d_load(tmp, device) -> list:
+    """(d)'s CLI load flags: RMAT-20's TSV under the hash partitioner with
+    the phase's garc cache, SSSP from 0."""
     efile, vfile = shared_rmat_tsv(SCALE)[:2]
-    garc = os.path.join(tmp, "garc")
-    load = ["--efile", efile, "--vfile", vfile, "--partitioner_type",
-            "hash", "--serialization_prefix", garc, "--device", dev,
-            "--application", "sssp", "--sssp_source", "0"]
-    ck = os.path.join(tmp, "d_ck")
-    port = free_port()
-    t0 = time.perf_counter()
-    gang = start_children([
-        [sys.executable, "-c", DIST_CHILD, *load, "--fnum", str(PIPE_FNUM),
-         "--deserialize", "--checkpoint_every", str(DIST_FT_EVERY),
-         "--checkpoint_dir", ck, "--out_prefix",
-         os.path.join(tmp, "d_gang"), "--coordinator", f"127.0.0.1:{port}",
-         "--num_processes", "2", "--process_id", str(r)]
-        for r in range(2)], {"GRAPE_DIST_BACKEND": "gloo",
-                             "GRAPE_FT_FAULTS": f"kill_rank@{DIST_KILL_AT}:1"})
-    cold = start_children([[sys.executable, "-c", DIST_CHILD, *load,
-                            "--fnum", "2", "--serialize", "--out_prefix",
+    return ["--efile", efile, "--vfile", vfile, "--partitioner_type",
+            "hash", "--serialization_prefix", os.path.join(tmp, "garc"),
+            "--device", torch.device(device).type, "--application", "sssp",
+            "--sssp_source", "0"]
+
+
+def dist_d_start(tmp, device) -> dict:
+    """(d)'s children that need nothing of (b) or (c), started beside
+    (b)'s: the cold one-process fnum-2 child (its TSV load writes the
+    fnum-2 cache) and `fault_drill.py --kill_rank --apps sssp` on
+    p2p-31."""
+    dev = torch.device(device).type
+    cold = start_children([[sys.executable, "-c", DIST_CHILD,
+                            *dist_d_load(tmp, device), "--fnum", "2",
+                            "--serialize", "--out_prefix",
                             os.path.join(tmp, "d_cold")]], {})
     drill = start_children([[
         sys.executable, "-m", "libgrape_lite_tpu_torch.scripts.fault_drill",
         "--kill_rank", "--apps", "sssp", "--device", dev, "--workdir",
         os.path.join(tmp, "d_drill")]], {})
-    deadline = t0 + DIST_CHILD_TIMEOUT_S
-    g = wait_children(gang, deadline)
-    gang_s = time.perf_counter() - t0
-    c = wait_children(cold, deadline)
-    (rc, so, se), = wait_children(drill, deadline)
-    children_s = time.perf_counter() - t0
+    return {"cold": cold, "drill": drill, "t0": time.perf_counter()}
+
+
+def dist_d_gang_start(tmp, device) -> dict:
+    """(d)'s RMAT-20 SSSP gang at fnum 4 over two gloo ranks (hash
+    partitioner, the garc cache (b)'s one-process child wrote) with
+    kill_rank@4:1 and a sharded lineage, started beside (b)'s RMAT-20
+    gangs."""
+    ck = os.path.join(tmp, "d_ck")
+    port = free_port()
+    gang = start_children([
+        [sys.executable, "-c", DIST_CHILD, *dist_d_load(tmp, device),
+         "--fnum", str(PIPE_FNUM), "--deserialize", "--checkpoint_every",
+         str(DIST_FT_EVERY), "--checkpoint_dir", ck, "--out_prefix",
+         os.path.join(tmp, "d_gang"), "--coordinator", f"127.0.0.1:{port}",
+         "--num_processes", "2", "--process_id", str(r)]
+        for r in range(2)], {"GRAPE_DIST_BACKEND": "gloo",
+                             "GRAPE_FT_FAULTS": f"kill_rank@{DIST_KILL_AT}:1"})
+    return {"gang": gang, "t0": time.perf_counter()}
+
+
+def dist_ft_gang_phase(tmp, device, early, killed) -> dict:
+    """(d) `killed`'s RMAT-20 kill_rank@4:1 gang (`dist_d_gang_start`)
+    and `early`'s children (`dist_d_start`: `fault_drill.py --kill_rank
+    --apps sssp` on p2p-31 and a cold one-process fnum-2 child writing
+    the fnum-2 cache) waited for and checked.  Then one process (this
+    one) resumes the two-rank lineage onto fnum 2, bit-equal to the cold
+    query."""
+    from libgrape_lite_tpu_torch import obs
+    from libgrape_lite_tpu_torch.ft.faults import DEFAULT_KILL_EXIT_CODE
+    from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+
+    dev = torch.device(device).type
+    load = dist_d_load(tmp, device)
+    efile, vfile = load[1], load[3]
+    garc = os.path.join(tmp, "garc")
+    ck = os.path.join(tmp, "d_ck")
+    deadline = killed["t0"] + DIST_CHILD_TIMEOUT_S
+    g = wait_children(killed["gang"], deadline)
+    gang_s = time.perf_counter() - killed["t0"]
+    c = wait_children(early["cold"], deadline)
+    (rc, so, se), = wait_children(early["drill"], deadline)
+    children_s = time.perf_counter() - early["t0"]
     check(g[1][0] == DEFAULT_KILL_EXIT_CODE and g[0][0] not in (0, None),
           f"[dist] (d) rmat{SCALE} kill_rank@{DIST_KILL_AT}:1: rank rcs "
           f"{[x[0] for x in g]}\n{g[0][2][-2000:]}\n{g[1][2][-2000:]}")
@@ -6897,7 +7244,8 @@ def dist_ft_gang_phase(tmp, device) -> dict:
           "fnum-2 query's")
     print(f"[dist] (d) rmat{SCALE} sssp fnum {PIPE_FNUM} 2 gloo ranks "
           f"kill_rank@{DIST_KILL_AT}:1 (rank rcs {[x[0] for x in g]}, gang "
-          f"{gang_s:.1f} s): one process resumed the 2-rank lineage onto "
+          f"{gang_s:.1f} s from its start beside (b)'s rmat{SCALE} gangs "
+          f"to its wait): one process resumed the 2-rank lineage onto "
           f"fnum 2 byte-equal to the cold query (rounds {wk.rounds}, cold "
           f"{cold_rec['rounds']}, K1 {counts['gather_reduce']}); "
           f"restore_ms={restore[0]:.3f} run_app_s={wall:.3f} (the garc "
@@ -6913,9 +7261,11 @@ def dist_phases(f4, device, frag=None) -> dict:
     """[dist]: the multi-process runtime on the card -- (a) NCCL at world
     1 in this process with K1 on a rank's slab CSR, (e1) CDLP, lcc,
     PageRank strict and lcc_bitmap under the same group and (e3) K2 and
-    K3 on rank 1's slab, (b) two ranks over gloo on one card with (e2)'s
-    gangs of cdlp, lcc and lcc_bitmap, NCCL across two cards where this
-    run sees them;
+    K3 on rank 1's slab, (f1) the overlay, incremental queries and the
+    six K1 library apps under the same group and (f3) the overlay fold on
+    rank 1's slab, (b) two ranks over gloo on one card with (e2)'s gangs
+    of cdlp, lcc and lcc_bitmap and (f2)'s delta loads and six apps
+    beside them, NCCL across two cards where this run sees them;
     (c) sharded checkpoints, resume, the vote and the reshard under the
     world-1 group, (d) the kill-rank drill and an RMAT-20 kill and
     reshard with two gloo ranks (`frag`: RMAT-20 with its edge list, for
@@ -6935,9 +7285,15 @@ def dist_phases(f4, device, frag=None) -> dict:
     f2_thread.start()
     with tempfile.TemporaryDirectory(prefix="grape-dist-") as tmp:
         staged = torch.device(device).type == "cuda"
+        # (f2) and (d)'s drill and cold child beside (b)'s children
+        f2_gangs = dist_f2_start(tmp, device)
+        d_early = dist_d_start(tmp, device)
         gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
                              "gloo-staged" if staged else "gloo", tmp,
-                             rmat=True, device=device)
+                             rmat=True, device=device,
+                             beside_rmat=lambda: dist_d_gang_start(
+                                 tmp, device))
+        f2g = dist_f2_finish(f2_gangs, device)
         f2_thread.join()
         nccl = {"runs": {}}
         if staged and torch.cuda.device_count() >= 2:
@@ -6951,14 +7307,19 @@ def dist_phases(f4, device, frag=None) -> dict:
               f"{f2_s:.2f} s (beside (b)'s children)", flush=True)
         c = dist_ft_world1_phase(f4, f2, device, tmp)
         del f2
-        d = dist_ft_gang_phase(tmp, device)
+        d = dist_ft_gang_phase(tmp, device, d_early, gl["beside"])
         ft_s = time.perf_counter() - t_ft
     secs = time.perf_counter() - t_phase
     print(f"[time] dist {secs:.1f} s (state and control across ranks "
-          f"{ft_s:.1f} s)", flush=True)
+          f"{ft_s:.1f} s; (f1) {w1['f1_seconds']:.1f} s, (f2)'s children "
+          f"{f2g['children_s']:.1f} s beside (b)'s)", flush=True)
     return {"seconds": secs, "ft_seconds": ft_s,
-            "runs": {**w1["runs"], **gl["runs"], **nccl["runs"], **c, **d},
+            "f1_seconds": w1["f1_seconds"],
+            "f2_children_seconds": f2g["children_s"],
+            "runs": {**w1["runs"], **gl["runs"], **f2g["runs"],
+                     **nccl["runs"], **c, **d},
             "k1": w1["k1"], "k2": w1["k2"], "k3": w1["k3"],
+            "overlay_fold": w1["overlay_fold"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}
 
 
@@ -7434,7 +7795,11 @@ def main() -> int:
              launches_by_app={app: r["counts"]["overlay_fold"]
                               for app, r in by_app.items()
                               if r["counts"].get("overlay_fold")},
-             cases=dyn["kernel"]),
+             cases=dyn["kernel"],
+             dist_cases=dist["overlay_fold"],
+             launches_dist={app: r["counts"].get("overlay_fold", 0)
+                            for app, r in dist["runs"].items()
+                            if r["counts"].get("overlay_fold")}),
         dict(name="strict_tile", route="cuda",
              source="libgrape_lite_tpu_torch/csrc/spmv.cu",
              replaces="libgrape_lite_tpu/ops/spmv.py:128",

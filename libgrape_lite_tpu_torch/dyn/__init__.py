@@ -9,6 +9,7 @@ previous fixed point.
 
 from libgrape_lite_tpu_torch.dyn.delta import (
     DeltaBuffer,
+    DeltaDivergenceError,
     DeltaOverflowError,
     DeltaSummary,
     parse_ops_file,
@@ -28,6 +29,7 @@ from libgrape_lite_tpu_torch.dyn.repack import RepackPolicy, repack_fragment
 
 __all__ = [
     "DeltaBuffer",
+    "DeltaDivergenceError",
     "DeltaOverflowError",
     "DeltaSummary",
     "DeltaOverlay",

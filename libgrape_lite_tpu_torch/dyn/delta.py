@@ -37,6 +37,15 @@ class DeltaOverflowError(RuntimeError):
     repack."""
 
 
+class DeltaDivergenceError(RuntimeError):
+    """The ranks of a process group staged different delta ops.
+
+    Every rank applies the same delta to its copy of the host fragment
+    and places its own slab; a rank that staged other ops would compute
+    on another graph.  `DynGraph.apply` compares the ranks' digests and
+    raises this on every rank before any query sees the delta."""
+
+
 @dataclass(frozen=True)
 class DeltaSummary:
     """Hashable snapshot of a buffer's content class — what the
@@ -205,6 +214,26 @@ class DeltaBuffer:
             additive_only=self.additive_only,
             touched_oids=tuple(self.touched_oids().tolist()),
         )
+
+    def digest(self) -> np.ndarray:
+        """The staged content as four int64 words of a sha256: every op
+        list in staging order, weights included -- the summary's counts,
+        class and touched ids follow from it.  Ranks of a process group
+        that staged the same ops in the same order hold the same
+        digest (DynGraph.apply compares them)."""
+        import hashlib
+
+        def plain(x):  # numpy scalars hash as the Python values they hold
+            if isinstance(x, tuple):
+                return tuple(plain(v) for v in x)
+            return x.item() if isinstance(x, np.generic) else x
+
+        h = hashlib.sha256()
+        for name in ("add_edges", "remove_edges", "update_edges",
+                     "add_vertices", "remove_vertices"):
+            ops = [plain(op) for op in getattr(self, name)]
+            h.update(f"{name}:{ops!r};".encode())
+        return np.frombuffer(h.digest(), dtype=np.int64).copy()
 
     def clear(self) -> None:
         self.add_edges.clear()

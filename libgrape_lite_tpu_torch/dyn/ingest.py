@@ -21,6 +21,13 @@ two representations of the staged updates:
 Applies happen between queries, so a delta never lands inside a running
 query; a mid-query mutation goes through the MutationContext path
 (`collect_mutations`, worker/worker.py) instead.
+
+Under a process group every rank runs its own DynGraph over its copy of
+the host fragment and stages the same ops in the same order: an apply
+first compares the ranks' staged contents (a divergent rank raises on
+every rank), the overlay build and a repack are host work every rank
+repeats alike, and each rank places only its slab -- the overlay's
+`[fl, capacity]` rows, the rebuilt fragment's `[fl, ...]` arrays.
 """
 
 from __future__ import annotations
@@ -33,10 +40,12 @@ import torch
 
 from libgrape_lite_tpu_torch.dyn.delta import (
     DeltaBuffer,
+    DeltaDivergenceError,
     DeltaOverflowError,
     DeltaSummary,
 )
 from libgrape_lite_tpu_torch.dyn.repack import RepackPolicy, repack_fragment
+from libgrape_lite_tpu_torch.parallel.comm_spec import host_allgather
 
 _LOG = logging.getLogger(__name__)
 
@@ -167,16 +176,22 @@ class DeltaOverlay:
         return out
 
     def placed(self, direction: str, weight_dtype, prefix: Optional[str],
-               device) -> Dict[str, torch.Tensor]:
+               device, slab: Tuple[int, int] | None = None
+               ) -> Dict[str, torch.Tensor]:
         """`entries` as tensors on `device`, copied there once: an overlay
         never changes after its build, so every query between two applies
         reuses the same device arrays instead of uploading the 4 MB row
-        pointer again."""
+        pointer again.  `slab` (fid_lo, fl) places only the rows of a
+        rank's fragments, `[fl, capacity]` each (the slab rule of
+        `comm_spec.is_slab`); `nbr` stays pids into the gathered
+        `[fnum * vp]` state, which the fold reads."""
+        lo, fl = slab if slab is not None else (0, self.fnum)
         key = (direction, None if weight_dtype is None
-               else np.dtype(weight_dtype).str, prefix, str(device))
+               else np.dtype(weight_dtype).str, prefix, str(device), lo, fl)
         if key not in self._placed:
             self._placed[key] = {
-                k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                k: torch.from_numpy(np.ascontiguousarray(v[lo:lo + fl])).to(
+                    device)
                 for k, v in self.entries(direction, weight_dtype,
                                          prefix).items()}
         return dict(self._placed[key])
@@ -263,7 +278,14 @@ class DynGraph:
         """Apply the staged buffer.  Decision ladder: forced, then the
         policy ratio, then the overlay build (non-additive ops, unknown
         endpoints and slot overflow fall through to a repack).  Returns
-        {mode, pending, delta_ratio, delta, reason[, folded]}."""
+        {mode, pending, delta_ratio, delta, reason[, folded]}.
+
+        Under a process group every rank applies: the ranks' staged
+        contents are compared first (`DeltaBuffer.digest` through
+        `host_allgather`), and a rank that staged other ops than rank
+        0 makes every rank raise DeltaDivergenceError, so no query
+        computes on graphs that differ between ranks."""
+        self._check_ranks_agree()
         ratio = self.buffer.delta_ratio(self.fragment.total_edges_num)
         delta = self.buffer.summary()
         self.last_applied = delta
@@ -308,6 +330,22 @@ class DynGraph:
             "reason": "below repack threshold",
         }
 
+    def _check_ranks_agree(self) -> None:
+        """Raise on every rank when the ranks of the fragment's process
+        group staged different ops (one digest a rank, one exchange on
+        the control plane); nothing to compare without a group."""
+        spec = getattr(self.fragment, "comm_spec", None)
+        if getattr(spec, "group", None) is None:
+            return
+        rows = host_allgather(self.buffer.digest())
+        off = [r for r in range(rows.shape[0])
+               if not np.array_equal(rows[r], rows[0])]
+        if off:
+            raise DeltaDivergenceError(
+                f"rank(s) {off} of {rows.shape[0]} staged other delta ops "
+                "than rank 0 (every rank must stage the same ops in the "
+                "same order); nothing was applied")
+
     def _repack(self, why: str) -> dict:
         n = self.buffer.n_ops
         folded = repack_fragment(self.fragment, self.buffer)
@@ -338,12 +376,15 @@ def broadcast_ingest(targets, ops, *, force_repack: bool = False) -> list:
 def overlay_state_entries(frag, direction: str, weight_dtype=None,
                           prefix: Optional[str] = None) -> Dict:
     """For an app's init_state: the fragment's overlay entries, as
-    tensors on the fragment's device, or {} when no overlay is attached
-    or it holds no staged edge.  (The JAX
+    tensors on the fragment's device (the rank's `[fl, capacity]` rows
+    under a process group), or {} when no overlay is attached or it
+    holds no staged edge.  (The JAX
     package ships the empty overlay's masked slots too, to keep its
     compiled state structure; here an empty overlay would only cost an
     `overlay_fold` launch a round that folds nothing.)"""
     ov = getattr(frag, "dyn_overlay", None)
     if ov is None or ov.count == 0:
         return {}
-    return ov.placed(direction, weight_dtype, prefix, frag.device)
+    return ov.placed(direction, weight_dtype, prefix, frag.device,
+                     slab=(getattr(frag, "fid_lo", 0),
+                           getattr(frag, "fl", frag.fnum)))

@@ -23,6 +23,11 @@ they stay below 2^24 (float32) or 2^53 (float64), so `pn` equals the JAX
 package's bit for bit there; the dependencies regroup float sums and
 agree to a tolerance.  Output value: the dependency (the reference's
 `centrality_value`).
+
+Under a process group a rank holds its slab of `depth`, `pn` and
+`delta` and pulls from the gathered state; the forward loop's count of
+newly reached vertices is global (`ctx.sum`), so every rank runs the same
+levels, and the backward sweep accumulates on the slab.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from libgrape_lite_tpu_torch.app.base import (
     ParallelAppBase,
     StepContext,
+    local_frags,
     resolve_source,
 )
 from libgrape_lite_tpu_torch.ops import spmv
@@ -51,15 +57,16 @@ class BC(ParallelAppBase):
         self.levels = 0
 
     def init_state(self, frag, source=0):
-        fnum, vp, dev = frag.fnum, frag.vp, frag.device
+        vp, dev = frag.vp, frag.device
+        fl, lo = local_frags(frag)
         dt = self.dtype or (torch.float32 if torch.device(dev).type == "cuda"
                             else torch.float64)
-        depth = torch.full((fnum, vp), _SENT, dtype=torch.int32, device=dev)
-        pn = torch.zeros((fnum, vp), dtype=dt, device=dev)
+        depth = torch.full((fl, vp), _SENT, dtype=torch.int32, device=dev)
+        pn = torch.zeros((fl, vp), dtype=dt, device=dev)
         pid = resolve_source(frag, source, "BC")
-        if pid >= 0:
-            depth[pid // vp, pid % vp] = 0
-            pn[pid // vp, pid % vp] = 1.0
+        if pid >= 0 and lo <= pid // vp < lo + fl:  # the owner's slab
+            depth[pid // vp - lo, pid % vp] = 0
+            pn[pid // vp - lo, pid % vp] = 1.0
         return {"depth": depth, "pn": pn, "delta": torch.zeros_like(pn)}
 
     def peval(self, ctx: StepContext, dev, state):

@@ -14,7 +14,10 @@ in the JAX package.
 The level stays on the device: the pinned and alive counts and the
 smallest residual degree feed it there, so the round's only host read is
 the worker's vote (alive vertices remain).  Core numbers and round
-counts equal the JAX package's.
+counts equal the JAX package's.  Under a process group a rank holds
+its slab of `core` and `alive`; the counts and the smallest residual are
+global (`ctx.sum`, `ctx.min`), so `level` and the vote agree on every
+rank.
 """
 
 from __future__ import annotations
@@ -34,13 +37,15 @@ class CoreDecomposition(ParallelAppBase):
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
     replicated_keys = frozenset({"level"})
+    # the round vote is global (alive vertices remain anywhere)
+    replicated_vote = True
 
     def init_state(self, frag, **_):
         dev = frag.device
+        alive = frag.dev.inner_mask.clone()  # the rank's slab under a group
         return {
-            "core": torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
-                                device=dev),
-            "alive": torch.from_numpy(frag.host_inner_mask()).to(dev),
+            "core": torch.zeros(alive.shape, dtype=torch.int32, device=dev),
+            "alive": alive,
             "level": torch.ones((), dtype=torch.int32, device=dev),
         }
 

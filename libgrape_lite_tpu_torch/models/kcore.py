@@ -11,6 +11,10 @@ equal the JAX package's.
 
 Result: 1 for a member of the k-core, else 0 (`kcore_context.h` counts
 `result >= k`).
+
+Under a process group a rank holds its slab of `alive` and pulls from
+the gathered bitmap; the round's removed count is global (`ctx.sum`), so
+the vote is the same on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ class KCore(ParallelAppBase):
     load_strategy = LoadStrategy.kOnlyOut
     message_strategy = MessageStrategy.kSyncOnOuterVertex
     result_format = "int"
+    # the round vote is the global removed count, the same on every rank
+    replicated_vote = True
 
     def __init__(self, k: int = 0):
         self.k = k
@@ -41,8 +47,8 @@ class KCore(ParallelAppBase):
     def init_state(self, frag, k: int | None = None):
         if k is not None:
             self.k = k
-        return {"alive": torch.from_numpy(frag.host_inner_mask()).to(
-            frag.device)}
+        # this process's fragments (the rank's slab under a group)
+        return {"alive": frag.dev.inner_mask.clone()}
 
     def peval(self, ctx: StepContext, dev, state):
         # the initial cut: degree < k (kcore.h PEval)

@@ -11,7 +11,9 @@ Each round is one gather-reduce (float kind `sum`) of the state over the
 in-edge CSR.  The state's type is float32 on the card (the kernel's
 type) and float64 where the caller asks for it (the tests, against the
 JAX package's x64 state); the sums regroup relative to the JAX package,
-so ranks agree to a tolerance, not bitwise.
+so ranks agree to a tolerance, not bitwise.  Under a process group a
+rank holds its slab of `rank` and pulls from the gathered state; each
+row's sum reads the same edges in the same order as in one process.
 """
 
 from __future__ import annotations
@@ -19,7 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import BatchShuffleAppBase, StepContext
+from libgrape_lite_tpu_torch.app.base import (
+    BatchShuffleAppBase,
+    StepContext,
+    local_frags,
+)
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -29,6 +35,8 @@ class PageRankLocal(BatchShuffleAppBase):
     message_strategy = MessageStrategy.kAlongOutgoingEdgeToOuterVertex
     result_format = "float"
     replicated_keys = frozenset({"step"})
+    # the round vote is the step counter's, the same on every rank
+    replicated_vote = True
 
     def __init__(self, delta: float = 0.85, max_round: int = 10,
                  dtype: torch.dtype = torch.float32):
@@ -43,8 +51,9 @@ class PageRankLocal(BatchShuffleAppBase):
         if max_round is not None:
             self.max_round = max_round
         dev = frag.device
+        fl, _ = local_frags(frag)
         return {
-            "rank": torch.zeros((frag.fnum, frag.vp), dtype=self.dtype,
+            "rank": torch.zeros((fl, frag.vp), dtype=self.dtype,
                                 device=dev),
             "step": torch.zeros((), dtype=torch.int32, device=dev),
         }

@@ -17,7 +17,9 @@ Counterpart of `libgrape_lite_tpu/models/triangle_count.py`:
     fragment on the device and cached (`dedup_csr`), as the push CSR of
     models/auto_apps.py is.  Lane-native: a sequence of sources builds
     k one-hot lanes, and each hop pulls them all with one
-    `gather_reduce_lanes` call (serve/, `Worker.query_batch`).
+    `gather_reduce_lanes` call (serve/, `Worker.query_batch`).  Under a
+    process group each rank pulls its own rows of the deduplicated CSR
+    from the gathered vector.
 """
 
 from __future__ import annotations
@@ -69,23 +71,25 @@ _DEDUP: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def dedup_csr(frag):
-    """(indptr [fnum, vp + 1] int32, nbr [fnum, E'] int32) of frag.dev.oe
-    without repeated (src, nbr) pairs, edges in CSR order.  Built once per
-    fragment on the device and cached."""
+    """(indptr [fl, vp + 1] int32, nbr [fl, E'] int32) of frag.dev.oe
+    without repeated (src, nbr) pairs, edges in CSR order: this process's
+    rows (every fragment single-process, the rank's slab under a group),
+    columns global pids.  Built once per fragment on the device and
+    cached."""
     if frag not in _DEDUP:
         oe = frag.dev.oe
-        fnum, vp = frag.fnum, frag.vp
+        fl, vp = oe.edge_src.shape[0], frag.vp
         keep = dedup_mask(oe)
         rows = torch.where(keep, oe.edge_src, vp).long()
-        deg = torch.zeros((fnum, vp + 1), dtype=torch.int64,
+        deg = torch.zeros((fl, vp + 1), dtype=torch.int64,
                           device=keep.device)
         deg.scatter_add_(1, rows, torch.ones_like(rows))
-        indptr = torch.zeros((fnum, vp + 1), dtype=torch.int32,
+        indptr = torch.zeros((fl, vp + 1), dtype=torch.int32,
                              device=keep.device)
         indptr[:, 1:] = torch.cumsum(deg[:, :vp], dim=1)
         f, e = keep.nonzero(as_tuple=True)
         slot = torch.cumsum(keep, dim=1)[f, e] - 1
-        nbr = torch.zeros((fnum, max(1, int(deg[:, :vp].sum(1).max()))),
+        nbr = torch.zeros((fl, max(1, int(deg[:, :vp].sum(1).max()))),
                           dtype=torch.int32, device=keep.device)
         nbr[f, slot] = oe.edge_nbr[f, e]
         _DEDUP[frag] = (indptr, nbr)
@@ -101,6 +105,8 @@ class CommonNeighbors(ParallelAppBase):
     result_format = "int"
     replicated_keys = frozenset({"hop"})
     max_rounds = 8  # 2 pull rounds; the vote ends the query after hop 2
+    # the round vote is the hop counter's, the same on every rank
+    replicated_vote = True
     batch_query_key = "source"  # serve/: k sources, one pull a hop
     lane_native = True
 

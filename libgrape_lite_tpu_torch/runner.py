@@ -26,9 +26,12 @@ Several processes (JAX `runner.py:114-140`): `coordinator`,
 every rank loads the same graph and places its slab of fragments, the
 query's collectives cross ranks, and only the coordinator writes the
 result files.  Across processes (world > 1) this runs the apps of
-`DIST_APP_NAMES` (sssp, bfs, wcc, pagerank, cdlp and the two LCCs, with
-their aliases); every other app and mode raises before the load, naming
-the ROADMAP item that brings it.
+`DIST_APP_NAMES` (sssp, bfs, wcc, pagerank, cdlp, the two LCCs, kcore,
+core_decomposition, pagerank_local, khop, common_neighbors and bc, with
+their aliases), on a plain load or through `--delta_efile /
+--delta_vfile` (every rank applies the same edit to its parsed host
+arrays, `LoadGraphAndMutate`, and places its slab); every other app and
+mode raises before the load, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -245,9 +248,10 @@ DIST_APP_NAMES = tuple(sorted(name for name, cls in APP_REGISTRY.items()
 
 def check_across_processes(args: QueryArgs) -> None:
     """What a run across processes declines, before any load: each
-    raises a ValueError naming ROADMAP item 8b.4 or 8c (never a silent
-    single-process run).  Checkpoints, resumes, guards and fault plans
-    run across processes (ft/distributed.py, guard/vote.py)."""
+    raises a ValueError naming ROADMAP item 8c (never a silent
+    single-process run).  Checkpoints, resumes, guards, fault plans
+    (ft/distributed.py, guard/vote.py) and delta loads run across
+    processes."""
     from libgrape_lite_tpu_torch.fragment.partition import partition_mode
     from libgrape_lite_tpu_torch.models.lcc import LCC
     from libgrape_lite_tpu_torch.ops.spgemm_pack import lcc_backend_mode
@@ -263,8 +267,6 @@ def check_across_processes(args: QueryArgs) -> None:
             (f"GRAPE_LCC_BACKEND={backend} (the spgemm plan covers the "
              "whole stack)", "8c",
              backend == "intersect" or APP_REGISTRY.get(name) is not LCC),
-            ("--delta_efile / --delta_vfile", "8b.4",
-             not (args.delta_efile or args.delta_vfile)),
             ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",
              not (args.vc or partition_mode() == "2d")),
             ("GRAPE_PIPELINE=force (the pipelined round)", "8c",

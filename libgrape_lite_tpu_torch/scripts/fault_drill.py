@@ -311,8 +311,9 @@ def postmortem_drill(args, workdir: str) -> bool:
     return True
 
 
-#: the apps of runner.DIST_APP_NAMES with IncEval rounds to kill a rank in
-#: (the LCCs finish in PEval)
+#: the apps of runner.DIST_APP_NAMES the kill-rank drill drives (the LCCs
+#: and bc finish in PEval; the K1 library apps run across ranks but the
+#: drill keeps its LDBC set)
 KILL_RANK_APPS = ("sssp", "bfs", "wcc", "pagerank", "cdlp")
 PR_RTOL = 1e-4  # the verifier's relative tolerance for PageRank
 GANG_DIST_TIMEOUT_S = 60  # a gang's GRAPE_DIST_TIMEOUT_S
@@ -641,12 +642,19 @@ def main(argv=None) -> int:
                      if args.self_heal else "sssp,pagerank,cdlp")
     apps = [a.strip() for a in args.apps.split(",") if a.strip()]
     if args.kill_rank:
+        from libgrape_lite_tpu_torch.runner import DIST_APP_NAMES
+
         off = [a for a in apps if a not in KILL_RANK_APPS]
-        if off:
+        unported = [a for a in off if a not in DIST_APP_NAMES]
+        if unported:
             print(f"fault_drill: --kill_rank runs its apps across "
-                  f"processes, which {off} do not yet (they run "
-                  f"{', '.join(KILL_RANK_APPS)}): ROADMAP Queue A item 8c",
-                  file=sys.stderr)
+                  f"processes, which {unported} do not yet: ROADMAP "
+                  "Queue A item 8c", file=sys.stderr)
+            return 2
+        if off:
+            print(f"fault_drill: --kill_rank drills "
+                  f"{', '.join(KILL_RANK_APPS)}; {off} run across "
+                  "processes but are not among its apps", file=sys.stderr)
             return 2
     workdir = args.workdir or tempfile.mkdtemp(prefix="grape-fault-drill-")
     rc = 0

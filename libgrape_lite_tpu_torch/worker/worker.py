@@ -58,7 +58,10 @@ the guard's probe is global (guard/monitor.py); and each round's hooks
 run under the breach vote (guard/vote.py), so one rank's halt -- a
 breach, an injected fault, an IO error -- halts every rank at the same
 cut, with the gang's sidecars and postmortem under one incident id
-(obs/gang.py).
+(obs/gang.py).  A query folds a staged dyn overlay's `[fl, capacity]`
+rows, and `query_incremental` seeds from a rank's previous result (on
+the slab, or gathered, migrated by oid and cut back when the layout
+changed).  Batched queries stay in one process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -561,19 +564,13 @@ class Worker:
 
     def _check_across_ranks(self) -> None:
         """What a query across processes (world > 1) runs: the superstep
-        of the `dist_apps` (SSSP, BFS, WCC, PageRank, CDLP, the LCCs),
-        with its checkpoints,
-        guards and fault plans, and no staged delta.  Anything else
-        raises, naming the ROADMAP item that brings it (never a silent
-        single-process run)."""
-        frag = self.fragment
-        world = _world(frag)
-        if world <= 1:
-            return
+        of the `dist_apps`, with its checkpoints, guards, fault plans
+        and a staged dyn overlay (each rank folds its `[fl, capacity]`
+        rows).  Any other app raises, naming the ROADMAP item that
+        brings it (never a silent single-process run)."""
+        world = _world(self.fragment)
         decline_across_ranks(world, f"the app {type(self.app).__name__}",
                              "8c", ok=type(self.app) in dist_apps())
-        decline_across_ranks(world, "a staged dyn overlay", "8b.4",
-                             ok=getattr(frag, "dyn_overlay", None) is None)
 
     def _slab_leaf(self, k: str, v) -> bool:
         """Whether carry leaf `k` (this rank's value `v`) is a slab of the
@@ -1057,14 +1054,19 @@ class Worker:
 
         `guard`, `checkpoint_every`, `checkpoint_dir` and `fault_plan`
         pass through to `query`: the seeded run is an ordinary query with
-        another starting carry."""
+        another starting carry.
+
+        Under a process group `prev_result` is this rank's result (its
+        slab).  When every vertex kept its row the fold runs on the
+        slab; when the layout changed, rows migrate by oid, which needs
+        the whole previous result: the fresh carry and `prev_result` are
+        gathered across ranks (`_whole_of`), migrated on the host, and
+        the seeded carry cut back to this rank's slab (`_slab_of`)."""
         from libgrape_lite_tpu_torch.dyn.incremental import (
             incremental_plan,
             reseed_fold,
         )
-
-        decline_across_ranks(_world(self.fragment), "incremental IncEval "
-                             "(query_incremental)", "8b.4")
+        from libgrape_lite_tpu_torch.fragment.mutation import same_layout
 
         app = self.app
         mode, reason = incremental_plan(app, delta)
@@ -1079,10 +1081,21 @@ class Worker:
         prev_frag = prev_fragment or self._result_fragment or self.fragment
         prev = {k: v for k, v in prev_result.items()
                 if k in app.inc_seed_keys}
-        self._seed_fn = lambda fresh: {
-            **fresh,
-            **reseed_fold(app, self.fragment, fresh, prev_frag, prev),
-        }
+
+        def seed(fresh: Dict) -> Dict:
+            frag = self.fragment
+            if _world(frag) <= 1 or same_layout(prev_frag, frag):
+                return {**fresh, **reseed_fold(app, frag, fresh, prev_frag,
+                                               prev)}
+            # every rank joins the gathers, in key order
+            keys = sorted(k for k in app.inc_seed_keys if k in fresh)
+            whole = self._whole_of({k: fresh[k] for k in keys})
+            whole_prev = self._whole_of({k: _place(v, frag.device)
+                                         for k, v in prev.items()})
+            seeded = reseed_fold(app, frag, whole, prev_frag, whole_prev)
+            return {**fresh, **self._slab_of(seeded, fresh)}
+
+        self._seed_fn = seed
         try:
             return self.query(max_rounds, **ft_kw, **query_args)
         finally:
@@ -1160,8 +1173,17 @@ class Worker:
         chunk loop; `chunk_hook` is its test seam (serve/batch.py)."""
         from libgrape_lite_tpu_torch.guard.config import GuardConfig
 
-        decline_across_ranks(_world(self.fragment), "batched queries "
-                             "(query_batch, serve)", "8b.4")
+        world = _world(self.fragment)
+        if world > 1:
+            raise ValueError(
+                f"batched queries (query_batch, serve) do not run across "
+                f"processes (world {world} > 1), as in the JAX package: "
+                "its batch_result_values reads a lane with "
+                "jax.device_get, which cannot read a leaf spanning "
+                "processes (libgrape_lite_tpu/worker/worker.py:1061-1064), "
+                "and its serve parser takes no --coordinator / "
+                "--num_processes / --process_id (libgrape_lite_tpu/"
+                "cli.py:133); ROADMAP, not carried over")
         self._check_batchable()
         # before the guard routing: a guarded batch refuses a stale dyn
         # view as the plain one does
@@ -1346,17 +1368,30 @@ def dist_apps() -> tuple:
     """The app classes whose superstep runs across processes (world >
     1), by exact class (a subclass declines): the edge-cut pulls of SSSP,
     BFS, WCC and PageRank (K1 or the strict tiles), CDLP's mode fold over
-    the global label universe, and the two LCCs' rings of rank blocks
-    (K3 over bitmaps, the merge pass over ELL rows)."""
+    the global label universe, the two LCCs' rings of rank blocks (K3
+    over bitmaps, the merge pass over ELL rows), and the K1 library apps
+    (KCore, CoreDecomposition, PageRankLocal, KHopNeighborhood,
+    CommonNeighbors, BC: a pull of the gathered state a round or a
+    level, their counts through `ctx.sum` / `ctx.min`)."""
+    from libgrape_lite_tpu_torch.models.bc import BC
     from libgrape_lite_tpu_torch.models.bfs import BFS
     from libgrape_lite_tpu_torch.models.cdlp import CDLP
+    from libgrape_lite_tpu_torch.models.core_decomposition import (
+        CoreDecomposition,
+    )
+    from libgrape_lite_tpu_torch.models.kcore import KCore
+    from libgrape_lite_tpu_torch.models.khop import KHopNeighborhood
     from libgrape_lite_tpu_torch.models.lcc import LCC
     from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
     from libgrape_lite_tpu_torch.models.pagerank import PageRank
+    from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
     from libgrape_lite_tpu_torch.models.sssp import SSSP
+    from libgrape_lite_tpu_torch.models.triangle_count import CommonNeighbors
     from libgrape_lite_tpu_torch.models.wcc import WCC
 
-    return (SSSP, BFS, WCC, PageRank, CDLP, LCC, LCCBeta)
+    return (SSSP, BFS, WCC, PageRank, CDLP, LCC, LCCBeta, KCore,
+            CoreDecomposition, PageRankLocal, KHopNeighborhood,
+            CommonNeighbors, BC)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:

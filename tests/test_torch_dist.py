@@ -12,9 +12,11 @@ package.
   single-process `Worker` at the same fnum -- byte for byte for sssp, bfs
   and wcc, within 1e-4 for pagerank -- in the same number of rounds,
   and pass the goldens.
-* What a gang declines raises before the load, naming ROADMAP item 8b.4
-  or 8c.  (Checkpoints, resumes, guards and fault plans run across ranks:
-  tests/test_torch_dist_ft.py.)
+* What a gang declines raises before the load, naming ROADMAP item 8c;
+  batched queries decline as not carried over (the JAX package has no
+  counterpart).  (Checkpoints, resumes, guards and fault plans run
+  across ranks: tests/test_torch_dist_ft.py; delta loads, the staged
+  overlay and incremental queries: tests/test_torch_dist_dyn*.py.)
 
 Every child runs under a subprocess timeout and the group under
 GRAPE_DIST_TIMEOUT_S, so a stuck rank fails the test instead of hanging
@@ -45,7 +47,8 @@ from libgrape_lite_tpu_torch.app.base import StepContext
 from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.ft import retry
 from libgrape_lite_tpu_torch.io import LocalIOAdaptor
-from libgrape_lite_tpu_torch.models import SSSP, CDLPOpt, KCore
+from libgrape_lite_tpu_torch.dyn import DeltaBuffer
+from libgrape_lite_tpu_torch.models import SSSP, CDLPOpt, LCCDirected
 from libgrape_lite_tpu_torch.parallel import comm_spec as cs
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
@@ -457,7 +460,7 @@ def test_gang_serialization_cache_written_once(tmp_path, graph_cache):
 DECLINES = [
     (dict(application="cdlp_opt"), {}, "8c"),
     (dict(application="lcc_directed"), {}, "8c"),
-    (dict(delta_efile="d.e"), {}, "8b.4"),
+    (dict(application="triangle_count"), {}, "8c"),
     (dict(vc=True, application="pagerank"), {}, "8c"),
     ({}, {"GRAPE_PARTITION": "2d"}, "8c"),
     ({}, {"GRAPE_PIPELINE": "force"}, "8c"),
@@ -491,13 +494,23 @@ def test_worker_declines_across_ranks(slab_frag):
     assert slab_frag.dev.ie.indptr.shape[0] == 2 and slab_frag.fl == 2
     for call, item in [
         (lambda: Worker(CDLPOpt(), slab_frag).query(max_round=3), "8c"),
-        (lambda: Worker(KCore(), slab_frag).query(), "8c"),
-        (lambda: Worker(SSSP(), slab_frag).query_batch(
-            [{"source": 6}, {"source": 7}]), "8b.4"),
-        (lambda: Worker(SSSP(), slab_frag).query_incremental({}), "8b.4"),
+        (lambda: Worker(LCCDirected(), slab_frag).query(), "8c"),
     ]:
         msg = _raised(call)
         assert f"ROADMAP item {item}" in msg, msg
+    # batched queries are not carried over: the JAX package reads no
+    # batch lane across processes and serves none
+    msg = _raised(lambda: Worker(SSSP(), slab_frag).query_batch(
+        [{"source": 6}, {"source": 7}]))
+    assert "world 2 > 1" in msg and "not carried over" in msg, msg
+    assert "jax.device_get" in msg and "cli.py:133" in msg, msg
+    # incremental queries run across ranks: past the gate, an additive
+    # delta reaches the seed, which asks for the previous result's carry
+    buf = DeltaBuffer()
+    buf.stage([("a", 6, 7, 1.0)])
+    with pytest.raises(KeyError, match="previous result has no 'dist'"):
+        Worker(SSSP(), slab_frag).query_incremental({}, buf.summary(),
+                                                    source=6)
 
 
 def test_pipeline_declines_across_ranks(slab_frag, monkeypatch):

@@ -320,7 +320,7 @@ def test_dist_app_names_follow_the_classes():
                                    if c in classes}
     assert {"cdlp", "cdlp_auto", "lcc", "lcc_auto", "lcc_beta", "lcc_opt",
             "lcc_bitmap"} <= set(DIST_APP_NAMES)
-    assert not {"cdlp_opt", "lcc_directed", "triangle_count", "kcore",
+    assert not {"cdlp_opt", "lcc_directed", "triangle_count", "wcc_opt",
                 "kclique"} & set(DIST_APP_NAMES)
 
 
