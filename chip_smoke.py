@@ -344,7 +344,23 @@ the port's own entry points:
      rank; (f3) `overlay_fold` on rank 1's [2, capacity] slot planes of
      the (f1) overlay reading the gathered x, bit-equal to its plain
      version, the former K1 path and `scatter_reduce_`, rerun
-     bit-identical, with kernel, plain, library and bound ms;
+     bit-identical, with kernel, plain, library and bound ms; (g) the
+     edge-cut variants across ranks: (g1) under (a)'s group on its
+     fragment, sssp_auto, bfs_auto, wcc_auto, pagerank_auto and cdlp_opt
+     (10 rounds each), sssp_msg, bfs_msg, sssp_delta, bfs_opt and wcc_opt
+     from 0, each bit-equal to one process with equal rounds, launches
+     and host-loop decisions (retries, buckets, push / pull rounds, the
+     settled capacity), its host syncs and collectives a round, walls
+     beside one process's; (g2) beside (b)'s children: two gloo ranks
+     and a one-process child, each running `run_app` on p2p-31 at fnum 4
+     once a class, `sssp_select` under GRAPE_SSSP_PROBE_CAP=1 (it picks
+     sssp_delta) and the --delta_efile loads of sssp_auto and
+     sssp_delta, files byte-equal (PageRank within 1e-4) and on the
+     goldens, equal rounds and decisions, K1 on every rank; (g3) K1 on
+     rank 1's [2, fnum * vp + 1] push-CSR slab of (a)'s stack reading a
+     gathered x, min+w (sssp_auto's) bit-equal and sum (pagerank_auto's)
+     within 1e-5 of each row's sum of |terms|, each rerun bit-identical,
+     with kernel, plain, library and bound ms;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -5806,6 +5822,31 @@ DIST_F_JOB_ARGS = {"sssp": {"sssp_source": 6}, "bfs": {"bfs_source": 6},
                    "common_neighbors": {"cn_source": CN_SOURCE},
                    "bc": {"bc_source": 6}}
 DIST_F_SLAB_RANK = 1  # (f3): the overlay fold on this rank's slab
+# [dist] (g): the edge-cut variants across ranks.  (g1) under (a)'s
+# one-rank group on the RMAT-20 fnum-4 fragment: (registry name, query
+# arguments), one a class
+DIST_G_APPS = (("sssp_auto", {"source": 0}), ("bfs_auto", {"source": 0}),
+               ("wcc_auto", {}), ("pagerank_auto", {"max_round": PR_ROUNDS}),
+               ("cdlp_opt", {"max_round": CDLP_ROUNDS}),
+               ("sssp_msg", {"source": 0}), ("bfs_msg", {"source": 0}),
+               ("sssp_delta", {"source": 0}), ("bfs_opt", {"source": 0}),
+               ("wcc_opt", {}))
+# (g2) two gloo ranks on the card and a one-process reference, each one
+# child running these `run_app` calls on p2p-31 at fnum 4 (QueryArgs
+# fields a job; sssp_select under GRAPE_SSSP_PROBE_CAP=1 picks
+# sssp_delta), then the delta loads of DIST_G_DELTA; each app's golden
+# family
+DIST_G_JOB_ARGS = {"sssp_auto": {"sssp_source": 6},
+                   "bfs_auto": {"bfs_source": 6}, "wcc_auto": {},
+                   "pagerank_auto": {"pr_mr": PR_ROUNDS},
+                   "cdlp_opt": {"cdlp_mr": CDLP_ROUNDS},
+                   "sssp_msg": {"sssp_source": 6},
+                   "bfs_msg": {"bfs_source": 6},
+                   "sssp_delta": {"sssp_source": 6},
+                   "bfs_opt": {"bfs_source": 6}, "wcc_opt": {},
+                   "sssp_select": {"sssp_source": 6}}
+DIST_G_DELTA = ("sssp_auto", "sssp_delta")
+DIST_G_FAMILY = {app: app.split("_")[0] for app in DIST_G_JOB_ARGS}
 
 # A child of the port's CLI: `cli.main` with the given flags, its one
 # query timed (synchronised) and its host syncs counted (CUDA's sync-debug
@@ -5873,17 +5914,19 @@ sys.exit(rc)
 """
 
 
-# A (f2) child: `run_app` for each job (name -> QueryArgs fields) on one
-# CommSpec -- a process group when the world is above 1, else one
-# process -- with the launch counts zeroed before each call and read
-# after; one `[dist-f-child]` JSON line with every job's rounds, K1
-# launches and seconds, and the kernel libraries this process built.
+# An (f2) or (g2) child: `run_app` for each job (name -> QueryArgs
+# fields) on one CommSpec -- a process group when the world is above 1,
+# else one process -- with the launch counts zeroed before each call and
+# read after; one `[dist-f-child]` JSON line with every job's rounds, K1
+# launches, seconds, host-loop decisions and app class, and the kernel
+# libraries this process built.
 DIST_F_CHILD = r"""
 import json, sys, time
 import torch
 from libgrape_lite_tpu_torch.ops import _build, spmv
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
+from libgrape_lite_tpu_torch.worker.worker import host_loop_stats
 
 jobs, coordinator = json.loads(sys.argv[1]), sys.argv[2]
 world, rank, fnum, device = (int(sys.argv[3]), int(sys.argv[4]),
@@ -5901,7 +5944,9 @@ for name, kw in jobs.items():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     recs[name] = dict(rounds=wk.rounds, k1=spmv.gather_reduce.launches,
-                      seconds=time.perf_counter() - t0)
+                      seconds=time.perf_counter() - t0,
+                      host=host_loop_stats(wk.app),
+                      app=type(wk.app).__name__)
 print("[dist-f-child] " + json.dumps(dict(
     recs=recs, built=sorted(_build.BUILD_LOG), transport=spec.transport)),
     flush=True)
@@ -6051,11 +6096,16 @@ def dist_world1_phase(f4, device) -> dict:
         f = dist_f1_phase(f4, f4d, spec, device)
         runs.update(f["runs"])
         f_s = time.perf_counter() - t_f
+        t_g = time.perf_counter()
+        runs.update(dist_g1_phase(f4, f4d, spec, device))
+        g_s = time.perf_counter() - t_g
         k1 = dist_k1_phase(f4, f4d, device)
+        k1.update(dist_g3_cases(f4, device))
     finally:
         spec.close()
     return {"runs": runs, "k1": k1, "k2": e["k2"], "k3": e["k3"],
-            "overlay_fold": f["overlay_fold"], "f1_seconds": f_s}
+            "overlay_fold": f["overlay_fold"], "f1_seconds": f_s,
+            "g1_seconds": g_s}
 
 
 def bitmap_fragment4(device):
@@ -6437,6 +6487,109 @@ def dist_f1_phase(f4, f4d, spec, device) -> dict:
     return {"runs": runs, "overlay_fold": f3}
 
 
+def decisions_text(decided: dict) -> str:
+    """A host loop's decisions past its rounds, as " k=v ..." ("" for a
+    superstep app)."""
+    return "".join(f" {k}={v}" for k, v in decided.items() if k != "rounds")
+
+
+def dist_g1_case(name, frag, fragd, spec, kw, device) -> dict:
+    """One (g1) query under the world-1 group against the same query in
+    one process: bit-equal, the same rounds, launches and host-loop
+    decisions (an exchange app's retries, buckets, push / pull rounds and
+    settled capacity); the host syncs and collectives a round; the walls
+    (both fragments warmed first: their push CSRs and dest_degree)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+    from libgrape_lite_tpu_torch.worker.worker import host_loop_stats
+
+    factory = APP_REGISTRY[name]
+    run_query(frag, factory(), device, **kw)  # warm-ups
+    run_query(fragd, factory(), device, **kw)
+    reset_launch_counts()
+    one, wall_one = run_query(frag, factory(), device, **kw)
+    counts_one = launch_counts()
+    reset_launch_counts()
+    spec.reset_stats()
+    wk, wall = run_query(fragd, factory(), device, **kw)
+    counts = launch_counts()
+    stats = dict(spec.stats)
+    decided, decided_one = host_loop_stats(wk.app), host_loop_stats(one.app)
+    check(wk.rounds == one.rounds and decided == decided_one,
+          f"[dist] (g1) {name}: {wk.rounds} rounds {decided} against "
+          f"{one.rounds} {decided_one} single-process")
+    check(counts == counts_one and counts["gather_reduce"] > 0,
+          f"[dist] (g1) {name}: launches {counts} against {counts_one} "
+          "single-process")
+    same_or_close(wk.result_values(), one.result_values(), 0,
+                  f"[dist] (g1) {name} world 1")
+    syncs = host_syncs(fragd, factory, device, kw)
+    syncs_one = host_syncs(frag, factory, device, kw)
+    check(syncs == syncs_one, f"[dist] (g1) {name}: {syncs} host syncs in "
+          f"a query against {syncs_one} single-process")
+    per = max(wk.rounds, 1)
+    rec = dict(counts=counts, rounds=wk.rounds, host=decided,
+               bit_equal=True, wall_s=wall, wall_single_s=wall_one,
+               syncs=syncs, syncs_single=syncs_one,
+               syncs_per_round=syncs / per,
+               collectives_per_round=stats["calls"] / per,
+               all_gather_per_round=stats["all_gather"] / per,
+               all_to_all_per_round=stats["all_to_all"] / per,
+               bytes_per_round=stats["bytes"] / per)
+    print(f"[dist] (g1) world 1 {spec.transport} {name}: rounds="
+          f"{wk.rounds}{decisions_text(decided)} bit-equal launches="
+          f"{counts} (single-process equal) syncs={syncs} "
+          f"({rec['syncs_per_round']:.2f} a round; single {syncs_one}) "
+          f"collectives/round={rec['collectives_per_round']:.2f}"
+          f" (all_gather {rec['all_gather_per_round']:.2f}, all_to_all "
+          f"{rec['all_to_all_per_round']:.2f}) B/round="
+          f"{rec['bytes_per_round']:.0f} wall_s={wall:.4f} single_s="
+          f"{wall_one:.4f}", flush=True)
+    return rec
+
+
+def dist_g1_phase(f4, f4d, spec, device) -> dict:
+    """(g1) the edge-cut variants under the world-1 group on the RMAT-20
+    fnum-4 fragment, one query a class against one process."""
+    return {f"dist world1 {name}": dist_g1_case(name, f4, f4d, spec, kw,
+                                                device)
+            for name, kw in DIST_G_APPS}
+
+
+def dist_g3_cases(f4, device) -> dict:
+    """(g3) K1 on rank 1's [2, fnum * vp + 1] push-CSR slab of the RMAT-20
+    fnum-4 stack (the rows `push_csr` builds on rank 1 of a two-rank
+    group: destination pids, source pids as columns) reading a gathered
+    [fnum * vp] x: min+w (sssp_auto's push) and f32 sum
+    (pagerank_auto's), against the plain version, each rerun
+    bit-identical."""
+    from libgrape_lite_tpu_torch.models.auto_apps import push_csr
+    from libgrape_lite_tpu_torch.ops import spmv
+
+    lo, hi = PIPE_FNUM // 2, PIPE_FNUM
+    n = f4.fnum * f4.vp
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.rand(n, generator=gen).to(device)
+    dist = torch.where(torch.rand(n, generator=gen) < 0.3,
+                       torch.tensor(float("inf")),
+                       torch.rand(n, generator=gen) * 50).to(device)
+    out = {}
+    for label, csr, xs, kind in (
+            ("min+w", push_csr(f4, "oe", torch.float32), dist, "min"),
+            ("sum", push_csr(f4, "oe"), x, "sum")):
+        indptr, nbr, w = (None if t is None else t[lo:hi].contiguous()
+                          for t in csr)
+        out[f"rank1 push-CSR slab {label}"] = dist_k1_case(
+            f"rank-1 push-CSR slab [2, fnum*vp+1] {label}", indptr, nbr, w,
+            xs, kind, device)
+        runs = [spmv.gather_reduce(indptr, nbr, w, xs, kind)
+                for _ in range(2)]
+        sync(device)
+        check(torch.equal(runs[0].view(torch.int32),
+                          runs[1].view(torch.int32)),
+              f"[dist] (g3) K1 push-CSR slab {label}: a rerun differs")
+    return out
+
+
 def dist_f3_case(f4, device) -> dict:
     """(f3) the overlay fold on rank DIST_F_SLAB_RANK's [2, capacity]
     slot planes of the RMAT-20 fnum-4 stack's overlay (the planes a rank
@@ -6477,48 +6630,77 @@ def dist_f3_case(f4, device) -> dict:
     return {f"rank{DIST_F_SLAB_RANK} slab min+w": out}
 
 
-def dist_f2_start(tmp, device) -> dict:
-    """(f2) started: two gloo ranks on the card and a one-process
-    reference, each a child running DIST_F_CHILD's `run_app` calls on
-    p2p-31 at fnum 4 (the delta loads of DIST_F_DELTA, then the six
-    apps); `dist_f2_finish` waits for them and checks."""
+def p2p_query_fields(device) -> tuple:
+    """(plain, delta): the QueryArgs fields of a `run_app` job on p2p-31
+    at fnum 4, and of its delta load (the mutable base and delta)."""
     data = os.path.join(HERE, "dataset")
-    dev = torch.device(device).type
     plain = dict(efile=os.path.join(data, "p2p-31.e"),
                  vfile=os.path.join(data, "p2p-31.v"), fnum=PIPE_FNUM,
-                 device=dev)
+                 device=torch.device(device).type)
     delta = dict(plain, efile=os.path.join(data, "p2p-31.e.mutable_base"),
                  delta_efile=os.path.join(data, "p2p-31.e.mutable_delta"))
+    return plain, delta
 
-    def jobs(prefix):
-        out = {f"delta {app}": dict(delta, application=app,
-                                    out_prefix=f"{prefix}_delta_{app}",
-                                    **DIST_F_JOB_ARGS[app])
-               for app in DIST_F_DELTA}
-        out.update({app: dict(plain, application=app,
-                              out_prefix=f"{prefix}_{app}", **args)
-                    for app, args in DIST_F_JOB_ARGS.items()
-                    if app not in DIST_F_DELTA})
-        return out
 
+def f2_jobs(prefix, device) -> dict:
+    """(f2)'s jobs: the delta loads of DIST_F_DELTA, then the six apps."""
+    plain, delta = p2p_query_fields(device)
+    out = {f"delta {app}": dict(delta, application=app,
+                                out_prefix=f"{prefix}_delta_{app}",
+                                **DIST_F_JOB_ARGS[app])
+           for app in DIST_F_DELTA}
+    out.update({app: dict(plain, application=app,
+                          out_prefix=f"{prefix}_{app}", **args)
+                for app, args in DIST_F_JOB_ARGS.items()
+                if app not in DIST_F_DELTA})
+    return out
+
+
+def g2_jobs(prefix, device) -> dict:
+    """(g2)'s jobs: each class once, sssp_select, then the delta loads of
+    DIST_G_DELTA."""
+    plain, delta = p2p_query_fields(device)
+    out = {app: dict(plain, application=app, out_prefix=f"{prefix}_{app}",
+                     **args) for app, args in DIST_G_JOB_ARGS.items()}
+    out.update({f"delta {app}": dict(delta, application=app,
+                                     out_prefix=f"{prefix}_delta_{app}",
+                                     **DIST_G_JOB_ARGS[app])
+                for app in DIST_G_DELTA})
+    return out
+
+
+def run_app_children_start(tag, jobs, tmp, device, env=None) -> dict:
+    """(f2) or (g2) started: two gloo ranks on the card and a one-process
+    reference, each a child running DIST_F_CHILD's `run_app` calls
+    (`jobs(prefix, device)`) on p2p-31 at fnum 4;
+    `run_app_children_finish` waits for them and checks."""
+    dev = torch.device(device).type
     port = free_port()
+    base = os.path.join(tmp, tag)
     argv = [[sys.executable, "-c", DIST_F_CHILD, json.dumps(jobs(
-        os.path.join(tmp, "f2_gang" + (f"_r{r}" if r else "")))),
+        f"{base}_gang" + (f"_r{r}" if r else ""), device)),
         f"127.0.0.1:{port}", "2", str(r), str(PIPE_FNUM), dev]
         for r in range(2)]
     argv.append([sys.executable, "-c", DIST_F_CHILD,
-                 json.dumps(jobs(os.path.join(tmp, "f2_one"))), "", "1", "0",
+                 json.dumps(jobs(f"{base}_one", device)), "", "1", "0",
                  str(PIPE_FNUM), dev])
-    return {"procs": start_children(argv, {"GRAPE_DIST_BACKEND": "gloo"}),
-            "t0": time.perf_counter(), "jobs": jobs(""), "tmp": tmp}
+    return {"procs": start_children(argv, {"GRAPE_DIST_BACKEND": "gloo",
+                                           **(env or {})}),
+            "t0": time.perf_counter(), "jobs": jobs("", device), "tmp": tmp,
+            "tag": tag}
 
 
-def dist_f2_finish(started, device) -> dict:
-    """(f2) checked: every gang job's files equal the one-process
-    child's (PageRank within 1e-4), the delta loads the p2p-31 goldens
-    (the mutable base and delta make p2p-31), rank 1 wrote nothing, both
-    ranks ran one process's rounds, every rank launched K1 in every job
-    (on the card) and no child built a kernel library."""
+def run_app_children_finish(started, device, family=None,
+                            golden_all=False) -> dict:
+    """(f2) or (g2) checked: every gang job's files equal the one-process
+    child's (the PageRanks within 1e-4), the delta loads (every job with
+    `golden_all`) the p2p-31 goldens, rank 1 wrote nothing, both ranks
+    ran one process's rounds, host-loop decisions and app class, every
+    rank launched K1 in every job (on the card) and no child built a
+    kernel library.  `family` maps an app to the golden and tolerance it
+    is held to (itself by default)."""
+    tag = started["tag"]
+    what = f"[dist] ({tag})"
     outs = wait_children(started["procs"],
                          started["t0"] + DIST_CHILD_TIMEOUT_S)
     children_s = time.perf_counter() - started["t0"]
@@ -6526,52 +6708,56 @@ def dist_f2_finish(started, device) -> dict:
     for r, (rc, so, se) in enumerate(outs):
         line = [ln for ln in so.splitlines()
                 if ln.startswith("[dist-f-child] ")]
-        check(rc == 0 and line, f"[dist] (f2) child {r}: exit {rc}: "
+        check(rc == 0 and line, f"{what} child {r}: exit {rc}: "
               f"{se[-3000:]}")
         recs.append(json.loads(line[-1][len("[dist-f-child] "):]))
     gang, one = recs[:2], recs[2]
     check(all(not rec["built"] for rec in recs),
-          f"[dist] (f2) children built {[rec['built'] for rec in recs]}")
+          f"{what} children built {[rec['built'] for rec in recs]}")
     check([rec["transport"] for rec in recs]
           == ["gloo-staged" if torch.device(device).type == "cuda"
               else "gloo"] * 2 + ["local"],
-          f"[dist] (f2) transports {[rec['transport'] for rec in recs]}")
+          f"{what} transports {[rec['transport'] for rec in recs]}")
     tmp, data = started["tmp"], os.path.join(HERE, "dataset")
     runs = {}
     for name in started["jobs"]:
         app = name.removeprefix("delta ")
+        fam = (family or {}).get(app, app)
         sfx = name.replace(" ", "_")
-        check(not os.path.exists(os.path.join(tmp, f"f2_gang_r1_{sfx}")),
-              f"[dist] (f2) {name}: rank 1 wrote result files")
-        got = read_results(os.path.join(tmp, f"f2_gang_{sfx}"), PIPE_FNUM)
-        err = compare_files(app, got, read_results(
-            os.path.join(tmp, f"f2_one_{sfx}"), PIPE_FNUM),
-            f"[dist] (f2) {name}")
-        if name.startswith("delta "):
-            check_golden(app, result_dict(got), result_dict(open(
-                os.path.join(data, GOLDENS[app][0])).read()),
-                f"[dist] (f2) {name}")
+        check(not os.path.exists(os.path.join(tmp, f"{tag}_gang_r1_{sfx}")),
+              f"{what} {name}: rank 1 wrote result files")
+        got = read_results(os.path.join(tmp, f"{tag}_gang_{sfx}"), PIPE_FNUM)
+        err = compare_files(fam, got, read_results(
+            os.path.join(tmp, f"{tag}_one_{sfx}"), PIPE_FNUM),
+            f"{what} {name}")
+        if name.startswith("delta ") or golden_all:
+            check_golden(fam, result_dict(got), result_dict(open(
+                os.path.join(data, GOLDENS[fam][0])).read()),
+                f"{what} {name}")
         rs = [rec["recs"][name] for rec in gang]
-        rounds = {x["rounds"] for x in rs} | {one["recs"][name]["rounds"]}
-        check(len(rounds) == 1, f"[dist] (f2) {name}: rounds {rs} against "
-              f"{one['recs'][name]} one process")
+        mine = one["recs"][name]
+        for key in ("rounds", "host", "app"):
+            check(all(x[key] == mine[key] for x in rs),
+                  f"{what} {name}: {key} {[x[key] for x in rs]} against "
+                  f"{mine[key]} one process")
         k1 = [x["k1"] for x in rs]
         check(min(k1) > 0 or torch.device(device).type != "cuda",
-              f"[dist] (f2) {name}: K1 launches {k1} a rank")
-        runs[f"dist gloo (f2) {name}"] = dict(
+              f"{what} {name}: K1 launches {k1} a rank")
+        runs[f"dist gloo ({tag}) {name}"] = dict(
             counts={"gather_reduce": sum(k1)}, rounds=rs[0]["rounds"],
-            max_rel_err=err, k1_per_rank=k1,
-            seconds=[x["seconds"] for x in rs],
-            seconds_one=one["recs"][name]["seconds"])
-        same = ("byte-equal" if app != "pagerank"
+            host=rs[0]["host"], app=rs[0]["app"], max_rel_err=err,
+            k1_per_rank=k1, seconds=[x["seconds"] for x in rs],
+            seconds_one=mine["seconds"])
+        same = ("byte-equal" if fam != "pagerank"
                 else f"max_rel_err={err:.3e}")
-        print(f"[dist] (f2) gloo 2 ranks p2p-31 fnum {PIPE_FNUM} {name}: "
-              f"rounds={rs[0]['rounds']} {same} to one process"
-              f"{', goldens ok' if name != app else ''} "
+        print(f"{what} gloo 2 ranks p2p-31 fnum {PIPE_FNUM} {name} "
+              f"({rs[0]['app']}): rounds={rs[0]['rounds']}"
+              f"{decisions_text(rs[0]['host'])} {same} to one process"
+              f"{', goldens ok' if name != app or golden_all else ''} "
               f"K1/rank={k1} run_app_s="
               f"{[round(x['seconds'], 3) for x in rs]} (one process "
-              f"{one['recs'][name]['seconds']:.3f})", flush=True)
-    print(f"[dist] (f2) children: 3 processes, {len(started['jobs'])} "
+              f"{mine['seconds']:.3f})", flush=True)
+    print(f"{what} children: 3 processes, {len(started['jobs'])} "
           f"run_app calls each, in {children_s:.1f} s (beside (b)'s)",
           flush=True)
     return {"runs": runs, "children_s": children_s}
@@ -7263,9 +7449,11 @@ def dist_phases(f4, device, frag=None) -> dict:
     PageRank strict and lcc_bitmap under the same group and (e3) K2 and
     K3 on rank 1's slab, (f1) the overlay, incremental queries and the
     six K1 library apps under the same group and (f3) the overlay fold on
-    rank 1's slab, (b) two ranks over gloo on one card with (e2)'s gangs
-    of cdlp, lcc and lcc_bitmap and (f2)'s delta loads and six apps
-    beside them, NCCL across two cards where this run sees them;
+    rank 1's slab, (g1) the edge-cut variants under the same group and
+    (g3) K1 on rank 1's push-CSR slab, (b) two ranks over gloo on one
+    card with (e2)'s gangs of cdlp, lcc and lcc_bitmap, (f2)'s delta
+    loads and six apps and (g2)'s variants beside them, NCCL across two
+    cards where this run sees them;
     (c) sharded checkpoints, resume, the vote and the reshard under the
     world-1 group, (d) the kill-rank drill and an RMAT-20 kill and
     reshard with two gloo ranks (`frag`: RMAT-20 with its edge list, for
@@ -7285,15 +7473,22 @@ def dist_phases(f4, device, frag=None) -> dict:
     f2_thread.start()
     with tempfile.TemporaryDirectory(prefix="grape-dist-") as tmp:
         staged = torch.device(device).type == "cuda"
-        # (f2) and (d)'s drill and cold child beside (b)'s children
-        f2_gangs = dist_f2_start(tmp, device)
+        # (f2), (g2) and (d)'s drill and cold child beside (b)'s children
+        f2_gangs = run_app_children_start("f2", f2_jobs, tmp, device)
+        g2_gangs = run_app_children_start(
+            "g2", g2_jobs, tmp, device, {"GRAPE_SSSP_PROBE_CAP": "1"})
         d_early = dist_d_start(tmp, device)
         gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
                              "gloo-staged" if staged else "gloo", tmp,
                              rmat=True, device=device,
                              beside_rmat=lambda: dist_d_gang_start(
                                  tmp, device))
-        f2g = dist_f2_finish(f2_gangs, device)
+        f2g = run_app_children_finish(f2_gangs, device)
+        g2g = run_app_children_finish(g2_gangs, device, DIST_G_FAMILY,
+                                      golden_all=True)
+        check(g2g["runs"]["dist gloo (g2) sssp_select"]["app"]
+              == "SSSPDelta", "[dist] (g2) sssp_select did not pick "
+              "sssp_delta under GRAPE_SSSP_PROBE_CAP=1")
         f2_thread.join()
         nccl = {"runs": {}}
         if staged and torch.cuda.device_count() >= 2:
@@ -7312,12 +7507,16 @@ def dist_phases(f4, device, frag=None) -> dict:
     secs = time.perf_counter() - t_phase
     print(f"[time] dist {secs:.1f} s (state and control across ranks "
           f"{ft_s:.1f} s; (f1) {w1['f1_seconds']:.1f} s, (f2)'s children "
-          f"{f2g['children_s']:.1f} s beside (b)'s)", flush=True)
+          f"{f2g['children_s']:.1f} s beside (b)'s; (g1) "
+          f"{w1['g1_seconds']:.1f} s, (g2)'s children "
+          f"{g2g['children_s']:.1f} s beside (b)'s)", flush=True)
     return {"seconds": secs, "ft_seconds": ft_s,
             "f1_seconds": w1["f1_seconds"],
             "f2_children_seconds": f2g["children_s"],
+            "g1_seconds": w1["g1_seconds"],
+            "g2_children_seconds": g2g["children_s"],
             "runs": {**w1["runs"], **gl["runs"], **f2g["runs"],
-                     **nccl["runs"], **c, **d},
+                     **g2g["runs"], **nccl["runs"], **c, **d},
             "k1": w1["k1"], "k2": w1["k2"], "k3": w1["k3"],
             "overlay_fold": w1["overlay_fold"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}

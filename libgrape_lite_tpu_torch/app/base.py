@@ -561,7 +561,8 @@ class AutoAppBase(AppBase):
     only the local compute; messaging is implicit.
 
     `propose(ctx, dev, state)` returns, per synced key, each fragment's
-    pid-indexed proposals `[fnum, fnum * vp]` (the neutral element where
+    pid-indexed proposals `[fnum, fnum * vp]` (a rank's `[fl, fnum *
+    vp]` under a process group; the neutral element where
     a fragment has nothing to say: the push of generateAutoMessages);
     `AutoParallelMessageManager.sync` folds them with the buffer's op
     (aggregateAutoMessages) and hands each fragment its slice to
@@ -590,7 +591,7 @@ class AutoAppBase(AppBase):
 
     def inceval(self, ctx: StepContext, dev, state: Dict):
         combined = AutoParallelMessageManager.sync(
-            dev, self.propose(ctx, dev, state), self.sync_buffers)
+            dev, self.propose(ctx, dev, state), self.sync_buffers, ctx)
         return self.update(ctx, dev, state, combined)
 
 

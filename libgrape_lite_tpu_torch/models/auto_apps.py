@@ -7,6 +7,9 @@ the SyncBuffer path: each fragment *pushes* its values along its
 out-edges into proposals for all `fnum * vp` pids, the proposals of all
 fragments are folded with the buffer's op (`AutoAppBase`,
 `AutoParallelMessageManager.sync`) and each fragment adopts its slice.
+Across processes a rank pushes from its slab of fragments into all
+`fnum * vp` pids, and the sync's all_to_all brings each rank the
+proposals for its own rows.
 Results equal the base apps'; the execution differs, as the reference's
 variants differ from theirs.
 
@@ -31,7 +34,11 @@ from __future__ import annotations
 
 import torch
 
-from libgrape_lite_tpu_torch.app.base import AutoAppBase, StepContext
+from libgrape_lite_tpu_torch.app.base import (
+    AutoAppBase,
+    StepContext,
+    local_frags,
+)
 from libgrape_lite_tpu_torch.fragment.edgecut import (
     device_cache,
     device_cache_filled,
@@ -46,25 +53,28 @@ _PUSH = device_cache()
 
 
 def push_csr(frag, side: str = "oe", dtype: torch.dtype | None = None):
-    """The push CSR of `frag.dev.<side>`: (indptr [fnum, fnum * vp + 1]
-    int32, nbr [fnum, Ep] int32 source pids, w [fnum, Ep] in `dtype` or
-    None without `dtype`), rows in destination pid order, each row's
-    edges in their CSR order.  Cached per (fragment, side, dtype)."""
+    """The push CSR of `frag.dev.<side>`: (indptr [fl, fnum * vp + 1]
+    int32, nbr [fl, Ep] int32 source pids, w [fl, Ep] in `dtype` or None
+    without `dtype`), rows in destination pid order, each row's edges in
+    their CSR order; `fl` is fnum single-process, the rank's slab
+    `fid_lo ..` under a process group (source pids stay global).  Cached
+    per (fragment, side, dtype)."""
     per = _PUSH.setdefault(frag, {})
     key = (side, dtype)
     if key not in per:
         csr = getattr(frag.dev, side)
         fnum, vp = frag.fnum, frag.vp
+        fl, lo = local_frags(frag)
         n = fnum * vp
         dev = csr.indptr.device
-        indptr = torch.zeros((fnum, n + 1), dtype=torch.int32, device=dev)
+        indptr = torch.zeros((fl, n + 1), dtype=torch.int32, device=dev)
         nbr = torch.zeros_like(csr.edge_nbr)
         w = (None if dtype is None else
              torch.zeros(csr.edge_nbr.shape, dtype=dtype, device=dev))
         for f, ne in enumerate(csr.indptr[:, -1].tolist()):
             dst = csr.edge_nbr[f, :ne]
             order = torch.sort(dst, stable=True).indices
-            nbr[f, :ne] = f * vp + csr.edge_src[f, :ne][order]
+            nbr[f, :ne] = (lo + f) * vp + csr.edge_src[f, :ne][order]
             if w is not None:
                 w[f, :ne] = csr.edge_w[f, :ne][order].to(dtype)
             indptr[f, 1:] = torch.cumsum(
@@ -79,11 +89,13 @@ def _push(csr, x, kind):
     return spmv.gather_reduce(indptr, nbr, w, x, kind)
 
 
-def _own_slice_min(prop, local):
+def _own_slice_min(prop, local, fid_lo: int = 0):
     """Fold each fragment's own values into its slice of its proposals
-    (a vertex always proposes its current value to itself)."""
-    fnum, vp = local.shape
-    own = prop.view(fnum, fnum, vp).diagonal(dim1=0, dim2=1)  # [vp, fnum]
+    (a vertex always proposes its current value to itself): local
+    fragment l's own slice is destination block `fid_lo + l`."""
+    fl, vp = local.shape
+    blocks = prop.view(fl, -1, vp)[:, fid_lo:fid_lo + fl]
+    own = blocks.diagonal(dim1=0, dim2=1)  # [vp, fl]
     own.copy_(torch.minimum(own, local.T))
     return prop
 
@@ -103,7 +115,7 @@ class SSSPAuto(AutoAppBase, SSSP):
     def propose(self, ctx: StepContext, dev, state):
         dist = state["dist"]
         prop = _push(self._oe, ctx.gather_state(dist), "min")
-        return {"dist": _own_slice_min(prop, dist)}
+        return {"dist": _own_slice_min(prop, dist, ctx.fid_lo)}
 
 
 class BFSAuto(AutoAppBase, BFS):
@@ -121,7 +133,7 @@ class BFSAuto(AutoAppBase, BFS):
         depth = state["depth"]
         near = _push(self._oe, ctx.gather_state(depth), "min")
         prop = torch.where(near != _SENTINEL, near + 1, near)
-        return {"depth": _own_slice_min(prop, depth)}
+        return {"depth": _own_slice_min(prop, depth, ctx.fid_lo)}
 
 
 class WCCAuto(AutoAppBase, WCC):
@@ -144,7 +156,7 @@ class WCCAuto(AutoAppBase, WCC):
         prop = _push(self._sides[0], full, "min")
         for side in self._sides[1:]:
             prop = torch.minimum(prop, _push(side, full, "min"))
-        return {"comp": _own_slice_min(prop, comp)}
+        return {"comp": _own_slice_min(prop, comp, ctx.fid_lo)}
 
 
 class PageRankAuto(AutoAppBase, PageRank):

@@ -19,7 +19,9 @@ capacity accounting of sssp_msg; a pull round takes the
 minimum depth over every in-neighbour, plus one.  Both are the same
 monotone min relaxation, so depths are exact whatever the switch points;
 the switch decides only the work.  The host reads the largest message
-count and n_f, m_f, m_u with one `.tolist()` a round.
+count and n_f, m_f, m_u with one `.tolist()` a round (`round_scalars`:
+across processes the whole graph's, through one all_gather, so every
+rank switches in the same rounds).
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import resolve_source
+from libgrape_lite_tpu_torch.app.base import make_context, resolve_source
 from libgrape_lite_tpu_torch.models.exchange_base import (
     ExchangeAppBase,
     dest_degree,
     exchange_relax,
+    round_scalars,
+    source_slab,
 )
 from libgrape_lite_tpu_torch.ops import spmv
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
@@ -53,20 +57,17 @@ class BFSOpt(ExchangeAppBase):
         self.push_rounds = 0
 
     @staticmethod
-    def _pull(dev, depth):
+    def _pull(ctx, dev, depth):
         near = spmv.gather_reduce(dev.ie.indptr, dev.ie.edge_nbr, None,
-                                  depth.reshape(-1), "min")
+                                  ctx.gather_state(depth), "min")
         return torch.where(near != _SENTINEL, near + 1, near)
 
-    def host_compute(self, frag, source=0, max_rounds: int | None = None):
-        fnum, vp, device, dev = frag.fnum, frag.vp, frag.device, frag.dev
-        depth = torch.full((fnum, vp), _SENTINEL, dtype=torch.int32,
-                           device=device)
-        frontier = torch.zeros((fnum, vp), dtype=torch.bool, device=device)
+    def host_compute(self, frag, source=0, max_rounds: int | None = None,
+                     ctx=None):
+        ctx = make_context(self, frag) if ctx is None else ctx
+        device, dev = frag.device, frag.dev
         pid = resolve_source(frag, source, "BFSOpt")
-        if pid >= 0:
-            depth[pid // vp, pid % vp] = 0
-            frontier[pid // vp, pid % vp] = True
+        depth, frontier = source_slab(frag, pid, _SENTINEL, torch.int32)
         deg = dev.out_degree.to(torch.int64)
         dest_deg = dest_degree(frag)
         total_v = frag.total_vertices_num
@@ -85,19 +86,19 @@ class BFSOpt(ExchangeAppBase):
             elif pulling and n_f < total_v // self._BETA:
                 pulling = False
             if pulling:
-                relaxed, sent = self._pull(dev, depth), torch.zeros(
+                relaxed, sent = self._pull(ctx, dev, depth), torch.zeros(
                     (), dtype=torch.int64, device=device)
             else:
                 cand = torch.where(frontier, depth + 1, _SENTINEL)
-                relaxed, sent = exchange_relax(dev, cand, frontier, dest_deg)
+                relaxed, sent = exchange_relax(dev, cand, frontier, dest_deg,
+                                               None, ctx)
             new = torch.minimum(depth, relaxed)
             new_frontier = (new < depth) & dev.inner_mask
             unvisited = dev.inner_mask & (new == _SENTINEL)
-            sent, n_f_d, m_f_d, m_u_d = torch.stack([
-                sent, new_frontier.sum(),
-                torch.where(new_frontier, deg, 0).sum(),
-                torch.where(unvisited, deg, 0).sum(),
-            ]).tolist()
+            sent, n_f_d, m_f_d, m_u_d = round_scalars(ctx, [
+                ("max", sent), ("sum", new_frontier.sum()),
+                ("sum", torch.where(new_frontier, deg, 0).sum()),
+                ("sum", torch.where(unvisited, deg, 0).sum())])
             cap = self._fit_cap(cap, sent)
             depth, frontier = new, new_frontier
             n_f, m_f, m_u = n_f_d, m_f_d, m_u_d

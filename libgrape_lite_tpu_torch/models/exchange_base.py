@@ -28,6 +28,15 @@ doubling.  So rounds, retries and the settled capacity equal the JAX
 app's, with no round thrown away.  `exchange_relax_plain` is the literal
 route: the per-edge messages through `exchange`, then a scatter-min.
 
+Across processes a rank holds the slab `[fl, vp]` of every state and
+loop mask: `exchange_relax` gathers the masked candidates into the
+`[fnum * vp]` vector its pid columns read (one all_gather a round, as
+the pull apps do), `dest_degree` is the slab's `[fl, vp, fnum]`, and
+`round_scalars` folds a round's host scalars (the messages sent: max;
+the counts: sum; the smallest pending distance: min) across ranks in one
+all_gather, so that every rank doubles its capacity, advances its
+bucket, switches direction and stops in the same rounds as one process.
+
 guard/ and ft/ reach the host loops through `_round_hooks` (JAX
 `exchange_base.py:100-160`): the worker cannot probe a loop the app runs
 itself, so `sssp_msg` and `sssp_delta` call the hooks at their round
@@ -40,7 +49,7 @@ import weakref
 
 import torch
 
-from libgrape_lite_tpu_torch.app.base import AppBase
+from libgrape_lite_tpu_torch.app.base import AppBase, local_frags
 from libgrape_lite_tpu_torch.fragment.edgecut import (
     device_cache,
     device_cache_filled,
@@ -56,40 +65,77 @@ _DEST_DEGREE = device_cache()
 
 
 def dest_degree(frag) -> torch.Tensor:
-    """[fnum, vp, fnum] int32: out-edges of each vertex into each
-    fragment, from the out-edge CSR on the device; cached per fragment."""
+    """[fl, vp, fnum] int32: out-edges of each vertex into each
+    fragment, from the out-edge CSR on the device (`fl` fnum, or the
+    rank's slab under a process group); cached per fragment."""
     if frag not in _DEST_DEGREE:
         oe, fnum, vp = frag.dev.oe, frag.fnum, frag.vp
         # pads (src vp, nbr 0) land in the overflow bin vp * fnum
         key = oe.edge_src.long() * fnum + oe.edge_nbr.long() // vp
         deg = torch.stack([torch.bincount(k, minlength=vp * fnum + 1)
                            for k in key])
-        _DEST_DEGREE[frag] = (deg[:, :vp * fnum].view(fnum, vp, fnum)
+        _DEST_DEGREE[frag] = (deg[:, :vp * fnum].view(-1, vp, fnum)
                               .to(torch.int32))
         device_cache_filled()
     return _DEST_DEGREE[frag]
 
 
 def _max_sent(valid, dest_deg) -> torch.Tensor:
-    """The most messages one fragment sends to one fragment, 0-d int64."""
+    """The most messages one local fragment sends to one fragment, 0-d
+    int64 (a rank's share: `round_scalars` takes the maximum across
+    ranks)."""
     sent = torch.where(valid.unsqueeze(-1), dest_deg, 0).sum(dim=1)
     return sent.max().to(torch.int64)
 
 
-def exchange_relax(dev, x, valid, dest_deg, w=None):
+def exchange_relax(dev, x, valid, dest_deg, w=None, ctx=None):
     """The push-relax step of the exchange apps as a masked pull (K1).
 
-    x [fnum, vp] per-vertex candidates (float32 / float64 distances or
-    int32 levels), valid [fnum, vp] the sending vertices, w the in-edge
-    weights in x's type or None.  Returns (relaxed [fnum, vp]: the
-    minimum of x[u] (+ w) over the valid in-neighbours u, the neutral
-    element (+inf, INT32_MAX) where none; the largest per-(source,
-    destination) message count, 0-d int64, which overflows a capacity
-    below it)."""
+    x [fl, vp] per-vertex candidates (float32 / float64 distances or
+    int32 levels), valid [fl, vp] the sending vertices, w the in-edge
+    weights in x's type or None; `ctx` gathers the masked candidates
+    into the [fnum * vp] vector the in-edges' pid columns read (one
+    all_gather a round across ranks; None: one process's stack).
+    Returns (relaxed [fl, vp]: the minimum of x[u] (+ w) over the valid
+    in-neighbours u, the neutral element (+inf, INT32_MAX) where none;
+    the largest per-(source, destination) message count of the local
+    fragments, 0-d int64, which overflows a capacity below it)."""
     ie = dev.ie
-    xm = torch.where(valid, x, identity("min", x.dtype)).reshape(-1)
-    relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, w, xm, "min")
+    xm = torch.where(valid, x, identity("min", x.dtype))
+    full = xm.reshape(-1) if ctx is None else ctx.gather_state(xm)
+    relaxed = spmv.gather_reduce(ie.indptr, ie.edge_nbr, w, full, "min")
     return relaxed, _max_sent(valid, dest_deg)
+
+
+def round_scalars(ctx, parts) -> list:
+    """A round's host scalars, whole-graph, in one host read: `parts` is
+    a list of (op, 0-d tensor) with op "max", "sum" or "min" over the
+    local fragments' values.  Under a process group the ranks' values
+    cross in ONE all_gather (float64: the counts stay exact to 2^53) and
+    each column folds with its op, so every rank takes the same
+    decisions in the same rounds.  Integer inputs come back as ints."""
+    v = torch.stack([t.to(torch.float64) for _, t in parts])
+    if ctx is not None and ctx.spec is not None:
+        rows = ctx.spec.all_gather_into(v.unsqueeze(0))  # [world, k]
+        folded = {"max": rows.amax(dim=0), "sum": rows.sum(dim=0),
+                  "min": rows.amin(dim=0)}
+        v = torch.stack([folded[op][i] for i, (op, _) in enumerate(parts)])
+    return [x if t.is_floating_point() else int(x)
+            for x, (_, t) in zip(v.tolist(), parts)]
+
+
+def source_slab(frag, pid: int, fill, dtype):
+    """(x, at): the [fl, vp] initial state of a one-source host loop --
+    `fill` everywhere, 0 at `pid` -- and the mask of that entry; under a
+    process group only the rank that holds pid's fragment sets it."""
+    fl, lo = local_frags(frag)
+    vp, device = frag.vp, frag.device
+    x = torch.full((fl, vp), fill, dtype=dtype, device=device)
+    at = torch.zeros((fl, vp), dtype=torch.bool, device=device)
+    if pid >= 0 and lo <= pid // vp < lo + fl:
+        x[pid // vp - lo, pid % vp] = 0
+        at[pid // vp - lo, pid % vp] = True
+    return x, at
 
 
 def exchange_relax_plain(dev, x, valid, cap: int, w_oe=None):

@@ -104,7 +104,10 @@ class KClique(AppBase):
         self.total_cliques = int(per_apex.sum())
         return {"count": torch.from_numpy(per_apex)}
 
-    def host_compute(self, frag, k: int | None = None, max_rounds: int = 0):
+    def host_compute(self, frag, k: int | None = None, max_rounds: int = 0,
+                     ctx=None):
+        # `ctx`, the worker's step context, is unused: the clique counts
+        # run in one process (across processes the gate declines them)
         from libgrape_lite_tpu_torch.models.kclique_device import (
             KClique4Device,
             KCliqueDevice,

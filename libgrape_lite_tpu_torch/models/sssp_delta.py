@@ -12,8 +12,10 @@ pushes once, with its (near-)final distance.
 Each round pushes through `exchange_relax` (a masked pull through the
 gather-reduce kernel on one device) with the capacity accounting of
 sssp_msg.  The host reads the round's largest message count, near and
-pending counts and smallest pending distance with one `.tolist()`,
-and advances the threshold in the distance type: float32 on the card
+pending counts and smallest pending distance with one `.tolist()`
+(`round_scalars`: across processes the whole graph's, through one
+all_gather, so every rank advances the same buckets in the same
+rounds), and advances the threshold in the distance type: float32 on the card
 (so the bucket sequence is float32's), float64 where the caller asks
 for the JAX package's x64 distances.  The result equals Bellman-Ford's
 fixed point.
@@ -26,11 +28,13 @@ import weakref
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import resolve_source
+from libgrape_lite_tpu_torch.app.base import make_context, resolve_source
 from libgrape_lite_tpu_torch.models.exchange_base import (
     ExchangeAppBase,
     dest_degree,
     exchange_relax,
+    round_scalars,
+    source_slab,
 )
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -71,16 +75,14 @@ class SSSPDelta(ExchangeAppBase):
         _MEAN_WEIGHT[frag] = delta
         return delta
 
-    def host_compute(self, frag, source=0, max_rounds: int | None = None):
-        fnum, vp, device = frag.fnum, frag.vp, frag.device
+    def host_compute(self, frag, source=0, max_rounds: int | None = None,
+                     ctx=None):
+        ctx = make_context(self, frag) if ctx is None else ctx
+        device = frag.device
         dt = self.dtype
         np_dt = np.dtype(_NP_DTYPE[dt])
-        dist = torch.full((fnum, vp), float("inf"), dtype=dt, device=device)
-        pending = torch.zeros((fnum, vp), dtype=torch.bool, device=device)
         pid = resolve_source(frag, source, "SSSPDelta")
-        if pid >= 0:
-            dist[pid // vp, pid % vp] = 0
-            pending[pid // vp, pid % vp] = True
+        dist, pending = source_slab(frag, pid, float("inf"), dt)
 
         delta = self._resolve_delta(frag)
         w = frag.dev.ie.edge_w.to(dt)
@@ -100,16 +102,16 @@ class SSSPDelta(ExchangeAppBase):
         while n_pend > 0 and (limit is None or self.rounds < limit):
             near = pending & (dist < torch.full((), thr, dtype=dt,
                                                 device=device))
-            relaxed, sent = exchange_relax(frag.dev, dist, near, dest_deg, w)
+            relaxed, sent = exchange_relax(frag.dev, dist, near, dest_deg, w,
+                                           ctx)
             new = torch.minimum(dist, relaxed)
             improved = (new < dist) & inner
             new_pend = (pending & ~near) | improved
-            sent, n_near, n_pend_d, min_pend = torch.stack([
-                sent.to(torch.float64), near.sum().to(torch.float64),
-                new_pend.sum().to(torch.float64),
-                torch.where(new_pend, new, float("inf")).min()
-                .to(torch.float64),
-            ]).tolist()
+            sent, n_near, n_pend_d, min_pend = round_scalars(ctx, [
+                ("max", sent), ("sum", near.sum()),
+                ("sum", new_pend.sum()),
+                ("min", torch.where(new_pend, new, float("inf")).min()
+                 .to(torch.float64))])
             cap = self._fit_cap(cap, sent)
             if n_near == 0:
                 # near set empty but work remains: advance to the bucket

@@ -12,7 +12,9 @@ discards the round and re-runs it with the capacity doubled (the
 reference's `EstimateMessageSize` role).  The pull here is exact at any
 capacity, so the round is kept and only the capacity and the retries
 grow as the JAX app's do (`ExchangeAppBase._fit_cap`).  One host read a
-round: the largest message count and the active count together.
+round: the largest message count and the active count together
+(`round_scalars`; across processes one all_gather first, so every rank
+doubles and stops in the same rounds).
 
 The result equals models/sssp.py's; rounds are the push Bellman-Ford
 rounds.
@@ -23,11 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libgrape_lite_tpu_torch.app.base import resolve_source
+from libgrape_lite_tpu_torch.app.base import make_context, resolve_source
 from libgrape_lite_tpu_torch.models.exchange_base import (
     ExchangeAppBase,
     dest_degree,
     exchange_relax,
+    round_scalars,
+    source_slab,
 )
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -38,23 +42,20 @@ class SSSPMsg(ExchangeAppBase):
     result_format = "sssp_infinity"
     needs_edata = True
 
-    def _relax(self, frag, dist, changed, dest_deg, w):
+    def _relax(self, ctx, frag, dist, changed, dest_deg, w):
         """Minimum received candidate per vertex, and the largest
         per-fragment-pair message count."""
-        return exchange_relax(frag.dev, dist, changed, dest_deg, w)
+        return exchange_relax(frag.dev, dist, changed, dest_deg, w, ctx)
 
     def _weights(self, frag, dt):
         return frag.dev.ie.edge_w.to(dt)
 
-    def host_compute(self, frag, source=0, max_rounds: int | None = None):
-        fnum, vp, dev = frag.fnum, frag.vp, frag.device
+    def host_compute(self, frag, source=0, max_rounds: int | None = None,
+                     ctx=None):
+        ctx = make_context(self, frag) if ctx is None else ctx
         dt = self.dtype
-        dist = torch.full((fnum, vp), float("inf"), dtype=dt, device=dev)
-        changed = torch.zeros((fnum, vp), dtype=torch.bool, device=dev)
         pid = resolve_source(frag, source, type(self).__name__)
-        if pid >= 0:
-            dist[pid // vp, pid % vp] = 0
-            changed[pid // vp, pid % vp] = True
+        dist, changed = source_slab(frag, pid, float("inf"), dt)
         w = self._weights(frag, dt)
         dest_deg = dest_degree(frag)
         inner = frag.dev.inner_mask
@@ -65,10 +66,12 @@ class SSSPMsg(ExchangeAppBase):
         # guard/ft hooks at round boundaries (the loop's consistent cuts)
         hooks = self._round_hooks(frag, {"dist": dist})
         while active > 0 and (limit is None or self.rounds < limit):
-            relaxed, sent = self._relax(frag, dist, changed, dest_deg, w)
+            relaxed, sent = self._relax(ctx, frag, dist, changed, dest_deg,
+                                        w)
             new = torch.minimum(dist, relaxed)
             new_changed = (new < dist) & inner
-            sent, n_active = torch.stack([sent, new_changed.sum()]).tolist()
+            sent, n_active = round_scalars(
+                ctx, [("max", sent), ("sum", new_changed.sum())])
             cap = self._fit_cap(cap, sent)
             dist, changed, active = new, new_changed, n_active
             self.rounds += 1
@@ -99,9 +102,10 @@ class BFSMsg(SSSPMsg):
     def _weights(self, frag, dt):
         return None
 
-    def _relax(self, frag, dist, changed, dest_deg, w):
+    def _relax(self, ctx, frag, dist, changed, dest_deg, w):
         # min(d) + 1 == min(d + 1): float addition is monotone, inf stays
-        relaxed, sent = exchange_relax(frag.dev, dist, changed, dest_deg)
+        relaxed, sent = exchange_relax(frag.dev, dist, changed, dest_deg,
+                                       None, ctx)
         return relaxed + 1, sent
 
     def finalize(self, frag, state):

@@ -9,7 +9,8 @@ become operations over the leading axis:
   per-fragment pid-indexed proposals `[fnum, fnum * vp]` folded over the
   fragment axis with the buffer's aggregate op, in fragment order (the
   JAX package's `pmin` / `pmax` / `psum`), each fragment keeping its own
-  slice;
+  slice; across ranks a rank's `[fl, fnum * vp]` proposals cross in one
+  all_to_all on destination blocks first;
 * point-to-point message tensors -> `AllToAllMessageManager.exchange`:
   fixed-capacity per-destination (lid, payload) buffers, the JAX
   package's stable sort by destination, rank within the group, capacity
@@ -39,17 +40,33 @@ class AutoParallelMessageManager:
 
     @classmethod
     def sync(cls, dev, proposals: Dict[str, torch.Tensor],
-             ops: Dict[str, str]) -> Dict[str, torch.Tensor]:
-        """Fold each key's `[fnum, fnum * vp]` proposals over the fragment
-        axis in fragment order with `ops[key]` (min | max | sum); return
-        each fragment's own slice, `[fnum, vp]`."""
+             ops: Dict[str, str], ctx=None) -> Dict[str, torch.Tensor]:
+        """Fold each key's `[fl, fnum * vp]` proposals over the source
+        fragments in fragment order with `ops[key]` (min | max | sum);
+        return each local fragment's own slice, `[fl, vp]`.
+
+        Single-process (`ctx` None or without a process group) `fl` is
+        fnum and the fold reads the stacked rows in place.  Under a
+        process group each rank's proposals cross ranks in one
+        `ctx.all_to_all` on destination blocks of `vp`: a rank gets, for
+        each of its fl destinations, the fnum sources' blocks in sender
+        order, and folds them in that order -- the one-process fold bit
+        for bit, sums included (no float all_reduce)."""
         out = {}
         for k, prop in proposals.items():
             fold = cls._FOLDS[ops[k]]
-            combined = prop[0]
-            for f in range(1, prop.shape[0]):
-                combined = fold(combined, prop[f])
-            out[k] = combined.view(dev.fnum, dev.vp)
+            fl, n = prop.shape
+            fnum = n // dev.vp
+            if ctx is not None and ctx.spec is not None:
+                # [fl (dst), fnum (src), vp] -> sources first
+                src = ctx.all_to_all(prop).reshape(fl, fnum, dev.vp)
+                src = src.transpose(0, 1)
+            else:
+                src = prop.view(fnum, fnum, dev.vp)  # [src, dst, vp]
+            combined = src[0]
+            for f in range(1, fnum):
+                combined = fold(combined, src[f])
+            out[k] = combined
         return out
 
 

@@ -36,7 +36,6 @@ mode raises before the load, naming the ROADMAP item that brings it.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,9 +49,6 @@ from libgrape_lite_tpu_torch.parallel.comm_spec import (
 )
 from libgrape_lite_tpu_torch.utils.memory import get_memory_stats
 from libgrape_lite_tpu_torch.worker.worker import Worker, dist_apps
-
-_LOG = logging.getLogger(__name__)
-
 
 @dataclass
 class QueryArgs:
@@ -379,7 +375,8 @@ def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:
 
         picked, reason = select_sssp_variant(
             frag, _coerce_source(args.sssp_source, args.string_id))
-        _LOG.info("sssp_select -> %s: %s", picked, reason)
+        # every rank of a gang probes the same host CSRs: the same pick
+        glog.log_info(f"sssp_select -> {picked}: {reason}")
         app = APP_REGISTRY[picked]()
     worker = Worker(app, frag)
     if args.profile and glog.vlog_level() < 1:

@@ -1105,11 +1105,15 @@ class Worker:
         """Host-driven apps (the exchange apps: capacity retries, bucket
         advances and push/pull switches decide each round on the host)
         run their own loop, under the same round limit (JAX
-        `worker.py:1208-1230`).  An app with `host_guard` probes its own
-        round boundaries (`ExchangeAppBase._round_hooks`) under this
-        query's resolved guard config, a disabled one included (so
-        guard="off" disarms an env-armed GRAPE_GUARD); other host apps
-        have no carry to guard."""
+        `worker.py:1208-1230`), on the rank's StepContext: under a
+        process group the loop holds the rank's slab and folds each
+        round's host scalars across ranks, so every rank takes the same
+        decisions; `result_values` gathers the slab result.  An app with
+        `host_guard` probes its own round boundaries
+        (`ExchangeAppBase._round_hooks`; across ranks the global probe)
+        under this query's resolved guard config, a disabled one
+        included (so guard="off" disarms an env-armed GRAPE_GUARD);
+        other host apps have no carry to guard."""
         app = self.app
         if initial_state:
             raise ValueError(f"{type(app).__name__} runs its own host loop "
@@ -1123,9 +1127,17 @@ class Worker:
         tr = obs.tracer()
         try:
             with tr.span("query", mode="host", app=type(app).__name__) as sp:
-                state = app.host_compute(self.fragment, max_rounds=mr,
-                                         **query_args)
+                state = app.host_compute(
+                    self.fragment, max_rounds=mr,
+                    ctx=make_context(app, self.fragment), **query_args)
                 self.rounds = app.rounds
+                glog.vlog(1, "host loop: %s", " ".join(
+                    f"{k}={v}" for k, v in host_loop_stats(app).items()))
+                mon = getattr(app, "_host_guard_monitor", None)
+                if mon is not None:
+                    glog.vlog(1, "guard: host loop probed %d round(s) "
+                              "(policy=%s), %d breach(es)", mon.probes,
+                              mon.config.policy, len(mon.breaches))
                 self._finish_query_obs(sp)
         finally:
             # a breach raise still surfaces the monitor (guard_report)
@@ -1364,18 +1376,44 @@ def _gather_leaf(spec, v: torch.Tensor) -> torch.Tensor:
     return spec.all_gather_into(v)
 
 
+#: the host-loop decisions an exchange app records (`host_loop_stats`)
+HOST_LOOP_DECISIONS = ("rounds", "retries", "buckets", "push_rounds",
+                   "pull_rounds", "final_capacity")
+
+
+def host_loop_stats(app) -> Dict[str, int]:
+    """The decisions of a host-driven app's last loop: its rounds,
+    capacity retries, bucket advances, push and pull rounds and settled
+    capacity (those the app keeps).  Every rank of a gang takes the same
+    ones (the `--profile` line "host loop: ...")."""
+    return {k: int(getattr(app, k)) for k in HOST_LOOP_DECISIONS
+            if hasattr(app, k)}
+
+
 def dist_apps() -> tuple:
     """The app classes whose superstep runs across processes (world >
     1), by exact class (a subclass declines): the edge-cut pulls of SSSP,
     BFS, WCC and PageRank (K1 or the strict tiles), CDLP's mode fold over
     the global label universe, the two LCCs' rings of rank blocks (K3
-    over bitmaps, the merge pass over ELL rows), and the K1 library apps
+    over bitmaps, the merge pass over ELL rows), the K1 library apps
     (KCore, CoreDecomposition, PageRankLocal, KHopNeighborhood,
     CommonNeighbors, BC: a pull of the gathered state a round or a
-    level, their counts through `ctx.sum` / `ctx.min`)."""
+    level, their counts through `ctx.sum` / `ctx.min`), and the edge-cut
+    variants: the SyncBuffer apps (a push over the slab's push CSR, the
+    proposals crossing ranks in one all_to_all), the exchange apps' host
+    loops (the masked candidates gathered a round, the round's scalars
+    folded across ranks in one all_gather), WCCOpt's pointer jump and
+    CDLPOpt's first-round K1 over the gathered state."""
+    from libgrape_lite_tpu_torch.models.auto_apps import (
+        BFSAuto,
+        PageRankAuto,
+        SSSPAuto,
+        WCCAuto,
+    )
     from libgrape_lite_tpu_torch.models.bc import BC
     from libgrape_lite_tpu_torch.models.bfs import BFS
-    from libgrape_lite_tpu_torch.models.cdlp import CDLP
+    from libgrape_lite_tpu_torch.models.bfs_opt import BFSOpt
+    from libgrape_lite_tpu_torch.models.cdlp import CDLP, CDLPOpt
     from libgrape_lite_tpu_torch.models.core_decomposition import (
         CoreDecomposition,
     )
@@ -1386,12 +1424,16 @@ def dist_apps() -> tuple:
     from libgrape_lite_tpu_torch.models.pagerank import PageRank
     from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
     from libgrape_lite_tpu_torch.models.sssp import SSSP
+    from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
+    from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
     from libgrape_lite_tpu_torch.models.triangle_count import CommonNeighbors
     from libgrape_lite_tpu_torch.models.wcc import WCC
+    from libgrape_lite_tpu_torch.models.wcc_opt import WCCOpt
 
     return (SSSP, BFS, WCC, PageRank, CDLP, LCC, LCCBeta, KCore,
             CoreDecomposition, PageRankLocal, KHopNeighborhood,
-            CommonNeighbors, BC)
+            CommonNeighbors, BC, SSSPAuto, BFSAuto, WCCAuto, PageRankAuto,
+            SSSPMsg, BFSMsg, SSSPDelta, BFSOpt, WCCOpt, CDLPOpt)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:

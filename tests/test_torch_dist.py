@@ -48,7 +48,7 @@ from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.ft import retry
 from libgrape_lite_tpu_torch.io import LocalIOAdaptor
 from libgrape_lite_tpu_torch.dyn import DeltaBuffer
-from libgrape_lite_tpu_torch.models import SSSP, CDLPOpt, LCCDirected
+from libgrape_lite_tpu_torch.models import SSSP, KClique, LCCDirected
 from libgrape_lite_tpu_torch.parallel import comm_spec as cs
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
@@ -458,7 +458,7 @@ def test_gang_serialization_cache_written_once(tmp_path, graph_cache):
 # ---- what a gang declines --------------------------------------------------
 
 DECLINES = [
-    (dict(application="cdlp_opt"), {}, "8c"),
+    (dict(application="kclique"), {}, "8c"),
     (dict(application="lcc_directed"), {}, "8c"),
     (dict(application="triangle_count"), {}, "8c"),
     (dict(vc=True, application="pagerank"), {}, "8c"),
@@ -493,7 +493,7 @@ def slab_frag():
 def test_worker_declines_across_ranks(slab_frag):
     assert slab_frag.dev.ie.indptr.shape[0] == 2 and slab_frag.fl == 2
     for call, item in [
-        (lambda: Worker(CDLPOpt(), slab_frag).query(max_round=3), "8c"),
+        (lambda: Worker(KClique(), slab_frag).query(k=3), "8c"),
         (lambda: Worker(LCCDirected(), slab_frag).query(), "8c"),
     ]:
         msg = _raised(call)

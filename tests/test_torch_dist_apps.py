@@ -320,20 +320,20 @@ def test_dist_app_names_follow_the_classes():
                                    if c in classes}
     assert {"cdlp", "cdlp_auto", "lcc", "lcc_auto", "lcc_beta", "lcc_opt",
             "lcc_bitmap"} <= set(DIST_APP_NAMES)
-    assert not {"cdlp_opt", "lcc_directed", "triangle_count", "wcc_opt",
-                "kclique"} & set(DIST_APP_NAMES)
+    assert not {"lcc_directed", "triangle_count", "kclique",
+                "pagerank_vc", "sssp_vc"} & set(DIST_APP_NAMES)
 
 
 DECLINES = [
     (dict(application="lcc_bitmap"), {"GRAPE_LCC_BACKEND": "spgemm"}),
     (dict(application="lcc_opt"), {"GRAPE_LCC_BACKEND": "auto"}),
-    (dict(application="cdlp_opt"), {}),
+    (dict(application="kclique"), {}),
     (dict(application="triangle_count"), {}),
 ]
 
 
 @pytest.mark.parametrize("flags,env", DECLINES,
-                         ids=["spgemm", "auto", "cdlp_opt", "triangle_count"])
+                         ids=["spgemm", "auto", "kclique", "triangle_count"])
 def test_still_declines_before_the_load(tmp_path, monkeypatch, flags, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
