@@ -360,7 +360,23 @@ the port's own entry points:
      rank 1's [2, fnum * vp + 1] push-CSR slab of (a)'s stack reading a
      gathered x, min+w (sssp_auto's) bit-equal and sum (pagerank_auto's)
      within 1e-5 of each row's sum of |terms|, each rerun bit-identical,
-     with kernel, plain, library and bound ms;
+     with kernel, plain, library and bound ms; (h) the counting apps
+     across ranks: (h1) under (a)'s group triangle_count on (e1)'s
+     RMAT-18 fnum-4 cut, kclique k 3 on (a)'s fragment, kclique k 4
+     and lcc_directed on RMAT-16 at fnum 4 (directed for lcc_directed)
+     and lcc_bitmap under GRAPE_LCC_BACKEND=spgemm on RMAT-14 at fnum 4,
+     each bit-equal to one process with equal K3 launches and equal
+     global counts; (h2) beside (b)'s children: two gloo ranks and a
+     one-process child, each running `run_app` on p2p-31 at fnum 4 for
+     triangle_count, lcc_directed, kclique k 3, 4, 5 and 7 (the host
+     recursion), lcc_bitmap and triangle_count under spgemm, lcc_opt
+     under auto (the three processes share one plan cache) and
+     triangle_count under `--guard halt`, files byte-equal, the lcc
+     values on the golden, equal counts, K3 on every rank where the
+     one-process run launches it; (h3) K3 at ring step 1 on rank 1 of a
+     two-rank RMAT-16 directed fnum-4 cut (the slab's NB rows against
+     rank 0's visiting OUT block), integer-equal to its plain version,
+     with kernel, plain and bound ms;
   12. the rate probe (`python -m libgrape_lite_tpu_torch.scripts.cuda_probe`,
      the JAX package's scripts/pallas_probe.py) through its own entry point
      at e_log 22 (16 MiB planes, L2-resident) and 26 (256 MiB planes, past
@@ -5847,6 +5863,35 @@ DIST_G_JOB_ARGS = {"sssp_auto": {"sssp_source": 6},
                    "sssp_select": {"sssp_source": 6}}
 DIST_G_DELTA = ("sssp_auto", "sssp_delta")
 DIST_G_FAMILY = {app: app.split("_")[0] for app in DIST_G_JOB_ARGS}
+# [dist] (h): the counting apps across ranks.  (h1) under (a)'s one-rank
+# group: kclique k 3 on its RMAT-20 fnum-4 fragment, then on RMAT-16 at
+# fnum 4 (kclique k 4's scale, and lcc_directed's on a directed cut) and
+# lcc_bitmap under spgemm on RMAT-14 at fnum 4 ([calib]'s spgemm scale:
+# its host plan takes seconds where RMAT-18's took 40.5)
+DIST_H_SPGEMM_SCALE = 14
+# (h2) two gloo ranks on the card and a one-process reference, each one
+# child running these `run_app` calls on p2p-31 at fnum 4 (QueryArgs
+# fields a job; `_env` holds a job's environment, its plan cache shared
+# by the three children)
+DIST_H_HOST_K = 7  # p2p-31's oriented D (14) is past general_cap(7) (13)
+DIST_H_JOB_ARGS = {
+    "triangle_count": {}, "lcc_directed": {"directed": True},
+    **{f"kclique k{k}": {"application": "kclique", "kclique_k": k}
+       for k in (3, 4, 5, DIST_H_HOST_K)},
+    "spgemm lcc_bitmap": {"application": "lcc_bitmap",
+                          "_env": {"GRAPE_LCC_BACKEND": "spgemm"}},
+    "spgemm triangle_count": {"application": "triangle_count",
+                              "_env": {"GRAPE_LCC_BACKEND": "spgemm"}},
+    "auto lcc_opt": {"application": "lcc_opt",
+                     "_env": {"GRAPE_LCC_BACKEND": "auto",
+                              "GRAPE_PACK_PLAN_CACHE": "{tmp}/h2_plans"}},
+    "guard triangle_count": {"application": "triangle_count",
+                             "guard": "halt"},
+}
+# the jobs that launch K3 on every rank; the golden family of each job
+# held to one (the LCCs)
+DIST_H_K3 = ("triangle_count", "lcc_directed", "guard triangle_count")
+DIST_H_FAMILY = {"spgemm lcc_bitmap": "lcc", "auto lcc_opt": "lcc"}
 
 # A child of the port's CLI: `cli.main` with the given flags, its one
 # query timed (synchronised) and its host syncs counted (CUDA's sync-debug
@@ -5921,13 +5966,15 @@ sys.exit(rc)
 # launches, seconds, host-loop decisions and app class, and the kernel
 # libraries this process built.
 DIST_F_CHILD = r"""
-import json, sys, time
+import json, os, sys, time
 import torch
-from libgrape_lite_tpu_torch.ops import _build, spmv
+from libgrape_lite_tpu_torch.ops import _build, intersect, spmv
 from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import QueryArgs, run_app
 from libgrape_lite_tpu_torch.worker.worker import host_loop_stats
 
+COUNTERS = ("global_triangles", "total_cliques", "used_device_kernel",
+            "lcc_backend")
 jobs, coordinator = json.loads(sys.argv[1]), sys.argv[2]
 world, rank, fnum, device = (int(sys.argv[3]), int(sys.argv[4]),
                              int(sys.argv[5]), sys.argv[6])
@@ -5936,17 +5983,29 @@ spec = (CommSpec.init_distributed(coordinator, world, rank, fnum=fnum,
         if world > 1 else CommSpec(fnum=fnum, device=device))
 recs = {}
 for name, kw in jobs.items():
+    env = kw.pop("_env", {})  # the job's environment, restored after it
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     spmv.reset_launch_counts()
+    intersect.reset_launch_counts()
     t0 = time.perf_counter()
     wk = run_app(QueryArgs(**kw), comm_spec=spec)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     recs[name] = dict(rounds=wk.rounds, k1=spmv.gather_reduce.launches,
+                      k3=intersect.row_and_popcount_indexed.launches,
                       seconds=time.perf_counter() - t0,
                       host=host_loop_stats(wk.app),
-                      app=type(wk.app).__name__)
+                      app=type(wk.app).__name__,
+                      counters={k: getattr(wk.app, k) for k in COUNTERS
+                                if hasattr(wk.app, k)})
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
 print("[dist-f-child] " + json.dumps(dict(
     recs=recs, built=sorted(_build.BUILD_LOG), transport=spec.transport)),
     flush=True)
@@ -6101,18 +6160,23 @@ def dist_world1_phase(f4, device) -> dict:
         g_s = time.perf_counter() - t_g
         k1 = dist_k1_phase(f4, f4d, device)
         k1.update(dist_g3_cases(f4, device))
+        t_h = time.perf_counter()
+        h = dist_h1_phase(f4, f4d, spec, device)
+        runs.update(h["runs"])
+        h_s = time.perf_counter() - t_h
     finally:
         spec.close()
-    return {"runs": runs, "k1": k1, "k2": e["k2"], "k3": e["k3"],
-            "overlay_fold": f["overlay_fold"], "f1_seconds": f_s,
-            "g1_seconds": g_s}
+    return {"runs": runs, "k1": k1, "k2": e["k2"],
+            "k3": {**e["k3"], **h["k3"]}, "overlay_fold": f["overlay_fold"],
+            "f1_seconds": f_s, "g1_seconds": g_s, "h1_seconds": h_s}
 
 
-def bitmap_fragment4(device):
-    """RMAT-18 (lcc_bitmap's scale; the [kernel] phase's generator and
-    weights) at fnum 4 under the segmented partitioner: four fragments of
-    2^16 vertices, vp 2^16, so each bitmap is (2^18)^2 / 8 bytes = 8 GiB
-    as at fnum 1."""
+def bitmap_fragment4(device, scale: int = BITMAP_SCALE,
+                     directed: bool = False):
+    """RMAT-18 (lcc_bitmap's scale, or `scale`; the [kernel] phase's
+    generator and weights) at fnum 4 under the segmented partitioner:
+    four fragments of 2^16 vertices, vp 2^16, so each bitmap is (2^18)^2
+    / 8 bytes = 8 GiB as at fnum 1."""
     from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
     from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
     from libgrape_lite_tpu_torch.vertex_map.partitioner import (
@@ -6120,7 +6184,7 @@ def bitmap_fragment4(device):
     )
     from libgrape_lite_tpu_torch.vertex_map.vertex_map import VertexMap
 
-    n, src, dst = rmat_edges(BITMAP_SCALE, EDGE_FACTOR)
+    n, src, dst = rmat_edges(scale, EDGE_FACTOR)
     oids = np.arange(n, dtype=np.int64)
     w = np.random.default_rng(11).uniform(0.1, 10.0, len(src)).astype(
         np.float32)
@@ -6128,18 +6192,21 @@ def bitmap_fragment4(device):
     f = ShardedEdgecutFragment.build(
         CommSpec(fnum=PIPE_FNUM, device=device),
         VertexMap.build(oids, SegmentedPartitioner(PIPE_FNUM, oids)), src,
-        dst, w, directed=False)
+        dst, w, directed=directed)
     sync(device)
     return f, time.perf_counter() - t0
 
 
 def dist_e1_case(label, frag, fragd, spec, factory, kw, device,
-                 tag: str = "(e1)", warm_dist: bool = False) -> dict:
+                 tag: str = "(e1)", warm_dist: bool = False,
+                 attrs: tuple = ()) -> dict:
     """One (e1) (or `tag`) query under the world-1 group against the same
     query in one process: bit-equal, the same rounds and the same K1 /
-    overlay fold / K2 / K3 launches; the ring shifts and collectives of
-    the query from `CommSpec.stats`.  `warm_dist` warms the group's
-    fragment too (its per-fragment caches: common_neighbors' CSR)."""
+    overlay fold / K2 / K3 launches, and the same app attributes `attrs`
+    after the result (the counting apps' global counts); the ring shifts
+    and collectives of the query from `CommSpec.stats`.  `warm_dist`
+    warms the group's fragment too (its per-fragment caches:
+    common_neighbors' CSR)."""
     run_query(frag, factory(), device, **kw)  # warm-up
     if warm_dist:
         run_query(fragd, factory(), device, **kw)
@@ -6157,8 +6224,12 @@ def dist_e1_case(label, frag, fragd, spec, factory, kw, device,
           f"against {counts_one} single-process")
     same_or_close(wk.result_values(), one.result_values(), 0,
                   f"[dist] {tag} {label} world 1")
+    got = {a: getattr(wk.app, a) for a in attrs}
+    want = {a: getattr(one.app, a) for a in attrs}
+    check(got == want, f"[dist] {tag} {label}: {got} against {want} "
+          "single-process")
     per = max(wk.rounds, 1)
-    rec = dict(counts=counts, rounds=wk.rounds, bit_equal=True,
+    rec = dict(counts=counts, rounds=wk.rounds, bit_equal=True, **got,
                wall_s=wall, wall_single_s=wall_one,
                ring_shifts=stats["ring"], ring_bytes=stats["ring_bytes"],
                collectives_per_round=stats["calls"] / per,
@@ -6168,7 +6239,8 @@ def dist_e1_case(label, frag, fragd, spec, factory, kw, device,
           f"equal) ring shifts={stats['ring']} collectives/round="
           f"{rec['collectives_per_round']:.2f} all_gather B/round="
           f"{rec['all_gather_bytes_per_round']:.0f} wall_s={wall:.4f} "
-          f"single_s={wall_one:.4f}", flush=True)
+          f"single_s={wall_one:.4f}"
+          + "".join(f" {a}={v}" for a, v in got.items()), flush=True)
     return rec
 
 
@@ -6195,6 +6267,12 @@ def dist_e1_phase(f4, f4d, spec, device) -> dict:
         device)
     check(rec["counts"]["intersect"] > 0,
           "[dist] (e1) lcc_bitmap launched no K3")
+    # (h1)'s triangle_count on the same cut, before it is dropped
+    rec = runs["dist world1 triangle_count"] = dist_e1_case(
+        "triangle_count", f18, f18d, spec, APP_REGISTRY["triangle_count"],
+        {}, device, tag="(h1)", attrs=("global_triangles",))
+    check(rec["counts"]["intersect"] > 0,
+          "[dist] (h1) triangle_count launched no K3")
     del f18d
     k2 = dist_k2_slab_case(f4, device)
     k3 = dist_k3_slab_cases(f18, device)
@@ -6202,6 +6280,97 @@ def dist_e1_phase(f4, f4d, spec, device) -> dict:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()  # the gangs' children share the card
     return {"runs": runs, "k2": k2, "k3": k3}
+
+
+def dist_h1_phase(f4, f4d, spec, device) -> dict:
+    """(h1) the counting apps under the one-rank group, each against the
+    same query in one process (bit-equal, equal K3 launches and global
+    counts): kclique k 3 on (a)'s RMAT-20 fnum-4 fragment, kclique k 4 on
+    RMAT-16 at fnum 4, lcc_directed on RMAT-16 directed at fnum 4 and
+    lcc_bitmap under GRAPE_LCC_BACKEND=spgemm on RMAT-14 at fnum 4 (the
+    two fragments' plans through one plan cache), each fragment warmed
+    first (its nested worker, its plan); then (h3) K3 at ring step 1 on
+    rank 1 of the directed cut."""
+    import tempfile
+
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    kclique = APP_REGISTRY["kclique"]
+    counters = ("total_cliques", "used_device_kernel")
+    runs = {"dist world1 kclique k3": dist_e1_case(
+        "kclique k3", f4, f4d, spec, kclique, {"k": 3}, device, tag="(h1)",
+        warm_dist=True, attrs=counters)}
+    built = {}
+    for label, scale, directed in (("rmat16", KCLIQUE4_SCALE, False),
+                                   ("rmat16 directed", DIRECTED_SCALE, True),
+                                   ("rmat14", DIST_H_SPGEMM_SCALE, False)):
+        f, secs = bitmap_fragment4(device, scale, directed)
+        built[label] = (f, dist_fragment(f, spec))
+        print(f"[dist] (h1) RMAT-{scale} fnum {PIPE_FNUM} segmented cut"
+              f"{' directed' if directed else ''} built in {secs:.2f} s "
+              f"(vp {f.vp})", flush=True)
+    f16, f16d = built.pop("rmat16")
+    runs["dist world1 kclique k4"] = dist_e1_case(
+        "kclique k4", f16, f16d, spec, kclique, {"k": 4}, device,
+        tag="(h1)", warm_dist=True, attrs=counters)
+    check(runs["dist world1 kclique k4"]["used_device_kernel"],
+          "[dist] (h1) kclique k4 left the device path")
+    del f16, f16d
+    f16, f16d = built.pop("rmat16 directed")
+    rec = runs["dist world1 lcc_directed"] = dist_e1_case(
+        "lcc_directed", f16, f16d, spec, APP_REGISTRY["lcc_directed"], {},
+        device, tag="(h1)")
+    check(rec["counts"]["intersect"] > 0,
+          "[dist] (h1) lcc_directed launched no K3")
+    k3 = dist_h3_case(f16, device)
+    del f16d
+    f14, f14d = built.pop("rmat14")
+    with tempfile.TemporaryDirectory(prefix="grape-h1-plans-") as plans, \
+            env_set(GRAPE_LCC_BACKEND="spgemm", GRAPE_PACK_PLAN_CACHE=plans):
+        runs["dist world1 spgemm lcc_bitmap"] = dist_e1_case(
+            "spgemm lcc_bitmap", f14, f14d, spec, APP_REGISTRY["lcc_bitmap"],
+            {}, device, tag="(h1)", warm_dist=True,
+            attrs=("lcc_backend",))
+    check(runs["dist world1 spgemm lcc_bitmap"]["lcc_backend"] == "spgemm",
+          "[dist] (h1) lcc_bitmap did not run the spgemm backend")
+    return {"runs": runs, "k3": k3}
+
+
+def dist_h3_case(f16, device) -> dict:
+    """(h3) K3 at ring step 1 on rank 1 of a two-rank group over the
+    RMAT-16 directed fnum-4 cut: LCCDirected's NB rows of rank 1's slab
+    against rank 0's visiting OUT block, the pairs whose v is rank 1's
+    and whose u is rank 0's -- integer-equal to its plain version.
+    Bound, time and plain time as (e3)'s."""
+    from libgrape_lite_tpu_torch.models import LCCDirected
+    from libgrape_lite_tpu_torch.ops import intersect
+    from libgrape_lite_tpu_torch.utils.timing import time_ms
+
+    nb, out_bm, (v, u) = LCCDirected().pair_operands(f16.dev)
+    rows = (PIPE_FNUM // 2) * f16.vp
+    sel = (v >= rows) & (u < rows)
+    a, ia, b, ib = nb[rows:], v[sel] - rows, out_bm[:rows], u[sel]
+    got = intersect.row_and_popcount_indexed(a, ia, b, ib)
+    want = intersect.row_and_popcount_plain(a, ia, b, ib)
+    sync(device)
+    check(torch.equal(got, want), "[dist] (h3) K3 rank-1 OUT ring step not "
+          "integer-equal to its plain version")
+    pairs, words = got.numel(), a.shape[1]
+    ms = time_ms(lambda: intersect.row_and_popcount_indexed(a, ia, b, ib),
+                 device, 5, warmup=1, batch=2)
+    plain_ms = time_ms(lambda: intersect.row_and_popcount_plain(
+        a, ia, b, ib), device, 1, warmup=0, batch=1)
+    distinct = int(torch.unique(ia).numel()) + int(torch.unique(ib).numel())
+    b_ms, b_by = bound(distinct * 4 * words + 12 * pairs, 3 * pairs * words)
+    print(f"[kernel] intersect rank-1 ring step 1 lcc_directed OUT: "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none "
+          f"bound_ms={b_ms:.4f} ({b_by}) pairs={pairs} words={words} "
+          f"distinct_rows={distinct} popcount_total={int(got.sum())} "
+          "integer-equal", flush=True)
+    return {"rank1 ring step 1 lcc_directed": dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, pairs=pairs, words=words,
+        distinct_rows=distinct, total=int(got.sum()))}
 
 
 def dist_k2_slab_case(f4, device) -> dict:
@@ -6669,10 +6838,46 @@ def g2_jobs(prefix, device) -> dict:
     return out
 
 
+def h2_jobs(prefix, device) -> dict:
+    """(h2)'s jobs: DIST_H_JOB_ARGS, the `auto` job's plan cache beside
+    the results (one directory for the three children)."""
+    plain, _ = p2p_query_fields(device)
+    out = {}
+    for name, args in DIST_H_JOB_ARGS.items():
+        args = dict(args)
+        env = {k: v.format(tmp=os.path.dirname(prefix))
+               for k, v in args.pop("_env", {}).items()}
+        out[name] = dict(plain, application=args.pop("application", name),
+                         out_prefix=f"{prefix}_{name.replace(' ', '_')}",
+                         **args, **({"_env": env} if env else {}))
+    return out
+
+
+def h2_checks(runs: dict, tmp: str) -> None:
+    """(h2)'s own checks: kclique k 3-5 on the device apps and k 7 on the
+    host recursion; the spgemm jobs on that backend; the three children
+    took one `auto` decision and left one plan file, no temporary."""
+    for k in (3, 4, 5, DIST_H_HOST_K):
+        rec = runs[f"dist gloo (h2) kclique k{k}"]
+        check(rec["counters"]["used_device_kernel"] == (k != DIST_H_HOST_K),
+              f"[dist] (h2) kclique k{k}: {rec['counters']}")
+    for job in ("spgemm lcc_bitmap", "spgemm triangle_count"):
+        check(runs[f"dist gloo (h2) {job}"]["counters"]["lcc_backend"]
+              == "spgemm", f"[dist] (h2) {job} did not run spgemm")
+    pick = runs["dist gloo (h2) auto lcc_opt"]["counters"]["lcc_backend"]
+    plans = sorted(os.listdir(os.path.join(tmp, "h2_plans"))) \
+        if os.path.isdir(os.path.join(tmp, "h2_plans")) else []
+    check(len(plans) == (pick == "spgemm")
+          and all(p.endswith(".npz") for p in plans),
+          f"[dist] (h2) auto picked {pick}; plan cache holds {plans}")
+    print(f"[dist] (h2) auto lcc_opt: {pick} on both ranks and in one "
+          f"process; plan cache {plans}", flush=True)
+
+
 def run_app_children_start(tag, jobs, tmp, device, env=None) -> dict:
-    """(f2) or (g2) started: two gloo ranks on the card and a one-process
-    reference, each a child running DIST_F_CHILD's `run_app` calls
-    (`jobs(prefix, device)`) on p2p-31 at fnum 4;
+    """(f2), (g2) or (h2) started: two gloo ranks on the card and a
+    one-process reference, each a child running DIST_F_CHILD's `run_app`
+    calls (`jobs(prefix, device)`) on p2p-31 at fnum 4;
     `run_app_children_finish` waits for them and checks."""
     dev = torch.device(device).type
     port = free_port()
@@ -6691,14 +6896,16 @@ def run_app_children_start(tag, jobs, tmp, device, env=None) -> dict:
 
 
 def run_app_children_finish(started, device, family=None,
-                            golden_all=False) -> dict:
-    """(f2) or (g2) checked: every gang job's files equal the one-process
-    child's (the PageRanks within 1e-4), the delta loads (every job with
-    `golden_all`) the p2p-31 goldens, rank 1 wrote nothing, both ranks
-    ran one process's rounds, host-loop decisions and app class, every
-    rank launched K1 in every job (on the card) and no child built a
-    kernel library.  `family` maps an app to the golden and tolerance it
-    is held to (itself by default)."""
+                            golden_all=False, kernel=None) -> dict:
+    """(f2), (g2) or (h2) checked: every gang job's files equal the
+    one-process child's (the PageRanks within 1e-4), the delta loads
+    (every job with `golden_all`, and every job `family` names) the
+    p2p-31 goldens, rank 1 wrote nothing, both ranks ran one process's
+    rounds, host-loop decisions, app class and counters (global
+    triangles, cliques, the LCC backend), every rank launched K1 in
+    every job (or the kernel `kernel(job)` names: "k1", "k3" or None) on
+    the card, and no child built a kernel library.  `family` maps an app
+    to the golden and tolerance it is held to (itself by default)."""
     tag = started["tag"]
     what = f"[dist] ({tag})"
     outs = wait_children(started["procs"],
@@ -6730,31 +6937,38 @@ def run_app_children_finish(started, device, family=None,
         err = compare_files(fam, got, read_results(
             os.path.join(tmp, f"{tag}_one_{sfx}"), PIPE_FNUM),
             f"{what} {name}")
-        if name.startswith("delta ") or golden_all:
+        golden = name.startswith("delta ") or golden_all or (
+            kernel is not None and fam != app)
+        if golden:
             check_golden(fam, result_dict(got), result_dict(open(
                 os.path.join(data, GOLDENS[fam][0])).read()),
                 f"{what} {name}")
         rs = [rec["recs"][name] for rec in gang]
         mine = one["recs"][name]
-        for key in ("rounds", "host", "app"):
+        for key in ("rounds", "host", "app", "counters"):
             check(all(x[key] == mine[key] for x in rs),
                   f"{what} {name}: {key} {[x[key] for x in rs]} against "
                   f"{mine[key]} one process")
-        k1 = [x["k1"] for x in rs]
-        check(min(k1) > 0 or torch.device(device).type != "cuda",
-              f"{what} {name}: K1 launches {k1} a rank")
+        k1, k3 = [x["k1"] for x in rs], [x["k3"] for x in rs]
+        need = "k1" if kernel is None else kernel(name)
+        if need is not None:
+            got = [x[need] for x in rs]
+            check(min(got) > 0 or torch.device(device).type != "cuda",
+                  f"{what} {name}: {need.upper()} launches {got} a rank")
         runs[f"dist gloo ({tag}) {name}"] = dict(
-            counts={"gather_reduce": sum(k1)}, rounds=rs[0]["rounds"],
-            host=rs[0]["host"], app=rs[0]["app"], max_rel_err=err,
-            k1_per_rank=k1, seconds=[x["seconds"] for x in rs],
+            counts={"gather_reduce": sum(k1), "intersect": sum(k3)},
+            rounds=rs[0]["rounds"], host=rs[0]["host"], app=rs[0]["app"],
+            counters=rs[0]["counters"], max_rel_err=err, k1_per_rank=k1,
+            k3_per_rank=k3, seconds=[x["seconds"] for x in rs],
             seconds_one=mine["seconds"])
         same = ("byte-equal" if fam != "pagerank"
                 else f"max_rel_err={err:.3e}")
         print(f"{what} gloo 2 ranks p2p-31 fnum {PIPE_FNUM} {name} "
               f"({rs[0]['app']}): rounds={rs[0]['rounds']}"
               f"{decisions_text(rs[0]['host'])} {same} to one process"
-              f"{', goldens ok' if name != app or golden_all else ''} "
-              f"K1/rank={k1} run_app_s="
+              f"{', goldens ok' if golden else ''} "
+              + "".join(f"{k}={v} " for k, v in rs[0]["counters"].items())
+              + f"K1/rank={k1} K3/rank={k3} run_app_s="
               f"{[round(x['seconds'], 3) for x in rs]} (one process "
               f"{mine['seconds']:.3f})", flush=True)
     print(f"{what} children: 3 processes, {len(started['jobs'])} "
@@ -7477,6 +7691,7 @@ def dist_phases(f4, device, frag=None) -> dict:
         f2_gangs = run_app_children_start("f2", f2_jobs, tmp, device)
         g2_gangs = run_app_children_start(
             "g2", g2_jobs, tmp, device, {"GRAPE_SSSP_PROBE_CAP": "1"})
+        h2_gangs = run_app_children_start("h2", h2_jobs, tmp, device)
         d_early = dist_d_start(tmp, device)
         gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
                              "gloo-staged" if staged else "gloo", tmp,
@@ -7489,6 +7704,10 @@ def dist_phases(f4, device, frag=None) -> dict:
         check(g2g["runs"]["dist gloo (g2) sssp_select"]["app"]
               == "SSSPDelta", "[dist] (g2) sssp_select did not pick "
               "sssp_delta under GRAPE_SSSP_PROBE_CAP=1")
+        h2g = run_app_children_finish(
+            h2_gangs, device, DIST_H_FAMILY,
+            kernel=lambda job: "k3" if job in DIST_H_K3 else None)
+        h2_checks(h2g["runs"], tmp)
         f2_thread.join()
         nccl = {"runs": {}}
         if staged and torch.cuda.device_count() >= 2:
@@ -7509,14 +7728,19 @@ def dist_phases(f4, device, frag=None) -> dict:
           f"{ft_s:.1f} s; (f1) {w1['f1_seconds']:.1f} s, (f2)'s children "
           f"{f2g['children_s']:.1f} s beside (b)'s; (g1) "
           f"{w1['g1_seconds']:.1f} s, (g2)'s children "
-          f"{g2g['children_s']:.1f} s beside (b)'s)", flush=True)
+          f"{g2g['children_s']:.1f} s beside (b)'s; (h1) + (h3) "
+          f"{w1['h1_seconds']:.1f} s, (h2)'s children "
+          f"{h2g['children_s']:.1f} s beside (b)'s)", flush=True)
     return {"seconds": secs, "ft_seconds": ft_s,
             "f1_seconds": w1["f1_seconds"],
             "f2_children_seconds": f2g["children_s"],
             "g1_seconds": w1["g1_seconds"],
             "g2_children_seconds": g2g["children_s"],
+            "h1_seconds": w1["h1_seconds"],
+            "h2_children_seconds": h2g["children_s"],
             "runs": {**w1["runs"], **gl["runs"], **f2g["runs"],
-                     **g2g["runs"], **nccl["runs"], **c, **d},
+                     **g2g["runs"], **h2g["runs"], **nccl["runs"], **c,
+                     **d},
             "k1": w1["k1"], "k2": w1["k2"], "k3": w1["k3"],
             "overlay_fold": w1["overlay_fold"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}

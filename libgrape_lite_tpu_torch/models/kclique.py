@@ -17,6 +17,12 @@ Output: per-apex counts; `total_cliques` (their sum) and
 `used_device_kernel` after a query.  The device apps run through the
 port's `Worker` on the same fragment; the oriented pairs and the k = 3
 worker are cached per fragment (weak keys).
+
+Across processes the dispatch reads the whole host CSRs every rank
+keeps, so every rank takes the same path; the nested workers run their
+collectives in the same order on every rank, and their gathered result
+is the whole `[fnum, vp]` count on every rank.  The host recursion runs
+the slab's apexes and all-gathers the counts, dividing the host work.
 """
 
 from __future__ import annotations
@@ -97,17 +103,27 @@ class KClique(AppBase):
         v, _ = _oriented_pairs(frag)
         return int(np.bincount(v).max()) if len(v) else 0
 
+    @staticmethod
+    def _count(frag, counts: np.ndarray) -> dict:
+        """The result state: the [fnum, vp] per-apex counts, whole on
+        every rank and on the fragment's device.  Across ranks it has
+        fnum rows, not a slab's fl, so the result gather passes it as it
+        is (a group of one rank gathers it from itself)."""
+        return {"count": torch.from_numpy(
+            counts.reshape(frag.fnum, frag.vp)).to(frag.device)}
+
     def _device(self, worker) -> dict:
         worker.query()
         per_apex = worker.result_values()
         self.used_device_kernel = True
         self.total_cliques = int(per_apex.sum())
-        return {"count": torch.from_numpy(per_apex)}
+        return self._count(worker.fragment, per_apex)
 
     def host_compute(self, frag, k: int | None = None, max_rounds: int = 0,
                      ctx=None):
-        # `ctx`, the worker's step context, is unused: the clique counts
-        # run in one process (across processes the gate declines them)
+        # `ctx`, the worker's step context, gathers the host recursion's
+        # slab counts across ranks (the device paths' nested workers
+        # gather their own)
         from libgrape_lite_tpu_torch.models.kclique_device import (
             KClique4Device,
             KCliqueDevice,
@@ -130,23 +146,34 @@ class KClique(AppBase):
                 * (dmax + 1) * 4 <= self._GATHER_BYTES_BUDGET):
             return self._device(Worker(KCliqueDevice(k), frag))
         self.used_device_kernel = False
-        counts = self._host_counts(frag, k)
+        spec = getattr(frag, "comm_spec", None)
+        if ctx is None or getattr(spec, "group", None) is None:
+            counts = self._host_counts(frag, k)
+        else:  # the slab's apexes, every rank's gathered
+            lo = spec.fid_lo * vp
+            own = self._host_counts(frag, k, (lo, lo + spec.fl * vp))
+            counts = ctx.gather_state(torch.from_numpy(
+                own[lo:lo + spec.fl * vp].reshape(spec.fl, vp)).to(
+                    frag.device)).cpu().numpy()
         self.total_cliques = int(counts.sum())
-        return {"count": torch.from_numpy(counts.reshape(fnum, vp))}
+        return self._count(frag, counts)
 
     @staticmethod
-    def _host_counts(frag, k: int) -> np.ndarray:
+    def _host_counts(frag, k: int, apexes: tuple | None = None) -> np.ndarray:
         """[fnum * vp] int64 per-apex counts by the numpy recursion over
-        packed bitmaps of the oriented adjacency (dense ranks)."""
+        packed bitmaps of the oriented adjacency (dense ranks); `apexes`
+        (lo, hi) counts only the apexes of that pid range."""
         fnum, vp = frag.fnum, frag.vp
+        lo, hi = (0, fnum * vp) if apexes is None else apexes
         v, u = _oriented_pairs(frag)
         counts = np.zeros(fnum * vp, dtype=np.int64)
         if k == 1:
-            for f in range(fnum):
+            for f in range(lo // vp, hi // vp):
                 counts[f * vp:f * vp + frag.inner_vertices_num(f)] = 1
             return counts
         if k == 2:
-            np.add.at(counts, v, 1)
+            own = (v >= lo) & (v < hi)
+            np.add.at(counts, v[own], 1)
             return counts
         if len(v) == 0:
             return counts
@@ -186,7 +213,7 @@ class KClique(AppBase):
 
         for apex in range(n):
             s, e = starts[apex], ends[apex]
-            if e - s < k - 1:
+            if e - s < k - 1 or not lo <= used[apex] < hi:
                 continue
             cand = np.zeros(words, np.uint64)
             np.bitwise_or.at(cand, us[s:e] // 64,

@@ -14,8 +14,13 @@ ascending order v < u < w < ..., so its count at the apex v is
 Rows are read from the stacked `[fnum * vp, D]` ELL by pid: the JAX
 package's double ring (k = 4, `ppermute` of ELL blocks) and all-gather
 (k >= 5) become these reads, so `KClique4Device` is `KCliqueDevice(4)`
-here.  Membership is a batched `torch.searchsorted`; there is no Pallas
-kernel behind these apps (the JAX package runs them in XLA).
+here.  Under a process group each rank builds its slab's ELL block at
+the widest row of any rank (`ctx.max`) and all-gathers the blocks and
+their row lengths into that same stacked ELL (one process's, so a rank
+holds no more than one process does); a rank expands its slab's edges,
+whose apexes are its own rows.  Membership is a batched
+`torch.searchsorted`; there is no Pallas kernel behind these apps (the
+JAX package runs them in XLA).
 
 The JAX package tests every lane of a level at once: its third level is a
 [chunk, D, D] tensor, D^(k-2) tests an edge whatever the graph holds.
@@ -38,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from libgrape_lite_tpu_torch.app.base import StepContext
 from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
 
 _STEP_LANES = 1 << 21  # lanes of one [rows, W] step
@@ -66,8 +72,8 @@ class KCliqueDevice(LCCBeta):
     def init_state(self, frag, **kw):
         state = super().init_state(frag, **kw)
         state.pop("lcc")
-        state["quad"] = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
-                                    device=frag.device)
+        state["quad"] = torch.zeros((getattr(frag, "fl", frag.fnum), frag.vp),
+                                    dtype=torch.int32, device=frag.device)
         return state
 
     def _count(self, quad, apex, qv, mask, m, ell, cnt):
@@ -87,14 +93,34 @@ class KCliqueDevice(LCCBeta):
                 tt, q, nm = tt[live], q[live], nm[live]
             self._count(quad, apex[tt], q, nm, m - 1, ell, cnt)
 
-    def peval(self, ctx, dev, state):
+    def stacked_ell(self, dev, ctx=None):
+        """(v, u) the slab's kept oriented edges and the whole stack's
+        ELL ([fnum * vp + 1, D] int32, the last row the sentinel's empty
+        list) with its row lengths ([fnum * vp + 1]): built whole in one
+        process, gathered from the ranks' slab blocks under a group."""
+        ctx = StepContext(dev.fnum) if ctx is None else ctx
         n_pad = dev.fnum * dev.vp
-        v, u = self._oriented_edges(dev)
-        ell, cnt = self._ell(v, u, n_pad)
+        v, u = self._oriented_edges(dev, ctx)
+        if ctx.ring_size() == 1:
+            ell, cnt = self._ell(v, u, n_pad)
+        else:  # every rank's block at the widest row of any rank
+            rows = dev.oe.edge_src.shape[0] * dev.vp
+            base = getattr(dev, "fid_lo", 0) * dev.vp
+            widest = torch.bincount((v - base).long(), minlength=1).max()
+            d = max(1, int(ctx.max(widest.reshape(1, 1))[0]))
+            ell, cnt = self._ell(v - base, u, rows, n_pad, d)
+            ell = ctx.gather_state(ell.view(-1, dev.vp, d))
+            cnt = ctx.gather_state(cnt.view(-1, dev.vp))
         d = ell.shape[1]
         # a sentinel row: padded query lanes (pid n_pad) read an empty list
         ell = torch.cat([ell, ell.new_full((1, d), n_pad)])
         cnt = torch.cat([cnt, cnt.new_zeros(1)])
+        return v, u, ell, cnt
+
+    def peval(self, ctx, dev, state):
+        n_pad = dev.fnum * dev.vp
+        v, u, ell, cnt = self.stacked_ell(dev, ctx)
+        d = ell.shape[1]
         vl, ul = v.long(), u.long()
         longest = cnt.clone().scatter_reduce_(0, vl, cnt[ul], "amax")
         width = longest[vl].clamp(min=1)
@@ -122,7 +148,10 @@ class KCliqueDevice(LCCBeta):
                 self._count(quad, vv[live], qv[live], c2[live], self.k - 2,
                             ell_w, cnt)
             start += size
-        quad = quad.view(dev.fnum, dev.vp)
+        # the slab's rows: every apex is one
+        base = getattr(dev, "fid_lo", 0) * dev.vp
+        quad = quad[base:base + dev.oe.edge_src.shape[0] * dev.vp].view(
+            -1, dev.vp)
         return dict(state, quad=torch.where(dev.inner_mask, quad, 0)), 0
 
     def inceval(self, ctx, dev, state):

@@ -39,9 +39,11 @@ credits are counted (`ops/spgemm_pack.py`): `spgemm` resolves a host plan
 of pruned [128, 128]-bit tile products at `init_state`, ships its streams
 as ephemeral state, and takes the credits from the device pass over them.
 Both backends give the same int32 per-vertex counts and feed the same
-emit tail, so every output bit is backend-independent.  The spgemm plan
-covers the whole stack on the host, so that backend runs in one process
-only (ROADMAP item 8c).
+emit tail, so every output bit is backend-independent.  Under a process
+group every rank plans (or loads) the whole host plan, keeps its
+fragments' rows of the streams (the items whose apex is one of its
+rows), and folds the pid-indexed credits across ranks (`ctx.sum`, the
+JAX package's psum), cut to its slab.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ import torch
 
 from libgrape_lite_tpu_torch.app.base import ParallelAppBase, StepContext
 from libgrape_lite_tpu_torch.ops import intersect, spgemm_pack
-from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils.bitset import pack_bits
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
@@ -87,9 +88,19 @@ def dedup_mask(csr) -> torch.Tensor:
     return csr.edge_mask & ~dup
 
 
+def slab_credits(ctx, dev, cred) -> torch.Tensor:
+    """[fl, vp] int32: a rank's pid-indexed [fnum * vp] credits folded
+    with every rank's (`ctx.sum`), cut to the slab's rows (the whole
+    stack in one process)."""
+    rows = dev.oe.edge_src.shape[0] * dev.vp
+    base = getattr(dev, "fid_lo", 0) * dev.vp
+    tri = ctx.sum(cred.unsqueeze(0))[base:base + rows]
+    return tri.to(torch.int32).view(-1, dev.vp)
+
+
 def emit_counts(self, dev, state, tri):
-    """An `_emit` that keeps the [fnum, vp] int32 triangle counts of the
-    inner vertices as state["tri"] (the counting apps' result)."""
+    """An `_emit` that keeps the [fl, vp] int32 triangle counts of the
+    slab's inner vertices as state["tri"] (the counting apps' result)."""
     return dict(state, tri=torch.where(dev.inner_mask, tri, 0))
 
 
@@ -110,11 +121,6 @@ class LCC(ParallelAppBase):
         fl = getattr(frag, "fl", frag.fnum)
         state = {"lcc": torch.zeros((fl, frag.vp),
                                     dtype=torch.float64, device=frag.device)}
-        world = getattr(getattr(frag, "comm_spec", None), "world", 1)
-        decline_across_ranks(
-            world, f"GRAPE_LCC_BACKEND={spgemm_pack.lcc_backend_mode()} "
-            "(the spgemm plan covers the whole stack)", "8c",
-            ok=spgemm_pack.lcc_backend_mode() == "intersect")
         self.lcc_backend = spgemm_pack.resolve_lcc_backend(
             type(self).__name__, frag,
             degree_threshold=self.degree_threshold)
@@ -123,14 +129,16 @@ class LCC(ParallelAppBase):
         if self.lcc_backend == "spgemm":
             self._spgemm = spgemm_pack.resolve_spgemm_dispatch(
                 frag, degree_threshold=self.degree_threshold)
-            entries = self._spgemm.state_entries()
+            # this rank's fragments' rows of the plan's [fnum, ...] streams
+            entries = self._spgemm.state_entries(
+                getattr(frag, "fid_lo", 0), fl)
             state.update(entries)
             self.ephemeral_keys = frozenset(entries)
         return state
 
     def peval(self, ctx: StepContext, dev, state):
         if self.lcc_backend == "spgemm":
-            tri = self._spgemm.credits(state).view(dev.fnum, dev.vp)
+            tri = slab_credits(ctx, dev, self._spgemm.credits(state))
         else:
             tri = self.triangles(dev, state, ctx)
         return self._emit(dev, state, tri), 0
@@ -139,7 +147,7 @@ class LCC(ParallelAppBase):
         return state, 0
 
     def _emit(self, dev, state, tri):
-        """The result state from the [fnum, vp] int32 triangle credits:
+        """The result state from the slab's [fl, vp] int32 credits:
         here the clustering coefficient (TriangleCount keeps the counts)."""
         deg = dev.out_degree
         d = deg.to(torch.float64)
@@ -218,9 +226,7 @@ class LCC(ParallelAppBase):
             cnt = intersect.row_and_popcount_indexed(block, tq - q * rows,
                                                      bminus, wq - base)
             cred.index_add_(0, wq.long(), cnt)  # far end
-        # every rank's credits, cut to the slab's rows
-        tri = ctx.sum(cred.unsqueeze(0))[base:base + rows]
-        return tri.to(torch.int32).view(-1, dev.vp)
+        return slab_credits(ctx, dev, cred)
 
 
     def invariants(self, frag, state):

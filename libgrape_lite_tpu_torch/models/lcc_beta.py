@@ -23,7 +23,9 @@ lengths ride a ring (`Communicator.ring_shift`, the JAX package's
 `ppermute` between shards): at step s a rank holds rank (r + s)'s block
 and runs the pairs whose u lies in it, and the credits of every rank
 fold through `ctx.sum`.  D is the widest row of any rank, so every
-block has one shape.  Apex mode stays in one process (ROADMAP item 8c).
+block has one shape.  In apex mode (`ApexTriangleCount`, kclique k 3)
+the ring is the same and every credit lands on the apex, a slab row, so
+the rank keeps its own rows with no fold.
 Edges run in groups by row width (see `_merge_pass`), each in chunks
 of about 2^22 lanes.  Triangle counts are
 int32 sums, exact in any order; lcc values equal the JAX package's bit
@@ -46,7 +48,6 @@ from libgrape_lite_tpu_torch.models.lcc import (
     row_pids,
 )
 from libgrape_lite_tpu_torch.ops import spgemm_pack
-from libgrape_lite_tpu_torch.parallel.comm_spec import decline_across_ranks
 from libgrape_lite_tpu_torch.utils.types import LoadStrategy, MessageStrategy
 
 
@@ -130,9 +131,6 @@ class LCCBeta(ParallelAppBase):
         lengths; one step in one process)."""
         ctx = StepContext(dev.fnum) if ctx is None else ctx
         steps = ctx.ring_size()
-        decline_across_ranks(steps, "apex-mode triangle credits "
-                             "(ApexTriangleCount, the clique apps)", "8c",
-                             ok=self.credit_mode != "apex")
         n_pad = dev.fnum * dev.vp
         rows = dev.oe.edge_src.shape[0] * dev.vp
         base = getattr(dev, "fid_lo", 0) * dev.vp
@@ -152,9 +150,10 @@ class LCCBeta(ParallelAppBase):
             q = ctx.ring_block(s)
             self._merge_pass(cred, *parts[q], (ell, cnt, base),
                              (blk_ell, blk_cnt, q * rows))
-        # every rank's credits, cut to the slab's rows
-        tri = ctx.sum(cred.unsqueeze(0))[base:base + rows]
-        return tri.to(torch.int32).view(-1, dev.vp)
+        if self.credit_mode != "apex":  # middle and far credits cross ranks
+            cred = ctx.sum(cred.unsqueeze(0))
+        # the slab's rows (every credit of apex mode is already one)
+        return cred[base:base + rows].to(torch.int32).view(-1, dev.vp)
 
     def _merge_pass(self, cred, v, u, own, visiting) -> None:
         """Credit the pairs (v, u) into the pid-indexed `cred`: N+(v) is
@@ -221,8 +220,8 @@ class ApexTriangleCount(LCCBeta):
 
     def init_state(self, frag, **kw):
         state = super().init_state(frag, **kw)
-        state["tri"] = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
-                                   device=frag.device)
+        state["tri"] = torch.zeros((getattr(frag, "fl", frag.fnum), frag.vp),
+                                   dtype=torch.int32, device=frag.device)
         return state
 
     _emit = emit_counts

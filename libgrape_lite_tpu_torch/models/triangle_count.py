@@ -7,7 +7,10 @@ Counterpart of `libgrape_lite_tpu/models/triangle_count.py`:
     `row_and_popcount_indexed` calls of the AND-popcount kernel, or the
     spgemm credit pass) with another emit tail: the counts instead of
     the coefficient, so they are integer-identical to the LCC credits by
-    construction, under either `GRAPE_LCC_BACKEND`.
+    construction, under either `GRAPE_LCC_BACKEND`.  Under a process
+    group a rank keeps its slab's counts (the N+ ring of `LCC.triangles`,
+    or its fragments' spgemm items) and `finalize` reads the gathered
+    ones, so `global_triangles` is the same on every rank.
   * `CommonNeighbors` -- cn(v) = |N(u) & N(v)| for a source u: two pulls
     of the one-hot source vector over the deduplicated out-adjacency
     (cn = A (A e_u)), each a gather-reduce (int32 kind `sum`); the final
@@ -48,8 +51,10 @@ class TriangleCount(LCC):
     def init_state(self, frag, degree_threshold: int = 0, **_):
         state = super().init_state(frag, degree_threshold=degree_threshold)
         state.pop("lcc")
-        state["tri"] = torch.zeros((frag.fnum, frag.vp), dtype=torch.int32,
-                                   device=frag.device)
+        # the slab's rows under a process group (`LCC.triangles` and the
+        # spgemm pass cut their credits to them)
+        state["tri"] = torch.zeros((getattr(frag, "fl", frag.fnum), frag.vp),
+                                   dtype=torch.int32, device=frag.device)
         return state
 
     _emit = emit_counts
@@ -62,6 +67,8 @@ class TriangleCount(LCC):
         return [in_range("tri", lo=0)]
 
     def finalize(self, frag, state):
+        # the gathered [fnum, vp] counts (`Worker.result_values`): the
+        # same global count on every rank
         vals = state["tri"].numpy().astype(np.int64)
         self.global_triangles = int(vals[frag.host_inner_mask()].sum() // 3)
         return vals

@@ -38,6 +38,7 @@ import itertools
 import json
 import logging
 import os
+import tempfile
 import weakref
 from dataclasses import dataclass, field
 
@@ -494,17 +495,26 @@ class SpGemmDispatch:
     def chunk(self) -> int:
         return self.plan.cfg.chunk
 
-    def state_entries(self) -> dict:
+    def state_entries(self, fid_lo: int = 0, fl: int | None = None) -> dict:
+        """The streams as state entries: the rows `fid_lo .. fid_lo + fl
+        - 1` of each [fnum, ...] stream (every fragment by default; a
+        rank's slab under a process group -- the items whose apex is
+        one of its rows)."""
         if self.plan.host_streams is None:
             raise ValueError("a plan_only plan has no streams")
+        hi = self.plan.fnum if fl is None else fid_lo + fl
         out = {}
         for k, v in self.plan.host_streams.items():
+            v = v[fid_lo:hi]
             if k == "bm":  # torch has no uint32 bitwise ops: same bits
                 v = v.view(np.int32)
             out[self.prefix + k] = v
         return out
 
     def credits(self, state: dict) -> torch.Tensor:
+        """[n_pad] int32 pid-indexed credits of the items in `state`
+        (under a process group, this rank's share: fold them across
+        ranks)."""
         streams = {k: state[self.prefix + k] for k in _SG_DTYPES}
         return spgemm_credits(streams, self.plan.n_pad, self.chunk)
 
@@ -585,12 +595,21 @@ def _save_cached_plan(plan: SpGemmPlan, v, u, frag, thr, cfg):
         "chunk": plan.cfg.chunk,
         "ledger": plan.ledger, "stats": plan.stats,
     }
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta=np.frombuffer(json.dumps(meta).encode(),
-                                         dtype=np.uint8).copy(),
-                 **plan.host_streams)
-    os.replace(tmp, path)
+    # a temporary name of this process's own: ranks that share the cache
+    # directory each write theirs and rename it over the same plan
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __meta=np.frombuffer(json.dumps(meta).encode(),
+                                             dtype=np.uint8).copy(),
+                     **plan.host_streams)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def _load_cached_plan(v, u, frag, thr, cfg) -> SpGemmPlan | None:
@@ -752,6 +771,7 @@ def resolve_lcc_backend(app_name: str, frag, degree_threshold: int = 0,
                                plan_only=True)
             per_frag[price_key] = plan
     prices = price_backends(plan.ledger, intersect_ledger(frag, chunk))
+    one_decision_across_ranks(frag, app_name, prices)
     backend = "spgemm" if prices["spgemm_wins"] else "intersect"
     SPGEMM_STATS["auto_spgemm" if prices["spgemm_wins"]
                  else "auto_intersect"] += 1
@@ -768,3 +788,26 @@ def resolve_lcc_backend(app_name: str, frag, degree_threshold: int = 0,
             f"auto: modeled intersect {prices['t_intersect_s']:.2e}s "
             f"beats spgemm {prices['t_spgemm_s']:.2e}s", mode)
     return backend
+
+
+def one_decision_across_ranks(frag, app_name: str, prices: dict) -> None:
+    """Under a process group every rank must take `auto`'s decision alike
+    (one runs the ring, the other the credit fold otherwise): each rank's
+    pick is exchanged over the control plane (`host_allgather`), and a
+    disagreement -- rate profiles that differ between ranks -- raises on
+    every rank, naming each rank's pick."""
+    from libgrape_lite_tpu_torch.parallel import comm_spec
+
+    spec = getattr(frag, "comm_spec", None)
+    if getattr(spec, "group", None) is None or spec.world <= 1:
+        return
+    picks = comm_spec.host_allgather(
+        np.array([int(prices["spgemm_wins"])], np.int64)).reshape(-1)
+    if len(set(picks.tolist())) > 1:
+        names = ", ".join(f"rank {r}: {'spgemm' if p else 'intersect'}"
+                          for r, p in enumerate(picks.tolist()))
+        raise ValueError(
+            f"GRAPE_LCC_BACKEND=auto for {app_name}: the ranks priced the "
+            f"backends apart ({names}; this rank's profile "
+            f"{prices['profile']}); install one GRAPE_RATE_PROFILE on "
+            "every rank")

@@ -27,10 +27,12 @@ every rank loads the same graph and places its slab of fragments, the
 query's collectives cross ranks, and only the coordinator writes the
 result files.  Across processes (world > 1) this runs the apps of
 `DIST_APP_NAMES` (sssp, bfs, wcc, pagerank, cdlp, the two LCCs, kcore,
-core_decomposition, pagerank_local, khop, common_neighbors and bc, with
-their aliases), on a plain load or through `--delta_efile /
---delta_vfile` (every rank applies the same edit to its parsed host
-arrays, `LoadGraphAndMutate`, and places its slab); every other app and
+core_decomposition, pagerank_local, khop, common_neighbors, bc, the
+edge-cut variants and the counting apps -- triangle_count, lcc_directed,
+kclique -- with their aliases; the LCC backends spgemm and auto too),
+on a plain load or through `--delta_efile / --delta_vfile` (every rank
+applies the same edit to its parsed host arrays, `LoadGraphAndMutate`,
+and places its slab); every other app and
 mode raises before the load, naming the ROADMAP item that brings it.
 """
 
@@ -246,23 +248,18 @@ def check_across_processes(args: QueryArgs) -> None:
     """What a run across processes declines, before any load: each
     raises a ValueError naming ROADMAP item 8c (never a silent
     single-process run).  Checkpoints, resumes, guards, fault plans
-    (ft/distributed.py, guard/vote.py) and delta loads run across
-    processes."""
+    (ft/distributed.py, guard/vote.py), delta loads and
+    GRAPE_LCC_BACKEND=spgemm|auto (a rank's items of the plan) run
+    across processes."""
     from libgrape_lite_tpu_torch.fragment.partition import partition_mode
-    from libgrape_lite_tpu_torch.models.lcc import LCC
-    from libgrape_lite_tpu_torch.ops.spgemm_pack import lcc_backend_mode
     from libgrape_lite_tpu_torch.parallel.pipeline import pipeline_mode
 
     world = args.num_processes
     name = "pagerank_vc" if args.vc and args.application == "pagerank" \
         else args.application
-    backend = lcc_backend_mode()
     for what, item, ok in (
             (f"the app {name!r} (across processes: "
              f"{', '.join(DIST_APP_NAMES)})", "8c", name in DIST_APP_NAMES),
-            (f"GRAPE_LCC_BACKEND={backend} (the spgemm plan covers the "
-             "whole stack)", "8c",
-             backend == "intersect" or APP_REGISTRY.get(name) is not LCC),
             ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",
              not (args.vc or partition_mode() == "2d")),
             ("GRAPE_PIPELINE=force (the pipelined round)", "8c",

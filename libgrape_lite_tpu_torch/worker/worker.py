@@ -1403,7 +1403,13 @@ def dist_apps() -> tuple:
     proposals crossing ranks in one all_to_all), the exchange apps' host
     loops (the masked candidates gathered a round, the round's scalars
     folded across ranks in one all_gather), WCCOpt's pointer jump and
-    CDLPOpt's first-round K1 over the gathered state."""
+    CDLPOpt's first-round K1 over the gathered state; and the counting
+    apps: TriangleCount (LCC's N+ ring, or its spgemm items folded),
+    LCCDirected (K3 over a ring of OUT blocks), ApexTriangleCount
+    (LCCBeta's ring in apex mode), KClique4Device and KCliqueDevice (the
+    stacked ELL gathered from the ranks' blocks) and KClique's dispatch
+    (its nested workers, or the host recursion over the slab's
+    apexes)."""
     from libgrape_lite_tpu_torch.models.auto_apps import (
         BFSAuto,
         PageRankAuto,
@@ -1417,23 +1423,37 @@ def dist_apps() -> tuple:
     from libgrape_lite_tpu_torch.models.core_decomposition import (
         CoreDecomposition,
     )
+    from libgrape_lite_tpu_torch.models.kclique import KClique
+    from libgrape_lite_tpu_torch.models.kclique_device import (
+        KClique4Device,
+        KCliqueDevice,
+    )
     from libgrape_lite_tpu_torch.models.kcore import KCore
     from libgrape_lite_tpu_torch.models.khop import KHopNeighborhood
     from libgrape_lite_tpu_torch.models.lcc import LCC
-    from libgrape_lite_tpu_torch.models.lcc_beta import LCCBeta
+    from libgrape_lite_tpu_torch.models.lcc_beta import (
+        ApexTriangleCount,
+        LCCBeta,
+    )
+    from libgrape_lite_tpu_torch.models.lcc_directed import LCCDirected
     from libgrape_lite_tpu_torch.models.pagerank import PageRank
     from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
     from libgrape_lite_tpu_torch.models.sssp import SSSP
     from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
     from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
-    from libgrape_lite_tpu_torch.models.triangle_count import CommonNeighbors
+    from libgrape_lite_tpu_torch.models.triangle_count import (
+        CommonNeighbors,
+        TriangleCount,
+    )
     from libgrape_lite_tpu_torch.models.wcc import WCC
     from libgrape_lite_tpu_torch.models.wcc_opt import WCCOpt
 
     return (SSSP, BFS, WCC, PageRank, CDLP, LCC, LCCBeta, KCore,
             CoreDecomposition, PageRankLocal, KHopNeighborhood,
             CommonNeighbors, BC, SSSPAuto, BFSAuto, WCCAuto, PageRankAuto,
-            SSSPMsg, BFSMsg, SSSPDelta, BFSOpt, WCCOpt, CDLPOpt)
+            SSSPMsg, BFSMsg, SSSPDelta, BFSOpt, WCCOpt, CDLPOpt,
+            TriangleCount, LCCDirected, ApexTriangleCount, KClique,
+            KClique4Device, KCliqueDevice)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:

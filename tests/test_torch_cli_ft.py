@@ -153,7 +153,7 @@ def test_fault_drill_unported_modes_exit_2(capsys, tmp_path, flag, item):
                                  str(tmp_path / "drill")]) == 0
         assert "[postmortem] PASS" in capsys.readouterr().out
         return
-    assert fault_drill.main([flag, "--apps", "kclique", "--device", "cpu",
+    assert fault_drill.main([flag, "--apps", "sssp_vc", "--device", "cpu",
                              "--workdir", str(tmp_path / "drill")]) == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue A {item}c" in err and flag in err

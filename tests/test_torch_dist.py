@@ -12,9 +12,11 @@ package.
   single-process `Worker` at the same fnum -- byte for byte for sssp, bfs
   and wcc, within 1e-4 for pagerank -- in the same number of rounds,
   and pass the goldens.
-* What a gang declines raises before the load, naming ROADMAP item 8c;
-  batched queries decline as not carried over (the JAX package has no
-  counterpart).  (Checkpoints, resumes, guards and fault plans run
+* What a gang declines raises before the load, naming ROADMAP item 8c,
+  and the counting apps pass the gate (the load is the first to fail on
+  an absent file; a Worker runs them over slab ranks: tests/
+  test_torch_dist_count.py); batched queries decline as not carried
+  over (the JAX package has no counterpart).  (Checkpoints, resumes, guards and fault plans run
   across ranks: tests/test_torch_dist_ft.py; delta loads, the staged
   overlay and incremental queries: tests/test_torch_dist_dyn*.py.)
 
@@ -457,14 +459,23 @@ def test_gang_serialization_cache_written_once(tmp_path, graph_cache):
 
 # ---- what a gang declines --------------------------------------------------
 
+# (flags, env, the ROADMAP item a gang declines them under; None: they
+# pass the gate since the counting apps run across ranks)
 DECLINES = [
-    (dict(application="kclique"), {}, "8c"),
-    (dict(application="lcc_directed"), {}, "8c"),
-    (dict(application="triangle_count"), {}, "8c"),
+    (dict(application="kclique"), {}, None),
+    (dict(application="lcc_directed"), {}, None),
+    (dict(application="triangle_count"), {}, None),
     (dict(vc=True, application="pagerank"), {}, "8c"),
     ({}, {"GRAPE_PARTITION": "2d"}, "8c"),
     ({}, {"GRAPE_PIPELINE": "force"}, "8c"),
 ]
+
+
+def pass_the_gate(monkeypatch) -> None:
+    """Stand in for the rendezvous of a gate-passing two-rank run: rank
+    0's spec with no group, so the run goes on to the load."""
+    monkeypatch.setattr(CommSpec, "init_distributed", classmethod(
+        lambda cls, **kw: CommSpec(kw["fnum"], "cpu", rank=0, world=2)))
 
 
 @pytest.mark.parametrize("flags,env,item", DECLINES)
@@ -474,10 +485,15 @@ def test_gang_declines_before_the_load(tmp_path, monkeypatch, flags, env,
         monkeypatch.setenv(k, v)
     args = dict(application="sssp", efile=str(tmp_path / "absent.e"),
                 device="cpu", coordinator="127.0.0.1:1", num_processes=2,
-                process_id=0)
+                process_id=0, fnum=2)
     args.update(flags)
     if "checkpoint_dir" in args:
         args["checkpoint_dir"] = str(tmp_path / args["checkpoint_dir"])
+    if item is None:  # past the gate, the absent edge file fails the load
+        pass_the_gate(monkeypatch)
+        with pytest.raises(FileNotFoundError, match="absent.e"):
+            run_app(QueryArgs(**args))
+        return
     msg = _raised(run_app, QueryArgs(**args))
     assert f"ROADMAP item {item}" in msg and "world 2 > 1" in msg, msg
 
@@ -492,12 +508,15 @@ def slab_frag():
 
 def test_worker_declines_across_ranks(slab_frag):
     assert slab_frag.dev.ie.indptr.shape[0] == 2 and slab_frag.fl == 2
-    for call, item in [
-        (lambda: Worker(KClique(), slab_frag).query(k=3), "8c"),
-        (lambda: Worker(LCCDirected(), slab_frag).query(), "8c"),
-    ]:
-        msg = _raised(call)
-        assert f"ROADMAP item {item}" in msg, msg
+    # the counting apps run across ranks: two slab ranks in threads give
+    # one process's result (kclique k 3's nested ApexTriangleCount too)
+    from tests.test_torch_dist_count import run_slab_workers
+
+    for make, kw, directed in [(KClique, {"k": 3}, False),
+                               (LCCDirected, {}, True)]:
+        (want, _), got = run_slab_workers(make, kw, directed, 2)
+        for vals, _ in got:
+            np.testing.assert_array_equal(vals, want)
     # batched queries are not carried over: the JAX package reads no
     # batch lane across processes and serves none
     msg = _raised(lambda: Worker(SSSP(), slab_frag).query_batch(

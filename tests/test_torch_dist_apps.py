@@ -16,7 +16,8 @@ the JAX package.
 * CDLP under `--guard halt` (the global universe's probe) and through
   `kill_rank@4:1`, its two-rank lineage resumed by one process at fnum 2,
   equal to a cold fnum-2 run.
-* What still declines across ranks raises before the load, naming 8c.
+* What declined across ranks until the counting apps ran there (the
+  spgemm and auto backends, kclique, triangle_count) passes the gate.
 
 Every gang runs under the subprocess timeout of `run_gang` and its group
 under GRAPE_DIST_TIMEOUT_S, so a stuck rank fails the test instead of
@@ -43,7 +44,7 @@ from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec
 from libgrape_lite_tpu_torch.runner import DIST_APP_NAMES, QueryArgs, run_app
 from libgrape_lite_tpu_torch.worker.worker import Worker, dist_apps
 from tests.conftest import dataset_path
-from tests.test_torch_dist import P2P, _raised, free_port, run_gang
+from tests.test_torch_dist import P2P, free_port, run_gang
 from tests.verifiers import (
     eps_verify,
     exact_verify,
@@ -319,11 +320,14 @@ def test_dist_app_names_follow_the_classes():
     assert set(DIST_APP_NAMES) == {n for n, c in APP_REGISTRY.items()
                                    if c in classes}
     assert {"cdlp", "cdlp_auto", "lcc", "lcc_auto", "lcc_beta", "lcc_opt",
-            "lcc_bitmap"} <= set(DIST_APP_NAMES)
-    assert not {"lcc_directed", "triangle_count", "kclique",
-                "pagerank_vc", "sssp_vc"} & set(DIST_APP_NAMES)
+            "lcc_bitmap", "lcc_directed", "triangle_count",
+            "kclique"} <= set(DIST_APP_NAMES)
+    assert not {"pagerank_vc", "pagerank_vc_rep", "sssp_vc", "bfs_vc",
+                "wcc_vc"} & set(DIST_APP_NAMES)
 
 
+# what declined across ranks until the counting apps ran there: the same
+# flags now pass the gate, and the absent edge file fails the load
 DECLINES = [
     (dict(application="lcc_bitmap"), {"GRAPE_LCC_BACKEND": "spgemm"}),
     (dict(application="lcc_opt"), {"GRAPE_LCC_BACKEND": "auto"}),
@@ -335,22 +339,27 @@ DECLINES = [
 @pytest.mark.parametrize("flags,env", DECLINES,
                          ids=["spgemm", "auto", "kclique", "triangle_count"])
 def test_still_declines_before_the_load(tmp_path, monkeypatch, flags, env):
+    from tests.test_torch_dist import pass_the_gate
+
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     args = dict(efile=str(tmp_path / "absent.e"), device="cpu",
                 coordinator="127.0.0.1:1", num_processes=2, process_id=0,
-                **flags)
-    msg = _raised(run_app, QueryArgs(**args))
-    assert "ROADMAP item 8c" in msg and "world 2 > 1" in msg, msg
+                fnum=2, **flags)
+    pass_the_gate(monkeypatch)
+    with pytest.raises(FileNotFoundError, match="absent.e"):
+        run_app(QueryArgs(**args))
 
 
 def test_worker_declines_the_spgemm_backend_across_ranks(monkeypatch):
-    """A Worker under a two-rank spec refuses the spgemm backend at
-    init_state (its plan covers the whole stack)."""
+    """A Worker over two slab ranks (in threads) runs the spgemm backend:
+    each rank keeps its fragments' items, the credits fold across ranks,
+    and the result is one process's."""
     from libgrape_lite_tpu_torch.models import LCC
+    from tests.test_torch_dist_count import run_slab_workers
 
     monkeypatch.setenv("GRAPE_LCC_BACKEND", "spgemm")
-    frag = LoadGraph(*P2P, CommSpec(4, "cpu", rank=0, world=2),
-                     LoadGraphSpec())
-    msg = _raised(Worker(LCC(), frag).query)
-    assert "ROADMAP item 8c" in msg and "GRAPE_LCC_BACKEND" in msg, msg
+    (want, _), got = run_slab_workers(LCC, {}, False, 2)
+    for vals, app in got:
+        assert app.lcc_backend == "spgemm"
+        np.testing.assert_array_equal(vals, want)
