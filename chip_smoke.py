@@ -5321,7 +5321,7 @@ def vc_phases(frag, e_sym, device) -> dict:
     t_phase = time.perf_counter()
     src, dst, w = frag.edge_list
     n = frag.dev.total_vnum
-    runs, cases, builds = {}, {}, {}
+    runs, cases, builds, keep = {}, {}, {}, {}
     pipe = {"runs": {}, "k1": {}}
     with tempfile.TemporaryDirectory() as tmp:
         for fnum in VC_FNUMS:
@@ -5345,10 +5345,12 @@ def vc_phases(frag, e_sym, device) -> dict:
             runs[f"vc sssp profile k{k}"] = dict(counts={}, **profile_call(
                 f"[vc] sssp_vc k={k}",
                 lambda: run_query(fs, SSSPVC2D(), device, source=0)[1]))
+            if k == 2:  # [dist] (i) runs them under a process group
+                keep = {"sym": fs, "raw": fr}
             del fs, fr
     vc_cli_phase(device)
     return {"seconds": time.perf_counter() - t_phase, "runs": runs,
-            "k1": cases, "builds": builds, "pipeline": pipe}
+            "k1": cases, "builds": builds, "pipeline": pipe, "frags": keep}
 
 
 # ---- phase 7j: exchange and overlap (the pipelined superstep) ----------
@@ -5893,6 +5895,41 @@ DIST_H_JOB_ARGS = {
 DIST_H_K3 = ("triangle_count", "lcc_directed", "guard triangle_count")
 DIST_H_FAMILY = {"spgemm lcc_bitmap": "lcc", "auto lcc_opt": "lcc"}
 
+# [dist] (i): the vertex cut and the pipelined round across ranks.  (i1)
+# under (a)'s one-rank group: the vertex-cut apps on [vc]'s RMAT-20 k 2
+# tiles (sssp, bfs, wcc symmetrised; pagerank raw), and GRAPE_PIPELINE=force
+# sssp, bfs, wcc on the RMAT-20 fnum-4 fragment under gather and mirror
+DIST_I_VC = (("sssp_vc", "sym", {"source": 0}), ("bfs_vc", "sym",
+                                                   {"source": 0}),
+             ("wcc_vc", "sym", {}),
+             ("pagerank_vc", "raw", {"max_round": PR_ROUNDS}))
+DIST_I_PIPE = (("sssp", {"source": 0}), ("bfs", {"source": 0}),
+               ("wcc", {}))
+# (i2) gloo gangs of two and four ranks on the card and a one-process
+# reference each, `run_app` calls on p2p-31 at fnum 4 (k 2): --vc
+# pagerank, GRAPE_PARTITION=2d sssp / bfs / wcc, GRAPE_PIPELINE=force
+# sssp / wcc under gather and mirror; each job's golden family
+DIST_I_JOBS = {
+    "vc pagerank": {"application": "pagerank", "vc": True,
+                    "pr_mr": PR_ROUNDS},
+    **{f"2d {app}": {"application": app, **args,
+                     "_env": {"GRAPE_PARTITION": "2d"}}
+       for app, args in (("sssp", {"sssp_source": 6}),
+                         ("bfs", {"bfs_source": 6}), ("wcc", {}))},
+    **{f"pipe-{mode} {app}": {"application": app, **args,
+                              "_env": {"GRAPE_PIPELINE": "force",
+                                       "GRAPE_EXCHANGE": mode}}
+       for mode in ("gather", "mirror")
+       for app, args in (("sssp", {"sssp_source": 6}), ("wcc", {}))},
+}
+DIST_I_FAMILY = {name: name.split(" ")[-1] for name in DIST_I_JOBS}
+DIST_I_WORLDS = (2, 4)
+# (i3): K1 on rank 1's tile slab of the RMAT-20 k 2 cut at world 4 (one
+# tile) and on rank 1's boundary split CSR of the RMAT-20 fnum-4 stack at
+# world 2
+DIST_I_TILE = (4, 1)
+DIST_I_SPLIT = (2, 1)
+
 # A child of the port's CLI: `cli.main` with the given flags, its one
 # query timed (synchronised) and its host syncs counted (CUDA's sync-debug
 # mode) with the launch and collective counts zeroed before it; the record
@@ -6071,7 +6108,7 @@ def nccl_trace(fn, device) -> dict:
     return {"host_ops": host, "device_events": dev, "names": sorted(names)}
 
 
-def dist_world1_phase(f4, device) -> dict:
+def dist_world1_phase(f4, device, vcf=None) -> dict:
     """(a) A one-rank NCCL group in this process over RMAT-20 at fnum 4
     (the [pipeline] cell): sssp, bfs, wcc and pagerank through the
     distributed StepContext against the same queries single-process --
@@ -6164,11 +6201,16 @@ def dist_world1_phase(f4, device) -> dict:
         h = dist_h1_phase(f4, f4d, spec, device)
         runs.update(h["runs"])
         h_s = time.perf_counter() - t_h
+        t_i = time.perf_counter()
+        runs.update(dist_i1_phase(vcf, f4d, spec, device))
+        k1.update(dist_i3_cases(vcf, f4, device))
+        i_s = time.perf_counter() - t_i
     finally:
         spec.close()
     return {"runs": runs, "k1": k1, "k2": e["k2"],
             "k3": {**e["k3"], **h["k3"]}, "overlay_fold": f["overlay_fold"],
-            "f1_seconds": f_s, "g1_seconds": g_s, "h1_seconds": h_s}
+            "f1_seconds": f_s, "g1_seconds": g_s, "h1_seconds": h_s,
+            "i1_seconds": i_s}
 
 
 def bitmap_fragment4(device, scale: int = BITMAP_SCALE,
@@ -6874,39 +6916,40 @@ def h2_checks(runs: dict, tmp: str) -> None:
           f"process; plan cache {plans}", flush=True)
 
 
-def run_app_children_start(tag, jobs, tmp, device, env=None) -> dict:
-    """(f2), (g2) or (h2) started: two gloo ranks on the card and a
-    one-process reference, each a child running DIST_F_CHILD's `run_app`
-    calls (`jobs(prefix, device)`) on p2p-31 at fnum 4;
+def run_app_children_start(tag, jobs, tmp, device, env=None,
+                           world: int = 2) -> dict:
+    """(f2), (g2), (h2) or (i2) started: `world` gloo ranks on the card
+    and a one-process reference, each a child running DIST_F_CHILD's
+    `run_app` calls (`jobs(prefix, device)`) on p2p-31 at fnum 4;
     `run_app_children_finish` waits for them and checks."""
     dev = torch.device(device).type
     port = free_port()
     base = os.path.join(tmp, tag)
     argv = [[sys.executable, "-c", DIST_F_CHILD, json.dumps(jobs(
         f"{base}_gang" + (f"_r{r}" if r else ""), device)),
-        f"127.0.0.1:{port}", "2", str(r), str(PIPE_FNUM), dev]
-        for r in range(2)]
+        f"127.0.0.1:{port}", str(world), str(r), str(PIPE_FNUM), dev]
+        for r in range(world)]
     argv.append([sys.executable, "-c", DIST_F_CHILD,
                  json.dumps(jobs(f"{base}_one", device)), "", "1", "0",
                  str(PIPE_FNUM), dev])
     return {"procs": start_children(argv, {"GRAPE_DIST_BACKEND": "gloo",
                                            **(env or {})}),
             "t0": time.perf_counter(), "jobs": jobs("", device), "tmp": tmp,
-            "tag": tag}
+            "tag": tag, "world": world}
 
 
 def run_app_children_finish(started, device, family=None,
                             golden_all=False, kernel=None) -> dict:
-    """(f2), (g2) or (h2) checked: every gang job's files equal the
+    """(f2), (g2), (h2) or (i2) checked: every gang job's files equal the
     one-process child's (the PageRanks within 1e-4), the delta loads
     (every job with `golden_all`, and every job `family` names) the
-    p2p-31 goldens, rank 1 wrote nothing, both ranks ran one process's
+    p2p-31 goldens, no rank but 0 wrote, every rank ran one process's
     rounds, host-loop decisions, app class and counters (global
     triangles, cliques, the LCC backend), every rank launched K1 in
     every job (or the kernel `kernel(job)` names: "k1", "k3" or None) on
     the card, and no child built a kernel library.  `family` maps an app
     to the golden and tolerance it is held to (itself by default)."""
-    tag = started["tag"]
+    tag, world = started["tag"], started["world"]
     what = f"[dist] ({tag})"
     outs = wait_children(started["procs"],
                          started["t0"] + DIST_CHILD_TIMEOUT_S)
@@ -6918,12 +6961,12 @@ def run_app_children_finish(started, device, family=None,
         check(rc == 0 and line, f"{what} child {r}: exit {rc}: "
               f"{se[-3000:]}")
         recs.append(json.loads(line[-1][len("[dist-f-child] "):]))
-    gang, one = recs[:2], recs[2]
+    gang, one = recs[:world], recs[world]
     check(all(not rec["built"] for rec in recs),
           f"{what} children built {[rec['built'] for rec in recs]}")
     check([rec["transport"] for rec in recs]
           == ["gloo-staged" if torch.device(device).type == "cuda"
-              else "gloo"] * 2 + ["local"],
+              else "gloo"] * world + ["local"],
           f"{what} transports {[rec['transport'] for rec in recs]}")
     tmp, data = started["tmp"], os.path.join(HERE, "dataset")
     runs = {}
@@ -6931,8 +6974,9 @@ def run_app_children_finish(started, device, family=None,
         app = name.removeprefix("delta ")
         fam = (family or {}).get(app, app)
         sfx = name.replace(" ", "_")
-        check(not os.path.exists(os.path.join(tmp, f"{tag}_gang_r1_{sfx}")),
-              f"{what} {name}: rank 1 wrote result files")
+        check(not any(os.path.exists(os.path.join(
+            tmp, f"{tag}_gang_r{r}_{sfx}")) for r in range(1, world)),
+              f"{what} {name}: a rank but 0 wrote result files")
         got = read_results(os.path.join(tmp, f"{tag}_gang_{sfx}"), PIPE_FNUM)
         err = compare_files(fam, got, read_results(
             os.path.join(tmp, f"{tag}_one_{sfx}"), PIPE_FNUM),
@@ -6963,7 +7007,7 @@ def run_app_children_finish(started, device, family=None,
             seconds_one=mine["seconds"])
         same = ("byte-equal" if fam != "pagerank"
                 else f"max_rel_err={err:.3e}")
-        print(f"{what} gloo 2 ranks p2p-31 fnum {PIPE_FNUM} {name} "
+        print(f"{what} gloo {world} ranks p2p-31 fnum {PIPE_FNUM} {name} "
               f"({rs[0]['app']}): rounds={rs[0]['rounds']}"
               f"{decisions_text(rs[0]['host'])} {same} to one process"
               f"{', goldens ok' if golden else ''} "
@@ -6971,7 +7015,7 @@ def run_app_children_finish(started, device, family=None,
               + f"K1/rank={k1} K3/rank={k3} run_app_s="
               f"{[round(x['seconds'], 3) for x in rs]} (one process "
               f"{mine['seconds']:.3f})", flush=True)
-    print(f"{what} children: 3 processes, {len(started['jobs'])} "
+    print(f"{what} children: {world + 1} processes, {len(started['jobs'])} "
           f"run_app calls each, in {children_s:.1f} s (beside (b)'s)",
           flush=True)
     return {"runs": runs, "children_s": children_s}
@@ -7657,7 +7701,170 @@ def dist_ft_gang_phase(tmp, device, early, killed) -> dict:
             "dist ft drill": dict(counts={}, ft_drill=fd)}
 
 
-def dist_phases(f4, device, frag=None) -> dict:
+def i2_jobs(prefix, device) -> dict:
+    """(i2)'s jobs: DIST_I_JOBS on p2p-31 at fnum 4 (k 2)."""
+    plain, _ = p2p_query_fields(device)
+    out = {}
+    for name, args in DIST_I_JOBS.items():
+        args = dict(args)
+        env = args.pop("_env", {})
+        sfx = name.replace(" ", "_")
+        out[name] = dict(plain, out_prefix=f"{prefix}_{sfx}", **args,
+                         **({"_env": env} if env else {}))
+    return out
+
+
+def vc_under(frag, spec):
+    """A one-process vertex-cut fragment placed under `spec` (a world-1
+    group: the same tiles, the grid's collectives through the group)."""
+    import copy
+
+    fd = copy.copy(frag)
+    fd.comm_spec = spec
+    fd.grid = spec.vc_grid(frag.k)
+    return fd
+
+
+def dist_i1_phase(vcf, f4d, spec, device) -> dict:
+    """(i1) under (a)'s one-rank group: the vertex-cut apps on [vc]'s
+    RMAT-20 k 2 tiles against the same queries in one process --
+    bit-equal (PageRank within 1e-4), the same rounds and K1 launches --
+    and GRAPE_PIPELINE=force sssp, bfs, wcc on the RMAT-20 fnum-4
+    fragment under the group, under gather and mirror, against their
+    serial rounds (`pipe_runs`: bit-equal, equal host syncs); the
+    collectives and bytes a round, the walls (median of 3)."""
+    from libgrape_lite_tpu_torch.models import APP_REGISTRY
+
+    runs = {}
+    for name, side, kw in DIST_I_VC:
+        factory = APP_REGISTRY[name]
+        one_f = vcf[side]
+        fd = vc_under(one_f, spec)
+        run_query(one_f, factory(), device, **kw)  # warm-ups
+        run_query(fd, factory(), device, **kw)
+        reset_launch_counts()
+        one, _ = run_query(one_f, factory(), device, **kw)
+        k1_one = launch_counts()["gather_reduce"]
+        reset_launch_counts()
+        spec.reset_stats()
+        wk, _ = run_query(fd, factory(), device, **kw)
+        counts = launch_counts()
+        stats = dict(spec.stats)
+        check(wk.rounds == one.rounds, f"[dist] (i1) {name}: {wk.rounds} "
+              f"rounds against {one.rounds} in one process")
+        check(counts["gather_reduce"] == k1_one and (
+            k1_one > 0 or torch.device(device).type != "cuda"),
+              f"[dist] (i1) {name}: K1 {counts['gather_reduce']} against "
+              f"{k1_one} in one process")
+        rtol = DIST_PR_RTOL if name.startswith("pagerank") else 0
+        got, want = wk.result_values(), one.result_values()
+        err = same_or_close(got, want, rtol, f"[dist] (i1) {name}")
+        walls = [run_query(fd, factory(), device, **kw)[1]
+                 for _ in range(DIST_REPEATS)]
+        walls_one = [run_query(one_f, factory(), device, **kw)[1]
+                     for _ in range(DIST_REPEATS)]
+        per = max(wk.rounds, 1)
+        rec = dict(counts=counts, rounds=wk.rounds,
+                   bit_equal=got.tobytes() == want.tobytes(),
+                   max_rel_err=err, collectives=stats["calls"],
+                   collectives_per_round=stats["calls"] / per,
+                   bytes_per_round=stats["bytes"] / per,
+                   vc_reduce=stats["vc_reduce"],
+                   vc_transpose=stats["vc_transpose"],
+                   all_gather=stats["all_gather"],
+                   wall_s=float(np.median(walls)),
+                   wall_single_s=float(np.median(walls_one)))
+        check(stats["all_gather"] == 0, f"[dist] (i1) {name}: "
+              f"{stats['all_gather']} all_gathers in a vertex-cut query")
+        runs[f"dist world1 (i1) {name}"] = rec
+        same = ("bit-equal" if rec["bit_equal"]
+                else f"max_rel_err={err:.3e}")
+        print(f"[dist] (i1) world 1 {spec.transport} {name} RMAT-{SCALE} "
+              f"k {one_f.k}: rounds={wk.rounds} {same} "
+              f"K1={counts['gather_reduce']} (one process {k1_one}) "
+              f"collectives/round={rec['collectives_per_round']:.2f} "
+              f"B/round={rec['bytes_per_round']:.0f} wall_s="
+              f"{rec['wall_s']:.4f} single_s={rec['wall_single_s']:.4f}",
+              flush=True)
+    for mode in ("gather", "mirror"):
+        with env_set(GRAPE_EXCHANGE=mode):
+            for name, kw in DIST_I_PIPE:
+                factory = APP_REGISTRY[name]
+                rec, _ = pipe_runs(f"(i1) world 1 {mode} {name}", f4d,
+                                   factory, kw, device, PIPE_K1[name])
+                with env_set(GRAPE_PIPELINE="force"):
+                    spec.reset_stats()
+                    wk, _ = run_query(f4d, factory(), device, **kw)
+                    stats = dict(spec.stats)
+                per = max(wk.rounds, 1)
+                rec.update(collectives_per_round=stats["calls"] / per,
+                           bytes_per_round=stats["bytes"] / per)
+                runs[f"dist world1 (i1) pipelined {mode} {name}"] = rec
+                print(f"[dist] (i1) world 1 {spec.transport} pipelined "
+                      f"{mode} {name}: collectives/round="
+                      f"{rec['collectives_per_round']:.2f} B/round="
+                      f"{rec['bytes_per_round']:.0f} serial_s="
+                      f"{rec['serial']['median_s']:.4f} pipelined_s="
+                      f"{rec['pipelined']['median_s']:.4f}", flush=True)
+    return runs
+
+
+def dist_i3_cases(vcf, f4, device) -> dict:
+    """(i3) K1 on rank 1's tile slab of the RMAT-20 k 2 cut at world 4
+    (one tile's CSR rows, neighbours into its row chunk: min+w and sum),
+    and on rank 1's boundary split CSR of the RMAT-20 fnum-4 stack at
+    world 2 (min+w, columns into the slab's splice table), each against
+    its plain version."""
+    import copy
+
+    from libgrape_lite_tpu_torch.fragment.vertexcut import VCDeviceCSR
+    from libgrape_lite_tpu_torch.parallel.comm_spec import CommSpec, VCGrid
+    from libgrape_lite_tpu_torch.parallel.pipeline import resolve_pipeline
+
+    world, rank = DIST_I_TILE
+    fs = copy.copy(vcf["sym"])
+    fs.grid = VCGrid(fs.k, world, rank)
+    fs._host_csrs = {k: v for k, v in fs._host_csrs.items()
+                     if not k.startswith("slab_")}
+    cat = fs._slab_csr("ie")
+    side = VCDeviceCSR(*(torch.from_numpy(np.ascontiguousarray(a)).reshape(
+        1, -1).to(device) for a in (cat.indptr, cat.edge_nbr)), None)
+    w = torch.from_numpy(cat.edge_w).reshape(1, -1).to(device)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    n = fs.grid.nr * fs.vc
+    x = torch.rand(n, generator=gen).to(device)
+    dist = torch.where(torch.rand(n, generator=gen) < 0.3,
+                       torch.tensor(float("inf")),
+                       torch.rand(n, generator=gen) * 50).to(device)
+    out = {}
+    for kind, xx, ww in (("min+w", dist, w), ("sum", x, None)):
+        label = (f"rank-{rank} tile slab (world {world}, k {fs.k}) "
+                 f"{kind}")
+        rec = vc_k1_case(label, side, ww, xx, kind.split("+")[0], device)
+        out[f"(i3) tile slab {kind}"] = rec
+        print(f"[dist] (i3) K1 {label}: edges={rec['edges']} "
+              f"rows={rec['rows']} ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+              f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']})",
+              flush=True)
+    world, rank = DIST_I_SPLIT
+    fd = dist_fragment(f4, CommSpec(f4.fnum, device, rank=rank, world=world))
+    with env_set(GRAPE_PIPELINE="force"):
+        plan = resolve_pipeline(fd, app_name="SSSP", key="dist",
+                                with_weights=True, w_dtype=torch.float32)
+    check(plan is not None, "[dist] (i3) no pipeline plan on the slab")
+    ent = plan.host_entries
+    n = fd.fl * fd.vp + fd.fnum * fd.vp  # the splice: live slab, gathered
+    xs = torch.where(torch.rand(n, generator=gen) < 0.3,
+                     torch.tensor(float("inf")),
+                     torch.rand(n, generator=gen) * 50).to(device)
+    out["(i3) split boundary min+w"] = pipe_k1_case(
+        f"(i3) rank-{rank} boundary split CSR (world {world}) min+w",
+        ent["pl_b_indptr"], ent["pl_b_nbr"], ent["pl_b_w"], xs, device)
+    return out
+
+
+def dist_phases(f4, device, frag=None, vcf=None) -> dict:
     """[dist]: the multi-process runtime on the card -- (a) NCCL at world
     1 in this process with K1 on a rank's slab CSR, (e1) CDLP, lcc,
     PageRank strict and lcc_bitmap under the same group and (e3) K2 and
@@ -7671,12 +7878,16 @@ def dist_phases(f4, device, frag=None) -> dict:
     (c) sharded checkpoints, resume, the vote and the reshard under the
     world-1 group, (d) the kill-rank drill and an RMAT-20 kill and
     reshard with two gloo ranks (`frag`: RMAT-20 with its edge list, for
-    (c)'s fnum-2 target)."""
+    (c)'s fnum-2 target); (i1) the vertex cut on [vc]'s k 2 tiles (`vcf`)
+    and the pipelined round under the world-1 group, (i3) K1 on a rank's
+    tile slab and split CSR, (i2) gloo gangs of two and four ranks of the
+    vertex cut, GRAPE_PARTITION=2d and the pipelined round beside (b)'s
+    children."""
     import tempfile
     import threading
 
     t_phase = time.perf_counter()
-    w1 = dist_world1_phase(f4, device)
+    w1 = dist_world1_phase(f4, device, vcf)
     # (c)'s fnum-2 target is built while (b)'s children run
     built = {}
 
@@ -7692,6 +7903,8 @@ def dist_phases(f4, device, frag=None) -> dict:
         g2_gangs = run_app_children_start(
             "g2", g2_jobs, tmp, device, {"GRAPE_SSSP_PROBE_CAP": "1"})
         h2_gangs = run_app_children_start("h2", h2_jobs, tmp, device)
+        i2_gangs = [run_app_children_start(f"i2w{w}", i2_jobs, tmp, device,
+                                           world=w) for w in DIST_I_WORLDS]
         d_early = dist_d_start(tmp, device)
         gl = dist_gang_phase("gloo", {"GRAPE_DIST_BACKEND": "gloo"},
                              "gloo-staged" if staged else "gloo", tmp,
@@ -7708,6 +7921,8 @@ def dist_phases(f4, device, frag=None) -> dict:
             h2_gangs, device, DIST_H_FAMILY,
             kernel=lambda job: "k3" if job in DIST_H_K3 else None)
         h2_checks(h2g["runs"], tmp)
+        i2g = [run_app_children_finish(g, device, DIST_I_FAMILY,
+                                       golden_all=True) for g in i2_gangs]
         f2_thread.join()
         nccl = {"runs": {}}
         if staged and torch.cuda.device_count() >= 2:
@@ -7730,7 +7945,10 @@ def dist_phases(f4, device, frag=None) -> dict:
           f"{w1['g1_seconds']:.1f} s, (g2)'s children "
           f"{g2g['children_s']:.1f} s beside (b)'s; (h1) + (h3) "
           f"{w1['h1_seconds']:.1f} s, (h2)'s children "
-          f"{h2g['children_s']:.1f} s beside (b)'s)", flush=True)
+          f"{h2g['children_s']:.1f} s beside (b)'s; (i1) + (i3) "
+          f"{w1['i1_seconds']:.1f} s, (i2)'s children "
+          f"{max(g['children_s'] for g in i2g):.1f} s beside (b)'s)",
+          flush=True)
     return {"seconds": secs, "ft_seconds": ft_s,
             "f1_seconds": w1["f1_seconds"],
             "f2_children_seconds": f2g["children_s"],
@@ -7738,9 +7956,12 @@ def dist_phases(f4, device, frag=None) -> dict:
             "g2_children_seconds": g2g["children_s"],
             "h1_seconds": w1["h1_seconds"],
             "h2_children_seconds": h2g["children_s"],
+            "i1_seconds": w1["i1_seconds"],
+            "i2_children_seconds": [g["children_s"] for g in i2g],
             "runs": {**w1["runs"], **gl["runs"], **f2g["runs"],
-                     **g2g["runs"], **h2g["runs"], **nccl["runs"], **c,
-                     **d},
+                     **g2g["runs"], **h2g["runs"],
+                     **{k: v for g in i2g for k, v in g["runs"].items()},
+                     **nccl["runs"], **c, **d},
             "k1": w1["k1"], "k2": w1["k2"], "k3": w1["k3"],
             "overlay_fold": w1["overlay_fold"],
             "nccl_world2": "run" if nccl["runs"] else "not run, 1 card"}
@@ -8128,7 +8349,7 @@ def main() -> int:
     lint = lint_phase(device)
     print(f"[time] lint {lint['seconds']:.1f} s", flush=True)
     pipe = pipeline_phase(frag, vc["pipeline"], device)
-    dist = dist_phases(pipe.pop("frag"), device, frag)
+    dist = dist_phases(pipe.pop("frag"), device, frag, vc.pop("frags"))
     probes = {e_log: probe_phase(device, e_log) for e_log in PROBE_E_LOGS}
 
     by_app = {"pagerank auto": pr_auto, "pagerank strict": pr_strict,

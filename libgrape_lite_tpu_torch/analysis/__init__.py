@@ -4,9 +4,9 @@ a run-time build audit.
 Counterpart of `libgrape_lite_tpu/analysis/`.  Layer 1, the AST rules
 (analysis/astlint.py: R4 dyn-view parity, R5 eager logs and bool-blind
 schemas, R7 host syncs on the pump's dispatch stage, R8 stats outside the
-federation, R9 incomplete result-cache keys, R10 pinned rates, R12 unkeyed
-modeled claims), makes defect classes the JAX package shipped once
-un-shippable here.  Layer 2, A3 (analysis/artifact.py), runs the warm query
+federation, R9 incomplete result-cache keys, R10 pinned rates, R11 raw
+mesh axis names in models/, R12 unkeyed modeled claims), makes defect
+classes the JAX package shipped once un-shippable here.  Layer 2, A3 (analysis/artifact.py), runs the warm query
 matrix and pins zero rebuilds.  analysis/rules.py says which JAX rules are
 not carried and why.  Intentional exceptions are named in
 analysis/baseline.json.

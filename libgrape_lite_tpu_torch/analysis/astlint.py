@@ -1,5 +1,5 @@
 """grape-lint's AST checks over this package's source: R4, R5, R6, R7, R8,
-R9, R10 and R12.
+R9, R10, R11 and R12.
 
 Counterpart of `libgrape_lite_tpu/analysis/astlint.py`: the same scope
 engine and, for each rule this package carries, the same checker with its
@@ -800,6 +800,44 @@ def _check_r10(module: _Scope, path: str,
 
 
 # ---------------------------------------------------------------------------
+# R11 -- raw mesh axis names in models/
+# ---------------------------------------------------------------------------
+
+#: the sanctioned spellings of the vertex cut's mesh axis names -- the
+#: string values of parallel/comm_spec.VC_ROW_AXIS / VC_COL_AXIS.  Inlined
+#: (not imported) on purpose: the lint must keep flagging the raw strings
+#: even if the runtime constants are renamed out from under the literal
+#: copies it hunts.
+_R11_AXIS_LITERALS = ("vcrow", "vccol")
+
+
+def _check_r11(module: _Scope, path: str,
+               findings: List[Finding]) -> None:
+    """R11 raw-axis-name.  A models/ module that spells a mesh axis name
+    of the vertex cut as a raw string literal ('vcrow' / 'vccol') holds a
+    private copy of the grid contract: every reduction over a row- or
+    column-axis group is only correct because its axis name matches
+    parallel/comm_spec.py's, and a renamed or extended grid would miss
+    the literal silently -- a collective over the wrong group, not an
+    import error.  Importing VC_ROW_AXIS / VC_COL_AXIS from
+    parallel/comm_spec.py is the sanctioned form (the defining module
+    itself, and layers outside models/, are out of scope)."""
+    if "/models/" not in "/" + path:
+        return
+    for n in ast.walk(module.node):
+        if (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                and n.value in _R11_AXIS_LITERALS):
+            findings.append(Finding(
+                "R11", path, n.lineno, "<module>",
+                f"raw mesh axis name {n.value!r} in models/ -- a private "
+                "copy of the grid contract; import VC_ROW_AXIS/"
+                "VC_COL_AXIS from parallel/comm_spec.py so a rename is an "
+                "import error instead of a collective over the wrong "
+                "group",
+            ))
+
+
+# ---------------------------------------------------------------------------
 # R12 -- modeled claims must carry a join key
 # ---------------------------------------------------------------------------
 
@@ -894,7 +932,7 @@ def _check_r12(module: _Scope, path: str,
 # ---------------------------------------------------------------------------
 
 _CHECKS = (_check_r4, _check_r5, _check_r6, _check_r7, _check_r8,
-           _check_r9, _check_r10, _check_r12)
+           _check_r9, _check_r10, _check_r11, _check_r12)
 
 
 def lint_source(src: str, relpath: str) -> List[Finding]:

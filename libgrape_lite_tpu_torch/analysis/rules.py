@@ -15,8 +15,6 @@ in analysis/astlint.py, A3 in analysis/artifact.py.  Not carried:
   jit, no `torch.compile`, no CUDA-graph capture, no donated buffers);
   `Worker.query` is a Python loop over eager kernels.  A3's build
   events audit what R2 and R3 protected: no cache leaks a rebuild.
-* R11 raw-axis-name -- this package has no device mesh yet; it lands
-  with the k x k NCCL mesh of the multi-process runtime.
 """
 
 from __future__ import annotations
@@ -137,6 +135,22 @@ RULES: Dict[str, Rule] = {
             "carried their own copies -- five pricing surfaces, none "
             "fittable; collapsed onto the RateProfile (zero-entry "
             "baseline)",
+        ),
+        Rule(
+            "R11", "raw-axis-name",
+            "a models/ module spells a mesh axis name of the vertex cut "
+            "as a raw string literal ('vcrow' / 'vccol') instead of "
+            "importing VC_ROW_AXIS / VC_COL_AXIS from "
+            "parallel/comm_spec.py -- a private copy of the grid "
+            "contract that a rename (or a third axis) silently misses, "
+            "turning an import error into a collective over the wrong "
+            "row- or column-axis group at run time",
+            "JAX package (preventive): the pipelined SUMMA round "
+            "put the row-axis psum on the hot path of three apps at "
+            "once.  Here the k x k rank grid (CommSpec.vc_grid) gives "
+            "every row- and column-axis reduction of models/vc2d.py and "
+            "pagerank_vc.py a process group named by these constants "
+            "(zero-entry baseline)",
         ),
         Rule(
             "R12", "unkeyed-modeled-claim",

@@ -40,6 +40,10 @@ import numpy as np
 import torch
 
 from libgrape_lite_tpu_torch.ops import spmv
+from libgrape_lite_tpu_torch.parallel.comm_spec import (
+    VC_COL_AXIS,
+    VC_ROW_AXIS,
+)
 from libgrape_lite_tpu_torch.parallel.communicator import Communicator
 from libgrape_lite_tpu_torch.parallel.mirror import resolve_mirror_plan
 from libgrape_lite_tpu_torch.parallel.pipeline import resolve_pipeline
@@ -104,28 +108,38 @@ class StepContext(Communicator):
         return x.reshape(tuple(x.shape[:-2]) + (-1,))
 
     @_ctxmethod
-    def mirror_recv(self, x_local: torch.Tensor,
-                    send_idx: torch.Tensor) -> torch.Tensor:
+    def mirror_recv(self, x_local: torch.Tensor, send_idx: torch.Tensor,
+                    async_op: bool = False):
         """The remote half of `exchange_mirrors`: [..., fnum, vp] state
         and the [fnum (sender), fnum (receiver), m] send table ->
         [..., fnum, fnum * m], fragment f's received rows in sender
         order.  One gather x[g][send_idx[g]] and one all-to-all (the
         transpose of the send block on one card).  Under a process group
         the state and the table's sender rows are the rank's slab, and
-        the all-to-all crosses ranks."""
+        the all-to-all crosses ranks; `async_op` then returns (the
+        output, its `comm_spec.Pending`), the output filled by `wait`."""
         nsend = send_idx.shape[0]
         sender = torch.arange(nsend, device=x_local.device).view(nsend, 1, 1)
         vals = x_local[..., sender, send_idx]  # [..., g, f, m]
         if self.spec is None:
             recv = vals.transpose(-3, -2)  # all_to_all: [..., f, g, m]
-        else:
-            # receivers first, grouped by rank: [world, fl (f), ..., fl
-            # (g), m]; back come the sender ranks' blocks, which join
-            # the local sender axis in fragment order
-            v = vals.movedim(-2, 0).unflatten(0, (self.spec.world, -1))
-            recv = self.spec.all_to_all_single(v)  # [p, f, ..., g, m]
+            return recv.reshape(tuple(recv.shape[:-2]) + (-1,))
+
+        def arrange(recv):
+            # [p, f, ..., g, m]: the sender ranks' blocks join the local
+            # sender axis in fragment order
             recv = recv.movedim(0, -3).flatten(-3, -2).movedim(0, -3)
-        return recv.reshape(tuple(recv.shape[:-2]) + (-1,))
+            return recv.reshape(tuple(recv.shape[:-2]) + (-1,))
+
+        # receivers first, grouped by rank: [world, fl (f), ..., fl (g), m]
+        v = vals.movedim(-2, 0).unflatten(0, (self.spec.world, -1))
+        if not async_op:
+            return arrange(self.spec.all_to_all_single(v))
+        out = torch.empty(arrange(torch.empty(v.shape, device="meta")).shape,
+                          dtype=v.dtype, device=v.device)
+        pend = self.spec.all_to_all_single(
+            v, async_op=True, then=lambda recv: out.copy_(arrange(recv)))
+        return out, pend
 
     @_ctxmethod
     def exchange_mirrors(self, x_local: torch.Tensor,
@@ -154,52 +168,114 @@ class StepContext(Communicator):
 
 
 class VCStepContext(StepContext):
-    """The 2-D superstep toolkit over the k x k tiles stacked on one
-    device (JAX `models/vc2d.py` over the SUMMA mesh).  A per-tile value
-    is a [..., k, k, vc] tensor, tile (i, j) at [i, j]: row i is the src
-    chunk, column j the dst chunk.  Reducing over the row axis folds the
-    k tiles of one column (JAX's pmin / psum over `vcrow`), which
-    completes dst chunk j; over the column axis, the k tiles of one row
-    (`vccol`), src chunk i.  Both leave [..., k, vc], indexed by the
-    chunk they completed, so the master carry's [k * vc] layout needs no
-    transpose afterwards; `vc_transpose` swaps a per-tile value's axes
-    ((i, j) -> (j, i), JAX's ppermute).  Leading lane axes pass through.
-    On several cards these become collectives over the k x k NCCL mesh of
-    the multi-process runtime (ROADMAP Queue A item 8c)."""
+    """The 2-D superstep toolkit over the k x k tiles (JAX
+    `models/vc2d.py` over the SUMMA mesh).  A per-tile value is a [...,
+    nr, nc, vc] tensor over the tile rows and columns this context holds
+    (all k of each with one process), tile (i, j) at [i - r_lo, j -
+    c_lo]: row i is the src chunk, column j the dst chunk.  Reducing over
+    the row axis folds the tiles of one column (JAX's pmin / psum over
+    `VC_ROW_AXIS`), which completes dst chunk j; over the column axis,
+    the tiles of one row (`VC_COL_AXIS`), src chunk i.  They leave [...,
+    nc, vc] and [..., nr, vc], indexed by the chunk they completed.  The
+    master carry is chunk-indexed by tile row ([..., nr * vc], the JAX
+    package's P(vcrow) layout); `cols_to_rows` re-aligns a completed
+    column reduction to it and `rows_to_cols` gives the column copy a
+    src-side pull reads (both the identity with one process), and
+    `vc_transpose` swaps a per-tile value's tiles ((i, j) -> (j, i), JAX's
+    ppermute).  Leading lane axes pass through.
 
-    def __init__(self, k: int):
-        super().__init__(k * k)
+    Given a CommSpec with a process group (`spec`), the rank holds its
+    slab of the grid (`CommSpec.vc_grid`): each reduction folds the local
+    tiles, then runs over the rank's row- or column-axis group
+    (`CommSpec.axis_reduce`), the re-alignments are tile transposes
+    (`CommSpec.vc_transpose`), and `count_rows` sums a vote over the row
+    axis, whose ranks hold every tile row once.  No collective moves the
+    tile stack."""
+
+    def __init__(self, k: int, spec=None):
+        super().__init__(k * k, spec=spec)
         self.k = k
+        self.grid = spec.vc_grid(k) if self.spec is not None else None
+
+    @property
+    def nr(self) -> int:
+        return self.k if self.grid is None else self.grid.nr
+
+    @property
+    def nc(self) -> int:
+        return self.k if self.grid is None else self.grid.nc
 
     def tiles(self, y: torch.Tensor) -> torch.Tensor:
-        """K1's [..., 1, k * k * vc] output as [..., k, k, vc]."""
-        k = self.k
-        return y.reshape(tuple(y.shape[:-2]) + (k, k, -1))
+        """K1's [..., 1, fl * vc] output as [..., nr, nc, vc]."""
+        return y.reshape(tuple(y.shape[:-2]) + (self.nr, self.nc, -1))
 
-    @staticmethod
-    def row_min(x: torch.Tensor) -> torch.Tensor:
-        return x.amin(dim=-3)
+    def _across(self, y: torch.Tensor, axis: str, op: str,
+                async_op: bool = False):
+        if self.spec is None:
+            return y
+        return self.spec.axis_reduce(y, self.k, axis, op, async_op)
 
-    @staticmethod
-    def col_min(x: torch.Tensor) -> torch.Tensor:
-        return x.amin(dim=-2)
+    def row_min(self, x: torch.Tensor, async_op: bool = False):
+        """`async_op` (a process group only) returns the Pending of the
+        group's reduction (the pipelined round's kickoff)."""
+        return self._across(x.amin(dim=-3), VC_ROW_AXIS, "min", async_op)
 
-    @staticmethod
-    def row_sum(x: torch.Tensor) -> torch.Tensor:
-        return x.sum(dim=-3)
+    def col_min(self, x: torch.Tensor) -> torch.Tensor:
+        return self._across(x.amin(dim=-2), VC_COL_AXIS, "min")
 
-    @staticmethod
-    def col_sum(x: torch.Tensor) -> torch.Tensor:
-        return x.sum(dim=-2)
+    def row_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._across(x.sum(dim=-3), VC_ROW_AXIS, "sum")
 
-    @staticmethod
-    def vc_transpose(x: torch.Tensor) -> torch.Tensor:
-        return x.transpose(-3, -2)
+    def col_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._across(x.sum(dim=-2), VC_COL_AXIS, "sum")
+
+    def vc_transpose(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spec is None:
+            return x.transpose(-3, -2)
+        blocks = x.flatten(-3, -2).movedim(-2, 0)  # [fl, ..., vc]
+        out = self.spec.vc_transpose(blocks.contiguous(), self.k)
+        return out.movedim(0, -2).unflatten(-2, (self.nr, self.nc))
+
+    def cols_to_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., nc, vc] completed column chunks -> [..., nr, vc], the
+        chunks of this rank's tile rows: a local pick when the rank holds
+        every column, else one tile transpose (tile (i, j) takes the
+        chunk i that tile (j, i) completed)."""
+        if self.spec is None or self.nc == self.k:
+            g = self.grid
+            return x if g is None else x[..., g.r_lo:g.r_lo + g.nr, :]
+        per_tile = x.unsqueeze(-3).expand(
+            tuple(x.shape[:-2]) + (self.nr,) + tuple(x.shape[-2:]))
+        return self.vc_transpose(per_tile)[..., :, 0, :]
+
+    def rows_to_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., nr, vc] row chunks -> [..., nc, vc], the chunks of this
+        rank's tile columns (the column copy a src-side pull reads): one
+        tile transpose, the identity when the rank holds every row."""
+        if self.spec is None or self.nr == self.k:
+            return x
+        per_tile = x.unsqueeze(-2).expand(
+            tuple(x.shape[:-1]) + (self.nc, x.shape[-1]))
+        return self.vc_transpose(per_tile)[..., 0, :, :]
+
+    def chunks(self, x: torch.Tensor) -> torch.Tensor:
+        """The [..., n * vc] chunk layout as [..., n, vc] (n = nr)."""
+        return x.unflatten(-1, (self.nr, -1))
 
     @staticmethod
     def flat(x: torch.Tensor) -> torch.Tensor:
-        """[..., k, vc] chunk-indexed -> the [..., k * vc] gpid layout."""
+        """[..., n, vc] chunk-indexed -> the [..., n * vc] gpid layout."""
         return x.reshape(tuple(x.shape[:-2]) + (-1,))
+
+    def count_rows(self, mask: torch.Tensor) -> torch.Tensor:
+        """A [..., nr * vc] mask's true count over every vertex once: the
+        row-axis group's ranks hold each tile row once."""
+        return self._across(mask.sum(dim=-1), VC_ROW_AXIS, "sum")
+
+    def vote(self, active, replicated: bool = False):
+        """A vertex-cut vote is the same on every rank already (a
+        `count_rows` or a round constant): no collective."""
+        return active
 
 
 def make_context(app, frag) -> StepContext:
@@ -207,7 +283,7 @@ def make_context(app, frag) -> StepContext:
     vertex-cut app, else the fragment stack's, over the process group of
     the fragment's CommSpec when it has one."""
     if getattr(app, "mesh_kind", "frag") == "vc2d":
-        return VCStepContext(frag.k)
+        return VCStepContext(frag.k, spec=frag.comm_spec)
     return StepContext(frag.fnum, spec=getattr(frag, "comm_spec", None))
 
 

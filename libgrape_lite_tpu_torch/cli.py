@@ -111,7 +111,7 @@ the fit is infeasible, the drift passes 5% or a file is unreadable:
         --samples samples.json --profile rates.json
 
 The `lint` subcommand runs grape-lint (analysis/) over this package's
-tree: the AST rules R4, R5, R7, R8, R9, R10 and R12, and with
+tree: the AST rules R4, R5, R6, R7, R8, R9, R10, R11 and R12, and with
 `--artifact` the A3 audit (the warm query matrix on `--device`, zero
 rebuilds).  Exit 0 clean, 1 on an unsuppressed or stale finding, 2 on a
 missing path or an empty `--update-baseline` reason, 3 when the `--json`

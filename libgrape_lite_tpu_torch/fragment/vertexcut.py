@@ -27,6 +27,15 @@ directed WCC pull both directions.  K1's [1, k^2 * vc] output viewed as
 [k, k, vc] is the per-tile partials the 2-D StepContext reduces over the
 row or column axis.
 
+Across ranks (a CommSpec with world > 1) every rank reads the edge file
+and keeps the host tiles, as the 1-D gangs do, and places only its slab
+of the grid (`CommSpec.vc_grid`): the rows of its fl tiles in each
+orientation's concatenated CSR (`_slab_csr`), whose neighbours index the
+rank's own chunks of the carry -- the tile rows it holds for `ie` (the
+src chunks), the tile columns for `oe` (the dst chunks) -- and the vertex
+mask of its tile rows.  The host tiles, `tile_stats` and the fingerprint
+stay those of the whole grid.
+
 `VC_TILE_STATS` is federated as "vc_tiles", as in the JAX package.
 """
 
@@ -72,11 +81,13 @@ class VCDeviceCSR:
 
 @dataclass
 class VCDeviceFragment:
-    """The device view of the k x k tiles (JAX `VCDeviceFragment`)."""
+    """The device view of a rank's k x k tiles (JAX `VCDeviceFragment`;
+    every tile with one process)."""
 
     ie: VCDeviceCSR
     oe: Optional[VCDeviceCSR]
-    vmask: torch.Tensor  # [k * vc] bool: real vertex slots
+    vmask: torch.Tensor  # [nr * vc] bool: real vertex slots of the rank's
+    # tile rows (all k rows with one process)
     fnum: int
     k: int
     vc: int  # padded chunk width
@@ -132,6 +143,8 @@ class ImmutableVertexcutFragment:
         self._host_csrs = {}
         self._tiles = None
         self.dev = None
+        # this rank's place on the grid (every tile with one process)
+        self.grid = comm_spec.vc_grid(k)
 
     # ---- ids ----
 
@@ -161,6 +174,14 @@ class ImmutableVertexcutFragment:
         m = np.zeros(self.k * self.vc, dtype=bool)
         m[self.oid_to_gpid(self._oids)] = True
         return m
+
+    def chunk_span(self, side: str = "row") -> tuple:
+        """(lo, hi) gpid bounds of the carry chunks this rank holds: its
+        tile rows' ("row") or tile columns' ("col"); [0, k * vc) with
+        one process."""
+        g = self.grid
+        lo, n = (g.r_lo, g.nr) if side == "row" else (g.c_lo, g.nc)
+        return lo * self.vc, (lo + n) * self.vc
 
     # masters: the diagonal tile (c, c) owns chunk c
     def inner_vertices_num(self, fid: int) -> int:
@@ -252,6 +273,39 @@ class ImmutableVertexcutFragment:
         self._host_csrs[orientation] = csrs
         return csrs
 
+    def _slab_csr(self, orientation: str) -> CSR:
+        """The rows of this rank's tiles in the orientation's concatenated
+        CSR (all of it with one process), rows local to the slab and
+        neighbours local to the carry chunks the pull reads: the tile
+        rows' for `ie` (src), the tile columns' for `oe` (dst)."""
+        cat = self._concat_csr(orientation)
+        g = self.grid
+        if g.world == 1:
+            return cat
+        key = "slab_" + orientation
+        if key not in self._host_csrs:
+            vc = self.vc
+            r0, r1 = g.fid_lo * vc, (g.fid_lo + g.fl) * vc
+            a, b = int(cat.indptr[r0]), int(cat.indptr[r1])
+            shift = self.chunk_span("row" if orientation == "ie"
+                                    else "col")[0]
+            n = b - a
+            pad = _round_up(max(n, 1), 128) - n
+            w = None
+            if cat.edge_w is not None:
+                w = np.concatenate([cat.edge_w[a:b],
+                                    np.zeros(pad, cat.edge_w.dtype)])
+            self._host_csrs[key] = CSR(
+                (cat.indptr[r0:r1 + 1] - a).astype(np.int32),
+                np.concatenate([cat.edge_src[a:b] - r0,
+                                np.full(pad, r1 - r0)]).astype(np.int32),
+                np.concatenate([cat.edge_nbr[a:b] - shift,
+                                np.zeros(pad, np.int64)]).astype(np.int32),
+                w,
+                np.concatenate([np.ones(n, bool), np.zeros(pad, bool)]),
+                r1 - r0, n)
+        return self._host_csrs[key]
+
     @property
     def host_ie(self):
         return self._tile_csrs("ie")
@@ -302,17 +356,19 @@ class ImmutableVertexcutFragment:
 
     def device_arrays(self) -> dict:
         """The host arrays `dev` places, by name: each orientation's
-        concatenated indptr, neighbours and weights, and the vertex mask.
-        fleet/budget.py prices exactly these."""
+        concatenated indptr, neighbours and weights over this rank's
+        tiles, and the vertex mask of its tile rows.  fleet/budget.py
+        prices exactly these."""
         out = {}
         sides = ("ie",) if self.symmetrized else ("ie", "oe")
         for side in sides:
-            cat = self._concat_csr(side)
+            cat = self._slab_csr(side)
             out[side + "_indptr"] = cat.indptr.reshape(1, -1)
             out[side + "_nbr"] = cat.edge_nbr.reshape(1, -1)
             if cat.edge_w is not None:
                 out[side + "_w"] = cat.edge_w.reshape(1, -1)
-        out["vmask"] = self.vertex_mask()
+        lo, hi = self.chunk_span("row")
+        out["vmask"] = self.vertex_mask()[lo:hi]
         return out
 
     def _place_tiles(self) -> VCDeviceFragment:

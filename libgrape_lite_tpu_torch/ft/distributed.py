@@ -590,6 +590,27 @@ def restore_resharded(
     return state, meta
 
 
+def decline_vc_reshard(app, frag, found: Dict[str, Any],
+                       expected: Dict[str, Any]) -> None:
+    """A vertex-cut lineage restores only onto its own grid and world:
+    its carry is chunk-indexed by the k x k tiles, which another fnum or
+    process count cuts differently.  The decline is recorded in the
+    partition ledger (PARTITION_STATS), as a reshard's 1-D decision is,
+    then raised."""
+    from libgrape_lite_tpu_torch.fragment.partition import resolve_partition
+
+    moved = ", ".join(f"{k} {found.get(k)} -> {expected.get(k)}"
+                      for k in GEOMETRY_KEYS
+                      if found.get(k) != expected.get(k))
+    reason = ("reshard restore: a vertex-cut lineage is chunk-indexed by "
+              f"its k x k tiles and does not reshard ({moved}); resume it "
+              "on its own fnum and process count")
+    z = np.zeros(0, np.int64)
+    resolve_partition(str(found.get("app", type(app).__name__)), frag.fnum,
+                      z, z, z, mode="2d", eligible=False, reason=reason)
+    raise CheckpointMismatchError(reason)
+
+
 def _reshard_fingerprint_check(path, expected, found):
     exp = {k: v for k, v in expected.items() if k not in GEOMETRY_KEYS}
     fnd = {k: v for k, v in found.items() if k not in GEOMETRY_KEYS}

@@ -3,8 +3,9 @@
 Counterpart of `libgrape_lite_tpu/models/vc2d.py`.  Tile (i, j) holds the
 edges with src in chunk i and dst in chunk j (undirected graphs are
 symmetrised at build, so one dst-side pull a round covers both
-directions); the master carry (`dist` / `depth` / `comp`) is one [k * vc]
-gpid-indexed vector.
+directions); the master carry (`dist` / `depth` / `comp`) is gpid-indexed
+by tile row: the chunks of the tile rows a context holds, [nr * vc]
+(one [k * vc] vector with one process).
 
 A round (`inceval`):
 
@@ -13,13 +14,27 @@ A round (`inceval`):
      value (plus its weight for SSSP) into its tile's dst row -- [k, k,
      vc] partials, tile (i, j) folding chunk j's rows;
   2. the row-axis min (`VCStepContext.row_min`, the JAX package's pmin
-     over `vcrow`) folds the k partials of each column, completing chunk
-     j (the JAX package's transpose back to the row copy is the identity
-     of the one-card [k * vc] layout);
-  3. directed WCC also pulls the src side over the oe tile CSR and folds
-     it over the column axis;
+     over `VC_ROW_AXIS`) folds the k partials of each column, completing
+     chunk j, and `cols_to_rows` re-aligns it to the carry's tile rows
+     (the JAX package's transpose; the identity with one process);
+  3. directed WCC also pulls the src side over the oe tile CSR from the
+     carry's column copy (`rows_to_cols`) and folds it over the column
+     axis (`col_min`, `VC_COL_AXIS`);
   4. the master fold `min(val, relax)` and the vote, the changed real
-     vertices.
+     vertices counted once (`count_rows`).
+
+Across ranks (a CommSpec with a process group) the carry keeps that
+layout, the JAX package's P(VC_ROW_AXIS): a rank holds the chunks of its
+tile rows, nr * vc values, and its slab's ie CSR reads them locally.  A round
+moves the rank's [nc, vc] column partials through one all_reduce over
+its row-axis group and, where the rank does not hold every tile column,
+one tile transpose of its fl [vc] blocks (`CommSpec.vc_transpose`); the
+vote is one int64 all_reduce over the row-axis group.  At 4-byte values
+that is 4 * nc * vc + 4 * fl * vc + 8 bytes a rank a round (RMAT-20, k
+2, vc 524,288: 2 ranks 4 MiB + 8 B, 4 ranks 4 MiB + 8 B), against the
+JAX mesh's vc reduction and vc transpose a tile.  Directed WCC adds its
+column copy's transpose and a column-axis all_reduce.  The result gather
+(`Worker.result_values`) joins the row chunks of the row-axis group.
 
 min is exact in any grouping and every candidate is computed from the
 operands the 1-D pull uses, so SSSP, BFS and WCC are bit-equal to the
@@ -29,15 +44,14 @@ min-oid member there too).  A sequence of sources (SSSP, BFS) builds
 
 `GRAPE_PIPELINE` (parallel/pipeline.py::resolve_vc2d_pipeline) runs the
 pipelined round (`inceval_pipelined`): two K1 calls over a static phase
-split of the concatenated tile CSR, the phase-0 row reduction on a side
-stream while the phase-1 K1 pulls, joined by min(r0, r1) -- bit-equal,
-as min regroups exactly.  Directed WCC's src pull declines (a dependent
-chain), as in the JAX package; pagerank_vc resolves no plan.
+split of the rank's tile CSR, the phase-0 row reduction kicked on a side
+stream (across ranks the row-axis all_reduce, issued asynchronously)
+while the phase-1 K1 pulls, joined by min(r0, r1) -- bit-equal, as min
+regroups exactly.  Directed WCC's src pull declines (a dependent chain),
+as in the JAX package; pagerank_vc resolves no plan.
 
 Not carried over: the TPU pack plans of the tiles (`_resolve_tile_packs`,
-`GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull).  On
-several cards the row reduction becomes a collective over the k x k NCCL
-mesh of the multi-process runtime (ROADMAP Queue A item 8c).
+`GRAPE_SPMV=pack`: TPU data movement; K1 is the port's pull).
 """
 
 from __future__ import annotations
@@ -63,10 +77,11 @@ _LOG = logging.getLogger(__name__)
 
 def vc_source_carry(frag, source, app_name: str, fill, hit,
                     dtype: torch.dtype) -> torch.Tensor:
-    """[k * vc] gpid-space carry seeded at `source` -- or [B, k * vc] for
-    a sequence of B sources (the batched lanes), on the fragment's
-    device.  A source outside the oid space leaves its lane all `fill`,
-    logged as the 1-D apps log an absent source."""
+    """The gpid-space carry of the fragment's tile rows ([nr * vc], [k *
+    vc] with one process) seeded at `source` -- or [B, nr * vc] for a
+    sequence of B sources (the batched lanes), on the fragment's device.
+    A source outside the oid space leaves its lane all `fill`, logged as
+    the 1-D apps log an absent source."""
     batched = is_lane_sequence(source)
     srcs = np.asarray(source if batched else [source],
                       dtype=np.int64).reshape(-1)
@@ -78,13 +93,16 @@ def vc_source_carry(frag, source, app_name: str, fill, hit,
         else:
             _LOG.warning("%s: source %r is outside the oid space; all "
                          "vertices will be unreachable", app_name, s)
+    lo, hi = frag.chunk_span("row")
+    arr = arr[:, lo:hi].contiguous()
     return arr if batched else arr[0]
 
 
 def vc_finalize_rows(frag, flat) -> np.ndarray:
-    """A gpid-space [k * vc] result as [fnum, vc] rows in inner_oids
-    order (masters on the diagonal tiles): the Worker's output contract
-    for every vertex-cut app."""
+    """A gpid-space [k * vc] result (every chunk: across ranks the
+    gathered carry) as [fnum, vc] rows in inner_oids order (masters on
+    the diagonal tiles): the Worker's output contract for every
+    vertex-cut app."""
     vals = np.asarray(flat).reshape(frag.k, frag.vc)
     out = np.zeros((frag.fnum, frag.vc), dtype=vals.dtype)
     for c in range(frag.k):
@@ -114,6 +132,12 @@ class VC2DMinAppBase(GatherScatterAppBase):
     message_strategy = MessageStrategy.kGatherScatter
     mesh_kind = "vc2d"
     state_key = ""  # the carry leaf ("dist" / "depth" / "comp")
+
+    @property
+    def vc_row_keys(self) -> frozenset:
+        """The carry leaves chunk-indexed by tile row (the worker gathers
+        and cuts them by the grid)."""
+        return frozenset({self.state_key})
 
     def _init_common(self, frag, carry: torch.Tensor, eph=None):
         """The carry and ephemeral leaves, the pipelined round's plan (a
@@ -163,14 +187,15 @@ class VC2DMinAppBase(GatherScatterAppBase):
 
     def inceval(self, ctx: VCStepContext, dev, state):
         val = state[self.state_key]
-        relax = ctx.flat(ctx.row_min(self._dst_partial(ctx, dev, val,
-                                                       state)))
+        relax = ctx.flat(ctx.cols_to_rows(ctx.row_min(
+            self._dst_partial(ctx, dev, val, state))))
         if self._src_pull:
+            val_col = ctx.flat(ctx.rows_to_cols(ctx.chunks(val)))
             relax = torch.minimum(relax, ctx.flat(ctx.col_min(
-                self._src_partial(ctx, dev, val, state))))
+                self._src_partial(ctx, dev, val_col, state))))
         new = torch.minimum(val, relax)
         changed = (new < val) & dev.vmask
-        return {**state, self.state_key: new}, changed.sum(dim=-1)
+        return {**state, self.state_key: new}, ctx.count_rows(changed)
 
     def pipeline_exchange(self, ctx, dev, state):
         """The vertex-cut round carries no buffer across rounds: the row
@@ -179,23 +204,25 @@ class VC2DMinAppBase(GatherScatterAppBase):
 
     def inceval_pipelined(self, ctx: VCStepContext, dev, state, xbuf):
         """The two-phase round: the phase-0 K1 pull, its row reduction
-        kicked off on the side stream, the phase-1 K1 pull under it, the
-        join, min(r0, r1).  min over disjoint edge sets of the same
-        candidates is the serial row_min bit for bit."""
+        kicked off on the side stream (across ranks the row-axis group's
+        all_reduce, issued asynchronously), the phase-1 K1 pull under
+        it, the join, min(r0, r1).  min over disjoint edge sets of the
+        same candidates is the serial row_min bit for bit."""
         pl = self._pipeline
         val = state[self.state_key]
         p0 = self._tile_fold(ctx, state["pl_p0_indptr"], state["pl_p0_nbr"],
                              state.get("pl_p0_w"), val)
-        r0 = pl.kickoff(ctx.row_min, p0)
+        r0 = pl.kickoff(ctx, p0)
         # ---- pipelined window: every carry read below is named in
         # parallel/pipeline.PIPELINE_WINDOW_READS (grape-lint R6) ----
         w1 = state["pl_p1_w"] if "pl_p1_w" in state else None
         r1 = ctx.row_min(self._tile_fold(ctx, state["pl_p1_indptr"],
                                          state["pl_p1_nbr"], w1, val))
         pl.join()
-        new = torch.minimum(val, ctx.flat(torch.minimum(r0, r1)))
+        new = torch.minimum(val, ctx.flat(ctx.cols_to_rows(
+            torch.minimum(r0, r1))))
         changed = (new < val) & dev.vmask
-        return {self.state_key: new}, changed.sum(dim=-1), xbuf
+        return {self.state_key: new}, ctx.count_rows(changed), xbuf
 
     def finalize(self, frag, state):
         return vc_finalize_rows(frag, state[self.state_key].numpy())
@@ -287,8 +314,8 @@ class WCCVC2D(VC2DMinAppBase):
         return bool(frag.directed) and not frag.symmetrized
 
     def init_state(self, frag, **_):
-        gpids = torch.arange(frag.k * frag.vc, dtype=torch.int32,
-                             device=frag.device)
+        lo, hi = frag.chunk_span("row")
+        gpids = torch.arange(lo, hi, dtype=torch.int32, device=frag.device)
         comp = torch.where(frag.dev.vmask, gpids,
                            torch.full_like(gpids, _INT_SENT))
         return self._init_common(frag, comp)

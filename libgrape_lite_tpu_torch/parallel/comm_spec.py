@@ -31,6 +31,19 @@ the spec's `stats` (the group's traffic); `Communicator`
 the gang handshake): host-side and synchronous, over a gloo group of its
 own when the data plane is NCCL, so no vote or commit barrier enters a
 card's NCCL stream.
+
+The vertex cut lays its k x k tiles over the same slabs (`VCGrid`): tile
+(i, j) is fid i * k + j, and rank r holds tiles `fid_lo .. fid_lo + fl -
+1`, whole tile rows (k divides fl) or part of one row (fl divides k);
+any other world is refused before the load (`vc_layout_error`).  The
+ranks holding the same tile columns form the row-axis group of their
+columns (`VC_ROW_AXIS`: a fold over the tile rows), those holding the
+same tile rows the column-axis group (`VC_COL_AXIS`); `vc_grid` makes
+every group once per gang, every rank in the same order.  `axis_reduce`
+and `axis_gather` run over one of them, `vc_transpose` swaps tile (i,
+j)'s block with tile (j, i)'s in one `batch_isend_irecv`.  A primitive
+given `async_op=True` returns a `Pending` whose `wait` lands its output
+(the pipelined round's kickoff).
 """
 
 from __future__ import annotations
@@ -38,7 +51,9 @@ from __future__ import annotations
 import datetime
 import inspect
 import logging
+import math
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -46,6 +61,12 @@ import torch
 _LOG = logging.getLogger(__name__)
 
 kCoordinatorRank = 0  # reference grape/config.h:64
+
+#: the vertex cut's mesh axes (the JAX package's names): a reduction over
+#: VC_ROW_AXIS folds the k tile rows of a column, over VC_COL_AXIS the k
+#: tile columns of a row
+VC_ROW_AXIS = "vcrow"
+VC_COL_AXIS = "vccol"
 
 #: the process-group backend on a CUDA device: "nccl" (default) or
 #: "gloo" (staged through host memory); ignored on the CPU (gloo)
@@ -113,17 +134,132 @@ def leave_group() -> None:
     _CONTROL["group"] = None
 
 
-def decline_across_ranks(world: int, what: str, item: str,
-                         ok: bool = False) -> None:
-    """Raise a ValueError naming ROADMAP item `item` when a run spans
-    processes (`world` > 1) and `ok` is false: `what` is not yet
-    supported across ranks, and a run never drops to one process without
-    saying so."""
-    if ok or world <= 1:
-        return
-    raise ValueError(
-        f"{what} is not yet supported across processes (world {world} > "
-        f"1): ROADMAP item {item}")
+def vc_layout_error(fnum: int, world: int) -> str | None:
+    """Why `world` ranks cannot hold the k x k tiles of a vertex cut of
+    `fnum` = k^2 fragments, or None.  Rank r holds the tiles `r * fl ..
+    (r + 1) * fl - 1` (fl = fnum / world): whole tile rows (k divides fl)
+    or part of one row (fl divides k).  A non-square fnum, or one the
+    world does not divide, is left to the checks that name it."""
+    k = math.isqrt(fnum)
+    if world <= 1 or k * k != fnum or fnum % world:
+        return None
+    fl = fnum // world
+    if fl % k == 0 or k % fl == 0:
+        return None
+    return (f"the vertex cut of {k} x {k} tiles across {world} processes "
+            f"gives each rank fl = fnum / num_processes = {fl} tiles; a "
+            "rank's slab must be whole tile rows (k divides fl) or part of "
+            "one tile row (fl divides k)")
+
+
+@dataclass(frozen=True)
+class VCGrid:
+    """The k x k tile grid over `world` rank slabs: which tiles, tile
+    rows and tile columns rank `rank` holds, its row- and column-axis
+    groups and the tile transpose's peers.  Pure geometry (no process
+    group), the same on every rank."""
+
+    k: int
+    world: int
+    rank: int
+
+    @property
+    def fl(self) -> int:
+        return self.k * self.k // self.world
+
+    def span(self, rank: int) -> tuple:
+        """(r_lo, nr, c_lo, nc): the tile rows and columns `rank` holds."""
+        k, fl = self.k, self.fl
+        lo = rank * fl
+        if fl % k == 0:
+            return lo // k, fl // k, 0, k
+        return lo // k, 1, lo % k, fl
+
+    @property
+    def fid_lo(self) -> int:
+        return self.rank * self.fl
+
+    @property
+    def r_lo(self) -> int:
+        return self.span(self.rank)[0]
+
+    @property
+    def nr(self) -> int:
+        return self.span(self.rank)[1]
+
+    @property
+    def c_lo(self) -> int:
+        return self.span(self.rank)[2]
+
+    @property
+    def nc(self) -> int:
+        return self.span(self.rank)[3]
+
+    def members(self, axis: str, rank: int | None = None) -> tuple:
+        """The ranks of `rank`'s group over `axis`: those holding the same
+        tile columns (VC_ROW_AXIS) or the same tile rows (VC_COL_AXIS),
+        in rank order."""
+        mine = self.span(self.rank if rank is None else rank)
+        part = (slice(2, 4) if axis == VC_ROW_AXIS else slice(0, 2))
+        return tuple(q for q in range(self.world)
+                     if self.span(q)[part] == mine[part])
+
+    def groups(self, axis: str) -> list:
+        """Every group over `axis` of more than one rank, in one order."""
+        out = []
+        for q in range(self.world):
+            m = self.members(axis, q)
+            if len(m) > 1 and m not in out:
+                out.append(m)
+        return out
+
+    def transpose_peers(self) -> tuple:
+        """(local, peers) of the tile transpose: `local` the (dst, src)
+        local tile pairs this rank moves itself; `peers` {rank: (send,
+        recv)} -- the local tiles whose blocks go to that rank, in this
+        rank's fid order, and those whose blocks come back, in the
+        sender's fid order."""
+        k, fl, lo = self.k, self.fl, self.fid_lo
+        local, send, recv = [], {}, {}
+        for t in range(fl):
+            i, j = divmod(lo + t, k)
+            partner = j * k + i
+            q = partner // fl
+            if q == self.rank:
+                local.append((t, partner - lo))
+            else:
+                send.setdefault(q, []).append(t)
+                recv.setdefault(q, []).append((partner, t))
+        peers = {q: (send[q], [t for _, t in sorted(recv[q])])
+                 for q in sorted(send)}
+        return local, peers
+
+
+class Pending:
+    """An issued collective (`async_op=True`): `wait` ends it, lands a
+    staged output on the device and returns the output (`then` maps it
+    first, into the tensor the caller was handed)."""
+
+    def __init__(self, work, out: torch.Tensor, wire_out: torch.Tensor,
+                 then=None):
+        self._work, self._out, self._wire_out = work, out, wire_out
+        self._then = then
+
+    @property
+    def out(self) -> torch.Tensor:
+        """The tensor `wait` lands the output in (its values are the
+        collective's only after `wait`)."""
+        return self._out
+
+    def tensors(self) -> tuple:
+        return (self._out, self._wire_out)
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        out = CommSpec._land(self._out, self._wire_out)
+        return out if self._then is None else self._then(out)
 
 
 def pick_backend(device: torch.device, world: int) -> tuple:
@@ -180,11 +316,15 @@ class CommSpec:
         #: host
         self.stats = {}
         self.reset_stats()
+        # the vertex cut's grid and groups, by k (`vc_grid`)
+        self._vc = {}
 
     def reset_stats(self) -> None:
         self.stats.update(calls=0, bytes=0, staged=0, all_gather=0,
                           all_gather_bytes=0, all_reduce=0, all_to_all=0,
-                          ring=0, ring_bytes=0)
+                          ring=0, ring_bytes=0, vc_reduce=0,
+                          vc_reduce_bytes=0, vc_gather=0, vc_gather_bytes=0,
+                          vc_transpose=0, vc_transpose_bytes=0)
 
     # ---- topology (comm_spec.h:128-150) ----
 
@@ -350,36 +490,57 @@ class CommSpec:
             out.copy_(wire, non_blocking=True)
         return out
 
-    def all_gather_into(self, inp: torch.Tensor) -> torch.Tensor:
+    def _issued(self, work, out, wire_out, async_op: bool, then=None):
+        """The output of an issued collective: landed now, or a Pending."""
+        if async_op:
+            return Pending(work, out, wire_out, then)
+        out = self._land(out, wire_out)
+        return out if then is None else then(out)
+
+    def all_gather_into(self, inp: torch.Tensor, async_op: bool = False):
         """[n, ...] on every rank -> [world * n, ...], rank order."""
+        return self._gather(inp, self.group, self.world, "all_gather",
+                            async_op)
+
+    def _gather(self, inp: torch.Tensor, group, n: int, kind: str,
+                async_op: bool = False):
+        """[m, ...] on each of the `n` ranks of `group` -> [n * m, ...] in
+        rank order, counted as `kind` and its bytes."""
         import torch.distributed as dist
 
         gather = (getattr(dist, "all_gather_single", None)
                   or dist.all_gather_into_tensor)
         inp = inp.contiguous()
-        shape = (self.world * inp.shape[0],) + tuple(inp.shape[1:])
+        shape = (n * inp.shape[0],) + tuple(inp.shape[1:])
         out = torch.empty(shape, dtype=inp.dtype, device=inp.device)
         wire_out = out if not self.staged else self._buffer(shape, inp.dtype)
-        gather(wire_out, self._wire(inp), group=self.group)
+        work = gather(wire_out, self._wire(inp), group=group,
+                      async_op=async_op)
         nbytes = out.numel() * out.element_size()
-        self._count("all_gather", nbytes)
-        self.stats["all_gather_bytes"] += nbytes
-        return self._land(out, wire_out)
+        self._count(kind, nbytes)
+        self.stats[kind + "_bytes"] += nbytes
+        return self._issued(work, out, wire_out, async_op)
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """Elementwise "sum" / "min" / "max" across ranks, in place (a
         new tensor when staged)."""
+        t = t.contiguous()
+        wire = self._wire(t)
+        self._reduce(wire, op, self.group)
+        self._count("all_reduce", t.numel() * t.element_size())
+        return self._land(t, wire)
+
+    @staticmethod
+    def _reduce(wire: torch.Tensor, op: str, group, async_op=False):
         import torch.distributed as dist
 
         ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}
-        t = t.contiguous()
-        wire = self._wire(t)
-        dist.all_reduce(wire, op=ops[op], group=self.group)
-        self._count("all_reduce", t.numel() * t.element_size())
-        return self._land(t, wire)
+        return dist.all_reduce(wire, op=ops[op], group=group,
+                               async_op=async_op)
 
-    def all_to_all_single(self, inp: torch.Tensor) -> torch.Tensor:
+    def all_to_all_single(self, inp: torch.Tensor, async_op: bool = False,
+                          then=None):
         """[world, ...] blocks: block q goes to rank q, which stacks what
         it receives in sender order."""
         import torch.distributed as dist
@@ -388,9 +549,108 @@ class CommSpec:
         out = torch.empty_like(inp)
         wire_out = out if not self.staged else self._buffer(inp.shape,
                                                             inp.dtype)
-        dist.all_to_all_single(wire_out, self._wire(inp), group=self.group)
+        work = dist.all_to_all_single(wire_out, self._wire(inp),
+                                      group=self.group, async_op=async_op)
         self._count("all_to_all", inp.numel() * inp.element_size())
-        return self._land(out, wire_out)
+        return self._issued(work, out, wire_out, async_op, then)
+
+    # ---- the vertex cut's k x k grid ----
+
+    def vc_grid(self, k: int) -> VCGrid:
+        """This rank's place on the k x k tile grid.  Under a process
+        group the first call for `k` makes every row- and column-axis
+        group of more than one rank -- on every rank, in the same order,
+        as `torch.distributed.new_group` requires -- so each rank makes
+        its fragments' grids in one order.  Raises the layout rule's
+        ValueError for a world that breaks it."""
+        if k not in self._vc:
+            why = vc_layout_error(k * k, self.world)
+            if why is not None:
+                raise ValueError(why)
+            if self.fnum != k * k:
+                raise ValueError(f"vertex-cut needs fnum = k^2, got "
+                                 f"{self.fnum} for k {k}")
+            grid = VCGrid(k, self.world, self.rank)
+            groups = {VC_ROW_AXIS: None, VC_COL_AXIS: None}
+            if self.group is not None:
+                import torch.distributed as dist
+
+                timeout = datetime.timedelta(seconds=dist_timeout_s())
+                for axis in (VC_ROW_AXIS, VC_COL_AXIS):
+                    for m in grid.groups(axis):
+                        g = dist.new_group(list(m), timeout=timeout)
+                        if self.rank in m:
+                            groups[axis] = g
+            self._vc[k] = (grid, groups)
+        return self._vc[k][0]
+
+    def _axis_group(self, k: int, axis: str):
+        self.vc_grid(k)
+        return self._vc[k][1][axis]
+
+    def axis_reduce(self, t: torch.Tensor, k: int, axis: str, op: str,
+                    async_op: bool = False):
+        """Elementwise "sum" / "min" / "max" over this rank's `axis`
+        group of the k x k grid (the JAX package's psum / pmin over the
+        axis); a group of one rank is the identity, counted nowhere."""
+        group = self._axis_group(k, axis)
+        t = t.contiguous()
+        if group is None:
+            return Pending(None, t, t) if async_op else t
+        wire = self._wire(t)
+        work = self._reduce(wire, op, group, async_op)
+        nbytes = t.numel() * t.element_size()
+        self._count("vc_reduce", nbytes)
+        self.stats["vc_reduce_bytes"] += nbytes
+        return self._issued(work, t, wire, async_op)
+
+    def axis_gather(self, t: torch.Tensor, k: int, axis: str) -> torch.Tensor:
+        """[n, ...] on every rank of this rank's `axis` group -> [len
+        (group) * n, ...] in rank order (the identity for one rank)."""
+        group = self._axis_group(k, axis)
+        if group is None:
+            return t
+        n = len(self._vc[k][0].members(axis))
+        return self._gather(t, group, n, "vc_gather")
+
+    def vc_transpose(self, blocks: torch.Tensor, k: int) -> torch.Tensor:
+        """[fl, ...] blocks, one a local tile in fid order -> the blocks
+        of the transposed tiles: out[t] is tile (j, i)'s block for local
+        tile t = (i, j).  The diagonal and the partners this rank holds
+        move locally; every other peer swaps its blocks in one
+        `batch_isend_irecv` (one message each way a peer)."""
+        local, peers = self.vc_grid(k).transpose_peers()
+        out = torch.empty_like(blocks)
+        if local:
+            dst, src = zip(*local)
+            out[list(dst)] = blocks[list(src)]
+        if not peers:
+            return out
+        got = self._swap(blocks, peers)
+        nbytes = 0
+        for q, (send, recv) in peers.items():
+            out[recv] = got[q].to(out.device, non_blocking=True)
+            nbytes += got[q].numel() * got[q].element_size()
+        self._count("vc_transpose", nbytes)
+        self.stats["vc_transpose_bytes"] += nbytes
+        return out
+
+    def _swap(self, blocks: torch.Tensor, peers: dict) -> dict:
+        """{peer: the blocks it sent}: each peer's `send` blocks of
+        `blocks` go to it as one message and its message comes back, all
+        in one `batch_isend_irecv`."""
+        import torch.distributed as dist
+
+        ops, got = [], {}
+        for q, (send, recv) in peers.items():
+            msg = blocks[send].contiguous()
+            got[q] = self._buffer(msg.shape, msg.dtype)
+            ops.append(dist.P2POp(dist.isend, self._wire(msg), q,
+                                  group=self.group))
+            ops.append(dist.P2POp(dist.irecv, got[q], q, group=self.group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return got
 
     def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
         """One step of a ring of rank blocks: this rank's block goes to

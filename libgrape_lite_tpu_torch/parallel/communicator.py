@@ -72,10 +72,18 @@ class Communicator:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self._extreme(x, "max")
 
-    def all_gather(self, x: torch.Tensor, tiled: bool = True) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, tiled: bool = True,
+                   async_op: bool = False):
         """Every shard's block, concatenated ([fnum, n, ...] -> [fnum *
         n, ...]) or, untiled, stacked ([fnum, n, ...]); the gathered
-        array is the same on every shard, so it is returned once."""
+        array is the same on every shard, so it is returned once.
+        `async_op` (a process group only) returns (the output, its
+        `comm_spec.Pending`): the output holds the gather after `wait`."""
+        if async_op:
+            pend = self.spec.all_gather_into(x, async_op=True)
+            out = pend.out
+            return (out.reshape((-1,) + tuple(out.shape[2:])) if tiled
+                    else out), pend
         if self.spec is not None:
             x = self._gather_frags(x)
         return x.reshape((-1,) + tuple(x.shape[2:])) if tiled else x

@@ -50,6 +50,17 @@ Engagement, `GRAPE_PIPELINE` (the JAX names and gates):
 Every decline is recorded in PIPELINE_STATS (federated as "pipeline").
 On the CPU (asked for explicitly) the same steps run in order, with no
 streams.
+
+Across ranks (a StepContext over a process group) a rank's split CSRs
+are its slab's rows, the splice's live half its [fl, vp] slab, and the
+kickoff issues the exchange -- the state all_gather (gather) or
+`StepContext.mirror_recv`'s all_to_all (mirror) -- as an asynchronous
+collective (`async_op=True`, a `comm_spec.Pending`) that the interior
+K1 does not wait on: under NCCL on the side stream, under gloo staged
+through the host the device-to-host copy on the side stream and the
+collective's work handle held, on the CPU the work handle held.  `join`
+waits on the handle and the side stream's event and lands the buffer
+the next round reads.
 """
 
 from __future__ import annotations
@@ -246,13 +257,25 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
         return s
 
 
+def _tensors_of(out) -> list:
+    """The tensors of a side-stream result: a tensor, a Pending's
+    buffers, or a tuple of them."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, tuple):
+        return [t for o in out for t in _tensors_of(o)]
+    tensors = getattr(out, "tensors", None)
+    return list(tensors()) if tensors is not None else []
+
+
 def run_on_side(fn, *inputs: torch.Tensor):
     """(fn(*inputs), event): on a CUDA device `fn` runs on the side
     stream after the work queued on the current stream, the inputs are
     marked as read there (`record_stream`, so the caching allocator
-    keeps them until the side stream is done) and the output as read on
-    the current stream; the event marks the end of the side work.  On
-    the CPU `fn` runs in place and the event is None."""
+    keeps them until the side stream is done) and the output's tensors
+    (a tensor, a Pending's buffers, or a tuple of them) as read on the
+    current stream; the event marks the end of the side work.  On the
+    CPU `fn` runs in place and the event is None."""
     dev = inputs[0].device
     if dev.type != "cuda":
         return fn(*inputs), None
@@ -265,7 +288,9 @@ def run_on_side(fn, *inputs: torch.Tensor):
         done.record(side)
     for t in inputs:
         t.record_stream(side)
-    out.record_stream(main)
+    for t in _tensors_of(out):
+        if t.device.type == "cuda":
+            t.record_stream(main)
     return out, done
 
 
@@ -329,15 +354,37 @@ class PipelinePlan(_PlanBrief):
     def kickoff(self, ctx, x_kick: torch.Tensor, state, leg: int = 1):
         """Start the next pull's exchange from the boundary-merged carry
         (new values at boundary rows; the other rows are never read
-        remotely) on the side stream; `join(leg)` ends it.  This call
-        opens the window grape-lint R6 audits."""
-        xbuf, self._pending[leg] = run_on_side(
-            lambda x: self.exchange(ctx, x, state, leg), x_kick)
+        remotely) on the side stream; `join(leg)` ends it.  Across ranks
+        the exchange is an asynchronous collective and the buffer holds
+        its values only after the join.  This call opens the window
+        grape-lint R6 audits."""
+        if ctx.spec is None:
+            xbuf, self._pending[leg] = run_on_side(
+                lambda x: self.exchange(ctx, x, state, leg), x_kick)
+            return xbuf
+        (xbuf, pend), event = run_on_side(
+            lambda x: self._issue(ctx, x, state, leg), x_kick)
+        self._pending[leg] = (event, pend)
         return xbuf
 
+    def _issue(self, ctx, x_local: torch.Tensor, state, leg: int):
+        """(buffer, Pending): `exchange` issued as an asynchronous
+        collective across ranks."""
+        mode, send_key = self._leg(leg)
+        if mode == "mirror":
+            return ctx.mirror_recv(x_local, state[send_key], async_op=True)
+        return ctx.all_gather(x_local, async_op=True)
+
     def join(self, leg: int = 1) -> None:
-        """The current stream waits for the leg's kickoff."""
-        join(self._pending.pop(leg, None))
+        """The current stream waits for the leg's kickoff; across ranks
+        the collective's handle is waited on and its buffer landed."""
+        pending = self._pending.pop(leg, None)
+        if isinstance(pending, tuple):
+            event, pend = pending
+            join(event)
+            pend.wait()
+        else:
+            join(pending)
 
     @staticmethod
     def splice(x_local: torch.Tensor, xbuf: torch.Tensor) -> torch.Tensor:
@@ -360,22 +407,27 @@ def _split_streams(frag, bmask: np.ndarray, direction: str, mirror,
     Splice columns: a local pid (this fragment's) indexes the live half
     at its pid; a remote pid indexes the buffer half, N + pid in gather
     mode, N + f * fnum * m + (compact - vp) in mirror mode (fragment f's
-    received rows, `nbr_compact`'s order)."""
+    received rows, `nbr_compact`'s order).  Under a process group the
+    arrays are the rank's slab (fragments fid_lo .. fid_lo + fl - 1)
+    and N, the pid of a local column and f count from its first
+    fragment."""
     fnum, vp = frag.fnum, frag.vp
-    n = fnum * vp
+    lo = getattr(frag, "fid_lo", 0)
+    fl = getattr(frag, "fl", fnum)
+    n = fl * vp
     csrs = frag.host_ie if direction == "ie" else frag.host_oe
     parts = {"b": [], "i": []}
-    for f in range(fnum):
+    for f in range(lo, lo + fl):
         h = csrs[f]
         mask = h.edge_mask
         src = h.edge_src.astype(np.int64)
         nbr = h.edge_nbr.astype(np.int64)
         if mirror is not None:
             c = mirror.nbr_compact[f].astype(np.int64)
-            cols = np.where(c < vp, f * vp + c,
-                            n + f * fnum * mirror.m + (c - vp))
+            cols = np.where(c < vp, (f - lo) * vp + c,
+                            n + (f - lo) * fnum * mirror.m + (c - vp))
         else:
-            cols = np.where(nbr // vp == f, nbr, n + nbr)
+            cols = np.where(nbr // vp == f, nbr - lo * vp, n + nbr)
         is_b = mask & bmask[f][np.minimum(src, vp - 1)]
         for part, sel in (("b", is_b), ("i", mask & ~is_b)):
             idx = np.flatnonzero(sel)
@@ -384,14 +436,14 @@ def _split_streams(frag, bmask: np.ndarray, direction: str, mirror,
                 cols[idx].astype(np.int32),
                 h.edge_w[idx] if with_weights else None,
             ))
-    out = {prefix + "bmask": bmask}
+    out = {prefix + "bmask": bmask[lo:lo + fl]}
     for part, shards in parts.items():
         cap = _round_up(max([len(s[1]) for s in shards] + [1]), 128)
-        indptr = np.zeros((fnum, vp + 1), dtype=np.int32)
-        nbr_a = np.zeros((fnum, cap), dtype=np.int32)
-        w_a = (np.zeros((fnum, cap), dtype=csrs[0].edge_w.dtype)
+        indptr = np.zeros((fl, vp + 1), dtype=np.int32)
+        nbr_a = np.zeros((fl, cap), dtype=np.int32)
+        w_a = (np.zeros((fl, cap), dtype=csrs[0].edge_w.dtype)
                if with_weights else None)
-        row_a = np.full((fnum, cap), vp, dtype=np.int32) if with_rows \
+        row_a = np.full((fl, cap), vp, dtype=np.int32) if with_rows \
             else None
         for f, (rows, cols, w) in enumerate(shards):
             np.cumsum(np.bincount(rows, minlength=vp), out=indptr[f, 1:])
@@ -481,9 +533,6 @@ def resolve_pipeline(frag, *, app_name: str, key: str,
         return declined(reason or "app declared ineligible")
     if frag.fnum <= 1:
         return declined("fnum==1: no exchange to overlap")
-    if getattr(getattr(frag, "comm_spec", None), "world", 1) > 1:
-        return declined("world > 1: the pipelined round across processes "
-                        "is ROADMAP item 8c")
     if getattr(frag, "dyn_overlay", None) is not None:
         return declined("dyn overlay attached (pid-addressed reads)")
     if fold == "sum":
@@ -604,25 +653,36 @@ class VC2DPipelinePlan(_PlanBrief):
     def uid(self) -> str:
         return f"vc2d:{self.k}:{self.vc}:{self.split}"
 
-    def kickoff(self, fn, partial: torch.Tensor) -> torch.Tensor:
-        """fn(partial) on the side stream (the phase-0 row reduction);
-        `join` ends it."""
-        out, self._pending = run_on_side(fn, partial)
-        return out
+    def kickoff(self, ctx, partial: torch.Tensor) -> torch.Tensor:
+        """ctx.row_min(partial) on the side stream (the phase-0 row
+        reduction; across ranks its row-axis all_reduce issued
+        asynchronously, valid after the join); `join` ends it."""
+        if ctx.spec is None:
+            out, self._pending = run_on_side(ctx.row_min, partial)
+            return out
+        pend, event = run_on_side(
+            lambda p: ctx.row_min(p, async_op=True), partial)
+        self._pending = (event, pend)
+        return pend.out
 
     def join(self) -> None:
-        join(self._pending)
-        self._pending = None
+        pending, self._pending = self._pending, None
+        if isinstance(pending, tuple):
+            event, pend = pending
+            join(event)
+            pend.wait()
+        else:
+            join(pending)
 
 
 def _phase_streams(frag, split: int, weighted: bool) -> dict:
-    """The two phase CSRs of the concatenated ie tile CSR (host arrays,
-    one stacked "fragment" each as K1 takes the tiles): an edge whose
-    position in its tile's row-sorted range is below `split` is phase 0,
-    every other edge phase 1; rows keep their edge order."""
-    cat = frag._concat_csr("ie")
+    """The two phase CSRs of the ie tile CSR of the rank's tiles (host
+    arrays, one stacked "fragment" each as K1 takes the tiles): an edge
+    whose position in its tile's row-sorted range is below `split` is
+    phase 0, every other edge phase 1; rows keep their edge order."""
+    cat = frag._slab_csr("ie")
     vc = frag.vc
-    n_rows = frag.fnum * vc
+    n_rows = frag.grid.fl * vc
     e = int(cat.indptr[-1])
     rows = cat.edge_src[:e].astype(np.int64)
     pos = np.arange(e) - cat.indptr[(rows // vc) * vc]

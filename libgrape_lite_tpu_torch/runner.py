@@ -46,8 +46,8 @@ from libgrape_lite_tpu_torch.fragment.loader import LoadGraph, LoadGraphSpec
 from libgrape_lite_tpu_torch.models import APP_REGISTRY
 from libgrape_lite_tpu_torch.parallel.comm_spec import (
     CommSpec,
-    decline_across_ranks,
     host_allgather,
+    vc_layout_error,
 )
 from libgrape_lite_tpu_torch.utils.memory import get_memory_stats
 from libgrape_lite_tpu_torch.worker.worker import Worker, dist_apps
@@ -164,11 +164,10 @@ def _resolve_partition(args: QueryArgs, name: str, app, comm_spec,
         return name, app, None
     empty = np.zeros(0, dtype=np.int64)
     kw = dict(directed=args.directed, string_id=args.string_id)
-    if comm_spec.world > 1:
+    layout = vc_layout_error(comm_spec.fnum, comm_spec.world)
+    if layout is not None:
         resolve_partition(name, comm_spec.fnum, empty, empty, empty,
-                          eligible=False,
-                          reason="world > 1: the vertex cut across "
-                                 "processes is ROADMAP item 8c", **kw)
+                          eligible=False, reason=layout, **kw)
     elif args.delta_efile or args.delta_vfile:
         resolve_partition(name, comm_spec.fnum, empty, empty, empty,
                           eligible=False,
@@ -195,6 +194,17 @@ def _resolve_partition(args: QueryArgs, name: str, app, comm_spec,
                 else np.unique(np.concatenate([src, dst])))
         decision = resolve_partition(name, comm_spec.fnum, src, dst, oids,
                                      directed=args.directed)
+        if comm_spec.group is not None:
+            # every rank priced the same edges: one decision for the gang
+            # (`auto` reads the rate profile, a rank's own file)
+            votes = host_allgather(np.array([int(decision["engaged"])]))
+            if len(set(votes[:, 0].tolist())) > 1:
+                raise RuntimeError(
+                    f"GRAPE_PARTITION={partition_mode()}: the ranks decided "
+                    f"differently (2-D engaged on ranks "
+                    f"{np.flatnonzero(votes[:, 0]).tolist()} of "
+                    f"{comm_spec.world}); give every rank the same rate "
+                    "profile")
         if decision["engaged"]:
             name = VC2D_APPS[name]
             return name, APP_REGISTRY[name](), (src, dst, w, oids)
@@ -245,26 +255,20 @@ DIST_APP_NAMES = tuple(sorted(name for name, cls in APP_REGISTRY.items()
 
 
 def check_across_processes(args: QueryArgs) -> None:
-    """What a run across processes declines, before any load: each
-    raises a ValueError naming ROADMAP item 8c (never a silent
-    single-process run).  Checkpoints, resumes, guards, fault plans
-    (ft/distributed.py, guard/vote.py), delta loads and
-    GRAPE_LCC_BACKEND=spgemm|auto (a rank's items of the plan) run
-    across processes."""
-    from libgrape_lite_tpu_torch.fragment.partition import partition_mode
-    from libgrape_lite_tpu_torch.parallel.pipeline import pipeline_mode
+    """What a run across processes refuses before any load: vertex-cut
+    storage (`--vc`, a vertex-cut name) on a world whose slabs are not
+    whole tile rows or part of one (`comm_spec.vc_layout_error`).  Every
+    app runs across processes, with checkpoints, resumes, guards, fault
+    plans, delta loads, GRAPE_PARTITION and GRAPE_PIPELINE."""
+    from libgrape_lite_tpu_torch.utils.types import MessageStrategy
 
-    world = args.num_processes
-    name = "pagerank_vc" if args.vc and args.application == "pagerank" \
-        else args.application
-    for what, item, ok in (
-            (f"the app {name!r} (across processes: "
-             f"{', '.join(DIST_APP_NAMES)})", "8c", name in DIST_APP_NAMES),
-            ("vertex-cut storage (--vc, GRAPE_PARTITION=2d)", "8c",
-             not (args.vc or partition_mode() == "2d")),
-            ("GRAPE_PIPELINE=force (the pipelined round)", "8c",
-             pipeline_mode() != "force")):
-        decline_across_ranks(world, what, item, ok)
+    cls = APP_REGISTRY.get(args.application)
+    vc = args.vc or (cls is not None and cls.message_strategy
+                     == MessageStrategy.kGatherScatter)
+    why = vc_layout_error(args.fnum or args.num_processes,
+                          args.num_processes)
+    if vc and why is not None:
+        raise ValueError(why)
 
 
 def run_app(args: QueryArgs, comm_spec: CommSpec | None = None) -> Worker:

@@ -313,7 +313,9 @@ def postmortem_drill(args, workdir: str) -> bool:
 
 #: the apps of runner.DIST_APP_NAMES the kill-rank drill drives (the LCCs
 #: and bc finish in PEval; the K1 library apps run across ranks but the
-#: drill keeps its LDBC set)
+#: drill keeps its LDBC set; the vertex-cut names run across ranks too,
+#: but the drill reshards onto fnum 2, which a vertex-cut lineage
+#: refuses)
 KILL_RANK_APPS = ("sssp", "bfs", "wcc", "pagerank", "cdlp")
 PR_RTOL = 1e-4  # the verifier's relative tolerance for PageRank
 GANG_DIST_TIMEOUT_S = 60  # a gang's GRAPE_DIST_TIMEOUT_S
@@ -642,15 +644,7 @@ def main(argv=None) -> int:
                      if args.self_heal else "sssp,pagerank,cdlp")
     apps = [a.strip() for a in args.apps.split(",") if a.strip()]
     if args.kill_rank:
-        from libgrape_lite_tpu_torch.runner import DIST_APP_NAMES
-
         off = [a for a in apps if a not in KILL_RANK_APPS]
-        unported = [a for a in off if a not in DIST_APP_NAMES]
-        if unported:
-            print(f"fault_drill: --kill_rank runs its apps across "
-                  f"processes, which {unported} do not yet: ROADMAP "
-                  "Queue A item 8c", file=sys.stderr)
-            return 2
         if off:
             print(f"fault_drill: --kill_rank drills "
                   f"{', '.join(KILL_RANK_APPS)}; {off} run across "

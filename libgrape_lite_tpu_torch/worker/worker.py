@@ -86,10 +86,7 @@ from libgrape_lite_tpu_torch import obs
 from libgrape_lite_tpu_torch.fragment.edgecut import ShardedEdgecutFragment
 from libgrape_lite_tpu_torch.ops import _build
 from libgrape_lite_tpu_torch.ops.spmv import PLAN_STATS
-from libgrape_lite_tpu_torch.parallel.comm_spec import (
-    decline_across_ranks,
-    is_slab,
-)
+from libgrape_lite_tpu_torch.parallel.comm_spec import is_slab
 from libgrape_lite_tpu_torch.utils import logging as glog
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -566,37 +563,83 @@ class Worker:
         """What a query across processes (world > 1) runs: the superstep
         of the `dist_apps`, with its checkpoints, guards, fault plans
         and a staged dyn overlay (each rank folds its `[fl, capacity]`
-        rows).  Any other app raises, naming the ROADMAP item that
-        brings it (never a silent single-process run)."""
+        rows).  Any other app (a subclass, an app of the caller's)
+        raises: a run never drops to one process silently."""
         world = _world(self.fragment)
-        decline_across_ranks(world, f"the app {type(self.app).__name__}",
-                             "8c", ok=type(self.app) in dist_apps())
+        if world > 1 and type(self.app) not in dist_apps():
+            raise ValueError(
+                f"the app {type(self.app).__name__} does not run across "
+                f"processes (world {world} > 1): it is not one of "
+                "worker.dist_apps()")
+
+    def _vc_side(self, k: str):
+        """"row" / "col" for a vertex-cut carry leaf chunk-indexed by
+        tile row / column (the app's `vc_row_keys` / `vc_col_keys`),
+        else None."""
+        if k in getattr(self.app, "vc_row_keys", ()):
+            return "row"
+        if k in getattr(self.app, "vc_col_keys", ()):
+            return "col"
+        return None
 
     def _slab_leaf(self, k: str, v) -> bool:
         """Whether carry leaf `k` (this rank's value `v`) is a slab of the
-        fragment stack (`comm_spec.is_slab`)."""
+        fragment stack (`comm_spec.is_slab`); a vertex-cut carry has
+        none."""
+        if getattr(self.app, "mesh_kind", "frag") == "vc2d":
+            return False
         rep = getattr(self.app, "replicated_keys", frozenset())
         return is_slab(v, self.fragment.comm_spec.fl, k in rep)
 
+    def _whole_leaf(self, spec, k: str, v):
+        """Leaf `k` of this rank's carry gathered whole: a slab leaf over
+        the fragment stack, a vertex-cut chunk leaf over the grid axis
+        whose ranks hold every chunk once (`CommSpec.axis_gather`); any
+        other leaf as it is."""
+        side = self._vc_side(k)
+        if side is not None:
+            from libgrape_lite_tpu_torch.parallel.comm_spec import (
+                VC_COL_AXIS,
+                VC_ROW_AXIS,
+            )
+
+            frag = self.fragment
+            axis = VC_ROW_AXIS if side == "row" else VC_COL_AXIS
+            x = v.to(torch.uint8) if v.dtype == torch.bool else v
+            whole = spec.axis_gather(x.reshape(-1, frag.vc), frag.k,
+                                     axis).reshape(-1)
+            return whole.bool() if v.dtype == torch.bool else whole
+        return _gather_leaf(spec, v) if self._slab_leaf(k, v) else v
+
     def _slab_of(self, full: Dict, like: Dict) -> Dict:
-        """A restored whole-stack carry cut to this rank's rows
-        `fid_lo .. fid_lo + fl - 1` (the leaves that are slabs in
-        `like`); unchanged with one process."""
+        """A restored whole carry cut to this rank's part: the rows
+        `fid_lo .. fid_lo + fl - 1` of the leaves that are slabs in
+        `like`, a vertex-cut chunk leaf's chunks of this rank's tile rows
+        or columns; unchanged with one process."""
         spec = getattr(self.fragment, "comm_spec", None)
         if getattr(spec, "world", 1) <= 1:
             return full
         lo, hi = spec.fid_lo, spec.fid_lo + spec.fl
-        return {k: (v[lo:hi] if k in like and self._slab_leaf(k, like[k])
-                    else v) for k, v in full.items()}
+
+        def cut(k, v):
+            side = self._vc_side(k)
+            if side is not None:
+                a, b = self.fragment.chunk_span(side)
+                return v[..., a:b]
+            if k in like and self._slab_leaf(k, like[k]):
+                return v[lo:hi]
+            return v
+
+        return {k: cut(k, v) for k, v in full.items()}
 
     def _whole_of(self, carry: Dict) -> Dict:
-        """This rank's carry with every slab leaf gathered to the whole
-        stack (a collective every rank joins, in key order); unchanged
-        with one process."""
+        """This rank's carry with every slab or chunk leaf gathered whole
+        (a collective every rank joins, in key order); unchanged with one
+        process."""
         spec = getattr(self.fragment, "comm_spec", None)
         if getattr(spec, "world", 1) <= 1:
             return carry
-        return {k: (_gather_leaf(spec, v) if self._slab_leaf(k, v) else v)
+        return {k: self._whole_leaf(spec, k, v)
                 for k, v in sorted(carry.items())}
 
     def _open_lineage(self, state: Dict, carry: Dict, query_args: Dict, *,
@@ -617,6 +660,7 @@ class Worker:
         from libgrape_lite_tpu_torch.ft.distributed import (
             GEOMETRY_KEYS,
             ShardedCheckpointManager,
+            decline_vc_reshard,
             restore_resharded,
         )
         from libgrape_lite_tpu_torch.ft.fingerprint import (
@@ -633,6 +677,8 @@ class Worker:
             fp0 = meta0.get("fingerprint", {})
             if meta0.get("layout") == "sharded" and any(
                     fp0.get(k) != fingerprint.get(k) for k in GEOMETRY_KEYS):
+                if getattr(self.app, "mesh_kind", "frag") == "vc2d":
+                    decline_vc_reshard(self.app, frag, fp0, fingerprint)
                 # the snapshot was written by another mesh: gather the
                 # shard files and scatter the carry onto this layout.
                 # Pid-valued leaves (WCC's labels) are re-addressed by the
@@ -708,10 +754,18 @@ class Worker:
         def carry_of(st):
             return {k: v for k, v in st.items() if k not in eph}
 
+        # what the checkpoint, the guard and the fault hooks see: the
+        # carry, gathered whole on a vertex-cut gang (every leaf then the
+        # same on every rank; `_slab_of` cuts a restore back)
+        hook_carry = carry_of
+        if _gang(frag) and getattr(app, "mesh_kind", "frag") == "vc2d":
+            def hook_carry(st):
+                return self._whole_of(carry_of(st))
+
         ckpt = meta = None
         if checkpoint_dir:
             state, meta, ckpt, checkpoint_every = self._open_lineage(
-                state, carry_of(state), query_args,
+                state, hook_carry(state), query_args,
                 checkpoint_every=checkpoint_every,
                 checkpoint_dir=checkpoint_dir, resume=resume)
         monitor = None
@@ -772,23 +826,24 @@ class Worker:
             Returns (state, guard_prev, rollback (restored, meta) or
             None)."""
             if corrupts:
-                corrupted = fault_plan.maybe_corrupt_carry(carry_of(state),
+                corrupted = fault_plan.maybe_corrupt_carry(hook_carry(state),
                                                            rounds)
                 if corrupted is not None:
-                    state = {**state, **place(corrupted)}
+                    state = {**state, **place(self._slab_of(
+                        corrupted, carry_of(state)))}
             ckpt_round = (ckpt is not None
                           and rounds % checkpoint_every == 0)
             if (monitor is not None and active >= 0
                     and (monitor.due(rounds) or ckpt_round)):
-                breach = monitor.check(guard_prev, carry_of(state), rounds,
-                                       active)
+                cur = hook_carry(state)
+                breach = monitor.check(guard_prev, cur, rounds, active)
                 if breach is not None:
                     if breach.action == "rollback" and rounds > 0:
                         return state, guard_prev, monitor.rollback(breach)
                     monitor.raise_breach(breach)
-                guard_prev = carry_of(state)
+                guard_prev = cur
             if ckpt_round:
-                ckpt.save_async(carry_of(state), rounds, active)
+                ckpt.save_async(hook_carry(state), rounds, active)
             if fault_plan is not None:
                 fault_plan.on_superstep(rounds, ckpt)
             return state, guard_prev, None
@@ -799,12 +854,12 @@ class Worker:
         try:
             if meta is not None:  # resumed: PEval ran before the kill
                 rounds, active = int(meta["rounds"]), int(meta["active"])
-                guard_prev = carry_of(state)
+                guard_prev = hook_carry(state) if hooked else None
                 glog.vlog(1, "resumed from superstep %d (active=%d, dir=%s)",
                           rounds, active, checkpoint_dir)
                 tr.instant("resume", round=rounds, active=active)
             else:
-                guard_prev = carry_of(state)
+                guard_prev = hook_carry(state) if hooked else None
                 t0 = time.perf_counter()
                 built = _built_marker() if tr.enabled else 0
                 with tr.span("peval", round=0) as sp:
@@ -838,7 +893,7 @@ class Worker:
                         eph = frozenset(app.ephemeral_keys or ())
                         if monitor is not None:
                             monitor.on_mutation(frag)
-                            guard_prev = carry_of(state)
+                            guard_prev = hook_carry(state)
                         if active >= 0:
                             active = 1
             # the pipelined round's exchange buffer: a pure function of
@@ -880,7 +935,7 @@ class Worker:
                             restored, carry_of(state)))}
                         rounds = int(rmeta["rounds"])
                         active = int(rmeta["active"])
-                        guard_prev = carry_of(state)
+                        guard_prev = hook_carry(state)
                     if pl is not None and state is not hooked_in:
                         # a corruption or a rollback rewrote the carry
                         xbuf = app.pipeline_exchange(ctx, frag.dev, state)
@@ -896,7 +951,7 @@ class Worker:
                             # changed: no digest match across it proves a
                             # cycle, no monotone comparison spans it
                             monitor.on_mutation(frag)
-                            guard_prev = carry_of(state)
+                            guard_prev = hook_carry(state)
                     if changed and active >= 0:
                         active = 1  # the new topology must be evaluated
                         if rounds >= limit:
@@ -1334,8 +1389,8 @@ class Worker:
         spec = getattr(self.fragment, "comm_spec", None)
         state = self._result_state
         if getattr(spec, "group", None) is not None:
-            state = {k: (_gather_leaf(spec, v) if self._slab_leaf(k, v)
-                         else v) for k, v in state.items()}
+            state = {k: self._whole_leaf(spec, k, v)
+                     for k, v in state.items()}
         host = {k: v.cpu() for k, v in state.items()}
         return self.app.finalize(self.fragment, host)
 
@@ -1409,7 +1464,10 @@ def dist_apps() -> tuple:
     (LCCBeta's ring in apex mode), KClique4Device and KCliqueDevice (the
     stacked ELL gathered from the ranks' blocks) and KClique's dispatch
     (its nested workers, or the host recursion over the slab's
-    apexes)."""
+    apexes); and the vertex cut: SSSPVC2D, BFSVC2D, WCCVC2D and
+    PageRankVC on a rank's tiles of the k x k grid (its row- and
+    column-axis groups, the tile transpose), PageRankVCReplicated's
+    all_reduce of the tiles' sum."""
     from libgrape_lite_tpu_torch.models.auto_apps import (
         BFSAuto,
         PageRankAuto,
@@ -1438,6 +1496,10 @@ def dist_apps() -> tuple:
     from libgrape_lite_tpu_torch.models.lcc_directed import LCCDirected
     from libgrape_lite_tpu_torch.models.pagerank import PageRank
     from libgrape_lite_tpu_torch.models.pagerank_local import PageRankLocal
+    from libgrape_lite_tpu_torch.models.pagerank_vc import (
+        PageRankVC,
+        PageRankVCReplicated,
+    )
     from libgrape_lite_tpu_torch.models.sssp import SSSP
     from libgrape_lite_tpu_torch.models.sssp_delta import SSSPDelta
     from libgrape_lite_tpu_torch.models.sssp_msg import BFSMsg, SSSPMsg
@@ -1445,6 +1507,7 @@ def dist_apps() -> tuple:
         CommonNeighbors,
         TriangleCount,
     )
+    from libgrape_lite_tpu_torch.models.vc2d import BFSVC2D, SSSPVC2D, WCCVC2D
     from libgrape_lite_tpu_torch.models.wcc import WCC
     from libgrape_lite_tpu_torch.models.wcc_opt import WCCOpt
 
@@ -1453,7 +1516,8 @@ def dist_apps() -> tuple:
             CommonNeighbors, BC, SSSPAuto, BFSAuto, WCCAuto, PageRankAuto,
             SSSPMsg, BFSMsg, SSSPDelta, BFSOpt, WCCOpt, CDLPOpt,
             TriangleCount, LCCDirected, ApexTriangleCount, KClique,
-            KClique4Device, KCliqueDevice)
+            KClique4Device, KCliqueDevice, SSSPVC2D, BFSVC2D, WCCVC2D,
+            PageRankVC, PageRankVCReplicated)
 
 
 def format_result_lines(oids, vals, fmt: str) -> str:

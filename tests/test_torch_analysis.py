@@ -1,15 +1,15 @@
 """grape-lint over the port (`libgrape_lite_tpu_torch/analysis/`) against
 the JAX package's `analysis/`, on the CPU.
 
-* Parity per carried rule (R4, R5, R6, R7, R8, R9, R10, R12): each trip
-  and pass fixture of the JAX tests goes through the JAX `lint_source`
-  and, with the package name in its text and path rewritten, the port's;
-  the sets of (rule, line, symbol) are equal, and the rule trips where
-  the fixture says.  R6 judges each package against its own window
-  contract: the JAX pass fixtures that name JAX-only reads (the pack
-  sub-plan streams, PageRank's `round_update`) pass in the port with the
-  port's names in their place.  The port alone: R7's PyTorch forcers,
-  and a `FederatedStats` that always registers.
+* Parity per carried rule (R4, R5, R6, R7, R8, R9, R10, R11, R12): each
+  trip and pass fixture of the JAX tests goes through the JAX
+  `lint_source` and, with the package name in its text and path
+  rewritten, the port's; the sets of (rule, line, symbol) are equal, and
+  the rule trips where the fixture says.  R6 judges each package against
+  its own window contract: the JAX pass fixtures that name JAX-only
+  reads (the pack sub-plan streams, PageRank's `round_update`) pass in
+  the port with the port's names in their place.  The port alone: R7's
+  PyTorch forcers, and a `FederatedStats` that always registers.
 * The baseline (round trip, budget, stale entry, no entry without a
   reason), the report schema (valid, drift caught, the JAX record's
   keys), the self-lint gate over `libgrape_lite_tpu_torch`, and the `lint`
@@ -21,7 +21,9 @@ the JAX package's `analysis/`, on the CPU.
   namespaces but `gang`, and `self_check()` passes.
 """
 
+import glob
 import json
+import os
 import re
 import textwrap
 
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 from libgrape_lite_tpu.analysis.astlint import lint_source as jlint_source
+import libgrape_lite_tpu_torch
 from libgrape_lite_tpu_torch import analysis
 from libgrape_lite_tpu_torch.analysis import artifact
 from libgrape_lite_tpu_torch.analysis.astlint import lint_source
@@ -37,7 +40,7 @@ from libgrape_lite_tpu_torch.cli import lint_main
 
 torch.set_num_threads(1)
 
-CARRIED = ("R4", "R5", "R6", "R7", "R8", "R9", "R10", "R12")
+CARRIED = ("R4", "R5", "R6", "R7", "R8", "R9", "R10", "R11", "R12")
 
 _PUMP = "libgrape_lite_tpu/serve/pipeline.py"
 _SESSION = "libgrape_lite_tpu/serve/session.py"
@@ -359,6 +362,44 @@ FIXTURES = [
     ("r12_unengaged_cost_table", "R12", "libgrape_lite_tpu/models/m.py", """
     COSTS = {"modeled_round_us": 3.0, "hidden_us_per_round": 1.0}
     """, False),
+    ("r11_raw_axis_literal", "R11", "libgrape_lite_tpu/models/vc2d.py", """
+    from jax import lax
+
+    def fold(partial):
+        return lax.pmin(partial, 'vcrow')
+    """, True),
+    ("r11_axis_tuple_literal", "R11", "libgrape_lite_tpu/models/custom.py",
+     """
+    SPEC = ('vcrow', 'vccol')
+    """, True),
+    ("r11_imported_constants", "R11", "libgrape_lite_tpu/models/vc2d.py", """
+    from jax import lax
+
+    from libgrape_lite_tpu.parallel.comm_spec import (
+        VC_COL_AXIS,
+        VC_ROW_AXIS,
+    )
+
+    def fold(partial):
+        return lax.pmin(partial, VC_ROW_AXIS)
+
+    def fold_col(partial):
+        return lax.pmin(partial, VC_COL_AXIS)
+    """, False),
+    ("r11_defining_module", "R11", "libgrape_lite_tpu/parallel/comm_spec.py",
+     """
+    VC_ROW_AXIS = 'vcrow'
+    VC_COL_AXIS = 'vccol'
+    """, False),
+    ("r11_worker_out_of_scope", "R11", "libgrape_lite_tpu/worker/worker.py",
+     """
+    VC_ROW_AXIS = 'vcrow'
+    VC_COL_AXIS = 'vccol'
+    """, False),
+    ("r11_models_in_scope", "R11", "libgrape_lite_tpu/models/evil.py", """
+    VC_ROW_AXIS = 'vcrow'
+    VC_COL_AXIS = 'vccol'
+    """, True),
 ]
 
 _PKG = re.compile(r"\blibgrape_lite_tpu\b")
@@ -389,7 +430,7 @@ def test_catalogue_carries_the_named_rules():
     assert set(analysis.RULES) == set(CARRIED) | {"A3"}
     for rid, rule in analysis.RULES.items():
         assert rule.slug == JRULES[rid].slug and rule.history
-    for gone in ("R1", "R2", "R3", "R11", "A1", "A2"):
+    for gone in ("R1", "R2", "R3", "A1", "A2"):
         assert gone not in analysis.RULES
 
 
@@ -808,6 +849,27 @@ def test_federation_holds_the_jax_namespaces_and_self_checks():
     assert federation.snapshot("guarded_batch")["batches"] >= 1
     federation.reset("guarded_batch")
     assert GUARDED_BATCH_STATS["batches"] == 0
+
+
+def test_r11_port_models_are_clean_and_use_the_constants():
+    """The port's models/ spell no mesh axis name (zero findings), and
+    the grid's groups are named by comm_spec's constants, whose values
+    are the JAX package's."""
+    from libgrape_lite_tpu.parallel import comm_spec as jcomm
+    from libgrape_lite_tpu_torch.parallel import comm_spec
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        libgrape_lite_tpu_torch.__file__)))
+    models = glob.glob(os.path.join(root, "libgrape_lite_tpu_torch",
+                                    "models", "*.py"))
+    assert models
+    for path in models:
+        rel = os.path.relpath(path, root)
+        with open(path) as fh:
+            r11 = [f for f in lint_source(fh.read(), rel) if f.rule == "R11"]
+        assert not r11, (rel, [f.message for f in r11])
+    assert (comm_spec.VC_ROW_AXIS, comm_spec.VC_COL_AXIS) == (
+        jcomm.VC_ROW_AXIS, jcomm.VC_COL_AXIS)
 
 
 def test_the_tree_has_no_unfederated_stats():

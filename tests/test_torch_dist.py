@@ -12,11 +12,14 @@ package.
   single-process `Worker` at the same fnum -- byte for byte for sssp, bfs
   and wcc, within 1e-4 for pagerank -- in the same number of rounds,
   and pass the goldens.
-* What a gang declines raises before the load, naming ROADMAP item 8c,
-  and the counting apps pass the gate (the load is the first to fail on
-  an absent file; a Worker runs them over slab ranks: tests/
-  test_torch_dist_count.py); batched queries decline as not carried
-  over (the JAX package has no counterpart).  (Checkpoints, resumes, guards and fault plans run
+* Nothing a gang runs declines before the load any more: the counting
+  apps, `--vc`, GRAPE_PARTITION=2d and GRAPE_PIPELINE=force pass the
+  gate (the load is the first to fail on an absent file; the vertex cut
+  and the pipelined round run in tests/test_torch_dist_vc.py and
+  test_torch_dist_pipeline.py, the counting apps over slab ranks in
+  test_torch_dist_count.py); a pipeline plan resolves on a rank's slab;
+  batched queries decline as not carried over (the JAX package has no
+  counterpart).  (Checkpoints, resumes, guards and fault plans run
   across ranks: tests/test_torch_dist_ft.py; delta loads, the staged
   overlay and incremental queries: tests/test_torch_dist_dyn*.py.)
 
@@ -460,14 +463,15 @@ def test_gang_serialization_cache_written_once(tmp_path, graph_cache):
 # ---- what a gang declines --------------------------------------------------
 
 # (flags, env, the ROADMAP item a gang declines them under; None: they
-# pass the gate since the counting apps run across ranks)
+# pass the gate since the counting apps, the vertex cut and the
+# pipelined round run across ranks)
 DECLINES = [
     (dict(application="kclique"), {}, None),
     (dict(application="lcc_directed"), {}, None),
     (dict(application="triangle_count"), {}, None),
-    (dict(vc=True, application="pagerank"), {}, "8c"),
-    ({}, {"GRAPE_PARTITION": "2d"}, "8c"),
-    ({}, {"GRAPE_PIPELINE": "force"}, "8c"),
+    (dict(vc=True, application="pagerank"), {}, None),
+    ({}, {"GRAPE_PARTITION": "2d"}, None),
+    ({}, {"GRAPE_PIPELINE": "force"}, None),
 ]
 
 
@@ -533,9 +537,21 @@ def test_worker_declines_across_ranks(slab_frag):
 
 
 def test_pipeline_declines_across_ranks(slab_frag, monkeypatch):
+    """The pipelined round runs across ranks: on rank 0's slab the plan
+    resolves with the slab's split CSRs (fl rows, the splice's live half
+    fl * vp), and only a sum fold still declines, with the JAX reason."""
     from libgrape_lite_tpu_torch.parallel import pipeline
 
-    monkeypatch.setenv("GRAPE_PIPELINE", "1")
-    assert pipeline.resolve_pipeline(slab_frag, app_name="SSSP",
-                                     key="dist") is None
-    assert "item 8c" in pipeline.PIPELINE_STATS["last_decision"]["reason"]
+    monkeypatch.setenv("GRAPE_PIPELINE", "force")
+    plan = pipeline.resolve_pipeline(slab_frag, app_name="SSSP", key="dist")
+    assert plan is not None and plan.decision["engaged"]
+    fl, vp = slab_frag.fl, slab_frag.vp
+    ent = plan.host_entries
+    assert tuple(ent["pl_bmask"].shape) == (fl, vp)
+    for part in ("b", "i"):
+        assert tuple(ent[f"pl_{part}_indptr"].shape) == (fl, vp + 1)
+        nbr = ent[f"pl_{part}_nbr"]
+        assert int(nbr.max()) < fl * vp + slab_frag.fnum * vp
+    assert pipeline.resolve_pipeline(slab_frag, app_name="PageRank",
+                                     key="rank", fold="sum") is None
+    assert "sum fold" in pipeline.PIPELINE_STATS["last_decision"]["reason"]
